@@ -1,0 +1,138 @@
+"""Build and load the hand-written CUDA kernels.
+
+The sources under ``csrc/`` have a plain C interface. At first use they
+are compiled with ``nvcc`` for Hopper (``sm_90a``) — one ``nvcc -c`` per
+source, all started together — linked into one shared library, and
+loaded with ``ctypes``. The library lands in ``_build/<hash>/`` next to
+this file (listed in ``.gitignore``), keyed by a hash of the sources and
+the flags, so an edit rebuilds and an unchanged tree reuses the build.
+Nothing here runs at import time: the CPU tests import every module on
+hosts with no ``nvcc``.
+
+Each C entry point returns ``cudaGetLastError()`` of its launch;
+:func:`check` turns a nonzero code into an exception.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+from pathlib import Path
+
+_HERE = Path(__file__).resolve().parent
+CSRC = _HERE / "csrc"
+BUILD_ROOT = _HERE / "_build"
+LIB_NAME = "librepro_kernels.so"
+
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+
+def nvcc() -> str:
+    """Path of nvcc: ``$CUDA_HOME/bin``, then ``PATH``, then the
+    toolkit's default prefix."""
+    home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH")
+    for cand in ([os.path.join(home, "bin", "nvcc")] if home else []) + [
+            shutil.which("nvcc") or "", "/usr/local/cuda/bin/nvcc"]:
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError(
+        "nvcc not found (set CUDA_HOME): the CUDA kernels are compiled from "
+        f"{CSRC} at first use on a CUDA tensor")
+
+
+def sources() -> list[Path]:
+    return sorted(CSRC.glob("*.cu"))
+
+
+def digest() -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in sorted(CSRC.iterdir()):
+        if p.suffix in (".cu", ".cuh"):
+            h.update(p.name.encode())
+            h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_ROOT / digest() / LIB_NAME
+
+
+def build(out: Path) -> None:
+    """Compile every source in parallel, link, and move the library into
+    place atomically. The compiler's resource report (``-Xptxas=-v``)
+    is kept beside the library as ``build.log``."""
+    out.parent.mkdir(parents=True, exist_ok=True)
+    exe = nvcc()
+    with tempfile.TemporaryDirectory(dir=out.parent) as tmp:
+        procs = []
+        for src in sources():
+            obj = Path(tmp) / (src.stem + ".o")
+            cmd = [exe, *NVCC_FLAGS, "-I", str(CSRC), "-c", str(src),
+                   "-o", str(obj)]
+            procs.append((src, obj, subprocess.Popen(
+                cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                text=True)))
+        logs, failed = [], []
+        for src, _, proc in procs:
+            text, _ = proc.communicate()
+            logs.append(f"== {src.name} (rc {proc.returncode})\n{text}")
+            if proc.returncode != 0:
+                failed.append(src.name)
+        if failed:
+            raise RuntimeError(f"nvcc failed on {failed}:\n" + "\n".join(logs))
+        lib_tmp = Path(tmp) / LIB_NAME
+        link = subprocess.run(
+            [exe, "-shared", "-o", str(lib_tmp),
+             *[str(o) for _, o, _ in procs]],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        (out.parent / "build.log").write_text("\n".join(logs))
+        os.replace(lib_tmp, out)
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.gram_matvec_f32.argtypes = [P, P, P, P, P, P, I, I, I, I, I, F, I,
+                                    F, P]
+    lib.dense_matvec_f32.argtypes = [P, P, P, I, I, I, P]
+    lib.cd_block_sweep_f32.argtypes = [P, P, P, P, P, P, I, I, F, F, F, F,
+                                       I, F, P]
+    for fn in (lib.gram_matvec_f32, lib.dense_matvec_f32,
+               lib.cd_block_sweep_f32):
+        fn.restype = I
+    lib.repro_error_string.argtypes = [I]
+    lib.repro_error_string.restype = ctypes.c_char_p
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    path = library_path()
+    if not path.exists():
+        build(path)
+    lib = ctypes.CDLL(str(path))
+    _declare(lib)
+    return lib
+
+
+def check(code: int, what: str) -> None:
+    """Raise if a launch reported an error."""
+    if code != 0:
+        msg = library().repro_error_string(code).decode()
+        raise RuntimeError(f"{what} launch failed: CUDA error {code} ({msg})")
+
+
+def stream_handle(device) -> ctypes.c_void_p:
+    """PyTorch's current stream on ``device``, as the kernels take it."""
+    import torch
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def ptr(t) -> ctypes.c_void_p:
+    return ctypes.c_void_p(t.data_ptr())

@@ -1,0 +1,146 @@
+"""repro_torch.api (spec, registry, report, estimator) and data.synthetic
+against the reference's behavior."""
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro.api import ProblemSpec as JProblem
+from repro.api import registry as jreg
+from repro.core import sodm as jsodm
+from repro.data import synthetic as jsyn
+from repro_torch.api import FitReport, ODMEstimator, ProblemSpec
+from repro_torch.api import registry as treg
+from repro_torch.core import sodm as tsodm
+from repro_torch.data import synthetic as tsyn
+
+
+def _blobs(M=96, seed=0):
+    ds = tsyn.make_blobs(tsyn.DatasetSpec("t", M * 5 // 4 + 8, 5, 0.5, 1.5),
+                         seed=seed)
+    return ds.x_train[:M], ds.y_train[:M], ds.x_test, ds.y_test
+
+
+def test_fit_then_score_on_cpu_default_engine():
+    x, y, xt, yt = _blobs()
+    est = ODMEstimator(ProblemSpec.create("rbf", gamma=1.0, lam=10.0),
+                       cfg=tsodm.SODMConfig(levels=2), device="cpu")
+    model, report = est.fit(x, y)
+    assert isinstance(report, FitReport)
+    assert report.route == "sodm" and report.engine == "scalar"
+    assert model.device.type == "cpu" and model.n_sv == report.n_sv > 0
+    assert est.score(xt, yt) > 0.8
+    f = est.decision_function(xt)
+    assert f.shape == (xt.shape[0],) and bool(torch.isfinite(f).all())
+    torch.testing.assert_close(est.predict(xt), torch.sign(f))
+    assert "route=sodm" in report.summary()
+
+
+def test_default_device_is_the_card(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ODMEstimator()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        ODMEstimator(device="cuda")
+
+
+def test_unported_routes_raise_with_roadmap_item():
+    with pytest.raises(NotImplementedError, match="A9"):
+        ODMEstimator(route="dsvrg", device="cpu")
+    with pytest.raises(NotImplementedError, match="A10"):
+        ODMEstimator(route="cascade", device="cpu")
+    with pytest.raises(ValueError, match="unknown route"):
+        ODMEstimator(route="nope", device="cpu")
+    x, y, _, _ = _blobs()
+    est = ODMEstimator(ProblemSpec.create("linear"), device="cpu",
+                       cfg=tsodm.SODMConfig(engine="dsvrg"))
+    with pytest.raises(NotImplementedError, match="A9"):
+        est.fit(x, y)
+    with pytest.raises(NotImplementedError, match="A12"):
+        ODMEstimator(device="cpu").fit(x, y, resume="/nonexistent")
+    with pytest.raises(NotImplementedError, match="A7"):
+        ODMEstimator(device="cpu", cfg=tsodm.SODMConfig(levels=1)).fit(
+            x, y)[0].save("/nonexistent")
+
+
+@pytest.mark.parametrize("kernel", ["rbf", "linear", "poly"])
+@pytest.mark.parametrize("M", [96, 200_000])
+@pytest.mark.parametrize("engine", [None, "scalar", "pallas", "dsvrg"])
+def test_resolve_policy_matches_reference(kernel, M, engine):
+    """Same engine × kernel × size rules: the reference's sodm answers
+    are the port's; its other routes are unported and raise."""
+    jcfg = jsodm.SODMConfig(engine=engine)
+    tcfg = tsodm.SODMConfig(engine=engine)
+    try:
+        want = jreg.resolve(JProblem.create(kernel), M, cfg=jcfg).name
+    except ValueError:
+        want = None
+    if want == "sodm":
+        assert treg.resolve(ProblemSpec.create(kernel), M,
+                            cfg=tcfg).name == "sodm"
+    else:
+        with pytest.raises((NotImplementedError, ValueError)):
+            treg.resolve(ProblemSpec.create(kernel), M, cfg=tcfg)
+    if want is not None and want != "sodm":
+        with pytest.raises(NotImplementedError, match=want):
+            treg.resolve(ProblemSpec.create(kernel), M, cfg=tcfg)
+
+
+def test_pin_level_engine_and_registry_errors():
+    cfg = treg._pin_level_engine(tsodm.SODMConfig(), "sodm")
+    assert cfg.engine == "scalar"
+    with pytest.raises(ValueError, match="contradictory"):
+        treg._pin_level_engine(tsodm.SODMConfig(engine="dsvrg"), "sodm")
+    with pytest.raises(ValueError, match="contradictory"):
+        treg.resolve(ProblemSpec(), 10, route="sodm",
+                     cfg=tsodm.SODMConfig(engine="dsvrg"))
+    with pytest.raises(ValueError, match="already registered"):
+        treg.register(treg.get("sodm"))
+    assert treg.routes() == ("sodm",)
+    assert treg.get("sodm").capabilities().startswith("sodm:")
+
+
+@pytest.mark.parametrize("kw", [dict(kernel="sigmoid"),
+                                dict(kernel="rbf", gamma=0.0),
+                                dict(kernel="poly", degree=0),
+                                dict(lam=0.0), dict(ups=-1.0),
+                                dict(theta=1.0)])
+def test_problem_spec_validation_matches_reference(kw):
+    with pytest.raises(ValueError):
+        JProblem.create(**kw)
+    with pytest.raises(ValueError):
+        ProblemSpec.create(**kw)
+
+
+def test_data_validation():
+    p = ProblemSpec()
+    x, y = p.validate(np.zeros((4, 2)), np.array([1, -1, 1, -1]))
+    assert x.dtype == torch.float32 and y.dtype == torch.float32
+    for bad in ((np.zeros(4), np.ones(4)), (np.zeros((4, 2)), np.ones(3)),
+                (np.zeros((4, 2)), np.array([1, 0, 1, -1])),
+                (np.zeros((0, 2)), np.zeros(0))):
+        with pytest.raises(ValueError):
+            p.validate(*bad)
+
+
+def test_synthetic_specs_match_reference():
+    assert {k: dataclasses.asdict(v) for k, v in
+            tsyn.PAPER_DATASETS.items()} == \
+        {k: dataclasses.asdict(v) for k, v in jsyn.PAPER_DATASETS.items()}
+    t = tsyn.load("phishing", scale=0.02)
+    j = jsyn.load("phishing", scale=0.02)
+    for a, b in zip(t[:4], j[:4]):
+        assert tuple(a.shape) == tuple(b.shape)
+
+
+@pytest.mark.parametrize("name", ["phishing", "ijcnn1", "svmguide1"])
+def test_synthetic_data_is_seeded_scaled_and_balanced(name):
+    t = tsyn.load(name, scale=0.02)
+    assert float(t.x_train.min()) >= 0.0 and float(t.x_train.max()) <= 1.0
+    assert set(torch.unique(t.y_train).tolist()) <= {-1.0, 1.0}
+    bal = float((t.y_train > 0).float().mean())
+    assert abs(bal - tsyn.PAPER_DATASETS[name].balance) < 0.08
+    torch.testing.assert_close(tsyn.load(name, scale=0.02).x_test, t.x_test)
+    with pytest.raises(KeyError):
+        tsyn.load("nope")
