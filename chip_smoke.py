@@ -14,8 +14,9 @@ Phases (any failed check exits nonzero):
    and 2 take the dense pass (K1 + K3), levels 1 and 0 the matrix-free
    pass (K1 + K2); then the test set is scored (K2 as score_tiles).
 4. The same at real size: ijcnn1 (113k training rows, d=22), all levels
-   matrix-free. Kernel launch counts are reset before phase 3 and read
-   after phase 4; every kernel must have launched.
+   matrix-free. The launch counts are set to 0 just before each of the
+   two fits and read just after its scoring: on phishing every kernel
+   must have launched, on ijcnn1 K1, K2 and the scorer, and K3 not at all.
 5. One small fit on the card against the same fit on the CPU (plain
    versions): alpha within 1e-4 and decision values within 1e-3 (the
    greedy argmax turns last-bit differences in the card's reductions into
@@ -25,7 +26,9 @@ The kernels line reports, per kernel: its time, its plain version's and
 the yardstick's, the least time the card could take (bound_ms: the larger
 of bytes moved over 3.35 TB/s and fp32 operations over 67 TFLOP/s, the
 published H100 SXM peaks at 700 W; the text lines also give it scaled to
-the card's printed power limit), and its launches on the main path. The
+the card's printed power limit), and its launches: on the ijcnn1 path
+for the kernels that path runs, on the phishing path for K3 (which runs
+on phishing's dense levels only); ``launches_by_path`` gives both. The
 last line is the result.
 """
 from __future__ import annotations
@@ -167,7 +170,10 @@ def main() -> None:
     x3, y3 = x3.to(dev), y3.to(dev)
     g3 = (y3 * torch.randn(K, mp, generator=gen).to(dev)).contiguous()
     kw = dict(kind="rbf", gamma=g_ijc, degree=3, coef0=1.0)
-    got = gram_mod.launch_gram_matvec(x3, x3, g3, **kw)
+    # the row norms are kept per level (KernelSource.xx), so the kernel is
+    # timed without them
+    xx3 = gram_mod.row_norms(x3)
+    got = gram_mod.launch_gram_matvec(x3, x3, g3, xx=xx3, zz=xx3, **kw)
     want = gram_mod.gram_matvec_plain(x3, x3, g3, **kw)
     err = float((got - want).abs().max())
     scale = max(1.0, float(want.abs().max()))
@@ -183,7 +189,8 @@ def main() -> None:
             out.append(torch.exp(-gamma * d2) @ g[..., :, None])
         return torch.cat(out, dim=-2)
 
-    ms = time_ms(lambda: gram_mod.launch_gram_matvec(x3, x3, g3, **kw), 5)
+    ms = time_ms(lambda: gram_mod.launch_gram_matvec(
+        x3, x3, g3, xx=xx3, zz=xx3, **kw), 5)
     plain_ms = time_ms(lambda: gram_mod.gram_matvec_plain(x3, x3, g3, **kw),
                        2)
     lib_ms = time_ms(lambda: yard_k2(x3, x3, g3, g_ijc), 2)
@@ -194,7 +201,7 @@ def main() -> None:
                                 bound_by=b_by)
     say(f"  ms={ms:.3f} plain_ms={plain_ms:.3f} library_ms={lib_ms:.3f} "
         + bound_text(b_ms, b_by, derate))
-    del x3, y3, g3, got, want
+    del x3, y3, g3, xx3, got, want
 
     # K1 on ijcnn1's level-0 diagonal blocks (cold start)
     mp0 = -(-M // 256) * 256
@@ -269,12 +276,16 @@ def main() -> None:
                 "gram_matvec": gram_mod.gram_matvec,
                 "score_tiles": score_mod.score_tiles,
                 "dense_matvec": cdk.dense_matvec}
-    for fn in counters.values():
-        fn.launches = 0
-    fits = {}
+    # the kernels each path must launch, and those it must not
+    expect = {"phishing": (tuple(counters), ()),
+              "ijcnn1": (("cd_block_sweep", "gram_matvec", "score_tiles"),
+                         ("dense_matvec",))}
+    fits, path_launches = {}, {}
     for phase, ds, gamma in ((3, phishing, g_phish), (4, ijcnn1, g_ijc)):
         say(f"== phase {phase}: fit {ds.name} M={ds.x_train.shape[0]} "
             f"d={ds.x_train.shape[1]} gamma={gamma:.4g}")
+        for fn in counters.values():
+            fn.launches = 0
         torch.cuda.reset_peak_memory_stats()
         est = ODMEstimator(ProblemSpec(kernel=kf.KernelSpec("rbf", gamma),
                                        params=params), cfg=cfg)
@@ -305,14 +316,20 @@ def main() -> None:
             f"(majority {major:.4f}) score_s={score_s:.4f} "
             f"(T={ds.x_test.shape[0]}) max_memory_allocated="
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        launches = {name: fn.launches for name, fn in counters.items()}
+        say(f"  launches on the {ds.name} path: {launches}")
+        ran, idle = expect[ds.name]
+        for name in ran:
+            if launches[name] <= 0:
+                fail(f"kernel {name} never launched on the {ds.name} path")
+        for name in idle:
+            if launches[name] != 0:
+                fail(f"kernel {name} launched on the {ds.name} path, "
+                     f"which has no level that runs it")
         if not acc > 0.5:
             fail(f"{ds.name} test accuracy {acc} is no better than chance")
         fits[ds.name] = (model, f)
-    launches = {name: fn.launches for name, fn in counters.items()}
-    say(f"main-path launches: {launches}")
-    for name, n in launches.items():
-        if n <= 0:
-            fail(f"kernel {name} never launched on the main path")
+        path_launches[ds.name] = launches
 
     # K2 as score_tiles: ijcnn1's support vectors against its test set
     model, _ = fits["ijcnn1"]
@@ -383,9 +400,13 @@ def main() -> None:
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):
             if not math.isfinite(s[key]):
                 fail(f"{name}: {key} is not finite")
-        kernels.append({"name": name, "route": "cuda", "source": source,
-                        "replaces": replaces, "launches": launches[name],
-                        **s})
+        path = "ijcnn1" if name in expect["ijcnn1"][0] else "phishing"
+        kernels.append({
+            "name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": path_launches[path][name],
+            "launches_path": path,
+            "launches_by_path": {p: n[name] for p, n in
+                                 path_launches.items()}, **s})
     say(json.dumps({"kernels": kernels}))
     say(card_line())
     say(json.dumps({"ok": True, "device": {

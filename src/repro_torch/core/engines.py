@@ -108,7 +108,7 @@ def solve_level_pallas(xs: Tensor, ys: Tensor, alphas: Tensor, *,
         # diagonal Gram tiles only, (K, nblk, B, B): O(m·B) per partition
         x_t = xp.reshape(K, nblk, B, -1)
         qb = kf.signed_gram(spec, x_t, yp.reshape(K, nblk, B))
-        src = gram_mod.make_kernel_source(spec, xp, yp, bm=B, bn=B)
+        src = gram_mod.make_kernel_source(spec, xp, yp, bm=B)
     else:
         Qp = kf.signed_gram(spec, xp, yp)
         Qp = Qp * (valid[None, :, None] * valid[None, None, :])

@@ -46,15 +46,17 @@ gram_matvec_kernel(const float* __restrict__ x, const float* __restrict__ z,
   x += (size_t)k * M * D;
   z += (size_t)k * N * D;
   g += (size_t)k * N;
-  xx += (size_t)k * M;
-  zz += (size_t)k * N;
+  if constexpr (KIND == repro::kRbf) {  // only rbf reads the row norms
+    xx += (size_t)k * M;
+    zz += (size_t)k * N;
+  }
   u += (size_t)k * M;
 
   float xr[TM], uacc[TM];
 #pragma unroll
   for (int i = 0; i < TM; ++i) {
     const int r = row0 + ty + i * TX;
-    xr[i] = r < M ? xx[r] : 0.0f;
+    xr[i] = (KIND == repro::kRbf && r < M) ? xx[r] : 0.0f;
     uacc[i] = 0.0f;
   }
   const int nd = (D + BD - 1) / BD;
@@ -84,7 +86,8 @@ gram_matvec_kernel(const float* __restrict__ x, const float* __restrict__ z,
     for (int j = 0; j < TN; ++j) {
       const int col = col0 + tx + j * TX;
       if (col < N) {
-        const float gj = g[col], zj = zz[col];
+        const float gj = g[col];
+        const float zj = KIND == repro::kRbf ? zz[col] : 0.0f;
 #pragma unroll
         for (int i = 0; i < TM; ++i)
           uacc[i] += repro::finalize_tile<KIND>(acc[i][j], xr[i], zj, gamma,
@@ -106,7 +109,9 @@ gram_matvec_kernel(const float* __restrict__ x, const float* __restrict__ z,
 }  // namespace
 
 // x (K, M, D), z (K, N, D), g (K, N), xx (K, M), zz (K, N) -> u (K, M);
-// all fp32, contiguous. Returns cudaGetLastError() of the launch.
+// all fp32, contiguous. xx and zz are the squared row norms of x and z,
+// read for rbf only (null otherwise). Returns cudaGetLastError() of the
+// launch.
 extern "C" int gram_matvec_f32(const float* x, const float* z, const float* g,
                                const float* xx, const float* zz, float* u,
                                int K, int M, int N, int D, int kind,

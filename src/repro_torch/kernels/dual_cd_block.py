@@ -40,6 +40,18 @@ from repro_torch.kernels._device import on_cpu
 Tensor = torch.Tensor
 
 
+def flush_subnormals(a: Tensor) -> Tensor:
+    """Zero the fp32 subnormals of ``a``, as the reference's devices do (the
+    TPU, and XLA on the CPU, flush subnormals to zero; PyTorch keeps them).
+
+    It matters for the line search: a coordinate the sweep clips to 0
+    shrinks by (1 − t) a pass. Flushed, it reaches 0 and its KKT term
+    becomes max(−g, 0); kept, it can stop at the least subnormal for good
+    (t < 1/2 rounds the product back up), and |g| then holds the level's
+    KKT above tol until ``n_passes`` runs out."""
+    return a.masked_fill(a.abs() < torch.finfo(a.dtype).tiny, 0.0)
+
+
 def _coefs(c: float, ups: float, theta: float, mscale: float):
     """The step's scalars as the reference forms them: Python doubles,
     cast to fp32 where they meet a tensor."""
@@ -303,9 +315,9 @@ def solve_level(q_blocks: Tensor, src, alphas0: Tensor, *, c: float,
         return torch.amax(torch.where(valid2, viol, torch.zeros_like(viol)),
                           dim=1)
 
-    alphas = alphas0
+    alphas = flush_subnormals(alphas0)
     if us0 is None:
-        us0 = src.matvec(alphas0[:, :m] - alphas0[:, m:])
+        us0 = src.matvec(alphas[:, :m] - alphas[:, m:])
     us = us0
     r = kkt(alphas, us)
     tol32 = float(np.float32(tol))
@@ -330,7 +342,8 @@ def solve_level(q_blocks: Tensor, src, alphas0: Tensor, *, c: float,
                         torch.clamp(-gdot / torch.clamp_min(quad, 1e-30),
                                     0.0, 1.0),
                         torch.ones_like(quad))[:, None]
-        alphas = torch.cat([zetas + t * dz, betas + t * db], dim=1)
+        alphas = flush_subnormals(torch.cat([zetas + t * dz, betas + t * db],
+                                            dim=1))
         us = us + t * u_d
         r = kkt(alphas, us)
         it += 1

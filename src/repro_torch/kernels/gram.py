@@ -17,8 +17,9 @@ hand-written kernel.
 (``csrc/gram_matvec.cu``); on CPU tensors it runs the plain version
 (:func:`gram_matvec_plain`), which streams ``bm``-row blocks so it never
 materializes an (M, N) Gram either. The CUDA kernel masks ragged shapes
-itself and uses its own compiled tiles; ``bm``/``bn``/``bd`` are the
-plain version's streaming sizes and the reference's signature.
+itself and uses its own compiled tiles, so the reference's ``bn``/``bd``
+tile sizes have no counterpart here and ``bm`` sizes the plain version's
+row blocks only.
 
 ``gram_threshold`` (``SODMConfig``): SODM levels with m above it reach the
 off-diagonal mass through :class:`KernelSource` (tiles rebuilt from
@@ -121,8 +122,12 @@ def _check_f32(name: str, t: Tensor, shape: tuple[int, ...]) -> None:
 
 
 def launch_gram_matvec(x: Tensor, z: Tensor, g: Tensor, *, kind: str,
-                       gamma: float, degree: int, coef0: float) -> Tensor:
-    """K2 on CUDA tensors: x (K, M, D), z (K, N, D), g (K, N) -> (K, M)."""
+                       gamma: float, degree: int, coef0: float,
+                       xx: Tensor | None = None,
+                       zz: Tensor | None = None) -> Tensor:
+    """K2 on CUDA tensors: x (K, M, D), z (K, N, D), g (K, N) -> (K, M).
+    ``xx`` (K, M) and ``zz`` (K, N) are the squared row norms, which only
+    rbf reads; they are computed here when not given."""
     K, M, D = x.shape
     N = z.shape[1]
     _check_f32("x", x, (K, M, D))
@@ -135,34 +140,40 @@ def launch_gram_matvec(x: Tensor, z: Tensor, g: Tensor, *, kind: str,
         return u
     if N == 0:
         return u.zero_()
-    xx = row_norms(x)
-    zz = row_norms(z)
+    xx_p = zz_p = None
+    if kind == "rbf":
+        xx = row_norms(x) if xx is None else xx
+        zz = row_norms(z) if zz is None else zz
+        _check_f32("xx", xx, (K, M))
+        _check_f32("zz", zz, (K, N))
+        xx_p, zz_p = _build.ptr(xx), _build.ptr(zz)
     lib = _build.library()
     with torch.cuda.device(x.device):
         code = lib.gram_matvec_f32(
-            _build.ptr(x), _build.ptr(z), _build.ptr(g), _build.ptr(xx),
-            _build.ptr(zz), _build.ptr(u), K, M, N, D, KIND_CODES[kind],
-            gamma, degree, coef0, _build.stream_handle(x.device))
+            _build.ptr(x), _build.ptr(z), _build.ptr(g), xx_p, zz_p,
+            _build.ptr(u), K, M, N, D, KIND_CODES[kind], gamma, degree,
+            coef0, _build.stream_handle(x.device))
     _build.check(code, "gram_matvec")
     return u
 
 
 def gram_matvec(x: Tensor, z: Tensor, g: Tensor, *, kind: str = "rbf",
                 gamma: float = 1.0, degree: int = 3, coef0: float = 1.0,
-                bm: int = 256, bn: int = 256, bd: int = 512) -> Tensor:
+                bm: int = 256, xx: Tensor | None = None,
+                zz: Tensor | None = None) -> Tensor:
     """u[k] = K(x[k], z[k]) @ g[k] without materializing any (M, N) Gram.
 
     x (K, M, D), z (K, N, D), g (K, N) -> u (K, M). For the *signed*
     product Q @ g = y ⊙ (K @ (y ⊙ g)) fold the labels into g and the
-    result (:class:`KernelSource` does). CPU tensors run the plain
+    result (:class:`KernelSource` does). ``xx``/``zz``: the squared row
+    norms for rbf, when the caller keeps them. CPU tensors run the plain
     version; CUDA tensors launch K2 (counted in ``gram_matvec.launches``).
     """
-    del bn, bd          # tile sizes of the reference's grid
     if on_cpu(x, z, g):
         return gram_matvec_plain(x, z, g, kind=kind, gamma=gamma,
                                  degree=degree, coef0=coef0, bm=bm)
     u = launch_gram_matvec(x, z, g, kind=kind, gamma=gamma, degree=degree,
-                           coef0=coef0)
+                           coef0=coef0, xx=xx, zz=zz)
     gram_matvec.launches += 1
     return u
 
@@ -190,42 +201,37 @@ class DenseSource:
 @dataclasses.dataclass
 class KernelSource:
     """On-the-fly Gram tiles from the raw features — above
-    ``gram_threshold``. ``x`` (K, mp, Dp) is row-padded (zeros); ``y``
+    ``gram_threshold``. ``x`` (K, mp, D) is row-padded (zeros); ``y``
     (K, mp) carries 0 labels on padded rows, so the signed product
     y ⊙ (K @ (y ⊙ g)) zeroes padded rows and columns without masking a
-    tile."""
+    tile. ``xx`` keeps x's squared row norms for rbf, so a level's passes
+    do not recompute them."""
 
     kind: str
-    x: Tensor                  # (K, mp, Dp)
+    x: Tensor                  # (K, mp, D)
     y: Tensor                  # (K, mp), 0.0 on padded rows
     gamma: float = 1.0
     degree: int = 3
     coef0: float = 1.0
     bm: int = 256
-    bn: int = 256
-    bd: int = 512
+    xx: Tensor | None = None   # (K, mp), rbf only
 
     def matvec(self, g: Tensor) -> Tensor:
         u = gram_matvec(self.x, self.x, self.y * g, kind=self.kind,
                         gamma=self.gamma, degree=self.degree,
-                        coef0=self.coef0, bm=self.bm, bn=self.bn,
-                        bd=self.bd)
+                        coef0=self.coef0, bm=self.bm, xx=self.xx,
+                        zz=self.xx)
         return self.y * u
 
 
-def make_kernel_source(spec, x: Tensor, y: Tensor, *, bm: int, bn: int,
-                       bd: int = 512) -> KernelSource:
+def make_kernel_source(spec, x: Tensor, y: Tensor, *,
+                       bm: int) -> KernelSource:
     """Build a :class:`KernelSource` from a KernelSpec-like object (duck-
     typed name/gamma/degree/coef0). ``x`` (K, mp, D) must already be
-    row-padded; the feature axis is padded here to the reference's slab
-    multiple (zero features shift no distance and no inner product)."""
+    row-padded; the feature axis stays as it is (K2 masks a ragged D)."""
     if spec.name not in MATRIX_FREE_KERNELS:
         raise ValueError(f"no matrix-free lowering for {spec.name!r}")
-    D = x.shape[-1]
-    bd = min(bd, max(8, D))
-    target = -(-D // bd) * bd
-    if target != D:
-        x = torch.nn.functional.pad(x, (0, target - D))
-    return KernelSource(kind=spec.name, x=x.contiguous(), y=y,
-                        gamma=spec.gamma, degree=spec.degree,
-                        coef0=spec.coef0, bm=bm, bn=bn, bd=bd)
+    x = x.contiguous()
+    xx = row_norms(x) if spec.name == "rbf" else None
+    return KernelSource(kind=spec.name, x=x, y=y, gamma=spec.gamma,
+                        degree=spec.degree, coef0=spec.coef0, bm=bm, xx=xx)

@@ -55,7 +55,7 @@ def dual_cd_solve(Q: Tensor, *, c: float, ups: float, theta: float,
 
 
 def gram_matvec(x: Tensor, g: Tensor, spec, *, y: Tensor | None = None,
-                bm: int = 256, bn: int = 256, bd: int = 512) -> Tensor:
+                bm: int = 256) -> Tensor:
     """u[k] = Q_k @ g[k] for any ``KernelSpec`` family, never materialized.
 
     x (K, m, d), g (K, m); y (K, m) labels make it the signed product
@@ -64,21 +64,18 @@ def gram_matvec(x: Tensor, g: Tensor, spec, *, y: Tensor | None = None,
     gs = g if y is None else y * g
     u = _gram.gram_matvec(x.contiguous(), x.contiguous(), gs.contiguous(),
                           kind=spec.name, gamma=spec.gamma,
-                          degree=spec.degree, coef0=spec.coef0, bm=bm,
-                          bn=bn, bd=bd)
+                          degree=spec.degree, coef0=spec.coef0, bm=bm)
     return u if y is None else y * u
 
 
 def rbf_gram_matvec(x: Tensor, g: Tensor, *, gamma: float,
-                    y: Tensor | None = None, bm: int = 256, bn: int = 256,
-                    bd: int = 512) -> Tensor:
+                    y: Tensor | None = None, bm: int = 256) -> Tensor:
     """RBF-pinned convenience over :func:`gram_matvec`."""
-    return gram_matvec(x, g, _RbfSpec(gamma), y=y, bm=bm, bn=bn, bd=bd)
+    return gram_matvec(x, g, _RbfSpec(gamma), y=y, bm=bm)
 
 
 def decision_scores(x: Tensor, z: Tensor, coef: Tensor, spec, *,
-                    bt: int = 256, bs: int = 256, bd: int = 512,
-                    tiled: bool | None = None) -> Tensor:
+                    bt: int = 256, tiled: bool | None = None) -> Tensor:
     """f (T,) = K(x, z) @ coef — the serving hot path.
 
     ``z`` (S, d) is the packed support-vector slab, ``coef`` (S,) its
@@ -92,4 +89,4 @@ def decision_scores(x: Tensor, z: Tensor, coef: Tensor, spec, *,
     if tiled is False:
         return _score.score_ref(x, z, coef, **kw)
     return _score.score_tiles(x.contiguous(), z.contiguous(),
-                              coef.contiguous(), bt=bt, bs=bs, bd=bd, **kw)
+                              coef.contiguous(), bt=bt, **kw)

@@ -24,9 +24,9 @@ Tensor = torch.Tensor
 
 def score_tiles(x: Tensor, z: Tensor, coef: Tensor, *, kind: str = "rbf",
                 gamma: float = 1.0, degree: int = 3, coef0: float = 1.0,
-                bt: int = 256, bs: int = 256, bd: int = 512) -> Tensor:
-    """f (T,) = K(x, z) @ coef; ragged shapes are masked in the kernel."""
-    del bs, bd          # tile sizes of the reference's grid
+                bt: int = 256) -> Tensor:
+    """f (T,) = K(x, z) @ coef; ragged shapes are masked in the kernel,
+    ``bt`` sizes the plain version's row blocks."""
     if on_cpu(x, z, coef):
         return score_blocked(x, z, coef, kind=kind, gamma=gamma,
                              degree=degree, coef0=coef0, bt=bt)

@@ -57,7 +57,7 @@ class FittedODM:
     def device(self) -> torch.device:
         return (self.w if self.w is not None else self.x_sv).device
 
-    def decision_function(self, x, *, bt: int = 256, bs: int = 256,
+    def decision_function(self, x, *, bt: int = 256,
                           tiled: bool | None = None) -> Tensor:
         """f(x) (T,) on the model's device: x @ w for linear, the tiled
         matrix-free scorer otherwise (``tiled`` as in
@@ -66,7 +66,7 @@ class FittedODM:
         if self.w is not None:
             return x @ self.w
         return ops.decision_scores(x, self.x_sv, self.coef, self.spec,
-                                   bt=bt, bs=bs, tiled=tiled)
+                                   bt=bt, tiled=tiled)
 
     def predict(self, x, **kw) -> Tensor:
         return torch.sign(self.decision_function(x, **kw))

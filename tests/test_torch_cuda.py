@@ -73,6 +73,22 @@ def test_score_tiles_matches_ref(dev):
     assert _rel(got, want) < 1e-5
 
 
+@pytest.mark.parametrize("kind,gamma,degree,coef0", FAMILIES)
+def test_kernel_source_matvec_matches_plain(dev, kind, gamma, degree, coef0):
+    # the source keeps rbf's row norms for K2; the other families pass none
+    rng = np.random.default_rng(5)
+    x = torch.tensor(rng.random((2, 300, 22)), dtype=torch.float32)
+    y = torch.tensor(np.sign(rng.standard_normal((2, 300))),
+                     dtype=torch.float32)
+    g = torch.tensor(rng.standard_normal((2, 300)), dtype=torch.float32)
+    spec = kf.KernelSpec(kind, gamma, degree, coef0)
+    src = gram_mod.make_kernel_source(spec, x.to(dev), y.to(dev), bm=64)
+    assert (src.xx is None) == (kind != "rbf")
+    got = src.matvec(g.to(dev))
+    want = gram_mod.make_kernel_source(spec, x, y, bm=64).matvec(g)
+    assert _rel(got, want) < 1e-5
+
+
 @pytest.mark.parametrize("K,M", [(1, 40), (4, 512), (2, 1000)])
 def test_dense_matvec_matches_plain(dev, K, M):
     rng = np.random.default_rng(2)

@@ -89,7 +89,7 @@ def test_fused_pass_matches_interpret_kernel(source):
                                         bm=B, bn=B, bd=8, interpret=True)
         tsrc = tgram.make_kernel_source(tkf.KernelSpec("rbf", 0.7),
                                         torch.tensor(x), torch.tensor(y),
-                                        bm=B, bn=B, bd=8)
+                                        bm=B)
     ja, jud = jcdk.fused_cd_pass(jnp.asarray(qb), jsrc, jnp.asarray(a),
                                  jnp.asarray(u), jnp.asarray(v),
                                  interpret=True, **kw)
@@ -117,7 +117,7 @@ def test_solve_level_matches_reference(source):
                                         bm=B, bn=B, bd=8, interpret=True)
         tsrc = tgram.make_kernel_source(tkf.KernelSpec("rbf", 0.7),
                                         torch.tensor(x), torch.tensor(y),
-                                        bm=B, bn=B, bd=8)
+                                        bm=B)
     ja, jr, jit = jcdk.solve_level(jnp.asarray(qb), jsrc, jnp.asarray(a0),
                                    valid=jnp.asarray(valid), interpret=True,
                                    **kw)
@@ -145,3 +145,51 @@ def test_ops_dual_cd_solve_pads_and_warm_starts():
     assert tp == int(jp)
     _close(ta, ja)
     _close(tk, jk)
+
+
+def test_flush_subnormals():
+    tiny = np.finfo(np.float32).tiny
+    a = torch.tensor([0.0, 1e-45, tiny / 2, tiny, 0.5, -1e-40])
+    np.testing.assert_array_equal(tcdk.flush_subnormals(a).numpy(),
+                                  np.array([0.0, 0.0, 0.0, tiny, 0.5, 0.0],
+                                           np.float32))
+
+
+@pytest.mark.parametrize("m,B,offset,cap", [(60, 16, 0, 300),
+                                            (56, 16, 200, 300),
+                                            (60, 16, 0, 100)])
+def test_solve_level_lam100_converges_like_reference(m, B, offset, cap):
+    # phishing's setting (lam = 100, rbf at the median gamma, padded
+    # tiles). The line search shrinks a coordinate the sweep clipped to 0
+    # by (1 - t) a pass; the reference flushes it to 0 once it is
+    # subnormal and converges. Kept as a subnormal, it stops at the least
+    # one and holds |g| in the KKT: the level then runs more passes than
+    # the reference's, or to the cap. With a cap short of convergence
+    # (the last case) both stop at it with the same KKT above tol.
+    from repro_torch.core.odm import ODMParams
+    from repro_torch.data import synthetic
+    ds = synthetic.load("phishing", scale=0.25)
+    spec = tkf.KernelSpec("rbf", float(tkf.median_gamma(ds.x_train)))
+    p = ODMParams(lam=100.0, theta=0.1, ups=0.5)
+    nblk = -(-m // B)
+    mp = nblk * B
+    valid = (torch.arange(mp) < m).float()
+    x = torch.nn.functional.pad(ds.x_train[offset:offset + m], (0, 0, 0,
+                                                                mp - m))
+    y = torch.nn.functional.pad(ds.y_train[offset:offset + m], (0, mp - m))
+    Q = (tkf.signed_gram(spec, x, y) * valid[:, None] * valid[None, :])[None]
+    qb = tcdk.extract_diag_blocks(Q, B).contiguous()
+    kw = dict(c=p.c, ups=p.ups, theta=p.theta, mscale=float(m), tol=1e-4,
+              n_passes=cap)
+    ja, jr, jit = jcdk.solve_level(
+        jnp.asarray(qb.numpy()), jgram.DenseSource(jnp.asarray(Q.numpy())),
+        jnp.zeros((1, 2 * mp)), valid=jnp.asarray(valid.numpy()),
+        interpret=True, **kw)
+    ta, tr, tit = tcdk.solve_level(qb, tgram.DenseSource(Q.contiguous()),
+                                   torch.zeros(1, 2 * mp), valid=valid, **kw)
+    assert tit == int(jit)
+    converged = tit < cap
+    assert (float(tr[0]) <= kw["tol"]) == converged
+    assert (float(jr[0]) <= kw["tol"]) == converged
+    _close(tr, jr)
+    _close(ta, ja)

@@ -40,7 +40,7 @@ def test_gram_matvec_matches_interpret_kernel(kind, gamma, degree, coef0):
                              bm=8, bn=8, bd=8, interpret=True, **kw)
     before = tgram.gram_matvec.launches
     got = tgram.gram_matvec(torch.tensor(x), torch.tensor(z),
-                            torch.tensor(g), bm=8, bn=8, bd=8, **kw)
+                            torch.tensor(g), bm=8, **kw)
     assert tgram.gram_matvec.launches == before  # CPU: no kernel launch
     _close(got, want)
 
@@ -73,10 +73,10 @@ def test_sources_and_signed_ops_wrapper(kind, gamma, degree, coef0):
     want = jops.gram_matvec(jnp.asarray(x), jnp.asarray(g), js,
                             y=jnp.asarray(y), bm=8, bn=8, bd=8)
     got = tops.gram_matvec(torch.tensor(x), torch.tensor(g), ts,
-                           y=torch.tensor(y), bm=8, bn=8, bd=8)
+                           y=torch.tensor(y), bm=8)
     _close(got, want)
     src = tgram.make_kernel_source(ts, torch.tensor(x), torch.tensor(y),
-                                   bm=8, bn=8)
+                                   bm=8)
     _close(src.matvec(torch.tensor(g)), want)
     dense = tgram.DenseSource(tkf.signed_gram(ts, torch.tensor(x),
                                               torch.tensor(y)))
@@ -87,13 +87,25 @@ def test_sources_and_signed_ops_wrapper(kind, gamma, degree, coef0):
 
 
 def test_make_kernel_source_pads_features_like_reference():
-    x = torch.rand(1, 8, 11)
-    src = tgram.make_kernel_source(tkf.KernelSpec("rbf"), x,
-                                   torch.ones(1, 8), bm=8, bn=8, bd=8)
-    assert src.x.shape == (1, 8, 16) and src.bd == 8
+    # the reference pads D = 11 to its 8-wide slab multiple; the port keeps
+    # the ragged feature axis (K2 masks it) and gives the same products
+    rng = np.random.default_rng(3)
+    x = rng.random((1, 8, 11)).astype(np.float32)
+    y = np.sign(rng.standard_normal((1, 8))).astype(np.float32)
+    g = rng.standard_normal((1, 8)).astype(np.float32)
+    for kind in ("rbf", "laplacian"):
+        jsrc = jgram.make_kernel_source(jkf.KernelSpec(kind), jnp.asarray(x),
+                                        jnp.asarray(y), bm=8, bn=8, bd=8,
+                                        interpret=True)
+        src = tgram.make_kernel_source(tkf.KernelSpec(kind),
+                                       torch.tensor(x), torch.tensor(y),
+                                       bm=8)
+        assert jsrc.x.shape == (1, 8, 16) and src.x.shape == (1, 8, 11)
+        assert (src.xx is None) == (kind != "rbf")
+        _close(src.matvec(torch.tensor(g)), jsrc.matvec(jnp.asarray(g)))
     with pytest.raises(ValueError):
-        tgram.make_kernel_source(tkf.KernelSpec("sigmoid"), x,
-                                 torch.ones(1, 8), bm=8, bn=8)
+        tgram.make_kernel_source(tkf.KernelSpec("sigmoid"), torch.tensor(x),
+                                 torch.ones(1, 8), bm=8)
 
 
 def test_mixed_devices_raise():

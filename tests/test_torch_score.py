@@ -43,13 +43,12 @@ def test_score_paths_match_reference(kind, gamma, degree, coef0):
     _close(tscore.score_ref(tx, tz, tc, **kw), want)
     _close(tscore.score_blocked(tx, tz, tc, bt=8, **kw), want)
     before = tscore.score_tiles.launches
-    _close(tscore.score_tiles(tx, tz, tc, bt=8, bs=8, bd=8, **kw), want)
+    _close(tscore.score_tiles(tx, tz, tc, bt=8, **kw), want)
     assert tscore.score_tiles.launches == before   # CPU: plain version
     js = jkf.KernelSpec(kind, gamma, degree, coef0)
     ts = tkf.KernelSpec(kind, gamma, degree, coef0)
     for tiled in (None, True, False):
-        _close(tops.decision_scores(tx, tz, tc, ts, bt=8, bs=8, bd=8,
-                                    tiled=tiled),
+        _close(tops.decision_scores(tx, tz, tc, ts, bt=8, tiled=tiled),
                jops.decision_scores(jnp.asarray(x), jnp.asarray(z),
                                     jnp.asarray(c), js, bt=8, bs=8, bd=8,
                                     tiled=tiled))
@@ -62,5 +61,5 @@ def test_score_tiles_matches_interpret_kernel(kind, gamma, degree, coef0):
     want = jscore.score_tiles(jnp.asarray(x), jnp.asarray(z), jnp.asarray(c),
                               bt=8, bs=8, bd=8, interpret=True, **kw)
     got = tscore.score_tiles(torch.tensor(x), torch.tensor(z),
-                             torch.tensor(c), bt=8, bs=8, bd=8, **kw)
+                             torch.tensor(c), bt=8, **kw)
     _close(got, want)
