@@ -21,6 +21,26 @@ Phases (any failed check exits nonzero):
    versions): alpha within 1e-4 and decision values within 1e-3 (the
    greedy argmax turns last-bit differences in the card's reductions into
    different coordinate orders over many passes).
+2b. (run after phase 5, before phase 6) The DSVRG route's kernels against
+   their plain versions: B6 (odm_svrg_grad) at the inner step's shape
+   (B=64, d=18) with full and ragged masks, batched over 8 chains, and at
+   gisette's width (d=5000); B7 (odm_grad) at SUSY's 4,000,000 x 18 and at
+   4,800 x 5,000. Max-abs error <= 1e-5 x max(1, max|out|). Times are
+   device times: the card is held by a sleep kernel while the launches
+   are queued, so host launch cost is left out.
+6. Algorithm 2 at real size: the SUSY stand-in (4,000,000 training rows,
+   d=18, linear, lam=100) with SODMConfig() defaults and no route, which
+   must auto-dispatch to dsvrg: 10 epochs, K=8 stratified partitions,
+   minibatches of 64 (7,813 per node, the last 32 rows). One row per
+   epoch; then fit time, microseconds per inner step, test accuracy and
+   peak memory, and a steady window of inner steps timed twice: by the
+   host clock and as device time. B6 must launch exactly 625,040 times,
+   B7 exactly 10, the four Algorithm-1 kernels never; B6 and B7 never run
+   on the phishing or ijcnn1 paths.
+7. One small DSVRG fit (a7a at scale 0.05, identity partitions, 5
+   epochs, batch 16) on the card against the CPU, once per schedule:
+   ||dw||/||w|| <= 1e-2 and prediction agreement >= 0.99, the band
+   documented for DSVRG across reduction orders.
 
 The kernels line reports, per kernel: its time, its plain version's and
 the yardstick's, the least time the card could take (bound_ms: the larger
@@ -28,8 +48,8 @@ of bytes moved over 3.35 TB/s and fp32 operations over 67 TFLOP/s, the
 published H100 SXM peaks at 700 W; the text lines also give it scaled to
 the card's printed power limit), and its launches: on the ijcnn1 path
 for the kernels that path runs, on the phishing path for K3 (which runs
-on phishing's dense levels only); ``launches_by_path`` gives both. The
-last line is the result.
+on phishing's dense levels only), on the SUSY path for B6 and B7;
+``launches_by_path`` gives all three. The last line is the result.
 """
 from __future__ import annotations
 
@@ -79,6 +99,32 @@ def time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+def device_ms(fn, reps: int) -> float:
+    """Mean device milliseconds per call: after one warm-up, the card is
+    held by a sleep kernel while the ``reps`` calls are queued, so the
+    events time the calls back to back on the device, without the host's
+    launch cost. The hold is twice the host's measured enqueue time; keep
+    ``reps`` times the launches per call well under a thousand, or the
+    queue of pending launches fills and the host paces the calls again."""
+    import torch
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2.0 * enqueue_s * 2e9) + 1_000_000)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
 def bound(nbytes: float, flops: float) -> tuple[float, str]:
     t_b = nbytes / PEAK_BYTES_PER_S * 1e3
     t_f = flops / PEAK_FP32_FLOPS * 1e3
@@ -95,6 +141,17 @@ def bound_text(b_ms: float, b_by: str, derate: float) -> str:
     limit (the peaks assume 700 W; a lower limit slows the card under
     load)."""
     return f"bound_ms={b_ms:.3f} ({b_by}; {b_ms * derate:.3f} at this limit)"
+
+
+class EpochLog:
+    """Tracker collecting the DSVRG solve's per-epoch metrics."""
+
+    def __init__(self):
+        self.rows = []
+
+    def log_metrics(self, step, metrics):
+        if "epoch" in metrics:
+            self.rows.append(dict(metrics))
 
 
 class LevelLog:
@@ -116,12 +173,14 @@ def main() -> None:
     try:
         from repro_torch.api import ODMEstimator, ProblemSpec
         from repro_torch.core import kernel_fns as kf
+        from repro_torch.core.dsvrg import DSVRGConfig
         from repro_torch.core.odm import ODMParams
         from repro_torch.core.sodm import SODMConfig
         from repro_torch.data import synthetic
         from repro_torch.kernels import _build
         from repro_torch.kernels import dual_cd_block as cdk
         from repro_torch.kernels import gram as gram_mod
+        from repro_torch.kernels import odm_grad as og
         from repro_torch.kernels import score as score_mod
     except ImportError as e:
         fail(f"cannot import the port from {ROOT}/src: {e}")
@@ -275,11 +334,16 @@ def main() -> None:
     counters = {"cd_block_sweep": cdk.cd_block_sweep,
                 "gram_matvec": gram_mod.gram_matvec,
                 "score_tiles": score_mod.score_tiles,
-                "dense_matvec": cdk.dense_matvec}
+                "dense_matvec": cdk.dense_matvec,
+                "odm_svrg_grad": og.odm_svrg_grad,
+                "odm_grad": og.odm_grad}
+    alg1 = ("cd_block_sweep", "gram_matvec", "score_tiles", "dense_matvec")
+    alg2 = ("odm_svrg_grad", "odm_grad")
     # the kernels each path must launch, and those it must not
-    expect = {"phishing": (tuple(counters), ()),
+    expect = {"phishing": (alg1, alg2),
               "ijcnn1": (("cd_block_sweep", "gram_matvec", "score_tiles"),
-                         ("dense_matvec",))}
+                         ("dense_matvec",) + alg2),
+              "SUSY": (alg2, alg1)}
     fits, path_launches = {}, {}
     for phase, ds, gamma in ((3, phishing, g_phish), (4, ijcnn1, g_ijc)):
         say(f"== phase {phase}: fit {ds.name} M={ds.x_train.shape[0]} "
@@ -383,6 +447,221 @@ def main() -> None:
     if not (d_alpha <= 1e-4 and d_f <= 1e-3):
         fail("the card's fit disagrees with the CPU's")
 
+    # -- 2b. the DSVRG route's kernels against their plain versions ----------
+    say("== phase 2b: B6 / B7 vs plain versions on the card")
+    susy = synthetic.load("SUSY")
+    xs_tr = susy.x_train.to(dev)
+    ys_tr = susy.y_train.to(dev)
+    M, D = xs_tr.shape
+    lam, theta, ups = params.lam, params.theta, params.ups
+    s_inst = lam / (1.0 - theta) ** 2
+
+    def check(name, got, want):
+        err = float((got - want).abs().max())
+        scale = max(1.0, float(want.abs().max()))
+        if not err <= 1e-5 * scale:
+            fail(f"{name} disagrees with its plain version: max_abs_err "
+                 f"{err} > 1e-5 x {scale}")
+        return err, scale
+
+    def svrg_case(B, d, C=None, n_valid=None, rows=None):
+        """B6 inputs: SUSY rows for d=18, else uniform rows; w, a, h near
+        a SUSY fit's scale so every hinge branch is taken."""
+        n_valid = B if n_valid is None else n_valid
+        lead = () if C is None else (C,)
+        if rows is not None:
+            x = rows[:math.prod(lead) * B].reshape(lead + (B, d)).clone()
+        else:
+            x = torch.rand(lead + (B, d), generator=gen).to(dev)
+        y = torch.sign(torch.randn(lead + (B,), generator=gen)).to(dev)
+        x[..., n_valid:, :] = 0.0
+        y[..., n_valid:] = 0.0
+        wt = (torch.arange(B, device=dev) < n_valid).float()
+        inv = torch.tensor([1.0 / n_valid], device=dev)
+        w = (torch.randn(lead + (d,), generator=gen) / d ** 0.5).to(dev)
+        a = (torch.randn(d, generator=gen) / d ** 0.5).to(dev)
+        h = torch.randn(d, generator=gen).to(dev)
+        return (w, a, h, x, y, wt, inv)
+
+    skw = dict(s=s_inst, theta=theta, ups=ups)
+    cases = [("B=64 d=18 (full)", svrg_case(64, 18, rows=xs_tr)),
+             ("B=64 d=18 (tail of 32)", svrg_case(64, 18, n_valid=32,
+                                                  rows=xs_tr)),
+             ("C=8 B=64 d=18", svrg_case(64, 18, C=8, rows=xs_tr)),
+             ("B=64 d=5000", svrg_case(64, 5000))]
+    for label, args in cases:
+        got = og.launch_odm_svrg_grad(*args, **skw)
+        want = og.odm_svrg_grad_plain(*args, **skw)
+        err, scale = check(f"odm_svrg_grad {label}", got, want)
+        w_, _, _, x_, _, _, _ = args
+        C = w_.shape[0] if w_.ndim == 2 else 1
+        B, d = x_.shape[-2:]
+        ms = device_ms(lambda: og.launch_odm_svrg_grad(*args, **skw), 200)
+        # the plain version is about a dozen launches a call: 50 calls keep
+        # the queue of pending launches short enough for the hold to cover
+        plain_ms = device_ms(lambda: og.odm_svrg_grad_plain(*args, **skw),
+                             50)
+        b_ms, b_by = bound(4 * (C * B * d + C * B + B + 2 * C * d + 2 * d
+                                + 1), 6 * C * B * d)
+        say(f"B6 odm_svrg_grad {label}: max_abs_err={err:.3e} (max |out| "
+            f"{scale:.3e}) ms={ms:.5f} plain_ms={plain_ms:.5f} "
+            f"bound_ms={b_ms:.4g} ({b_by}; {b_ms * derate:.4g} at this "
+            f"limit)")
+        if label == "B=64 d=18 (full)":
+            stats["odm_svrg_grad"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=b_ms, bound_by=b_by)
+    del cases, got, want
+
+    wide_x = torch.rand(4800, 5000, generator=gen).to(dev)
+    wide_y = torch.sign(torch.randn(4800, generator=gen)).to(dev)
+    wide_w = (torch.randn(5000, generator=gen) / 50.0).to(dev)
+    w0 = (torch.randn(D, generator=gen) / D ** 0.5).to(dev)
+    for w_, x_, y_ in ((w0, xs_tr, ys_tr), (wide_w, wide_x, wide_y)):
+        label = f"M={x_.shape[0]} d={x_.shape[1]}"
+        gkw = dict(lam=lam, theta=theta, ups=ups)
+        got = og.launch_odm_grad(w_, x_, y_, **gkw)
+        again = og.launch_odm_grad(w_, x_, y_, **gkw)
+        if not torch.equal(got, again):
+            fail(f"odm_grad {label} is not repeatable bit for bit")
+        want = og.odm_grad_plain(w_, x_, y_, **gkw)
+        err, scale = check(f"odm_grad {label}", got, want)
+        Mx, d = x_.shape
+        reps = 20 if Mx > 100_000 else 200
+        ms = device_ms(lambda: og.launch_odm_grad(w_, x_, y_, **gkw), reps)
+        plain_ms = device_ms(lambda: og.odm_grad_plain(w_, x_, y_, **gkw),
+                             reps)
+        b_ms, b_by = bound(4 * (Mx * d + Mx + 2 * d), 4 * Mx * d)
+        say(f"B7 odm_grad {label}: max_abs_err={err:.3e} (max |out| "
+            f"{scale:.3e}) ms={ms:.5f} plain_ms={plain_ms:.5f} "
+            f"bound_ms={b_ms:.4g} ({b_by}; {b_ms * derate:.4g} at this "
+            f"limit)")
+        if Mx == M:
+            stats["odm_grad"] = dict(
+                max_abs_err=err, ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=b_ms, bound_by=b_by)
+    del wide_x, wide_y, got, again, want
+
+    # -- 6. Algorithm 2 at real size: SUSY through the auto route ------------
+    say(f"== phase 6: fit SUSY M={M} d={D} linear lam={lam} (route=None)")
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    cfg6 = SODMConfig()
+    est = ODMEstimator(ProblemSpec(kernel=kf.KernelSpec("linear"),
+                                   params=params), cfg=cfg6)
+    epochs = EpochLog()
+    t0 = time.perf_counter()
+    model, report = est.fit(susy.x_train, susy.y_train, 0, tracker=epochs)
+    fit_s = time.perf_counter() - t0
+    for row in epochs.rows:
+        say(f"  epoch {row['epoch']}: objective={row['objective']:.6f} "
+            f"eta={row['eta']:.6g} seconds={row['wall_s']:.3f} "
+            f"rows_per_s={row['rows_per_s']:.4g}")
+    t0 = time.perf_counter()
+    f = est.decision_function(susy.x_test)
+    torch.cuda.synchronize()
+    score_s = time.perf_counter() - t0
+    if f.shape != (susy.x_test.shape[0],) or not bool(
+            torch.isfinite(f).all()):
+        fail(f"SUSY decision values malformed: {tuple(f.shape)}")
+    acc = float((torch.sign(f).cpu() == susy.y_test).float().mean())
+    major = float(max((susy.y_test > 0).float().mean(),
+                      (susy.y_test < 0).float().mean()))
+    launches = {name: fn.launches for name, fn in counters.items()}
+    dc = cfg6.dsvrg
+    m_part = M // dc.n_partitions
+    S = -(-m_part // dc.batch)
+    want_steps = dc.epochs * dc.n_partitions * S
+    say(f"  route={report.route} engine={report.engine} "
+        f"K={dc.n_partitions} S={S} tail={m_part - (S - 1) * dc.batch} "
+        f"eta={report.eta:.6g} kkt={report.kkt:.3e} "
+        f"history={[round(h, 6) for h in report.history]}")
+    say(f"  fit_s={fit_s:.2f} us_per_inner_step="
+        f"{fit_s / want_steps * 1e6:.2f} test_acc={acc:.4f} (majority "
+        f"{major:.4f}) score_s={score_s:.4f} (T={susy.x_test.shape[0]}) "
+        f"max_memory_allocated="
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    say(f"  launches on the SUSY path: {launches}")
+    path_launches["SUSY"] = launches
+    if report.route != "dsvrg":
+        fail(f"SUSY resolved to {report.route}, not dsvrg")
+    if len(report.history) != dc.epochs or not all(
+            math.isfinite(h) for h in report.history):
+        fail(f"SUSY history malformed: {report.history}")
+    if not acc > 0.5:
+        fail(f"SUSY test accuracy {acc} is no better than chance")
+    if launches["odm_svrg_grad"] != want_steps:
+        fail(f"odm_svrg_grad launched {launches['odm_svrg_grad']} times on "
+             f"the SUSY path, not {want_steps}")
+    if launches["odm_grad"] != dc.epochs:
+        fail(f"odm_grad launched {launches['odm_grad']} times on the SUSY "
+             f"path, not {dc.epochs}")
+    ran, idle = expect["SUSY"]
+    for name in idle:
+        if launches[name] != 0:
+            fail(f"kernel {name} launched on the SUSY path")
+
+    # a steady window of inner steps, as _epoch_serial runs them: host
+    # clock (what the fit pays) against device time (what the card does)
+    n_win = min(2000, M // 64)
+    xs_b = xs_tr[:64 * n_win].reshape(n_win, 64, D)
+    ys_b = ys_tr[:64 * n_win].reshape(n_win, 64)
+    wt_b = torch.ones(64, device=dev)
+    inv_b = torch.tensor([1.0 / 64], device=dev)
+    w_b = model.w.clone()
+    h_b = torch.randn(D, generator=gen).to(dev) * 1e-3
+    eta_b = torch.tensor(report.eta, device=dev)
+    state = {"w": w_b, "i": 0}
+
+    def inner_step():
+        i = state["i"] % n_win
+        state["i"] += 1
+        state["w"] = state["w"] - eta_b * og.odm_svrg_grad(
+            state["w"], w_b, h_b, xs_b[i], ys_b[i], wt_b, inv_b, **skw)
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n_win):
+        inner_step()
+    torch.cuda.synchronize()
+    host_us = (time.perf_counter() - t0) / n_win * 1e6
+    dev_us = device_ms(inner_step, 300) * 1e3
+    kern_us = stats["odm_svrg_grad"]["ms"] * 1e3
+    say(f"  inner step, steady window: host-paced {host_us:.2f} us/step, "
+        f"device {dev_us:.2f} us/step (B6 {kern_us:.2f} us + the step's "
+        f"two elementwise ops); device busy {dev_us / host_us:.1%} of the "
+        f"host-paced step")
+    del xs_tr, ys_tr, xs_b, ys_b
+
+    # -- 7. the card against the CPU on one small linear fit ------------------
+    small = synthetic.load("a7a", scale=0.05)
+    say(f"== phase 7: card vs CPU, DSVRG on a7a scale 0.05 "
+        f"M={small.x_train.shape[0]} d={small.x_train.shape[1]}")
+    problem7 = ProblemSpec(kernel=kf.KernelSpec("linear"), params=params)
+    for schedule in ("serial", "parallel"):
+        cfg7 = SODMConfig(partition_strategy="identity", dsvrg=DSVRGConfig(
+            epochs=5, batch=16, schedule=schedule,
+            partition_strategy="identity"))
+        out = {}
+        for where in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            est = ODMEstimator(problem7, route="dsvrg", cfg=cfg7,
+                               device=where)
+            mdl, rep = est.fit(small.x_train, small.y_train, 0)
+            out[where] = (mdl.w.cpu(), est.predict(small.x_test).cpu())
+            say(f"  {schedule} {where}: history="
+                f"{[round(h, 6) for h in rep.history]} "
+                f"seconds={time.perf_counter() - t0:.2f}")
+        wg, wc = out["cuda"][0], out["cpu"][0]
+        rel = float((wg - wc).norm() / wc.norm())
+        agree = float((out["cuda"][1] == out["cpu"][1]).float().mean())
+        say(f"  {schedule}: ||w_card - w_cpu|| / ||w_cpu|| = {rel:.3e}, "
+            f"prediction agreement {agree:.4f}")
+        if not (rel <= 1e-2 and agree >= 0.99):
+            fail(f"the card's DSVRG fit ({schedule}) disagrees with the "
+                 f"CPU's")
+
     # -- report ----------------------------------------------------------------
     meta = {
         "cd_block_sweep": ("src/repro_torch/kernels/csrc/cd_sweep.cu",
@@ -393,6 +672,10 @@ def main() -> None:
                         "src/repro/kernels/score.py:84"),
         "dense_matvec": ("src/repro_torch/kernels/csrc/dense_matvec.cu",
                          "src/repro/kernels/dual_cd_block.py:264"),
+        "odm_svrg_grad": ("src/repro_torch/kernels/csrc/odm_grad.cu",
+                          "src/repro/kernels/odm_grad.py:132"),
+        "odm_grad": ("src/repro_torch/kernels/csrc/odm_grad.cu",
+                     "src/repro/kernels/odm_grad.py:79"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
@@ -400,7 +683,8 @@ def main() -> None:
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):
             if not math.isfinite(s[key]):
                 fail(f"{name}: {key} is not finite")
-        path = "ijcnn1" if name in expect["ijcnn1"][0] else "phishing"
+        path = next(p for p in ("ijcnn1", "phishing", "SUSY")
+                    if name in expect[p][0])
         kernels.append({
             "name": name, "route": "cuda", "source": source,
             "replaces": replaces, "launches": path_launches[path][name],

@@ -1,4 +1,4 @@
-"""repro_torch.api — the front door of the port (``sodm`` route only).
+"""repro_torch.api — the front door of the port (``sodm`` and ``dsvrg`` routes).
 
     from repro_torch.api import ODMEstimator, ProblemSpec
 

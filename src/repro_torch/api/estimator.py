@@ -1,6 +1,6 @@
 """``ODMEstimator`` — the one front door for training and serving ODMs.
 
-Port of ``repro.api.estimator`` for the ``sodm`` route:
+Port of ``repro.api.estimator`` for the ``sodm`` and ``dsvrg`` routes:
 
     est = ODMEstimator(ProblemSpec.create("rbf", gamma=0.5, lam=100.0),
                        cfg=SODMConfig(engine="pallas"))

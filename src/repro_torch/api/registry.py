@@ -11,8 +11,9 @@ rule for rule:
   engine sends linear-kernel problems with M >= ``dsvrg_threshold`` to
   ``dsvrg``; streaming fits go to ``dsvrg`` (linear) or ``cascade``.
 
-Only ``sodm`` is ported. A route that resolves but is not ported yet
-raises ``NotImplementedError`` naming its ROADMAP item.
+Ported: ``sodm`` and ``dsvrg`` (resident data; streaming is ROADMAP A14).
+A route that resolves but is not ported yet raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 from __future__ import annotations
 
@@ -26,9 +27,11 @@ DSVRG_AUTO_THRESHOLD = sodm_mod.SODMConfig.dsvrg_threshold
 
 #: routes of the reference not ported yet, with their ROADMAP item
 UNPORTED = {
-    "dsvrg": "A9", "cascade": "A10", "dip": "A10", "dc": "A10",
-    "svrg": "A10", "csvrg": "A10",
+    "cascade": "A10", "dip": "A10", "dc": "A10", "svrg": "A10",
+    "csvrg": "A10",
 }
+
+_LINEAR = frozenset({"linear"})
 
 
 class RouteOutput(NamedTuple):
@@ -147,6 +150,19 @@ def resolve_auto(kernel_name: str, M: int, *, engine: str | None = None,
     return entry
 
 
+def dsvrg_partition_count(M: int, want: int, n_dev: int = 1) -> int:
+    """Largest K <= ``want`` that divides M and is a multiple of ``n_dev``
+    (the dsvrg route's partition clamp)."""
+    K = max(want - want % n_dev, n_dev)
+    while K >= n_dev:
+        if M % K == 0:
+            return K
+        K -= n_dev
+    raise ValueError(
+        f"no DSVRG partition count <= {want} divides M={M} and is a "
+        f"multiple of the data axis size {n_dev}")
+
+
 def _pin_level_engine(cfg, route: str):
     """An explicit route is never re-routed by the level loop's own auto
     dispatch: ``engine=None`` runs as ``"scalar"`` inside the loop, so pin
@@ -172,9 +188,30 @@ def _fit_sodm(problem, x, y, key, *, cfg, compile_kw,
                        kkt=float(res.kkt))
 
 
+def _fit_dsvrg(problem, x, y, key, *, cfg, compile_kw,
+               fit_kw) -> RouteOutput:
+    del compile_kw                     # the artifact is the primal w
+    res, dres = sodm_mod._solve_dsvrg(problem.kernel, x, y, problem.params,
+                                      cfg, key,
+                                      tracker=fit_kw.get("tracker"))
+    model = dataclasses.replace(serve_model.from_dsvrg(dres),
+                                spec=problem.kernel)
+    return RouteOutput(model=model, raw=dres, engine="dsvrg",
+                       passes=(len(dres.history),), kkt=float(res.kkt),
+                       eta=float(dres.eta),
+                       history=tuple(float(h) for h in dres.history))
+
+
 register(SolverEntry(
     name="sodm", fit=_fit_sodm,
     algorithm="Alg. 1 (hierarchical partitioned dual CD)",
     kernels=None, mesh_aware=False, matrix_free=True,
     description="stratified partitions, warm-started level merges; level "
                 "engines scalar | block | pallas"))
+register(SolverEntry(
+    name="dsvrg", fit=_fit_dsvrg,
+    algorithm="Alg. 2 (communication-efficient SVRG)",
+    kernels=_LINEAR, mesh_aware=False, matrix_free=True,
+    scale_min=DSVRG_AUTO_THRESHOLD,
+    description="primal round-robin SVRG; dual recovered via "
+                "odm.alpha_from_w; auto-selected for big linear problems"))

@@ -20,7 +20,9 @@ along the ray (:func:`repro_torch.core.odm.warm_start_scale`).
   ``gram_threshold`` rebuild off-diagonal Gram tiles from the features
   (O(m·B) memory) for every kernel family.
 
-``"dsvrg"`` is a whole-problem route, not a level solver (ROADMAP A9).
+``"dsvrg"`` is a whole-problem route, not a level solver:
+``sodm._solve`` dispatches it before the level loop
+(:mod:`repro_torch.core.dsvrg`).
 """
 from __future__ import annotations
 
@@ -158,7 +160,7 @@ def make_local_solver(engine: str | None = "scalar", block: int = 256,
     if engine == "dsvrg":
         raise ValueError(
             "engine='dsvrg' is a whole-problem primal solver, not a level "
-            "solver (and is not ported yet: ROADMAP A9)")
+            "solver — sodm._solve dispatches it before the level loop")
     raise ValueError(
         f"engine must be one of {LEVEL_ENGINES} (or 'dsvrg'/None at the "
         f"SODMConfig level), got {engine!r}")

@@ -8,8 +8,10 @@ p siblings merge, their duals are concatenated as the parent's warm start
 (:func:`merge_alphas`). The engines rescale that warm start along its ray
 first: children solved at scale m_l, the parent solves at p·m_l.
 
-The multi-device solve (``_solve_sharded``, ROADMAP A13), the fault and
-resume seams (A12) and the dsvrg route (A9) are not ported yet and raise.
+Linear-kernel problems may instead take the whole-problem DSVRG route
+(Algorithm 2, :func:`_solve_dsvrg`) under the registry's dispatch rule.
+The multi-device solve (``_solve_sharded``, ROADMAP A13) and the fault and
+resume seams (A12) are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -19,29 +21,15 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from repro_torch.core import dsvrg as dsvrg_mod
 from repro_torch.core import engines, kernel_fns as kf
+from repro_torch.core import odm as odm_mod
 from repro_torch.core import partition as part_mod
+from repro_torch.core.dsvrg import DSVRGConfig
 from repro_torch.core.odm import ODMParams
 from repro_torch.observe.spans import span as _span
 
 Tensor = torch.Tensor
-
-
-@dataclasses.dataclass(frozen=True)
-class DSVRGConfig:
-    """Knobs of the linear-kernel DSVRG route — the reference's fields and
-    defaults, carried as data only (the route is ROADMAP A9)."""
-
-    n_partitions: int = 8
-    n_landmarks: int = 8
-    epochs: int = 10
-    eta: float = 0.0
-    batch: int = 1
-    schedule: str = "serial"
-    partition_strategy: str = "stratified"
-    fused: bool | None = None
-    coreset_frac: float = 0.1
-    stream_slab: int = 4096
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,6 +78,42 @@ def split_to_partitions(alpha: Tensor, K: int) -> Tensor:
     m = M // K
     return torch.cat([alpha[:M].reshape(K, m), alpha[M:].reshape(K, m)],
                      dim=1)
+
+
+def _solve_dsvrg(spec: kf.KernelSpec, x: Tensor, y: Tensor,
+                 params: ODMParams, cfg: SODMConfig, key=None, *,
+                 faults=None, tracker=None, resume=None,
+                 ) -> tuple[SODMResult, dsvrg_mod.DSVRGResult]:
+    """Whole-problem linear-kernel route (the registry's dsvrg entry).
+
+    Solves the primal with DSVRG (Algorithm 2) and recovers the dual with
+    ``odm.alpha_from_w``; the native ``DSVRGResult`` comes back alongside
+    for the report (history, eta) and the artifact (the primal ``w``).
+    ``levels_run`` is 1, ``sweeps_per_level`` the epoch count, and ``kkt``
+    the primal stationarity residual max|w − w_from_alpha(alpha)|. The
+    partition count is clamped to one that divides M; the outer
+    ``partition_strategy``/``n_landmarks`` carry over for the strategies
+    DSVRG has (stratified, random). The solve is epoch-budgeted:
+    ``tol``/``max_sweeps`` are level-loop knobs and do not apply.
+    """
+    del spec
+    from repro_torch.api import registry
+    M = x.shape[0]
+    K = registry.dsvrg_partition_count(M, cfg.dsvrg.n_partitions)
+    dcfg = dataclasses.replace(cfg.dsvrg, n_partitions=K)
+    if cfg.partition_strategy in ("stratified", "random"):
+        dcfg = dataclasses.replace(
+            dcfg, partition_strategy=cfg.partition_strategy,
+            n_landmarks=cfg.n_landmarks)
+    res = dsvrg_mod._solve(x, y, params, dcfg, key, faults=faults,
+                           tracker=tracker, resume=resume)
+    xp, yp = x[res.perm], y[res.perm]
+    alpha = odm_mod.alpha_from_w(res.w, xp, yp, params)
+    # grad p(w) = w − w_from_alpha(alpha_from_w(w)) exactly, so the
+    # stationarity residual reuses the alpha pass
+    kkt = torch.max(torch.abs(res.w - odm_mod.w_from_alpha(xp, yp, alpha)))
+    return SODMResult(alpha=alpha, perm=res.perm, levels_run=1,
+                      sweeps_per_level=[dcfg.epochs], kkt=kkt), res
 
 
 def _level_loop(run_level, x: Tensor, y: Tensor, perm: Tensor,
@@ -171,10 +195,12 @@ def _solve(spec: kf.KernelSpec, x: Tensor, y: Tensor, params: ODMParams,
            *, faults=None, tracker=None, resume=None) -> SODMResult:
     """Single-process Algorithm 1 on the device of ``x``. ``key`` is a
     ``torch.Generator`` or an int seed (the reference's PRNG key)."""
+    from repro_torch.api import registry
     M = x.shape[0]
-    if cfg.engine == "dsvrg":
-        raise NotImplementedError(
-            "the dsvrg route is not ported yet (ROADMAP A9)")
+    if registry.resolve_auto(spec.name, M, engine=cfg.engine,
+                             threshold=cfg.dsvrg_threshold).name == "dsvrg":
+        return _solve_dsvrg(spec, x, y, params, cfg, key, faults=faults,
+                            tracker=tracker, resume=resume)[0]
     K0 = cfg.p ** cfg.levels
     if M % K0 != 0:
         raise ValueError(f"p^L={K0} must divide M={M}")

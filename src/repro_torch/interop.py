@@ -7,12 +7,14 @@ arrays (no import of ``repro`` here), become the port's objects:
   ``dataclasses.asdict(KernelSpec)`` — the fields the reference's model
   manifest stores (``repro/serve/model.py``, ``FittedODM.save``).
 * :func:`sodm_result_from_numpy` builds an :class:`SODMResult`.
+* :func:`dsvrg_result_from_numpy` builds a :class:`DSVRGResult`.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core.dsvrg import DSVRGResult
 from repro_torch.core.kernel_fns import KernelSpec
 from repro_torch.core.sodm import SODMResult
 from repro_torch.kernels._device import resolve_device
@@ -51,3 +53,13 @@ def sodm_result_from_numpy(alpha, perm, sweeps_per_level, kkt,
                       perm=_tensor(perm, torch.int64, dev),
                       levels_run=len(sweeps), sweeps_per_level=sweeps,
                       kkt=_tensor(kkt, torch.float32, dev))
+
+
+def dsvrg_result_from_numpy(w, history, perm, eta,
+                            device=None) -> DSVRGResult:
+    """A reference ``DSVRGResult``'s fields -> the port's, on ``device``."""
+    dev = resolve_device(device)
+    return DSVRGResult(w=_tensor(w, torch.float32, dev),
+                       history=_tensor(history, torch.float32, dev),
+                       perm=_tensor(perm, torch.int64, dev),
+                       eta=_tensor(eta, torch.float32, dev))

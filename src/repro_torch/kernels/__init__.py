@@ -1,4 +1,4 @@
-"""Hand-written Hopper kernels of the main path, each beside its plain
+"""Hand-written Hopper kernels of the ported paths, each beside its plain
 PyTorch version. Port of ``repro.kernels``.
 
   gram          — tile skeleton (accum_tile / finalize_tile) and the
@@ -7,6 +7,8 @@ PyTorch version. Port of ``repro.kernels``.
                   matvec K3 (csrc/dense_matvec.cu), the fused pass and the
                   level solve
   score         — serving scorer (K2 with one partition)
+  odm_grad      — DSVRG's fused primal gradients, B6 (inner direction) and
+                  B7 (full-batch anchor gradient) (csrc/odm_grad.cu)
   ops           — shape-handling entry points used by framework code
 
 A CPU tensor takes a kernel's plain version, a CUDA tensor the kernel

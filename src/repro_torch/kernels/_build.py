@@ -98,13 +98,19 @@ def build(out: Path) -> None:
 
 def _declare(lib: ctypes.CDLL) -> None:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    L = ctypes.c_longlong
     lib.gram_matvec_f32.argtypes = [P, P, P, P, P, P, I, I, I, I, I, F, I,
                                     F, P]
     lib.dense_matvec_f32.argtypes = [P, P, P, I, I, I, P]
     lib.cd_block_sweep_f32.argtypes = [P, P, P, P, P, P, I, I, F, F, F, F,
                                        I, F, P]
+    lib.odm_svrg_grad_f32.argtypes = [P, P, P, P, L, P, L, P, P, P, I, I, I,
+                                      F, F, F, F, F, P]
+    lib.odm_grad_f32.argtypes = [P, P, P, P, P, I, I, F, F, F, F, F, P]
+    lib.odm_grad_blocks.argtypes = [I]
     for fn in (lib.gram_matvec_f32, lib.dense_matvec_f32,
-               lib.cd_block_sweep_f32):
+               lib.cd_block_sweep_f32, lib.odm_svrg_grad_f32,
+               lib.odm_grad_f32, lib.odm_grad_blocks):
         fn.restype = I
     lib.repro_error_string.argtypes = [I]
     lib.repro_error_string.restype = ctypes.c_char_p

@@ -1,10 +1,13 @@
 """Public entry points for the kernels: shape handling around them.
 
-Port of ``repro.kernels.ops`` (the main-path subset: ``gram_matvec``,
-``rbf_gram_matvec``, ``dual_cd_solve``, ``decision_scores``). The CUDA
-kernels mask ragged edges themselves, so only the block solve, whose
-greedy trajectory depends on the tile, pads (to the block, with the
-padded coordinates masked). Dispatch goes by the tensors' device
+Port of ``repro.kernels.ops`` (the ported paths' subset: ``gram_matvec``,
+``rbf_gram_matvec``, ``dual_cd_solve``, ``decision_scores``, ``odm_grad``,
+``svrg_grad``). The CUDA kernels mask ragged edges themselves, so only the
+block solve, whose greedy trajectory depends on the tile, pads (to the
+block, with the padded coordinates masked). The reference's
+``_shrink_bm`` (its TPU VMEM budget for the fused ODM gradients) has no
+counterpart: the Hopper kernels stream rows in fixed chunks whatever d
+is. Dispatch goes by the tensors' device
 (:mod:`repro_torch.kernels._device`), not by what the host has.
 """
 from __future__ import annotations
@@ -13,6 +16,7 @@ import torch
 
 from repro_torch.kernels import dual_cd_block as _cd
 from repro_torch.kernels import gram as _gram
+from repro_torch.kernels import odm_grad as _og
 from repro_torch.kernels import score as _score
 
 Tensor = torch.Tensor
@@ -90,3 +94,37 @@ def decision_scores(x: Tensor, z: Tensor, coef: Tensor, spec, *,
         return _score.score_ref(x, z, coef, **kw)
     return _score.score_tiles(x.contiguous(), z.contiguous(),
                               coef.contiguous(), bt=bt, **kw)
+
+
+# ---------------------------------------------------------------------------
+# fused ODM gradient
+# ---------------------------------------------------------------------------
+
+def odm_grad(w: Tensor, x: Tensor, y: Tensor, *, lam: float = 1.0,
+             theta: float = 0.1, ups: float = 0.5, bm: int = 512) -> Tensor:
+    """Fused primal gradient grad p(w) over all M rows of ``x``. ``bm``
+    is the reference's row tile, kept for its signature: the kernel needs
+    no padding, so lam needs no rescale to a padded M."""
+    del bm
+    return _og.odm_grad(w.contiguous(), x.contiguous(), y.contiguous(),
+                        lam=lam, theta=theta, ups=ups)
+
+
+def svrg_grad(w: Tensor, anchor: Tensor, h: Tensor, x: Tensor, y: Tensor,
+              wt: Tensor | None = None, *, lam: float = 1.0,
+              theta: float = 0.1, ups: float = 0.5, bm: int = 512) -> Tensor:
+    """Fused DSVRG inner-step direction g_w − g_a + h (see odm_grad.py).
+
+    ``wt`` (B,) masks ragged-tail padding rows (0: out of the coefficient
+    and of the mean's divisor); ``None`` counts every row. Semantically
+    :func:`repro_torch.core.odm.svrg_direction`. ``bm`` as in
+    :func:`odm_grad`."""
+    del bm
+    if wt is None:
+        wt = torch.ones(x.shape[-2], dtype=x.dtype, device=x.device)
+    inv_n = (1.0 / torch.clamp_min(torch.sum(wt), 1.0)).reshape(1)
+    s = lam / (1.0 - theta) ** 2
+    return _og.odm_svrg_grad(w.contiguous(), anchor.contiguous(),
+                             h.contiguous(), x.contiguous(), y.contiguous(),
+                             wt.contiguous(), inv_n.to(w.dtype), s=s,
+                             theta=theta, ups=ups)

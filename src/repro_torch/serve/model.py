@@ -120,6 +120,13 @@ def compile_model(spec: kf.KernelSpec, x_train: Tensor, y_train: Tensor,
     return model
 
 
+def from_dsvrg(res) -> FittedODM:
+    """A ``DSVRGResult`` is born compressed: linear kernel, explicit w,
+    scored as ``x @ w``."""
+    return FittedODM(spec=kf.KernelSpec(name="linear"), w=res.w,
+                     n_train=int(res.perm.shape[0]), compression="linear")
+
+
 def from_sodm(spec: kf.KernelSpec, res, x_train: Tensor, y_train: Tensor,
               **kw) -> FittedODM:
     """Compile an ``SODMResult`` — applies ``res.perm`` exactly once."""

@@ -67,7 +67,7 @@ def test_make_local_solver_names():
     assert teng.make_local_solver(None) is teng.solve_level_scalar
     for name in ("block", "pallas"):
         assert callable(teng.make_local_solver(name))
-    with pytest.raises(ValueError, match="A9"):
+    with pytest.raises(ValueError, match="whole-problem"):
         teng.make_local_solver("dsvrg")
     with pytest.raises(ValueError):
         teng.make_local_solver("nope")

@@ -46,17 +46,17 @@ def test_default_device_is_the_card(monkeypatch):
 
 
 def test_unported_routes_raise_with_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A9"):
-        ODMEstimator(route="dsvrg", device="cpu")
     with pytest.raises(NotImplementedError, match="A10"):
         ODMEstimator(route="cascade", device="cpu")
     with pytest.raises(ValueError, match="unknown route"):
         ODMEstimator(route="nope", device="cpu")
     x, y, _, _ = _blobs()
     est = ODMEstimator(ProblemSpec.create("linear"), device="cpu",
-                       cfg=tsodm.SODMConfig(engine="dsvrg"))
-    with pytest.raises(NotImplementedError, match="A9"):
-        est.fit(x, y)
+                       route="dsvrg")
+    with pytest.raises(NotImplementedError, match="A14"):
+        est.fit(x)                         # a ShardedSource: streaming
+    with pytest.raises(NotImplementedError, match="A12"):
+        est.fit(x, y, faults=object())
     with pytest.raises(NotImplementedError, match="A12"):
         ODMEstimator(device="cpu").fit(x, y, resume="/nonexistent")
     with pytest.raises(NotImplementedError, match="A7"):
@@ -68,21 +68,21 @@ def test_unported_routes_raise_with_roadmap_item():
 @pytest.mark.parametrize("M", [96, 200_000])
 @pytest.mark.parametrize("engine", [None, "scalar", "pallas", "dsvrg"])
 def test_resolve_policy_matches_reference(kernel, M, engine):
-    """Same engine × kernel × size rules: the reference's sodm answers
-    are the port's; its other routes are unported and raise."""
+    """Same engine × kernel × size rules: the reference's sodm and dsvrg
+    answers are the port's; its other routes are unported and raise."""
     jcfg = jsodm.SODMConfig(engine=engine)
     tcfg = tsodm.SODMConfig(engine=engine)
     try:
         want = jreg.resolve(JProblem.create(kernel), M, cfg=jcfg).name
     except ValueError:
         want = None
-    if want == "sodm":
+    if want in ("sodm", "dsvrg"):
         assert treg.resolve(ProblemSpec.create(kernel), M,
-                            cfg=tcfg).name == "sodm"
+                            cfg=tcfg).name == want
     else:
         with pytest.raises((NotImplementedError, ValueError)):
             treg.resolve(ProblemSpec.create(kernel), M, cfg=tcfg)
-    if want is not None and want != "sodm":
+    if want is not None and want not in ("sodm", "dsvrg"):
         with pytest.raises(NotImplementedError, match=want):
             treg.resolve(ProblemSpec.create(kernel), M, cfg=tcfg)
 
@@ -97,8 +97,15 @@ def test_pin_level_engine_and_registry_errors():
                      cfg=tsodm.SODMConfig(engine="dsvrg"))
     with pytest.raises(ValueError, match="already registered"):
         treg.register(treg.get("sodm"))
-    assert treg.routes() == ("sodm",)
+    assert treg.routes() == ("dsvrg", "sodm")
     assert treg.get("sodm").capabilities().startswith("sodm:")
+    assert "kernels {linear}" in treg.get("dsvrg").capabilities()
+    assert treg.dsvrg_partition_count(96, 8) == 8
+    assert treg.dsvrg_partition_count(90, 8) == 6
+    assert treg.dsvrg_partition_count(90, 8) == \
+        jreg.dsvrg_partition_count(90, 8)
+    with pytest.raises(ValueError, match="partition count"):
+        treg.dsvrg_partition_count(7, 4, n_dev=2)
 
 
 @pytest.mark.parametrize("kw", [dict(kernel="sigmoid"),

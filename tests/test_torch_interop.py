@@ -97,3 +97,30 @@ def test_linear_collapse_and_argument_checks():
         interop.fitted_from_numpy({"name": "rbf"}, w=np.ones(3),
                                   x_sv=np.ones((2, 3)), coef=np.ones(2),
                                   device="cpu")
+
+
+def test_carried_dsvrg_result_scores_the_same():
+    """A reference ``DSVRGResult`` carried across compiles to the port's
+    linear artifact and scores the same predictions."""
+    from repro.core import dsvrg as jd
+    from repro.core import odm as jodm
+    rng = np.random.default_rng(2)
+    x = rng.random((96, 6)).astype(np.float32)
+    y = np.sign((x - 0.5) @ rng.standard_normal(6)).astype(np.float32)
+    xt = rng.random((40, 6)).astype(np.float32)
+    jr = jd._solve(jnp.asarray(x), jnp.asarray(y), jodm.ODMParams(10.0),
+                   jd.DSVRGConfig(n_partitions=4, epochs=3, batch=8),
+                   jax.random.PRNGKey(0))
+    tr = interop.dsvrg_result_from_numpy(
+        np.asarray(jr.w), np.asarray(jr.history), np.asarray(jr.perm),
+        np.asarray(jr.eta), device="cpu")
+    assert tr.w.dtype == torch.float32 and tr.perm.dtype == torch.int64
+    assert float(tr.eta) == float(jr.eta)
+    np.testing.assert_array_equal(tr.history.numpy(), np.asarray(jr.history))
+    jm, tm = jmodel.from_dsvrg(jr), tmodel.from_dsvrg(tr)
+    assert tm.compression == jm.compression == "linear"
+    assert tm.n_train == jm.n_train == 96
+    want = np.asarray(jm.decision_function(jnp.asarray(xt)))
+    got = tm.decision_function(xt).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    np.testing.assert_array_equal(tm.predict(xt).numpy(), np.sign(want))

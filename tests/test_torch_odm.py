@@ -134,3 +134,87 @@ def test_batched_solve_keeps_per_partition_sweeps():
                         alpha0=torch.tensor(alphas[k]), tol=1e-5)
         assert int(got.sweeps[k]) == int(one.sweeps)
         torch.testing.assert_close(got.alpha[k], one.alpha)
+
+
+# ---------------------------------------------------------------------------
+# primal half (linear kernel)
+# ---------------------------------------------------------------------------
+
+def _primal(seed=0, M=40, d=6, pad=0):
+    """Margins spread across both hinge edges; ``pad`` zero rows with
+    y = 0 and weight 0 at the end."""
+    rng = np.random.default_rng(seed)
+    x = (rng.standard_normal((M, d)) / np.sqrt(d)).astype(np.float32)
+    y = np.sign(rng.standard_normal(M)).astype(np.float32)
+    w = (2.0 * rng.standard_normal(d)).astype(np.float32)
+    wts = np.ones(M, np.float32)
+    if pad:
+        x[-pad:], y[-pad:], wts[-pad:] = 0.0, 0.0, 0.0
+    return x, y, w, wts
+
+
+@pytest.mark.parametrize("lam,theta,ups", PARAMS)
+def test_primal_objective_and_grads(lam, theta, ups):
+    x, y, w, wts = _primal(pad=7)
+    jp, tp = jodm.ODMParams(lam, theta, ups), todm.ODMParams(lam, theta, ups)
+    J, T = jnp.asarray, torch.tensor
+    _close(todm.margins(T(w), T(x), T(y)), jodm.margins(J(w), J(x), J(y)))
+    for kw in (dict(), dict(weights=wts, total=33)):
+        tkw = {k: T(v) if isinstance(v, np.ndarray) else v
+               for k, v in kw.items()}
+        jkw = {k: J(v) if isinstance(v, np.ndarray) else v
+               for k, v in kw.items()}
+        _close(todm.primal_objective(T(w), T(x), T(y), tp, **tkw),
+               jodm.primal_objective(J(w), J(x), J(y), jp, **jkw))
+    for total in (None, 33):
+        _close(todm.primal_grad(T(w), T(x), T(y), tp, total=total),
+               jodm.primal_grad(J(w), J(x), J(y), jp, total=total))
+    _close(todm.per_instance_grad(T(w), T(x[3]), T(y[3]), tp, 40),
+           jodm.per_instance_grad(J(w), J(x[3]), J(y[3]), jp, 40))
+    _close(todm.minibatch_grad(T(w), T(x[:16]), T(y[:16]), tp, 40),
+           jodm.minibatch_grad(J(w), J(x[:16]), J(y[:16]), jp, 40))
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_svrg_direction_matches_reference(masked):
+    x, y, w, wts = _primal(1, M=24, pad=5 if masked else 0)
+    a = np.random.default_rng(2).standard_normal(6).astype(np.float32)
+    h = np.random.default_rng(3).standard_normal(6).astype(np.float32)
+    jp, tp = jodm.ODMParams(50.0), todm.ODMParams(50.0)
+    wb = wts if masked else None
+    got = todm.svrg_direction(*map(torch.tensor, (w, a, h, x, y)), tp,
+                              wb=None if wb is None else torch.tensor(wb))
+    want = jodm.svrg_direction(*map(jnp.asarray, (w, a, h, x, y)), jp,
+                               wb=None if wb is None else jnp.asarray(wb))
+    _close(got, want)
+
+
+def test_svrg_direction_batches_over_chains():
+    """A leading chain axis (the parallel schedule's) equals one chain at
+    a time."""
+    rng = np.random.default_rng(4)
+    xs = torch.tensor(rng.standard_normal((3, 12, 5)), dtype=torch.float32)
+    ys = torch.tensor(np.sign(rng.standard_normal((3, 12))),
+                      dtype=torch.float32)
+    ws = torch.tensor(rng.standard_normal((3, 5)), dtype=torch.float32)
+    a, h = torch.randn(5), torch.randn(5)
+    wb = (torch.arange(12) < 9).float()
+    tp = todm.ODMParams(20.0)
+    got = todm.svrg_direction(ws, a, h, xs, ys, tp, wb=wb)
+    for c in range(3):
+        torch.testing.assert_close(
+            got[c], todm.svrg_direction(ws[c], a, h, xs[c], ys[c], tp,
+                                        wb=wb), rtol=1e-6, atol=1e-6)
+
+
+def test_primal_dual_bridges():
+    x, y, w, _ = _primal(5)
+    jp, tp = jodm.ODMParams(30.0, 0.2, 0.6), todm.ODMParams(30.0, 0.2, 0.6)
+    J, T = jnp.asarray, torch.tensor
+    alpha = todm.alpha_from_w(T(w), T(x), T(y), tp)
+    _close(alpha, jodm.alpha_from_w(J(w), J(x), J(y), jp))
+    _close(todm.w_from_alpha(T(x), T(y), alpha),
+           jodm.w_from_alpha(J(x), J(y), J(alpha.numpy())))
+    # grad p(w) = w − w_from_alpha(alpha_from_w(w)): the route's KKT
+    _close(T(w) - todm.w_from_alpha(T(x), T(y), alpha),
+           todm.primal_grad(T(w), T(x), T(y), tp))

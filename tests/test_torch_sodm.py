@@ -123,9 +123,9 @@ def test_unported_seams_raise():
                      tsodm.SODMConfig(levels=1), 0, faults=object())
     with pytest.raises(NotImplementedError, match="A13"):
         tsodm._solve_sharded(KernelSpec(), X, Y)
-    with pytest.raises(NotImplementedError, match="A9"):
+    with pytest.raises(NotImplementedError, match="A12"):
         tsodm._solve(KernelSpec("linear"), X, Y, ODMParams(),
-                     tsodm.SODMConfig(engine="dsvrg"), 0)
+                     tsodm.SODMConfig(engine="dsvrg"), 0, faults=object())
     with pytest.raises(NotImplementedError, match="A10"):
         tsodm._solve(KernelSpec(), X, Y, ODMParams(),
                      tsodm.SODMConfig(partition_strategy="cluster"), 0)
