@@ -41,6 +41,32 @@ Phases (any failed check exits nonzero):
    epochs, batch 16) on the card against the CPU, once per schedule:
    ||dw||/||w|| <= 1e-2 and prediction agreement >= 0.99, the band
    documented for DSVRG across reduction orders.
+2c. (after phase 7) B8 (gram) against its plain version at phishing's
+   full signed Q (8,832 x 8,832 x 68), at a cascade level (K=8 nodes of
+   1,104) and for the four kernel families at a ragged 1,000 x 777 x 68,
+   within 1e-5 x max(1, max|out|), with gram(x, x) symmetric bit for bit
+   (torch.equal); K4 (the exact dual CD solve) at the cascade's level 3
+   (K=8, m=1,104, cold) and at (K=1, m=2,208, warm): the same sweeps per
+   partition and alpha equal bit for bit. Device times beside the bound
+   and, for B8, the exp(-gamma cdist^2) * y y^T yardstick.
+8. Table 2's rivals at full size: the cascade on phishing (CFG_CASCADE:
+   levels=3, max_sweeps=100), then save, load and rescore (the scores
+   must equal the in-memory model's); dip and dc on ijcnn1 with the
+   pallas engine. The cascade must launch B8 and K4 once per level (4
+   each) and the scorer once; dip and dc K1, K2 and the scorer, never
+   B8 or K4. The cascade is not held to chance: at lam=100 its levels
+   stop at the sweep cap and it scores below the majority rate, as the
+   reference does on the same inputs.
+9. Table 3's gradient rivals at full size: svrg and csvrg on a7a (26,048
+   rows, d=123, DSVRGConfig() defaults): exactly 10 x 26,048 B6 and 10 B7
+   launches per route.
+10. The rivals on the card against the CPU: cascade, dip and dc on the
+   scalar engine (B8 + K4) at phishing scale 0.045 (alpha within 1e-4,
+   decision values within 1e-3, the same survivors or partitions); svrg
+   and csvrg on a7a at scale 0.05 (the DSVRG band); Theorems 1 (256
+   rows) and 2 (1,000 rows) with the same `holds`; offdiag_mass at full
+   phishing for stratified, random and cluster partitions.
+Each phase prints its wall time.
 
 The kernels line reports, per kernel: its time, its plain version's and
 the yardstick's, the least time the card could take (bound_ms: the larger
@@ -48,16 +74,19 @@ of bytes moved over 3.35 TB/s and fp32 operations over 67 TFLOP/s, the
 published H100 SXM peaks at 700 W; the text lines also give it scaled to
 the card's printed power limit), and its launches: on the ijcnn1 path
 for the kernels that path runs, on the phishing path for K3 (which runs
-on phishing's dense levels only), on the SUSY path for B6 and B7;
-``launches_by_path`` gives all three. The last line is the result.
+on phishing's dense levels only), on the SUSY path for B6 and B7, on the
+cascade path for B8 and K4; ``launches_by_path`` gives every path. The
+last line is the result.
 """
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -70,8 +99,25 @@ def fail(msg: str) -> None:
     sys.exit(1)
 
 
+_PHASE = {"name": None, "t0": 0.0}
+
+
 def say(*args) -> None:
-    print(*args, flush=True)
+    """Print a line; a line opening a phase first prints the wall time of
+    the phase before it."""
+    text = " ".join(str(a) for a in args)
+    if text.startswith("== phase"):
+        end_phase()
+        _PHASE["name"] = text[9:].split(":")[0]
+        _PHASE["t0"] = time.perf_counter()
+    print(text, flush=True)
+
+
+def end_phase() -> None:
+    if _PHASE["name"] is not None:
+        print(f"   phase {_PHASE['name']} wall time: "
+              f"{time.perf_counter() - _PHASE['t0']:.1f} s", flush=True)
+    _PHASE["name"] = None
 
 
 def card_line() -> str:
@@ -172,7 +218,10 @@ def main() -> None:
     sys.path.insert(0, os.path.join(ROOT, "src"))
     try:
         from repro_torch.api import ODMEstimator, ProblemSpec
+        from repro_torch.core import dual_cd
         from repro_torch.core import kernel_fns as kf
+        from repro_torch.core import partition as part_mod
+        from repro_torch.core import theory
         from repro_torch.core.dsvrg import DSVRGConfig
         from repro_torch.core.odm import ODMParams
         from repro_torch.core.sodm import SODMConfig
@@ -336,14 +385,24 @@ def main() -> None:
                 "score_tiles": score_mod.score_tiles,
                 "dense_matvec": cdk.dense_matvec,
                 "odm_svrg_grad": og.odm_svrg_grad,
-                "odm_grad": og.odm_grad}
+                "odm_grad": og.odm_grad,
+                "gram": gram_mod.gram,
+                "cd_exact": dual_cd.solve}
     alg1 = ("cd_block_sweep", "gram_matvec", "score_tiles", "dense_matvec")
     alg2 = ("odm_svrg_grad", "odm_grad")
+    exact = ("gram", "cd_exact")
+    mfree = ("cd_block_sweep", "gram_matvec", "score_tiles")
     # the kernels each path must launch, and those it must not
-    expect = {"phishing": (alg1, alg2),
-              "ijcnn1": (("cd_block_sweep", "gram_matvec", "score_tiles"),
-                         ("dense_matvec",) + alg2),
-              "SUSY": (alg2, alg1)}
+    expect = {"phishing": (alg1, alg2 + exact),
+              "ijcnn1": (mfree, ("dense_matvec",) + alg2 + exact),
+              "SUSY": (alg2, alg1 + exact),
+              "cascade": (exact + ("score_tiles",),
+                          ("cd_block_sweep", "gram_matvec", "dense_matvec")
+                          + alg2),
+              "dip": (mfree, ("dense_matvec",) + alg2 + exact),
+              "dc": (mfree, ("dense_matvec",) + alg2 + exact),
+              "svrg": (alg2, alg1 + exact),
+              "csvrg": (alg2, alg1 + exact)}
     fits, path_launches = {}, {}
     for phase, ds, gamma in ((3, phishing, g_phish), (4, ijcnn1, g_ijc)):
         say(f"== phase {phase}: fit {ds.name} M={ds.x_train.shape[0]} "
@@ -662,7 +721,313 @@ def main() -> None:
             fail(f"the card's DSVRG fit ({schedule}) disagrees with the "
                  f"CPU's")
 
-    # -- report ----------------------------------------------------------------
+    # -- 2c. B8 and K4 against their plain versions ---------------------------
+    say("== phase 2c: B8 (gram) / K4 (exact dual CD) vs plain versions on "
+        "the card")
+    xph = phishing.x_train.to(dev).contiguous()
+    yph = phishing.y_train.to(dev).contiguous()
+    Mp, Dp = xph.shape
+    kcas, mcas = 8, Mp // 8
+
+    def yard_b8(x, y, gamma):
+        """The yardstick: exp(-gamma cdist^2) * y y^T in PyTorch calls."""
+        k = torch.exp(-gamma * torch.cdist(x, x).square())
+        return (y[..., :, None] * y[..., None, :]) * k
+
+    def gram_case(label, x, z, yx, yz, kw, reps, yard=None):
+        """B8 against its plain version; returns the stats of the case."""
+        same = z is x
+        xx = gram_mod.row_norms(x) if kw["kind"] == "rbf" else None
+        zz = xx if same else (gram_mod.row_norms(z) if xx is not None
+                              else None)
+        got = gram_mod.launch_gram(x, z, yx, yz, xx=xx, zz=zz, **kw)
+        want = gram_mod.gram_plain(x, z, yx, yz, **kw)
+        err = float((got - want).abs().max())
+        scale = max(1.0, float(want.abs().max()))
+        if not err <= 1e-5 * scale:
+            fail(f"gram {label} disagrees with its plain version: "
+                 f"max_abs_err {err} > 1e-5 x {scale}")
+        if same and not torch.equal(got, got.mT):
+            fail(f"gram {label}: gram(x, x) is not symmetric bit for bit")
+        ms = time_ms(lambda: gram_mod.launch_gram(x, z, yx, yz, xx=xx,
+                                                  zz=zz, **kw), reps)
+        plain_ms = time_ms(lambda: gram_mod.gram_plain(x, z, yx, yz, **kw),
+                           2)
+        lib_ms = None if yard is None else time_ms(yard, reps)
+        K_, M_, D_ = x.shape
+        N_ = z.shape[1]
+        labels = 0 if yx is None else K_ * (M_ + N_)
+        b_ms, b_by = bound(4 * (K_ * (M_ + N_) * D_ + labels + K_ * M_ * N_),
+                           2 * K_ * M_ * N_ * (D_ + 1))
+        say(f"B8 gram {label}: max_abs_err={err:.3e} (max |out| "
+            f"{scale:.3e})" + (" symmetric bit for bit" if same else "")
+            + f" ms={ms:.3f} plain_ms={plain_ms:.3f}"
+            + ("" if lib_ms is None else f" library_ms={lib_ms:.3f}")
+            + " " + bound_text(b_ms, b_by, derate))
+        return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by), got
+
+    rbf_kw = dict(kind="rbf", gamma=g_phish, degree=3, coef0=1.0)
+    x1, y1 = xph[None], yph[None]
+    gram_case(f"phishing full Q K=1 M=N={Mp} D={Dp} rbf signed", x1, x1, y1,
+              y1, rbf_kw, 5, lambda: yard_b8(xph, yph, g_phish))
+    del x1, y1
+    xc = xph[:kcas * mcas].reshape(kcas, mcas, Dp).contiguous()
+    yc = yph[:kcas * mcas].reshape(kcas, mcas).contiguous()
+    stats["gram"], Qc = gram_case(
+        f"cascade level K={kcas} M=N={mcas} D={Dp} rbf signed", xc, xc, yc,
+        yc, rbf_kw, 10, lambda: yard_b8(xc, yc, g_phish))
+    for kind, gamma in (("rbf", g_phish), ("laplacian", g_phish / 4),
+                        ("poly", 1.0 / Dp), ("linear", 1.0)):
+        xr, zr = xph[None, :1000], xph[None, -777:]
+        gram_case(f"ragged 1000x777x{Dp} {kind}", xr, zr, None, None,
+                  dict(kind=kind, gamma=gamma, degree=3, coef0=1.0), 10)
+
+    def cd_case(label, Q, a0, m):
+        """K4 against its plain version: the same sweeps per partition and
+        alpha equal bit for bit."""
+        kw = dict(mscale=float(m), alpha0=a0, tol=cfg_cas.tol,
+                  max_sweeps=cfg_cas.max_sweeps)
+        got = dual_cd.launch_solve(Q, params, **kw)
+        torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        want = dual_cd.solve_plain(Q, params, **kw)
+        end.record()
+        torch.cuda.synchronize()
+        plain_ms = start.elapsed_time(end)
+        if not torch.equal(got.sweeps, want.sweeps):
+            fail(f"cd_exact {label}: sweeps {got.sweeps.tolist()} against "
+                 f"the plain version's {want.sweeps.tolist()}")
+        err = float((got.alpha - want.alpha).abs().max())
+        exact = torch.equal(got.alpha, want.alpha) and torch.equal(got.u,
+                                                                   want.u)
+        amax = float(want.alpha.abs().max())
+        if not exact and not err <= 1e-6 * amax:
+            fail(f"cd_exact {label}: alpha differs by {err} > 1e-6 x {amax}")
+        ms = time_ms(lambda: dual_cd.launch_solve(Q, params, **kw), 3)
+        K_ = Q.shape[0]
+        sw = got.sweeps.to(torch.int64)
+        b_ms, b_by = bound(4 * (K_ * m * m + 5 * K_ * m + 2 * K_),
+                           float(torch.sum(sw)) * 2 * m * (2 * m + 10))
+        say(f"K4 cd_exact {label}: sweeps={got.sweeps.tolist()} "
+            f"kkt_max={float(got.kkt.max()):.3e} "
+            + ("alpha, u equal bit for bit" if exact else
+               f"max_abs_err={err:.3e} (not bit for bit)")
+            + f" ms={ms:.3f} plain_ms={plain_ms:.1f} "
+            + bound_text(b_ms, b_by, derate))
+        return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    library_ms=None, bound_ms=b_ms, bound_by=b_by), got
+
+    cfg_cas = dataclasses.replace(cfg, max_sweeps=100, engine=None)
+    stats["cd_exact"], res3 = cd_case(
+        f"cascade level 3 K={kcas} m={mcas} cold", Qc, None, mcas)
+    # a merged node's warm start: partitions 0 and 1 of that level
+    a_warm = torch.cat([res3.alpha[:2, :mcas].reshape(1, -1),
+                        res3.alpha[:2, mcas:].reshape(1, -1)], dim=1)
+    x2 = xph[None, :2 * mcas].contiguous()
+    y2 = yph[None, :2 * mcas].contiguous()
+    Q2 = gram_mod.gram(x2, None, y2, **rbf_kw)
+    cd_case(f"K=1 m={2 * mcas} warm", Q2, a_warm.contiguous(), 2 * mcas)
+    del Qc, Q2, res3, xc, yc, x2, y2
+
+    # -- 8. Table 2's rivals at full size -------------------------------------
+    def fit_path(name, ds, problem, route, cfg_r, chance_check=True):
+        """Counts from 0 -> fit -> score, the checks every path shares.
+        ``chance_check=False`` skips the better-than-chance check for a
+        route whose reference falls below it on these inputs."""
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        est = ODMEstimator(problem, route=route, cfg=cfg_r)
+        log = LevelLog()
+        t0 = time.perf_counter()
+        model, report = est.fit(ds.x_train, ds.y_train, 0, tracker=log)
+        fit_s = time.perf_counter() - t0
+        for row in log.rows:
+            capped = row["sweeps"] >= cfg_r.max_sweeps
+            say(f"  level {row['level']} K={row['K']} m={row['m']}: "
+                f"passes={row['sweeps']} kkt={row['kkt']:.3e} "
+                f"seconds={row['wall_s']:.3f}"
+                + (" (hit max_sweeps)" if capped else ""))
+            if not (row["kkt"] <= cfg_r.tol or capped):
+                fail(f"{name} level {row['level']} stopped at kkt "
+                     f"{row['kkt']} > tol without reaching max_sweeps")
+        t0 = time.perf_counter()
+        f = est.decision_function(ds.x_test)
+        torch.cuda.synchronize()
+        score_s = time.perf_counter() - t0
+        launches = {n: fn.launches for n, fn in counters.items()}
+        path_launches[name] = launches
+        if f.shape != (ds.x_test.shape[0],) or not bool(
+                torch.isfinite(f).all()):
+            fail(f"{name} decision values malformed: {tuple(f.shape)}")
+        acc = float((torch.sign(f).cpu() == ds.y_test).float().mean())
+        major = float(max((ds.y_test > 0).float().mean(),
+                          (ds.y_test < 0).float().mean()))
+        say(f"  route={report.route} engine={report.engine} "
+            f"passes={list(report.passes)} fit_s={fit_s:.2f} "
+            f"n_sv={report.n_sv} test_acc={acc:.4f} (majority {major:.4f}) "
+            f"score_s={score_s:.4f} max_memory_allocated="
+            f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        say(f"  launches on the {name} path: {launches}")
+        ran, idle = expect[name]
+        for n in ran:
+            if launches[n] <= 0:
+                fail(f"kernel {n} never launched on the {name} path")
+        for n in idle:
+            if launches[n] != 0:
+                fail(f"kernel {n} launched on the {name} path")
+        if chance_check and not acc > 0.5:
+            fail(f"{name} test accuracy {acc} is no better than chance")
+        return est, report, f, fit_s
+
+    say(f"== phase 8: Table 2's rivals: cascade on phishing M={Mp}, dip "
+        f"and dc on ijcnn1 M={ijcnn1.x_train.shape[0]} (pallas)")
+    problem_ph = ProblemSpec(kernel=kf.KernelSpec("rbf", g_phish),
+                             params=params)
+    # the cascade at lam = 100 stops its levels at the 100-sweep cap far
+    # from tol and funnels on those duals: below the majority rate, as the
+    # reference's cascade is on the same inputs (its correctness is held
+    # by the CPU parity tests and by phase 10, not by a threshold)
+    say("  cascade (CFG_CASCADE: levels=3, max_sweeps=100)")
+    est, report, f, _ = fit_path("cascade", phishing, problem_ph, "cascade",
+                                 cfg_cas, chance_check=False)
+    launches = path_launches["cascade"]
+    n_lvl = cfg_cas.levels + 1
+    if (launches["gram"], launches["cd_exact"],
+            launches["score_tiles"]) != (n_lvl, n_lvl, 1):
+        fail(f"cascade launched B8 {launches['gram']}, K4 "
+             f"{launches['cd_exact']} and the scorer "
+             f"{launches['score_tiles']} times, not {n_lvl}, {n_lvl}, 1")
+    with tempfile.TemporaryDirectory() as tmp:
+        est.save(tmp)
+        loaded = ODMEstimator.load(tmp)
+        f_loaded = loaded.decision_function(phishing.x_test)
+    if not torch.equal(f_loaded, f):
+        fail("the loaded cascade artifact scores differently")
+    say(f"  saved, loaded and rescored: {f.shape[0]} scores equal bit for "
+        f"bit (n_sv={loaded.model_.n_sv})")
+    problem_ij = ProblemSpec(kernel=kf.KernelSpec("rbf", g_ijc),
+                             params=params)
+    for route in ("dip", "dc"):
+        say(f"  {route} (engine=pallas, max_sweeps=200)")
+        fit_path(route, ijcnn1, problem_ij, route, cfg)
+
+    # -- 9. Table 3's gradient rivals at full size ----------------------------
+    a7a = synthetic.load("a7a")
+    Ma, Da = a7a.x_train.shape
+    cfg9 = SODMConfig(dsvrg=DSVRGConfig())
+    d9 = cfg9.dsvrg
+    steps9 = d9.epochs * (Ma // d9.batch)
+    say(f"== phase 9: Table 3's rivals on a7a M={Ma} d={Da} linear "
+        f"(DSVRGConfig() defaults: batch {d9.batch}, {d9.epochs} epochs)")
+    problem_a = ProblemSpec(kernel=kf.KernelSpec("linear"), params=params)
+    for route in ("svrg", "csvrg"):
+        say(f"  {route}")
+        _, report, _, fit_s = fit_path(route, a7a, problem_a, route, cfg9)
+        launches = path_launches[route]
+        say(f"  eta={report.eta:.6g} us_per_inner_step="
+            f"{fit_s / steps9 * 1e6:.2f} history="
+            f"{[round(h, 6) for h in report.history]}")
+        if (launches["odm_svrg_grad"], launches["odm_grad"]) != (
+                steps9, d9.epochs):
+            fail(f"{route} launched B6 {launches['odm_svrg_grad']} and B7 "
+                 f"{launches['odm_grad']} times, not {steps9} and "
+                 f"{d9.epochs}")
+        if len(report.history) != d9.epochs or not all(
+                math.isfinite(h) for h in report.history):
+            fail(f"{route} history malformed: {report.history}")
+
+    # -- 10. the rivals on the card against the CPU ---------------------------
+    small = synthetic.load("phishing", scale=0.045)
+    g_small = kf.median_gamma(small.x_train)
+    say(f"== phase 10: card vs CPU: cascade, dip, dc on phishing scale "
+        f"0.045 M={small.x_train.shape[0]} (scalar engine: B8 + K4)")
+    problem10 = ProblemSpec(kernel=kf.KernelSpec("rbf", g_small),
+                            params=params)
+    for route in ("cascade", "dip", "dc"):
+        out = {}
+        for where in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            est = ODMEstimator(problem10, route=route, cfg=cfg_cas,
+                               device=where)
+            _, rep = est.fit(small.x_train, small.y_train, 0)
+            raw = rep.raw
+            layout = raw.x_sv if route == "cascade" else raw.perm
+            out[where] = (raw.alpha.cpu(), layout.cpu(),
+                          est.decision_function(small.x_test).cpu())
+            say(f"  {route} {where}: passes={list(rep.passes)} "
+                f"seconds={time.perf_counter() - t0:.2f}")
+        if not torch.equal(out["cuda"][1], out["cpu"][1]):
+            fail(f"{route}: the card and the CPU chose different "
+                 f"{'survivors' if route == 'cascade' else 'partitions'}")
+        d_alpha = float((out["cuda"][0] - out["cpu"][0]).abs().max())
+        d_f = float((out["cuda"][2] - out["cpu"][2]).abs().max())
+        say(f"  {route}: max|alpha_card - alpha_cpu|={d_alpha:.3e} "
+            f"max|f_card - f_cpu|={d_f:.3e}")
+        if not (d_alpha <= 1e-4 and d_f <= 1e-3):
+            fail(f"{route}: the card's fit disagrees with the CPU's")
+    small_a = synthetic.load("a7a", scale=0.05)
+    say(f"  svrg, csvrg on a7a scale 0.05 M={small_a.x_train.shape[0]}")
+    for route in ("svrg", "csvrg"):
+        out = {}
+        for where in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            est = ODMEstimator(problem_a, route=route, cfg=cfg9,
+                               device=where)
+            mdl, rep = est.fit(small_a.x_train, small_a.y_train, 0)
+            out[where] = (mdl.w.cpu(), est.predict(small_a.x_test).cpu())
+            say(f"  {route} {where}: history="
+                f"{[round(h, 6) for h in rep.history]} "
+                f"seconds={time.perf_counter() - t0:.2f}")
+        wg, wc = out["cuda"][0], out["cpu"][0]
+        rel = float((wg - wc).norm() / wc.norm())
+        agree = float((out["cuda"][1] == out["cpu"][1]).float().mean())
+        say(f"  {route}: ||w_card - w_cpu|| / ||w_cpu|| = {rel:.3e}, "
+            f"prediction agreement {agree:.4f}")
+        if not (rel <= 1e-2 and agree >= 0.99):
+            fail(f"the card's {route} fit disagrees with the CPU's")
+    # Theorem 2 on 1,000 rows; Theorem 1 on 256, because its block-
+    # diagonal solve runs to the 2,000-sweep cap, minutes of the CPU's
+    # plain loop at 1,000 rows
+    eighth = synthetic.load("phishing", scale=0.125)
+    xt_, yt_ = eighth.x_train[:1000], eighth.y_train[:1000]
+    spec_t = kf.KernelSpec("rbf", kf.median_gamma(xt_))
+    p_t = ODMParams(lam=1.0, theta=0.1, ups=0.5)
+    say(f"  Theorem 1 on M=256, Theorem 2 on M={xt_.shape[0]}; K=4, lam=1")
+    holds = {}
+    for where in ("cuda", "cpu"):
+        t0 = time.perf_counter()
+        xw, yw = xt_.to(where), yt_.to(where)
+        e1 = theory.eval_theorem1(spec_t, xw[:256], yw[:256], p_t, 4)
+        plan = part_mod.make_plan(spec_t, xw, 4, 4, 0)
+        e2 = theory.eval_theorem2(spec_t, xw, yw, p_t, plan.stratum, 4,
+                                  plan.perm)
+        holds[where] = (bool(e1.holds), bool(e2.holds))
+        say(f"  {where}: theorem 1 gap={float(e1.gap_objective):.6g} "
+            f"bound={float(e1.bound_objective):.6g} holds={bool(e1.holds)}; "
+            f"theorem 2 gap={float(e2.gap):.6g} bound={float(e2.bound):.6g} "
+            f"holds={bool(e2.holds)} seconds={time.perf_counter() - t0:.2f}")
+    if holds["cuda"] != holds["cpu"]:
+        fail(f"the theorem checks differ: card {holds['cuda']}, CPU "
+             f"{holds['cpu']}")
+    spec_ph = kf.KernelSpec("rbf", g_phish)
+    perms = {"stratified": part_mod.make_plan(spec_ph, xph, 8, 8, 0).perm,
+             "random": part_mod.random_partitions(Mp, 8, 0, device=dev),
+             "cluster": part_mod.cluster_partitions(spec_ph, xph, 8, 0)}
+    for name, perm in perms.items():
+        t0 = time.perf_counter()
+        mass = float(part_mod.offdiag_mass(spec_ph, xph, yph, perm, 8))
+        say(f"  offdiag_mass phishing M={Mp} K=8 {name}: {mass:.6g} "
+            f"(seconds={time.perf_counter() - t0:.3f})")
+        if not math.isfinite(mass):
+            fail(f"offdiag_mass {name} is not finite")
+    del xph, yph
+
+    # -- report ---------------------------------------------------------------
+    end_phase()
     meta = {
         "cd_block_sweep": ("src/repro_torch/kernels/csrc/cd_sweep.cu",
                            "src/repro/kernels/dual_cd_block.py:120"),
@@ -676,6 +1041,11 @@ def main() -> None:
                           "src/repro/kernels/odm_grad.py:132"),
         "odm_grad": ("src/repro_torch/kernels/csrc/odm_grad.cu",
                      "src/repro/kernels/odm_grad.py:79"),
+        "gram": ("src/repro_torch/kernels/csrc/gram.cu",
+                 "src/repro/kernels/gram.py:166"),
+        "cd_exact": ("src/repro_torch/kernels/csrc/cd_exact.cu",
+                     "no TPU kernel: src/repro/core/dual_cd.py:81 (solve, "
+                     "a jitted while_loop)"),
     }
     kernels = []
     for name, (source, replaces) in meta.items():
@@ -683,7 +1053,7 @@ def main() -> None:
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):
             if not math.isfinite(s[key]):
                 fail(f"{name}: {key} is not finite")
-        path = next(p for p in ("ijcnn1", "phishing", "SUSY")
+        path = next(p for p in ("ijcnn1", "phishing", "SUSY", "cascade")
                     if name in expect[p][0])
         kernels.append({
             "name": name, "route": "cuda", "source": source,

@@ -1,19 +1,21 @@
 """``ODMEstimator`` — the one front door for training and serving ODMs.
 
-Port of ``repro.api.estimator`` for the ``sodm`` and ``dsvrg`` routes:
+Port of ``repro.api.estimator``, for every route of the registry:
 
     est = ODMEstimator(ProblemSpec.create("rbf", gamma=0.5, lam=100.0),
                        cfg=SODMConfig(engine="pallas"))
     model, report = est.fit(x, y, 0)      # runs on the card
     est.predict(x_test)
+    est.save("model_dir"); ODMEstimator.load("model_dir")
 
 ``device=None`` means the card; with no CUDA device the constructor
 raises and says to pass ``device="cpu"``, which runs every kernel's plain
 PyTorch version. ``fit`` validates the data once, resolves the route,
 runs it and returns a deployable :class:`FittedODM` plus a
-:class:`FitReport`. ``resume``/``faults`` (ROADMAP A12), ``profile_dir``
-(A15), streaming sources (A14) and ``save``/``load`` (A7) are not ported
-yet and raise.
+:class:`FitReport`. ``save``/``load`` persist the artifact in the
+reference's checkpoint layout, so either package loads the other's.
+``resume``/``faults`` (ROADMAP A12), ``profile_dir`` (A15) and streaming
+sources (A14) are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -139,5 +141,23 @@ class ODMEstimator:
         y = torch.as_tensor(y, dtype=pred.dtype, device=pred.device)
         return float(odm_mod.accuracy(y, pred))
 
+    # -- persistence --------------------------------------------------------
+
     def save(self, directory: str) -> str:
+        """Persist the fitted artifact (atomic versioned checkpoint, the
+        reference's layout)."""
         return self._fitted().save(directory)
+
+    @classmethod
+    def load(cls, directory: str, *, problem: ProblemSpec | None = None,
+             device: str | torch.device | None = None) -> "ODMEstimator":
+        """Restore an estimator that scores at once (no refit), from an
+        artifact either package saved, onto ``device`` (None: the card).
+        The artifact stores the kernel spec, not the training
+        hyperparameters: pass ``problem`` to set them for a later refit."""
+        dev = resolve_device(device)
+        model = serve_model.load_model(directory, device=dev)
+        est = cls(problem if problem is not None
+                  else ProblemSpec(kernel=model.spec), device=dev)
+        est.model_ = model
+        return est

@@ -11,25 +11,23 @@ rule for rule:
   engine sends linear-kernel problems with M >= ``dsvrg_threshold`` to
   ``dsvrg``; streaming fits go to ``dsvrg`` (linear) or ``cascade``.
 
-Ported: ``sodm`` and ``dsvrg`` (resident data; streaming is ROADMAP A14).
-A route that resolves but is not ported yet raises
-``NotImplementedError`` naming its ROADMAP item.
+All seven routes of the reference are registered, with its capabilities:
+``sodm``, ``dsvrg`` and the Section-4 baselines ``cascade``, ``dip``,
+``dc``, ``svrg`` and ``csvrg``, on resident data. A streaming fit (a
+``ShardedSource``) is ROADMAP A14 and raises ``NotImplementedError``
+naming it.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, NamedTuple
 
+from repro_torch.core import baselines as baselines_mod
+from repro_torch.core import dsvrg as dsvrg_mod
 from repro_torch.core import sodm as sodm_mod
 from repro_torch.serve import model as serve_model
 
 DSVRG_AUTO_THRESHOLD = sodm_mod.SODMConfig.dsvrg_threshold
-
-#: routes of the reference not ported yet, with their ROADMAP item
-UNPORTED = {
-    "cascade": "A10", "dip": "A10", "dc": "A10", "svrg": "A10",
-    "csvrg": "A10",
-}
 
 _LINEAR = frozenset({"linear"})
 
@@ -99,13 +97,9 @@ def register(entry: SolverEntry) -> SolverEntry:
 
 
 def get(name: str) -> SolverEntry:
-    """Look a route up by name. A reference route not ported yet raises
-    ``NotImplementedError``; an unknown name raises ``ValueError``."""
+    """Look a route up by name; an unknown name raises ``ValueError``."""
     if name in _REGISTRY:
         return _REGISTRY[name]
-    if name in UNPORTED:
-        raise NotImplementedError(
-            f"route {name!r} is not ported yet (ROADMAP {UNPORTED[name]})")
     raise ValueError(f"unknown route {name!r}; registered routes: "
                      f"{routes()}")
 
@@ -202,6 +196,78 @@ def _fit_dsvrg(problem, x, y, key, *, cfg, compile_kw,
                        history=tuple(float(h) for h in dres.history))
 
 
+def _fit_cascade(problem, x, y, key, *, cfg, compile_kw,
+                 fit_kw) -> RouteOutput:
+    if y is None:
+        raise NotImplementedError(
+            "the streaming cascade is not ported yet (ROADMAP A14)")
+    res = baselines_mod._cascade_solve(problem.kernel, x, y, problem.params,
+                                       levels=cfg.levels, key=key,
+                                       tol=cfg.tol,
+                                       max_sweeps=cfg.max_sweeps,
+                                       tracker=fit_kw.get("tracker"))
+    model = serve_model.from_cascade(problem.kernel, res, **compile_kw)
+    return RouteOutput(model=model, raw=res, engine="scalar",
+                       passes=(res.levels_run,))
+
+
+def _fit_dip(problem, x, y, key, *, cfg, compile_kw, fit_kw) -> RouteOutput:
+    cfg = _pin_level_engine(cfg, "dip")
+    res = baselines_mod._dip_solve(problem.kernel, x, y, problem.params,
+                                   cfg, key, tracker=fit_kw.get("tracker"))
+    model = serve_model.from_sodm(problem.kernel, res, x, y, **compile_kw)
+    return RouteOutput(model=model, raw=res, engine=cfg.engine,
+                       passes=tuple(res.sweeps_per_level),
+                       kkt=float(res.kkt))
+
+
+def _fit_dc(problem, x, y, key, *, cfg, compile_kw, fit_kw) -> RouteOutput:
+    cfg = _pin_level_engine(cfg, "dc")
+    res = baselines_mod._dc_solve(problem.kernel, x, y, problem.params,
+                                  cfg, key, tracker=fit_kw.get("tracker"))
+    model = serve_model.from_sodm(problem.kernel, res, x, y, **compile_kw)
+    return RouteOutput(model=model, raw=res, engine=cfg.engine,
+                       passes=tuple(res.sweeps_per_level),
+                       kkt=float(res.kkt))
+
+
+def _grad_eta(x, cfg, params) -> float:
+    d = cfg.dsvrg
+    return d.eta if d.eta > 0 else dsvrg_mod.auto_eta(x, params)
+
+
+def _grad_output(problem, x, res, name: str, epochs: int,
+                 eta: float) -> RouteOutput:
+    model = serve_model.FittedODM(spec=problem.kernel, w=res.w,
+                                  n_train=int(x.shape[0]),
+                                  compression="linear")
+    return RouteOutput(model=model, raw=res, engine=name, passes=(epochs,),
+                       eta=float(eta),
+                       history=tuple(float(h) for h in res.history))
+
+
+def _fit_svrg(problem, x, y, key, *, cfg, compile_kw,
+              fit_kw) -> RouteOutput:
+    del compile_kw, fit_kw
+    d = cfg.dsvrg
+    eta = _grad_eta(x, cfg, problem.params)
+    res = baselines_mod._svrg_solve(x, y, problem.params, epochs=d.epochs,
+                                    eta=eta, key=key, batch=d.batch)
+    return _grad_output(problem, x, res, "svrg", d.epochs, eta)
+
+
+def _fit_csvrg(problem, x, y, key, *, cfg, compile_kw,
+               fit_kw) -> RouteOutput:
+    del compile_kw, fit_kw
+    d = cfg.dsvrg
+    eta = _grad_eta(x, cfg, problem.params)
+    res = baselines_mod._csvrg_solve(x, y, problem.params, epochs=d.epochs,
+                                     eta=eta, key=key,
+                                     coreset_frac=d.coreset_frac,
+                                     batch=d.batch)
+    return _grad_output(problem, x, res, "csvrg", d.epochs, eta)
+
+
 register(SolverEntry(
     name="sodm", fit=_fit_sodm,
     algorithm="Alg. 1 (hierarchical partitioned dual CD)",
@@ -215,3 +281,31 @@ register(SolverEntry(
     scale_min=DSVRG_AUTO_THRESHOLD,
     description="primal round-robin SVRG; dual recovered via "
                 "odm.alpha_from_w; auto-selected for big linear problems"))
+register(SolverEntry(
+    name="cascade", fit=_fit_cascade,
+    algorithm="Ca-ODM (Graf et al. 2004 cascade)",
+    kernels=None, mesh_aware=False, matrix_free=False, streaming=True,
+    description="binary support-vector funnel; fast but lossy baseline; "
+                "the streaming form is ROADMAP A14"))
+register(SolverEntry(
+    name="dip", fit=_fit_dip,
+    algorithm="DiP-ODM (Singh et al. 2017)",
+    kernels=None, mesh_aware=False, matrix_free=False,
+    description="k-means strata dealt round-robin, then the SODM merge"))
+register(SolverEntry(
+    name="dc", fit=_fit_dc,
+    algorithm="DC-ODM (Hsieh et al. 2014)",
+    kernels=None, mesh_aware=False, matrix_free=False,
+    description="k-means clusters as partitions, then the SODM merge"))
+register(SolverEntry(
+    name="svrg", fit=_fit_svrg,
+    algorithm="single-chain SVRG (Johnson & Zhang 2013)",
+    kernels=_LINEAR, mesh_aware=False, matrix_free=False,
+    description="gradient baseline; eta <= 0 takes the auto smoothness "
+                "step"))
+register(SolverEntry(
+    name="csvrg", fit=_fit_csvrg,
+    algorithm="coreset SVRG (Tan et al. 2019)",
+    kernels=_LINEAR, mesh_aware=False, matrix_free=False,
+    description="anchor gradients on a k-center coreset "
+                "(DSVRGConfig.coreset_frac)"))

@@ -8,4 +8,6 @@
   engines     — level solvers (scalar | block | pallas)
   sodm        — Algorithm 1 (hierarchical merge, warm starts)
   dsvrg       — Algorithm 2 (linear kernel, primal SVRG)
+  baselines   — the Section-4 rivals: Ca-ODM, DiP-ODM, DC-ODM, SVRG, CSVRG
+  theory      — Theorem 1 / Theorem 2 evaluators
 """

@@ -4,7 +4,12 @@ Port of ``repro.core.dual_cd``. The univariate subproblem for coordinate i
 has the closed form ``alpha_i <- max(alpha_i - grad_i / H_ii, 0)``; the
 cache ``u = Q (zeta - beta)`` makes each update O(m).
 
-* :func:`solve` — exact Gauss-Seidel sweeps over the 2m coordinates.
+* :func:`solve` — exact Gauss-Seidel sweeps over the 2m coordinates. A
+  CPU ``Q`` runs the plain version :func:`solve_plain` (a Python loop over
+  the coordinates); a CUDA ``Q`` launches K4 (``csrc/cd_exact.cu``), which
+  runs the whole solve — sweeps and the KKT stop — in one launch with no
+  host read, in the plain version's arithmetic (counted in
+  ``solve.launches``).
 * :func:`solve_block` — exact CD within each tile, Jacobi across tiles,
   with an exact line search per pass: the plain oracle of the greedy tile
   kernels in :mod:`repro_torch.kernels.dual_cd_block`.
@@ -25,6 +30,8 @@ import torch
 from repro_torch.core.odm import (ODMParams, dual_grad_from_u,
                                   dual_objective, projected_violation,
                                   split_alpha)
+from repro_torch.kernels import _build
+from repro_torch.kernels._device import on_cpu
 
 Tensor = torch.Tensor
 
@@ -86,6 +93,21 @@ def _sweep(Q: Tensor, q_diag: Tensor, alpha: Tensor, u: Tensor,
         alpha[:, i] = new
 
 
+def _start(Q: Tensor, alpha0: Tensor | None,
+           u0: Tensor | None) -> tuple[Tensor, Tensor]:
+    """Fresh copies of the start: alpha (zeros by default) and its cache
+    u = Q (zeta - beta), computed here when not given."""
+    K, m, _ = Q.shape
+    alpha = (torch.zeros(K, 2 * m, dtype=Q.dtype, device=Q.device)
+             if alpha0 is None else alpha0.clone())
+    if u0 is None:
+        zeta, beta = split_alpha(alpha)
+        u = torch.einsum("kij,kj->ki", Q, zeta - beta)
+    else:
+        u = u0.clone()
+    return alpha, u
+
+
 def solve(Q: Tensor, params: ODMParams, mscale: float,
           alpha0: Tensor | None = None, tol: float = 1e-5,
           max_sweeps: int = 200, u0: Tensor | None = None) -> CDResult:
@@ -94,18 +116,69 @@ def solve(Q: Tensor, params: ODMParams, mscale: float,
     ``alpha0`` is the warm start (Algorithm 1 line 12); zeros by default.
     ``u0`` is the optional precomputed cache Q (zeta0 - beta0). The KKT of
     the warm start is evaluated first, so an already-optimal start runs
-    zero sweeps (Algorithm 1 line 5 reads this).
+    zero sweeps (Algorithm 1 line 5 reads this). Q (m, m) or a batch
+    (K, m, m). CPU tensors run :func:`solve_plain`; CUDA tensors launch K4
+    (:func:`launch_solve`, counted in ``solve.launches``).
     """
+    given = [t for t in (Q, alpha0, u0) if t is not None]
+    if on_cpu(*given):
+        return solve_plain(Q, params, mscale, alpha0=alpha0, tol=tol,
+                           max_sweeps=max_sweeps, u0=u0)
+    single, Qb, a0, ub = _batched(Q, alpha0, u0)
+    res = launch_solve(Qb, params, mscale, alpha0=a0, tol=tol,
+                       max_sweeps=max_sweeps, u0=ub)
+    solve.launches += 1
+    return _unbatch(single, res)
+
+
+solve.launches = 0
+
+
+def launch_solve(Q: Tensor, params: ODMParams, mscale: float,
+                 alpha0: Tensor | None = None, tol: float = 1e-5,
+                 max_sweeps: int = 200, u0: Tensor | None = None) -> CDResult:
+    """K4 on CUDA tensors: Q (K, m, m), alpha0 (K, 2m), u0 (K, m). The
+    start's cache is computed here as the plain version computes it, and
+    Q is handed over transposed so the kernel reads the reference's
+    column Q[:, row] as one contiguous row."""
+    K, m, _ = Q.shape
+    if Q.dtype != torch.float32 or Q.shape != (K, m, m) or m == 0:
+        raise ValueError(f"Q: expected a float32 (K, m, m) tensor with "
+                         f"m > 0, got {Q.dtype} {tuple(Q.shape)}")
+    alpha, u = _start(Q, alpha0, u0)
+    alpha, u = alpha.contiguous(), u.contiguous()
+    if alpha.shape != (K, 2 * m) or u.shape != (K, m):
+        raise ValueError(f"alpha0/u0: expected ({K}, {2 * m}) and "
+                         f"({K}, {m}), got {tuple(alpha.shape)} and "
+                         f"{tuple(u.shape)}")
+    qt = Q.transpose(-1, -2).contiguous()
+    qd = torch.diagonal(Q, dim1=-2, dim2=-1).contiguous()
+    sweeps = torch.empty(K, dtype=torch.int32, device=Q.device)
+    kkt = torch.empty(K, dtype=torch.float32, device=Q.device)
+    # the constants as the plain version forms them: double products,
+    # rounded to fp32 once (ctypes rounds to nearest)
+    cz = mscale * params.c * params.ups
+    cb = mscale * params.c
+    with torch.cuda.device(Q.device):
+        code = _build.library().cd_exact_f32(
+            _build.ptr(qt), _build.ptr(qd), _build.ptr(alpha),
+            _build.ptr(u), _build.ptr(sweeps), _build.ptr(kkt), K, m,
+            max_sweeps, _f32(tol), cz, cb, params.theta - 1.0,
+            params.theta + 1.0, _build.stream_handle(Q.device))
+    _build.check(code, "cd_exact")
+    return CDResult(alpha=alpha, u=u, sweeps=sweeps, kkt=kkt)
+
+
+def solve_plain(Q: Tensor, params: ODMParams, mscale: float,
+                alpha0: Tensor | None = None, tol: float = 1e-5,
+                max_sweeps: int = 200, u0: Tensor | None = None) -> CDResult:
+    """Plain version of K4: the reference's sweeps as a Python loop over
+    the coordinates, batched over partitions; a converged partition stops
+    moving while the others go on."""
     single, Q, alpha0, u0 = _batched(Q, alpha0, u0)
     K, m, _ = Q.shape
     q_diag = torch.diagonal(Q, dim1=-2, dim2=-1)
-    alpha = (torch.zeros(K, 2 * m, dtype=Q.dtype, device=Q.device)
-             if alpha0 is None else alpha0.clone())
-    if u0 is None:
-        zeta, beta = split_alpha(alpha)
-        u = torch.einsum("kij,kj->ki", Q, zeta - beta)
-    else:
-        u = u0.clone()
+    alpha, u = _start(Q, alpha0, u0)
     sweeps = torch.zeros(K, dtype=torch.int32, device=Q.device)
     kkt = kkt_from_u(u, alpha, params, mscale)
     tol32 = _f32(tol)

@@ -12,7 +12,9 @@ engines); a warm start already within tol reports 0, which Algorithm 1
 line 5's early stop reads. Every engine first rescales merged warm starts
 along the ray (:func:`repro_torch.core.odm.warm_start_scale`).
 
-* ``"scalar"`` — exact Gauss-Seidel CD per partition (the paper's).
+* ``"scalar"`` — exact Gauss-Seidel CD per partition (the paper's). On
+  the card the level's K signed Grams take one B8 launch (``ops.gram``)
+  and its K solves one K4 launch (``dual_cd.solve``).
 * ``"block"``  — block-Gauss-Seidel, the plain oracle of the tile path.
 * ``"pallas"`` — greedy block CD through the hand-written kernels
   (:mod:`repro_torch.kernels.dual_cd_block`; the name is kept from the
@@ -35,6 +37,7 @@ from repro_torch.core import odm
 from repro_torch.core.odm import ODMParams
 from repro_torch.kernels import dual_cd_block as cdk
 from repro_torch.kernels import gram as gram_mod
+from repro_torch.kernels import ops
 
 Tensor = torch.Tensor
 
@@ -67,7 +70,7 @@ def solve_level_scalar(xs: Tensor, ys: Tensor, alphas: Tensor, *,
                        spec: kf.KernelSpec, params: ODMParams, tol: float,
                        max_sweeps: int) -> tuple[Tensor, Tensor, Tensor]:
     m = xs.shape[1]
-    Q = kf.signed_gram(spec, xs, ys)
+    Q = ops.gram(xs, None, spec, yx=ys)
     ak, uk = _rescale_warm_start(Q, alphas, params, m)
     res = dual_cd.solve(Q, params, mscale=float(m), alpha0=ak, tol=tol,
                         max_sweeps=max_sweeps, u0=uk)

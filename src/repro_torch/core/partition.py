@@ -9,6 +9,11 @@ Port of ``repro.core.partition``:
 3. **Stratified partitioning** — a round-robin deal inside each stratum,
    so every partition keeps the global stratum proportions (±1).
 
+Rival strategies for the baselines: :func:`random_partitions` and
+:func:`cluster_partitions` (k-means clusters as partitions); and the
+diagnostics of the theory checks, :func:`offdiag_mass` (Theorem 1's
+Q-bar) and :func:`min_principal_angle`.
+
 The output is a permutation ``perm`` of [M]; partition k is
 ``perm[k*m:(k+1)*m]``. Random draws come from a ``torch.Generator``
 (seeded CPU stream, moved to the data's device), so a given seed gives
@@ -23,6 +28,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core import kernel_fns as kf
+from repro_torch.kernels import ops
 
 Tensor = torch.Tensor
 
@@ -137,9 +143,84 @@ def make_plan(spec: kf.KernelSpec, x: Tensor, n_landmarks: int,
                          n_partitions=n_partitions)
 
 
+# ---------------------------------------------------------------------------
+# rival partition strategies (for ablation / baselines)
+# ---------------------------------------------------------------------------
+
 def random_partitions(M: int, n_partitions: int,
                       key: torch.Generator | int | None,
                       device=None) -> Tensor:
     """Uniform random permutation — the strawman SODM improves on."""
     del n_partitions
     return torch.randperm(M, generator=as_generator(key)).to(device)
+
+
+def lloyd_assign(x: Tensor, init: Tensor, iters: int = 10) -> Tensor:
+    """Cluster ids after ``iters`` Lloyd steps from the centroids
+    ``x[init]``: the assignment of the last step, made with the centroids
+    before its update (the reference's ``lax.scan`` output). Ties go to
+    the lower cluster id (``argmin``)."""
+    K = init.shape[0]
+    cent = x[init]
+    xx = torch.sum(x * x, 1)[:, None]
+    a = torch.zeros(x.shape[0], dtype=torch.int64, device=x.device)
+    for _ in range(iters):
+        d2 = xx + torch.sum(cent * cent, 1)[None, :] - 2.0 * x @ cent.T
+        a = torch.argmin(d2, 1)
+        onehot = torch.nn.functional.one_hot(a, K).to(x.dtype)
+        counts = torch.clamp_min(onehot.sum(0), 1.0)
+        cent = (onehot.T @ x) / counts[:, None]
+    return a
+
+
+def cluster_partitions(spec: kf.KernelSpec, x: Tensor, n_partitions: int,
+                       key: torch.Generator | int | None, iters: int = 10,
+                       *, _init: Tensor | None = None) -> Tensor:
+    """Clusters-as-partitions (DC-SVM / DiP-SVM style): Lloyd's algorithm
+    in input space from K distinct random rows (:func:`lloyd_assign`),
+    then the rows ordered by (cluster, random tie) — partition k is the
+    k-th contiguous slab of the result.
+
+    The reference's docstring promises cluster sizes forced to M/K; its
+    code only sorts (``partition.py:203-205``), and so does this port:
+    clusters are cut into slabs wherever M/K falls. ``_init`` injects the
+    K initial row indices (the parity tests hand over the reference's
+    draw); ``spec`` is unused, as in the reference."""
+    del spec
+    gen = as_generator(key)
+    M = x.shape[0]
+    K = n_partitions
+    init = torch.randperm(M, generator=gen)[:K] if _init is None else _init
+    a = lloyd_assign(x, init.to(x.device), iters)
+    tie = _uniform(gen, M, x.device)
+    return _lexsort(a, tie)
+
+
+# ---------------------------------------------------------------------------
+# diagnostics used by theory tests and benchmarks
+# ---------------------------------------------------------------------------
+
+def _cross(pid: Tensor) -> Tensor:
+    return pid[:, None] != pid[None, :]
+
+
+def offdiag_mass(spec: kf.KernelSpec, x: Tensor, y: Tensor, perm: Tensor,
+                 n_partitions: int) -> Tensor:
+    """Q-bar of Theorem 1: the sum of |Q_ij| over cross-partition pairs,
+    with Q through ``ops.gram`` (B8 on the card). O(M²) memory."""
+    xp, yp = x[perm], y[perm]
+    Q = ops.gram(xp, None, spec, yx=yp)
+    M = x.shape[0]
+    pid = torch.arange(M, device=x.device) // (M // n_partitions)
+    return torch.sum(torch.where(_cross(pid), torch.abs(Q), 0.0))
+
+
+def min_principal_angle(spec: kf.KernelSpec, x: Tensor, stratum: Tensor,
+                        n_landmarks: int) -> Tensor:
+    """cos(tau) estimate: the largest cross-stratum normalized kernel
+    value, with K through ``ops.gram`` (B8 on the card)."""
+    del n_landmarks
+    K = ops.gram(x, None, spec)
+    diag = torch.sqrt(torch.clamp_min(kf.gram_diag(spec, x), 1e-12))
+    Kn = K / (diag[:, None] * diag[None, :])
+    return torch.max(torch.where(_cross(stratum), Kn, -torch.inf))

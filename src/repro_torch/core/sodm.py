@@ -43,7 +43,8 @@ class SODMConfig:
     tol: float = 1e-4          # per-solve KKT tolerance
     max_sweeps: int = 100      # CD sweep / outer-pass cap per local solve
     early_stop: bool = True    # Algorithm 1 line 5-6
-    partition_strategy: str = "stratified"   # stratified | random | identity
+    partition_strategy: str = "stratified"   # stratified | random |
+    #                                          cluster | identity
     engine: str | None = None  # None (auto) | scalar | block | pallas | dsvrg
     block: int = 256           # tile size of the block/pallas engines
     gram_threshold: int = 4096  # pallas: partitions above this rebuild Gram
@@ -184,8 +185,7 @@ def _partition(spec: kf.KernelSpec, x: Tensor, cfg: SODMConfig, K0: int,
     if cfg.partition_strategy == "identity":
         return torch.arange(M, device=x.device)  # caller laid the data out
     if cfg.partition_strategy == "cluster":
-        raise NotImplementedError(
-            "cluster partitions are not ported yet (ROADMAP A10)")
+        return part_mod.cluster_partitions(spec, x, K0, key)
     raise ValueError(cfg.partition_strategy)
 
 

@@ -8,12 +8,16 @@ arrays (no import of ``repro`` here), become the port's objects:
   manifest stores (``repro/serve/model.py``, ``FittedODM.save``).
 * :func:`sodm_result_from_numpy` builds an :class:`SODMResult`.
 * :func:`dsvrg_result_from_numpy` builds a :class:`DSVRGResult`.
+* :func:`cascade_result_from_numpy` builds a :class:`CascadeResult`.
+* :func:`grad_result_from_numpy` builds a :class:`GradResult` (svrg,
+  csvrg).
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch.core.baselines import CascadeResult, GradResult
 from repro_torch.core.dsvrg import DSVRGResult
 from repro_torch.core.kernel_fns import KernelSpec
 from repro_torch.core.sodm import SODMResult
@@ -63,3 +67,21 @@ def dsvrg_result_from_numpy(w, history, perm, eta,
                        history=_tensor(history, torch.float32, dev),
                        perm=_tensor(perm, torch.int64, dev),
                        eta=_tensor(eta, torch.float32, dev))
+
+
+def cascade_result_from_numpy(x_sv, y_sv, alpha, levels_run,
+                              device=None) -> CascadeResult:
+    """A reference ``CascadeResult``'s fields -> the port's, on
+    ``device``."""
+    dev = resolve_device(device)
+    return CascadeResult(x_sv=_tensor(x_sv, torch.float32, dev),
+                         y_sv=_tensor(y_sv, torch.float32, dev),
+                         alpha=_tensor(alpha, torch.float32, dev),
+                         levels_run=int(levels_run))
+
+
+def grad_result_from_numpy(w, history, device=None) -> GradResult:
+    """A reference ``GradResult``'s fields -> the port's, on ``device``."""
+    dev = resolve_device(device)
+    return GradResult(w=_tensor(w, torch.float32, dev),
+                      history=_tensor(history, torch.float32, dev))

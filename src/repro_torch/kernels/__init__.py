@@ -1,8 +1,9 @@
 """Hand-written Hopper kernels of the ported paths, each beside its plain
 PyTorch version. Port of ``repro.kernels``.
 
-  gram          — tile skeleton (accum_tile / finalize_tile) and the
-                  batched Gram matvec, K2 (csrc/gram_matvec.cu)
+  gram          — tile skeleton (accum_tile / finalize_tile), the
+                  materialized (signed) Gram B8 (csrc/gram.cu) and the
+                  batched Gram matvec K2 (csrc/gram_matvec.cu)
   dual_cd_block — greedy tile sweep K1 (csrc/cd_sweep.cu), dense signed-Q
                   matvec K3 (csrc/dense_matvec.cu), the fused pass and the
                   level solve

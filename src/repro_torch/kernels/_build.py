@@ -108,9 +108,13 @@ def _declare(lib: ctypes.CDLL) -> None:
                                       F, F, F, F, F, P]
     lib.odm_grad_f32.argtypes = [P, P, P, P, P, I, I, F, F, F, F, F, P]
     lib.odm_grad_blocks.argtypes = [I]
+    lib.gram_f32.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, F,
+                             P]
+    lib.cd_exact_f32.argtypes = [P, P, P, P, P, P, I, I, I, F, F, F, F, F, P]
     for fn in (lib.gram_matvec_f32, lib.dense_matvec_f32,
                lib.cd_block_sweep_f32, lib.odm_svrg_grad_f32,
-               lib.odm_grad_f32, lib.odm_grad_blocks):
+               lib.odm_grad_f32, lib.odm_grad_blocks, lib.gram_f32,
+               lib.cd_exact_f32):
         fn.restype = I
     lib.repro_error_string.argtypes = [I]
     lib.repro_error_string.restype = ctypes.c_char_p

@@ -88,4 +88,23 @@ __device__ __forceinline__ float finalize_tile(float acc, float xx, float zz,
   return acc;
 }
 
+// finalize_tile with every step rounded on its own (round-to-nearest
+// intrinsics): nvcc contracts nothing, so each entry of a materialized Gram
+// goes through the same operations in the plain version's order, and an
+// entry's value depends only on its accumulator and its two norms.
+template <int KIND>
+__device__ __forceinline__ float finalize_rn(float acc, float xx, float zz,
+                                             float gamma, int degree,
+                                             float coef0) {
+  if (KIND == kRbf) {
+    const float d2 = __fsub_rn(__fadd_rn(xx, zz), __fmul_rn(2.0f, acc));
+    return expf(__fmul_rn(-gamma, fmaxf(d2, 0.0f)));
+  } else if (KIND == kLaplacian) {
+    return expf(__fmul_rn(-gamma, acc));
+  } else if (KIND == kPoly) {
+    return ipow(__fadd_rn(__fmul_rn(gamma, acc), coef0), degree);
+  }
+  return acc;
+}
+
 }  // namespace repro

@@ -1,5 +1,5 @@
-"""Matrix-free multi-kernel Gram subsystem: the tile skeleton and the
-batched Gram matvec.
+"""Multi-kernel Gram subsystem: the tile skeleton, the materialized Gram
+and the batched matrix-free Gram matvec.
 
 Port of ``repro.kernels.gram``. Every ``KernelSpec`` family — ``rbf``,
 ``laplacian``, ``poly``, ``linear`` — shares one accumulation skeleton:
@@ -11,6 +11,10 @@ Port of ``repro.kernels.gram``. Every ``KernelSpec`` family — ``rbf``,
 
 The same two functions exist in CUDA (``csrc/tile_math.cuh``) for the
 hand-written kernel.
+
+:func:`gram` materializes ``K(x[k], z[k])`` or the signed
+``(yx yzᵀ) ⊙ K`` of every partition in one call: B8 (``csrc/gram.cu``) on
+CUDA tensors, the blocked plain version :func:`gram_plain` on CPU tensors.
 
 :func:`gram_matvec` computes ``u[k] = K(x[k], z[k]) @ g[k]`` without an
 (M, N) Gram leaving the kernel. On CUDA tensors it launches K2
@@ -179,6 +183,101 @@ def gram_matvec(x: Tensor, z: Tensor, g: Tensor, *, kind: str = "rbf",
 
 
 gram_matvec.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# gram: the materialized (signed) Gram, B8
+# ---------------------------------------------------------------------------
+
+def gram_plain(x: Tensor, z: Tensor, yx: Tensor | None = None,
+               yz: Tensor | None = None, *, kind: str = "rbf",
+               gamma: float = 1.0, degree: int = 3, coef0: float = 1.0,
+               bm: int = 256) -> Tensor:
+    """Plain version of B8: ``bm``-row blocks of K(x, z) through the tile
+    skeleton (:func:`kernel_tile`), signed as ``(yx yzᵀ) ⊙ K`` when labels
+    are given. x (K, M, D), z (K, N, D), yx (K, M), yz (K, N) -> (K, M, N)."""
+    K, M, _ = x.shape
+    N = z.shape[1]
+    out = torch.empty(K, M, N, dtype=torch.float32, device=x.device)
+    for r0 in range(0, M, bm):
+        kb = kernel_tile(kind, x[:, r0:r0 + bm], z, gamma=gamma,
+                         degree=degree, coef0=coef0)
+        if yx is not None:
+            kb = (yx[:, r0:r0 + bm, None] * yz[:, None, :]) * kb
+        out[:, r0:r0 + bm] = kb
+    return out
+
+
+def launch_gram(x: Tensor, z: Tensor, yx: Tensor | None = None,
+                yz: Tensor | None = None, *, kind: str, gamma: float,
+                degree: int, coef0: float, xx: Tensor | None = None,
+                zz: Tensor | None = None) -> Tensor:
+    """B8 on CUDA tensors: x (K, M, D), z (K, N, D) -> (K, M, N), signed
+    when ``yx`` (K, M) and ``yz`` (K, N) are given. ``xx``/``zz`` are the
+    squared row norms, which only rbf reads; computed here when not
+    given (pass the same tensor for both, as :func:`gram` does for
+    z = x, and the result is symmetric bit for bit)."""
+    K, M, D = x.shape
+    N = z.shape[1]
+    _check_f32("x", x, (K, M, D))
+    _check_f32("z", z, (K, N, D))
+    if kind not in KIND_CODES:
+        raise ValueError(f"no Gram lowering for kernel {kind!r}")
+    if (yx is None) != (yz is None):
+        raise ValueError("give both yx and yz, or neither")
+    out = torch.empty(K, M, N, dtype=torch.float32, device=x.device)
+    if out.numel() == 0:
+        return out
+    xx_p = zz_p = yx_p = yz_p = None
+    if kind == "rbf":
+        xx = row_norms(x) if xx is None else xx
+        zz = row_norms(z) if zz is None else zz
+        _check_f32("xx", xx, (K, M))
+        _check_f32("zz", zz, (K, N))
+        xx_p, zz_p = _build.ptr(xx), _build.ptr(zz)
+    if yx is not None:
+        _check_f32("yx", yx, (K, M))
+        _check_f32("yz", yz, (K, N))
+        yx_p, yz_p = _build.ptr(yx), _build.ptr(yz)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        code = lib.gram_f32(
+            _build.ptr(x), _build.ptr(z), xx_p, zz_p, yx_p, yz_p,
+            _build.ptr(out), K, M, N, D, KIND_CODES[kind],
+            int(yx is not None), gamma, degree, coef0,
+            _build.stream_handle(x.device))
+    _build.check(code, "gram")
+    return out
+
+
+def gram(x: Tensor, z: Tensor | None = None, yx: Tensor | None = None,
+         yz: Tensor | None = None, *, kind: str = "rbf", gamma: float = 1.0,
+         degree: int = 3, coef0: float = 1.0, bm: int = 256) -> Tensor:
+    """K (or Q if signed) of shape (K, M, N) for any supported family.
+
+    x (K, M, D); z (K, N, D) defaults to x (then the row norms are shared
+    and the kernel's result is symmetric bit for bit); ``yx`` (K, M) makes
+    it the signed Q = (yx yzᵀ) ⊙ K, with ``yz`` defaulting to ``yx`` when
+    z is x. CPU tensors run the plain version (``bm`` sizes its row
+    blocks); CUDA tensors launch B8 (counted in ``gram.launches``)."""
+    same = z is None
+    z = x if same else z
+    if yx is not None and yz is None:
+        if not same:
+            raise ValueError("a signed Gram of x against z needs yz")
+        yz = yx
+    kw = dict(kind=kind, gamma=gamma, degree=degree, coef0=coef0)
+    labels = () if yx is None else (yx, yz)
+    if on_cpu(x, z, *labels):
+        return gram_plain(x, z, yx, yz, bm=bm, **kw)
+    xx = row_norms(x) if kind == "rbf" else None
+    out = launch_gram(x, z, yx, yz, xx=xx,
+                      zz=xx if same else None, **kw)
+    gram.launches += 1
+    return out
+
+
+gram.launches = 0
 
 
 # ---------------------------------------------------------------------------

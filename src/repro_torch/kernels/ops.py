@@ -1,10 +1,11 @@
 """Public entry points for the kernels: shape handling around them.
 
-Port of ``repro.kernels.ops`` (the ported paths' subset: ``gram_matvec``,
-``rbf_gram_matvec``, ``dual_cd_solve``, ``decision_scores``, ``odm_grad``,
-``svrg_grad``). The CUDA kernels mask ragged edges themselves, so only the
-block solve, whose greedy trajectory depends on the tile, pads (to the
-block, with the padded coordinates masked). The reference's
+Port of ``repro.kernels.ops`` (the ported paths' subset: ``gram``,
+``rbf_gram``, ``gram_matvec``, ``rbf_gram_matvec``, ``dual_cd_solve``,
+``decision_scores``, ``odm_grad``, ``svrg_grad``). The CUDA kernels mask
+ragged edges themselves, so only the block solve, whose greedy
+trajectory depends on the tile, pads (to the block, with the padded
+coordinates masked). The reference's
 ``_shrink_bm`` (its TPU VMEM budget for the fused ODM gradients) has no
 counterpart: the Hopper kernels stream rows in fixed chunks whatever d
 is. Dispatch goes by the tensors' device
@@ -31,6 +32,41 @@ class _RbfSpec:
 
     def __init__(self, gamma: float):
         self.gamma = gamma
+
+
+def gram(x: Tensor, z: Tensor | None, spec, *, yx: Tensor | None = None,
+         yz: Tensor | None = None, bm: int = 256, bn: int = 256,
+         bd: int = 512) -> Tensor:
+    """(Signed) Gram for any shape and any ``KernelSpec`` family.
+
+    x (M, D) and z (N, D) give (M, N); a leading partition axis
+    (x (K, M, D), z (K, N, D), labels (K, M) / (K, N)) gives (K, M, N) in
+    one launch, the reference's ``vmap``. ``z=None`` means z is x, and
+    then B8's result is symmetric bit for bit. ``yx`` (with ``yz``, which
+    defaults to ``yx`` when z is x) makes it the signed Q = (yx yzᵀ) ⊙ K.
+    The kernel masks ragged edges itself, so nothing is padded; ``bm``
+    sizes the plain version's row blocks, and ``bn``/``bd`` (the
+    reference's tile sizes) are accepted and ignored.
+    """
+    del bn, bd
+    single = x.dim() == 2
+
+    def lead(t):
+        return None if t is None else (t[None] if single else t).contiguous()
+
+    same = z is None or z is x
+    out = _gram.gram(lead(x), None if same else lead(z), lead(yx),
+                     None if yz is None or (same and yz is yx) else lead(yz),
+                     kind=spec.name, gamma=spec.gamma, degree=spec.degree,
+                     coef0=spec.coef0, bm=bm)
+    return out[0] if single else out
+
+
+def rbf_gram(x: Tensor, z: Tensor | None, gamma: float, *,
+             yx: Tensor | None = None, yz: Tensor | None = None,
+             bm: int = 256, bn: int = 256, bd: int = 512) -> Tensor:
+    """(Signed) RBF Gram, the rbf-pinned form of :func:`gram`."""
+    return gram(x, z, _RbfSpec(gamma), yx=yx, yz=yz, bm=bm, bn=bn, bd=bd)
 
 
 def dual_cd_solve(Q: Tensor, *, c: float, ups: float, theta: float,

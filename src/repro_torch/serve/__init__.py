@@ -2,6 +2,7 @@
 tiled matrix-free kernel (``repro_torch.serve.model``). The microbatching
 server is ROADMAP A11."""
 from repro_torch.serve.model import (FittedODM, compile_model, compress,
-                                     from_sodm)
+                                     from_cascade, from_sodm, load_model)
 
-__all__ = ["FittedODM", "compile_model", "compress", "from_sodm"]
+__all__ = ["FittedODM", "compile_model", "compress", "from_cascade",
+           "from_sodm", "load_model"]

@@ -15,8 +15,10 @@ once:
 
 Scoring goes through :func:`repro_torch.kernels.ops.decision_scores`
 (K2 on the card, its streaming plain version on the CPU): never a dense
-(T, S) Gram. ``save``/``load_model`` wait for the checkpoint port
-(ROADMAP A7).
+(T, S) Gram. ``save``/``load_model`` persist through
+:class:`repro_torch.distributed.checkpoint.CheckpointManager` in the
+reference's layout, so an artifact either package saves loads in the
+other.
 """
 from __future__ import annotations
 
@@ -72,8 +74,40 @@ class FittedODM:
         return torch.sign(self.decision_function(x, **kw))
 
     def save(self, directory: str) -> str:
-        raise NotImplementedError(
-            "FittedODM.save waits for the checkpoint port (ROADMAP A7)")
+        """Atomic versioned save (CheckpointManager step 0) in the
+        reference's layout: arrays ``w`` or ``x_sv`` + ``coef``, the spec
+        and compression provenance in the manifest metadata."""
+        from repro_torch.distributed.checkpoint import CheckpointManager
+        tree = {k: v for k, v in (("w", self.w), ("x_sv", self.x_sv),
+                                  ("coef", self.coef)) if v is not None}
+        meta = {
+            "kind": "fitted_odm",
+            "spec": dataclasses.asdict(self.spec),
+            "n_train": self.n_train,
+            "compression": self.compression,
+            "gap": float(self.gap),
+        }
+        return CheckpointManager(directory, keep=1).save(0, tree, meta)
+
+
+def load_model(directory: str, device=None) -> FittedODM:
+    """Exact round-trip of :meth:`FittedODM.save` (either package's), onto
+    ``device`` (None: the card)."""
+    from repro_torch.distributed.checkpoint import CheckpointManager
+    from repro_torch.kernels._device import resolve_device
+    mgr = CheckpointManager(directory, keep=1)
+    manifest = mgr.metadata()
+    meta = manifest["metadata"]
+    if meta.get("kind") != "fitted_odm":
+        raise ValueError(f"{directory!r} does not hold a FittedODM "
+                         f"checkpoint (kind={meta.get('kind')!r})")
+    tree = mgr.restore(dict.fromkeys(manifest["leaves"]),
+                       device=resolve_device(device))
+    return FittedODM(spec=kf.KernelSpec(**meta["spec"]), w=tree.get("w"),
+                     x_sv=tree.get("x_sv"), coef=tree.get("coef"),
+                     n_train=int(meta["n_train"]),
+                     compression=meta["compression"],
+                     gap=float(meta["gap"]))
 
 
 # ---------------------------------------------------------------------------
@@ -125,6 +159,11 @@ def from_dsvrg(res) -> FittedODM:
     scored as ``x @ w``."""
     return FittedODM(spec=kf.KernelSpec(name="linear"), w=res.w,
                      n_train=int(res.perm.shape[0]), compression="linear")
+
+
+def from_cascade(spec: kf.KernelSpec, res, **kw) -> FittedODM:
+    """Compile a cascade baseline's survivor set (``CascadeResult``)."""
+    return compile_model(spec, res.x_sv, res.y_sv, res.alpha, **kw)
 
 
 def from_sodm(spec: kf.KernelSpec, res, x_train: Tensor, y_train: Tensor,

@@ -7,10 +7,11 @@ pass here chains each kernel back to ``repro``.
 
 Tolerances: K1 repeats the plain version's arithmetic step for step
 (round-to-nearest intrinsics, no FMA contraction), so alpha and u agree
-to within 1e-6. K2, K3, B6 and B7 sum in another order than the plain
-versions (register micro-tiles, shuffle trees and per-column row loops
-against cuBLAS-style blocked sums), so they agree to a relative 1e-5 of
-the largest value. A whole DSVRG fit, card against CPU, holds to the band
+to within 1e-6; K4 (the exact dual CD solve) does the same and equals its
+plain version bit for bit, with the same sweep counts. K2, K3, B6, B7
+and B8 sum in another order than the plain versions (register micro-tiles,
+shuffle trees and per-column row loops against cuBLAS-style blocked
+sums), so they agree to a relative 1e-5 of the largest value. A whole DSVRG fit, card against CPU, holds to the band
 documented for DSVRG across reduction orders (relative 1e-2 on w,
 prediction agreement 0.99).
 """
@@ -18,6 +19,7 @@ import numpy as np
 import pytest
 import torch
 
+from repro_torch.core import dual_cd
 from repro_torch.core import kernel_fns as kf
 from repro_torch.kernels import dual_cd_block as cdk
 from repro_torch.kernels import gram as gram_mod
@@ -261,3 +263,101 @@ def test_dsvrg_fit_on_card_matches_cpu(dev, schedule):
                   .mean())
     assert agree >= 0.99
     assert bool(torch.isfinite(rg.history).all())
+
+
+# ---------------------------------------------------------------------------
+# B8 (csrc/gram.cu) and K4 (csrc/cd_exact.cu)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kind,gamma,degree,coef0", FAMILIES)
+@pytest.mark.parametrize("K,M,N,D", [(1, 1000, 777, 68), (3, 70, 129, 33),
+                                     (2, 64, 64, 5)])
+@pytest.mark.parametrize("signed", [False, True], ids=["K", "Q"])
+def test_gram_matches_plain(dev, kind, gamma, degree, coef0, K, M, N, D,
+                            signed):
+    rng = np.random.default_rng(9)
+    T = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)  # noqa
+    x, z = T(rng.random((K, M, D))), T(rng.random((K, N, D)))
+    yx = T(np.sign(rng.standard_normal((K, M)))) if signed else None
+    yz = T(np.sign(rng.standard_normal((K, N)))) if signed else None
+    kw = dict(kind=kind, gamma=gamma, degree=degree, coef0=coef0)
+    before = gram_mod.gram.launches
+    got = gram_mod.gram(x, z, yx, yz, **kw)
+    torch.cuda.synchronize()
+    assert gram_mod.gram.launches == before + 1
+    assert _rel(got, gram_mod.gram_plain(x, z, yx, yz, **kw)) <= 1e-5
+
+
+@pytest.mark.parametrize("kind", ["rbf", "laplacian", "poly", "linear"])
+def test_gram_of_x_with_itself_is_symmetric_bit_for_bit(dev, kind):
+    rng = np.random.default_rng(10)
+    x = torch.tensor(rng.random((2, 300, 68)), dtype=torch.float32,
+                     device=dev)
+    y = torch.tensor(np.sign(rng.standard_normal((2, 300))),
+                     dtype=torch.float32, device=dev)
+    q = gram_mod.gram(x, None, y, kind=kind, gamma=0.05, degree=3,
+                      coef0=1.0)
+    assert torch.equal(q, q.mT)
+
+
+def _cd_problem(dev, K, m, seed=11, lam=100.0):
+    rng = np.random.default_rng(seed)
+    x = torch.tensor(rng.random((K, m, 8)), dtype=torch.float32, device=dev)
+    y = torch.tensor(np.sign(rng.standard_normal((K, m))),
+                     dtype=torch.float32, device=dev)
+    q = gram_mod.gram(x, None, y, kind="rbf", gamma=0.5, degree=3,
+                      coef0=1.0)
+    from repro_torch.core.odm import ODMParams
+    return q, ODMParams(lam=lam)
+
+
+@pytest.mark.parametrize("K,m,warm", [(4, 100, False), (1, 700, True),
+                                      (2, 2500, False)])
+def test_cd_exact_equals_plain(dev, K, m, warm):
+    """Same sweeps per partition, alpha and u equal bit for bit; m = 2,500
+    takes the register prefetch and the loop beyond it."""
+    q, params = _cd_problem(dev, K, m)
+    a0 = None
+    if warm:
+        a0 = dual_cd.solve_plain(q, params, float(m), tol=1e-2,
+                                 max_sweeps=3).alpha
+    kw = dict(mscale=float(m), alpha0=a0, tol=1e-4, max_sweeps=40)
+    before = dual_cd.solve.launches
+    got = dual_cd.solve(q, params, **kw)
+    torch.cuda.synchronize()
+    assert dual_cd.solve.launches == before + 1
+    want = dual_cd.solve_plain(q, params, **kw)
+    assert torch.equal(got.sweeps.cpu(), want.sweeps.cpu())
+    assert torch.equal(got.alpha, want.alpha)
+    assert torch.equal(got.u, want.u)
+    assert torch.equal(got.kkt, want.kkt)
+
+
+def test_cd_exact_large_m_keeps_state_in_device_memory(dev):
+    """m = 13,000: 4m floats exceed the shared-memory budget, so alpha
+    and u stay in device memory; two sweeps against the plain version."""
+    q, params = _cd_problem(dev, 1, 13_000, lam=10.0)
+    kw = dict(mscale=13_000.0, tol=0.0, max_sweeps=2)
+    got = dual_cd.solve(q, params, **kw)
+    want = dual_cd.solve_plain(q, params, **kw)
+    assert int(got.sweeps) == int(want.sweeps) == 2
+    assert torch.equal(got.alpha, want.alpha)
+
+
+def test_scalar_level_engine_runs_b8_and_k4(dev):
+    from repro_torch.core import engines
+    from repro_torch.core.odm import ODMParams
+    rng = np.random.default_rng(12)
+    x = torch.tensor(rng.random((2, 80, 5)), dtype=torch.float32)
+    y = torch.tensor(np.sign(rng.standard_normal((2, 80))),
+                     dtype=torch.float32)
+    a0 = torch.zeros(2, 160)
+    kw = dict(spec=kf.KernelSpec("rbf", 0.5), params=ODMParams(lam=10.),
+              tol=1e-4, max_sweeps=100)
+    g0, s0 = gram_mod.gram.launches, dual_cd.solve.launches
+    ag, sg, _ = engines.solve_level_scalar(x.to(dev), y.to(dev), a0.to(dev),
+                                           **kw)
+    assert (gram_mod.gram.launches, dual_cd.solve.launches) == (g0 + 1,
+                                                                s0 + 1)
+    ac, sc, _ = engines.solve_level_scalar(x, y, a0, **kw)
+    assert float((ag.cpu() - ac).abs().max()) < 1e-4

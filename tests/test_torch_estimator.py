@@ -46,45 +46,57 @@ def test_default_device_is_the_card(monkeypatch):
 
 
 def test_unported_routes_raise_with_roadmap_item():
-    with pytest.raises(NotImplementedError, match="A10"):
-        ODMEstimator(route="cascade", device="cpu")
+    """Every route of the reference is registered; what is not ported yet
+    (streaming sources, resume/faults, profiling) raises naming its
+    ROADMAP item."""
     with pytest.raises(ValueError, match="unknown route"):
         ODMEstimator(route="nope", device="cpu")
     x, y, _, _ = _blobs()
+    for route in ("dsvrg", "cascade"):
+        kernel = "linear" if route == "dsvrg" else "rbf"
+        est = ODMEstimator(ProblemSpec.create(kernel), device="cpu",
+                           route=route)
+        with pytest.raises(NotImplementedError, match="A14"):
+            est.fit(x)                     # a ShardedSource: streaming
     est = ODMEstimator(ProblemSpec.create("linear"), device="cpu",
                        route="dsvrg")
-    with pytest.raises(NotImplementedError, match="A14"):
-        est.fit(x)                         # a ShardedSource: streaming
     with pytest.raises(NotImplementedError, match="A12"):
         est.fit(x, y, faults=object())
     with pytest.raises(NotImplementedError, match="A12"):
         ODMEstimator(device="cpu").fit(x, y, resume="/nonexistent")
-    with pytest.raises(NotImplementedError, match="A7"):
-        ODMEstimator(device="cpu", cfg=tsodm.SODMConfig(levels=1)).fit(
-            x, y)[0].save("/nonexistent")
+    with pytest.raises(NotImplementedError, match="A15"):
+        ODMEstimator(device="cpu").fit(x, y, profile_dir="/nonexistent")
 
 
 @pytest.mark.parametrize("kernel", ["rbf", "linear", "poly"])
 @pytest.mark.parametrize("M", [96, 200_000])
 @pytest.mark.parametrize("engine", [None, "scalar", "pallas", "dsvrg"])
 def test_resolve_policy_matches_reference(kernel, M, engine):
-    """Same engine × kernel × size rules: the reference's sodm and dsvrg
-    answers are the port's; its other routes are unported and raise."""
+    """Same engine × kernel × size rules: the reference's answer is the
+    port's, and a problem the reference refuses the port refuses."""
     jcfg = jsodm.SODMConfig(engine=engine)
     tcfg = tsodm.SODMConfig(engine=engine)
     try:
         want = jreg.resolve(JProblem.create(kernel), M, cfg=jcfg).name
     except ValueError:
         want = None
-    if want in ("sodm", "dsvrg"):
+    if want is None:
+        with pytest.raises(ValueError):
+            treg.resolve(ProblemSpec.create(kernel), M, cfg=tcfg)
+    else:
         assert treg.resolve(ProblemSpec.create(kernel), M,
                             cfg=tcfg).name == want
-    else:
-        with pytest.raises((NotImplementedError, ValueError)):
-            treg.resolve(ProblemSpec.create(kernel), M, cfg=tcfg)
-    if want is not None and want not in ("sodm", "dsvrg"):
-        with pytest.raises(NotImplementedError, match=want):
-            treg.resolve(ProblemSpec.create(kernel), M, cfg=tcfg)
+    for route in ("cascade", "dip", "dc", "svrg", "csvrg"):
+        try:
+            want = jreg.resolve(JProblem.create(kernel), M, route=route,
+                                cfg=jcfg).name
+        except ValueError:
+            with pytest.raises(ValueError):
+                treg.resolve(ProblemSpec.create(kernel), M, route=route,
+                             cfg=tcfg)
+        else:
+            assert treg.resolve(ProblemSpec.create(kernel), M, route=route,
+                                cfg=tcfg).name == want
 
 
 def test_pin_level_engine_and_registry_errors():
@@ -97,7 +109,8 @@ def test_pin_level_engine_and_registry_errors():
                      cfg=tsodm.SODMConfig(engine="dsvrg"))
     with pytest.raises(ValueError, match="already registered"):
         treg.register(treg.get("sodm"))
-    assert treg.routes() == ("dsvrg", "sodm")
+    assert treg.routes() == ("cascade", "csvrg", "dc", "dip", "dsvrg",
+                             "sodm", "svrg")
     assert treg.get("sodm").capabilities().startswith("sodm:")
     assert "kernels {linear}" in treg.get("dsvrg").capabilities()
     assert treg.dsvrg_partition_count(96, 8) == 8

@@ -118,3 +118,67 @@ def test_mixed_devices_raise():
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="device='cpu'"):
             resolve_device(None)
+
+
+# ---------------------------------------------------------------------------
+# gram (B8's plain version) against the reference's ops.gram
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("kind,gamma,degree,coef0", FAMILIES)
+@pytest.mark.parametrize("signed", [False, True], ids=["K", "Q"])
+@pytest.mark.parametrize("M,N,D", [(13, 21, 5), (24, 9, 17)])
+def test_gram_matches_reference_ops_gram(kind, gamma, degree, coef0, signed,
+                                         M, N, D):
+    """Ragged shapes (the reference pads to 8-wide tiles and runs its
+    Pallas kernel in interpret mode; the port pads nothing)."""
+    rng = np.random.default_rng(M * N + D)
+    x = rng.random((M, D)).astype(np.float32)
+    z = rng.random((N, D)).astype(np.float32)
+    yx = np.sign(rng.standard_normal(M)).astype(np.float32)
+    yz = np.sign(rng.standard_normal(N)).astype(np.float32)
+    js = jkf.KernelSpec(kind, gamma, degree, coef0)
+    ts = tkf.KernelSpec(kind, gamma, degree, coef0)
+    jl = dict(yx=jnp.asarray(yx), yz=jnp.asarray(yz)) if signed else {}
+    tl = dict(yx=torch.tensor(yx), yz=torch.tensor(yz)) if signed else {}
+    want = jops.gram(jnp.asarray(x), jnp.asarray(z), js, bm=8, bn=8, bd=8,
+                     **jl)
+    before = tgram.gram.launches
+    got = tops.gram(torch.tensor(x), torch.tensor(z), ts, bm=8, **tl)
+    assert tgram.gram.launches == before       # CPU: no kernel launch
+    assert got.shape == (M, N)
+    _close(got, want)
+
+
+@pytest.mark.parametrize("kind,gamma,degree,coef0", FAMILIES)
+def test_gram_batched_is_per_partition_signed_gram(kind, gamma, degree,
+                                                   coef0):
+    """A leading partition axis in one call is the reference's vmap of
+    signed_gram; z=None shares x and its labels."""
+    rng = np.random.default_rng(7)
+    x = rng.random((3, 11, 6)).astype(np.float32)
+    y = np.sign(rng.standard_normal((3, 11))).astype(np.float32)
+    js = jkf.KernelSpec(kind, gamma, degree, coef0)
+    ts = tkf.KernelSpec(kind, gamma, degree, coef0)
+    got = tops.gram(torch.tensor(x), None, ts, yx=torch.tensor(y))
+    for k in range(3):
+        _close(got[k], jkf.signed_gram(js, jnp.asarray(x[k]),
+                                       jnp.asarray(y[k])))
+    _close(tops.gram(torch.tensor(x[0]), None, ts), jkf.gram(
+        js, jnp.asarray(x[0])))
+
+
+def test_rbf_gram_matches_reference():
+    rng = np.random.default_rng(8)
+    x = rng.random((10, 4)).astype(np.float32)
+    z = rng.random((7, 4)).astype(np.float32)
+    y = np.sign(rng.standard_normal(10)).astype(np.float32)
+    yz = np.sign(rng.standard_normal(7)).astype(np.float32)
+    want = jops.rbf_gram(jnp.asarray(x), jnp.asarray(z), 0.6,
+                         yx=jnp.asarray(y), yz=jnp.asarray(yz), bm=8, bn=8,
+                         bd=8)
+    got = tops.rbf_gram(torch.tensor(x), torch.tensor(z), 0.6,
+                        yx=torch.tensor(y), yz=torch.tensor(yz))
+    _close(got, want)
+    with pytest.raises(ValueError, match="yz"):
+        tgram.gram(torch.tensor(x)[None], torch.tensor(z)[None],
+                   torch.tensor(y)[None])

@@ -126,9 +126,14 @@ def test_unported_seams_raise():
     with pytest.raises(NotImplementedError, match="A12"):
         tsodm._solve(KernelSpec("linear"), X, Y, ODMParams(),
                      tsodm.SODMConfig(engine="dsvrg"), 0, faults=object())
-    with pytest.raises(NotImplementedError, match="A10"):
+    # the cluster strategy is ported; an unknown one raises
+    res = tsodm._solve(KernelSpec(), X, Y, ODMParams(),
+                       tsodm.SODMConfig(levels=1, max_sweeps=5,
+                                        partition_strategy="cluster"), 0)
+    assert sorted(res.perm.tolist()) == list(range(32))
+    with pytest.raises(ValueError):
         tsodm._solve(KernelSpec(), X, Y, ODMParams(),
-                     tsodm.SODMConfig(partition_strategy="cluster"), 0)
+                     tsodm.SODMConfig(partition_strategy="nope"), 0)
     with pytest.raises(ValueError, match="must divide"):
         tsodm._solve(KernelSpec(), X[:30], Y[:30], ODMParams(),
                      tsodm.SODMConfig(), 0)
