@@ -11,6 +11,8 @@ arrays (no import of ``repro`` here), become the port's objects:
 * :func:`cascade_result_from_numpy` builds a :class:`CascadeResult`.
 * :func:`grad_result_from_numpy` builds a :class:`GradResult` (svrg,
   csvrg).
+* :func:`lm_params_from_numpy` builds an LM's parameter module from the
+  reference's parameter pytree (``repro.models.model.init_params``).
 """
 from __future__ import annotations
 
@@ -22,6 +24,7 @@ from repro_torch.core.dsvrg import DSVRGResult
 from repro_torch.core.kernel_fns import KernelSpec
 from repro_torch.core.sodm import SODMResult
 from repro_torch.kernels._device import resolve_device
+from repro_torch.models import layers as L, model as M
 from repro_torch.serve.model import FittedODM
 
 
@@ -85,3 +88,30 @@ def grad_result_from_numpy(w, history, device=None) -> GradResult:
     dev = resolve_device(device)
     return GradResult(w=_tensor(w, torch.float32, dev),
                       history=_tensor(history, torch.float32, dev))
+
+
+def lm_params_from_numpy(cfg, params: dict, device=None):
+    """The reference's LM parameter pytree, as numpy arrays
+    (``{"embed", "stack": {"scan": {"u0": stacked, ...}, "tail": [...]},
+    "final_norm", ["unembed"]}``), -> the port's model on ``device``. The
+    scan-stacked layers are taken apart in the reference's order: for each
+    repeat, the unit's positions in turn, then the tail."""
+    M.check_supported(cfg)
+    dev = resolve_device(device)
+    dtype = L.dtype_of(cfg.param_dtype)
+
+    def convert(tree, rep=None):
+        if isinstance(tree, (list, tuple)):
+            return [convert(t, rep) for t in tree]
+        if isinstance(tree, dict):
+            return {k: convert(v, rep) for k, v in tree.items()}
+        a = np.asarray(tree, dtype=np.float32)
+        return _tensor(a if rep is None else a[rep], dtype, dev)
+
+    unit, reps, _ = cfg.layer_pattern()
+    stack = params["stack"]
+    layers = [convert(stack["scan"][f"u{i}"], r) for r in range(reps)
+              for i in range(len(unit))] + convert(list(stack["tail"]))
+    tree = {k: convert(v) for k, v in params.items() if k != "stack"}
+    tree["stack"] = {"layers": layers}
+    return M.from_tree(tree)

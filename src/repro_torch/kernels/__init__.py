@@ -10,6 +10,8 @@ PyTorch version. Port of ``repro.kernels``.
   score         — serving scorer (K2 with one partition)
   odm_grad      — DSVRG's fused primal gradients, B6 (inner direction) and
                   B7 (full-batch anchor gradient) (csrc/odm_grad.cu)
+  flash_attn    — the LM's prefill attention, B9 (csrc/flash_attn.cu)
+  ref           — reference attention (``mha``) for ``impl="ref"``
   ops           — shape-handling entry points used by framework code
 
 A CPU tensor takes a kernel's plain version, a CUDA tensor the kernel

@@ -2,7 +2,8 @@
 
 Port of ``repro.kernels.ops`` (the ported paths' subset: ``gram``,
 ``rbf_gram``, ``gram_matvec``, ``rbf_gram_matvec``, ``dual_cd_solve``,
-``decision_scores``, ``odm_grad``, ``svrg_grad``). The CUDA kernels mask
+``decision_scores``, ``odm_grad``, ``svrg_grad``, ``flash_attention``).
+The CUDA kernels mask
 ragged edges themselves, so only the block solve, whose greedy
 trajectory depends on the tile, pads (to the block, with the padded
 coordinates masked). The reference's
@@ -16,6 +17,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import dual_cd_block as _cd
+from repro_torch.kernels import flash_attn as _fa
 from repro_torch.kernels import gram as _gram
 from repro_torch.kernels import odm_grad as _og
 from repro_torch.kernels import score as _score
@@ -164,3 +166,17 @@ def svrg_grad(w: Tensor, anchor: Tensor, h: Tensor, x: Tensor, y: Tensor,
                              h.contiguous(), x.contiguous(), y.contiguous(),
                              wt.contiguous(), inv_n.to(w.dtype), s=s,
                              theta=theta, ups=ups)
+
+
+def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
+                    window: int | None = None, scale: float | None = None,
+                    bq: int = 512, bk: int = 512) -> Tensor:
+    """Flash attention for any T <= S, counterpart of the reference's
+    padding wrapper (``ops.py:265``). The reference pads a ragged causal
+    self-attention call to its tiles and sends the other ragged calls to
+    ``ref.mha``; B9 masks ragged T and S itself and keeps the queries at
+    q_offset = S - T, so every call goes to it unpadded. ``bq``/``bk``
+    (the reference's VMEM tiles) are accepted and ignored."""
+    del bq, bk
+    return _fa.flash_attention(q, k, v, causal=causal, window=window,
+                               scale=scale)

@@ -1,0 +1,158 @@
+"""Primitive layers: norms, projections, embeddings, RoPE, MLPs.
+
+Port of ``repro.models.layers``. Parameters are ``nn.ParameterDict``s
+keyed as the reference's dict pytrees are (``{"w", "b"}``,
+``{"scale", "bias"}``, ``{"table"}``, ...), so ``p["w"]`` and
+``"b" in p`` read the same on both sides. Weights keep the reference's
+``(in, out)`` layout (``x @ w``) and its casts: ``apply_dense`` casts
+``w`` to the compute dtype on every call, norms work in fp32 and cast
+back to the activation dtype, RoPE works in fp32. The init functions
+draw from a ``torch.Generator`` with the reference's distributions (the
+numbers differ from ``jax.random``'s; parity tests carry the weights
+across with ``repro_torch.interop.lm_params_from_numpy``).
+
+The reference's ``precision_boundary`` has no counterpart: it is the
+identity, there only to steer XLA's placement of converts around
+collectives. ``apply_mrope`` raises (Qwen2-VL's M-RoPE waits for ROADMAP
+A18).
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+Tensor = torch.Tensor
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+           "float16": torch.float16}
+
+
+def dtype_of(name: str) -> torch.dtype:
+    return _DTYPES[name]
+
+
+# ---------------------------------------------------------------------------
+# initializers: nested dicts of tensors, the reference's pytrees
+# ---------------------------------------------------------------------------
+
+def _normal(gen: torch.Generator, shape, dtype, scale: float) -> Tensor:
+    return torch.randn(shape, generator=gen, device=gen.device,
+                       dtype=dtype) * scale
+
+
+def dense_init(gen: torch.Generator, in_dim: int, out_dim: int, dtype,
+               bias: bool = False) -> dict:
+    p = {"w": _normal(gen, (in_dim, out_dim), dtype, in_dim ** -0.5)}
+    if bias:
+        p["b"] = torch.zeros(out_dim, dtype=dtype, device=gen.device)
+    return p
+
+
+def apply_dense(p, x: Tensor, compute_dtype) -> Tensor:
+    y = x @ p["w"].to(compute_dtype)
+    if "b" in p:
+        y = y + p["b"].to(compute_dtype)
+    return y
+
+
+# ---------------------------------------------------------------------------
+# norms
+# ---------------------------------------------------------------------------
+
+def norm_init(dim: int, kind: str, dtype, device=None) -> dict:
+    p = {"scale": torch.ones(dim, dtype=dtype, device=device)}
+    if kind != "rmsnorm":
+        p["bias"] = torch.zeros(dim, dtype=dtype, device=device)
+    return p
+
+
+def apply_norm(p, x: Tensor, kind: str, eps: float = 1e-6) -> Tensor:
+    xf = x.float()
+    if kind == "rmsnorm":
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(var + eps) * p["scale"].float()
+    else:
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.mean((xf - mu) ** 2, dim=-1, keepdim=True)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+        y = y * p["scale"].float() + p["bias"].float()
+    return y.to(x.dtype)
+
+
+def qk_norm_init(dh: int, dtype, device=None) -> dict:
+    return {"q_scale": torch.ones(dh, dtype=dtype, device=device),
+            "k_scale": torch.ones(dh, dtype=dtype, device=device)}
+
+
+def apply_head_rmsnorm(x: Tensor, scale: Tensor, eps: float = 1e-6) -> Tensor:
+    """RMS norm over the trailing head_dim (qwen3 qk_norm)."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps) * scale.float()).to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# embeddings
+# ---------------------------------------------------------------------------
+
+def embed_init(gen: torch.Generator, vocab: int, dim: int, dtype) -> dict:
+    # d^-0.5 keeps tied-unembed logits O(1) at init (loss starts ~ log V)
+    return {"table": _normal(gen, (vocab, dim), dtype, dim ** -0.5)}
+
+
+def apply_embed(p, ids: Tensor, compute_dtype) -> Tensor:
+    return p["table"][ids].to(compute_dtype)
+
+
+def apply_unembed(p, x: Tensor, compute_dtype) -> Tensor:
+    """Tied output head: logits = x @ tableᵀ."""
+    return x @ p["table"].to(compute_dtype).T
+
+
+# ---------------------------------------------------------------------------
+# rotary embeddings
+# ---------------------------------------------------------------------------
+
+def rope_freqs(dh: int, theta: float, device=None) -> Tensor:
+    return 1.0 / (theta ** (torch.arange(0, dh, 2, dtype=torch.float32,
+                                         device=device) / dh))
+
+
+def apply_rope(x: Tensor, pos: Tensor, theta: float) -> Tensor:
+    """x (..., S, H, dh); pos (..., S) integer positions."""
+    dh = x.shape[-1]
+    freqs = rope_freqs(dh, theta, x.device)              # (dh/2,)
+    angles = pos[..., None].float() * freqs              # (..., S, dh/2)
+    cos = torch.cos(angles)[..., None, :]                # (..., S, 1, dh/2)
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def apply_mrope(x: Tensor, pos3: Tensor, theta: float, sections: tuple):
+    raise NotImplementedError(
+        "M-RoPE (the vlm family, qwen2-vl) is not ported yet: ROADMAP A18")
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+
+def mlp_init(gen: torch.Generator, d_model: int, d_ff: int, act: str,
+             dtype) -> dict:
+    if act == "silu":                                    # SwiGLU: 3 matrices
+        return {"wi": dense_init(gen, d_model, d_ff, dtype),
+                "wg": dense_init(gen, d_model, d_ff, dtype),
+                "wo": dense_init(gen, d_ff, d_model, dtype)}
+    return {"wi": dense_init(gen, d_model, d_ff, dtype),  # plain 2-mat GELU
+            "wo": dense_init(gen, d_ff, d_model, dtype)}
+
+
+def apply_mlp(p, x: Tensor, act: str, compute_dtype) -> Tensor:
+    if act == "silu":
+        h = F.silu(apply_dense(p["wg"], x, compute_dtype)) * \
+            apply_dense(p["wi"], x, compute_dtype)
+    else:
+        h = F.gelu(apply_dense(p["wi"], x, compute_dtype), approximate="tanh")
+    return apply_dense(p["wo"], h, compute_dtype)

@@ -1,0 +1,159 @@
+"""Top-level model: embeddings + stack + head, for the dense families.
+
+Port of ``repro.models.model`` (its serving surface). Public functions
+keep the reference's names and argument order, with the parameter tree
+``p`` an ``nn.Module`` (``ModuleDict``/``ParameterDict``/``ModuleList``
+keyed as the reference's pytree, the stack's layers un-stacked):
+
+  init_params(cfg, *, generator, device)  -> model       [random weights]
+  logits_fn(p, batch, cfg)                -> (logits, aux)
+  prefill(p, batch, cfg, *, max_len)      -> (last_logits, cache)
+  decode(p, cache, tok, pos, cfg)         -> (logits, cache)
+  cache_shapes(cfg, batch, max_len)       -> per-layer meta tensors
+
+``impl`` defaults to ``"flash_pallas"`` (B9 on the card). ``loss_fn``
+waits for the LM training slice (ROADMAP A17, second part); the moe,
+ssm, hybrid (RG-LRU), encdec and vlm families, and llama4's iRoPE
+window/global layers, wait for A18 and raise when a model is built from
+them (``check_supported``). ``param_shapes``, ``input_specs`` and
+``batch_axes`` serve the TPU dry-run and sharding (A19, A13).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.kernels._device import resolve_device
+from repro_torch.models import layers as L, transformer as T
+
+Tensor = torch.Tensor
+
+
+def check_supported(cfg: ArchConfig) -> None:
+    """Raise for what this slice does not run, naming its ROADMAP item."""
+    for what, unported in (
+            (f"the {cfg.family} family", cfg.family not in ("dense",)),
+            ("mixture-of-experts MLPs", cfg.moe is not None),
+            ("M-RoPE", cfg.rope_kind == "mrope"),
+            ("the encoder stack", cfg.encoder is not None),
+            ("attn_window / global_every (iRoPE) layers",
+             cfg.attn_window is not None or cfg.global_every > 1)):
+        if unported:
+            raise NotImplementedError(
+                f"{cfg.name}: {what} is not ported yet: ROADMAP A18 (the "
+                f"port builds dense models only)")
+    T.layer_kinds(cfg)
+
+
+# ---------------------------------------------------------------------------
+# params
+# ---------------------------------------------------------------------------
+
+def from_tree(tree) -> nn.Module:
+    """A nested dict/list of tensors (the reference's pytree layout) as an
+    ``nn.Module`` whose parameters do not require grad."""
+    if isinstance(tree, list):
+        return nn.ModuleList([from_tree(t) for t in tree])
+    if all(isinstance(v, Tensor) for v in tree.values()):
+        return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
+                                 for k, v in tree.items()})
+    return nn.ModuleDict({k: from_tree(v) for k, v in tree.items()})
+
+
+def init_params(cfg: ArchConfig, *, generator: torch.Generator,
+                device=None) -> nn.Module:
+    """Random weights with the reference's distributions: normal ·
+    in_dim^-0.5 for projections, normal · d^-0.5 for the embedding, ones
+    for norm scales (zeros for biases). Drawn on ``generator``'s device,
+    then moved to ``device`` (None: the card)."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    dtype = L.dtype_of(cfg.param_dtype)
+    gen = generator
+    tree = {"embed": L.embed_init(gen, cfg.padded_vocab, cfg.d_model, dtype),
+            "stack": T.init_stack(gen, cfg, dtype),
+            "final_norm": L.norm_init(cfg.d_model, cfg.norm_kind, dtype,
+                                      gen.device)}
+    if not cfg.tie_embeddings:
+        tree["unembed"] = L.dense_init(gen, cfg.d_model, cfg.padded_vocab,
+                                       dtype)
+    return from_tree(tree).to(dev)
+
+
+# ---------------------------------------------------------------------------
+# forward passes
+# ---------------------------------------------------------------------------
+
+def _compute_dtype(cfg: ArchConfig) -> torch.dtype:
+    return L.dtype_of(cfg.compute_dtype)
+
+
+def _positions(B: int, S: int, device) -> Tensor:
+    return torch.arange(S, device=device).expand(B, S)
+
+
+def _head(p, x: Tensor, cfg: ArchConfig, cdt) -> Tensor:
+    if cfg.tie_embeddings:
+        return L.apply_unembed(p["embed"], x, cdt)
+    return L.apply_dense(p["unembed"], x, cdt)
+
+
+def logits_fn(p, batch: dict, cfg: ArchConfig, *,
+              impl: str = "flash_pallas"):
+    """Full-sequence logits (B, S, padded_vocab) + aux loss (0)."""
+    cdt = _compute_dtype(cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = L.apply_embed(p["embed"], tokens, cdt)
+    x, aux = T.apply_stack(p["stack"], x, cfg,
+                           pos=_positions(B, S, tokens.device),
+                           pos3=batch.get("pos3"), impl=impl,
+                           compute_dtype=cdt)
+    x = L.apply_norm(p["final_norm"], x, cfg.norm_kind)
+    return _head(p, x, cfg, cdt), aux
+
+
+def loss_fn(p, batch: dict, cfg: ArchConfig, *, impl: str = "flash_pallas",
+            aux_weight: float = 0.01):
+    raise NotImplementedError(
+        "loss_fn belongs to the LM training slice: ROADMAP A17, second part")
+
+
+# ---------------------------------------------------------------------------
+# serving
+# ---------------------------------------------------------------------------
+
+def prefill(p, batch: dict, cfg: ArchConfig, *, max_len: int,
+            impl: str = "flash_pallas"):
+    """Process the prompt; returns (last-token logits (B, 1, V), cache)."""
+    cdt = _compute_dtype(cfg)
+    tokens = batch["tokens"]
+    B, S = tokens.shape
+    x = L.apply_embed(p["embed"], tokens, cdt)
+    x, cache = T.apply_stack_prefill(p["stack"], x, cfg,
+                                     pos=_positions(B, S, tokens.device),
+                                     max_len=max_len, pos3=batch.get("pos3"),
+                                     impl=impl, compute_dtype=cdt)
+    x = L.apply_norm(p["final_norm"], x[:, -1:], cfg.norm_kind)
+    return _head(p, x, cfg, cdt), cache
+
+
+def decode(p, cache, tokens: Tensor, pos, cfg: ArchConfig, *,
+           pos3: Optional[Tensor] = None):
+    """One decode step. tokens (B, 1); pos the current absolute position
+    (an int). Returns (logits (B, 1, V), cache), the cache updated in
+    place."""
+    cdt = _compute_dtype(cfg)
+    x = L.apply_embed(p["embed"], tokens, cdt)
+    x, cache = T.apply_stack_decode(p["stack"], cache, x, cfg, pos=pos,
+                                    pos3=pos3, compute_dtype=cdt)
+    x = L.apply_norm(p["final_norm"], x, cfg.norm_kind)
+    return _head(p, x, cfg, cdt), cache
+
+
+def cache_shapes(cfg: ArchConfig, batch: int, max_len: int) -> list:
+    check_supported(cfg)
+    return T.stack_cache_shape(cfg, batch, max_len)

@@ -1,0 +1,224 @@
+"""Layer stacks of the attention-layer kinds: prefill, decode, forward.
+
+Port of ``repro.models.transformer`` for the dense families. The
+reference stacks each position of the layer pattern's repeating unit on a
+leading "repeats" axis and runs one ``lax.scan`` over it; here the stack
+is an ``nn.ModuleList`` of per-layer parameter trees, walked by a Python
+loop in the order ``ArchConfig.layer_pattern()`` gives (unit × reps, then
+the tail). The cache is one ``{"k", "v"}`` pair of bf16 tensors
+(B, max_len, KV, dh) per layer, in a list.
+
+Layer kinds: ``"attn"`` runs; the llama4 iRoPE kinds (``attn_window``,
+``attn_global``), ``ssm`` (mamba), ``rec`` (RG-LRU), mixture-of-experts
+MLPs and cross-attention raise ``NotImplementedError`` naming ROADMAP
+A18. ``remat`` has no counterpart in serving (no backward pass).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention, layers as L
+
+Tensor = torch.Tensor
+
+KINDS = ("attn",)
+
+
+def _unported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported yet: ROADMAP A18")
+
+
+def layer_kinds(cfg: ArchConfig) -> list:
+    """The stack's layer kinds in order; raises for unported kinds."""
+    unit, reps, tail = cfg.layer_pattern()
+    kinds = list(unit) * reps + list(tail)
+    for kind in kinds:
+        if kind not in KINDS:
+            raise _unported(f"layer kind {kind!r} (family {cfg.family!r})")
+    return kinds
+
+
+# ---------------------------------------------------------------------------
+# single-layer init / apply
+# ---------------------------------------------------------------------------
+
+def init_layer(gen: torch.Generator, kind: str, cfg: ArchConfig, dtype,
+               cross: bool = False) -> dict:
+    """One layer's parameter tree for the given kind."""
+    if kind not in KINDS:
+        raise _unported(f"layer kind {kind!r}")
+    if cross:
+        raise _unported("cross-attention (the encdec family)")
+    if cfg.moe is not None:
+        raise _unported("the mixture-of-experts MLP (the moe family)")
+    return {"ln1": L.norm_init(cfg.d_model, cfg.norm_kind, dtype, gen.device),
+            "attn": attention.init(gen, cfg, dtype),
+            "ln2": L.norm_init(cfg.d_model, cfg.norm_kind, dtype, gen.device),
+            "mlp": L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.act, dtype)}
+
+
+def _kind_attn_opts(kind: str, cfg: ArchConfig):
+    """(window, use_rope) per layer kind."""
+    if kind == "attn_window":
+        return cfg.attn_window, True
+    if kind == "attn_global":
+        return None, False              # llama4 NoPE global layers
+    if kind == "attn" and cfg.rglru is not None:
+        return cfg.rglru.window, True   # recurrentgemma local attention
+    return None, True
+
+
+def apply_layer(p, x: Tensor, kind: str, cfg: ArchConfig, *, pos: Tensor,
+                pos3: Optional[Tensor] = None,
+                memory: Optional[Tensor] = None, causal: bool = True,
+                impl: str = "flash_pallas", compute_dtype=torch.bfloat16):
+    """Full-sequence layer. Returns (x, aux_loss); aux is 0 (no MoE)."""
+    window, use_rope = _kind_attn_opts(kind, cfg)
+    h = L.apply_norm(p["ln1"], x, cfg.norm_kind)
+    x = x + attention.forward(p["attn"], h, cfg, pos=pos, causal=causal,
+                              window=window, use_rope=use_rope, pos3=pos3,
+                              memory=memory, impl=impl,
+                              compute_dtype=compute_dtype)
+    h2 = L.apply_norm(p["ln2"], x, cfg.norm_kind)
+    x = x + L.apply_mlp(p["mlp"], h2, cfg.act, compute_dtype)
+    return x, torch.zeros((), device=x.device)
+
+
+# ---------------------------------------------------------------------------
+# caches
+# ---------------------------------------------------------------------------
+
+def layer_cache_shape(kind: str, cfg: ArchConfig, batch: int, max_len: int,
+                      dtype=torch.bfloat16, cross_len: int = 0) -> dict:
+    """One layer's cache as meta tensors."""
+    if kind not in KINDS:
+        raise _unported(f"the cache of layer kind {kind!r}")
+    if cross_len:
+        raise _unported("the cross-attention cache (the encdec family)")
+    window, _ = _kind_attn_opts(kind, cfg)
+    return attention.cache_shape(cfg, batch, max_len, window, dtype)
+
+
+def apply_layer_decode(p, cache, x: Tensor, kind: str, cfg: ArchConfig, *,
+                       pos, pos3: Optional[Tensor] = None,
+                       compute_dtype=torch.bfloat16):
+    """One-token decode through a layer. Returns (x, cache)."""
+    window, use_rope = _kind_attn_opts(kind, cfg)
+    h = L.apply_norm(p["ln1"], x, cfg.norm_kind)
+    y, cache = attention.decode_step(p["attn"], cache, h, cfg, pos=pos,
+                                     window=window, use_rope=use_rope,
+                                     pos3=pos3, compute_dtype=compute_dtype)
+    x = x + y
+    h2 = L.apply_norm(p["ln2"], x, cfg.norm_kind)
+    return x + L.apply_mlp(p["mlp"], h2, cfg.act, compute_dtype), cache
+
+
+def apply_layer_prefill(p, x: Tensor, kind: str, cfg: ArchConfig, *,
+                        pos: Tensor, max_len: int,
+                        pos3: Optional[Tensor] = None,
+                        memory: Optional[Tensor] = None,
+                        impl: str = "flash_pallas",
+                        compute_dtype=torch.bfloat16):
+    """Full-sequence forward that also emits the layer's decode cache."""
+    if memory is not None:
+        raise _unported("cross-attention (the encdec family)")
+    B, T, _ = x.shape
+    window, use_rope = _kind_attn_opts(kind, cfg)
+    h = L.apply_norm(p["ln1"], x, cfg.norm_kind)
+    q, k, v = attention.qkv(p["attn"], h, cfg, compute_dtype)
+    if use_rope:
+        q, k = attention.rope_qk(q, k, cfg, pos, pos3)
+    o = attention.attend(q, k, v, causal=True, window=window, impl=impl)
+    o = o.reshape(B, T, cfg.n_heads * cfg.dh)
+    x = x + L.apply_dense(p["attn"]["wo"], o, compute_dtype)
+    cache = _fill_kv_cache(k, v, window, max_len)
+    h2 = L.apply_norm(p["ln2"], x, cfg.norm_kind)
+    x = x + L.apply_mlp(p["mlp"], h2, cfg.act, compute_dtype)
+    return x, cache
+
+
+def _fill_kv_cache(k: Tensor, v: Tensor, window: Optional[int],
+                   max_len: int) -> dict:
+    """Static cache from prefill kv. k/v (B, T, KV, dh); T <= max_len.
+
+    Global layers: cache size max_len, prompt occupies [0, T).
+    Window layers: ring buffer of W slots; slot t%W holds position t for
+    the last min(W, T) positions.
+    """
+    B, T, KV, dh = k.shape
+    S = max_len if window is None else min(window, max_len)
+    ck = torch.zeros(B, S, KV, dh, dtype=torch.bfloat16, device=k.device)
+    cv = torch.zeros_like(ck)
+    if window is None:
+        ck[:, :T] = k
+        cv[:, :T] = v
+        return {"k": ck, "v": cv}
+    keep = min(S, T)
+    # absolute positions of kept entries: [T-keep, T); ring slot = pos % W
+    slots = torch.arange(T - keep, T, device=k.device) % S
+    ck[:, slots] = k[:, T - keep:].to(torch.bfloat16)
+    cv[:, slots] = v[:, T - keep:].to(torch.bfloat16)
+    return {"k": ck, "v": cv}
+
+
+# ---------------------------------------------------------------------------
+# the stack
+# ---------------------------------------------------------------------------
+
+def init_stack(gen: torch.Generator, cfg: ArchConfig, dtype,
+               cross: bool = False) -> dict:
+    """``{"layers": [layer tree, ...]}`` in ``layer_kinds`` order."""
+    return {"layers": [init_layer(gen, kind, cfg, dtype, cross=cross)
+                       for kind in layer_kinds(cfg)]}
+
+
+def apply_stack(p, x: Tensor, cfg: ArchConfig, *, pos: Tensor,
+                pos3: Optional[Tensor] = None,
+                memory: Optional[Tensor] = None, causal: bool = True,
+                impl: str = "flash_pallas", compute_dtype=torch.bfloat16):
+    """Full-sequence stack. Returns (x, total_aux)."""
+    aux = torch.zeros((), device=x.device)
+    for lp, kind in zip(p["layers"], layer_kinds(cfg)):
+        x, a = apply_layer(lp, x, kind, cfg, pos=pos, pos3=pos3,
+                           memory=memory, causal=causal, impl=impl,
+                           compute_dtype=compute_dtype)
+        aux = aux + a
+    return x, aux
+
+
+def stack_cache_shape(cfg: ArchConfig, batch: int, max_len: int,
+                      dtype=torch.bfloat16, cross_len: int = 0) -> list:
+    """Per-layer cache meta tensors, in stack order."""
+    return [layer_cache_shape(kind, cfg, batch, max_len, dtype, cross_len)
+            for kind in layer_kinds(cfg)]
+
+
+def apply_stack_decode(p, cache, x: Tensor, cfg: ArchConfig, *, pos,
+                       pos3: Optional[Tensor] = None,
+                       compute_dtype=torch.bfloat16):
+    """One-token decode through the whole stack. Returns (x, cache)."""
+    out = []
+    for lp, c, kind in zip(p["layers"], cache, layer_kinds(cfg)):
+        x, c = apply_layer_decode(lp, c, x, kind, cfg, pos=pos, pos3=pos3,
+                                  compute_dtype=compute_dtype)
+        out.append(c)
+    return x, out
+
+
+def apply_stack_prefill(p, x: Tensor, cfg: ArchConfig, *, pos: Tensor,
+                        max_len: int, pos3: Optional[Tensor] = None,
+                        memory: Optional[Tensor] = None,
+                        impl: str = "flash_pallas",
+                        compute_dtype=torch.bfloat16):
+    """Full-sequence prefill producing the per-layer caches."""
+    caches = []
+    for lp, kind in zip(p["layers"], layer_kinds(cfg)):
+        x, c = apply_layer_prefill(lp, x, kind, cfg, pos=pos,
+                                   max_len=max_len, pos3=pos3,
+                                   memory=memory, impl=impl,
+                                   compute_dtype=compute_dtype)
+        caches.append(c)
+    return x, caches

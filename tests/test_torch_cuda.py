@@ -361,3 +361,96 @@ def test_scalar_level_engine_runs_b8_and_k4(dev):
                                                                 s0 + 1)
     ac, sc, _ = engines.solve_level_scalar(x, y, a0, **kw)
     assert float((ag.cpu() - ac).abs().max()) < 1e-4
+
+
+# ---------------------------------------------------------------------------
+# B9: flash attention (the LM serving path)
+# ---------------------------------------------------------------------------
+
+# (B, Hq, Hkv, T, S, D, causal, window): every head dim, GQA groups 1, 2,
+# 3 and 4, ragged T and S, T < S, a sliding window, no mask
+FLASH_CASES = [(2, 16, 8, 200, 200, 128, True, None),
+               (1, 4, 4, 64, 64, 64, True, None),
+               (1, 6, 2, 100, 300, 64, True, 37),
+               (2, 4, 1, 77, 77, 32, False, None),
+               (1, 8, 2, 129, 129, 16, True, 64),
+               (1, 2, 1, 1000, 1000, 128, True, None),
+               (3, 4, 2, 1, 90, 32, True, None)]
+
+
+def _flash_inputs(B, Hq, Hkv, T, S, D, dtype, dev, seed=0):
+    rng = np.random.default_rng(seed)
+    return tuple(torch.tensor(rng.standard_normal(s) * 0.5,
+                              dtype=torch.float32).to(dtype).to(dev)
+                 for s in ((B, Hq, T, D), (B, Hkv, S, D), (B, Hkv, S, D)))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-5),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("B,Hq,Hkv,T,S,D,causal,window", FLASH_CASES)
+def test_flash_attention_matches_plain(dev, dtype, tol, B, Hq, Hkv, T, S,
+                                       D, causal, window):
+    from repro_torch.kernels import flash_attn
+    q, k, v = _flash_inputs(B, Hq, Hkv, T, S, D, dtype, dev)
+    before = flash_attn.flash_attention.launches
+    got = flash_attn.flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attn.flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = flash_attn.flash_attention_plain(q, k, v, causal=causal,
+                                            window=window)
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got.float(), want.float()) <= tol
+
+
+def test_flash_attention_takes_strided_views(dev):
+    """attend hands B9 (B, T, H, D) activations as (B, H, T, D) views."""
+    from repro_torch.kernels import flash_attn
+    q, k, v = _flash_inputs(2, 8, 4, 70, 70, 64, torch.bfloat16, dev, 1)
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2)
+             for t in (q, k, v)]
+    assert not views[0].is_contiguous()
+    got = flash_attn.flash_attention(*views, window=20)
+    want = flash_attn.flash_attention(q, k, v, window=20)
+    assert torch.equal(got, want)
+
+
+def test_lm_prefill_and_decode_on_card_match_cpu(dev):
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.kernels import flash_attn
+    from repro_torch.models import model as M
+    for compute_dtype, band in (("float32", 1e-3), ("bfloat16", 0.02)):
+        cfg = dataclasses.replace(configs.get_smoke("qwen3-0.6b"),
+                                  compute_dtype=compute_dtype)
+        p = M.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                          device="cpu")
+        toks = torch.tensor(np.random.default_rng(3).integers(
+            0, cfg.vocab, (2, 40)))
+        out = {}
+        for where in ("cuda", "cpu"):
+            pw = p.to(where)
+            before = flash_attn.flash_attention.launches
+            lg, cache = M.prefill(pw, {"tokens": toks[:, :36].to(where)},
+                                  cfg, max_len=40)
+            launched = flash_attn.flash_attention.launches - before
+            assert launched == (cfg.n_layers if where == "cuda" else 0)
+            logits = [lg]
+            for t in range(36, 40):
+                lg, cache = M.decode(pw, cache, toks[:, t:t + 1].to(where),
+                                     t, cfg)
+                logits.append(lg)
+            out[where] = torch.cat(logits, 1).float().cpu()
+        scale = float(out["cpu"].abs().max())
+        assert float((out["cuda"] - out["cpu"]).abs().max()) <= band * scale
+
+
+def test_serve_entry_point_on_card(dev, capsys):
+    from repro_torch.kernels import flash_attn
+    from repro_torch.launch import serve
+    before = flash_attn.flash_attention.launches
+    assert serve.main(["--arch", "qwen3-0.6b", "--prompt-len", "70",
+                       "--gen", "3", "--batch", "2"]) == 0
+    assert flash_attn.flash_attention.launches == before + 2  # 2 layers
+    assert capsys.readouterr().out.count("[serve]") == 3

@@ -15,6 +15,9 @@ def test_import_pulls_in_no_jax_and_no_reference():
         "import sys\n"
         "import repro_torch, repro_torch.api, repro_torch.interop\n"
         "import repro_torch.kernels.ops, repro_torch.data.synthetic\n"
+        "import repro_torch.configs, repro_torch.models\n"
+        "import repro_torch.kernels.flash_attn, repro_torch.kernels.ref\n"
+        "import repro_torch.train.steps, repro_torch.launch.serve\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or "
         "m.startswith(('jax.', 'jaxlib', 'repro.')) or m == 'repro')\n"
         "print(','.join(bad))\n")

@@ -1,0 +1,373 @@
+"""The LM scaffold's serving path in repro_torch against the JAX reference.
+
+Weights come from one draw of the reference's ``init_params`` and cross
+with ``interop.lm_params_from_numpy``; inputs are drawn with numpy from a
+seed. Bands: fp32 pieces to 1e-5 (layers, attention) and whole-model
+logits at ``compute_dtype="float32"`` to 1e-4 of max|logits|, with the
+bf16 KV caches equal or within one bf16 ulp; bf16 compute to the
+reference's own 0.02 of max|logits| (``tests/test_models_smoke.py``).
+The reference attends with ``impl="flash_pallas"`` (the Pallas kernel in
+interpret mode), the port with its default, B9's plain version here.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.models import attention as jattn
+from repro.models import layers as jL
+from repro.models import model as jM
+from repro.models import transformer as jT
+from repro_torch import configs as tconfigs
+from repro_torch import interop
+from repro_torch.launch import serve as tserve
+from repro_torch.models import attention as tattn
+from repro_torch.models import layers as tL
+from repro_torch.models import model as tM
+from repro_torch.models import transformer as tT
+from repro_torch.train import steps as tsteps
+
+KEY = jax.random.PRNGKey(0)
+DENSE = ["qwen3-0.6b", "smollm-135m", "granite-8b", "qwen2.5-14b"]
+UNPORTED = ["dbrx-132b", "llama4-scout-17b-a16e", "falcon-mamba-7b",
+            "recurrentgemma-9b", "seamless-m4t-medium", "qwen2-vl-72b"]
+
+
+def _np(x):
+    return np.asarray(jnp.asarray(x).astype(jnp.float32))
+
+
+def _t(a, dtype=torch.float32):
+    return torch.tensor(np.asarray(a, np.float32)).to(dtype)
+
+
+def _close(got, want, tol):
+    got = got.float().numpy() if isinstance(got, torch.Tensor) else got
+    want = _np(want)
+    scale = max(1.0, float(np.abs(want).max()))
+    assert float(np.abs(got - want).max()) <= tol * scale
+
+
+def _cfgs(arch, compute_dtype):
+    return (dataclasses.replace(jconfigs.get_smoke(arch),
+                                compute_dtype=compute_dtype),
+            dataclasses.replace(tconfigs.get_smoke(arch),
+                                compute_dtype=compute_dtype))
+
+
+def _params(cfg_j, cfg_t):
+    p, _ = jM.init_params(KEY, cfg_j)
+    return p, interop.lm_params_from_numpy(
+        cfg_t, jax.tree.map(np.asarray, p), device="cpu")
+
+
+def _within_one_bf16_ulp(a, b):
+    a, b = a.float().numpy(), _np(b)
+    mag = np.maximum(np.abs(a), np.abs(b))
+    ulp = np.where(mag > 0, 2.0 ** (np.floor(np.log2(np.maximum(
+        mag, 1e-38))) - 7), 0.0)
+    return bool(np.all(np.abs(a - b) <= ulp))
+
+
+# ---------------------------------------------------------------------------
+# configs
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("arch", jconfigs.ARCH_NAMES)
+def test_configs_are_the_reference_literals(arch):
+    for getter in ("get", "get_smoke"):
+        want = dataclasses.asdict(getattr(jconfigs, getter)(arch))
+        got = dataclasses.asdict(getattr(tconfigs, getter)(arch))
+        assert got == want
+    assert tconfigs.ARCH_NAMES == jconfigs.ARCH_NAMES
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+
+def test_layers_match_reference():
+    rng = np.random.default_rng(0)
+    x = rng.standard_normal((2, 5, 3, 16)).astype(np.float32)
+    scale = (1.0 + 0.1 * rng.standard_normal(16)).astype(np.float32)
+    bias = (0.1 * rng.standard_normal(16)).astype(np.float32)
+    for kind in ("rmsnorm", "layernorm"):
+        pj = {"scale": jnp.asarray(scale), "bias": jnp.asarray(bias)}
+        pt = {"scale": _t(scale), "bias": _t(bias)}
+        _close(tL.apply_norm(pt, _t(x), kind), jL.apply_norm(pj, x, kind),
+               1e-6)
+    _close(tL.apply_head_rmsnorm(_t(x), _t(scale)),
+           jL.apply_head_rmsnorm(x, jnp.asarray(scale)), 1e-6)
+    pos = rng.integers(0, 3000, (2, 5))
+    _close(tL.apply_rope(_t(x), torch.tensor(pos), 1e6),
+           jL.apply_rope(jnp.asarray(x), jnp.asarray(pos), 1e6), 1e-5)
+    _close(tL.rope_freqs(16, 1e4), jL.rope_freqs(16, 1e4), 1e-6)
+    h = rng.standard_normal((2, 5, 16)).astype(np.float32)
+    for act in ("silu", "gelu"):
+        pj, _ = jL.mlp_init(KEY, 16, 24, act, jnp.float32)
+        pt = jax.tree.map(lambda a: _t(a), pj)
+        _close(tL.apply_mlp(pt, _t(h), act, torch.float32),
+               jL.apply_mlp(pj, jnp.asarray(h), act, jnp.float32), 1e-5)
+    pj, _ = jL.dense_init(KEY, 16, 8, jnp.float32, bias=True)
+    pj["b"] = jnp.asarray(rng.standard_normal(8).astype(np.float32))
+    pt = jax.tree.map(lambda a: _t(a), pj)
+    _close(tL.apply_dense(pt, _t(h, torch.bfloat16), torch.bfloat16),
+           jL.apply_dense(pj, jnp.asarray(h).astype(jnp.bfloat16),
+                          jnp.bfloat16), 1e-2)
+    table = rng.standard_normal((40, 16)).astype(np.float32)
+    ids = rng.integers(0, 40, (2, 5))
+    _close(tL.apply_embed({"table": _t(table)}, torch.tensor(ids),
+                          torch.float32),
+           jL.apply_embed({"table": jnp.asarray(table)}, jnp.asarray(ids),
+                          jnp.float32), 0.0)
+    _close(tL.apply_unembed({"table": _t(table)}, _t(h), torch.float32),
+           jL.apply_unembed({"table": jnp.asarray(table)}, jnp.asarray(h),
+                            jnp.float32), 1e-5)
+    assert tL.dtype_of("bfloat16") == torch.bfloat16
+    with pytest.raises(NotImplementedError, match="A18"):
+        tL.apply_mrope(_t(x), None, 1e4, (2, 3, 3))
+
+
+# ---------------------------------------------------------------------------
+# attention: forward, decode_step, the prefill cache
+# ---------------------------------------------------------------------------
+
+def _attn_params(cfg_j):
+    pj, _ = jattn.init(KEY, cfg_j, jnp.float32)
+    if cfg_j.qk_norm:    # non-trivial qk-norm scales
+        rng = np.random.default_rng(5)
+        for n in ("q_scale", "k_scale"):
+            pj["qknorm"][n] = jnp.asarray(
+                1.0 + 0.2 * rng.standard_normal(cfg_j.dh), jnp.float32)
+    return pj, jax.tree.map(lambda a: _t(a), pj)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "qwen2.5-14b"])
+@pytest.mark.parametrize("window", [None, 5])
+def test_attention_forward_matches_reference(arch, window):
+    cfg_j, cfg_t = _cfgs(arch, "float32")
+    pj, pt = _attn_params(cfg_j)
+    x = np.random.default_rng(1).standard_normal(
+        (2, 11, cfg_j.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(11), (2, 11))
+    want = jattn.forward(pj, jnp.asarray(x), cfg_j, pos=jnp.asarray(pos),
+                         window=window, impl="flash_pallas",
+                         compute_dtype=jnp.float32)
+    got = tattn.forward(pt, _t(x), cfg_t, pos=torch.tensor(pos),
+                        window=window, compute_dtype=torch.float32)
+    _close(got, want, 1e-5)
+    ref = tattn.forward(pt, _t(x), cfg_t, pos=torch.tensor(pos),
+                        window=window, impl="ref",
+                        compute_dtype=torch.float32)
+    _close(ref, want, 1e-5)
+
+
+@pytest.mark.parametrize("window,max_len,positions", [
+    (None, 12, [7, 8, 9]),
+    (4, 12, [7, 8, 9, 10]),       # ring buffer wraps
+    (None, 8, [8, 9])])           # past the cache: the write is clamped
+def test_decode_step_matches_reference(window, max_len, positions):
+    cfg_j, cfg_t = _cfgs("qwen3-0.6b", "float32")
+    pj, pt = _attn_params(cfg_j)
+    rng = np.random.default_rng(2)
+    W = max_len if window is None else min(window, max_len)
+    shape = (2, W, cfg_j.n_kv_heads, cfg_j.dh)
+    ck = rng.standard_normal(shape).astype(np.float32)
+    cv = rng.standard_normal(shape).astype(np.float32)
+    cj = {"k": jnp.asarray(ck, jnp.bfloat16), "v": jnp.asarray(cv,
+                                                               jnp.bfloat16)}
+    ct = {"k": _t(ck, torch.bfloat16), "v": _t(cv, torch.bfloat16)}
+    for pos in positions:
+        x = rng.standard_normal((2, 1, cfg_j.d_model)).astype(np.float32)
+        oj, cj = jattn.decode_step(pj, cj, jnp.asarray(x), cfg_j,
+                                   pos=jnp.int32(pos), window=window,
+                                   compute_dtype=jnp.float32)
+        ot, ct = tattn.decode_step(pt, ct, _t(x), cfg_t, pos=pos,
+                                   window=window,
+                                   compute_dtype=torch.float32)
+        _close(ot, oj, 1e-5)
+        for n in ("k", "v"):
+            assert ct[n].dtype == torch.bfloat16
+            assert _within_one_bf16_ulp(ct[n], cj[n])
+
+
+@pytest.mark.parametrize("window,T,max_len", [(None, 6, 10), (4, 10, 12),
+                                              (8, 5, 12), (16, 7, 10)])
+def test_fill_kv_cache_matches_reference(window, T, max_len):
+    rng = np.random.default_rng(3)
+    k = rng.standard_normal((2, T, 2, 8)).astype(np.float32)
+    v = rng.standard_normal((2, T, 2, 8)).astype(np.float32)
+    want = jT._fill_kv_cache(jnp.asarray(k, jnp.bfloat16),
+                             jnp.asarray(v, jnp.bfloat16), window, max_len)
+    got = tT._fill_kv_cache(_t(k, torch.bfloat16), _t(v, torch.bfloat16),
+                            window, max_len)
+    for n in ("k", "v"):
+        assert got[n].dtype == torch.bfloat16
+        assert got[n].shape == want[n].shape
+        assert np.array_equal(got[n].float().numpy(), _np(want[n]))
+
+
+def test_unported_attention_impls_raise():
+    q = torch.zeros(1, 4, 2, 16)
+    with pytest.raises(NotImplementedError, match="A17"):
+        tattn.attend(q, q, q, impl="flash_xla")
+    with pytest.raises(ValueError, match="unknown attention impl"):
+        tattn.attend(q, q, q, impl="splash")
+
+
+# ---------------------------------------------------------------------------
+# the whole serving path
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch", DENSE)
+def test_prefill_and_decode_match_reference(arch, compute_dtype):
+    cfg_j, cfg_t = _cfgs(arch, compute_dtype)
+    pj, pt = _params(cfg_j, cfg_t)
+    B, T, n_dec = 2, 12, 4
+    max_len = T + n_dec
+    toks = np.random.default_rng(4).integers(0, cfg_j.vocab,
+                                             (B, T + n_dec))
+    lj, cj = jM.prefill(pj, {"tokens": jnp.asarray(toks[:, :T])}, cfg_j,
+                        max_len=max_len, impl="flash_pallas")
+    lt, ct = tM.prefill(pt, {"tokens": torch.tensor(toks[:, :T])}, cfg_t,
+                        max_len=max_len)
+    pairs = [(lt, lj)]
+    for t in range(T, T + n_dec):
+        lj, cj = jM.decode(pj, cj, jnp.asarray(toks[:, t:t + 1]),
+                           jnp.int32(t), cfg_j)
+        lt, ct = tM.decode(pt, ct, torch.tensor(toks[:, t:t + 1]), t, cfg_t)
+        pairs.append((lt, lj))
+    scale = max(float(np.abs(_np(w)).max()) for _, w in pairs)
+    err = max(float(np.abs(g.float().numpy() - _np(w)).max())
+              for g, w in pairs)
+    assert lt.shape == (B, 1, cfg_t.padded_vocab)
+    assert err <= (1e-4 if compute_dtype == "float32" else 0.02) * scale
+    if compute_dtype == "float32":
+        for layer, c in enumerate(ct):
+            for n in ("k", "v"):
+                assert _within_one_bf16_ulp(c[n],
+                                            cj["scan"]["u0"][n][layer])
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_decode_consistency(arch):
+    """prefill(T0) + decode(T0..S) logits match the port's own full
+    forward (the counterpart of the reference's test_decode_consistency,
+    same band)."""
+    cfg = dataclasses.replace(tconfigs.get_smoke(arch),
+                              compute_dtype="float32")
+    p = tM.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                       device="cpu")
+    B, S, Tp = 2, 12, 8
+    toks = torch.tensor(np.random.default_rng(5).integers(0, cfg.vocab,
+                                                          (B, S)))
+    full, aux = tM.logits_fn(p, {"tokens": toks}, cfg)
+    assert full.shape == (B, S, cfg.padded_vocab) and float(aux) == 0.0
+    lg, cache = tM.prefill(p, {"tokens": toks[:, :Tp]}, cfg, max_len=S)
+    errs = [float((lg[:, 0] - full[:, Tp - 1]).abs().max())]
+    for t in range(Tp, S - 1):
+        lg, cache = tM.decode(p, cache, toks[:, t:t + 1], t, cfg)
+        errs.append(float((lg[:, 0] - full[:, t]).abs().max()))
+    scale = float(full.abs().max()) + 1e-6
+    assert max(errs) / scale < 0.02, (max(errs), scale)
+    ref, _ = tM.logits_fn(p, {"tokens": toks}, cfg, impl="ref")
+    assert float((ref - full).abs().max()) <= 1e-4 * scale
+
+
+@pytest.mark.parametrize("arch", DENSE)
+def test_init_params_shapes_match_reference(arch):
+    cfg_t = tconfigs.get_smoke(arch)
+    shapes, _ = jM.param_shapes(jconfigs.get_smoke(arch))
+    _, reps, _ = cfg_t.layer_pattern()
+    p = tM.init_params(cfg_t, generator=torch.Generator().manual_seed(1),
+                       device="cpu")
+    want = {}
+    for path, sds in jax.tree_util.tree_flatten_with_path(shapes)[0]:
+        keys = [getattr(k, "key", getattr(k, "idx", None)) for k in path]
+        if keys[:3] == ["stack", "scan", "u0"]:
+            for r in range(reps):
+                name = ".".join(["stack", "layers", str(r)] + keys[3:])
+                want[name] = (tuple(sds.shape[1:]), str(sds.dtype))
+        else:
+            want[".".join(map(str, keys))] = (tuple(sds.shape),
+                                              str(sds.dtype))
+    got = {n: (tuple(t.shape), str(t.dtype).replace("torch.", ""))
+           for n, t in p.named_parameters()}
+    assert got == want
+    assert not any(t.requires_grad for t in p.parameters())
+    # the reference's distributions: ones for norm scales, in_dim^-0.5
+    # normals for projections, d^-0.5 for the embedding
+    assert torch.equal(p["final_norm"]["scale"],
+                       torch.ones(cfg_t.d_model))
+    wq = p["stack"]["layers"][0]["attn"]["wq"]["w"]
+    assert abs(float(wq.std()) * cfg_t.d_model ** 0.5 - 1.0) < 0.1
+    emb = p["embed"]["table"]
+    assert abs(float(emb.std()) * cfg_t.d_model ** 0.5 - 1.0) < 0.05
+    # the cache layout: one (B, max_len, KV, dh) bf16 pair per layer
+    cache = tM.cache_shapes(cfg_t, 3, 20)
+    jc, _ = jM.cache_shapes(jconfigs.get_smoke(arch), 3, 20)
+    assert len(cache) == reps
+    zero = tattn.init_cache(cfg_t, 3, 20, window=8, device="cpu")
+    assert zero["k"].shape == (3, 8, cfg_t.n_kv_heads, cfg_t.dh)
+    assert not zero["v"].any() and zero["v"].dtype == torch.bfloat16
+    for c in cache:
+        for n in ("k", "v"):
+            assert c[n].shape == jc["scan"]["u0"][n].shape[1:]
+            assert c[n].dtype == torch.bfloat16
+
+
+@pytest.mark.parametrize("arch", UNPORTED)
+def test_unported_families_raise_with_roadmap_item(arch):
+    cfg = tconfigs.get_smoke(arch)
+    with pytest.raises(NotImplementedError, match="A18"):
+        tM.init_params(cfg, generator=torch.Generator(), device="cpu")
+    with pytest.raises(NotImplementedError, match="A18"):
+        tM.cache_shapes(cfg, 1, 8)
+    with pytest.raises(NotImplementedError, match="A18"):
+        interop.lm_params_from_numpy(cfg, {}, device="cpu")
+
+
+def test_training_entry_points_raise_with_roadmap_item():
+    cfg = tconfigs.get_smoke("qwen3-0.6b")
+    with pytest.raises(NotImplementedError, match="A17"):
+        tM.loss_fn(None, {}, cfg)
+    assert not hasattr(tsteps, "make_train_step")
+
+
+def test_serve_entry_point_on_the_cpu(capsys):
+    assert tserve.main(["--arch", "qwen3-0.6b", "--prompt-len", "9",
+                        "--gen", "3", "--batch", "2", "--device", "cpu"]) == 0
+    out = capsys.readouterr().out
+    assert out.count("[serve]") == 3 and "tok/s" in out
+    cfg = tconfigs.get_smoke("smollm-135m")
+    p = tM.init_params(cfg, generator=torch.Generator().manual_seed(2),
+                       device="cpu")
+    toks = torch.as_tensor(tserve.make_prompts(cfg, 2, 10, seed=7))
+    assert toks.shape == (2, 10) and int(toks.max()) < cfg.vocab
+    res = tserve.serve(p, cfg, toks, gen=4, max_len=14)
+    again = tserve.serve(p, cfg, toks, gen=4, max_len=14)
+    assert res["tokens"].shape == (2, 4) and res["finite"]
+    assert torch.equal(res["tokens"], again["tokens"])     # greedy
+    # the greedy token after the prompt is the argmax of the full forward
+    full, _ = tM.logits_fn(p, {"tokens": toks}, cfg)
+    assert torch.equal(tsteps.greedy_sample(full),
+                       tsteps.greedy_sample(res["prefill_logits"]))
+    gen = torch.Generator().manual_seed(3)
+    drawn = tserve.serve(p, cfg, toks, gen=4, max_len=14, temperature=0.7,
+                         generator=gen)["tokens"]
+    assert drawn.shape == (2, 4) and int(drawn.max()) < cfg.padded_vocab
+
+
+def test_entry_points_default_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is usable")
+    cfg = tconfigs.get_smoke("qwen3-0.6b")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tM.init_params(cfg, generator=torch.Generator())
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        tserve.main(["--arch", "qwen3-0.6b"])
