@@ -66,13 +66,18 @@ Phases (any failed check exits nonzero):
    and csvrg on a7a at scale 0.05 (the DSVRG band); Theorems 1 (256
    rows) and 2 (1,000 rows) with the same `holds`; offdiag_mass at full
    phishing for stratified, random and cluster partitions.
-2d. (after phase 10) B9 (flash attention) against its plain version:
-   the qwen3-0.6b prefill shape (B=4, Hq=16, Hkv=8, T=S=2048, D=128,
-   causal) in bf16 and in fp32 (TF32 off), ragged T=S=1000, T=512 < S
-   (queries at the end of the history), a 256-key window, and GQA
-   groups 1 and 3 at D=64; max-abs error <= 1e-5 x max(1, max|out|) in
-   fp32 and 1e-2 x in bf16. Times beside the bound and, where T == S and
-   there is no window, the scaled_dot_product_attention yardstick.
+2d. (after phase 10) B9 (flash attention) against its plain version,
+   after the flash kernels' registers, shared memory and spills from the
+   build log: the qwen3-0.6b prefill shape (B=4, Hq=16, Hkv=8, T=S=2048,
+   D=128, causal) in bf16 (with its TFLOP/s and share of the bf16 peak),
+   in fp32 (TF32 off) and as the (B, T, H, D) views attend passes;
+   ragged T=S=1000, 2047 and 2049 (against 128-row blocks and 128-key
+   tiles); T=100 and 512 < S (queries at the end of the history);
+   windows of 100, 200 and 256 keys; GQA groups 1, 3 and 4 at D=64; D=16
+   and 32 with a window and as views with T < S. Max-abs error <= 1e-5 x
+   max(1, max|out|) in fp32 and 1e-2 x in bf16. Times beside the bound
+   and, where T == S and there is no window, the
+   scaled_dot_product_attention yardstick.
 11. The LM scaffold's serving path at full width and depth: qwen3-0.6b
    (28 layers, random weights from a seeded generator) prefills B=4
    prompts of 2,048 tokens (numpy, seed 0), then 32 greedy decode steps,
@@ -240,6 +245,25 @@ def profile_window(fn, n: int):
     top = "; ".join(f"{k[:48]} {t:.2f} ms"
                     for t, k in sorted(dev, reverse=True)[:5])
     return (total if total > 0 else None), launches, top
+
+
+def flash_resources(log: str):
+    """(kernel, registers, static shared bytes, spill stores/loads) of each
+    flash_attn.cu kernel in the build's ptxas report."""
+    import re
+    sec = log[log.index("== flash_attn.cu"):]
+    nxt = sec.find("\n== ", 1)
+    sec = sec if nxt < 0 else sec[:nxt]
+    out = []
+    for m in re.finditer(
+            r"Function properties for \S*?(flash_(?:bf16|f32))ILi(\d+)E\S*"
+            r"\n\s*(\d+) bytes stack frame, (\d+) bytes spill stores, "
+            r"(\d+) bytes spill loads\n.*?Used (\d+) registers[^\n]*?"
+            r"(?:(\d+) bytes smem)?\n", sec):
+        kern, dim, _, st, ld, regs, smem = m.groups()
+        out.append((f"{kern}<{dim}>", int(regs), int(smem or 0),
+                    f"{st}/{ld} bytes"))
+    return out
 
 
 def numpy_lm_params(cfg, seed: int) -> dict:
@@ -1143,12 +1167,20 @@ def main() -> None:
     B11, T11, G11 = 4, 2048, 32
     cgen = torch.Generator(device=dev).manual_seed(0)
 
-    def flash_case(label, B, hq, hkv, T, S, D, dtype, window=None, reps=20):
+    def flash_case(label, B, hq, hkv, T, S, D, dtype, window=None, reps=20,
+                   views=False):
         """B9 against its plain version (1e-5 of the output's scale in
         fp32, 1e-2 in bf16), timed beside its bound and, where T == S and
-        there is no window, the SDPA yardstick."""
-        q, k, v = (torch.randn(B, h, n, D, generator=cgen, device=dev)
-                   .to(dtype) for h, n in ((hq, T), (hkv, S), (hkv, S)))
+        there is no window, the SDPA yardstick. views: q, k, v are
+        (B, T, H, D) activations seen as (B, H, T, D), as attend passes
+        them."""
+        shapes = ((hq, T), (hkv, S), (hkv, S))
+        if views:
+            q, k, v = (torch.randn(B, n, h, D, generator=cgen, device=dev)
+                       .to(dtype).transpose(1, 2) for h, n in shapes)
+        else:
+            q, k, v = (torch.randn(B, h, n, D, generator=cgen, device=dev)
+                       .to(dtype) for h, n in shapes)
         kw = dict(causal=True, window=window)
         got = fa_mod.launch_flash_attention(q, k, v, **kw)
         want = fa_mod.flash_attention_plain(q, k, v, **kw)
@@ -1169,15 +1201,32 @@ def main() -> None:
                     q, k, v, is_causal=True, enable_gqa=True), reps)
         peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else \
             PEAK_FP32_FLOPS
+        flops = 4 * D * B * hq * visible_pairs(T, S, True, window)
         b_ms, b_by = bound(
             q.element_size() * (2 * B * hq * T * D + 2 * B * hkv * S * D),
-            4 * D * B * hq * visible_pairs(T, S, True, window), peak)
+            flops, peak)
         say(f"B9 flash_attention {label}: max_abs_err={err:.3e} (max |out| "
-            f"{scale:.3e}) ms={ms:.3f} plain_ms={plain_ms:.3f}"
-            + ("" if lib_ms is None else f" library_ms={lib_ms:.3f}")
-            + " " + bound_text(b_ms, b_by, derate))
+            f"{scale:.3e}) ms={ms:.4f} plain_ms={plain_ms:.3f}"
+            + ("" if lib_ms is None else f" library_ms={lib_ms:.4f}")
+            + " " + bound_text(b_ms, b_by, derate)
+            + f"; {flops / ms / 1e9:.1f} TFLOP/s, "
+            f"{flops / ms / 1e9 / (peak / 1e12):.1%} of the "
+            f"{'bf16' if dtype == torch.bfloat16 else 'fp32'} peak")
         return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+
+    # the flash kernels' resources, from the compiler's report
+    lib = _build.library()
+    for name, regs, smem, spills in flash_resources(
+            (_build.library_path().parent / "build.log").read_text()):
+        dyn = ""
+        if name.startswith("flash_bf16"):
+            dyn = (f" + {lib.flash_attn_bf16_smem(int(name[11:-1]))} bytes "
+                   f"dynamic")
+        note = (" (at entry; setmaxnreg gives the consumers 240 and the "
+                "producer 24)" if dyn else "")
+        say(f"  {name}: {regs} registers{note}, {smem} bytes static shared"
+            f"{dyn}, spills {spills}")
 
     qwen = (Hq, Hkv)
     stats["flash_attention"] = flash_case(
@@ -1185,16 +1234,25 @@ def main() -> None:
         B11, *qwen, T11, T11, Dh, torch.bfloat16)
     flash_case(f"qwen3 prefill T=S={T11} fp32 (no TF32)", B11, *qwen, T11,
                T11, Dh, torch.float32, reps=3)
-    flash_case("ragged T=S=1000 bf16", B11, *qwen, 1000, 1000, Dh,
-               torch.bfloat16)
-    flash_case(f"T=512 < S={T11} (q_offset {T11 - 512}) bf16", B11, *qwen,
-               512, T11, Dh, torch.bfloat16)
-    flash_case(f"window 256 T=S={T11} bf16", B11, *qwen, T11, T11, Dh,
-               torch.bfloat16, window=256)
-    flash_case("group 1 Hq=Hkv=8 D=64 T=S=1024 bf16", 2, 8, 8, 1024, 1024,
-               64, torch.bfloat16)
-    flash_case("group 3 Hq=12 Hkv=4 D=64 T=S=1024 bf16", 2, 12, 4, 1024,
-               1024, 64, torch.bfloat16)
+    flash_case(f"qwen3 prefill as (B, T, H, D) views T=S={T11} bf16", B11,
+               *qwen, T11, T11, Dh, torch.bfloat16, views=True)
+    for n in (1000, T11 - 1, T11 + 1):
+        flash_case(f"ragged T=S={n} bf16", B11, *qwen, n, n, Dh,
+                   torch.bfloat16)
+    for n in (100, 512):
+        flash_case(f"T={n} < S={T11} (q_offset {T11 - n}) bf16", B11, *qwen,
+                   n, T11, Dh, torch.bfloat16)
+    for w in (100, 200, 256):
+        flash_case(f"window {w} T=S={T11} bf16", B11, *qwen, T11, T11, Dh,
+                   torch.bfloat16, window=w)
+    for hq, hkv in ((8, 8), (12, 4), (16, 4)):
+        flash_case(f"group {hq // hkv} Hq={hq} Hkv={hkv} D=64 T=S=1024 bf16",
+                   2, hq, hkv, 1024, 1024, 64, torch.bfloat16)
+    for D in (16, 32):
+        flash_case(f"D={D} Hq=4 Hkv=2 T=S=333 window 100 bf16", 2, 4, 2, 333,
+                   333, D, torch.bfloat16, window=100)
+        flash_case(f"D={D} Hq=4 Hkv=2 T=100 < S=333 as views bf16", 2, 4, 2,
+                   100, 333, D, torch.bfloat16, views=True)
 
     # -- 11. the LM serving path: qwen3-0.6b at full width and depth ---------
     say(f"== phase 11: serve qwen3-0.6b ({lm_cfg.n_layers} layers, d_model "

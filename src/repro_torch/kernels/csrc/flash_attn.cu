@@ -1,65 +1,98 @@
 // B9 — flash attention forward: causal and/or sliding window, GQA.
 //
 // Replaces the TPU kernel
-//   repro/kernels/flash_attn.py::flash_attention (_flash_kernel):
+//   repro/kernels/flash_attn.py::flash_attention (_flash_kernel, the
+//   pl.pallas_call at :115):
 //     out[b, h, t] = softmax_s(scale * q[b, h, t] . k[b, h / group, s]) v[..]
 // over the keys s that the mask leaves (causal: s <= pos(t); window W:
 // s > pos(t) - W), with the queries at the end of the kv history,
 // pos(t) = t + (S - T). Same arithmetic as the TPU kernel: the fp32
-// logits are scaled after the dot, masked entries get -1e30 (not -inf, so
-// a row that is fully masked in a live tile gives exp(0) terms that the
-// next correction factor wipes out), the running max m, the running sum l
-// and the (rows x D) accumulator are fp32, p is rounded to v's type before
-// the PV product, l is clamped at 1e-30 before the division, and the
-// output is cast to q's type.
+// logits are scaled after the dot (__fmul_rn), masked entries get -1e30
+// (not -inf, so a row that is fully masked in a live tile gives exp(0)
+// terms that the next correction factor wipes out), the running max m,
+// the running sum l (of the unrounded fp32 p) and the (rows x D)
+// accumulator are fp32, p is rounded to v's type before the PV product,
+// l is clamped at 1e-30 before the division, and the output is cast to
+// q's type; exp is expf. (Folding log2(e) into the scale and taking
+// ex2.approx was 20 % faster in bf16, but its 28-layer qwen3 prefill lay
+// farther from the fp32 one than impl="ref"'s does, against phase 11's
+// band, so it is not used.)
 //
 // What bounds it on an H100: operations. The work is 4 D flops per
 // unmasked (query, key) pair per head; at the qwen3-0.6b prefill (B = 4,
 // Hq = 16, Hkv = 8, T = S = 2048, D = 128, bf16, causal) that is 68.7
-// GFLOP against about 100 MB of q, k, v and out, 0.069 ms at the 989
+// GFLOP against about 100 MB of q, k, v and out: 0.070 ms at the 989
 // TFLOP/s bf16 peak against 0.030 ms at 3.35 TB/s.
 //
-// Design: one CTA of four warps per (b, q head, 64-row query block); a
-// loop over 64-key tiles inside the CTA takes the place of the TPU's
-// sequential fourth grid dimension, and runs only over the tiles that
-// causality and the window leave live for the block (the TPU launches
-// every tile and skips the dead ones with pl.when). m, l and the
-// accumulator stay in registers for the whole loop. GQA reads kv head
-// h / group: repeated K/V are never materialized.
-//   bf16 (flash_bf16): each warp owns 16 query rows. Its q fragments are
-//     loaded once from device memory into registers; each K tile is staged
-//     row-major and each V tile transposed in shared memory (rows padded
-//     by 8 elements so the fragment reads hit 32 distinct banks). S = Q K^T
-//     and O += P V run on mma.sync m16n8k16 (bf16 in, fp32 out). The S
-//     accumulator's register layout is the A-fragment layout of the PV
-//     product, so p never leaves registers: it is rounded to bf16 in place.
-//     Row max and row sum combine the quad of lanes that share a row with
-//     two xor shuffles.
-//   fp32 (flash_f32): no tensor cores (no TF32: it would not hold the
-//     reference's fp32 band). Two threads per query row, each holding half
-//     of q and half of the accumulator in registers; K and V rows are read
-//     from device memory as float4 that every row of the block shares (an
-//     L1 broadcast). Pass 1 writes the tile's scaled, masked logits to
-//     shared memory and finds the row max; pass 2 takes exp and
-//     accumulates p v.
-// The ragged edges (T and S not multiples of 64) are masked in the kernel:
-// queries past T are neither loaded nor stored, keys past S are zero-filled
-// and masked. Not yet used: wgmma, TMA, a multi-stage K/V pipeline, warp
-// specialization (later work).
+// bf16 (flash_bf16), designed for Hopper (sm_90a):
+//   * One CTA of three warpgroups per (b, q head, 128-row query block).
+//     Warpgroups 0 and 1 are consumers, 64 query rows each, and raise
+//     their registers to 240 with setmaxnreg; warpgroup 2 is the producer,
+//     drops to 24 registers, and one elected thread issues every load.
+//     (ptxas gives the code after setmaxnreg.inc the larger budget only
+//     if nothing there traps: the mbarrier waits have no watchdog.)
+//   * TMA brings each consumer's Q tile once and the K and V tiles
+//     (128 keys) through a two-stage ring in shared memory, each stage
+//     with its own full and empty mbarriers for K and for V, so the next
+//     tile's loads run under the current tile's math (a third stage
+//     measured no faster). The tensor maps are encoded per call on the
+//     host over the (D, rows, heads, batch) view with the caller's byte
+//     strides, so transposed (B, T, H, D) activations go in as they are;
+//     the rows are 128-byte swizzled (64- and 32-byte for D = 32 and 16),
+//     which is the layout the wgmma descriptors read. Keys past S and
+//     rows past T are zero-filled by TMA; the output goes back through
+//     shared memory with a TMA store, which leaves rows past T unwritten.
+//     At D = 128: Q 32 KB + 2 x (32 + 32) KB of K/V, one CTA per SM.
+//   * S = Q K^T is wgmma m64n128k16 with both operands in shared memory,
+//     K-major as they lie in device memory. O += P V is wgmma m64n{D}k16
+//     with A = P in registers (the S accumulator's layout is the register
+//     A layout, so p is rounded to bf16 in place) and B = V read
+//     MN-major through the descriptor's transpose bit: nothing is
+//     transposed by threads.
+//   * Overlap, as in FlashAttention-3: within a consumer, S of tile j is
+//     issued before P V of tile j - 1, and the softmax of tile j runs
+//     while that P V is in flight (O is rescaled before the P V is
+//     issued, p packed to bf16 after it completes); across the two
+//     consumers, named barriers make them take turns issuing their
+//     products, so one's softmax runs under the other's wgmma. The O
+//     rescale is skipped when no row of a warp moved its max.
+//   * Only tiles that cross an edge (the causal diagonal, the window's
+//     edge, or the end of S) are masked; a zero-filled key would give a
+//     logit of 0, so the ragged last tile is one of them. Both consumers
+//     walk all of the CTA's live tiles (the turn-taking needs equal
+//     counts); a tile that none of a consumer's rows sees is masked
+//     whole, which leaves its result unchanged.
+//   * Blocks are walked heaviest first: under causality a query block's
+//     work grows with its index, so the grid's leading blocks take the
+//     last query blocks of every (b, head).
+// fp32 (flash_f32): no tensor cores (no TF32: it would not hold the
+//   reference's fp32 band). Two threads per query row, each holding half
+//   of q and half of the accumulator in registers; K and V rows are read
+//   from device memory as float4 that every row of the block shares (an
+//   L1 broadcast). Pass 1 writes the tile's scaled, masked logits to
+//   shared memory and finds the row max; pass 2 takes exp and accumulates
+//   p v. One CTA of 128 threads per (b, q head, 64-row query block).
+// Both kernels loop inside the CTA over the 128-key tiles that causality
+// and the window leave live for the block, in place of the TPU's
+// sequential fourth grid dimension; the plain version walks the same
+// tiles.
 #include <cstdint>
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include "sm90.cuh"
+
 namespace {
 
-constexpr int BQ = 64;   // query rows per CTA
-constexpr int BK = 64;   // keys per kv tile
-constexpr int NT = 128;  // threads per CTA
+constexpr int BK = 128;  // keys per kv tile (both kernels)
+constexpr int BQ = 64;   // query rows per fp32 CTA and per bf16 consumer
+constexpr int NT = 128;  // threads per fp32 CTA, and per warpgroup
 constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
 
-struct Params {
+struct Params {  // fp32 kernel
   const void* q;
   const void* k;
   const void* v;
@@ -70,8 +103,15 @@ struct Params {
   int causal, window;  // window <= 0: no window
 };
 
+struct Shape {  // bf16 kernel: the tensors come as tensor maps
+  int T, S, Hq, B, group, nblk;
+  float scale;
+  int causal, window;  // window <= 0: no window
+};
+
 // Kv tiles [lo, hi) that some query position in [q_first, q_last] sees.
-__device__ __forceinline__ void live_tiles(const Params& p, int q_first,
+template <class P>
+__device__ __forceinline__ void live_tiles(const P& p, int q_first,
                                            int q_last, int& lo, int& hi) {
   hi = (p.S + BK - 1) / BK;
   if (p.causal) hi = min(hi, q_last / BK + 1);
@@ -82,22 +122,12 @@ __device__ __forceinline__ void live_tiles(const Params& p, int q_first,
   }
 }
 
-__device__ __forceinline__ bool visible(const Params& p, int qpos,
-                                        int kpos) {
+template <class P>
+__device__ __forceinline__ bool visible(const P& p, int qpos, int kpos) {
   if (kpos >= p.S) return false;
   if (p.causal && kpos > qpos) return false;
   if (p.window > 0 && kpos <= qpos - p.window) return false;
   return true;
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4],
-                                         const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -105,161 +135,327 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&h);
 }
 
+// ---------------------------------------------------------------------------
+// bf16: warp-specialized wgmma kernel
+// ---------------------------------------------------------------------------
+
+constexpr int NS = 2;               // stages of the K/V ring
+constexpr int PRODUCER_REGS = 24;   // 24 x 128 + 240 x 256 <= 65,536
+constexpr int CONSUMER_REGS = 240;
+
+// Shared-memory plan for head dim D. A tile of R rows is stored as D / CW
+// column chunks of R rows x CW elements, each row one swizzle span.
 template <int D>
-__global__ void __launch_bounds__(NT) flash_bf16(Params p) {
-  constexpr int KSTR = D + 8;   // K tile row stride (elements)
-  constexpr int VSTR = BK + 8;  // transposed V tile row stride
-  constexpr int VEC = 8;        // bf16 per 16-byte vector
-  __shared__ __align__(16) __nv_bfloat16 Ks[BK * KSTR];
-  __shared__ __align__(16) __nv_bfloat16 Vt[D * VSTR];
+struct Tiles {
+  static constexpr int CW = D < 64 ? D : 64;  // elements per row of a chunk
+  static constexpr int ROW = 2 * CW;          // bytes: 128, 64 or 32
+  static constexpr uint64_t LAYOUT =
+      ROW == 128 ? sm90::SW128 : ROW == 64 ? sm90::SW64 : sm90::SW32;
+  static constexpr uint32_t SWZ = ROW / 16 - 1;  // row bits XORed into
+                                                 // the 16-byte column
+  static constexpr int Q = BQ * D * 2;   // one consumer's Q, later its O
+  static constexpr int KV = BK * D * 2;  // one K or V tile
+  static constexpr int OFF_K = 2 * Q;
+  static constexpr int OFF_V = OFF_K + NS * KV;
+  static constexpr int OFF_BAR = OFF_V + NS * KV;
+  static constexpr int USED = OFF_BAR + (1 + 4 * NS) * 8 + 1024;  // + align
+  // At least 120 KB, so that one CTA holds an SM at every D: a second
+  // CTA's consumers would wait on registers its producer cannot free.
+  static constexpr int SMEM = USED > 120 * 1024 ? USED : 120 * 1024;
+};
 
-  const int b = blockIdx.z, h = blockIdx.y, hk = h / p.group;
-  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
-  const int g = lane >> 2, t4 = lane & 3;
-  const int q_offset = p.S - p.T;
-  const int row0 = blockIdx.x * BQ;
-  const __nv_bfloat16* Q =
-      static_cast<const __nv_bfloat16*>(p.q) + b * p.sqb + h * p.sqh;
-  const __nv_bfloat16* K =
-      static_cast<const __nv_bfloat16*>(p.k) + b * p.skb + hk * p.skh;
-  const __nv_bfloat16* V =
-      static_cast<const __nv_bfloat16*>(p.v) + b * p.svb + hk * p.svh;
-  __nv_bfloat16* O = static_cast<__nv_bfloat16*>(p.o) + b * p.sob +
-                     h * p.soh;
+// O += P V for one 16-key slice: P from registers, V MN-major in shared.
+template <int D>
+__device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
+                                         const uint32_t (&a)[4],
+                                         uint64_t b) {
+  if constexpr (D == 128) sm90::wgmma_rs_n128(o, a, b);
+  else if constexpr (D == 64) sm90::wgmma_rs_n64(o, a, b);
+  else if constexpr (D == 32) sm90::wgmma_rs_n32(o, a, b);
+  else sm90::wgmma_rs_n16(o, a, b);
+}
 
-  // this thread's two query rows (fragment rows g and g + 8 of the warp)
-  const int ra = row0 + warp * 16 + g, rb = ra + 8;
-  const int pa = ra + q_offset, pb = rb + q_offset;
-
-  uint32_t qf[D / 16][4];
+// Issue S = Q K^T for one warpgroup (64 rows x 128 keys) and commit it.
+template <int D>
+__device__ __forceinline__ void issue_qk(float (&x)[BK / 2], uint32_t q_addr,
+                                         uint32_t k_addr) {
+  using L = Tiles<D>;
+  sm90::wgmma_fence();
 #pragma unroll
-  for (int kc = 0; kc < D / 16; ++kc) {
-    const int c = kc * 16 + 2 * t4;
-    const uint32_t* qa = reinterpret_cast<const uint32_t*>(Q + ra * p.sqt);
-    const uint32_t* qb = reinterpret_cast<const uint32_t*>(Q + rb * p.sqt);
-    qf[kc][0] = ra < p.T ? qa[c / 2] : 0u;
-    qf[kc][1] = rb < p.T ? qb[c / 2] : 0u;
-    qf[kc][2] = ra < p.T ? qa[c / 2 + 4] : 0u;
-    qf[kc][3] = rb < p.T ? qb[c / 2 + 4] : 0u;
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t col = (kk * 16 % L::CW) * 2, chunk = kk * 16 / L::CW;
+    sm90::wgmma_ss_n128(
+        x,
+        sm90::desc(q_addr + chunk * BQ * L::ROW + col, 16, 8 * L::ROW,
+                   L::LAYOUT),
+        sm90::desc(k_addr + chunk * BK * L::ROW + col, 16, 8 * L::ROW,
+                   L::LAYOUT),
+        kk > 0);
   }
+  sm90::wgmma_commit();
+}
 
-  float acc[D / 8][4];
+// Issue O += P V (P: 64 rows x 128 keys in registers) and commit it.
+template <int D>
+__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
+                                         const uint32_t (&pf)[BK / 16][4],
+                                         uint32_t v_addr) {
+  using L = Tiles<D>;
+  sm90::wgmma_fence();
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[dt][e] = 0.0f;
-  float m_a = NEG_INF, m_b = NEG_INF, l_a = 0.0f, l_b = 0.0f;
+  for (int kc = 0; kc < BK / 16; ++kc)
+    wgmma_pv<D>(o, pf[kc],
+                sm90::desc(v_addr + kc * 16 * L::ROW, BK * L::ROW,
+                           8 * L::ROW, L::LAYOUT));
+  sm90::wgmma_commit();
+}
 
-  int lo, hi;
-  live_tiles(p, row0 + q_offset, min(row0 + BQ, p.T) - 1 + q_offset, lo,
-             hi);
-  for (int j = lo; j < hi; ++j) {
-    const int k0 = j * BK;
-    __syncthreads();  // the previous tile's readers are done
-    for (int i = tid; i < BK * D / VEC; i += NT) {
-      const int r = i / (D / VEC), c = (i % (D / VEC)) * VEC;
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-      if (k0 + r < p.S) {
-        kv = *reinterpret_cast<const uint4*>(K + (k0 + r) * p.sks + c);
-        vv = *reinterpret_cast<const uint4*>(V + (k0 + r) * p.svs + c);
-      }
-      *reinterpret_cast<uint4*>(Ks + r * KSTR + c) = kv;
-      const __nv_bfloat16* ve = reinterpret_cast<const __nv_bfloat16*>(&vv);
-#pragma unroll
-      for (int e = 0; e < VEC; ++e) Vt[(c + e) * VSTR + r] = ve[e];
-    }
-    __syncthreads();
+// Running softmax statistics of a thread's two rows (a: r, b: r + 8).
+struct Rows {
+  float m_a, m_b, l_a, l_b;
+};
 
-    // S = Q K^T for the warp's 16 rows x 64 keys
-    float s[BK / 8][4];
+// One tile's online-softmax step, in place: x holds the tile's dots in the
+// S accumulator layout and leaves holding p (fp32). The dots are scaled,
+// and masked if the tile crosses an edge (key k0 + column); m and l are
+// updated, and corr_a / corr_b get the old accumulator's factors.
+__device__ __forceinline__ void softmax_step(float (&x)[BK / 2], Rows& r,
+                                             float& corr_a, float& corr_b,
+                                             const Shape& p, bool edge,
+                                             int k0, int pa, int pb,
+                                             int t4) {
 #pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt)
+  for (int i = 0; i < BK / 2; ++i) x[i] = __fmul_rn(x[i], p.scale);
+  if (edge) {
 #pragma unroll
-      for (int e = 0; e < 4; ++e) s[nt][e] = 0.0f;
-#pragma unroll
-    for (int kc = 0; kc < D / 16; ++kc)
-#pragma unroll
-      for (int nt = 0; nt < BK / 8; ++nt) {
-        const __nv_bfloat16* kr = Ks + (nt * 8 + g) * KSTR + kc * 16 + 2 * t4;
-        mma_bf16(s[nt], qf[kc], *reinterpret_cast<const uint32_t*>(kr),
-                 *reinterpret_cast<const uint32_t*>(kr + 8));
-      }
-
-    // scale, mask, row max
-    float mx_a = NEG_INF, mx_b = NEG_INF;
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int kpos = k0 + nt * 8 + 2 * t4 + e;
-        const float xa = visible(p, pa, kpos) ? __fmul_rn(s[nt][e], p.scale)
-                                              : NEG_INF;
-        const float xb = visible(p, pb, kpos)
-                             ? __fmul_rn(s[nt][2 + e], p.scale)
-                             : NEG_INF;
-        s[nt][e] = xa;
-        s[nt][2 + e] = xb;
-        mx_a = fmaxf(mx_a, xa);
-        mx_b = fmaxf(mx_b, xb);
-      }
-    mx_a = fmaxf(mx_a, __shfl_xor_sync(FULL, mx_a, 1));
-    mx_a = fmaxf(mx_a, __shfl_xor_sync(FULL, mx_a, 2));
-    mx_b = fmaxf(mx_b, __shfl_xor_sync(FULL, mx_b, 1));
-    mx_b = fmaxf(mx_b, __shfl_xor_sync(FULL, mx_b, 2));
-    const float mn_a = fmaxf(m_a, mx_a), mn_b = fmaxf(m_b, mx_b);
-    const float corr_a = expf(m_a - mn_a), corr_b = expf(m_b - mn_b);
-
-    // p = exp(x - m_new): fp32 into the row sums, bf16 into the A operand
-    uint32_t pf[BK / 16][4];
-    float sum_a = 0.0f, sum_b = 0.0f;
-#pragma unroll
-    for (int nt = 0; nt < BK / 8; ++nt) {
-      const float p0 = expf(s[nt][0] - mn_a), p1 = expf(s[nt][1] - mn_a);
-      const float p2 = expf(s[nt][2] - mn_b), p3 = expf(s[nt][3] - mn_b);
-      sum_a += p0 + p1;
-      sum_b += p2 + p3;
-      pf[nt / 2][(nt & 1) * 2] = pack_bf16(p0, p1);
-      pf[nt / 2][(nt & 1) * 2 + 1] = pack_bf16(p2, p3);
-    }
-    sum_a += __shfl_xor_sync(FULL, sum_a, 1);
-    sum_a += __shfl_xor_sync(FULL, sum_a, 2);
-    sum_b += __shfl_xor_sync(FULL, sum_b, 1);
-    sum_b += __shfl_xor_sync(FULL, sum_b, 2);
-    l_a = __fadd_rn(__fmul_rn(l_a, corr_a), sum_a);
-    l_b = __fadd_rn(__fmul_rn(l_b, corr_b), sum_b);
-    m_a = mn_a;
-    m_b = mn_b;
-
-    // O = O * corr + P V
-#pragma unroll
-    for (int dt = 0; dt < D / 8; ++dt) {
-      acc[dt][0] *= corr_a;
-      acc[dt][1] *= corr_a;
-      acc[dt][2] *= corr_b;
-      acc[dt][3] *= corr_b;
-    }
-#pragma unroll
-    for (int kc = 0; kc < BK / 16; ++kc)
-#pragma unroll
-      for (int dt = 0; dt < D / 8; ++dt) {
-        const __nv_bfloat16* vr = Vt + (dt * 8 + g) * VSTR + kc * 16 + 2 * t4;
-        mma_bf16(acc[dt], pf[kc], *reinterpret_cast<const uint32_t*>(vr),
-                 *reinterpret_cast<const uint32_t*>(vr + 8));
-      }
+    for (int i = 0; i < BK / 2; ++i)
+      if (!visible(p, (i & 2) ? pb : pa, k0 + (i / 4) * 8 + 2 * t4 + i % 2))
+        x[i] = NEG_INF;
   }
-
-  const float la = fmaxf(l_a, 1e-30f), lb = fmaxf(l_b, 1e-30f);
+  float mx_a = NEG_INF, mx_b = NEG_INF;
 #pragma unroll
-  for (int dt = 0; dt < D / 8; ++dt) {
-    const int c = dt * 8 + 2 * t4;
-    if (ra < p.T)
-      *reinterpret_cast<uint32_t*>(O + ra * p.sot + c) =
-          pack_bf16(acc[dt][0] / la, acc[dt][1] / la);
-    if (rb < p.T)
-      *reinterpret_cast<uint32_t*>(O + rb * p.sot + c) =
-          pack_bf16(acc[dt][2] / lb, acc[dt][3] / lb);
+  for (int i = 0; i < BK / 2; ++i) {
+    if (i & 2) mx_b = fmaxf(mx_b, x[i]);
+    else mx_a = fmaxf(mx_a, x[i]);
+  }
+  mx_a = fmaxf(mx_a, __shfl_xor_sync(FULL, mx_a, 1));
+  mx_a = fmaxf(mx_a, __shfl_xor_sync(FULL, mx_a, 2));
+  mx_b = fmaxf(mx_b, __shfl_xor_sync(FULL, mx_b, 1));
+  mx_b = fmaxf(mx_b, __shfl_xor_sync(FULL, mx_b, 2));
+  const float mn_a = fmaxf(r.m_a, mx_a), mn_b = fmaxf(r.m_b, mx_b);
+  corr_a = expf(r.m_a - mn_a);
+  corr_b = expf(r.m_b - mn_b);
+  float sum_a = 0.0f, sum_b = 0.0f;
+#pragma unroll
+  for (int i = 0; i < BK / 2; ++i) {
+    x[i] = expf(x[i] - ((i & 2) ? mn_b : mn_a));
+    if (i & 2) sum_b += x[i];
+    else sum_a += x[i];
+  }
+  sum_a += __shfl_xor_sync(FULL, sum_a, 1);
+  sum_a += __shfl_xor_sync(FULL, sum_a, 2);
+  sum_b += __shfl_xor_sync(FULL, sum_b, 1);
+  sum_b += __shfl_xor_sync(FULL, sum_b, 2);
+  r.l_a = __fadd_rn(__fmul_rn(r.l_a, corr_a), sum_a);
+  r.l_b = __fadd_rn(__fmul_rn(r.l_b, corr_b), sum_b);
+  r.m_a = mn_a;
+  r.m_b = mn_b;
+}
+
+// p (fp32, S accumulator layout) rounded to bf16 in the register A layout.
+__device__ __forceinline__ void pack_p(const float (&x)[BK / 2],
+                                       uint32_t (&pf)[BK / 16][4]) {
+#pragma unroll
+  for (int nt = 0; nt < BK / 8; ++nt) {
+    pf[nt / 2][(nt & 1) * 2] = pack_bf16(x[4 * nt], x[4 * nt + 1]);
+    pf[nt / 2][(nt & 1) * 2 + 1] = pack_bf16(x[4 * nt + 2], x[4 * nt + 3]);
   }
 }
+
+// O *= corr, row by row; skipped when no row of the warp changed its max
+// (every factor is then exactly 1).
+template <int D>
+__device__ __forceinline__ void rescale(float (&o)[D / 2], float corr_a,
+                                        float corr_b) {
+  if (!__any_sync(FULL, corr_a != 1.0f || corr_b != 1.0f)) return;
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] *= (i & 2) ? corr_b : corr_a;
+}
+
+template <int D>
+__global__ void __launch_bounds__(3 * NT, 1)
+    flash_bf16(const __grid_constant__ CUtensorMap tq,
+               const __grid_constant__ CUtensorMap tk,
+               const __grid_constant__ CUtensorMap tv,
+               const __grid_constant__ CUtensorMap to, const Shape p) {
+  using L = Tiles<D>;
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = reinterpret_cast<uint8_t*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  uint64_t* full_q = reinterpret_cast<uint64_t*>(smem + L::OFF_BAR);
+  uint64_t* full_k = full_q + 1;
+  uint64_t* full_v = full_k + NS;
+  uint64_t* empty_k = full_v + NS;
+  uint64_t* empty_v = empty_k + NS;
+
+  // heaviest first: the slowest-varying part of the block index walks
+  // the query blocks from the last (causal) down
+  const int heads = p.Hq * p.B;
+  int qb = blockIdx.x / heads;
+  if (p.causal) qb = p.nblk - 1 - qb;
+  const int h = blockIdx.x % p.Hq, b = (blockIdx.x / p.Hq) % p.B;
+  const int hk = h / p.group;
+  const int q_offset = p.S - p.T;
+  const int row0 = qb * 2 * BQ;
+  int lo, hi;  // the CTA's live tiles: the union of its two consumers'
+  live_tiles(p, row0 + q_offset, min(row0 + 2 * BQ, p.T) - 1 + q_offset, lo,
+             hi);
+
+  const int tid = threadIdx.x, wg = tid / NT;
+  if (tid == 0) {
+    sm90::bar_init(full_q, 1);
+    for (int s = 0; s < NS; ++s) {
+      sm90::bar_init(full_k + s, 1);
+      sm90::bar_init(full_v + s, 1);
+      sm90::bar_init(empty_k + s, 2 * NT);
+      sm90::bar_init(empty_v + s, 2 * NT);
+    }
+    sm90::bar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer: one thread keeps the ring full --------------------------
+    sm90::regs_dec<PRODUCER_REGS>();
+    if (tid == 2 * NT) {
+      sm90::bar_expect(full_q, 2 * L::Q);
+      for (int w = 0; w < 2; ++w)
+        for (int c = 0; c < D / L::CW; ++c)
+          sm90::tma_load_4d(smem + w * L::Q + c * BQ * L::ROW, &tq, full_q,
+                            c * L::CW, row0 + w * BQ, h, b);
+      for (int it = 0; it < hi - lo; ++it) {
+        const int j = lo + it, s = it % NS;
+        const uint32_t empty_ph = ((it / NS) & 1) ^ 1;
+        sm90::bar_wait(empty_k + s, empty_ph);
+        sm90::bar_expect(full_k + s, L::KV);
+        for (int c = 0; c < D / L::CW; ++c)
+          sm90::tma_load_4d(smem + L::OFF_K + s * L::KV + c * BK * L::ROW,
+                            &tk, full_k + s, c * L::CW, j * BK, hk, b);
+        sm90::bar_wait(empty_v + s, empty_ph);
+        sm90::bar_expect(full_v + s, L::KV);
+        for (int c = 0; c < D / L::CW; ++c)
+          sm90::tma_load_4d(smem + L::OFF_V + s * L::KV + c * BK * L::ROW,
+                            &tv, full_v + s, c * L::CW, j * BK, hk, b);
+      }
+    }
+  } else {
+    // ---- consumer warpgroup wg: query rows r0 .. r0 + 63 -------------------
+    sm90::regs_inc<CONSUMER_REGS>();
+    const int t = tid % NT, warp = t / 32, lane = t % 32;
+    const int g = lane / 4, t4 = lane % 4;
+    const int r0 = row0 + wg * BQ;
+    const int p_first = r0 + q_offset;
+    const int p_last = min(r0 + BQ, p.T) - 1 + q_offset;
+    const int pa = p_first + 16 * warp + g, pb = pa + 8;  // my two rows
+    uint8_t* qs = smem + wg * L::Q;
+    const uint32_t q_addr = sm90::smem_addr(qs);
+    const int n = hi - lo;  // both consumers walk all of the CTA's tiles
+    auto k_tile = [&](int it) {
+      return sm90::smem_addr(smem + L::OFF_K + (it % NS) * L::KV);
+    };
+    auto v_tile = [&](int it) {
+      return sm90::smem_addr(smem + L::OFF_V + (it % NS) * L::KV);
+    };
+    auto ready = [](int it) { return static_cast<uint32_t>((it / NS) & 1); };
+    auto edge = [&](int it) {  // does tile it cross an edge for my rows?
+      const int k0 = (lo + it) * BK;
+      return k0 + BK > p.S || (p.causal && k0 + BK - 1 > p_first) ||
+             (p.window > 0 && k0 <= p_last - p.window);
+    };
+    // Ping-pong: the two consumers take turns issuing their products
+    // (named barriers 1 and 2), so one's softmax runs under the other's
+    // wgmma. Warpgroup 0 goes first; warpgroup 1 skips its last hand-over,
+    // which no one would wait for.
+    const int mine = 1 + wg, other = 2 - wg;
+    auto hand_over = [&](int it) {
+      if (wg == 0 || it < n - 1) sm90::named_arrive(other, 2 * NT);
+    };
+
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
+    Rows rs{NEG_INF, NEG_INF, 0.0f, 0.0f};
+    float x[BK / 2], corr_a, corr_b;
+    uint32_t pf[BK / 16][4];
+
+    sm90::bar_wait(full_q, 0);
+    if (wg == 1) sm90::named_arrive(1, 2 * NT);
+    // tile 0: S, then its p (O is still 0)
+    sm90::bar_wait(full_k, 0);
+    sm90::named_sync(mine, 2 * NT);
+    issue_qk<D>(x, q_addr, k_tile(0));
+    hand_over(0);
+    sm90::wgmma_wait<0>();
+    sm90::bar_arrive(empty_k);
+    softmax_step(x, rs, corr_a, corr_b, p, edge(0), lo * BK, pa, pb, t4);
+    pack_p(x, pf);
+    // tile it: S of tile it runs beside P V of tile it - 1, and the
+    // softmax of tile it beside that P V
+    for (int it = 1; it < n; ++it) {
+      sm90::bar_wait(full_k + it % NS, ready(it));
+      sm90::named_sync(mine, 2 * NT);
+      issue_qk<D>(x, q_addr, k_tile(it));
+      rescale<D>(o, corr_a, corr_b);
+      sm90::bar_wait(full_v + (it - 1) % NS, ready(it - 1));
+      issue_pv<D>(o, pf, v_tile(it - 1));
+      hand_over(it);
+      sm90::wgmma_wait<1>();  // S is done; P V may still run
+      sm90::bar_arrive(empty_k + it % NS);
+      softmax_step(x, rs, corr_a, corr_b, p, edge(it), (lo + it) * BK, pa, pb,
+                   t4);
+      sm90::wgmma_wait<0>();
+      sm90::bar_arrive(empty_v + (it - 1) % NS);
+      pack_p(x, pf);
+    }
+    // the last tile's P V
+    rescale<D>(o, corr_a, corr_b);
+    sm90::bar_wait(full_v + (n - 1) % NS, ready(n - 1));
+    issue_pv<D>(o, pf, v_tile(n - 1));
+    sm90::wgmma_wait<0>();
+    sm90::bar_arrive(empty_v + (n - 1) % NS);
+
+    // O / l, through my (no longer needed) Q tile, out by TMA
+    if (r0 < p.T) {
+      const float la = fmaxf(rs.l_a, 1e-30f), lb = fmaxf(rs.l_b, 1e-30f);
+      const int ra = 16 * warp + g;
+#pragma unroll
+      for (int nt = 0; nt < D / 8; ++nt) {
+        const int col = nt * 8 + 2 * t4;
+        const uint32_t base =
+            (col / L::CW) * BQ * L::ROW + (col % L::CW) * 2;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          uint32_t off = base + (ra + 8 * half) * L::ROW;
+          off ^= ((off >> 7) & L::SWZ) << 4;
+          const float l = half ? lb : la;
+          *reinterpret_cast<uint32_t*>(qs + off) =
+              pack_bf16(o[4 * nt + 2 * half] / l, o[4 * nt + 2 * half + 1] / l);
+        }
+      }
+      sm90::fence_proxy_async();
+      sm90::named_sync(3 + wg, NT);
+      if (t == 0) {
+        for (int c = 0; c < D / L::CW; ++c)
+          sm90::tma_store_4d(&to, qs + c * BQ * L::ROW, c * L::CW, r0, h, b);
+        sm90::tma_store_commit_wait();
+      }
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fp32: CUDA cores
+// ---------------------------------------------------------------------------
 
 template <int D>
 __global__ void __launch_bounds__(NT) flash_f32(Params p) {
@@ -351,13 +547,98 @@ __global__ void __launch_bounds__(NT) flash_f32(Params p) {
   }
 }
 
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry
+// point so that the library needs no -lcuda.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A bf16 (D, rows, heads, batch) map with the element strides (batch,
+// head, row) and boxes of CW x box_rows; false if the driver refuses it.
 template <int D>
-int launch(const Params& p, int bf16, int B, int Hq, cudaStream_t st) {
-  const dim3 grid((p.T + BQ - 1) / BQ, Hq, B);
+bool encode(EncodeTiled fn, CUtensorMap* map, const void* base, int rows,
+            int heads, int batch, const long long* st, int box_rows) {
+  using L = Tiles<D>;
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t bytes[3] = {static_cast<cuuint64_t>(st[2]) * 2,
+                               static_cast<cuuint64_t>(st[1]) * 2,
+                               static_cast<cuuint64_t>(st[0]) * 2};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(L::CW),
+                             static_cast<cuuint32_t>(box_rows), 1, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  const CUtensorMapSwizzle swizzle =
+      L::ROW == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+      : L::ROW == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                     : CU_TENSOR_MAP_SWIZZLE_32B;
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+            const_cast<void*>(base), dims, bytes, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch_bf16(const void* const (&ptr)[4], int B, int Hq, int Hkv, int T,
+                int S, const long long* strides, float scale, int causal,
+                int window, cudaStream_t st) {
+  using L = Tiles<D>;
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return -5;
+  CUtensorMap maps[4];
+  const int rows[4] = {T, S, S, T}, heads[4] = {Hq, Hkv, Hkv, Hq};
+  const int box[4] = {BQ, BK, BK, BQ};
+  for (int i = 0; i < 4; ++i)
+    if (!encode<D>(fn, &maps[i], ptr[i], rows[i], heads[i], B,
+                   strides + 3 * i, box[i]))
+      return -1 - i;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_bf16<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const Shape p{T, S, Hq, B, Hq / Hkv, (T + 2 * BQ - 1) / (2 * BQ), scale,
+                causal, window};
+  flash_bf16<D><<<p.nblk * Hq * B, 3 * NT, L::SMEM, st>>>(
+      maps[0], maps[1], maps[2], maps[3], p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int launch(const void* const (&ptr)[4], int bf16, int B, int Hq, int Hkv,
+           int T, int S, const long long* s, float scale, int causal,
+           int window, cudaStream_t st) {
   if (bf16)
-    flash_bf16<D><<<grid, NT, 0, st>>>(p);
-  else
-    flash_f32<D><<<grid, NT, 0, st>>>(p);
+    return launch_bf16<D>(ptr, B, Hq, Hkv, T, S, s, scale, causal, window,
+                          st);
+  const Params p{ptr[0], ptr[1], ptr[2], const_cast<void*>(ptr[3]),
+                 T, S, Hq / Hkv,
+                 s[0], s[1], s[2], s[3], s[4], s[5],
+                 s[6], s[7], s[8], s[9], s[10], s[11],
+                 scale, causal, window};
+  const dim3 grid((T + BQ - 1) / BQ, Hq, B);
+  flash_f32<D><<<grid, NT, 0, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -366,7 +647,9 @@ int launch(const Params& p, int bf16, int B, int Hq, cudaStream_t st) {
 // q (B, Hq, T, D), k/v (B, Hkv, S, D), out like q, each given by its
 // element strides over (b, h, row) (12 values: q, k, v, out) with the last
 // dim contiguous. bf16 = 1 for bfloat16 inputs, 0 for float32. window <= 0
-// means no window. Returns cudaGetLastError() of the launch.
+// means no window. Returns cudaGetLastError() of the launch, or for bf16
+// -1 .. -4 when cuTensorMapEncodeTiled refused the map of q, k, v or out,
+// and -5 when the driver has no cuTensorMapEncodeTiled.
 extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               void* out, int bf16, int B, int Hq, int Hkv,
                               int T, int S, int D, const long long* strides,
@@ -374,16 +657,29 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
                               void* stream) {
   if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || T <= 0 || T > S)
     return static_cast<int>(cudaErrorInvalidValue);
-  Params p{q, k, v, out, T, S, Hq / Hkv,
-           strides[0], strides[1], strides[2], strides[3], strides[4],
-           strides[5], strides[6], strides[7], strides[8], strides[9],
-           strides[10], strides[11], scale, causal, window};
+  const void* const ptr[4] = {q, k, v, out};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-    case 16: return launch<16>(p, bf16, B, Hq, st);
-    case 32: return launch<32>(p, bf16, B, Hq, st);
-    case 64: return launch<64>(p, bf16, B, Hq, st);
-    case 128: return launch<128>(p, bf16, B, Hq, st);
+#define B9_LAUNCH(DIM)                                                      \
+  case DIM:                                                                  \
+    return launch<DIM>(ptr, bf16, B, Hq, Hkv, T, S, strides, scale, causal, \
+                       window, st);
+    B9_LAUNCH(16)
+    B9_LAUNCH(32)
+    B9_LAUNCH(64)
+    B9_LAUNCH(128)
+#undef B9_LAUNCH
     default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+// Dynamic shared memory of the bf16 kernel at head dim D (bytes), or -1.
+extern "C" int flash_attn_bf16_smem(int D) {
+  switch (D) {
+    case 16: return Tiles<16>::SMEM;
+    case 32: return Tiles<32>::SMEM;
+    case 64: return Tiles<64>::SMEM;
+    case 128: return Tiles<128>::SMEM;
+    default: return -1;
   }
 }

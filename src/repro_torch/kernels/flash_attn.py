@@ -10,16 +10,32 @@ the next correction factor wipes out), p rounded to v's dtype before the
 PV product, l clamped at 1e-30, the output cast to q's dtype.
 
 * :func:`flash_attention_plain` — the plain version, in PyTorch, over the
-  same 64-key tiles as the kernel (the tile decides where the running max
-  is taken, and so how p rounds in bf16).
-* :func:`launch_flash_attention` — B9 (``csrc/flash_attn.cu``): one CTA
-  per (b, q head, 64-row query block), the kv loop inside the CTA over
-  the live tiles only; ``mma.sync`` for bf16, fp32 CUDA-core math for
-  float32 (no TF32). Head dims 16, 32, 64 and 128. Any strides with a
-  contiguous last dim, so (B, T, H, D) activations go in without a copy.
+  same 128-key tiles as the kernel (the tile decides where the running
+  max is taken, and so how p rounds in bf16).
+* :func:`launch_flash_attention` — B9 (``csrc/flash_attn.cu``, PTX
+  helpers in ``csrc/sm90.cuh``). bf16 runs a Hopper kernel: one CTA of
+  three warpgroups per (b, q head, 128-row query block), a producer
+  whose one thread issues TMA loads of Q and of the K/V tiles into a
+  two-stage mbarrier ring, and two consumers of 64 rows each that run
+  ``wgmma`` for S = Q Kᵀ and for O += P V (P from registers, V read
+  transposed by the descriptor), overlap one tile's softmax with the
+  products FlashAttention-3's way, mask only the tiles that cross an
+  edge, and store O by TMA; blocks run heaviest first. The
+  host encodes the four tensor maps per call with
+  ``cuTensorMapEncodeTiled``, reached through the CUDA runtime's driver
+  entry point (no ``-lcuda``); a map the driver refuses raises, naming
+  the tensor and its strides. float32 runs on CUDA cores (no TF32), one
+  CTA per 64-row query block. Head dims 16, 32, 64 and 128. Any strides
+  with a contiguous last dim, so (B, T, H, D) activations go in without
+  a copy.
 * :func:`flash_attention` — dispatch by device: a CPU tensor runs the
   plain version, a CUDA tensor launches B9 (counted in
   ``flash_attention.launches``).
+
+The kernels are built at first use by ``_build`` (nvcc, ``sm_90a``);
+``_build/<hash>/build.log`` keeps each kernel's registers, shared memory
+and spills. The card tests are ``tests/test_torch_cuda.py`` (marker
+``cuda``; the README gives the command that runs them on the card).
 
 The kernel masks ragged T and S itself, so nothing is padded. The
 reference's ``bq``/``bk`` (its VMEM tiling) have no counterpart.
@@ -36,7 +52,7 @@ from repro_torch.kernels._device import on_cpu
 Tensor = torch.Tensor
 
 NEG_INF = -1e30
-BK = 64                      # keys per kv tile (kernel and plain version)
+BK = 128                     # keys per kv tile (kernel and plain version)
 HEAD_DIMS = (16, 32, 64, 128)
 DTYPES = (torch.float32, torch.bfloat16)
 
@@ -68,7 +84,7 @@ def _shape(q: Tensor, k: Tensor, v: Tensor):
 def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor, *,
                           causal: bool = True, window: int | None = None,
                           scale: float | None = None) -> Tensor:
-    """Plain version of B9: the reference's online softmax, one 64-key
+    """Plain version of B9: the reference's online softmax, one 128-key
     tile at a time, in fp32, GQA by viewing q as (B, Hkv, G·T, D)."""
     B, Hq, Hkv, T, S, D = _shape(q, k, v)
     G = Hq // Hkv
@@ -136,6 +152,14 @@ def launch_flash_attention(q: Tensor, k: Tensor, v: Tensor, *,
             int(q.dtype == torch.bfloat16), B, Hq, Hkv, T, S, D, strides,
             scale, int(causal), 0 if window is None else window,
             _build.stream_handle(q.device))
+    if code < 0:
+        if code == -5:
+            raise RuntimeError("B9: the CUDA driver has no "
+                               "cuTensorMapEncodeTiled")
+        name, t = (("q", q), ("k", k), ("v", v), ("out", out))[-code - 1]
+        raise RuntimeError(
+            f"B9: cuTensorMapEncodeTiled refused {name} {tuple(t.shape)} "
+            f"with strides {t.stride()} (elements)")
     _build.check(code, "flash_attention")
     return out
 

@@ -368,14 +368,26 @@ def test_scalar_level_engine_runs_b8_and_k4(dev):
 # ---------------------------------------------------------------------------
 
 # (B, Hq, Hkv, T, S, D, causal, window): every head dim, GQA groups 1, 2,
-# 3 and 4, ragged T and S, T < S, a sliding window, no mask
+# 3 and 4, ragged T and S, T < S, a sliding window, no mask; then the
+# edges of the 128-row blocks and 128-key tiles: T = S = 2047 and 2049,
+# T = 100 < S = 2048, windows narrower than a tile and across two, D = 16
+# and 32 with T < S
 FLASH_CASES = [(2, 16, 8, 200, 200, 128, True, None),
                (1, 4, 4, 64, 64, 64, True, None),
                (1, 6, 2, 100, 300, 64, True, 37),
                (2, 4, 1, 77, 77, 32, False, None),
                (1, 8, 2, 129, 129, 16, True, 64),
                (1, 2, 1, 1000, 1000, 128, True, None),
-               (3, 4, 2, 1, 90, 32, True, None)]
+               (3, 4, 2, 1, 90, 32, True, None),
+               (1, 16, 8, 2047, 2047, 128, True, None),
+               (1, 16, 8, 2049, 2049, 128, True, None),
+               (1, 16, 8, 100, 2048, 128, True, None),
+               (1, 16, 8, 1024, 1024, 128, True, 100),
+               (1, 16, 8, 1024, 1024, 128, True, 200),
+               (1, 8, 8, 300, 300, 64, True, None),
+               (1, 16, 4, 300, 300, 128, True, None),
+               (2, 4, 2, 333, 333, 16, True, 100),
+               (2, 4, 2, 100, 333, 32, True, None)]
 
 
 def _flash_inputs(B, Hq, Hkv, T, S, D, dtype, dev, seed=0):
@@ -413,6 +425,38 @@ def test_flash_attention_takes_strided_views(dev):
     got = flash_attn.flash_attention(*views, window=20)
     want = flash_attn.flash_attention(q, k, v, window=20)
     assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,T,S,D,window", [
+    (2, 16, 8, 300, 300, 128, None),
+    (2, 4, 2, 100, 333, 16, None),
+    (1, 8, 2, 257, 257, 32, 100)])
+def test_flash_attention_views_match_plain(dev, B, Hq, Hkv, T, S, D,
+                                           window):
+    """(B, T, H, D) activations seen as (B, H, T, D): the tensor maps take
+    the views' strides, and the result holds the plain version."""
+    from repro_torch.kernels import flash_attn
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2)
+             for t in _flash_inputs(B, Hq, Hkv, T, S, D, torch.bfloat16,
+                                    dev, 2)]
+    got = flash_attn.flash_attention(*views, window=window)
+    want = flash_attn.flash_attention_plain(*views, window=window)
+    assert got.stride() == views[0].stride()
+    assert _rel(got.float(), want.float()) <= 1e-2
+
+
+def test_flash_attention_refuses_strides_it_cannot_map(dev):
+    """A row stride that is not a multiple of 16 bytes, or a last dim that
+    is not contiguous, is refused with the tensor's name and strides."""
+    from repro_torch.kernels import flash_attn
+    q, k, v = _flash_inputs(1, 4, 2, 64, 64, 64, torch.bfloat16, dev)
+    wide = torch.zeros(1, 2, 64, 68, dtype=torch.bfloat16, device=dev)
+    with pytest.raises(ValueError,
+                       match=r"k: .*strides \(8704, 4352, 68, 1\)"):
+        flash_attn.flash_attention(q, wide[..., :64], v)
+    with pytest.raises(ValueError, match=r"v: .*contiguous last dim"):
+        flash_attn.flash_attention(q, k, v.transpose(2, 3))
+    assert flash_attn.flash_attention(q, k, v).shape == q.shape
 
 
 def test_lm_prefill_and_decode_on_card_match_cpu(dev):

@@ -5,8 +5,9 @@ Inputs are drawn with numpy from a seed and handed to both packages.
 fp32 holds the reference's own band (2e-6 absolute at 0.3-scaled inputs,
 ``tests/test_kernels.py``); bf16 holds 1e-2 of the output's scale (the
 two frameworks round bf16 matmuls and exps at different places). The
-interpret-mode kernel runs with bk = 64 where the port's tile decides the
-rounding of p (bf16), and with 32-wide tiles elsewhere.
+interpret-mode kernel runs with the port's 128-key tile (``_bk``) where
+the tile decides the rounding of p (bf16) and S allows it, and with
+32-wide tiles elsewhere.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -38,6 +39,13 @@ def _jax(arrs, dtype=jnp.float32):
     return tuple(jnp.asarray(a).astype(dtype) for a in arrs)
 
 
+def _bk(S):
+    """The Pallas kv tile that walks the port's tiles: BK, or S itself
+    when S < BK; 64 where S is not a multiple of BK (the Pallas kernel
+    needs equal tiles)."""
+    return tfa.BK if S < tfa.BK or S % tfa.BK == 0 else 64
+
+
 def _err(got, want):
     return float(np.abs(got.float().numpy()
                         - np.asarray(want, np.float32)).max())
@@ -50,7 +58,9 @@ CASES = [(2, 4, 2, 128, 128, 64, True, None),
          (1, 4, 2, 64, 192, 32, True, None),
          (1, 4, 1, 64, 192, 32, True, 48),
          (1, 2, 2, 64, 64, 16, True, None),
-         (1, 8, 2, 64, 128, 128, True, 100)]
+         (1, 8, 2, 64, 128, 128, True, 100),
+         (1, 4, 2, 128, 256, 64, True, 100),    # window narrower than a tile
+         (1, 4, 4, 256, 256, 32, True, 200)]    # window across two tiles
 
 
 @pytest.mark.parametrize("B,Hq,Hkv,T,S,D,causal,window", CASES)
@@ -73,7 +83,8 @@ def test_plain_matches_interpret_kernel_bf16(B, Hq, Hkv, T, S, D, causal,
                                              window):
     arrs = _qkv(B, Hq, Hkv, T, S, D, seed=1)
     want = jfa.flash_attention(*_jax(arrs, jnp.bfloat16), causal=causal,
-                               window=window, bq=64, bk=64, interpret=True)
+                               window=window, bq=64, bk=_bk(S),
+                               interpret=True)
     got = tfa.flash_attention(*_port(arrs, torch.bfloat16), causal=causal,
                               window=window)
     assert got.dtype == torch.bfloat16
@@ -101,7 +112,10 @@ def test_ref_mha_matches_reference(dtype, causal, window):
     (50, 50, True, 16),
     (20, 50, True, None),       # ragged T < S: the reference takes ref.mha
     (50, 50, False, None),
-    (33, 97, True, 40)])
+    (33, 97, True, 40),
+    (129, 129, True, 100),      # one row past a 128-row block
+    (127, 300, True, 200),      # T < S, ragged against 128-key tiles
+    (255, 257, False, None)])
 def test_ops_wrapper_matches_reference_on_ragged_shapes(T, S, causal,
                                                         window):
     arrs = _qkv(1, 4, 2, T, S, 32, seed=3)
