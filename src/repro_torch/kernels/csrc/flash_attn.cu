@@ -54,8 +54,7 @@
 //     while that P V is in flight (O is rescaled before the P V is
 //     issued, p packed to bf16 after it completes); across the two
 //     consumers, named barriers make them take turns issuing their
-//     products, so one's softmax runs under the other's wgmma. The O
-//     rescale is skipped when no row of a warp moved its max.
+//     products, so one's softmax runs under the other's wgmma.
 //   * Only tiles that cross an edge (the causal diagonal, the window's
 //     edge, or the end of S) are masked; a zero-filled key would give a
 //     logit of 0, so the ragged last tile is one of them. Both consumers
@@ -272,12 +271,10 @@ __device__ __forceinline__ void pack_p(const float (&x)[BK / 2],
   }
 }
 
-// O *= corr, row by row; skipped when no row of the warp changed its max
-// (every factor is then exactly 1).
+// O *= corr, row by row.
 template <int D>
 __device__ __forceinline__ void rescale(float (&o)[D / 2], float corr_a,
                                         float corr_b) {
-  if (!__any_sync(FULL, corr_a != 1.0f || corr_b != 1.0f)) return;
 #pragma unroll
   for (int i = 0; i < D / 2; ++i) o[i] *= (i & 2) ? corr_b : corr_a;
 }
@@ -660,15 +657,18 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
   const void* const ptr[4] = {q, k, v, out};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (D) {
-#define B9_LAUNCH(DIM)                                                      \
-  case DIM:                                                                  \
-    return launch<DIM>(ptr, bf16, B, Hq, Hkv, T, S, strides, scale, causal, \
-                       window, st);
-    B9_LAUNCH(16)
-    B9_LAUNCH(32)
-    B9_LAUNCH(64)
-    B9_LAUNCH(128)
-#undef B9_LAUNCH
+    case 16:
+      return launch<16>(ptr, bf16, B, Hq, Hkv, T, S, strides, scale, causal,
+                        window, st);
+    case 32:
+      return launch<32>(ptr, bf16, B, Hq, Hkv, T, S, strides, scale, causal,
+                        window, st);
+    case 64:
+      return launch<64>(ptr, bf16, B, Hq, Hkv, T, S, strides, scale, causal,
+                        window, st);
+    case 128:
+      return launch<128>(ptr, bf16, B, Hq, Hkv, T, S, strides, scale, causal,
+                         window, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
