@@ -117,6 +117,19 @@ def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor, *,
     return out.reshape(B, Hq, T, D).to(q.dtype)
 
 
+def bf16_band(got: Tensor, want: Tensor) -> float:
+    """How far a bf16 result of B9 lies from its plain version's, as a
+    share of the band the kernel holds: 2⁻⁶·|want| per element (two bf16
+    ulps of it) plus 2⁻⁸·max|want| over the element's row (one flipped
+    bf16 rounding of a p that dominates the row). At most 1 is within the
+    band. The two walk the same tiles, so they differ only by the fp32
+    summation order and the bf16 roundings it flips."""
+    d = (got.double() - want.double()).abs()
+    w = want.double().abs()
+    lim = 2.0 ** -6 * w + 2.0 ** -8 * w.amax(-1, keepdim=True)
+    return float(torch.where(d == 0, 0.0, d / lim).max())
+
+
 def _check(name: str, t: Tensor, dtype: torch.dtype) -> None:
     if t.device.type != "cuda" or t.dtype != dtype:
         raise ValueError(f"{name}: expected a CUDA {dtype} tensor, got "
