@@ -1,18 +1,19 @@
 #!/usr/bin/env python3
-"""Time B9's bf16 kernel beside scaled_dot_product_attention on one card.
+"""Time B9 beside scaled_dot_product_attention on one card.
 
-  PYTHONPATH=src python3 bench_flash.py [--rounds 5]
+  PYTHONPATH=src python3 bench_flash.py [--dtype float32] [--rounds 5]
 
 At the qwen3-0.6b prefill shape (B=4, Hq=16, Hkv=8, T=S=2048, D=128,
-causal, bf16; inputs from ``--seed``) it prints one JSON line: the card's
-name and power limit, the spills of ``flash_bf16<128>`` from the build's
-ptxas report, B9's largest error against its plain version, and the
-median over ``--rounds`` of the mean ms per call over ``--reps`` calls by
-CUDA events, for B9 and for SDPA. It uses only the wrapper's public
-entry points, so the same file times another checkout's kernel with
-``PYTHONPATH=<checkout>/src``; alternate two checkouts on one card in
-one run to compare them. ``band`` is ``flash_attn.bf16_band`` where the
-checkout has it.
+causal; bf16, or fp32 with TF32 off; inputs from ``--seed``) it prints
+one JSON line: the card's name and power limit, the spills of B9's
+kernel for the dtype (``flash_bf16<128>`` or ``flash_f32<128>``) from the
+build's ptxas report, B9's largest error against its plain version, and
+the median over ``--rounds`` of the mean ms per call over ``--reps``
+calls by CUDA events, for B9 and for SDPA. It uses only the wrapper's
+public entry points, so the same file times another checkout's kernel
+with ``PYTHONPATH=<checkout>/src``; alternate two checkouts on one card
+in one run to compare them. ``band`` is ``flash_attn.bf16_band`` where
+the checkout has it (bf16 only).
 """
 from __future__ import annotations
 
@@ -41,8 +42,8 @@ def _ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _spills(log: str) -> str:
-    m = re.search(r"Function properties for \S*flash_bf16ILi128E\S*\n\s*"
+def _spills(log: str, kernel: str) -> str:
+    m = re.search(r"Function properties for \S*" + kernel + r"ILi128E\S*\n\s*"
                   r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
                   r"(\d+) bytes spill loads", log)
     return "not in the build log" if m is None else \
@@ -54,18 +55,24 @@ def main(argv=None) -> dict:
     ap.add_argument("--rounds", type=int, default=5)
     ap.add_argument("--reps", type=int, default=20)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--dtype", choices=("bfloat16", "float32"),
+                    default="bfloat16")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench_flash needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     torch.manual_seed(args.seed)
+    dtype = getattr(torch, args.dtype)
     B, Hq, Hkv, T, D = 4, 16, 8, 2048, 128
-    q = torch.randn(B, Hq, T, D, device="cuda").bfloat16()
-    k, v = (torch.randn(B, Hkv, T, D, device="cuda").bfloat16()
+    q = torch.randn(B, Hq, T, D, device="cuda").to(dtype)
+    k, v = (torch.randn(B, Hkv, T, D, device="cuda").to(dtype)
             for _ in range(2))
     got = fa.launch_flash_attention(q, k, v, causal=True)
     want = fa.flash_attention_plain(q, k, v, causal=True)
     err = float((got.float() - want.float()).abs().max())
-    band = fa.bf16_band(got, want) if hasattr(fa, "bf16_band") else None
+    band = fa.bf16_band(got, want) if (
+        hasattr(fa, "bf16_band") and dtype == torch.bfloat16) else None
     b9, sdpa = [], []
     for _ in range(args.rounds):
         b9.append(_ms(lambda: fa.launch_flash_attention(q, k, v,
@@ -79,8 +86,10 @@ def main(argv=None) -> dict:
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60).stdout.strip().splitlines()[0]
     log = (_build.library_path().parent / "build.log").read_text()
-    res = {"card": card, "build": _build.library_path().parent.name,
-           "spills": _spills(log), "max_abs_err": err, "band": band,
+    kernel = "flash_bf16" if dtype == torch.bfloat16 else "flash_f32"
+    res = {"card": card, "dtype": args.dtype,
+           "build": _build.library_path().parent.name,
+           "spills": _spills(log, kernel), "max_abs_err": err, "band": band,
            "b9_ms": statistics.median(b9), "sdpa_ms": statistics.median(sdpa),
            "b9_rounds": b9}
     print(json.dumps(res))

@@ -27,16 +27,26 @@ Phases (any failed check exits nonzero):
    gisette's width (d=5000); B7 (odm_grad) at SUSY's 4,000,000 x 18 and at
    4,800 x 5,000. Max-abs error <= 1e-5 x max(1, max|out|). Times are
    device times: the card is held by a sleep kernel while the launches
-   are queued, so host launch cost is left out.
+   are queued, so host launch cost is left out. Then B6's whole-epoch
+   kernel (odm_svrg_epoch) on one SUSY epoch (K=8 chains of 7,813
+   minibatches of 64 walked as the serial schedule walks them, 62,504
+   steps), on a7a's svrg chain (26,048 steps of b=1, d=123) and at
+   d=5000 (75 steps of 64): w equal bit for bit (torch.equal) to the
+   per-step path (a B6 launch and the eager w - eta * dir a step), and
+   on SUSY within the DSVRG band (||dw||/||w|| <= 1e-2) of its plain
+   version on the card. Its ms per epoch and us per step beside its bound
+   by bytes, and the per-step path's us per step, eager and with 1,000
+   steps captured in one CUDA graph (timing only; no path uses a graph).
 6. Algorithm 2 at real size: the SUSY stand-in (4,000,000 training rows,
    d=18, linear, lam=100) with SODMConfig() defaults and no route, which
    must auto-dispatch to dsvrg: 10 epochs, K=8 stratified partitions,
    minibatches of 64 (7,813 per node, the last 32 rows). One row per
    epoch; then fit time, microseconds per inner step, test accuracy and
-   peak memory, and a steady window of inner steps timed twice: by the
-   host clock and as device time. B6 must launch exactly 625,040 times,
-   B7 exactly 10, the four Algorithm-1 kernels never; B6 and B7 never run
-   on the phishing or ijcnn1 paths.
+   peak memory, and the fit's split: before the epochs (partitioning,
+   layout) and in them (the epoch kernel, B7, the rest). The epoch kernel
+   must launch exactly 10 times (one an epoch), B7 exactly 10, B6's
+   per-step kernel and the four Algorithm-1 kernels never; none of the
+   three runs on the phishing or ijcnn1 paths.
 7. One small DSVRG fit (a7a at scale 0.05, identity partitions, 5
    epochs, batch 16) on the card against the CPU, once per schedule:
    ||dw||/||w|| <= 1e-2 and prediction agreement >= 0.99, the band
@@ -58,8 +68,8 @@ Phases (any failed check exits nonzero):
    stop at the sweep cap and it scores below the majority rate, as the
    reference does on the same inputs.
 9. Table 3's gradient rivals at full size: svrg and csvrg on a7a (26,048
-   rows, d=123, DSVRGConfig() defaults): exactly 10 x 26,048 B6 and 10 B7
-   launches per route.
+   rows, d=123, DSVRGConfig() defaults): exactly 10 epoch-kernel launches
+   (each 26,048 steps) and 10 B7 launches per route, B6 never.
 10. The rivals on the card against the CPU: cascade, dip and dc on the
    scalar engine (B8 + K4) at phishing scale 0.045 (alpha within 1e-4,
    decision values within 1e-3, the same survivors or partitions); svrg
@@ -68,18 +78,18 @@ Phases (any failed check exits nonzero):
    phishing for stratified, random and cluster partitions.
 2d. (after phase 10) B9 (flash attention) against its plain version,
    after the flash kernels' registers, shared memory and spills from the
-   build log: the qwen3-0.6b prefill shape (B=4, Hq=16, Hkv=8, T=S=2048,
-   D=128, causal) in bf16 (with its TFLOP/s and share of the bf16 peak),
-   in fp32 (TF32 off) and as the (B, T, H, D) views attend passes;
-   ragged T=S=1000, 2047 and 2049 (against 128-row blocks and 128-key
-   tiles); T=100 and 512 < S (queries at the end of the history);
-   windows of 100, 200 and 256 keys; GQA groups 1, 3 and 4 at D=64; D=16
-   and 32 with a window and as views with T < S. Max-abs error <= 1e-5 x
-   max(1, max|out|) in fp32; in bf16 1e-2 x, and each element within
-   two bf16 ulps of the plain version's plus 2^-8 of its row's largest
-   (bf16_band in kernels/flash_attn.py). Times beside the bound
-   and, where T == S and there is no window, the
-   scaled_dot_product_attention yardstick.
+   build log, in bf16 and again in fp32 (TF32 off): the qwen3-0.6b
+   prefill shape (B=4, Hq=16, Hkv=8, T=S=2048, D=128, causal) (with its
+   TFLOP/s and share of the peak) and as the (B, T, H, D) views attend
+   passes; ragged T=S=1000, 2047 and 2049 (against the kernels' row
+   blocks and key tiles); T=100 and 512 < S (queries at the end of the
+   history); windows of 100, 200 and 256 keys; GQA groups 1, 3 and 4 at
+   D=64; D=16 and 32 with a window and as views with T < S. Max-abs
+   error <= 1e-5 x max(1, max|out|) in fp32; in bf16 1e-2 x, and each
+   element within two bf16 ulps of the plain version's plus 2^-8 of its
+   row's largest (bf16_band in kernels/flash_attn.py). Times beside the
+   bound and the scaled_dot_product_attention yardstick (is_causal where
+   T == S and there is no window, else the same mask written out).
 11. The LM scaffold's serving path at full width and depth: qwen3-0.6b
    (28 layers, random weights from a seeded generator) prefills B=4
    prompts of 2,048 tokens (numpy, seed 0), then 32 greedy decode steps,
@@ -90,7 +100,10 @@ Phases (any failed check exits nonzero):
    path. All logits finite. Against impl="ref" on the same weights and
    tokens: with fp32 compute within 1e-3 x max|logits|; in bf16 B9's
    prefill no farther from the fp32 prefill than the ref path's (both
-   lie about 2 % of max|logits| from it at 28 layers).
+   lie about 2 % of max|logits| from it at 28 layers). The fp32 prefill
+   is a path of its own (a user serving with compute_dtype=float32): B9's
+   fp32 kernel must launch exactly 28 times in it, no ODM kernel, and it
+   is timed by CUDA events.
 12. The LM on the card against the CPU: qwen3-0.6b at full width with 2
    layers, one numpy draw of the weights (lm_params_from_numpy), B=1,
    T=64 and 8 teacher-forced decode steps: logits within 1e-3 x
@@ -104,8 +117,10 @@ of bytes moved over 3.35 TB/s and operations over the peak of their type
 peaks at 700 W; the text lines also give it scaled to the card's printed
 power limit), and its launches: on the ijcnn1 path for the kernels that
 path runs, on the phishing path for K3 (which runs on phishing's dense
-levels only), on the SUSY path for B6 and B7, on the cascade path for B8
-and K4, on the qwen3-0.6b path for B9; ``launches_by_path`` gives every
+levels only), on the SUSY path for the epoch kernel, B6 (0: its
+arithmetic runs inside the epoch kernel) and B7, on the cascade path for
+B8 and K4, on the qwen3-0.6b path for B9 in bf16 and on its fp32 prefill
+for B9 in fp32 (flash_attention_f32); ``launches_by_path`` gives every
 path. The last line is the result.
 """
 from __future__ import annotations
@@ -348,6 +363,7 @@ def main() -> None:
         from repro_torch import configs as lm_configs
         from repro_torch import interop
         from repro_torch.api import ODMEstimator, ProblemSpec
+        from repro_torch.core import dsvrg as dsvrg_mod
         from repro_torch.core import dual_cd
         from repro_torch.core import kernel_fns as kf
         from repro_torch.core import partition as part_mod
@@ -518,27 +534,33 @@ def main() -> None:
                 "score_tiles": score_mod.score_tiles,
                 "dense_matvec": cdk.dense_matvec,
                 "odm_svrg_grad": og.odm_svrg_grad,
+                "odm_svrg_epoch": og.odm_svrg_epoch,
                 "odm_grad": og.odm_grad,
                 "gram": gram_mod.gram,
                 "cd_exact": dual_cd.solve,
                 "flash_attention": fa_mod.flash_attention}
     alg1 = ("cd_block_sweep", "gram_matvec", "score_tiles", "dense_matvec")
-    alg2 = ("odm_svrg_grad", "odm_grad")
+    # Algorithm 2 and the gradient rivals take one epoch kernel launch an
+    # epoch; B6's per-step launch is on no path (the epoch kernel runs its
+    # arithmetic step by step)
+    alg2 = ("odm_svrg_epoch", "odm_grad")
+    b6 = ("odm_svrg_grad",)
     exact = ("gram", "cd_exact")
     mfree = ("cd_block_sweep", "gram_matvec", "score_tiles")
     lm = ("flash_attention",)
     # the kernels each path must launch, and those it must not
-    expect = {"phishing": (alg1, alg2 + exact + lm),
-              "ijcnn1": (mfree, ("dense_matvec",) + alg2 + exact + lm),
-              "SUSY": (alg2, alg1 + exact + lm),
+    expect = {"phishing": (alg1, alg2 + b6 + exact + lm),
+              "ijcnn1": (mfree, ("dense_matvec",) + alg2 + b6 + exact + lm),
+              "SUSY": (alg2, alg1 + b6 + exact + lm),
               "cascade": (exact + ("score_tiles",),
                           ("cd_block_sweep", "gram_matvec", "dense_matvec")
-                          + alg2 + lm),
-              "dip": (mfree, ("dense_matvec",) + alg2 + exact + lm),
-              "dc": (mfree, ("dense_matvec",) + alg2 + exact + lm),
-              "svrg": (alg2, alg1 + exact + lm),
-              "csvrg": (alg2, alg1 + exact + lm),
-              "qwen3-0.6b": (lm, alg1 + alg2 + exact)}
+                          + alg2 + b6 + lm),
+              "dip": (mfree, ("dense_matvec",) + alg2 + b6 + exact + lm),
+              "dc": (mfree, ("dense_matvec",) + alg2 + b6 + exact + lm),
+              "svrg": (alg2, alg1 + b6 + exact + lm),
+              "csvrg": (alg2, alg1 + b6 + exact + lm),
+              "qwen3-0.6b": (lm, alg1 + alg2 + b6 + exact),
+              "qwen3-0.6b fp32": (lm, alg1 + alg2 + b6 + exact)}
     fits, path_launches = {}, {}
     for phase, ds, gamma in ((3, phishing, g_phish), (4, ijcnn1, g_ijc)):
         say(f"== phase {phase}: fit {ds.name} M={ds.x_train.shape[0]} "
@@ -737,6 +759,138 @@ def main() -> None:
                 bound_ms=b_ms, bound_by=b_by)
     del wide_x, wide_y, got, again, want
 
+    # the whole-epoch kernel: bit for bit against the per-step B6 path
+    # (B6 launches and the eager w - eta * dir), timed beside that path
+    # run eagerly and captured in a CUDA graph (timing only)
+    def per_step(w, a, h, xs, ys, wts, inv, eta, steps=None):
+        """The per-step path over the serial chain of xs (K, S, b, d)."""
+        K, S = ys.shape[:2]
+        n = K * S if steps is None else steps
+        for t in range(n):
+            k, j = divmod(t, S)
+            w = w - eta * og.launch_odm_svrg_grad(
+                w, a, h, xs[k, j], ys[k, j], wts[j], inv[j], **skw)
+        return w
+
+    def graph_us(w, a, h, xs, ys, wts, inv, eta, n=1000):
+        """Microseconds a step of the per-step path with n steps captured
+        in one torch.cuda.CUDAGraph, and its w, which must equal the
+        eager path's bit for bit."""
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            per_step(w, a, h, xs, ys, wts, inv, eta, steps=3)
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            w_out = per_step(w, a, h, xs, ys, wts, inv, eta, steps=n)
+        graph.replay()
+        torch.cuda.synchronize()
+        got = w_out.clone()
+        us = time_ms(graph.replay, 5) / n * 1e3
+        del graph
+        return us, got
+
+    def epoch_case(label, xs, ys, wts, inv, w, a, h, eta, plain=False):
+        """The epoch kernel on the serial chain of xs against the per-step
+        path (torch.equal) and, with plain=True, its plain version on the
+        card (the DSVRG band: the per-step path holds B6's plain version
+        within 1e-5 each step, and SVRG chains drift apart across
+        reduction orders where a hinge kink turns)."""
+        K, S, b, d = xs.shape
+        steps = K * S
+        args = (w, a, h, xs, ys, wts, inv, eta)
+        got = og.launch_odm_svrg_epoch(*args, schedule="serial", **skw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = per_step(*args)
+        torch.cuda.synchronize()
+        eager_us = (time.perf_counter() - t0) / steps * 1e6
+        if not torch.equal(got, want):
+            fail(f"odm_svrg_epoch {label} differs from the per-step B6 path "
+                 f"by {float((got - want).abs().max())} (must be bit-equal)")
+        n_graph = min(1000, steps)
+        g_us, g_w = graph_us(*args, n=n_graph)
+        if not torch.equal(g_w, per_step(*args, steps=n_graph)):
+            fail(f"the CUDA graph of the per-step path ({label}) differs "
+                 f"from the eager path")
+        reps = 3 if steps > 10_000 else 20
+        ms = time_ms(lambda: og.launch_odm_svrg_epoch(
+            *args, schedule="serial", **skw), reps)
+        res = dict(max_abs_err=0.0, ms=ms, plain_ms=None, library_ms=None)
+        if plain:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ref = og.odm_svrg_epoch_plain(*args, schedule="serial", **skw)
+            torch.cuda.synchronize()
+            res["plain_ms"] = (time.perf_counter() - t0) * 1e3
+            res["max_abs_err"] = float((got - ref).abs().max())
+            rel = float((got - ref).norm() / ref.norm())
+            if not rel <= 1e-2:
+                fail(f"odm_svrg_epoch {label}: ||w - w_plain|| / ||w_plain||"
+                     f" = {rel} > 1e-2")
+        b_ms, b_by = bound(4 * (steps * b * (d + 1) + wts.shape[0] * b
+                                + inv.shape[0] + 4 * d + 1), 6 * steps * b * d)
+        res.update(bound_ms=b_ms, bound_by=b_by)
+        mode = _build.library().odm_svrg_epoch_mode(b, d)
+        say(f"B6 epoch odm_svrg_epoch {label}: {steps} steps, bit for bit "
+            f"the per-step B6 path (mode {mode}: "
+            + ("w in device memory" if mode == 0 else
+               "w in shared memory, rows from device memory" if mode == 1
+               else "w in shared memory, rows through the ring") + "); "
+            f"ms={ms:.3f} per epoch, {ms / steps * 1e3:.3f} us per step; "
+            f"the per-step path eager {eager_us:.2f} us per step, as a CUDA "
+            f"graph of {n_graph} steps {g_us:.2f} us per step"
+            + ("" if not plain else
+               f"; plain_ms={res['plain_ms']:.1f} max_abs_err "
+               f"{res['max_abs_err']:.3e} (||dw||/||w|| {rel:.3e})")
+            + " " + bound_text(b_ms, b_by, derate))
+        return res
+
+    # one SUSY epoch (the default: K = 8 partitions, batches of 64; rows in
+    # stream order), as the fit's serial chain walks it
+    dcfg = DSVRGConfig()
+    kp = dcfg.n_partitions
+    xs_e, ys_e, wts_e = dsvrg_mod._pad_batches(
+        xs_tr.reshape(kp, M // kp, D), ys_tr.reshape(kp, M // kp),
+        64)
+    inv_e = (1.0 / torch.clamp_min(wts_e.sum(-1), 1.0))[:, None]
+
+    def auto_eta(x):
+        """The solver's step size for rows x (0.5 over the smoothness)."""
+        return dsvrg_mod._eta_from_sumsq(torch.sum(x * x), params,
+                                         x[..., 0].numel()).reshape(())
+
+    eta_e = auto_eta(xs_tr)
+    wa = (torch.randn(2, D, generator=gen) / D ** 0.5).to(dev)
+    h_e = (torch.randn(D, generator=gen) * 1e-3).to(dev)
+    stats["odm_svrg_epoch"] = epoch_case(
+        f"SUSY epoch K={kp} S={xs_e.shape[1]} b=64 d={D} (tail "
+        f"{int(wts_e[-1].sum())})", xs_e, ys_e, wts_e, inv_e, wa[0],
+        wa[1], h_e, eta_e, plain=True)
+    susy_epoch_ms = stats["odm_svrg_epoch"]["ms"]
+    del xs_e, ys_e, wts_e
+    # a7a's svrg chain (b = 1, d = 123, one mask and divisor for every
+    # step) and a gisette-wide chain (b = 64, d = 5,000)
+    a7a_full = synthetic.load("a7a")
+    xa = a7a_full.x_train.to(dev)
+    Ma, Da = xa.shape
+    ones = torch.ones(1, 1, device=dev)
+    wa7 = (torch.randn(2, Da, generator=gen) / Da ** 0.5).to(dev)
+    epoch_case(f"a7a svrg chain S={Ma} b=1 d={Da}", xa.reshape(1, Ma, 1, Da),
+               a7a_full.y_train.to(dev).reshape(1, Ma, 1),
+               ones.expand(Ma, 1), ones.expand(Ma, 1),
+               wa7[0], wa7[1], torch.randn(Da, generator=gen).to(dev) * 1e-3,
+               auto_eta(xa))
+    xg = torch.rand(1, 75, 64, 5000, generator=gen).to(dev)
+    yg = torch.sign(torch.randn(1, 75, 64, generator=gen)).to(dev)
+    wg5 = (torch.randn(2, 5000, generator=gen) / 50.0).to(dev)
+    epoch_case("S=75 b=64 d=5000", xg, yg, torch.ones(75, 64, device=dev),
+               torch.full((75, 1), 1 / 64, device=dev), wg5[0], wg5[1],
+               torch.randn(5000, generator=gen).to(dev) * 1e-3,
+               auto_eta(xg))
+    del xa, xg, yg
+
     # -- 6. Algorithm 2 at real size: SUSY through the auto route ------------
     say(f"== phase 6: fit SUSY M={M} d={D} linear lam={lam} (route=None)")
     for fn in counters.values():
@@ -786,48 +940,28 @@ def main() -> None:
         fail(f"SUSY history malformed: {report.history}")
     if not acc > 0.5:
         fail(f"SUSY test accuracy {acc} is no better than chance")
-    if launches["odm_svrg_grad"] != want_steps:
-        fail(f"odm_svrg_grad launched {launches['odm_svrg_grad']} times on "
-             f"the SUSY path, not {want_steps}")
-    if launches["odm_grad"] != dc.epochs:
-        fail(f"odm_grad launched {launches['odm_grad']} times on the SUSY "
-             f"path, not {dc.epochs}")
+    if (launches["odm_svrg_epoch"], launches["odm_svrg_grad"],
+            launches["odm_grad"]) != (dc.epochs, 0, dc.epochs):
+        fail(f"the SUSY path launched the epoch kernel "
+             f"{launches['odm_svrg_epoch']}, B6 {launches['odm_svrg_grad']} "
+             f"and B7 {launches['odm_grad']} times, not {dc.epochs}, 0 and "
+             f"{dc.epochs}")
     ran, idle = expect["SUSY"]
     for name in idle:
         if launches[name] != 0:
             fail(f"kernel {name} launched on the SUSY path")
-
-    # a steady window of inner steps, as _epoch_serial runs them: host
-    # clock (what the fit pays) against device time (what the card does)
-    n_win = min(2000, M // 64)
-    xs_b = xs_tr[:64 * n_win].reshape(n_win, 64, D)
-    ys_b = ys_tr[:64 * n_win].reshape(n_win, 64)
-    wt_b = torch.ones(64, device=dev)
-    inv_b = torch.tensor([1.0 / 64], device=dev)
-    w_b = model.w.clone()
-    h_b = torch.randn(D, generator=gen).to(dev) * 1e-3
-    eta_b = torch.tensor(report.eta, device=dev)
-    state = {"w": w_b, "i": 0}
-
-    def inner_step():
-        i = state["i"] % n_win
-        state["i"] += 1
-        state["w"] = state["w"] - eta_b * og.odm_svrg_grad(
-            state["w"], w_b, h_b, xs_b[i], ys_b[i], wt_b, inv_b, **skw)
-
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(n_win):
-        inner_step()
-    torch.cuda.synchronize()
-    host_us = (time.perf_counter() - t0) / n_win * 1e6
-    dev_us = device_ms(inner_step, 300) * 1e3
-    kern_us = stats["odm_svrg_grad"]["ms"] * 1e3
-    say(f"  inner step, steady window: host-paced {host_us:.2f} us/step, "
-        f"device {dev_us:.2f} us/step (B6 {kern_us:.2f} us + the step's "
-        f"two elementwise ops); device busy {dev_us / host_us:.1%} of the "
-        f"host-paced step")
-    del xs_tr, ys_tr, xs_b, ys_b
+    # where the fit's time goes: the epochs (each one B7 launch, one epoch
+    # kernel launch and the objective, ended by the tracker's host read)
+    # against the rest (partitioning, the minibatch layout, eta)
+    epochs_s = sum(row["wall_s"] for row in epochs.rows)
+    kern_s = dc.epochs * susy_epoch_ms / 1e3
+    b7_s = dc.epochs * stats["odm_grad"]["ms"] / 1e3
+    say(f"  split of the fit: {fit_s - epochs_s:.3f} s before the epochs "
+        f"(partitioning, layout, eta); {epochs_s:.3f} s in {dc.epochs} "
+        f"epochs, of which the epoch kernel {kern_s:.3f} s ({dc.epochs} x "
+        f"{susy_epoch_ms:.2f} ms, phase 2b), B7 {b7_s:.4f} s and "
+        f"{epochs_s - kern_s - b7_s:.3f} s the objective, h and the host")
+    del xs_tr, ys_tr
 
     # -- 7. the card against the CPU on one small linear fit ------------------
     small = synthetic.load("a7a", scale=0.05)
@@ -1067,11 +1201,11 @@ def main() -> None:
         say(f"  eta={report.eta:.6g} us_per_inner_step="
             f"{fit_s / steps9 * 1e6:.2f} history="
             f"{[round(h, 6) for h in report.history]}")
-        if (launches["odm_svrg_grad"], launches["odm_grad"]) != (
-                steps9, d9.epochs):
-            fail(f"{route} launched B6 {launches['odm_svrg_grad']} and B7 "
-                 f"{launches['odm_grad']} times, not {steps9} and "
-                 f"{d9.epochs}")
+        if (launches["odm_svrg_epoch"], launches["odm_grad"]) != (
+                d9.epochs, d9.epochs):
+            fail(f"{route} launched the epoch kernel "
+                 f"{launches['odm_svrg_epoch']} and B7 "
+                 f"{launches['odm_grad']} times, not {d9.epochs} each")
         if len(report.history) != d9.epochs or not all(
                 math.isfinite(h) for h in report.history):
             fail(f"{route} history malformed: {report.history}")
@@ -1174,8 +1308,7 @@ def main() -> None:
         """B9 against its plain version (fp32: 1e-5 of the output's
         scale; bf16: 1e-2 of it and within fa_mod.bf16_band, two bf16
         ulps of each element plus 2^-8 of its row's largest), timed
-        beside its bound
-        and, where T == S and there is no window, the SDPA yardstick.
+        beside its bound and the SDPA yardstick (TF32 off).
         views: q, k, v are (B, T, H, D) activations seen as (B, H, T, D),
         as attend passes them."""
         shapes = ((hq, T), (hkv, S), (hkv, S))
@@ -1203,11 +1336,19 @@ def main() -> None:
                      reps)
         plain_ms = time_ms(lambda: fa_mod.flash_attention_plain(q, k, v,
                                                                 **kw), 2)
-        lib_ms = None
-        if T == S and window is None:
-            lib_ms = time_ms(
-                lambda: torch.nn.functional.scaled_dot_product_attention(
-                    q, k, v, is_causal=True, enable_gqa=True), reps)
+        # the yardstick: SDPA with is_causal where that is the same mask,
+        # else with the mask written out (queries at the end of the keys)
+        mask = None
+        if not (T == S and window is None):
+            qpos = torch.arange(T, device=dev)[:, None] + (S - T)
+            kpos = torch.arange(S, device=dev)[None, :]
+            mask = kpos <= qpos
+            if window is not None:
+                mask &= kpos > qpos - window
+        lib_ms = time_ms(
+            lambda: torch.nn.functional.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask, is_causal=mask is None,
+                enable_gqa=True), reps)
         peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else \
             PEAK_FP32_FLOPS
         flops = 4 * D * B * hq * visible_pairs(T, S, True, window)
@@ -1228,40 +1369,41 @@ def main() -> None:
     lib = _build.library()
     for name, regs, smem, spills in flash_resources(
             (_build.library_path().parent / "build.log").read_text()):
-        dyn = ""
-        if name.startswith("flash_bf16"):
-            dyn = (f" + {lib.flash_attn_bf16_smem(int(name[11:-1]))} bytes "
-                   f"dynamic")
+        dim = int(name[name.index("<") + 1:-1])
+        bf16 = name.startswith("flash_bf16")
+        dyn = f" + {lib.flash_attn_smem(int(bf16), dim)} bytes dynamic"
         note = (" (at entry; setmaxnreg gives the consumers 240 and the "
-                "producer 24)" if dyn else "")
+                "producer 24)" if bf16 else "")
         say(f"  {name}: {regs} registers{note}, {smem} bytes static shared"
             f"{dyn}, spills {spills}")
 
     qwen = (Hq, Hkv)
-    stats["flash_attention"] = flash_case(
-        f"qwen3 prefill B={B11} Hq={Hq} Hkv={Hkv} T=S={T11} D={Dh} bf16",
-        B11, *qwen, T11, T11, Dh, torch.bfloat16)
-    flash_case(f"qwen3 prefill T=S={T11} fp32 (no TF32)", B11, *qwen, T11,
-               T11, Dh, torch.float32, reps=3)
-    flash_case(f"qwen3 prefill as (B, T, H, D) views T=S={T11} bf16", B11,
-               *qwen, T11, T11, Dh, torch.bfloat16, views=True)
-    for n in (1000, T11 - 1, T11 + 1):
-        flash_case(f"ragged T=S={n} bf16", B11, *qwen, n, n, Dh,
-                   torch.bfloat16)
-    for n in (100, 512):
-        flash_case(f"T={n} < S={T11} (q_offset {T11 - n}) bf16", B11, *qwen,
-                   n, T11, Dh, torch.bfloat16)
-    for w in (100, 200, 256):
-        flash_case(f"window {w} T=S={T11} bf16", B11, *qwen, T11, T11, Dh,
-                   torch.bfloat16, window=w)
-    for hq, hkv in ((8, 8), (12, 4), (16, 4)):
-        flash_case(f"group {hq // hkv} Hq={hq} Hkv={hkv} D=64 T=S=1024 bf16",
-                   2, hq, hkv, 1024, 1024, 64, torch.bfloat16)
-    for D in (16, 32):
-        flash_case(f"D={D} Hq=4 Hkv=2 T=S=333 window 100 bf16", 2, 4, 2, 333,
-                   333, D, torch.bfloat16, window=100)
-        flash_case(f"D={D} Hq=4 Hkv=2 T=100 < S=333 as views bf16", 2, 4, 2,
-                   100, 333, D, torch.bfloat16, views=True)
+    for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        # fp32 cases: fewer calls to time (about 2 ms each at 2,048)
+        big = 20 if dt == torch.bfloat16 else 5
+        stats["flash_attention" if tag == "bf16" else
+              "flash_attention_f32"] = flash_case(
+            f"qwen3 prefill B={B11} Hq={Hq} Hkv={Hkv} T=S={T11} D={Dh} "
+            f"{tag}", B11, *qwen, T11, T11, Dh, dt, reps=big)
+        flash_case(f"qwen3 prefill as (B, T, H, D) views T=S={T11} {tag}",
+                   B11, *qwen, T11, T11, Dh, dt, views=True, reps=big)
+        for n in (1000, T11 - 1, T11 + 1):
+            flash_case(f"ragged T=S={n} {tag}", B11, *qwen, n, n, Dh, dt,
+                       reps=big)
+        for n in (100, 512):
+            flash_case(f"T={n} < S={T11} (q_offset {T11 - n}) {tag}", B11,
+                       *qwen, n, T11, Dh, dt, reps=big)
+        for w in (100, 200, 256):
+            flash_case(f"window {w} T=S={T11} {tag}", B11, *qwen, T11, T11,
+                       Dh, dt, window=w, reps=big)
+        for hq, hkv in ((8, 8), (12, 4), (16, 4)):
+            flash_case(f"group {hq // hkv} Hq={hq} Hkv={hkv} D=64 T=S=1024 "
+                       f"{tag}", 2, hq, hkv, 1024, 1024, 64, dt)
+        for D in (16, 32):
+            flash_case(f"D={D} Hq=4 Hkv=2 T=S=333 window 100 {tag}", 2, 4, 2,
+                       333, 333, D, dt, window=100)
+            flash_case(f"D={D} Hq=4 Hkv=2 T=100 < S=333 as views {tag}", 2,
+                       4, 2, 100, 333, D, dt, views=True)
 
     # -- 11. the LM serving path: qwen3-0.6b at full width and depth ---------
     say(f"== phase 11: serve qwen3-0.6b ({lm_cfg.n_layers} layers, d_model "
@@ -1343,9 +1485,33 @@ def main() -> None:
     for cdt in ("bfloat16", "float32"):
         c = dataclasses.replace(lm_cfg, compute_dtype=cdt)
         for impl in ("flash_pallas", "ref"):
+            f32_path = (cdt, impl) == ("float32", "flash_pallas")
+            if f32_path:
+                # the fp32 serving path: a prefill with compute_dtype
+                # float32 runs B9's fp32 kernel once a layer
+                for fn in counters.values():
+                    fn.launches = 0
             out_lg, _ = lm_model.prefill(params, {"tokens": toks}, c,
                                          max_len=max_len, impl=impl)
             lg[cdt, impl] = out_lg.float()
+            if f32_path:
+                launches = {n: fn.launches for n, fn in counters.items()}
+                path_launches["qwen3-0.6b fp32"] = launches
+                if launches["flash_attention"] != lm_cfg.n_layers:
+                    fail(f"flash_attention launched "
+                         f"{launches['flash_attention']} times in one fp32 "
+                         f"prefill, not {lm_cfg.n_layers}")
+                for n in expect["qwen3-0.6b fp32"][1]:
+                    if launches[n] != 0:
+                        fail(f"kernel {n} launched on the fp32 prefill")
+                f32_ms = time_ms(lambda: lm_model.prefill(
+                    params, {"tokens": toks}, c, max_len=max_len), 3)
+                b9f_ms = stats["flash_attention_f32"]["ms"] * lm_cfg.n_layers
+                say(f"  fp32 prefill (compute_dtype float32) by CUDA events "
+                    f"{f32_ms:.1f} ms, {launches['flash_attention']} B9 fp32 "
+                    f"launches; B9 {lm_cfg.n_layers} x "
+                    f"{stats['flash_attention_f32']['ms']:.3f} ms = "
+                    f"{b9f_ms:.1f} ms, {b9f_ms / f32_ms:.1%} of it")
     truth = lg["float32", "flash_pallas"]
     scale = float(truth.abs().max())
 
@@ -1414,6 +1580,10 @@ def main() -> None:
                          "src/repro/kernels/dual_cd_block.py:264"),
         "odm_svrg_grad": ("src/repro_torch/kernels/csrc/odm_grad.cu",
                           "src/repro/kernels/odm_grad.py:132"),
+        "odm_svrg_epoch": ("src/repro_torch/kernels/csrc/odm_grad.cu",
+                           "src/repro/kernels/odm_grad.py:132 (odm_svrg_grad "
+                           "under the lax.scan at "
+                           "src/repro/core/dsvrg.py:203)"),
         "odm_grad": ("src/repro_torch/kernels/csrc/odm_grad.cu",
                      "src/repro/kernels/odm_grad.py:79"),
         "gram": ("src/repro_torch/kernels/csrc/gram.cu",
@@ -1423,20 +1593,31 @@ def main() -> None:
                      "a jitted while_loop)"),
         "flash_attention": ("src/repro_torch/kernels/csrc/flash_attn.cu",
                             "src/repro/kernels/flash_attn.py:93"),
+        "flash_attention_f32": ("src/repro_torch/kernels/csrc/flash_attn.cu",
+                                "src/repro/kernels/flash_attn.py:93"),
     }
+    # the path whose launches each kernel reports: the first path that
+    # runs it; B6's per-step kernel runs on no path (the epoch kernel
+    # does its arithmetic), so it reports SUSY's 0; B9's fp32 kernel the
+    # fp32 prefill
+    report_path = {"odm_svrg_grad": "SUSY",
+                   "flash_attention_f32": "qwen3-0.6b fp32"}
     kernels = []
     for name, (source, replaces) in meta.items():
         s = stats[name]
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):
             if not math.isfinite(s[key]):
                 fail(f"{name}: {key} is not finite")
-        path = next(p for p in ("ijcnn1", "phishing", "SUSY", "cascade",
-                                "qwen3-0.6b") if name in expect[p][0])
+        counter = "flash_attention" if name == "flash_attention_f32" \
+            else name
+        path = report_path.get(name) or next(
+            p for p in ("ijcnn1", "phishing", "SUSY", "cascade",
+                        "qwen3-0.6b") if name in expect[p][0])
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": path_launches[path][name],
+            "replaces": replaces, "launches": path_launches[path][counter],
             "launches_path": path,
-            "launches_by_path": {p: n[name] for p, n in
+            "launches_by_path": {p: n[counter] for p, n in
                                  path_launches.items()}, **s})
     say(json.dumps({"kernels": kernels}))
     say(card_line())

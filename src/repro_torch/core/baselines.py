@@ -16,13 +16,14 @@ so accuracy differences reflect the partition / merge strategy:
 * **ODM_csvrg** — coreset SVRG (Tan et al. 2019): the anchor gradient on a
   k-center coreset.
 
-The gradient baselines take the port's fused kernels: the inner direction
-``g_w − g_a + h`` is one B6 launch (``odm_grad.odm_svrg_grad``, the kernel
-behind ``ops.svrg_grad``; algebraically ``minibatch_grad(w) −
-minibatch_grad(a) + h``) and the anchor gradient one B7 launch
-(``ops.odm_grad``, over x or the coreset). Their epoch loop reads no
-device value: eta is a 0-d device tensor, each epoch's minibatches are
-gathered in one pass, as in :mod:`repro_torch.core.dsvrg`.
+The gradient baselines take the port's fused kernels: an epoch's inner
+steps ``w ← w − eta (g_w − g_a + h)`` are one launch of the epoch kernel
+(``odm_grad.odm_svrg_epoch``, each step B6's arithmetic; algebraically
+``minibatch_grad(w) − minibatch_grad(a) + h``) and the anchor gradient
+one B7 launch (``ops.odm_grad``, over x or the coreset). Their epoch loop
+reads no device value: eta is a 0-d device tensor, each epoch's
+minibatches are gathered in one pass, as in
+:mod:`repro_torch.core.dsvrg`.
 
 Random draws come from a ``torch.Generator``; the parity tests inject the
 reference's draws instead (``perm=`` for the cascade, dip and dc,
@@ -47,6 +48,7 @@ from repro_torch.core import odm
 from repro_torch.core import partition as part_mod
 from repro_torch.core import sodm as sodm_mod
 from repro_torch.core.odm import ODMParams
+from repro_torch.kernels import odm_grad as og
 from repro_torch.kernels import ops
 
 Tensor = torch.Tensor
@@ -206,13 +208,17 @@ def _svrg_epochs(x: Tensor, y: Tensor, params: ODMParams, epochs: int,
                  perms: Sequence[Tensor] | None) -> GradResult:
     """``epochs`` SVRG epochs: the anchor gradient h over (anchor_x,
     anchor_y) (one B7 launch on the card), then M // batch inner steps
-    without replacement (one B6 launch each), then the objective."""
+    without replacement as one chain (one launch of the epoch kernel, B6's
+    arithmetic step by step, every row weighted 1 and divided by the
+    batch), then the objective."""
     M, d = x.shape
     steps = M // batch
     gen = part_mod.as_generator(key) if perms is None else None
     eta_t = torch.tensor(eta, dtype=x.dtype, device=x.device)
-    wt = torch.ones(batch, dtype=x.dtype, device=x.device)
-    inv_n = torch.full((1,), 1.0 / batch, dtype=x.dtype, device=x.device)
+    # every step shares one all-ones mask and 1/batch (stride-0 step axes)
+    wts = torch.ones(batch, dtype=x.dtype, device=x.device).expand(steps, -1)
+    inv_n = torch.full((1, 1), 1.0 / batch, dtype=x.dtype,
+                       device=x.device).expand(steps, -1)
     w = torch.zeros(d, dtype=x.dtype, device=x.device)
     hist = []
     for e in range(epochs):
@@ -222,11 +228,11 @@ def _svrg_epochs(x: Tensor, y: Tensor, params: ODMParams, epochs: int,
         order = (torch.randperm(M, generator=gen) if perms is None
                  else torch.as_tensor(perms[e]).to(torch.int64))
         idx = order[:steps * batch].to(x.device)
-        xe = x[idx].reshape(steps, batch, d)
-        ye = y[idx].reshape(steps, batch)
-        for s in range(steps):
-            w = w - eta_t * dsvrg_mod._direction(
-                w, anchor, h, xe[s], ye[s], wt, inv_n, params, fused=True)
+        xe = x[idx].reshape(1, steps, batch, d)
+        ye = y[idx].reshape(1, steps, batch)
+        w = og.odm_svrg_epoch(w, anchor, h, xe, ye, wts, inv_n, eta_t,
+                              schedule="serial",
+                              **dsvrg_mod._hinge_kw(params))
         hist.append(odm.primal_objective(w, x, y, params))
     history = torch.stack(hist) if hist else x.new_zeros(0)
     return GradResult(w=w, history=history)

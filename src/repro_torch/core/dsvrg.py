@@ -13,19 +13,21 @@ Port of the single-process half of ``repro.core.dsvrg``. Per epoch:
 
 Every partition is pre-sliced into ceil(m/batch) minibatches with a mask
 on the ragged tail (:func:`_pad_batches`), so each sample is consumed
-once per epoch. The inner direction is the route's hot spot: with
-``DSVRGConfig.fused`` unset or True it is one fused pass (B6 on the card,
-its plain version on the CPU); ``fused=False`` keeps the reference's
-unfused composition (:func:`repro_torch.core.odm.svrg_direction`,
+once per epoch. The inner loop is the route's hot spot: with
+``DSVRGConfig.fused`` unset or True each epoch's inner steps are one call
+of :func:`repro_torch.kernels.odm_grad.odm_svrg_epoch` (on the card one
+launch of the whole-epoch kernel, the counterpart of the reference's
+``lax.scan`` over its fused B6 pass; on the CPU its plain loop);
+``fused=False`` keeps the reference's unfused composition step by step
+(:func:`repro_torch.core.odm.svrg_direction`,
 :func:`repro_torch.core.odm.primal_grad`).
 
-The reference runs all epochs in one ``lax.scan``; here the scans are
-Python loops that only enqueue device work. Nothing in them reads a device
-value on the host: the step size ``eta`` is a 0-d device tensor, each
-step's 1/n_valid is precomputed once per solve (the tail mask is static),
-and the per-epoch objective history stays on the device until the solve
-returns. The parallel schedule advances all K chains in ONE launch per
-step, which is what ``jax.vmap(chain)`` amounts to on the TPU.
+Nothing here reads a device value on the host: the step size ``eta`` is
+a 0-d device tensor, each step's 1/n_valid is precomputed once per solve
+(the tail mask is static), and the per-epoch objective history stays on
+the device until the solve returns. The parallel schedule advances all K
+chains together (one CTA per chain in the epoch kernel), which is what
+``jax.vmap(chain)`` amounts to on the TPU.
 
 Not ported here (ROADMAP): ``epoch_trace_count``/``_TRACE_EVENTS`` (they
 pin a JAX trace count; eager PyTorch has no trace), the streaming solve
@@ -113,15 +115,11 @@ def _pad_batches(xs: Tensor, ys: Tensor,
     return xs.reshape(K, S, b, d), ys.reshape(K, S, b), wts.reshape(S, b)
 
 
-def _direction(w: Tensor, anchor: Tensor, h: Tensor, xb: Tensor, yb: Tensor,
-               wb: Tensor, inv_n: Tensor, params: ODMParams,
-               fused: bool) -> Tensor:
-    """One inner step's g_w − g_a + h (of one chain, or of C at once)."""
-    if fused:
-        return og.odm_svrg_grad(w, anchor, h, xb, yb, wb, inv_n,
-                                s=params.lam / (1.0 - params.theta) ** 2,
-                                theta=params.theta, ups=params.ups)
-    return odm.svrg_direction(w, anchor, h, xb, yb, params, wb=wb)
+def _hinge_kw(params: ODMParams) -> dict:
+    """The fused kernels' hinge arguments: the per-instance scale
+    s = lam/(1-θ)² (no 1/M), θ and ups."""
+    return dict(s=params.lam / (1.0 - params.theta) ** 2,
+                theta=params.theta, ups=params.ups)
 
 
 def _loss_grad(anchor: Tensor, xf: Tensor, yf: Tensor, params: ODMParams,
@@ -140,26 +138,36 @@ def _loss_grad(anchor: Tensor, xf: Tensor, yf: Tensor, params: ODMParams,
 def _epoch_serial(w: Tensor, xs: Tensor, ys: Tensor, wts: Tensor,
                   inv_n: Tensor, anchor: Tensor, h: Tensor, eta: Tensor,
                   params: ODMParams, fused: bool) -> Tensor:
-    """One faithful round-robin epoch over xs (K, S, b, d)."""
+    """One faithful round-robin epoch over xs (K, S, b, d): fused, one
+    epoch-kernel launch on the card; unfused, the reference's composition
+    step by step."""
+    if fused:
+        return og.odm_svrg_epoch(w, anchor, h, xs, ys, wts, inv_n, eta,
+                                 schedule="serial", **_hinge_kw(params))
     K, S = ys.shape[:2]
     for k in range(K):
         xk, yk = xs[k], ys[k]
         for s in range(S):
-            w = w - eta * _direction(w, anchor, h, xk[s], yk[s], wts[s],
-                                     inv_n[s], params, fused)
+            w = w - eta * odm.svrg_direction(w, anchor, h, xk[s], yk[s],
+                                             params, wb=wts[s])
     return w
 
 
 def _epoch_parallel(w: Tensor, xs: Tensor, ys: Tensor, wts: Tensor,
                     inv_n: Tensor, anchor: Tensor, h: Tensor, eta: Tensor,
                     params: ODMParams, fused: bool) -> Tensor:
-    """Beyond the paper: K chains from the same anchor, one batched step
-    at a time, averaged at the end."""
+    """Beyond the paper: K chains from the same anchor, averaged at the
+    end (fused: one launch, one CTA per chain; unfused: one batched step
+    at a time)."""
+    if fused:
+        ws = og.odm_svrg_epoch(w, anchor, h, xs, ys, wts, inv_n, eta,
+                               schedule="parallel", **_hinge_kw(params))
+        return torch.mean(ws, dim=0)
     K, S = ys.shape[:2]
     ws = w.expand(K, -1).contiguous()
     for s in range(S):
-        ws = ws - eta * _direction(ws, anchor, h, xs[:, s], ys[:, s], wts[s],
-                                   inv_n[s], params, fused)
+        ws = ws - eta * odm.svrg_direction(ws, anchor, h, xs[:, s], ys[:, s],
+                                           params, wb=wts[s])
     return torch.mean(ws, dim=0)
 
 

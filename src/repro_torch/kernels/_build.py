@@ -106,6 +106,9 @@ def _declare(lib: ctypes.CDLL) -> None:
                                        I, F, P]
     lib.odm_svrg_grad_f32.argtypes = [P, P, P, P, L, P, L, P, P, P, I, I, I,
                                       F, F, F, F, F, P]
+    lib.odm_svrg_epoch_f32.argtypes = [P, P, P, P, P, L, P, L, P, L, P, L,
+                                       P, I, I, I, I, I, F, F, F, F, F, P]
+    lib.odm_svrg_epoch_mode.argtypes = [I, I]
     lib.odm_grad_f32.argtypes = [P, P, P, P, P, I, I, F, F, F, F, F, P]
     lib.odm_grad_blocks.argtypes = [I]
     lib.gram_f32.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, F,
@@ -113,12 +116,13 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.cd_exact_f32.argtypes = [P, P, P, P, P, P, I, I, I, F, F, F, F, F, P]
     lib.flash_attn_fwd.argtypes = [P, P, P, P, I, I, I, I, I, I, I,
                                    ctypes.POINTER(L), F, I, I, P]
-    lib.flash_attn_bf16_smem.argtypes = [I]
+    lib.flash_attn_smem.argtypes = [I, I]
     for fn in (lib.gram_matvec_f32, lib.dense_matvec_f32,
                lib.cd_block_sweep_f32, lib.odm_svrg_grad_f32,
+               lib.odm_svrg_epoch_f32, lib.odm_svrg_epoch_mode,
                lib.odm_grad_f32, lib.odm_grad_blocks, lib.gram_f32,
                lib.cd_exact_f32, lib.flash_attn_fwd,
-               lib.flash_attn_bf16_smem):
+               lib.flash_attn_smem):
         fn.restype = I
     lib.repro_error_string.argtypes = [I]
     lib.repro_error_string.restype = ctypes.c_char_p

@@ -67,16 +67,39 @@
 //     work grows with its index, so the grid's leading blocks take the
 //     last query blocks of every (b, head).
 // fp32 (flash_f32): no tensor cores (no TF32: it would not hold the
-//   reference's fp32 band). Two threads per query row, each holding half
-//   of q and half of the accumulator in registers; K and V rows are read
-//   from device memory as float4 that every row of the block shares (an
-//   L1 broadcast). Pass 1 writes the tile's scaled, masked logits to
-//   shared memory and finds the row max; pass 2 takes exp and accumulates
-//   p v. One CTA of 128 threads per (b, q head, 64-row query block).
-// Both kernels loop inside the CTA over the 128-key tiles that causality
-// and the window leave live for the block, in place of the TPU's
-// sequential fourth grid dimension; the plain version walks the same
-// tiles.
+//   reference's fp32 band), so the 67 TFLOP/s of the CUDA cores bound it
+//   (1.026 ms at the qwen3 shape). Reading every K and V element from
+//   device memory for one FMA each, two threads a query row, lets the L1
+//   set the pace (18.5 ms there); this kernel is register-tiled and fed
+//   from shared memory:
+//   * One CTA of 256 threads (a 16 x 16 grid) per (b, q head, 128-row
+//     query block), heaviest first as above. cp.async brings the Q tile
+//     into shared memory once and the K and V tiles of 64 keys through a
+//     two-stage ring, tile j + 1 loading while tile j is computed.
+//   * S = Q K^T as register micro-tiles: each thread holds 8 rows x 4
+//     keys (keys tx + 16 k, so a quarter-warp's float4 reads of K rows
+//     padded to D + 4 floats fall on all 32 banks; Q reads broadcast),
+//     12 float4 loads for 128 FMAs.
+//   * The softmax in registers: the scale after the dot (__fmul_rn), -1e30
+//     on the tiles that cross the causal diagonal, the window's edge or
+//     the end of S, the row max over the row's 16 threads by xor
+//     shuffles, expf; each thread keeps its share of the row sum l (of the
+//     unrounded p; the shares are summed by shuffles at the end).
+//   * P goes to shared memory only as the operand of P V, transposed
+//     (P^T, rows padded to 132 floats), into the K stage S was just taken
+//     from. O += P V as 8 rows x D/16 columns a thread (8 x 8 at D = 128):
+//     per key two float4 of P^T (broadcast) and D/64 float4 of V, 16 FMAs
+//     a load at D = 128.
+//   * At D = 128: 234 registers, no spills, 200,704 bytes of dynamic
+//     shared memory (Q 66 KB, 2 x K/P^T 33 KB, 2 x V 32 KB), one CTA per
+//     SM (ptxas -v of the sm_90a build). Measured (H100 80GB HBM3,
+//     700.00 W, bench_flash.py --dtype float32) 1.98 ms at the qwen3 prefill
+//     shape against SDPA's 6.49 ms: 52 % of the fp32 peak.
+// Both kernels loop inside the CTA over the key tiles that causality and
+// the window leave live for the block, in place of the TPU's sequential
+// fourth grid dimension. The bf16 kernel's 128-key tiles are the plain
+// version's, so bf16 p rounds alike; in fp32 the tile only moves where
+// the running max is taken, within the 1e-5 band.
 #include <cstdint>
 
 #include <cuda.h>
@@ -98,7 +121,7 @@ struct Params {  // fp32 kernel
   const void* k;
   const void* v;
   void* o;
-  int T, S, group;
+  int T, S, group, Hq, B, nblk;
   long long sqb, sqh, sqt, skb, skh, sks, svb, svh, svs, sob, soh, sot;
   float scale;
   int causal, window;  // window <= 0: no window
@@ -455,96 +478,250 @@ __global__ void __launch_bounds__(3 * NT, 1)
 }
 
 // ---------------------------------------------------------------------------
-// fp32: CUDA cores
+// fp32: CUDA cores, register micro-tiles fed from shared memory
 // ---------------------------------------------------------------------------
 
-template <int D>
-__global__ void __launch_bounds__(NT) flash_f32(Params p) {
-  constexpr int H = D / 2;  // features per thread: two threads per row
-  __shared__ float Ls[BQ][BK + 1];
+constexpr int F_BQ = 128;       // query rows per fp32 CTA
+constexpr int F_BK = 64;        // keys per fp32 kv tile
+constexpr int F_NT = 256;       // threads per fp32 CTA: a 16 x 16 grid
+constexpr int F_RPT = 8;        // query rows per thread (S and O)
+constexpr int F_KPT = 4;        // keys per thread (S)
+constexpr int F_PS = F_BQ + 4;  // row stride of P^T (one row per key)
 
-  const int b = blockIdx.z, h = blockIdx.y, hk = h / p.group;
-  const int tid = threadIdx.x, half = tid & 1, lr = tid >> 1;
+template <int D>
+struct F32Tiles {
+  static constexpr int QS = D + 4;  // Q and K row strides: the padding
+  static constexpr int KS = D + 4;  // puts 8 rows' float4 on 32 banks
+  // a K stage holds P^T (F_BK x F_PS) once S is taken from it
+  static constexpr int KSTAGE = F_BK * (KS > F_PS ? KS : F_PS);
+  static constexpr int VSTAGE = F_BK * D;
+  static constexpr int CPT = D / 16;                // O columns per thread
+  static constexpr int VEC = CPT < 4 ? CPT : 4;     // ... as vectors of VEC
+  static constexpr int NG = CPT / VEC;              // ... 16 VEC apart
+  static constexpr int SMEM = 4 * (F_BQ * QS + 2 * KSTAGE + 2 * VSTAGE);
+};
+
+template <int N>
+struct Vec;
+template <>
+struct Vec<1> {
+  __device__ static void get(const float* p, float* o) { o[0] = *p; }
+  __device__ static void put(float* p, const float* o) { *p = o[0]; }
+};
+template <>
+struct Vec<2> {
+  __device__ static void get(const float* p, float* o) {
+    const float2 v = *reinterpret_cast<const float2*>(p);
+    o[0] = v.x;
+    o[1] = v.y;
+  }
+  __device__ static void put(float* p, const float* o) {
+    *reinterpret_cast<float2*>(p) = make_float2(o[0], o[1]);
+  }
+};
+template <>
+struct Vec<4> {
+  __device__ static void get(const float* p, float* o) {
+    const float4 v = *reinterpret_cast<const float4*>(p);
+    o[0] = v.x;
+    o[1] = v.y;
+    o[2] = v.z;
+    o[3] = v.w;
+  }
+  __device__ static void put(float* p, const float* o) {
+    *reinterpret_cast<float4*>(p) = make_float4(o[0], o[1], o[2], o[3]);
+  }
+};
+
+// rows [0, n) of a (rows x D) tile at src (row stride ld elements) into
+// shared memory (row stride lds), zeros for rows [n, rows): one 16-byte
+// cp.async per thread and float4.
+template <int D>
+__device__ __forceinline__ void load_tile(float* dst, int lds,
+                                          const float* src, long long ld,
+                                          int rows, int n) {
+  constexpr int C4 = D / 4;
+  for (int i = threadIdx.x; i < rows * C4; i += F_NT) {
+    const int r = i / C4, c = 4 * (i % C4);
+    const bool ok = r < n;
+    sm90::cp_async16(dst + r * lds + c, ok ? src + r * ld + c : src, ok);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(F_NT, 1) flash_f32(const Params p) {
+  using L = F32Tiles<D>;
+  extern __shared__ __align__(16) float fsm[];
+  float* Qs = fsm;                       // F_BQ x QS
+  float* Ks = Qs + F_BQ * L::QS;         // 2 stages of KSTAGE (then P^T)
+  float* Vs = Ks + 2 * L::KSTAGE;        // 2 stages of F_BK x D
+
+  // heaviest first, as the bf16 kernel
+  const int heads = p.Hq * p.B;
+  int qb = blockIdx.x / heads;
+  if (p.causal) qb = p.nblk - 1 - qb;
+  const int h = blockIdx.x % p.Hq, b = (blockIdx.x / p.Hq) % p.B;
+  const int hk = h / p.group;
   const int q_offset = p.S - p.T;
-  const int row0 = blockIdx.x * BQ;
-  const int row = row0 + lr, qpos = row + q_offset;
+  const int r0 = qb * F_BQ;
+  const int q_first = r0 + q_offset;
+  const int q_last = min(r0 + F_BQ, p.T) - 1 + q_offset;
+  // live kv tiles [lo, hi) of F_BK keys
+  int hi = (p.S + F_BK - 1) / F_BK;
+  if (p.causal) hi = min(hi, q_last / F_BK + 1);
+  int lo = 0;
+  if (p.window > 0 && q_first - p.window + 1 > 0)
+    lo = (q_first - p.window + 1) / F_BK;
+
   const float* Q = static_cast<const float*>(p.q) + b * p.sqb + h * p.sqh;
-  const float* K =
-      static_cast<const float*>(p.k) + b * p.skb + hk * p.skh + half * H;
-  const float* V =
-      static_cast<const float*>(p.v) + b * p.svb + hk * p.svh + half * H;
+  const float* K = static_cast<const float*>(p.k) + b * p.skb + hk * p.skh;
+  const float* V = static_cast<const float*>(p.v) + b * p.svb + hk * p.svh;
   float* O = static_cast<float*>(p.o) + b * p.sob + h * p.soh;
 
-  float q[H], acc[H];
-#pragma unroll
-  for (int i = 0; i < H; i += 4) {
-    float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row < p.T)
-      x = *reinterpret_cast<const float4*>(Q + row * p.sqt + half * H + i);
-    q[i] = x.x;
-    q[i + 1] = x.y;
-    q[i + 2] = x.z;
-    q[i + 3] = x.w;
-    acc[i] = acc[i + 1] = acc[i + 2] = acc[i + 3] = 0.0f;
-  }
-  float m = NEG_INF, l = 0.0f;
+  auto load_kv = [&](int j, int st) {
+    const int k0 = j * F_BK;
+    load_tile<D>(Ks + st * L::KSTAGE, L::KS, K + k0 * p.sks, p.sks, F_BK,
+                 p.S - k0);
+    load_tile<D>(Vs + st * L::VSTAGE, D, V + k0 * p.svs, p.svs, F_BK,
+                 p.S - k0);
+  };
+  load_tile<D>(Qs, L::QS, Q + r0 * p.sqt, p.sqt, F_BQ, p.T - r0);
+  load_kv(lo, 0);
+  sm90::cp_async_commit();
+  if (lo + 1 < hi) load_kv(lo + 1, 1);
+  sm90::cp_async_commit();
 
-  int lo, hi;
-  live_tiles(p, row0 + q_offset, min(row0 + BQ, p.T) - 1 + q_offset, lo,
-             hi);
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int rq = ty * F_RPT;  // the thread's first row in the block
+  float o[F_RPT][L::CPT], m[F_RPT], l[F_RPT];
+#pragma unroll
+  for (int i = 0; i < F_RPT; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.0f;  // this thread's share of the row sum (its keys)
+#pragma unroll
+    for (int c = 0; c < L::CPT; ++c) o[i][c] = 0.0f;
+  }
+
   for (int j = lo; j < hi; ++j) {
-    const int k0 = j * BK, n = min(BK, p.S - k0);
-    // pass 1: the tile's scaled, masked logits and their row max
-    float mx = NEG_INF;
-    for (int c = 0; c < n; ++c) {
-      const float* kr = K + (k0 + c) * p.sks;
-      float dot = 0.0f;
-#pragma unroll
-      for (int i = 0; i < H; i += 4) {
-        const float4 kk = *reinterpret_cast<const float4*>(kr + i);
-        dot = fmaf(q[i], kk.x, dot);
-        dot = fmaf(q[i + 1], kk.y, dot);
-        dot = fmaf(q[i + 2], kk.z, dot);
-        dot = fmaf(q[i + 3], kk.w, dot);
-      }
-      dot += __shfl_xor_sync(FULL, dot, 1);
-      const float x =
-          visible(p, qpos, k0 + c) ? __fmul_rn(dot, p.scale) : NEG_INF;
-      if (half == 0) Ls[lr][c] = x;
-      mx = fmaxf(mx, x);
-    }
-    __syncwarp();
-    const float mn = fmaxf(m, mx), corr = expf(m - mn);
-#pragma unroll
-    for (int i = 0; i < H; ++i) acc[i] *= corr;
-    // pass 2: p = exp(x - m_new) and O += p v
-    float sum = 0.0f;
-    for (int c = 0; c < n; ++c) {
-      const float pr = expf(Ls[lr][c] - mn);
-      sum += pr;
-      const float* vr = V + (k0 + c) * p.svs;
-#pragma unroll
-      for (int i = 0; i < H; i += 4) {
-        const float4 vv = *reinterpret_cast<const float4*>(vr + i);
-        acc[i] = fmaf(pr, vv.x, acc[i]);
-        acc[i + 1] = fmaf(pr, vv.y, acc[i + 1]);
-        acc[i + 2] = fmaf(pr, vv.z, acc[i + 2]);
-        acc[i + 3] = fmaf(pr, vv.w, acc[i + 3]);
-      }
-    }
-    l = __fadd_rn(__fmul_rn(l, corr), sum);
-    m = mn;
-    __syncwarp();  // the pair's reads of Ls are done before the next tile
-  }
+    const int st = (j - lo) & 1;
+    float* Kt = Ks + st * L::KSTAGE;
+    const float* Vt = Vs + st * L::VSTAGE;
+    sm90::cp_async_wait<1>();  // all but the newest group: tile j is in
+    __syncthreads();
 
-  if (row < p.T) {
-    const float ls = fmaxf(l, 1e-30f);
-    float* orow = O + row * p.sot + half * H;
+    // S = Q K^T: rows rq .. rq + 7, keys tx + 16 kk
+    float s[F_RPT][F_KPT];
 #pragma unroll
-    for (int i = 0; i < H; i += 4)
-      *reinterpret_cast<float4*>(orow + i) =
-          make_float4(acc[i] / ls, acc[i + 1] / ls, acc[i + 2] / ls,
-                      acc[i + 3] / ls);
+    for (int i = 0; i < F_RPT; ++i)
+#pragma unroll
+      for (int kk = 0; kk < F_KPT; ++kk) s[i][kk] = 0.0f;
+#pragma unroll 2
+    for (int c = 0; c < D; c += 4) {
+      float kv[F_KPT][4];
+#pragma unroll
+      for (int kk = 0; kk < F_KPT; ++kk)
+        Vec<4>::get(Kt + (tx + 16 * kk) * L::KS + c, kv[kk]);
+#pragma unroll
+      for (int i = 0; i < F_RPT; ++i) {
+        float qv[4];
+        Vec<4>::get(Qs + (rq + i) * L::QS + c, qv);
+#pragma unroll
+        for (int kk = 0; kk < F_KPT; ++kk)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            s[i][kk] = fmaf(qv[e], kv[kk][e], s[i][kk]);
+      }
+    }
+    __syncthreads();  // every thread is done with K_j: its stage takes P^T
+
+    // online softmax: scale after the dot, mask the tiles on an edge, the
+    // row max over the 16 threads of the row by shuffles
+    const int k0 = j * F_BK;
+    const bool edge = k0 + F_BK > p.S ||
+                      (p.causal && k0 + F_BK - 1 > q_first) ||
+                      (p.window > 0 && k0 <= q_last - p.window);
+    float corr[F_RPT];
+#pragma unroll
+    for (int i = 0; i < F_RPT; ++i) {
+      const int qpos = r0 + rq + i + q_offset;
+      float mx = NEG_INF;
+#pragma unroll
+      for (int kk = 0; kk < F_KPT; ++kk) {
+        float x = __fmul_rn(s[i][kk], p.scale);
+        if (edge && !visible(p, qpos, k0 + tx + 16 * kk)) x = NEG_INF;
+        s[i][kk] = x;
+        mx = fmaxf(mx, x);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
+      const float mn = fmaxf(m[i], mx);
+      corr[i] = expf(m[i] - mn);
+      m[i] = mn;
+      float sum = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < F_KPT; ++kk) {
+        s[i][kk] = expf(s[i][kk] - mn);
+        sum += s[i][kk];
+      }
+      l[i] = __fadd_rn(__fmul_rn(l[i], corr[i]), sum);
+    }
+    // P^T into the K stage: key tx + 16 kk, rows rq .. rq + 7
+#pragma unroll
+    for (int kk = 0; kk < F_KPT; ++kk) {
+      float* dst = Kt + (tx + 16 * kk) * F_PS + rq;
+      const float lo4[4] = {s[0][kk], s[1][kk], s[2][kk], s[3][kk]};
+      const float hi4[4] = {s[4][kk], s[5][kk], s[6][kk], s[7][kk]};
+      Vec<4>::put(dst, lo4);
+      Vec<4>::put(dst + 4, hi4);
+    }
+#pragma unroll
+    for (int i = 0; i < F_RPT; ++i)
+#pragma unroll
+      for (int c = 0; c < L::CPT; ++c) o[i][c] *= corr[i];
+    __syncthreads();  // P^T is complete
+
+    // O += P V: rows rq .. rq + 7, columns g 16 VEC + tx VEC + e
+    const int limit = min(F_BK, p.S - k0);  // the keys past S are zeros
+#pragma unroll 2
+    for (int k = 0; k < limit; ++k) {
+      float pv[F_RPT];
+      Vec<4>::get(Kt + k * F_PS + rq, pv);
+      Vec<4>::get(Kt + k * F_PS + rq + 4, pv + 4);
+      float vv[L::CPT];
+#pragma unroll
+      for (int g = 0; g < L::NG; ++g)
+        Vec<L::VEC>::get(Vt + k * D + g * 16 * L::VEC + tx * L::VEC,
+                         vv + g * L::VEC);
+#pragma unroll
+      for (int i = 0; i < F_RPT; ++i)
+#pragma unroll
+        for (int c = 0; c < L::CPT; ++c)
+          o[i][c] = fmaf(pv[i], vv[c], o[i][c]);
+    }
+    __syncthreads();  // stage st is free
+    if (j + 2 < hi) load_kv(j + 2, st);
+    sm90::cp_async_commit();
+  }
+  sm90::cp_async_wait<0>();
+
+  // the row sums over the 16 threads of each row, then O / max(l, 1e-30)
+#pragma unroll
+  for (int i = 0; i < F_RPT; ++i) {
+#pragma unroll
+    for (int off = 1; off < 16; off <<= 1)
+      l[i] += __shfl_xor_sync(FULL, l[i], off);
+    const int row = r0 + rq + i;
+    if (row < p.T) {
+      const float ls = fmaxf(l[i], 1e-30f);
+      float out[L::CPT];
+#pragma unroll
+      for (int c = 0; c < L::CPT; ++c) out[c] = o[i][c] / ls;
+#pragma unroll
+      for (int g = 0; g < L::NG; ++g)
+        Vec<L::VEC>::put(O + row * p.sot + g * 16 * L::VEC + tx * L::VEC,
+                         out + g * L::VEC);
+    }
   }
 }
 
@@ -633,13 +810,17 @@ int launch(const void* const (&ptr)[4], int bf16, int B, int Hq, int Hkv,
   if (bf16)
     return launch_bf16<D>(ptr, B, Hq, Hkv, T, S, s, scale, causal, window,
                           st);
+  using L = F32Tiles<D>;
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  const int nblk = (T + F_BQ - 1) / F_BQ;
   const Params p{ptr[0], ptr[1], ptr[2], const_cast<void*>(ptr[3]),
-                 T, S, Hq / Hkv,
+                 T, S, Hq / Hkv, Hq, B, nblk,
                  s[0], s[1], s[2], s[3], s[4], s[5],
                  s[6], s[7], s[8], s[9], s[10], s[11],
                  scale, causal, window};
-  const dim3 grid((T + BQ - 1) / BQ, Hq, B);
-  flash_f32<D><<<grid, NT, 0, st>>>(p);
+  flash_f32<D><<<nblk * Hq * B, F_NT, L::SMEM, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -677,13 +858,14 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
   }
 }
 
-// Dynamic shared memory of the bf16 kernel at head dim D (bytes), or -1.
-extern "C" int flash_attn_bf16_smem(int D) {
+// Dynamic shared memory of the bf16 (bf16 = 1) or fp32 kernel at head dim
+// D (bytes), or -1.
+extern "C" int flash_attn_smem(int bf16, int D) {
   switch (D) {
-    case 16: return Tiles<16>::SMEM;
-    case 32: return Tiles<32>::SMEM;
-    case 64: return Tiles<64>::SMEM;
-    case 128: return Tiles<128>::SMEM;
+    case 16: return bf16 ? Tiles<16>::SMEM : F32Tiles<16>::SMEM;
+    case 32: return bf16 ? Tiles<32>::SMEM : F32Tiles<32>::SMEM;
+    case 64: return bf16 ? Tiles<64>::SMEM : F32Tiles<64>::SMEM;
+    case 128: return bf16 ? Tiles<128>::SMEM : F32Tiles<128>::SMEM;
     default: return -1;
   }
 }

@@ -18,8 +18,8 @@
 // Design, shared by both (block_backproject):
 //   phase 1 (margins): warps take rows, eight at a time, each lane a strided
 //     slice of the features; x.w and x.a (B6 only) come out of one pass over
-//     the row and are reduced with a fixed-order xor shuffle tree. Lane 0
-//     writes the row's coefficient (difference) to shared memory.
+//     the row and are reduced with a fixed-order xor shuffle tree. Lane i
+//     writes row i's coefficient (difference) to shared memory.
 //   phase 2 (back-projection): threads take columns and sum the chunk's
 //     rows in order into a running per-column sum that only they touch. At
 //     d < 128 the threads form G = 256 / d row groups (14 at d = 18) so
@@ -34,9 +34,31 @@
 // No atomics anywhere: every sum has a fixed order, so results repeat bit
 // for bit from run to run. inv_n is read from a device pointer (the TPU
 // kernel's (1, 1) input), so the caller never reads a device value.
+//
+// B6 over a whole epoch (svrg_epoch_kernel, odm_svrg_epoch_f32): the
+// counterpart of the reference's lax.scan over B6 (repro/core/dsvrg.py
+// _epoch_serial / _epoch_parallel). A DSVRG step is a dependent chain of
+// about 5 KB of work, so launched one at a time from Python the host's
+// cost per step (three ops, ~50-90 us) is the whole fit; inside one
+// launch the chain is bound by its own latency (a handful of block
+// barriers and shuffle trees a step). One CTA per chain walks all of the
+// chain's steps in order: each step is B6's chunk_backproject followed by
+// (w - a + h) + acc and w - eta * dir, rounded as the eager host loop
+// rounds them, so w comes out bit for bit as from the per-step path. w,
+// a, h and the step's direction sit in shared memory (4 d floats; above
+// EPOCH_SMEM they stay in device memory); the chunks of each minibatch
+// (up to CHUNK rows of x with their y and mask) come through a two-stage
+// cp.async ring, the next chunk loading while the current one is
+// computed, unless a chunk is too wide for the ring, when rows are read
+// from device memory as B6 reads them. Measured (H100 80GB HBM3, 700.00
+// W, chip_smoke.py phase 2b): 1.96 us a step on SUSY's chain (b = 64,
+// d = 18) and 2.01 on a7a's (b = 1, d = 123), against 52 us a step for
+// the per-step path launched from Python and 6.4 as a CUDA graph.
 #include <cstddef>
 
 #include <cuda_runtime.h>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -72,87 +94,118 @@ __device__ __forceinline__ float hinge_coef(float m, float y, const Hinge& p) {
   return __fmul_rn(__fmul_rn(p.s, __fadd_rn(lo, __fmul_rn(p.ups, hi))), y);
 }
 
+// One chunk of nc <= CHUNK rows of X into the running column sums acc:
+// acc[j] (+)= sum_r dcoef_r * x[r, j], dcoef_r = (coef(y_r x_r.w) -
+// coef(y_r x_r.a)) * wt_r * scale; `first` opens the sums. Without an
+// ANCHOR the coef(y_r x_r.a) term is absent; wt may be null. x, y, wt,
+// w, a and acc may lie in device or shared memory; w carries no
+// __restrict__ because the epoch kernel writes it between calls. Shared
+// scratch: dc[CHUNK], red[NT]. Column j of acc is written by thread
+// j % NT. Ends with a block barrier unless the caller takes it
+// (tail_sync = false) before dc and red are written again.
+template <bool ANCHOR>
+__device__ __forceinline__ void chunk_backproject(
+    const float* __restrict__ x, const float* __restrict__ y,
+    const float* __restrict__ wt, float scale, const float* w,
+    const float* __restrict__ a, int nc, int d, bool first, const Hinge& p,
+    float* acc, float* __restrict__ dc, float* __restrict__ red,
+    bool tail_sync = true) {
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int groups = NT / min(d, NT);  // uniform: the branches below are too
+  const int g = tid / d, jj = tid % d;
+  // phase 1: margins and coefficients of the chunk's rows
+  const int r0 = warp * RPW;
+  float dw[RPW], da[RPW];
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) dw[i] = da[i] = 0.0f;
+  for (int j = lane; j < d; j += 32) {
+    const float wj = w[j];
+    const float aj = ANCHOR ? a[j] : 0.0f;
+#pragma unroll
+    for (int i = 0; i < RPW; ++i) {
+      if (r0 + i < nc) {
+        const float xv = x[(size_t)(r0 + i) * d + j];
+        dw[i] = fmaf(xv, wj, dw[i]);
+        if (ANCHOR) da[i] = fmaf(xv, aj, da[i]);
+      }
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < RPW; ++i) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      dw[i] += __shfl_xor_sync(0xffffffffu, dw[i], off);
+      if (ANCHOR) da[i] += __shfl_xor_sync(0xffffffffu, da[i], off);
+    }
+  }
+  // the butterfly leaves every lane with the same sums (a + b == b + a),
+  // so lane i takes row r0 + i's coefficient: the rows in parallel
+  float mw = dw[0], ma = da[0];
+#pragma unroll
+  for (int i = 1; i < RPW; ++i)
+    if (lane == i) {
+      mw = dw[i];
+      ma = da[i];
+    }
+  const int r = r0 + lane;
+  if (lane < RPW && r < nc) {
+    const float yr = y[r];
+    float v = hinge_coef(__fmul_rn(yr, mw), yr, p);
+    if (ANCHOR) v = sub_rn(v, hinge_coef(__fmul_rn(yr, ma), yr, p));
+    if (wt != nullptr) v = __fmul_rn(v, wt[r]);
+    dc[r] = __fmul_rn(v, scale);
+  }
+  __syncthreads();
+  // phase 2: back-projection of the chunk into the running sums
+  if (groups == 1) {
+    for (int j = tid; j < d; j += NT) {
+      float s = first ? 0.0f : acc[j];
+#pragma unroll 4
+      for (int r = 0; r < nc; ++r)
+        s = fmaf(dc[r], x[(size_t)r * d + j], s);
+      acc[j] = s;
+    }
+  } else {  // d < 128: row group g, column jj
+    if (g < groups) {
+      float s = 0.0f;
+#pragma unroll 4
+      for (int r = g; r < nc; r += groups)
+        s = fmaf(dc[r], x[(size_t)r * d + jj], s);
+      red[g * d + jj] = s;
+    }
+    __syncthreads();
+    if (g == 0) {
+      float s = first ? 0.0f : acc[jj];
+#pragma unroll 4
+      for (int k = 0; k < groups; ++k) s += red[k * d + jj];
+      acc[jj] = s;
+    }
+  }
+  if (tail_sync) __syncthreads();  // dc and red are rewritten next chunk
+}
+
 // acc[j] (device memory) = sum over rows [0, n) of X of dcoef_r * x[r, j],
-// dcoef_r = (coef(y_r x_r.w) - coef(y_r x_r.a)) * wt_r * inv_n. Without an
-// ANCHOR the coef(y_r x_r.a) term is absent; wt and inv_n may be null.
-// Shared scratch: dc[CHUNK], red[NT].
+// dcoef_r = (coef(y_r x_r.w) - coef(y_r x_r.a)) * wt_r * inv_n, in chunks
+// of CHUNK rows. Without an ANCHOR the coef(y_r x_r.a) term is absent; wt
+// and inv_n may be null. Shared scratch: dc[CHUNK], red[NT].
 template <bool ANCHOR>
 __device__ void block_backproject(const float* __restrict__ x,
                                   const float* __restrict__ y,
                                   const float* __restrict__ wt,
                                   const float* __restrict__ inv_n,
-                                  const float* __restrict__ w,
+                                  const float* w,
                                   const float* __restrict__ a, int n, int d,
-                                  Hinge p, float* __restrict__ acc,
+                                  Hinge p, float* acc,
                                   float* __restrict__ dc,
                                   float* __restrict__ red) {
-  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
-  const int groups = NT / min(d, NT);  // uniform: the branches below are too
-  const int g = tid / d, jj = tid % d;
   const float scale = inv_n != nullptr ? *inv_n : 1.0f;
-  for (int c0 = 0; c0 < n; c0 += CHUNK) {
-    const int nc = min(CHUNK, n - c0);
-    // phase 1: margins and coefficients of the chunk's rows
-    const int r0 = warp * RPW;
-    float dw[RPW], da[RPW];
-#pragma unroll
-    for (int i = 0; i < RPW; ++i) dw[i] = da[i] = 0.0f;
-    for (int j = lane; j < d; j += 32) {
-      const float wj = w[j];
-      const float aj = ANCHOR ? a[j] : 0.0f;
-#pragma unroll
-      for (int i = 0; i < RPW; ++i) {
-        if (r0 + i < nc) {
-          const float xv = x[(size_t)(c0 + r0 + i) * d + j];
-          dw[i] = fmaf(xv, wj, dw[i]);
-          if (ANCHOR) da[i] = fmaf(xv, aj, da[i]);
-        }
-      }
-    }
-#pragma unroll
-    for (int i = 0; i < RPW; ++i) {
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) {
-        dw[i] += __shfl_xor_sync(0xffffffffu, dw[i], off);
-        if (ANCHOR) da[i] += __shfl_xor_sync(0xffffffffu, da[i], off);
-      }
-      const int r = r0 + i;
-      if (lane == 0 && r < nc) {
-        const float yr = y[c0 + r];
-        float v = hinge_coef(__fmul_rn(yr, dw[i]), yr, p);
-        if (ANCHOR)
-          v = sub_rn(v, hinge_coef(__fmul_rn(yr, da[i]), yr, p));
-        if (wt != nullptr) v = __fmul_rn(v, wt[c0 + r]);
-        dc[r] = __fmul_rn(v, scale);
-      }
-    }
-    __syncthreads();
-    // phase 2: back-projection of the chunk into the running sums
-    if (groups == 1) {
-      for (int j = tid; j < d; j += NT) {
-        float s = c0 == 0 ? 0.0f : acc[j];
-        for (int r = 0; r < nc; ++r)
-          s = fmaf(dc[r], x[(size_t)(c0 + r) * d + j], s);
-        acc[j] = s;
-      }
-    } else {  // d < 128: row group g, column jj
-      if (g < groups) {
-        float s = 0.0f;
-        for (int r = g; r < nc; r += groups)
-          s = fmaf(dc[r], x[(size_t)(c0 + r) * d + jj], s);
-        red[g * d + jj] = s;
-      }
-      __syncthreads();
-      if (g == 0) {
-        float s = c0 == 0 ? 0.0f : acc[jj];
-        for (int k = 0; k < groups; ++k) s += red[k * d + jj];
-        acc[jj] = s;
-      }
-    }
-    __syncthreads();  // dc and red are rewritten by the next chunk
-  }
+  for (int c0 = 0; c0 < n; c0 += CHUNK)
+    chunk_backproject<ANCHOR>(x + (size_t)c0 * d, y + c0,
+                              wt != nullptr ? wt + c0 : nullptr, scale, w, a,
+                              min(CHUNK, n - c0), d, c0 == 0, p, acc, dc,
+                              red);
   if (n == 0)
-    for (int j = tid; j < d; j += NT) acc[j] = 0.0f;
+    for (int j = threadIdx.x; j < d; j += NT) acc[j] = 0.0f;
   __syncthreads();  // acc is read back by other threads of the block
 }
 
@@ -172,6 +225,152 @@ svrg_grad_kernel(const float* __restrict__ w, const float* __restrict__ a,
                           inv_n, wc, a, B, d, p, oc, dc, red);
   for (int j = threadIdx.x; j < d; j += NT)
     oc[j] = __fadd_rn(__fadd_rn(sub_rn(wc[j], a[j]), h[j]), oc[j]);
+}
+
+// B6 over a whole epoch (odm_svrg_epoch_f32): one CTA per chain walks
+// all of the chain's inner steps in order,
+//   dir = (w - a + h) + X_t^T[(coef_w - coef_a) * wt_t] * inv_n_t
+//   w  <- w - eta * dir,
+// each step's arithmetic exactly B6's launch followed by the host loop's
+// eager `w - eta * dir` (one rounded product, one rounded difference), so
+// w comes out bit for bit as from the per-step path. Step t of chain c
+// reads rows [t b, (t + 1) b) of the chain's contiguous (steps, b, d)
+// block at x + c x_chain, the mask wt + (t % S) wt_step and the divisor
+// inv_n[(t % S) inv_step] (strides 0 share one row); eta is read once.
+struct Epoch {
+  float* w;    // (C, d), updated in place: chain c's iterate
+  float* dir;  // (C, d) scratch for the direction when !CACHE
+  const float* a;
+  const float* h;
+  const float* x;
+  long long x_chain;
+  const float* y;
+  long long y_chain;
+  const float* wt;
+  long long wt_step;
+  const float* inv_n;
+  long long inv_step;
+  const float* eta;
+  int steps, S, b, d;
+};
+
+// Dynamic shared memory the epoch kernel may take (of the 227 KB a block
+// can have; dc and red are static).
+constexpr int EPOCH_SMEM = 200 * 1024;
+
+// CACHE: w, a, h and the direction live in shared memory (4 d floats).
+// STAGE: the chunks of rows (x, y, wt of up to CHUNK rows) come through a
+// two-stage cp.async ring in shared memory, the next chunk (of this step
+// or the next) loading while the current one is computed. Without STAGE
+// the rows are read from device memory as B6 reads them; without CACHE w
+// stays in device memory, owned by its CTA, and the direction goes
+// through dir.
+template <bool CACHE, bool STAGE>
+__global__ void __launch_bounds__(NT, 1) svrg_epoch_kernel(Epoch e, Hinge p) {
+  extern __shared__ __align__(16) float sm[];
+  __shared__ float dc[CHUNK], red[NT];
+  const int c = blockIdx.x, tid = threadIdx.x, b = e.b, d = e.d;
+  float* wg = e.w + (size_t)c * d;
+  float* w = CACHE ? sm : wg;
+  float* acc = CACHE ? sm + d : e.dir + (size_t)c * d;
+  const float* a = CACHE ? sm + 2 * d : e.a;
+  const float* h = CACHE ? sm + 3 * d : e.h;
+  if (CACHE)
+    for (int j = tid; j < d; j += NT) {
+      sm[j] = wg[j];
+      sm[2 * d + j] = e.a[j];
+      sm[3 * d + j] = e.h[j];
+    }
+  const float* xc = e.x + c * e.x_chain;
+  const float* yc = e.y + c * e.y_chain;
+  const int nch = (b + CHUNK - 1) / CHUNK;  // chunks per step
+  const int total = e.steps * nch;          // chunks of the epoch
+  const int rows = min(b, CHUNK);           // rows per ring stage
+  const int stage = rows * (d + 2);         // x rows, then y, then wt
+  float* ring = sm + (CACHE ? 4 * d : 0);
+  // chunk i of the epoch: rows [c0, c0 + nc) of step i / nch
+  auto fetch = [&](int i) {
+    const int t = i / nch, c0 = (i % nch) * CHUNK, nc = min(CHUNK, b - c0);
+    float* dst = ring + (i & 1) * stage;
+    const float* xs = xc + ((long long)t * b + c0) * d;
+    for (int k = tid; k < nc * d; k += NT) sm90::cp_async4(dst + k, xs + k);
+    const float* ys = yc + (long long)t * b + c0;
+    const float* ws = e.wt + (t % e.S) * e.wt_step + c0;
+    for (int k = tid; k < nc; k += NT) {
+      sm90::cp_async4(dst + rows * d + k, ys + k);
+      sm90::cp_async4(dst + rows * d + rows + k, ws + k);
+    }
+    sm90::cp_async_commit();
+  };
+  const float eta = *e.eta;
+  if (STAGE) {
+    fetch(0);
+    sm90::cp_async_wait<0>();
+  }
+  __syncthreads();  // the cached w, a, h and chunk 0
+  for (int t = 0, i = 0; t < e.steps; ++t) {
+    const float scale = e.inv_n[(t % e.S) * e.inv_step];
+    for (int q = 0; q < nch; ++q, ++i) {
+      const int c0 = q * CHUNK, nc = min(CHUNK, b - c0);
+      const float *xp, *yp, *wp;
+      if (STAGE) {
+        // chunk i + 1 into the other stage, which chunk i - 1 read before
+        // the barrier that ended it
+        if (i + 1 < total) fetch(i + 1);
+        xp = ring + (i & 1) * stage;
+        yp = xp + rows * d;
+        wp = yp + rows;
+      } else {
+        xp = xc + ((long long)t * b + c0) * d;
+        yp = yc + (long long)t * b + c0;
+        wp = e.wt + (t % e.S) * e.wt_step + c0;
+      }
+      chunk_backproject<true>(xp, yp, wp, scale, w, a, nc, d, q == 0, p,
+                              acc, dc, red, false);
+      if (STAGE) sm90::cp_async_wait<0>();  // chunk i + 1 has landed ...
+      if (q + 1 < nch) __syncthreads();      // ... for every thread
+    }
+    // thread j % NT wrote acc[j] and alone reads it, w[j], a[j] and h[j]
+    for (int j = tid; j < d; j += NT) {
+      const float dir = __fadd_rn(__fadd_rn(sub_rn(w[j], a[j]), h[j]),
+                                  acc[j]);
+      w[j] = sub_rn(w[j], __fmul_rn(eta, dir));
+    }
+    // w is read by every thread in the next step, dc and red rewritten,
+    // and the next chunk read from the ring
+    __syncthreads();
+  }
+  if (CACHE)
+    for (int j = tid; j < d; j += NT) wg[j] = w[j];
+}
+
+// Floats of dynamic shared memory the epoch kernel takes, and its mode.
+struct EpochPlan {
+  bool cache, stage;
+  int floats;
+};
+
+EpochPlan epoch_plan(int b, int d) {
+  const long long cache = 4LL * d;
+  const long long ring = 2LL * min(b, CHUNK) * (d + 2);
+  if (cache * 4 > EPOCH_SMEM) return {false, false, 0};
+  if ((cache + ring) * 4 > EPOCH_SMEM)
+    return {true, false, static_cast<int>(cache)};
+  return {true, true, static_cast<int>(cache + ring)};
+}
+
+template <bool CACHE, bool STAGE>
+int launch_epoch(const Epoch& e, const Hinge& p, int C, int floats,
+                 cudaStream_t st) {
+  const int bytes = floats * 4;
+  if (bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        svrg_epoch_kernel<CACHE, STAGE>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  svrg_epoch_kernel<CACHE, STAGE><<<C, NT, bytes, st>>>(e, p);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // B7, first launch: block b's partial X^T coef (rows [b rows, (b+1) rows))
@@ -235,6 +434,39 @@ extern "C" int odm_svrg_grad_f32(const float* w, const float* a,
       w, a, h, x, x_chain_stride, y, y_chain_stride, wt, inv_n, out, B, d,
       make_hinge(s, theta, ups, lo_edge, hi_edge));
   return static_cast<int>(cudaGetLastError());
+}
+
+// B6 over a whole epoch. w (C, d) in/out; dir (C, d) scratch (read only
+// when w, a and h do not fit in shared memory: odm_svrg_epoch_mode
+// says 0); a, h (d); chain c's (steps, b, d) rows at x + c * x_chain and
+// (steps, b) labels at y + c * y_chain, contiguous; step t's mask (b) at
+// wt + (t % S) * wt_step and divisor at inv_n + (t % S) * inv_step; eta
+// (1). fp32. The hinge arguments as for odm_svrg_grad_f32.
+extern "C" int odm_svrg_epoch_f32(
+    float* w, float* dir, const float* a, const float* h, const float* x,
+    long long x_chain, const float* y, long long y_chain, const float* wt,
+    long long wt_step, const float* inv_n, long long inv_step,
+    const float* eta, int C, int steps, int S, int b, int d, float s,
+    float theta, float ups, float lo_edge, float hi_edge, void* stream) {
+  if (C <= 0 || d <= 0 || steps <= 0) return 0;
+  if (b <= 0 || S <= 0) return static_cast<int>(cudaErrorInvalidValue);
+  const Epoch e{w,       dir,   a,        h,   x,     x_chain,
+                y,       y_chain, wt,   wt_step,  inv_n, inv_step,
+                eta,     steps, S,    b,        d};
+  const Hinge p = make_hinge(s, theta, ups, lo_edge, hi_edge);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const EpochPlan plan = epoch_plan(b, d);
+  if (plan.stage) return launch_epoch<true, true>(e, p, C, plan.floats, st);
+  if (plan.cache) return launch_epoch<true, false>(e, p, C, plan.floats, st);
+  return launch_epoch<false, false>(e, p, C, plan.floats, st);
+}
+
+// 1 when the epoch kernel keeps w, a and h in shared memory at (b, d)
+// (its dir scratch is then unused), 2 when it also stages the rows
+// through its ring, 0 when everything stays in device memory.
+extern "C" int odm_svrg_epoch_mode(int b, int d) {
+  const EpochPlan plan = epoch_plan(b, d);
+  return plan.stage ? 2 : plan.cache ? 1 : 0;
 }
 
 // Row blocks of B7's first launch for M rows: the caller sizes part as

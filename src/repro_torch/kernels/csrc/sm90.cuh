@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks in inline PTX: mbarriers, TMA tile
 // loads and stores, wgmma shared-memory descriptors and the wgmma
-// instructions that B9 (flash_attn.cu) issues. No CUTLASS: the build
-// stays a plain nvcc -c of each source.
+// instructions that B9's bf16 kernel (flash_attn.cu) issues, and the
+// cp.async copies that B9's fp32 kernel and B6's epoch kernel
+// (odm_grad.cu) stage their operands with. No CUTLASS: the build stays a
+// plain nvcc -c of each source.
 #pragma once
 
 #include <cstdint>
@@ -114,6 +116,35 @@ __device__ __forceinline__ void named_sync(int id, int count) {
 // warpgroup's threads wait there).
 __device__ __forceinline__ void named_arrive(int id, int count) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(count) : "memory");
+}
+
+// --- cp.async (per-thread asynchronous copies into shared memory) -----------
+
+// 16 bytes, or 16 zero bytes when !valid (src is then not read); both
+// addresses 16-byte aligned. Bypasses L1.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)), "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes, any 4-byte aligned addresses.
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   smem_addr(dst)), "l"(src)
+               : "memory");
+}
+
+// Close this thread's group of copies issued so far (an empty group too).
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's newest groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
 // --- registers ---------------------------------------------------------------

@@ -18,12 +18,23 @@ Port of ``repro.kernels.odm_grad``. Two fused passes share one layout:
   w (C, d); ``anchor``, ``h``, ``wt`` and ``inv_n`` shared) advances every
   chain of the parallel schedule in one launch. ``inv_n`` is a one-element
   device tensor the kernel reads itself, so no caller reads a device value.
+* :func:`odm_svrg_epoch` — a whole DSVRG / SVRG epoch of inner steps
+  ``w ← w − eta · (g_w − g_a + h)``, the counterpart of the reference's
+  ``lax.scan`` over :func:`odm_svrg_grad` (``repro.core.dsvrg``
+  ``_epoch_serial`` / ``_epoch_parallel``). On the card one launch of
+  the epoch kernel (same source): one CTA per chain walks every step of
+  its chain in order with B6's arithmetic, w in shared memory and the
+  next minibatch loading through a cp.async ring while the current one
+  is computed, so w equals the per-step path's bit for bit and the host
+  enqueues one launch an epoch instead of three ops a step.
 
 A CPU tensor takes the plain version (:func:`odm_grad_plain`,
-:func:`odm_svrg_grad_plain`), a CUDA tensor the kernel; each wrapper
-counts its calls that launch (``odm_grad.launches``,
-``odm_svrg_grad.launches``; one per call, though B7 is two launches). The
-kernels mask the ragged edge themselves, so nothing is padded to a tile.
+:func:`odm_svrg_grad_plain`, :func:`odm_svrg_epoch_plain`), a CUDA tensor
+the kernel; each wrapper counts its calls that launch
+(``odm_grad.launches``, ``odm_svrg_grad.launches``,
+``odm_svrg_epoch.launches``; one per call, though B7 is two launches).
+The kernels mask the ragged edge themselves, so nothing is padded to a
+tile.
 """
 from __future__ import annotations
 
@@ -69,6 +80,36 @@ def odm_svrg_grad_plain(w: Tensor, anchor: Tensor, h: Tensor, x: Tensor,
     return (w - anchor + h) + (dcoef[..., None, :] @ x)[..., 0, :]
 
 
+SCHEDULES = ("serial", "parallel")
+
+
+def odm_svrg_epoch_plain(w: Tensor, anchor: Tensor, h: Tensor, xs: Tensor,
+                         ys: Tensor, wts: Tensor, inv_n: Tensor, eta: Tensor,
+                         *, s: float, theta: float = 0.1, ups: float = 0.5,
+                         schedule: str = "serial") -> Tensor:
+    """Plain version of the epoch kernel: the loop of
+    :func:`odm_svrg_grad_plain` steps, each followed by ``w − eta · dir``.
+    ``serial`` walks the K chains' S steps in one round-robin chain from
+    w (d,) and returns (d,); ``parallel`` advances K chains from w in
+    lockstep and returns their last iterates (K, d)."""
+    if schedule not in SCHEDULES:
+        raise ValueError(f"unknown schedule {schedule!r}")
+    K, S = ys.shape[:2]
+    kw = dict(s=s, theta=theta, ups=ups)
+    if schedule == "serial":
+        for k in range(K):
+            xk, yk = xs[k], ys[k]
+            for t in range(S):
+                w = w - eta * odm_svrg_grad_plain(w, anchor, h, xk[t], yk[t],
+                                                  wts[t], inv_n[t], **kw)
+        return w
+    ws = w.expand(K, -1).contiguous()
+    for t in range(S):
+        ws = ws - eta * odm_svrg_grad_plain(ws, anchor, h, xs[:, t],
+                                            ys[:, t], wts[t], inv_n[t], **kw)
+    return ws
+
+
 # ---------------------------------------------------------------------------
 # launchers (CUDA tensors)
 # ---------------------------------------------------------------------------
@@ -111,6 +152,52 @@ def launch_odm_svrg_grad(w: Tensor, anchor: Tensor, h: Tensor, x: Tensor,
             _build.ptr(inv_n), _build.ptr(out), C, B, d, s, theta, ups,
             1.0 - theta, 1.0 + theta, _build.stream_handle(x.device))
     _build.check(code, "odm_svrg_grad")
+    return out
+
+
+def _check_steps(name: str, t: Tensor, shape: tuple[int, ...]) -> None:
+    """A per-step table (S, ...) whose step axis may have stride 0 (one
+    row shared by every step) and whose rows are contiguous."""
+    if (t.dtype != torch.float32 or tuple(t.shape) != shape
+            or not t[0].is_contiguous()):
+        raise ValueError(f"{name}: expected a float32 tensor of shape "
+                         f"{shape} with contiguous rows, got {t.dtype} "
+                         f"{tuple(t.shape)} strides {t.stride()}")
+
+
+def launch_odm_svrg_epoch(w: Tensor, anchor: Tensor, h: Tensor, xs: Tensor,
+                          ys: Tensor, wts: Tensor, inv_n: Tensor,
+                          eta: Tensor, *, s: float, theta: float, ups: float,
+                          schedule: str) -> Tensor:
+    """The epoch kernel on CUDA tensors: xs (K, S, b, d), ys (K, S, b)
+    contiguous; wts (S, b) and inv_n (S, 1) or (S,), whose step axis may
+    have stride 0; w, anchor, h (d,); eta one element. Returns (d,) for
+    ``serial``, the K chains' (K, d) for ``parallel``."""
+    if schedule not in SCHEDULES:
+        raise ValueError(f"unknown schedule {schedule!r}")
+    K, S, b, d = xs.shape
+    _check_f32("xs", xs, (K, S, b, d))
+    _check_f32("ys", ys, (K, S, b))
+    for name, t in (("w", w), ("anchor", anchor), ("h", h)):
+        _check_f32(name, t, (d,))
+    _check_steps("wts", wts, (S, b))
+    _check_steps("inv_n", inv_n, (S,) + tuple(inv_n.shape[1:]))
+    if inv_n[0].numel() != 1 or eta.numel() != 1 \
+            or eta.dtype != torch.float32:
+        raise ValueError("inv_n: expected one float32 element a step, eta "
+                         "one float32 element")
+    serial = schedule == "serial"
+    C, steps = (1, K * S) if serial else (K, S)
+    out = w.clone() if serial else w.expand(K, d).contiguous()
+    scratch = torch.empty_like(out)
+    with torch.cuda.device(xs.device):
+        code = _build.library().odm_svrg_epoch_f32(
+            _build.ptr(out), _build.ptr(scratch), _build.ptr(anchor),
+            _build.ptr(h), _build.ptr(xs), S * b * d, _build.ptr(ys), S * b,
+            _build.ptr(wts), wts.stride(0), _build.ptr(inv_n),
+            inv_n.stride(0), _build.ptr(eta), C, steps, S, b, d, s, theta,
+            ups, 1.0 - theta, 1.0 + theta, _build.stream_handle(xs.device))
+    _build.check(code, "odm_svrg_epoch")
     return out
 
 
@@ -173,3 +260,28 @@ def odm_svrg_grad(w: Tensor, anchor: Tensor, h: Tensor, x: Tensor,
 
 
 odm_svrg_grad.launches = 0
+
+
+def odm_svrg_epoch(w: Tensor, anchor: Tensor, h: Tensor, xs: Tensor,
+                   ys: Tensor, wts: Tensor, inv_n: Tensor, eta: Tensor, *,
+                   s: float, theta: float = 0.1, ups: float = 0.5,
+                   schedule: str = "serial") -> Tensor:
+    """One epoch of inner steps over the (K, S, b, d) minibatch layout of
+    ``dsvrg._pad_batches``: ``wts`` (S, b) masks each step's padding,
+    ``inv_n`` (S, 1) holds each step's 1/n_valid, ``eta`` is a one-element
+    tensor and ``s`` the per-instance hinge scale lam/(1-θ)². ``serial``
+    returns the round-robin chain's w (d,), ``parallel`` the K chains'
+    last iterates (K, d) (the caller averages them). CPU tensors run the
+    plain version; CUDA tensors launch the epoch kernel once (counted in
+    ``odm_svrg_epoch.launches``)."""
+    if on_cpu(w, anchor, h, xs, ys, wts, inv_n, eta):
+        return odm_svrg_epoch_plain(w, anchor, h, xs, ys, wts, inv_n, eta,
+                                    s=s, theta=theta, ups=ups,
+                                    schedule=schedule)
+    out = launch_odm_svrg_epoch(w, anchor, h, xs, ys, wts, inv_n, eta, s=s,
+                                theta=theta, ups=ups, schedule=schedule)
+    odm_svrg_epoch.launches += 1
+    return out
+
+
+odm_svrg_epoch.launches = 0

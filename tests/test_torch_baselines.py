@@ -266,6 +266,27 @@ def test_grad_baselines_draw_their_own_permutations():
     assert float(a.history[-1]) < float(a.history[0])
 
 
+@pytest.mark.parametrize("route", ["svrg", "csvrg"])
+def test_grad_baselines_take_one_epoch_call_an_epoch(monkeypatch, route):
+    """svrg and csvrg run each epoch's M // batch steps as one chain in one
+    odm_svrg_epoch call (one launch of the epoch kernel on the card), with
+    one all-ones mask and 1/batch shared by every step."""
+    from repro_torch.kernels import odm_grad as tog
+    seen = []
+    real = tog.odm_svrg_epoch
+
+    def spy(w, anchor, h, xs, ys, wts, inv_n, eta, **kw):
+        seen.append((tuple(xs.shape), wts.stride(0), inv_n.stride(0),
+                     float(wts.min()), float(inv_n[0]), kw["schedule"]))
+        return real(w, anchor, h, xs, ys, wts, inv_n, eta, **kw)
+
+    monkeypatch.setattr(tog, "odm_svrg_epoch", spy)
+    x, y, _, _ = _data(11, M=48, d=5)
+    solve = tb._svrg_solve if route == "svrg" else tb._csvrg_solve
+    solve(_t(x), _t(y), ODMParams(lam=10.0), 2, 0.05, key=1, batch=4)
+    assert seen == [((1, 12, 4, 5), 0, 0, 1.0, 0.25, "serial")] * 2
+
+
 # ---------------------------------------------------------------------------
 # the routes, end to end
 # ---------------------------------------------------------------------------

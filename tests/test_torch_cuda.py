@@ -11,9 +11,12 @@ to within 1e-6; K4 (the exact dual CD solve) does the same and equals its
 plain version bit for bit, with the same sweep counts. K2, K3, B6, B7
 and B8 sum in another order than the plain versions (register micro-tiles,
 shuffle trees and per-column row loops against cuBLAS-style blocked
-sums), so they agree to a relative 1e-5 of the largest value. A whole DSVRG fit, card against CPU, holds to the band
-documented for DSVRG across reduction orders (relative 1e-2 on w,
-prediction agreement 0.99).
+sums), so they agree to a relative 1e-5 of the largest value. B6's
+whole-epoch kernel repeats B6's launches and the host loop's
+`w - eta * dir` step for step, so it equals that per-step loop on the
+card bit for bit (torch.equal). A whole DSVRG fit, card against CPU,
+holds to the band documented for DSVRG across reduction orders (relative
+1e-2 on w, prediction agreement 0.99).
 """
 import numpy as np
 import pytest
@@ -249,20 +252,126 @@ def test_dsvrg_fit_on_card_matches_cpu(dev, schedule):
                             schedule=schedule, partition_strategy="identity")
     p = ODMParams(100.0, 0.1, 0.5)
     counts = (odm_grad_mod.odm_grad.launches,
-              odm_grad_mod.odm_svrg_grad.launches)
+              odm_grad_mod.odm_svrg_grad.launches,
+              odm_grad_mod.odm_svrg_epoch.launches)
     rc = dsvrg._solve(x, y, p, cfg, 0)
     rg = dsvrg._solve(x.to(dev), y.to(dev), p, cfg, 0)
     torch.cuda.synchronize()
-    steps = 4 * 10 * (4 if schedule == "serial" else 1)
+    # one B7 and one epoch-kernel launch an epoch, no per-step B6
     assert (odm_grad_mod.odm_grad.launches,
-            odm_grad_mod.odm_svrg_grad.launches) == (counts[0] + 4,
-                                                     counts[1] + steps)
+            odm_grad_mod.odm_svrg_grad.launches,
+            odm_grad_mod.odm_svrg_epoch.launches) == (
+                counts[0] + 4, counts[1], counts[2] + 4)
     wg = rg.w.cpu()
     assert float((wg - rc.w).norm() / rc.w.norm()) <= 1e-2
     agree = float((torch.sign(x @ wg) == torch.sign(x @ rc.w)).float()
                   .mean())
     assert agree >= 0.99
     assert bool(torch.isfinite(rg.history).all())
+
+
+def _epoch_inputs(dev, K, m, b, d, seed, shared=False):
+    """K partitions of m rows of width d in minibatches of b, laid out as
+    dsvrg._pad_batches lays them out, with the (S, 1) divisors _run
+    builds; ``shared``: one all-ones mask and 1/b for every step through
+    stride-0 step axes, as svrg and csvrg pass them. eta at half the
+    inverse smoothness, so the chain neither stalls nor diverges."""
+    from repro_torch.core import dsvrg
+    rng = np.random.default_rng(seed)
+    x = torch.tensor(rng.standard_normal((K, m, d)) / np.sqrt(d),
+                     dtype=torch.float32)
+    y = torch.tensor(np.sign(rng.standard_normal((K, m))),
+                     dtype=torch.float32)
+    xs, ys, wts = dsvrg._pad_batches(x, y, b)
+    inv_n = (1.0 / torch.clamp_min(wts.sum(-1), 1.0))[:, None]
+    if shared:
+        wts = torch.ones(1, b).expand(wts.shape[0], -1)
+        inv_n = torch.full((1, 1), 1.0 / b).expand(wts.shape[0], -1)
+    T = lambda a: torch.tensor(a, dtype=torch.float32)  # noqa: E731
+    w, a = T(0.5 * rng.standard_normal(d)), T(0.5 * rng.standard_normal(d))
+    h = T(0.1 * rng.standard_normal(d))
+    eta = torch.tensor(0.5 / (1.0 + 100.0 / 0.81))
+    return [t.to(dev) for t in (w, a, h, xs, ys, wts, inv_n, eta)]
+
+
+def _per_step_epoch(w, a, h, xs, ys, wts, inv_n, eta, schedule, kw):
+    """The per-step path on the card: one B6 launch a step (all chains of
+    the parallel schedule in one), then the eager w - eta * dir."""
+    K, S = ys.shape[:2]
+    launch = odm_grad_mod.launch_odm_svrg_grad
+    if schedule == "serial":
+        for k in range(K):
+            for t in range(S):
+                w = w - eta * launch(w, a, h, xs[k, t], ys[k, t], wts[t],
+                                     inv_n[t], **kw)
+        return w
+    ws = w.expand(K, -1).contiguous()
+    for t in range(S):
+        ws = ws - eta * launch(ws, a, h, xs[:, t], ys[:, t], wts[t],
+                               inv_n[t], **kw)
+    return ws
+
+
+# (K, m, b, d, shared masks, the kernel's mode: 2 = w, a, h in shared
+# memory and the rows through the ring, 1 = rows from device memory,
+# 0 = w in device memory too)
+EPOCH_CASES = {"susy": (2, 192, 64, 18, False, 2),
+               "tail-32": (2, 224, 64, 18, False, 2),
+               "chunks": (2, 300, 150, 33, False, 2),
+               "a7a-b1": (1, 60, 1, 123, True, 2),
+               "gisette-wide": (2, 130, 64, 5000, False, 1),
+               "too-wide": (2, 10, 4, 20000, False, 0)}
+
+
+@pytest.mark.parametrize("schedule", ["serial", "parallel"])
+@pytest.mark.parametrize("case", list(EPOCH_CASES))
+def test_odm_svrg_epoch_equals_the_per_step_loop(dev, case, schedule):
+    """The whole-epoch kernel against B6's per-step path, bit for bit:
+    the same B6 arithmetic each step and the same rounded eta * dir and
+    difference."""
+    from repro_torch.kernels import _build
+    K, m, b, d, shared, mode = EPOCH_CASES[case]
+    if shared and schedule == "parallel":
+        K = 2
+    args = _epoch_inputs(dev, K, m, b, d, seed=40 + d, shared=shared)
+    assert _build.library().odm_svrg_epoch_mode(b, d) == mode
+    kw = dict(s=100.0 / 0.81, theta=0.1, ups=0.5)
+    before = (odm_grad_mod.odm_svrg_epoch.launches,
+              odm_grad_mod.odm_svrg_grad.launches)
+    got = odm_grad_mod.odm_svrg_epoch(*args, schedule=schedule, **kw)
+    torch.cuda.synchronize()
+    assert (odm_grad_mod.odm_svrg_epoch.launches,
+            odm_grad_mod.odm_svrg_grad.launches) == (before[0] + 1,
+                                                     before[1])
+    want = _per_step_epoch(*args, schedule, kw)
+    assert got.shape == want.shape == ((d,) if schedule == "serial"
+                                       else (K, d))
+    assert bool(torch.isfinite(got).all())
+    assert not torch.equal(got, args[0].expand_as(got))   # it moved
+    assert torch.equal(got, want)
+
+
+def test_svrg_fit_on_card_launches_one_epoch_kernel_an_epoch(dev):
+    """svrg on the card: one B7 and one epoch-kernel launch an epoch, and
+    w within the DSVRG band of the CPU's."""
+    from repro_torch.core import baselines
+    from repro_torch.core.odm import ODMParams
+    rng = np.random.default_rng(12)
+    x = torch.tensor(rng.random((400, 9)) - 0.5, dtype=torch.float32)
+    y = torch.tensor(np.sign(x.numpy() @ rng.standard_normal(9)),
+                     dtype=torch.float32)
+    perms = [torch.tensor(rng.permutation(400)) for _ in range(3)]
+    p = ODMParams(10.0, 0.1, 0.5)
+    before = (odm_grad_mod.odm_grad.launches,
+              odm_grad_mod.odm_svrg_epoch.launches)
+    rc = baselines._svrg_solve(x, y, p, 3, 0.05, batch=4, _perms=perms)
+    rg = baselines._svrg_solve(x.to(dev), y.to(dev), p, 3, 0.05, batch=4,
+                               _perms=perms)
+    torch.cuda.synchronize()
+    assert (odm_grad_mod.odm_grad.launches,
+            odm_grad_mod.odm_svrg_epoch.launches) == (before[0] + 3,
+                                                      before[1] + 3)
+    assert float((rg.w.cpu() - rc.w).norm() / rc.w.norm()) <= 1e-2
 
 
 # ---------------------------------------------------------------------------
@@ -450,6 +559,29 @@ def test_flash_attention_views_match_plain(dev, B, Hq, Hkv, T, S, D,
     assert got.stride() == views[0].stride()
     assert _rel(got, want) <= 1e-2
     assert flash_attn.bf16_band(got, want) <= 1.0
+
+
+@pytest.mark.parametrize("B,Hq,Hkv,T,S,D,window", [
+    (2, 16, 8, 300, 300, 128, None),
+    (1, 16, 8, 200, 200, 128, 100),
+    (2, 4, 2, 333, 333, 16, 100),
+    (2, 4, 2, 100, 333, 32, None),
+    (1, 8, 2, 257, 257, 32, 100),
+    (1, 4, 1, 130, 130, 64, None)])
+def test_flash_attention_f32_views_match_plain(dev, B, Hq, Hkv, T, S, D,
+                                               window):
+    """The fp32 kernel on (B, T, H, D) activations seen as (B, H, T, D),
+    as attend passes them: D = 16 and 32, 100-key windows, T < S and GQA,
+    within 1e-5 of the output's scale."""
+    from repro_torch.kernels import flash_attn
+    views = [t.transpose(1, 2).contiguous().transpose(1, 2)
+             for t in _flash_inputs(B, Hq, Hkv, T, S, D, torch.float32,
+                                    dev, 3)]
+    got = flash_attn.flash_attention(*views, window=window)
+    want = flash_attn.flash_attention_plain(*views, window=window)
+    assert got.stride() == views[0].stride()
+    assert bool(torch.isfinite(got).all())
+    assert _rel(got, want) <= 1e-5
 
 
 def test_flash_attention_refuses_strides_it_cannot_map(dev):

@@ -26,6 +26,7 @@ from repro.core import dsvrg as jd, odm as jodm, sodm as jsodm
 from repro_torch.api import ODMEstimator, ProblemSpec
 from repro_torch.core import dsvrg as td, odm as todm, sodm as tsodm
 from repro_torch.core import kernel_fns as tkf, partition as tpart
+from repro_torch.kernels import odm_grad as tog
 from repro_torch.serve import model as tmodel
 
 
@@ -94,23 +95,25 @@ def test_solve_matches_reference(schedule, fused, batch):
 
 @pytest.mark.parametrize("schedule", ["serial", "parallel"])
 def test_every_sample_consumed_once_per_epoch(monkeypatch, schedule):
-    """Column 0 carries each row's id; the recorder sees every real row
-    exactly once per epoch with weight 1, and padding only with weight 0.
-    m = 30 with batch 8 leaves a tail of 6 in each of K = 3 partitions."""
+    """Column 0 carries each row's id; the recorder (in place of the fused
+    step that the epoch's plain version takes on the CPU) sees every real
+    row exactly once per epoch with weight 1, and padding only with
+    weight 0. m = 30 with batch 8 leaves a tail of 6 in each of K = 3
+    partitions."""
     M, K, epochs = 90, 3, 2
     x = torch.zeros(M, 3)
     x[:, 0] = torch.arange(1, M + 1, dtype=torch.float32)
     y = torch.ones(M)
     seen = []
 
-    def record(w, anchor, h, xb, yb, wb, inv_n, params, fused):
+    def record(w, anchor, h, xb, yb, wb, inv_n, **kw):
         ids = xb[..., 0].reshape(-1, xb.shape[-2])
         for row in ids:
             seen.append([(int(i), float(v), float(inv_n))
                          for i, v in zip(row, wb)])
         return torch.zeros_like(w)
 
-    monkeypatch.setattr(td, "_direction", record)
+    monkeypatch.setattr(tog, "odm_svrg_grad_plain", record)
     cfg = td.DSVRGConfig(n_partitions=K, epochs=epochs, batch=8,
                          schedule=schedule, partition_strategy="identity")
     td._solve(x, y, todm.ODMParams(), cfg, 0)
@@ -121,6 +124,29 @@ def test_every_sample_consumed_once_per_epoch(monkeypatch, schedule):
     tails = [st for st in seen if sum(v for _, v, _ in st) == 6]
     assert len(tails) == epochs * K
     assert all(inv == pytest.approx(1 / 6) for st in tails for *_, inv in st)
+
+
+@pytest.mark.parametrize("schedule", ["serial", "parallel"])
+@pytest.mark.parametrize("fused", [None, False], ids=["fused", "unfused"])
+def test_fused_epochs_are_one_epoch_call_each(monkeypatch, schedule, fused):
+    """The fused solve (the default) takes each epoch's inner steps in one
+    odm_svrg_epoch call, with the schedule it runs (one launch of the
+    epoch kernel an epoch on the card); the unfused one never calls it."""
+    calls = []
+    real = tog.odm_svrg_epoch
+
+    def spy(*args, **kw):
+        calls.append(kw["schedule"])
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tog, "odm_svrg_epoch", spy)
+    x, y, _, _ = _data(4, M=96, d=5)
+    cfg = td.DSVRGConfig(n_partitions=4, epochs=3, batch=8, fused=fused,
+                         schedule=schedule, partition_strategy="identity")
+    res = td._solve(torch.tensor(x), torch.tensor(y), todm.ODMParams(), cfg,
+                    0)
+    assert calls == ([schedule] * 3 if fused is None else [])
+    assert bool(torch.isfinite(res.history).all())
 
 
 def test_stratified_plan_keeps_stratum_proportions():

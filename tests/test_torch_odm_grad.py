@@ -3,18 +3,22 @@
 The plain versions — what a CPU tensor runs, and what chip_smoke holds
 the CUDA kernels against on the card — must equal the reference's Pallas
 kernels (interpret mode) and its jnp oracles within 1e-5: the same
-arithmetic, summed in another order. The CUDA kernels themselves are
-tested in tests/test_torch_cuda.py.
+arithmetic, summed in another order. The epoch's plain version is held
+to the reference's own epochs (``_epoch_serial`` / ``_epoch_parallel``
+with the fused Pallas direction, interpret mode). The CUDA kernels
+themselves are tested in tests/test_torch_cuda.py.
 """
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from repro.core import dsvrg as jd
 from repro.core import odm as jodm
 from repro.kernels import odm_grad as jog
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch.core import dsvrg as td
 from repro_torch.kernels import odm_grad as tog
 from repro_torch.kernels import ops as tops
 
@@ -151,3 +155,107 @@ def test_launchers_check_their_inputs():
     with pytest.raises(ValueError, match="y"):
         tog.launch_odm_grad(T(w[0]), T(x[0]), T(y[0, :8]), lam=1.0,
                             theta=0.1, ups=0.5)
+
+
+def _epoch_inputs(seed, K, m, d, batch):
+    """K partitions of m rows in minibatches of ``batch`` (a ragged tail
+    when batch does not divide m), w, anchor and h near the hinge edges,
+    the (S, 1) divisors _run builds."""
+    x, y, w, a, h = _batch(seed, K * m, d)
+    xs, ys = x.reshape(K, m, d), y.reshape(K, m)
+    txs, tys, twts = td._pad_batches(torch.tensor(xs), torch.tensor(ys),
+                                     batch)
+    inv_n = (1.0 / torch.clamp_min(twts.sum(-1), 1.0))[:, None]
+    return xs, ys, w, a, h, (txs, tys, twts, inv_n)
+
+
+@pytest.mark.parametrize("d", [5, 18])
+@pytest.mark.parametrize("schedule", ["serial", "parallel"])
+def test_odm_svrg_epoch_plain_matches_reference_epoch(schedule, d):
+    """One epoch of K = 3 chains of m = 13 rows in minibatches of 5 (a tail
+    of 3 rows a partition): the plain epoch against the reference's
+    _epoch_serial / _epoch_parallel with the fused direction (its Pallas
+    kernel in interpret mode, as the reference's tests run it)."""
+    K, m, batch, eta = 3, 13, 5, 0.05
+    lam, theta, ups = 100.0, 0.1, 0.5
+    xs, ys, w, a, h, (txs, tys, twts, inv_n) = _epoch_inputs(
+        20 + d, K, m, d, batch)
+    assert int(twts[-1].sum()) == 3
+    jxs, jys, jwts = jd._pad_batches(jnp.asarray(xs), jnp.asarray(ys), batch)
+    ref = jd._epoch_serial if schedule == "serial" else jd._epoch_parallel
+    want = ref(jnp.asarray(w), jxs, jys, jwts, jnp.asarray(a),
+               jnp.asarray(h), jnp.float32(eta),
+               jodm.ODMParams(lam, theta, ups), True)
+    got = tog.odm_svrg_epoch_plain(
+        torch.tensor(w), torch.tensor(a), torch.tensor(h), txs, tys, twts,
+        inv_n, torch.tensor(eta), s=lam / (1.0 - theta) ** 2, theta=theta,
+        ups=ups, schedule=schedule)
+    assert got.shape == ((d,) if schedule == "serial" else (K, d))
+    if schedule == "parallel":
+        got = got.mean(0)
+    assert not np.allclose(np.asarray(want), w, atol=1e-3)  # it moved
+    _close(got, want)
+
+
+@pytest.mark.parametrize("schedule", ["serial", "parallel"])
+def test_odm_svrg_epoch_plain_is_the_loop_of_plain_steps(schedule):
+    """Bit for bit the per-step loop the solvers ran before the epoch
+    kernel: one odm_svrg_grad_plain step at a time, then w - eta * dir."""
+    K, m, batch, d = 2, 20, 8, 7
+    _, _, w, a, h, (xs, ys, wts, inv_n) = _epoch_inputs(30, K, m, d, batch)
+    w, a, h = map(torch.tensor, (w, a, h))
+    eta, kw = torch.tensor(0.02), dict(s=20.0, theta=0.2, ups=0.7)
+    got = tog.odm_svrg_epoch_plain(w, a, h, xs, ys, wts, inv_n, eta,
+                                   schedule=schedule, **kw)
+    if schedule == "serial":
+        want = w
+        for k in range(K):
+            for t in range(ys.shape[1]):
+                want = want - eta * tog.odm_svrg_grad_plain(
+                    want, a, h, xs[k, t], ys[k, t], wts[t], inv_n[t], **kw)
+    else:
+        want = w.expand(K, -1).contiguous()
+        for t in range(ys.shape[1]):
+            want = want - eta * tog.odm_svrg_grad_plain(
+                want, a, h, xs[:, t], ys[:, t], wts[t], inv_n[t], **kw)
+    assert torch.equal(got, want)
+
+
+def test_odm_svrg_epoch_on_cpu_tensors_is_plain_and_uncounted():
+    _, _, w, a, h, (xs, ys, wts, inv_n) = _epoch_inputs(31, 2, 10, 4, 4)
+    w, a, h = map(torch.tensor, (w, a, h))
+    eta = torch.tensor(0.1)
+    before = tog.odm_svrg_epoch.launches
+    got = tog.odm_svrg_epoch(w, a, h, xs, ys, wts, inv_n, eta, s=5.0)
+    assert torch.equal(got, tog.odm_svrg_epoch_plain(
+        w, a, h, xs, ys, wts, inv_n, eta, s=5.0))
+    assert tog.odm_svrg_epoch.launches == before
+
+
+def test_launch_odm_svrg_epoch_checks_its_inputs():
+    """The launcher refuses what the epoch kernel does not take before it
+    reaches the library (so this runs without nvcc); a step axis of
+    stride 0 (one mask and divisor for every step, as svrg passes them)
+    is taken."""
+    _, _, w, a, h, (xs, ys, wts, inv_n) = _epoch_inputs(32, 2, 12, 6, 4)
+    w, a, h = map(torch.tensor, (w, a, h))
+    eta, kw = torch.tensor(0.1), dict(s=1.0, theta=0.1, ups=0.5)
+    args = [w, a, h, xs, ys, wts, inv_n, eta]
+
+    def refused(match, i=None, t=None, schedule="serial"):
+        bad = list(args)
+        if i is not None:
+            bad[i] = t
+        with pytest.raises(ValueError, match=match):
+            tog.launch_odm_svrg_epoch(*bad, schedule=schedule, **kw)
+
+    refused("schedule", schedule="round-robin")
+    refused("xs", 3, xs.transpose(2, 3).contiguous().transpose(2, 3))
+    refused("ys", 4, ys[:, :, :2])
+    refused("w", 0, w[:5])
+    refused("wts", 5, wts.transpose(0, 1).contiguous().transpose(0, 1))
+    refused("wts", 5, wts[:2])
+    refused("inv_n", 6, inv_n.expand(-1, 2))
+    refused("eta", 7, torch.tensor([0.1, 0.2]))
+    assert wts[:1].expand(3, -1).stride(0) == 0     # what svrg passes
+    tog._check_steps("wts", wts[:1].expand(3, -1), (3, 4))
