@@ -9,7 +9,15 @@ Phases (any failed check exits nonzero):
    to build the kernels under src/repro_torch/kernels/csrc.
 2. Each kernel against its plain PyTorch version on the card, at the main
    path's shapes, timed with CUDA events beside its bound and a one-call
-   PyTorch yardstick where one exists.
+   PyTorch yardstick where one exists. First the registers, static shared
+   memory and spills of K2's and K1's kernels from the build's ptxas
+   report. K2 at ijcnn1's level-3 shape (K=8, M=N=14,336, D=22), its
+   level-0 shape (K=1, M=N=113,408) and phishing's first matrix-free
+   level (K=2, M=N=4,608, D=68), each within 1e-5 x max|u| of the plain
+   version and equal bit for bit on a repeated call (z is x there: K2's
+   symmetric walk); K1 cold at ijcnn1's level 0 (443 tiles) and
+   phishing's level 3 (40 tiles, in L2), bit for bit its plain version
+   (torch.equal), with the bytes its design moves a step; K3.
 3. A whole Algorithm-1 fit of phishing (8.8k rows, d=68, rbf): levels 3
    and 2 take the dense pass (K1 + K3), levels 1 and 0 the matrix-free
    pass (K1 + K2); then the test set is scored (K2 as score_tiles).
@@ -17,6 +25,8 @@ Phases (any failed check exits nonzero):
    matrix-free. The launch counts are set to 0 just before each of the
    two fits and read just after its scoring: on phishing every kernel
    must have launched, on ijcnn1 K1, K2 and the scorer, and K3 not at all.
+   Then K2 as the scorer (ijcnn1's test set against its support vectors,
+   the general walk) against its plain version as in phase 2.
 5. One small fit on the card against the same fit on the CPU (plain
    versions): alpha within 1e-4 and decision values within 1e-3 (the
    greedy argmax turns last-bit differences in the card's reductions into
@@ -264,21 +274,35 @@ def profile_window(fn, n: int):
     return (total if total > 0 else None), launches, top
 
 
-def flash_resources(log: str):
-    """(kernel, registers, static shared bytes, spill stores/loads) of each
-    flash_attn.cu kernel in the build's ptxas report."""
+def _demangle(mangled: str) -> str:
+    """A kernel's name, and its first template argument where it has one,
+    from its mangled name (``_ZN<len>ns<len>name ILi<arg>E...``)."""
     import re
-    sec = log[log.index("== flash_attn.cu"):]
+    i = 3 if mangled.startswith("_ZN") else 2
+    name = mangled
+    while i < len(mangled) and mangled[i].isdigit():
+        j = i
+        while mangled[j].isdigit():
+            j += 1
+        name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
+    arg = re.match(r"IL[a-z](\d+)E", mangled[i:])
+    return f"{name}<{arg.group(1)}>" if arg else name
+
+
+def kernel_resources(log: str, source: str):
+    """(kernel, registers, static shared bytes, spill stores/loads) of each
+    kernel of ``source`` in the build's ptxas report."""
+    import re
+    sec = log[log.index(f"== {source}"):]
     nxt = sec.find("\n== ", 1)
     sec = sec if nxt < 0 else sec[:nxt]
     out = []
     for m in re.finditer(
-            r"Function properties for \S*?(flash_(?:bf16|f32))ILi(\d+)E\S*"
-            r"\n\s*(\d+) bytes stack frame, (\d+) bytes spill stores, "
-            r"(\d+) bytes spill loads\n.*?Used (\d+) registers[^\n]*?"
-            r"(?:(\d+) bytes smem)?\n", sec):
-        kern, dim, _, st, ld, regs, smem = m.groups()
-        out.append((f"{kern}<{dim}>", int(regs), int(smem or 0),
+            r"Function properties for (\S+)\n\s*(\d+) bytes stack frame, "
+            r"(\d+) bytes spill stores, (\d+) bytes spill loads\n.*?Used "
+            r"(\d+) registers[^\n]*?(?:(\d+) bytes smem)?\n", sec):
+        mangled, _, st, ld, regs, smem = m.groups()
+        out.append((_demangle(mangled), int(regs), int(smem or 0),
                     f"{st}/{ld} bytes"))
     return out
 
@@ -415,29 +439,24 @@ def main() -> None:
 
     # -- 2. kernels against their plain versions, main-path shapes ------------
     say("== phase 2: kernels vs plain versions on the card")
-    # K2 at ijcnn1 level-3 shapes: K=8 partitions of m=M/8, padded to 256s
-    M = ijcnn1.x_train.shape[0]
-    K, m = 8, M // 8
-    mp = -(-m // 256) * 256
-    D = ijcnn1.x_train.shape[1]
-    x3 = torch.zeros(K, mp, D)
-    x3[:, :m] = ijcnn1.x_train[:K * m].reshape(K, m, D)
-    y3 = torch.zeros(K, mp)
-    y3[:, :m] = ijcnn1.y_train[:K * m].reshape(K, m)
-    x3, y3 = x3.to(dev), y3.to(dev)
-    g3 = (y3 * torch.randn(K, mp, generator=gen).to(dev)).contiguous()
-    kw = dict(kind="rbf", gamma=g_ijc, degree=3, coef0=1.0)
-    # the row norms are kept per level (KernelSource.xx), so the kernel is
-    # timed without them
-    xx3 = gram_mod.row_norms(x3)
-    got = gram_mod.launch_gram_matvec(x3, x3, g3, xx=xx3, zz=xx3, **kw)
-    want = gram_mod.gram_matvec_plain(x3, x3, g3, **kw)
-    err = float((got - want).abs().max())
-    scale = max(1.0, float(want.abs().max()))
-    say(f"K2 gram_matvec K={K} M=N={mp} D={D}: max_abs_err={err:.3e} "
-        f"(max |u| {scale:.3e})")
-    if not err <= 1e-5 * scale:
-        fail("gram_matvec disagrees with its plain version")
+    log = (_build.library_path().parent / "build.log").read_text()
+    for source in ("gram_matvec.cu", "cd_sweep.cu"):
+        for name, regs, smem, spills in kernel_resources(log, source):
+            say(f"  {source}: {name}: {regs} registers, {smem} bytes static "
+                f"shared, spills {spills}")
+
+    def partitions(ds, K):
+        """ds's first K * m training rows as K partitions of m = M // K,
+        zero-padded to a multiple of 256 rows (labels 0 on padding), as a
+        level lays them out."""
+        Mt, Dt = ds.x_train.shape
+        m = Mt // K
+        mp = -(-m // 256) * 256
+        xs = torch.zeros(K, mp, Dt)
+        xs[:, :m] = ds.x_train[:K * m].reshape(K, m, Dt)
+        ys = torch.zeros(K, mp)
+        ys[:, :m] = ds.y_train[:K * m].reshape(K, m)
+        return xs.to(dev), ys.to(dev)
 
     def yard_k2(x, z, g, gamma, rows=2048):
         out = []
@@ -446,56 +465,112 @@ def main() -> None:
             out.append(torch.exp(-gamma * d2) @ g[..., :, None])
         return torch.cat(out, dim=-2)
 
-    ms = time_ms(lambda: gram_mod.launch_gram_matvec(
-        x3, x3, g3, xx=xx3, zz=xx3, **kw), 5)
-    plain_ms = time_ms(lambda: gram_mod.gram_matvec_plain(x3, x3, g3, **kw),
-                       2)
-    lib_ms = time_ms(lambda: yard_k2(x3, x3, g3, g_ijc), 2)
-    b_ms, b_by = bound(4 * (2 * K * mp * D + 4 * K * mp),
-                       2 * K * mp * mp * (D + 1))
-    stats["gram_matvec"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                library_ms=lib_ms, bound_ms=b_ms,
-                                bound_by=b_by)
-    say(f"  ms={ms:.3f} plain_ms={plain_ms:.3f} library_ms={lib_ms:.3f} "
-        + bound_text(b_ms, b_by, derate))
-    del x3, y3, g3, xx3, got, want
+    def k2_case(label, x, z, g, gamma, reps, norms=True):
+        """K2 (rbf) against its plain version within 1e-5 of max |u|, the
+        same bits on a repeated call, and its time beside the bound (the
+        unique pairs' operations when z is x) and the
+        exp(-gamma cdist^2) @ g yardstick. norms: the row norms are
+        given, as a level keeps them (KernelSource.xx); the scorer's
+        launcher computes them."""
+        kw = dict(kind="rbf", gamma=gamma, degree=3, coef0=1.0)
+        xx = gram_mod.row_norms(x) if norms else None
+        zz = (xx if z is x else gram_mod.row_norms(z)) if norms else None
+        call = lambda: gram_mod.launch_gram_matvec(x, z, g, xx=xx, zz=zz,
+                                                   **kw)
+        got, again = call(), call()
+        want = gram_mod.gram_matvec_plain(x, z, g, **kw)
+        err = float((got - want).abs().max())
+        scale = max(1.0, float(want.abs().max()))
+        Kc, Mc, Dc = x.shape
+        Nc = z.shape[1]
+        say(f"K2 {label} K={Kc} M={Mc} N={Nc} D={Dc}: max_abs_err={err:.3e} "
+            f"(max |u| {scale:.3e}), repeated call equal: "
+            f"{torch.equal(got, again)}")
+        if not err <= 1e-5 * scale:
+            fail(f"K2 ({label}) disagrees with its plain version")
+        if not torch.equal(got, again):
+            fail(f"K2 ({label}) gave other bits on a repeated call")
+        del got, again, want
+        ms = time_ms(call, reps)
+        plain_ms = time_ms(lambda: gram_mod.gram_matvec_plain(x, z, g, **kw),
+                           1)
+        lib_ms = time_ms(lambda: yard_k2(x, z, g, gamma), 1)
+        # z is x: K(x, x) is symmetric, so the work is the unique pairs
+        pairs = Kc * Mc * (Mc + 1) // 2 if z is x else Kc * Mc * Nc
+        b_ms, b_by = bound(4 * (Kc * (Mc + Nc) * Dc + 2 * Kc * (Mc + Nc)),
+                           2 * pairs * (Dc + 1))
+        say(f"  ms={ms:.3f} plain_ms={plain_ms:.3f} library_ms={lib_ms:.3f} "
+            + bound_text(b_ms, b_by, derate))
+        return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                    library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
 
-    # K1 on ijcnn1's level-0 diagonal blocks (cold start)
-    mp0 = -(-M // 256) * 256
-    T = mp0 // 256
-    x0 = torch.zeros(mp0, D)
-    x0[:M] = ijcnn1.x_train
-    y0 = torch.zeros(mp0)
-    y0[:M] = ijcnn1.y_train
-    spec_ijc = kf.KernelSpec("rbf", g_ijc)
-    qb = kf.signed_gram(spec_ijc, x0.reshape(T, 256, D).to(dev),
-                        y0.reshape(T, 256).to(dev)).contiguous()
-    a0 = torch.zeros(T, 512, device=dev)
-    u0 = torch.zeros(T, 256, device=dev)
-    v0 = (y0 != 0).to(torch.float32).reshape(T, 256).to(dev)
-    ckw = dict(c=params.c, ups=params.ups, theta=params.theta,
-               mscale=float(M), n_steps=512, exit_tol=0.01 * cfg.tol)
-    a1, u1 = cdk.launch_cd_block_sweep(qb, a0, u0, v0, **ckw)
-    a2, u2 = cdk._greedy_tile_sweep(qb, a0, u0, torch.cat([v0, v0], 1),
-                                    **ckw)
-    err = max(float((a1 - a2).abs().max()), float((u1 - u2).abs().max()))
-    say(f"K1 cd_block_sweep tiles={T} B=256: max_abs_err={err:.3e}")
-    if not err <= 1e-5:
-        fail("cd_block_sweep disagrees with its plain version")
-    ms = time_ms(lambda: cdk.launch_cd_block_sweep(qb, a0, u0, v0, **ckw), 5)
-    plain_ms = time_ms(lambda: cdk._greedy_tile_sweep(
-        qb, a0, u0, torch.cat([v0, v0], 1), **ckw), 1)
-    # bytes: each input read once, each output written once; operations:
-    # ~12 flops per coordinate per step at the step cap (bytes bound it
-    # either way at these shapes)
-    b_ms, b_by = bound(4 * (T * 256 * 256 + 2 * T * 512 + 3 * T * 256),
-                       T * 512 * 12 * 512)
-    stats["cd_block_sweep"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                   library_ms=None, bound_ms=b_ms,
-                                   bound_by=b_by)
-    say(f"  ms={ms:.3f} plain_ms={plain_ms:.3f} "
-        + bound_text(b_ms, b_by, derate))
-    del qb, a0, u0, v0, a1, a2, u1, u2
+    # K2 at ijcnn1's level-3 shape (K=8 partitions of m=M/8, padded to
+    # 256s) and level-0 shape (K=1), and at phishing's first matrix-free
+    # level (level 1: K=2, D=68)
+    M, D = ijcnn1.x_train.shape
+    shapes = []
+    for label, ds, K, gamma, reps in (
+            ("ijcnn1 level 3", ijcnn1, 8, g_ijc, 5),
+            ("ijcnn1 level 0", ijcnn1, 1, g_ijc, 3),
+            ("phishing level 1", phishing, 2, g_phish, 20)):
+        xs, ys = partitions(ds, K)
+        g = (ys * torch.randn(ys.shape, generator=gen).to(dev)).contiguous()
+        shapes.append(dict(shape=f"{label}: K={K} M=N={xs.shape[1]} "
+                                 f"D={xs.shape[2]}",
+                           **k2_case(label, xs, xs, g, gamma, reps)))
+        del xs, ys, g
+    stats["gram_matvec"] = dict(shapes[0], shapes=shapes[1:])
+
+    # K1 cold on ijcnn1's level-0 diagonal tiles and on phishing's level-3
+    # ones (40 tiles, 10 MB: in L2), handed the tiles as the level solve
+    # hands them (transposed once); bit for bit its plain version
+    k1_shapes = []
+    for label, ds, K, gamma in (("ijcnn1 level 0", ijcnn1, 1, g_ijc),
+                                ("phishing level 3", phishing, 8, g_phish)):
+        xs, ys = partitions(ds, K)
+        T = K * xs.shape[1] // 256
+        qb = kf.signed_gram(kf.KernelSpec("rbf", gamma),
+                            xs.reshape(T, 256, -1),
+                            ys.reshape(T, 256)).contiguous()
+        q_level = cdk.transpose_tiles(qb).transpose(-1, -2)
+        a0 = torch.zeros(T, 512, device=dev)
+        u0 = torch.zeros(T, 256, device=dev)
+        v0 = (ys != 0).to(torch.float32).reshape(T, 256)
+        ckw = dict(c=params.c, ups=params.ups, theta=params.theta,
+                   mscale=float(ds.x_train.shape[0] // K), n_steps=512,
+                   exit_tol=0.01 * cfg.tol)
+        a1, u1 = cdk.launch_cd_block_sweep(q_level, a0, u0, v0, **ckw)
+        a2, u2 = cdk._greedy_tile_sweep(qb, a0, u0, torch.cat([v0, v0], 1),
+                                        **ckw)
+        err = max(float((a1 - a2).abs().max()), float((u1 - u2).abs().max()))
+        # a step reads one row of each tile's transpose (B floats, whole
+        # sectors; PR 16's kernel gathered a column: a 32-byte sector per
+        # row)
+        step_bytes = T * 256 * 4
+        same = torch.equal(a1, a2) and torch.equal(u1, u2)
+        say(f"K1 cd_block_sweep {label}: tiles={T} B=256: max_abs_err="
+            f"{err:.3e}, bit for bit: {same}, bytes moved per step "
+            f"{step_bytes} ({T * 256 * 32} gathered a column)")
+        if not same:
+            fail(f"cd_block_sweep ({label}) is not bit for bit its plain "
+                 f"version")
+        ms = time_ms(lambda: cdk.launch_cd_block_sweep(q_level, a0, u0, v0,
+                                                       **ckw), 5)
+        plain_ms = time_ms(lambda: cdk._greedy_tile_sweep(
+            qb, a0, u0, torch.cat([v0, v0], 1), **ckw), 1)
+        # bytes: each input read once, each output written once;
+        # operations: ~12 flops per coordinate per step at the step cap
+        # (bytes bound it either way at these shapes)
+        b_ms, b_by = bound(4 * (T * 256 * 256 + 2 * T * 512 + 3 * T * 256),
+                           T * 512 * 12 * 512)
+        k1_shapes.append(dict(shape=f"{label}: {T} tiles x B=256, cold",
+                              max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                              library_ms=None, bound_ms=b_ms, bound_by=b_by,
+                              bytes_per_step=step_bytes))
+        say(f"  ms={ms:.3f} plain_ms={plain_ms:.3f} "
+            + bound_text(b_ms, b_by, derate))
+        del xs, ys, qb, q_level, a0, u0, v0, a1, a2, u1, u2
+    stats["cd_block_sweep"] = dict(k1_shapes[0], shapes=k1_shapes[1:])
 
     # K3 at phishing level-2 shapes: K=4 dense signed Q of m = M/4
     Mp = phishing.x_train.shape[0]
@@ -615,28 +690,10 @@ def main() -> None:
     # K2 as score_tiles: ijcnn1's support vectors against its test set
     model, _ = fits["ijcnn1"]
     xt = ijcnn1.x_test.to(dev).contiguous()
-    z, c = model.x_sv, model.coef
-    skw = dict(kind="rbf", gamma=g_ijc, degree=3, coef0=1.0)
-    got = gram_mod.launch_gram_matvec(xt[None], z[None], c[None], **skw)[0]
-    want = score_mod.score_blocked(xt, z, c, **skw)
-    err = float((got - want).abs().max())
-    scale = max(1.0, float(want.abs().max()))
-    say(f"K2 score_tiles T={xt.shape[0]} S={z.shape[0]}: "
-        f"max_abs_err={err:.3e} (max |f| {scale:.3e})")
-    if not err <= 1e-5 * scale:
-        fail("score_tiles disagrees with its plain version")
-    ms = time_ms(lambda: gram_mod.launch_gram_matvec(
-        xt[None], z[None], c[None], **skw), 5)
-    plain_ms = time_ms(lambda: score_mod.score_blocked(xt, z, c, **skw), 2)
-    lib_ms = time_ms(lambda: yard_k2(xt, z, c, g_ijc), 2)
-    T, S = xt.shape[0], z.shape[0]
-    b_ms, b_by = bound(4 * (T * D + S * D + 2 * S + 2 * T),
-                       2 * T * S * (D + 1))
-    stats["score_tiles"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                library_ms=lib_ms, bound_ms=b_ms,
-                                bound_by=b_by)
-    say(f"  ms={ms:.3f} plain_ms={plain_ms:.3f} library_ms={lib_ms:.3f} "
-        + bound_text(b_ms, b_by, derate))
+    stats["score_tiles"] = k2_case(
+        "score_tiles", xt[None], model.x_sv[None], model.coef[None], g_ijc, 5,
+        norms=False)
+    del xt
 
     # -- 5. the card against the CPU on one fit -------------------------------
     small = synthetic.load("phishing", scale=0.25)
@@ -1367,8 +1424,11 @@ def main() -> None:
 
     # the flash kernels' resources, from the compiler's report
     lib = _build.library()
-    for name, regs, smem, spills in flash_resources(
-            (_build.library_path().parent / "build.log").read_text()):
+    for name, regs, smem, spills in kernel_resources(
+            (_build.library_path().parent / "build.log").read_text(),
+            "flash_attn.cu"):
+        if not name.startswith("flash_"):
+            continue
         dim = int(name[name.index("<") + 1:-1])
         bf16 = name.startswith("flash_bf16")
         dyn = f" + {lib.flash_attn_smem(int(bf16), dim)} bytes dynamic"

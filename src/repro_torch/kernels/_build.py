@@ -99,8 +99,10 @@ def build(out: Path) -> None:
 def _declare(lib: ctypes.CDLL) -> None:
     P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     L = ctypes.c_longlong
-    lib.gram_matvec_f32.argtypes = [P, P, P, P, P, P, I, I, I, I, I, F, I,
-                                    F, P]
+    lib.gram_matvec_f32.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I,
+                                    I, F, I, F, P]
+    lib.gram_matvec_scratch.argtypes = [I, I, I, I, I, I, I]
+    lib.gram_matvec_scratch.restype = L
     lib.dense_matvec_f32.argtypes = [P, P, P, I, I, I, P]
     lib.cd_block_sweep_f32.argtypes = [P, P, P, P, P, P, I, I, F, F, F, F,
                                        I, F, P]

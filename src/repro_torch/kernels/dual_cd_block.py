@@ -11,7 +11,10 @@ respect to each other: u is frozen at its pass-start value.
 Kernels (each with a plain PyTorch version of the same signature; a CPU
 tensor takes the plain version, a CUDA tensor the kernel):
 
-* :func:`cd_block_sweep` — K1 (``csrc/cd_sweep.cu``), one CTA per tile.
+* :func:`cd_block_sweep` — K1 (``csrc/cd_sweep.cu``), one warp per tile.
+  K1 reads a tile's column as a row of the tile's transpose
+  (:func:`transpose_tiles`); :func:`solve_level` makes that copy once a
+  level, for CUDA tensors only.
 * :func:`dense_matvec` — K3 (``csrc/dense_matvec.cu``), u_d = Q @ d over a
   materialized signed Q.
 
@@ -115,29 +118,49 @@ def _greedy_tile_sweep(qblk: Tensor, alpha: Tensor, u: Tensor,
     return alpha, s[:, :B].contiguous()
 
 
+def transpose_tiles(q_blocks: Tensor) -> Tensor:
+    """The tiles transposed, contiguous: row c of tile t is column c of
+    ``q_blocks[t]``, the column K1 reads at a step. Counted in
+    ``transpose_tiles.copies``."""
+    transpose_tiles.copies += 1
+    return q_blocks.transpose(-1, -2).contiguous()
+
+
+transpose_tiles.copies = 0
+
+
 def launch_cd_block_sweep(q_blocks: Tensor, alphas: Tensor, us: Tensor,
                           valids: Tensor, *, c: float, ups: float,
                           theta: float, mscale: float, n_steps: int,
                           exit_tol: float) -> tuple[Tensor, Tensor]:
     """K1 on CUDA tensors: q (T, B, B), alphas (T, 2B), us (T, B),
-    valids (T, B)."""
+    valids (T, B). The kernel reads the tiles' transposes: a ``q_blocks``
+    that is the transposed view of a contiguous tensor (as
+    :func:`solve_level` passes it) is read in place, any other is copied
+    by :func:`transpose_tiles` first."""
     T, B, _ = q_blocks.shape
-    for name, t, shape in (("q_blocks", q_blocks, (T, B, B)),
-                           ("alphas", alphas, (T, 2 * B)),
+    if q_blocks.dtype != torch.float32 or tuple(q_blocks.shape) != (T, B, B):
+        raise ValueError(f"q_blocks: expected a float32 tensor of shape "
+                         f"({T}, {B}, {B}), got {q_blocks.dtype} "
+                         f"{tuple(q_blocks.shape)}")
+    for name, t, shape in (("alphas", alphas, (T, 2 * B)),
                            ("us", us, (T, B)), ("valids", valids, (T, B))):
         gram_mod._check_f32(name, t, shape)
     if not 1 <= B <= 1024:
         raise ValueError(f"cd_block_sweep kernel takes 1 <= B <= 1024 "
-                         f"(one thread per tile row), got B={B}")
+                         f"(at most 32 rows a lane of one warp), got B={B}")
     a_out = torch.empty_like(alphas)
     u_out = torch.empty_like(us)
     if T == 0:
         return a_out, u_out
+    q_t = q_blocks.transpose(-1, -2)
+    if not q_t.is_contiguous():
+        q_t = transpose_tiles(q_blocks)
     cz, cb, tm1, tp1 = _coefs(c, ups, theta, mscale)
     lib = _build.library()
     with torch.cuda.device(q_blocks.device):
         code = lib.cd_block_sweep_f32(
-            _build.ptr(q_blocks), _build.ptr(alphas), _build.ptr(us),
+            _build.ptr(q_t), _build.ptr(alphas), _build.ptr(us),
             _build.ptr(valids), _build.ptr(a_out), _build.ptr(u_out), T, B,
             cz, cb, tm1, tp1, n_steps, exit_tol,
             _build.stream_handle(q_blocks.device))
@@ -305,6 +328,11 @@ def solve_level(q_blocks: Tensor, src, alphas0: Tensor, *, c: float,
     valids = valid.reshape(1, nblk, B).expand(K, nblk, B).contiguous()
     valid2 = torch.cat([valid, valid])[None, :] > 0.0
     cz, cb, tm1, tp1 = _coefs(c, ups, theta, mscale)
+    if q_blocks.is_cuda:
+        # K1 reads the tiles transposed; q_blocks is fixed for the whole
+        # pass loop, so transpose once here and hand every pass a view
+        # with q_blocks' values over the transposed storage
+        q_blocks = transpose_tiles(q_blocks).transpose(-1, -2)
 
     def kkt(alphas, us):
         gz = us + cz * alphas[:, :m] + tm1

@@ -20,10 +20,16 @@ CUDA tensors, the blocked plain version :func:`gram_plain` on CPU tensors.
 (M, N) Gram leaving the kernel. On CUDA tensors it launches K2
 (``csrc/gram_matvec.cu``); on CPU tensors it runs the plain version
 (:func:`gram_matvec_plain`), which streams ``bm``-row blocks so it never
-materializes an (M, N) Gram either. The CUDA kernel masks ragged shapes
+materializes an (M, N) Gram either. The CUDA kernel masks ragged rows
 itself and uses its own compiled tiles, so the reference's ``bn``/``bd``
 tile sizes have no counterpart here and ``bm`` sizes the plain version's
-row blocks only.
+row blocks only. It copies rows with 16-byte ``cp.async``, so
+:func:`launch_gram_matvec` hands it x and z with the feature axis
+zero-padded to a multiple of 4 (:func:`pad_features`; zero features
+change no accumulator). When z is x (as :class:`KernelSource` calls it)
+the kernel walks the symmetric Gram's pairs once, with the partial sums
+in scratch added up in a fixed order, so repeated calls give the same
+bits.
 
 ``gram_threshold`` (``SODMConfig``): SODM levels with m above it reach the
 off-diagonal mass through :class:`KernelSource` (tiles rebuilt from
@@ -125,6 +131,16 @@ def _check_f32(name: str, t: Tensor, shape: tuple[int, ...]) -> None:
                          f"contiguous={t.is_contiguous()}")
 
 
+def pad_features(x: Tensor) -> Tensor:
+    """x (..., D) with its feature axis zero-padded to a multiple of 4 on
+    a 16-byte aligned allocation: the form K2's 16-byte row copies take.
+    Returns x itself when it already is."""
+    pad = -x.shape[-1] % 4
+    if pad == 0 and x.data_ptr() % 16 == 0:
+        return x
+    return torch.nn.functional.pad(x, (0, pad)) if pad else x.clone()
+
+
 def launch_gram_matvec(x: Tensor, z: Tensor, g: Tensor, *, kind: str,
                        gamma: float, degree: int, coef0: float,
                        xx: Tensor | None = None,
@@ -144,19 +160,34 @@ def launch_gram_matvec(x: Tensor, z: Tensor, g: Tensor, *, kind: str,
         return u
     if N == 0:
         return u.zero_()
+    # z is x: the Gram is symmetric and K2 computes each pair once (for
+    # rbf only when the two norm tensors are one, as a level keeps them)
+    sym = z is x and (kind != "rbf" or zz is xx)
     xx_p = zz_p = None
     if kind == "rbf":
         xx = row_norms(x) if xx is None else xx
-        zz = row_norms(z) if zz is None else zz
+        zz = (xx if sym else row_norms(z)) if zz is None else zz
         _check_f32("xx", xx, (K, M))
         _check_f32("zz", zz, (K, N))
         xx_p, zz_p = _build.ptr(xx), _build.ptr(zz)
+    xp = pad_features(x)
+    zp = xp if z is x else pad_features(z)
+    D4 = xp.shape[-1]
+    kc = KIND_CODES[kind]
     lib = _build.library()
     with torch.cuda.device(x.device):
+        # scratch for the partial row and column sums that the kernel's
+        # second pass adds up in a fixed order (none for a one-pass call)
+        n = lib.gram_matvec_scratch(K, M, N, D, D4, kc, int(sym))
+        if n < 0:
+            _build.check(-n, "gram_matvec")
+        part = torch.empty(n, dtype=torch.float32, device=x.device) \
+            if n > 0 else None
         code = lib.gram_matvec_f32(
-            _build.ptr(x), _build.ptr(z), _build.ptr(g), xx_p, zz_p,
-            _build.ptr(u), K, M, N, D, KIND_CODES[kind], gamma, degree,
-            coef0, _build.stream_handle(x.device))
+            _build.ptr(xp), _build.ptr(zp), _build.ptr(g), xx_p, zz_p,
+            _build.ptr(u), None if part is None else _build.ptr(part),
+            int(sym), K, M, N, D, D4, kc, gamma, degree, coef0,
+            _build.stream_handle(x.device))
     _build.check(code, "gram_matvec")
     return u
 
@@ -327,7 +358,8 @@ def make_kernel_source(spec, x: Tensor, y: Tensor, *,
                        bm: int) -> KernelSource:
     """Build a :class:`KernelSource` from a KernelSpec-like object (duck-
     typed name/gamma/degree/coef0). ``x`` (K, mp, D) must already be
-    row-padded; the feature axis stays as it is (K2 masks a ragged D)."""
+    row-padded; the feature axis stays as it is (K2's launcher pads a
+    ragged D to a multiple of 4 for the kernel on each call)."""
     if spec.name not in MATRIX_FREE_KERNELS:
         raise ValueError(f"no matrix-free lowering for {spec.name!r}")
     x = x.contiguous()

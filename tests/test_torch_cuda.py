@@ -6,12 +6,15 @@ the JAX reference by the CPU parity tests (tests/test_torch_*.py), so a
 pass here chains each kernel back to ``repro``.
 
 Tolerances: K1 repeats the plain version's arithmetic step for step
-(round-to-nearest intrinsics, no FMA contraction), so alpha and u agree
-to within 1e-6; K4 (the exact dual CD solve) does the same and equals its
-plain version bit for bit, with the same sweep counts. K2, K3, B6, B7
+(round-to-nearest intrinsics, no FMA contraction) and picks the same
+coordinate on ties (the lowest index), so alpha and u agree bit for bit
+(torch.equal); K4 (the exact dual CD solve)
+does the same and equals its plain version bit for bit, with the same
+sweep counts. K2, K3, B6, B7
 and B8 sum in another order than the plain versions (register micro-tiles,
 shuffle trees and per-column row loops against cuBLAS-style blocked
-sums), so they agree to a relative 1e-5 of the largest value. B6's
+sums), so they agree to a relative 1e-5 of the largest value; K2 sums in
+a fixed order, so a repeated call gives the same bits. B6's
 whole-epoch kernel repeats B6's launches and the host loop's
 `w - eta * dir` step for step, so it equals that per-step loop on the
 card bit for bit (torch.equal). A whole DSVRG fit, card against CPU,
@@ -49,9 +52,15 @@ def _rel(a, b):
     return float((a - b).abs().max() / max(1.0, float(b.abs().max())))
 
 
+# K2's edges: M and N off the 128-row tiles, N under one tile, D from 1
+# to 123 (unaligned rows padded by the launcher, x resident up to 68
+# padded features, streamed 32-feature slabs above), K > 1
 @pytest.mark.parametrize("kind,gamma,degree,coef0", FAMILIES)
 @pytest.mark.parametrize("K,M,N,D", [(2, 100, 70, 33), (1, 64, 64, 22),
-                                     (3, 257, 300, 68)])
+                                     (3, 257, 300, 68), (2, 300, 77, 1),
+                                     (1, 129, 100, 4), (3, 257, 130, 22),
+                                     (2, 200, 390, 33), (1, 130, 129, 68),
+                                     (2, 150, 260, 123)])
 def test_gram_matvec_matches_plain(dev, kind, gamma, degree, coef0, K, M,
                                    N, D):
     rng = np.random.default_rng(0)
@@ -66,6 +75,63 @@ def test_gram_matvec_matches_plain(dev, kind, gamma, degree, coef0, K, M,
     assert gram_mod.gram_matvec.launches == before + 1
     want = gram_mod.gram_matvec_plain(x, z, g, **kw)
     assert _rel(got, want) < 1e-5
+
+
+# z is x: K2 walks each symmetric pair once (units of row block I against
+# column tiles J >= I, a tile's column sums to a partial buffer) and sums
+# the partials in a fixed second pass
+K2_SYM_EDGES = [(2, 300, 1), (1, 129, 4), (3, 257, 22), (2, 100, 33),
+                (1, 1000, 68), (2, 390, 123)]
+
+
+@pytest.mark.parametrize("kind,gamma,degree,coef0", FAMILIES)
+@pytest.mark.parametrize("K,M,D", K2_SYM_EDGES)
+def test_gram_matvec_symmetric_edges_match_plain(dev, kind, gamma, degree,
+                                                 coef0, K, M, D):
+    rng = np.random.default_rng(16)
+    x = torch.tensor(rng.random((K, M, D)), dtype=torch.float32, device=dev)
+    g = torch.tensor(rng.standard_normal((K, M)), dtype=torch.float32,
+                     device=dev)
+    gam = gamma / D if kind == "laplacian" else gamma
+    kw = dict(kind=kind, gamma=gam, degree=degree, coef0=coef0)
+    got = gram_mod.gram_matvec(x, x, g, **kw)
+    torch.cuda.synchronize()
+    assert _rel(got, gram_mod.gram_matvec_plain(x, x, g, **kw)) < 1e-5
+
+
+def test_gram_matvec_symmetric_walk_at_level_size(dev):
+    # 184 row blocks: units of 16 column tiles, the last of a row ragged
+    rng = np.random.default_rng(17)
+    x = torch.tensor(rng.random((1, 23500, 22)), dtype=torch.float32,
+                     device=dev)
+    g = torch.tensor(rng.standard_normal((1, 23500)), dtype=torch.float32,
+                     device=dev)
+    xx = gram_mod.row_norms(x)
+    kw = dict(kind="rbf", gamma=1.8, degree=3, coef0=1.0)
+    got = gram_mod.launch_gram_matvec(x, x, g, xx=xx, zz=xx, **kw)
+    general = gram_mod.launch_gram_matvec(x, x.clone(), g, xx=xx,
+                                          zz=xx.clone(), **kw)
+    want = gram_mod.gram_matvec_plain(x, x, g, **kw)
+    assert _rel(got, want) < 1e-5 and _rel(general, want) < 1e-5
+
+
+@pytest.mark.parametrize("kind", ["rbf", "laplacian"])
+@pytest.mark.parametrize("D", [22, 123])
+@pytest.mark.parametrize("walk", ["symmetric", "general"])
+def test_gram_matvec_repeats_bit_for_bit(dev, kind, D, walk):
+    # partial sums reduce in a fixed order (no atomics): the same bits
+    # again, on either walk
+    rng = np.random.default_rng(13)
+    x = torch.tensor(rng.random((2, 700, D)), dtype=torch.float32,
+                     device=dev)
+    z = x if walk == "symmetric" else x.clone()
+    g = torch.tensor(rng.standard_normal((2, 700)), dtype=torch.float32,
+                     device=dev)
+    kw = dict(kind=kind, gamma=0.5 / D, degree=3, coef0=1.0)
+    first = gram_mod.launch_gram_matvec(x, z, g, **kw)
+    again = gram_mod.launch_gram_matvec(x, z, g, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(first, again)
 
 
 def test_score_tiles_matches_ref(dev):
@@ -125,7 +191,9 @@ def _tiles(dev, T, B, seed=3):
     return q, a, u
 
 
-@pytest.mark.parametrize("B", [8, 100, 256])
+# one warp a tile at 1, 4 and 32 rows a lane; B = 70 and 100 leave the
+# last lanes empty, and 70 rows are not whole vectors of 4
+@pytest.mark.parametrize("B", [8, 70, 100, 256, 1024])
 @pytest.mark.parametrize("exit_tol", [0.0, 1e-3])
 def test_cd_block_sweep_matches_plain(dev, B, exit_tol):
     T = 6
@@ -140,8 +208,63 @@ def test_cd_block_sweep_matches_plain(dev, B, exit_tol):
     assert cdk.cd_block_sweep.launches == before + 1
     a2, u2 = cdk._greedy_tile_sweep(q, a, u, torch.cat([valid, valid], 1),
                                     **kw)
-    assert float((a1 - a2).abs().max()) < 1e-6
-    assert float((u1 - u2).abs().max()) < 1e-6
+    assert torch.equal(a1, a2) and torch.equal(u1, u2)
+
+
+@pytest.mark.parametrize("u0", [0.0, 2.0], ids=["zeta", "beta"])
+def test_cd_block_sweep_ties_take_the_lowest_index(dev, u0):
+    # Q = 2 I + 0.5 (all pairs): from alpha = 0 every zeta (u = 0) or every
+    # beta (u = 2) holds the same violation, across all lanes, and each
+    # step leaves the untouched coordinates tied again; the lowest index
+    # must win every time, as jnp.argmax picks
+    T, B = 3, 256
+    q = (2.0 * torch.eye(B, device=dev) + 0.5).expand(T, B, B).contiguous()
+    a = torch.zeros(T, 2 * B, device=dev)
+    u = torch.full((T, B), u0, device=dev)
+    kw = dict(c=1.0, ups=0.5, theta=0.1, mscale=1.0, n_steps=40,
+              exit_tol=0.0)
+    a1, u1 = cdk.cd_block_sweep(q, a, u, **kw)
+    a2, u2 = cdk._greedy_tile_sweep(q, a, u, torch.ones(T, 2 * B,
+                                                        device=dev), **kw)
+    assert torch.equal(a1, a2) and torch.equal(u1, u2)
+    moved = (a1 != 0).nonzero()[:, 1].unique()
+    assert int(moved.min()) == (0 if u0 == 0.0 else B)
+
+
+@pytest.mark.parametrize("source", ["dense", "kernel"])
+def test_solve_level_transposes_tiles_once_per_level(dev, source):
+    # K1 reads the tiles transposed: the level solve copies them once and
+    # every pass's launch reads that copy in place
+    rng = np.random.default_rng(15)
+    K, nblk, B = 2, 3, 32
+    m = nblk * B
+    x = torch.tensor(rng.random((K, m, 6)), dtype=torch.float32,
+                     device=dev)
+    y = torch.tensor(np.sign(rng.standard_normal((K, m))),
+                     dtype=torch.float32, device=dev)
+    spec = kf.KernelSpec("rbf", 0.5)
+    if source == "dense":
+        Q = kf.signed_gram(spec, x, y).contiguous()
+        qb = cdk.extract_diag_blocks(Q, B).contiguous()
+        src = gram_mod.DenseSource(Q)
+    else:
+        qb = kf.signed_gram(spec, x.reshape(K, nblk, B, 6),
+                            y.reshape(K, nblk, B)).contiguous()
+        src = gram_mod.make_kernel_source(spec, x, y, bm=B)
+    copies, launches = cdk.transpose_tiles.copies, cdk.cd_block_sweep.launches
+    _, _, passes = cdk.solve_level(qb, src, torch.zeros(K, 2 * m,
+                                                        device=dev),
+                                   c=1.0, ups=0.5, theta=0.1,
+                                   mscale=float(m), n_passes=6, tol=1e-12)
+    assert passes == 6
+    assert cdk.cd_block_sweep.launches - launches == passes
+    assert cdk.transpose_tiles.copies - copies == 1
+    # alone, a sweep on contiguous tiles makes its own copy
+    cdk.cd_block_sweep(qb.reshape(K * nblk, B, B),
+                       torch.zeros(K * nblk, 2 * B, device=dev),
+                       torch.zeros(K * nblk, B, device=dev), c=1.0, ups=0.5,
+                       theta=0.1, mscale=float(m), n_steps=4)
+    assert cdk.transpose_tiles.copies - copies == 2
 
 
 def test_level_solve_on_card_matches_cpu(dev):

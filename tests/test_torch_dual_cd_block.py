@@ -193,3 +193,35 @@ def test_solve_level_lam100_converges_like_reference(m, B, offset, cap):
     assert (float(jr[0]) <= kw["tol"]) == converged
     _close(tr, jr)
     _close(ta, ja)
+
+
+def test_transpose_tiles_transposes_each_tile_and_counts():
+    # K1 reads column c of a tile as row c of this copy
+    q = torch.tensor(np.random.default_rng(9).standard_normal((3, 5, 5)),
+                     dtype=torch.float32)
+    before = tcdk.transpose_tiles.copies
+    qt = tcdk.transpose_tiles(q)
+    assert tcdk.transpose_tiles.copies == before + 1
+    assert qt.is_contiguous()
+    for t in range(3):
+        assert torch.equal(qt[t], q[t].T)
+    # the view the level solve hands its passes: q's values over qt's
+    # storage, which a pass's reshape keeps
+    view = qt.transpose(-1, -2)
+    assert torch.equal(view, q)
+    assert view.reshape(3, 5, 5).transpose(-1, -2).is_contiguous()
+
+
+def test_solve_level_on_cpu_makes_no_transposed_copy():
+    # the CPU plain path reads q_blocks as given: the copy is for K1 only
+    _, _, valid, Q, qb, _, _ = _level(3, pad=3)
+    K, m = 2, 16
+    before = tcdk.transpose_tiles.copies
+    _, _, it = tcdk.solve_level(torch.tensor(qb),
+                                tgram.DenseSource(torch.tensor(Q)),
+                                torch.zeros(K, 2 * m),
+                                valid=torch.tensor(valid), c=0.5, ups=0.5,
+                                theta=0.1, mscale=float(m), n_passes=3,
+                                tol=1e-9)
+    assert it == 3
+    assert tcdk.transpose_tiles.copies == before

@@ -88,7 +88,8 @@ def test_sources_and_signed_ops_wrapper(kind, gamma, degree, coef0):
 
 def test_make_kernel_source_pads_features_like_reference():
     # the reference pads D = 11 to its 8-wide slab multiple; the port keeps
-    # the ragged feature axis (K2 masks it) and gives the same products
+    # the ragged feature axis (K2's launcher pads it to a multiple of 4 on
+    # each call) and gives the same products
     rng = np.random.default_rng(3)
     x = rng.random((1, 8, 11)).astype(np.float32)
     y = np.sign(rng.standard_normal((1, 8))).astype(np.float32)
@@ -106,6 +107,34 @@ def test_make_kernel_source_pads_features_like_reference():
     with pytest.raises(ValueError):
         tgram.make_kernel_source(tkf.KernelSpec("sigmoid"), torch.tensor(x),
                                  torch.ones(1, 8), bm=8)
+
+
+@pytest.mark.parametrize("D", [1, 4, 22, 33])
+def test_pad_features_appends_zero_features(D):
+    # the form K2's 16-byte row copies take: D rounded up to a multiple of
+    # 4 with zeros, on a 16-byte aligned allocation
+    rng = np.random.default_rng(11)
+    x = torch.tensor(rng.random((2, 9, D)), dtype=torch.float32)
+    z = torch.tensor(rng.random((2, 7, D)), dtype=torch.float32)
+    g = torch.tensor(rng.standard_normal((2, 7)), dtype=torch.float32)
+    xp, zp = tgram.pad_features(x), tgram.pad_features(z)
+    assert xp.shape[-1] % 4 == 0 and 0 <= xp.shape[-1] - D < 4
+    assert xp.data_ptr() % 16 == 0 and xp.is_contiguous()
+    assert torch.equal(xp[..., :D], x) and not bool(xp[..., D:].any())
+    assert (xp is x) == (D % 4 == 0)
+    # zero features change no family's products
+    for kind, gamma, degree, coef0 in FAMILIES:
+        kw = dict(kind=kind, gamma=gamma, degree=degree, coef0=coef0)
+        _close(tgram.gram_matvec_plain(xp, zp, g, **kw),
+               tgram.gram_matvec_plain(x, z, g, **kw), tol=1e-6)
+
+
+def test_pad_features_realigns_an_offset_view():
+    buf = torch.arange(1 + 2 * 3 * 8, dtype=torch.float32)
+    x = buf[1:].view(2, 3, 8)  # 4 bytes past an aligned allocation
+    assert x.data_ptr() % 16 != 0
+    xp = tgram.pad_features(x)
+    assert xp.data_ptr() % 16 == 0 and torch.equal(xp, x)
 
 
 def test_mixed_devices_raise():
