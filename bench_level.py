@@ -15,14 +15,21 @@ them; rbf at the median gamma):
   1e-6, lam=100) and phishing's level 3 (40 tiles), handed the tiles as
   the level solve hands them (transposed once, where the checkout's K1
   reads the transpose).
+* The host's cost of one level pass (``fused_cd_pass``: K1, the step's
+  difference, K2 through a ``KernelSource``) at phishing's level 1,
+  and of one K2 call at that shape: the card is held by a sleep kernel
+  while the calls are queued, so the host's clock reads the Python and
+  launch work alone.
 
 It prints one JSON line: the card's name and power limit, the build's
 hash, and per shape the median over ``--rounds`` of the mean ms per call
-by CUDA events, with K2's largest error against its plain version at the
-level-3 shape and K1's at the level-0 shape. It uses only the wrappers'
-launchers, so the same file times another checkout's kernels with
-``PYTHONPATH=<checkout>/src``; alternate two checkouts in one run on one
-card to compare them.
+by CUDA events (for the host costs, the least of five rounds of host µs
+per call), with K2's largest error against its plain version at the
+level-3 shape and K1's at the level-0 shape. It uses only the wrappers and their launchers, so the same
+file times another checkout's kernels with ``PYTHONPATH=<checkout>/src``;
+alternate two checkouts in one run on one card to compare them.
+chip_smoke.py lays out its phase-2 partitions and K1 tiles with
+:func:`partitions` and :func:`k1_tiles`.
 """
 from __future__ import annotations
 
@@ -30,6 +37,7 @@ import argparse
 import json
 import statistics
 import subprocess
+import time
 
 import torch
 
@@ -54,7 +62,21 @@ def _ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _partitions(x, y, K: int, dev) -> tuple[torch.Tensor, torch.Tensor]:
+def _host_us(fn, reps: int) -> float:
+    """Host microseconds per call of ``fn``, queued while a sleep kernel
+    holds the card (so no call waits on the device)."""
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(2e9))  # about a second at the card's clock
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    host = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return host / reps * 1e6
+
+
+def partitions(x, y, K: int, dev) -> tuple[torch.Tensor, torch.Tensor]:
     """The first K * m rows as K partitions of m = M // K, zero-padded to a
     multiple of 256 rows (labels 0 on padding), as a level lays them out."""
     M, D = x.shape
@@ -67,13 +89,24 @@ def _partitions(x, y, K: int, dev) -> tuple[torch.Tensor, torch.Tensor]:
     return xs.to(dev), ys.to(dev)
 
 
-def _k1_tiles(x, y, K: int, gamma: float, dev):
-    """A level's diagonal tiles (K * nblk of 256) and valid masks."""
-    xs, ys = _partitions(x, y, K, dev)
+def k1_tiles(x, y, K: int, gamma: float, dev):
+    """A level's diagonal tiles (K * nblk of 256, rbf at gamma, signed),
+    contiguous, and their valid masks (T, 256)."""
+    xs, ys = partitions(x, y, K, dev)
     T = K * xs.shape[1] // 256
     qb = kf.signed_gram(kf.KernelSpec("rbf", gamma),
                         xs.reshape(T, 256, -1), ys.reshape(T, 256))
     return qb.contiguous(), (ys != 0).float().reshape(T, 256)
+
+
+def level_tiles(qb: torch.Tensor) -> torch.Tensor:
+    """The tiles as the level solve hands them to K1: a view over their
+    transposed copy. Only for comparisons with a checkout from before K1
+    read the transpose (it has no ``transpose_tiles``): there, the tiles
+    themselves."""
+    if not hasattr(cdk, "transpose_tiles"):
+        return qb
+    return cdk.transpose_tiles(qb).transpose(-1, -2)
 
 
 def main(argv=None) -> dict:
@@ -106,7 +139,7 @@ def main(argv=None) -> dict:
             ("k2_ijcnn1_l3", ijc, 8, g_ijc, 10, True),
             ("k2_ijcnn1_l0", ijc, 1, g_ijc, 3, False),
             ("k2_phishing_l1", phi, 2, g_phi, 20, False)):
-        xs, ys = _partitions(ds.x_train, ds.y_train, K, dev)
+        xs, ys = partitions(ds.x_train, ds.y_train, K, dev)
         g = (ys * torch.randn(ys.shape, generator=gen).to(dev)).contiguous()
         xx = gram_mod.row_norms(xs)
         k2(name, xs, xs, g, gamma, reps, xx=xx, zz=xx, check=check)
@@ -122,14 +155,12 @@ def main(argv=None) -> dict:
     for name, ds, K, gamma, reps, check in (
             ("k1_ijcnn1_l0", ijc, 1, g_ijc, 5, True),
             ("k1_phishing_l3", phi, 8, g_phi, 20, False)):
-        qb, v = _k1_tiles(ds.x_train, ds.y_train, K, gamma, dev)
+        qb, v = k1_tiles(ds.x_train, ds.y_train, K, gamma, dev)
         T = qb.shape[0]
         a0 = torch.zeros(T, 512, device=dev)
         u0 = torch.zeros(T, 256, device=dev)
         kw = dict(ckw, mscale=float(ds.x_train.shape[0] // K))
-        # the level solve's form of the tiles, where the checkout has it
-        q_in = cdk.transpose_tiles(qb).transpose(-1, -2) if hasattr(
-            cdk, "transpose_tiles") else qb
+        q_in = level_tiles(qb)
         call = lambda: cdk.launch_cd_block_sweep(q_in, a0, u0, v, **kw)
         if check:
             a1, u1 = call()
@@ -141,6 +172,28 @@ def main(argv=None) -> dict:
             _ms(call, reps) for _ in range(args.rounds))
         res[name + "_tiles"] = T
         del qb, v, q_in, a0, u0
+
+    # host cost at phishing's level 1 (K=2, matrix-free): one K2 call
+    # through the wrapper, and one whole pass
+    K = 2
+    xs, ys = partitions(phi.x_train, phi.y_train, K, dev)
+    nblk = xs.shape[1] // 256
+    qb, v = k1_tiles(phi.x_train, phi.y_train, K, g_phi, dev)
+    q_in = level_tiles(qb).reshape(K, nblk, 256, 256)
+    src = gram_mod.make_kernel_source(kf.KernelSpec("rbf", g_phi), xs, ys,
+                                      bm=256)
+    a0 = torch.zeros(K, nblk, 512, device=dev)
+    u0 = torch.zeros(K, nblk, 256, device=dev)
+    v = v.reshape(K, nblk, 256)
+    d = torch.randn(K, nblk * 256, generator=gen).to(dev)
+    kw = dict(ckw, mscale=float(phi.x_train.shape[0] // K))
+    # the least of five rounds: other work on a shared host only adds time
+    res["host_us_k2_phishing_l1"] = min(
+        _host_us(lambda: src.matvec(d), 100) for _ in range(5))
+    res["host_us_pass_phishing_l1"] = min(
+        _host_us(lambda: cdk.fused_cd_pass(q_in, src, a0, u0, v, **kw), 40)
+        for _ in range(5))
+    del xs, ys, qb, q_in, src, a0, u0, v, d
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",

@@ -275,8 +275,9 @@ def profile_window(fn, n: int):
 
 
 def _demangle(mangled: str) -> str:
-    """A kernel's name, and its first template argument where it has one,
-    from its mangled name (``_ZN<len>ns<len>name ILi<arg>E...``)."""
+    """A kernel's name, and its leading integer and bool template
+    arguments where it has them, from its mangled name
+    (``_ZN<len>ns<len>name ILi<arg>ELb<arg>E...``)."""
     import re
     i = 3 if mangled.startswith("_ZN") else 2
     name = mangled
@@ -285,8 +286,10 @@ def _demangle(mangled: str) -> str:
         while mangled[j].isdigit():
             j += 1
         name, i = mangled[j:j + int(mangled[i:j])], j + int(mangled[i:j])
-    arg = re.match(r"IL[a-z](\d+)E", mangled[i:])
-    return f"{name}<{arg.group(1)}>" if arg else name
+    args = re.match(r"I((?:L[a-z]\d+E)+)", mangled[i:])
+    if not args:
+        return name
+    return f"{name}<{', '.join(re.findall(r'(\d+)E', args.group(1)))}>"
 
 
 def kernel_resources(log: str, source: str):
@@ -404,6 +407,7 @@ def main() -> None:
         from repro_torch.kernels import score as score_mod
         from repro_torch.launch import serve as serve_mod
         from repro_torch.models import model as lm_model
+        from bench_level import k1_tiles, level_tiles, partitions
     except ImportError as e:
         fail(f"cannot import the port from {ROOT}/src: {e}")
     if any(m == "jax" or m.startswith(("jax.", "repro."))
@@ -444,19 +448,6 @@ def main() -> None:
         for name, regs, smem, spills in kernel_resources(log, source):
             say(f"  {source}: {name}: {regs} registers, {smem} bytes static "
                 f"shared, spills {spills}")
-
-    def partitions(ds, K):
-        """ds's first K * m training rows as K partitions of m = M // K,
-        zero-padded to a multiple of 256 rows (labels 0 on padding), as a
-        level lays them out."""
-        Mt, Dt = ds.x_train.shape
-        m = Mt // K
-        mp = -(-m // 256) * 256
-        xs = torch.zeros(K, mp, Dt)
-        xs[:, :m] = ds.x_train[:K * m].reshape(K, m, Dt)
-        ys = torch.zeros(K, mp)
-        ys[:, :m] = ds.y_train[:K * m].reshape(K, m)
-        return xs.to(dev), ys.to(dev)
 
     def yard_k2(x, z, g, gamma, rows=2048):
         out = []
@@ -513,7 +504,7 @@ def main() -> None:
             ("ijcnn1 level 3", ijcnn1, 8, g_ijc, 5),
             ("ijcnn1 level 0", ijcnn1, 1, g_ijc, 3),
             ("phishing level 1", phishing, 2, g_phish, 20)):
-        xs, ys = partitions(ds, K)
+        xs, ys = partitions(ds.x_train, ds.y_train, K, dev)
         g = (ys * torch.randn(ys.shape, generator=gen).to(dev)).contiguous()
         shapes.append(dict(shape=f"{label}: K={K} M=N={xs.shape[1]} "
                                  f"D={xs.shape[2]}",
@@ -527,15 +518,11 @@ def main() -> None:
     k1_shapes = []
     for label, ds, K, gamma in (("ijcnn1 level 0", ijcnn1, 1, g_ijc),
                                 ("phishing level 3", phishing, 8, g_phish)):
-        xs, ys = partitions(ds, K)
-        T = K * xs.shape[1] // 256
-        qb = kf.signed_gram(kf.KernelSpec("rbf", gamma),
-                            xs.reshape(T, 256, -1),
-                            ys.reshape(T, 256)).contiguous()
-        q_level = cdk.transpose_tiles(qb).transpose(-1, -2)
+        qb, v0 = k1_tiles(ds.x_train, ds.y_train, K, gamma, dev)
+        T = qb.shape[0]
+        q_level = level_tiles(qb)
         a0 = torch.zeros(T, 512, device=dev)
         u0 = torch.zeros(T, 256, device=dev)
-        v0 = (ys != 0).to(torch.float32).reshape(T, 256)
         ckw = dict(c=params.c, ups=params.ups, theta=params.theta,
                    mscale=float(ds.x_train.shape[0] // K), n_steps=512,
                    exit_tol=0.01 * cfg.tol)
@@ -543,14 +530,14 @@ def main() -> None:
         a2, u2 = cdk._greedy_tile_sweep(qb, a0, u0, torch.cat([v0, v0], 1),
                                         **ckw)
         err = max(float((a1 - a2).abs().max()), float((u1 - u2).abs().max()))
-        # a step reads one row of each tile's transpose (B floats, whole
-        # sectors; PR 16's kernel gathered a column: a 32-byte sector per
-        # row)
+        # the design's count, not a measurement: a step reads one row of
+        # each tile's transpose (B floats, whole sectors), where a gathered
+        # column took a 32-byte sector per row
         step_bytes = T * 256 * 4
         same = torch.equal(a1, a2) and torch.equal(u1, u2)
         say(f"K1 cd_block_sweep {label}: tiles={T} B=256: max_abs_err="
-            f"{err:.3e}, bit for bit: {same}, bytes moved per step "
-            f"{step_bytes} ({T * 256 * 32} gathered a column)")
+            f"{err:.3e}, bit for bit: {same}, bytes a step reads by design "
+            f"{step_bytes} ({T * 256 * 32} for a gathered column)")
         if not same:
             fail(f"cd_block_sweep ({label}) is not bit for bit its plain "
                  f"version")
@@ -565,11 +552,11 @@ def main() -> None:
                            T * 512 * 12 * 512)
         k1_shapes.append(dict(shape=f"{label}: {T} tiles x B=256, cold",
                               max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                              library_ms=None, bound_ms=b_ms, bound_by=b_by,
-                              bytes_per_step=step_bytes))
+                              library_ms=None, bound_ms=b_ms,
+                              bound_by=b_by))
         say(f"  ms={ms:.3f} plain_ms={plain_ms:.3f} "
             + bound_text(b_ms, b_by, derate))
-        del xs, ys, qb, q_level, a0, u0, v0, a1, a2, u1, u2
+        del qb, q_level, a0, u0, v0, a1, a2, u1, u2
     stats["cd_block_sweep"] = dict(k1_shapes[0], shapes=k1_shapes[1:])
 
     # K3 at phishing level-2 shapes: K=4 dense signed Q of m = M/4

@@ -53,7 +53,11 @@
 //     units' row partials and the tiles' column partials go to scratch,
 //     and a second launch (reduce_sym) adds them up in a fixed order.
 //     That halves the pairs: 1.78 ms at the level-3 shape against 3.24
-//     for the general walk (same card).
+//     for the general walk (same card). The column partials grow as
+//     K nrb^2 / 2 x 128 floats for nrb row blocks (213 MB with the row
+//     partials at ijcnn1's level 0, some 250 GB at 4M rows), so a call
+//     whose scratch would pass kSymScratchBytes (256 MiB) takes the
+//     general walk, whose scratch is at most 8 K M floats.
 //   * The general walk (the scorer: z is the SV slab) splits the column
 //     tiles over CTAs where one CTA a row block would leave the last wave
 //     of CTAs mostly empty (the scorer's 222 CTAs on 264 slots), with a
@@ -74,7 +78,10 @@
 // x-row prefetch changed nothing), and the epilogue (about 13
 // instructions a pair, 8 of them expf) costs about 0.75 ms.
 // Ragged M and N are masked here, so callers need not pad rows.
+#include <array>
 #include <cstddef>
+#include <map>
+#include <mutex>
 
 #include <cuda_runtime.h>
 
@@ -94,6 +101,9 @@ constexpr int kSlab = 32;      // feature slab above that
 constexpr int kSymTiles = 16;  // column tiles a symmetric unit walks at most
 // at most this much dynamic shared memory keeps two CTAs on an SM
 constexpr int kTwoCtaSmem = 113 * 1024;
+// the symmetric walk's scratch at most; a larger call takes the general
+// walk
+constexpr long long kSymScratchBytes = 256ll << 20;
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Shape {
@@ -413,51 +423,64 @@ Shape make_shape(int M, int N, int D, int D4, bool sym) {
   return s;
 }
 
+// Lets the kernel take `bytes` of dynamic shared memory on device dev.
+// The attribute only grows, so a cached plan of another shape still
+// launches.
 template <int KIND, bool SYM>
-cudaError_t set_smem(const Shape& s) {
-  return cudaFuncSetAttribute(gram_matvec_kernel<KIND, SYM>,
-                              cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              smem_bytes(s, s.NS, SYM));
+cudaError_t allow_smem(int dev, int bytes) {
+  static std::map<int, int> allowed;  // device -> bytes set (plan_mu held)
+  int& have = allowed[dev];
+  if (bytes <= have) return cudaSuccess;
+  const cudaError_t e = cudaFuncSetAttribute(
+      gram_matvec_kernel<KIND, SYM>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e == cudaSuccess) have = bytes;
+  return e;
 }
 
-// CTAs resident on the card at once
+// CTAs resident on device dev at once
 template <int KIND, bool SYM>
-long long slots(const Shape& s) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
+cudaError_t slots(int dev, const Shape& s, long long& n) {
+  const int bytes = smem_bytes(s, s.NS, SYM);
+  const cudaError_t e = allow_smem<KIND, SYM>(dev, bytes);
+  if (e != cudaSuccess) return e;
+  int sms = 0, per_sm = 0;
   cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      &per_sm, gram_matvec_kernel<KIND, SYM>, NT, smem_bytes(s, s.NS, SYM));
-  return static_cast<long long>(sms) * max(per_sm, 1);
+      &per_sm, gram_matvec_kernel<KIND, SYM>, NT, bytes);
+  n = static_cast<long long>(sms) * max(per_sm, 1);
+  return cudaSuccess;
 }
 
-// How a call is laid out: the general walk's column splits or the
-// symmetric walk's tiles a unit, and the scratch floats it needs.
+// How a call is laid out: the walk, the general walk's column splits or
+// the symmetric walk's tiles a unit, and the scratch floats it needs.
 struct Plan {
   Shape s;
+  bool sym;
   int nsplit;
   long long units;    // symmetric: units of a partition
   long long scratch;  // floats
 };
 
-// General walk: every CTA does the same work, so a grid of
-// K * ceil(M / BM) CTAs a little past a whole number of waves leaves most
-// SMs idle in its last wave (896 CTAs on 264 slots run 3.39 waves in 4).
-// Take the fewest splits of the column tiles (up to 8, each keeping 4 or
-// more tiles) that fill at least 95 % of the waves they take, else the
-// fullest. Symmetric walk: units of up to kSymTiles tiles, fewer where
-// that leaves under four waves of units.
-template <int KIND, bool SYM>
-cudaError_t plan(int K, int M, int N, int D, int D4, Plan& p) {
-  p.s = make_shape(M, N, D, D4, SYM);
-  const cudaError_t e = set_smem<KIND, SYM>(p.s);
-  if (e != cudaSuccess) return e;
-  const long long sl = slots<KIND, SYM>(p.s);
+// Symmetric walk (asked for, and its scratch within kSymScratchBytes):
+// units of up to kSymTiles tiles, fewer where that leaves under four
+// waves of units. General walk: every CTA does the same work, so a grid
+// of K * ceil(M / BM) CTAs a little past a whole number of waves leaves
+// most SMs idle in its last wave (896 CTAs on 264 slots run 3.39 waves
+// in 4). Take the fewest splits of the column tiles (up to 8, each
+// keeping 4 or more tiles) that fill at least 95 % of the waves they
+// take, else the fullest.
+template <int KIND>
+cudaError_t plan(int dev, int K, int M, int N, int D, int D4, bool sym,
+                 Plan& p) {
   const int ntile = (N + BN - 1) / BN;
+  long long sl = 0;
+  cudaError_t e;
   p.nsplit = 1;
-  p.units = 0;
-  p.scratch = 0;
-  if (SYM) {
+  if (sym) {
+    p.sym = true;
+    p.s = make_shape(M, N, D, D4, true);
+    if ((e = slots<KIND, true>(dev, p.s, sl)) != cudaSuccess) return e;
     int L = kSymTiles;
     while (L > 1 && K * chunks(ntile, L) < 4 * sl) L /= 2;
     p.s.L = L;
@@ -465,8 +488,12 @@ cudaError_t plan(int K, int M, int N, int D, int D4, Plan& p) {
     p.scratch = static_cast<long long>(K) *
                 (p.units * BM + static_cast<long long>(ntile) * (ntile - 1) /
                                     2 * BN);
-    return cudaSuccess;
+    if (4 * p.scratch <= kSymScratchBytes) return cudaSuccess;
   }
+  p.sym = false;
+  p.units = 0;
+  p.s = make_shape(M, N, D, D4, false);
+  if ((e = slots<KIND, false>(dev, p.s, sl)) != cudaSuccess) return e;
   const long long base = static_cast<long long>(K) * ((M + BM - 1) / BM);
   double best_fill = 0.0;
   for (int z = 1; z <= 8 && (z == 1 || ntile / z >= 4); ++z) {
@@ -483,16 +510,41 @@ cudaError_t plan(int K, int M, int N, int D, int D4, Plan& p) {
   return cudaSuccess;
 }
 
-template <int KIND, bool SYM>
+std::mutex plan_mu;
+
+// plan() of the call on the current device, made once per shape: a
+// level's passes and the scratch query before each launch reuse it
+template <int KIND>
+cudaError_t cached_plan(int K, int M, int N, int D, int D4, bool sym,
+                        Plan& p) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  static std::map<std::array<int, 7>, Plan> cache;  // plan_mu held
+  const std::array<int, 7> key{dev, K, M, N, D, D4, sym ? 1 : 0};
+  std::lock_guard<std::mutex> lock(plan_mu);
+  const auto it = cache.find(key);
+  if (it != cache.end()) {
+    p = it->second;
+    return cudaSuccess;
+  }
+  if ((e = plan<KIND>(dev, K, M, N, D, D4, sym, p)) != cudaSuccess) return e;
+  if (cache.size() >= 4096) cache.clear();
+  cache.emplace(key, p);
+  return cudaSuccess;
+}
+
+template <int KIND>
 int launch(const float* x, const float* z, const float* g, const float* xx,
            const float* zz, float* u, float* part, int K, int M, int N, int D,
-           int D4, float gamma, int degree, float coef0, cudaStream_t st) {
+           int D4, bool sym, float gamma, int degree, float coef0,
+           cudaStream_t st) {
   Plan p;
-  const cudaError_t e = plan<KIND, SYM>(K, M, N, D, D4, p);
+  const cudaError_t e = cached_plan<KIND>(K, M, N, D, D4, sym, p);
   if (e != cudaSuccess) return static_cast<int>(e);
   const int nrb = (M + BM - 1) / BM;
-  const int bytes = smem_bytes(p.s, p.s.NS, SYM);
-  if (SYM) {
+  const int bytes = smem_bytes(p.s, p.s.NS, p.sym);
+  if (p.sym) {
     gram_matvec_kernel<KIND, true>
         <<<dim3(static_cast<unsigned>(p.units), K), NT, bytes, st>>>(
             x, z, g, xx, zz, part, p.s, gamma, degree, coef0);
@@ -514,8 +566,7 @@ int launch(const float* x, const float* z, const float* g, const float* xx,
 template <int KIND>
 long long scratch_floats(int K, int M, int N, int D, int D4, bool sym) {
   Plan p;
-  const cudaError_t e = sym ? plan<KIND, true>(K, M, N, D, D4, p)
-                            : plan<KIND, false>(K, M, N, D, D4, p);
+  const cudaError_t e = cached_plan<KIND>(K, M, N, D, D4, sym, p);
   return e != cudaSuccess ? -static_cast<long long>(e) : p.scratch;
 }
 
@@ -528,7 +579,8 @@ bool bad_args(int M, int N, int D, int D4, int kind, int sym) {
 
 // Floats of scratch gram_matvec_f32 needs for this call on the current
 // device (0: none), or a negative CUDA error code. sym: z is x (M == N),
-// and for rbf zz is xx.
+// and for rbf zz is xx; the call then takes the symmetric walk unless its
+// scratch would pass kSymScratchBytes.
 extern "C" long long gram_matvec_scratch(int K, int M, int N, int D, int D4,
                                          int kind, int sym) {
   if (bad_args(M, N, D, D4, kind, sym))
@@ -559,11 +611,9 @@ extern "C" int gram_matvec_f32(const float* x, const float* z, const float* g,
   if (bad_args(M, N, D, D4, kind, sym))
     return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define REPRO_K2(KIND)                                                      \
-  return sym ? launch<KIND, true>(x, z, g, xx, zz, u, part, K, M, N, D, D4,  \
-                                  gamma, degree, coef0, st)                  \
-             : launch<KIND, false>(x, z, g, xx, zz, u, part, K, M, N, D, D4, \
-                                   gamma, degree, coef0, st);
+#define REPRO_K2(KIND)                                                   \
+  return launch<KIND>(x, z, g, xx, zz, u, part, K, M, N, D, D4, sym != 0, \
+                      gamma, degree, coef0, st);
   switch (kind) {
     case repro::kLinear:
       REPRO_K2(repro::kLinear)

@@ -29,7 +29,8 @@ zero-padded to a multiple of 4 (:func:`pad_features`; zero features
 change no accumulator). When z is x (as :class:`KernelSource` calls it)
 the kernel walks the symmetric Gram's pairs once, with the partial sums
 in scratch added up in a fixed order, so repeated calls give the same
-bits.
+bits. That scratch grows as K·(M/128)²·64 floats, so past 256 MiB (about
+127,000 rows at K = 1) the call takes the general walk instead.
 
 ``gram_threshold`` (``SODMConfig``): SODM levels with m above it reach the
 off-diagonal mass through :class:`KernelSource` (tiles rebuilt from

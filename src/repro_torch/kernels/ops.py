@@ -104,7 +104,8 @@ def gram_matvec(x: Tensor, g: Tensor, spec, *, y: Tensor | None = None,
     u = y ⊙ (K @ (y ⊙ g)).
     """
     gs = g if y is None else y * g
-    u = _gram.gram_matvec(x.contiguous(), x.contiguous(), gs.contiguous(),
+    x = x.contiguous()  # one tensor as x and z: K2's symmetric walk
+    u = _gram.gram_matvec(x, x, gs.contiguous(),
                           kind=spec.name, gamma=spec.gamma,
                           degree=spec.degree, coef0=spec.coef0, bm=bm)
     return u if y is None else y * u

@@ -115,6 +115,72 @@ def test_gram_matvec_symmetric_walk_at_level_size(dev):
     assert _rel(got, want) < 1e-5 and _rel(general, want) < 1e-5
 
 
+def _k2_scratch_bytes(dev, K, M, D, kind="rbf"):
+    from repro_torch.kernels import _build
+    with torch.cuda.device(dev):
+        n = _build.library().gram_matvec_scratch(
+            K, M, M, D, D + (-D % 4), gram_mod.KIND_CODES[kind], 1)
+    assert n >= 0
+    return 4 * n
+
+
+def test_gram_matvec_symmetric_scratch_is_capped(dev):
+    # the symmetric walk's column partials grow as K nrb^2 / 2 x 128
+    # floats: ijcnn1's level 0 (886 row blocks, 213 MB) keeps the walk,
+    # 2 x 750 row blocks (288 MB of partials) take the general walk, whose
+    # scratch is at most 8 K M floats
+    cap = 256 << 20
+    level0 = _k2_scratch_bytes(dev, 1, 113408, 22)
+    assert 8 * 4 * 113408 < level0 <= cap
+    K, M, D = 2, 96000, 22
+    nrb = -(-M // 128)
+    assert 4 * K * nrb * (nrb - 1) // 2 * 128 > cap
+    assert _k2_scratch_bytes(dev, K, M, D) <= 8 * 4 * K * M
+    rng = np.random.default_rng(18)
+    x = torch.tensor(rng.random((K, M, D)), dtype=torch.float32, device=dev)
+    g = torch.tensor(rng.standard_normal((K, M)), dtype=torch.float32,
+                     device=dev)
+    xx = gram_mod.row_norms(x)
+    kw = dict(kind="rbf", gamma=1.8, degree=3, coef0=1.0)
+    got = gram_mod.launch_gram_matvec(x, x, g, xx=xx, zz=xx, **kw)
+    again = gram_mod.launch_gram_matvec(x, x, g, xx=xx, zz=xx, **kw)
+    want = gram_mod.gram_matvec_plain(x, x, g, **kw)
+    assert _rel(got, want) < 1e-5 and torch.equal(got, again)
+
+
+def test_gram_matvec_cached_plans_launch_in_any_order(dev):
+    # a call's plan (tiling, walk, shared memory) is made once per shape;
+    # a shape that needs more shared memory, a smaller one, then the first
+    # again all launch and agree with the plain version
+    rng = np.random.default_rng(19)
+    for K, M, D in [(2, 500, 68), (1, 300, 4), (2, 500, 68), (1, 260, 123)]:
+        x = torch.tensor(rng.random((K, M, D)), dtype=torch.float32,
+                         device=dev)
+        g = torch.tensor(rng.standard_normal((K, M)), dtype=torch.float32,
+                         device=dev)
+        kw = dict(kind="rbf", gamma=0.5 / D, degree=3, coef0=1.0)
+        for z in (x, x.clone()):
+            got = gram_mod.launch_gram_matvec(x, z, g, **kw)
+            assert _rel(got, gram_mod.gram_matvec_plain(x, z, g, **kw)) \
+                < 1e-5
+
+
+def test_ops_gram_matvec_of_a_strided_view_takes_the_symmetric_walk(dev):
+    # ops.gram_matvec copies a strided x once and passes that one tensor
+    # as x and z: the same walk, so the same bits, as for a contiguous x
+    from repro_torch.kernels import ops
+    rng = np.random.default_rng(20)
+    base = torch.tensor(rng.random((2, 22, 700)), dtype=torch.float32,
+                        device=dev)
+    x = base.transpose(1, 2)
+    assert not x.is_contiguous()
+    g = torch.tensor(rng.standard_normal((2, 700)), dtype=torch.float32,
+                     device=dev)
+    spec = kf.KernelSpec("rbf", 0.05)
+    assert torch.equal(ops.gram_matvec(x, g, spec),
+                       ops.gram_matvec(x.contiguous(), g, spec))
+
+
 @pytest.mark.parametrize("kind", ["rbf", "laplacian"])
 @pytest.mark.parametrize("D", [22, 123])
 @pytest.mark.parametrize("walk", ["symmetric", "general"])
