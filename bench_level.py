@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Time K1 (greedy tile sweep) and K2 (Gram matvec) at the level pass's
-shapes on one card.
+"""Time K1 (greedy tile sweep), K2 (Gram matvec), K4 (the exact dual CD
+solve) and B7 (the DSVRG anchor gradient) at their main paths' shapes on
+one card.
 
   PYTHONPATH=src python3 bench_level.py [--rounds 3] [--seed 0]
 
@@ -20,6 +21,19 @@ them; rbf at the median gamma):
   and of one K2 call at that shape: the card is held by a sleep kernel
   while the calls are queued, so the host's clock reads the Python and
   launch work alone.
+* K4 at the cascade's level 3 on phishing (K=8 partitions of m=1,104,
+  cold, tol 1e-4, the 100-sweep cap) and at a merged node (K=1, m=2,208,
+  warm from partitions 0 and 1 of level 3), as chip_smoke.py phase 2c
+  runs them; where the checkout's K4 takes a block width
+  (``launch_solve(warps=)``), every width (1, 4, 8, 16 warps) too,
+  checked bit for bit against the default's result.
+* B7 at SUSY's 4,000,000 x 18 and at 4,800 x 5,000 (gisette's width),
+  device time with the card held while the calls are queued.
+* The cascade's fit on phishing (chip_smoke.py phase 8: CFG_CASCADE,
+  levels=3, max_sweeps=100, lam=100), end to end through
+  ``ODMEstimator``: the least fit time of three after a warm-up fit, its
+  test accuracy and the sum of its decision values (to compare two
+  checkouts' results).
 
 It prints one JSON line: the card's name and power limit, the build's
 hash, and per shape the median over ``--rounds`` of the mean ms per call
@@ -34,6 +48,7 @@ chip_smoke.py lays out its phase-2 partitions and K1 tiles with
 from __future__ import annotations
 
 import argparse
+import inspect
 import json
 import statistics
 import subprocess
@@ -41,19 +56,26 @@ import time
 
 import torch
 
+from repro_torch.core import dual_cd
 from repro_torch.core import kernel_fns as kf
 from repro_torch.core.odm import ODMParams
 from repro_torch.data import synthetic
 from repro_torch.kernels import _build
 from repro_torch.kernels import dual_cd_block as cdk
 from repro_torch.kernels import gram as gram_mod
+from repro_torch.kernels import odm_grad as og
 
 
-def _ms(fn, reps: int) -> float:
+def _ms(fn, reps: int, hold: bool = False) -> float:
+    """Mean ms per call by CUDA events after one warm-up; with ``hold``
+    a sleep kernel holds the card while the calls are queued, so the
+    host's launch cost is left out (for calls shorter than it)."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if hold:
+        torch.cuda._sleep(int(2e8))  # about 0.1 s at the card's clock
     start.record()
     for _ in range(reps):
         fn()
@@ -113,7 +135,10 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--only", default="k2,k1,host,k4,b7,cascade",
+                    help="comma-separated groups to time (default: all)")
     args = ap.parse_args(argv)
+    only = set(args.only.split(","))
     if not torch.cuda.is_available():
         raise SystemExit("bench_level needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -135,7 +160,7 @@ def main(argv=None) -> dict:
         res[name + "_ms"] = statistics.median(
             _ms(call, reps) for _ in range(args.rounds))
 
-    for name, ds, K, gamma, reps, check in (
+    for name, ds, K, gamma, reps, check in () if "k2" not in only else (
             ("k2_ijcnn1_l3", ijc, 8, g_ijc, 10, True),
             ("k2_ijcnn1_l0", ijc, 1, g_ijc, 3, False),
             ("k2_phishing_l1", phi, 2, g_phi, 20, False)):
@@ -144,15 +169,16 @@ def main(argv=None) -> dict:
         xx = gram_mod.row_norms(xs)
         k2(name, xs, xs, g, gamma, reps, xx=xx, zz=xx, check=check)
         del xs, ys, g, xx
-    xt = ijc.x_test.to(dev).contiguous()[None]
-    sv = ijc.x_train[:93675].to(dev).contiguous()[None]
-    coef = torch.randn(1, 93675, generator=gen).to(dev)
-    k2("k2_score", xt, sv, coef, g_ijc, 5)
-    del xt, sv, coef
+    if "k2" in only:
+        xt = ijc.x_test.to(dev).contiguous()[None]
+        sv = ijc.x_train[:93675].to(dev).contiguous()[None]
+        coef = torch.randn(1, 93675, generator=gen).to(dev)
+        k2("k2_score", xt, sv, coef, g_ijc, 5)
+        del xt, sv, coef
 
     p = ODMParams(lam=100.0, theta=0.1, ups=0.5)  # chip_smoke's setting
     ckw = dict(c=p.c, ups=p.ups, theta=p.theta, n_steps=512, exit_tol=1e-6)
-    for name, ds, K, gamma, reps, check in (
+    for name, ds, K, gamma, reps, check in () if "k1" not in only else (
             ("k1_ijcnn1_l0", ijc, 1, g_ijc, 5, True),
             ("k1_phishing_l3", phi, 8, g_phi, 20, False)):
         qb, v = k1_tiles(ds.x_train, ds.y_train, K, gamma, dev)
@@ -173,6 +199,26 @@ def main(argv=None) -> dict:
         res[name + "_tiles"] = T
         del qb, v, q_in, a0, u0
 
+    if "host" in only:
+        host_costs(res, phi, g_phi, ckw, gen, dev)
+    if "k4" in only:
+        k4_times(res, phi, g_phi, args.rounds, dev)
+    if "b7" in only:
+        b7_times(res, gen, args.rounds, dev)
+    if "cascade" in only:
+        cascade_fit(res, phi, g_phi)
+
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+    out = {"card": card, "build": _build.library_path().parent.name, **res}
+    print(json.dumps(out))
+    return out
+
+
+def host_costs(res, phi, g_phi, ckw, gen, dev) -> None:
+    """Host µs of one K2 call and one level pass at phishing's level 1."""
     # host cost at phishing's level 1 (K=2, matrix-free): one K2 call
     # through the wrapper, and one whole pass
     K = 2
@@ -195,13 +241,83 @@ def main(argv=None) -> dict:
         for _ in range(5))
     del xs, ys, qb, q_in, src, a0, u0, v, d
 
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()[0]
-    out = {"card": card, "build": _build.library_path().parent.name, **res}
-    print(json.dumps(out))
-    return out
+
+def k4_times(res, phi, g_phi, rounds, dev) -> None:
+    """K4 at the cascade's level 3 and at a merged node (chip_smoke 2c),
+    with every block width where the checkout's K4 takes one."""
+    p_cas = ODMParams(lam=100.0, theta=0.1, ups=0.5)
+    m3 = phi.x_train.shape[0] // 8
+    rbf = dict(kind="rbf", gamma=g_phi, degree=3, coef0=1.0)
+    x3, y3 = (t[:8 * m3].to(dev) for t in (phi.x_train, phi.y_train))
+    q3 = gram_mod.gram(x3.reshape(8, m3, -1), None, y3.reshape(8, m3),
+                       **rbf)
+    kw3 = dict(mscale=float(m3), tol=1e-4, max_sweeps=100)
+    r3 = dual_cd.launch_solve(q3, p_cas, **kw3)
+    a_warm = torch.cat([r3.alpha[:2, :m3].reshape(1, -1),
+                        r3.alpha[:2, m3:].reshape(1, -1)], dim=1)
+    q2 = gram_mod.gram(x3[None, :2 * m3], None, y3[None, :2 * m3], **rbf)
+    kw2 = dict(mscale=float(2 * m3), alpha0=a_warm.contiguous(), tol=1e-4,
+               max_sweeps=100)
+    widths = "warps" in inspect.signature(dual_cd.launch_solve).parameters
+    for name, q, kw in (("k4_cascade_l3", q3, kw3),
+                        ("k4_merged_warm", q2, kw2)):
+        ref = dual_cd.launch_solve(q, p_cas, **kw)
+        res[name + "_sweeps"] = ref.sweeps.tolist()
+        res[name + "_ms"] = statistics.median(
+            _ms(lambda: dual_cd.launch_solve(q, p_cas, **kw), 3)
+            for _ in range(rounds))
+        if not widths:
+            continue
+        res[name + "_plan"] = dual_cd.solve_plan(q.shape[-1])
+        for nw in (1, 4, 8, 16):
+            call = lambda: dual_cd.launch_solve(q, p_cas, warps=nw, **kw)
+            got = call()
+            if not all(torch.equal(a, b) for a, b in zip(got, ref)):
+                raise SystemExit(f"K4 {name} warps={nw} differs from the "
+                                 "default's result")
+            res[f"{name}_ms_w{nw}"] = statistics.median(
+                _ms(call, 3) for _ in range(rounds))
+
+
+def b7_times(res, gen, rounds, dev) -> None:
+    """B7 at SUSY's anchor and at gisette's width, device time."""
+    susy = synthetic.load("SUSY")
+    gkw = dict(lam=100.0, theta=0.1, ups=0.5)
+    xw = torch.rand(4800, 5000, generator=gen).to(dev)
+    yw = torch.sign(torch.randn(4800, generator=gen)).to(dev)
+    ww = (torch.randn(5000, generator=gen) / 50.0).to(dev)
+    xs_, ys_ = susy.x_train.to(dev), susy.y_train.to(dev)
+    w18 = (torch.randn(18, generator=gen) / 18 ** 0.5).to(dev)
+    for name, w_, x_, y_, reps in (("b7_susy", w18, xs_, ys_, 20),
+                                   ("b7_wide", ww, xw, yw, 200)):
+        res[name + "_ms"] = statistics.median(
+            _ms(lambda: og.launch_odm_grad(w_, x_, y_, **gkw), reps,
+                hold=True) for _ in range(rounds))
+
+
+def cascade_fit(res, phi, g_phi) -> None:
+    """The cascade route on phishing as chip_smoke.py phase 8 fits it."""
+    import dataclasses
+    from repro_torch.api import ODMEstimator, ProblemSpec
+    from repro_torch.core.sodm import SODMConfig
+    cfg = dataclasses.replace(
+        SODMConfig(p=2, levels=3, n_landmarks=8, tol=1e-4, max_sweeps=200),
+        max_sweeps=100, engine=None)
+    est = ODMEstimator(ProblemSpec(kernel=kf.KernelSpec("rbf", g_phi),
+                                   params=ODMParams(lam=100.0)),
+                       route="cascade", cfg=cfg)
+    times = []
+    for _ in range(4):  # the first fit warms up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        est.fit(phi.x_train, phi.y_train, 0)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    f = est.decision_function(phi.x_test)
+    res["cascade_fit_s"] = min(times[1:])
+    res["cascade_test_acc"] = float(
+        (torch.sign(f).cpu() == phi.y_test).float().mean())
+    res["cascade_f_sum"] = float(f.double().sum())
 
 
 if __name__ == "__main__":

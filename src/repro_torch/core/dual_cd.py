@@ -9,7 +9,9 @@ cache ``u = Q (zeta - beta)`` makes each update O(m).
   the coordinates); a CUDA ``Q`` launches K4 (``csrc/cd_exact.cu``), which
   runs the whole solve — sweeps and the KKT stop — in one launch with no
   host read, in the plain version's arithmetic (counted in
-  ``solve.launches``).
+  ``solve.launches``): one CTA a partition, one warp running the
+  coordinate chain 32 steps at a time while the others apply each batch's
+  updates to u.
 * :func:`solve_block` — exact CD within each tile, Jacobi across tiles,
   with an exact line search per pass: the plain oracle of the greedy tile
   kernels in :mod:`repro_torch.kernels.dual_cd_block`.
@@ -22,6 +24,7 @@ own sweep count.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -69,9 +72,11 @@ def _unbatch(single: bool, res: CDResult) -> CDResult:
 
 
 def _sweep(Q: Tensor, q_diag: Tensor, alpha: Tensor, u: Tensor,
-           active: Tensor, params: ODMParams, mscale: float) -> None:
+           active: Tensor, params: ODMParams, mscale: float,
+           moves: Tensor | None = None) -> None:
     """One Gauss-Seidel sweep over all 2m coordinates, in place, for the
-    partitions marked ``active`` (the others get delta = 0)."""
+    partitions marked ``active`` (the others get delta = 0); ``moves``
+    (K,), when given, counts each partition's steps with delta != 0."""
     m = Q.shape[-1]
     cz = mscale * params.c * params.ups
     cb = mscale * params.c
@@ -88,6 +93,8 @@ def _sweep(Q: Tensor, q_diag: Tensor, alpha: Tensor, u: Tensor,
         new = torch.clamp_min(a_i - g / h, 0.0)
         new = torch.where(active, new, a_i)
         delta = new - a_i
+        if moves is not None:
+            moves += delta != 0.0
         sign = 1.0 if is_zeta else -1.0
         u += (sign * delta)[:, None] * Q[:, :, row]
         alpha[:, i] = new
@@ -134,13 +141,41 @@ def solve(Q: Tensor, params: ODMParams, mscale: float,
 solve.launches = 0
 
 
+def transpose_padded(Q: Tensor) -> Tensor:
+    """Q (K, m, m) transposed per partition into rows of a stride padded
+    to a multiple of 4 floats (zeros beyond m), so that every row of the
+    copy is 16-byte aligned: one copy, as a plain transpose would be."""
+    K, m, _ = Q.shape
+    ld = -(-m // 4) * 4
+    qt = torch.empty(K, m, ld, dtype=Q.dtype, device=Q.device)
+    qt[..., :m].copy_(Q.transpose(-1, -2))
+    qt[..., m:].zero_()
+    return qt
+
+
+def solve_plan(m: int, warps: int = 0, device_state: bool = False) -> dict:
+    """K4's shape at m: its block width for the requested ``warps`` (0:
+    the measured default) and whether alpha and u live in shared memory
+    (``in_smem``; ``device_state`` keeps them in device memory). Needs the
+    built library."""
+    out = (ctypes.c_int * 2)()
+    _build.check(_build.library().cd_exact_plan(m, warps, int(device_state),
+                                                out), "cd_exact_plan")
+    return dict(warps=out[0], in_smem=bool(out[1]))
+
+
 def launch_solve(Q: Tensor, params: ODMParams, mscale: float,
                  alpha0: Tensor | None = None, tol: float = 1e-5,
-                 max_sweeps: int = 200, u0: Tensor | None = None) -> CDResult:
+                 max_sweeps: int = 200, u0: Tensor | None = None, *,
+                 warps: int = 0, device_state: bool = False) -> CDResult:
     """K4 on CUDA tensors: Q (K, m, m), alpha0 (K, 2m), u0 (K, m). The
     start's cache is computed here as the plain version computes it, and
-    Q is handed over transposed so the kernel reads the reference's
-    column Q[:, row] as one contiguous row."""
+    Q is handed over transposed (:func:`transpose_padded`) so the kernel
+    reads the reference's column Q[:, row] as one aligned row. ``warps``
+    picks the block width (1, 4, 8 or 16; 0 takes the measured choice,
+    :func:`solve_plan`) and ``device_state`` keeps alpha and u in device
+    memory where they would fit in shared memory; every choice gives the
+    same bits."""
     K, m, _ = Q.shape
     if Q.dtype != torch.float32 or Q.shape != (K, m, m) or m == 0:
         raise ValueError(f"Q: expected a float32 (K, m, m) tensor with "
@@ -151,8 +186,10 @@ def launch_solve(Q: Tensor, params: ODMParams, mscale: float,
         raise ValueError(f"alpha0/u0: expected ({K}, {2 * m}) and "
                          f"({K}, {m}), got {tuple(alpha.shape)} and "
                          f"{tuple(u.shape)}")
-    qt = Q.transpose(-1, -2).contiguous()
+    qt = transpose_padded(Q)
     qd = torch.diagonal(Q, dim1=-2, dim2=-1).contiguous()
+    scratch = torch.empty(K, 2, qt.shape[-1], dtype=torch.float32,
+                          device=Q.device)
     sweeps = torch.empty(K, dtype=torch.int32, device=Q.device)
     kkt = torch.empty(K, dtype=torch.float32, device=Q.device)
     # the constants as the plain version forms them: double products,
@@ -161,20 +198,24 @@ def launch_solve(Q: Tensor, params: ODMParams, mscale: float,
     cb = mscale * params.c
     with torch.cuda.device(Q.device):
         code = _build.library().cd_exact_f32(
-            _build.ptr(qt), _build.ptr(qd), _build.ptr(alpha),
-            _build.ptr(u), _build.ptr(sweeps), _build.ptr(kkt), K, m,
-            max_sweeps, _f32(tol), cz, cb, params.theta - 1.0,
-            params.theta + 1.0, _build.stream_handle(Q.device))
+            _build.ptr(qt), qt.shape[-1], _build.ptr(qd), _build.ptr(alpha),
+            _build.ptr(u), _build.ptr(scratch), _build.ptr(sweeps),
+            _build.ptr(kkt), K, m, max_sweeps, _f32(tol), cz, cb,
+            params.theta - 1.0, params.theta + 1.0, warps,
+            int(device_state), _build.stream_handle(Q.device))
     _build.check(code, "cd_exact")
     return CDResult(alpha=alpha, u=u, sweeps=sweeps, kkt=kkt)
 
 
 def solve_plain(Q: Tensor, params: ODMParams, mscale: float,
                 alpha0: Tensor | None = None, tol: float = 1e-5,
-                max_sweeps: int = 200, u0: Tensor | None = None) -> CDResult:
+                max_sweeps: int = 200, u0: Tensor | None = None,
+                moves: Tensor | None = None) -> CDResult:
     """Plain version of K4: the reference's sweeps as a Python loop over
     the coordinates, batched over partitions; a converged partition stops
-    moving while the others go on."""
+    moving while the others go on. ``moves``, an int64 tensor of K
+    elements on Q's device, receives each partition's count of steps with
+    delta != 0 (for the time per moving step K4 reports)."""
     single, Q, alpha0, u0 = _batched(Q, alpha0, u0)
     K, m, _ = Q.shape
     q_diag = torch.diagonal(Q, dim1=-2, dim2=-1)
@@ -186,7 +227,8 @@ def solve_plain(Q: Tensor, params: ODMParams, mscale: float,
         active = (sweeps < max_sweeps) & (kkt > tol32)
         if not bool(active.any()):
             break
-        _sweep(Q, q_diag, alpha, u, active, params, mscale)
+        _sweep(Q, q_diag, alpha, u, active, params, mscale,
+               None if moves is None else moves.view(-1))
         sweeps += active.to(torch.int32)
         kkt = torch.where(active, kkt_from_u(u, alpha, params, mscale), kkt)
     return _unbatch(single, CDResult(alpha=alpha, u=u, sweeps=sweeps,

@@ -6,45 +6,77 @@
 // about eight launches per coordinate and one host read per sweep, so on
 // the card it is bound by the host; here the whole solve is one kernel.
 //
-// What bounds it on an H100: latency. Coordinate i's step reads u[row],
-// which the step before it has just written, so the 2m steps of a sweep
-// run one after another; each costs a few shared-memory reads, a division,
-// a load of one row of Q^T and two barriers. The bytes (2m^2 * 4 per sweep
-// per partition, from L2) and the operations are far below what the card
-// could do in that time. The card's parallelism is across partitions: one
-// CTA each.
+// What bounds it on an H100: a dependent chain. Coordinate i's step reads
+// u[row], which the step before it has just changed, so the 2m steps of a
+// sweep run one after another; the card's parallelism is across
+// partitions, one CTA each. The floor is the chain: steps times the least
+// time a step can take. A warp issues in order, so every latency on a
+// step's path adds up: a step's loads, barriers and copy waits cost more
+// than its arithmetic, and the row updates are paced by how fast one SM
+// reads from L2.
 //
-// Design: one CTA of 512 threads per partition runs sweeps until the
-// projected KKT residual is <= tol or max_sweeps is reached, then writes
-// alpha, u, the sweep count and the KKT. alpha, u and diag(Q) live in
-// shared memory when their 4m floats fit (m <= 12,800), else in device
-// memory (alpha and u in the output buffers, L2-resident at those sizes):
-// every m is taken. Every thread computes the step's delta from the same
-// shared values (so the branch on delta != 0 is uniform), then each thread
-// adds sign * delta * Q[j, row] to its entries u[j]. A step with delta == 0
-// changes no value of u and is skipped. The reference reads the column
-// Q[:, row]; the wrapper hands the kernel Q transposed, so that column is
-// one contiguous row of Q^T (coalesced) and the values read are the
-// reference's whatever Q's symmetry. The row is loaded before the step's
-// arithmetic, so its latency overlaps the division and the first barrier.
-// The arithmetic is the reference's coordinate update in its order with
-// round-to-nearest intrinsics (no FMA contraction), and the KKT is the
-// plain version's element for element with an order-free max: the
-// sweep counts and alpha equal the plain version's on the card.
+// Design: batches of B = 32 consecutive coordinates and a delayed rank-B
+// update.
+// * The chain warp (warp 0) runs a batch with lane a on step i0 + a. Lane
+//   a holds u[r_a] in a register, its alpha, 1 / h and its column
+//   Q[r_a, r_b] of the batch's 32 x 32 diagonal block (from Q^T, whose rows
+//   the wrapper pads to ld, a multiple of 4). Step b: every lane forms its
+//   own candidate delta, a shuffle broadcasts lane b's, and every lane adds
+//   sd * Q[r_a, r_b] to its u[r_a]: about ten dependent instructions, no
+//   memory access and no branch (the plain version adds sign * delta *
+//   Q[:, row] on every step, zero or not, so the kernel does too; a step
+//   past a ragged batch's end adds zero).
+// * The division: g / h as float(double(g) * RN64(1 / h)). The product is
+//   within 2^-52 (relative) of g / h, and a quotient of two floats is never
+//   closer than 2^-49 to the midpoint of two floats (nor, for subnormal
+//   results, to a midpoint of the coarser subnormal grid) unless it lies
+//   on it, where the product is exact; so rounding to float gives IEEE's
+//   correctly rounded g / h, inf and NaN included, with no branch (fdiv's
+//   slow-path check serialized every quotient).
+// * The other warps (the updaters) apply a batch's 32 updates to all of u,
+//   in step order per entry, while the chain warp runs the next batch:
+//   they read the batch's rows of Q^T from L2 (16-byte loads, a chunk's 32
+//   rows in flight together) and write a second buffer of u, so the chain
+//   warp still reads the state before that batch. The chain warp brings
+//   its own 32 entries up to date by adding the previous batch's 32
+//   updates itself (the same operations in the same order, so the same
+//   bits). One block barrier a batch; each sweep ends with the last
+//   batch's update and the KKT's block max.
+// * At the start of a batch the chain warp loads the next batch's blocks
+//   (its diagonal block, and the current batch's rows at its columns), so
+//   the chain never waits on L2. Those loads queue behind the updaters'
+//   (the SM's outstanding misses are shared), which costs about as much as
+//   the chain itself at the cascade's shape: the next bottleneck.
+// Measured (H100 80GB HBM3, 700.00 W; bench_level.py): the cascade's level
+// 3 (K = 8, m = 1,104, 100 sweeps) in 28.2 ms at 4 warps, about 250
+// cycles a step at 1,980 MHz; the design before (512 threads, a row load
+// from L2 and two block barriers a moving step) took 108 ms, and a
+// shared-memory row ring refilled every step (cp.async or bulk copies, one
+// barrier a moving step) 89-150 ms.
+// Every entry of u receives the plain version's rounded updates in the
+// plain version's order, alpha the plain version's values, and the KKT is
+// the plain version's element for element with an order-free max: sweeps,
+// alpha, u and the KKT equal the plain version's bit for bit. u's two
+// buffers and alpha live in shared memory while their 4 ld floats fit in
+// SMEM_MAX (m <= 12,800), else in device memory (alpha in the output
+// buffer, u in the caller's scratch, L2-resident); every m is taken.
+#include <cstdint>
+
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
 namespace {
 
-constexpr int NT = 512;
-constexpr int R = 4;  // row elements per thread prefetched into registers
+constexpr int B = 32;  // coordinates a batch: one lane of the chain warp each
 constexpr int SMEM_MAX = 200 * 1024;
+constexpr int DEFAULT_WARPS = 4;  // the measured choice (PERF.md)
 
 // max that propagates NaN (torch.amax's rule); order-free otherwise
 __device__ __forceinline__ float nanmax(float a, float b) {
   return (a > b || a != a) ? a : b;
 }
 
+template <int NW>
 __device__ float block_max(float v, float* red) {
   for (int off = 16; off > 0; off >>= 1)
     v = nanmax(v, __shfl_xor_sync(0xffffffffu, v, off));
@@ -52,15 +84,16 @@ __device__ float block_max(float v, float* red) {
   if (threadIdx.x % 32 == 0) red[threadIdx.x / 32] = v;
   __syncthreads();
   float r = red[0];
-  for (int w = 1; w < NT / 32; ++w) r = nanmax(r, red[w]);
+  for (int w = 1; w < NW; ++w) r = nanmax(r, red[w]);
   return r;
 }
 
 // max over j of the projected violation of zeta_j and beta_j
+template <int NW>
 __device__ float kkt(const float* a, const float* u, int m, float cz,
                      float cb, float tm1, float tp1, float* red) {
   float v = -CUDART_INF_F;
-  for (int j = threadIdx.x; j < m; j += NT) {
+  for (int j = threadIdx.x; j < m; j += NW * 32) {
     const float zj = a[j], bj = a[m + j];
     const float gz = __fadd_rn(__fadd_rn(u[j], __fmul_rn(cz, zj)), tm1);
     const float gb = __fadd_rn(__fadd_rn(-u[j], __fmul_rn(cb, bj)), tp1);
@@ -68,111 +101,250 @@ __device__ float kkt(const float* a, const float* u, int m, float cz,
     const float pb = bj > 0.0f ? fabsf(gb) : fmaxf(-gb, 0.0f);
     v = nanmax(v, nanmax(pz, pb));
   }
-  return block_max(v, red);
+  return block_max<NW>(v, red);
 }
 
-__global__ void __launch_bounds__(NT)
-cd_exact_kernel(const float* __restrict__ qt, const float* __restrict__ qd_g,
-                float* alpha_g, float* u_g, int* __restrict__ sweeps_out,
-                float* __restrict__ kkt_out, int m, int max_sweeps,
-                float tol, float cz, float cb, float tm1, float tp1,
-                int in_smem) {
-  extern __shared__ float smem[];
-  __shared__ float red[NT / 32];
-  const int k = blockIdx.x, tid = threadIdx.x;
-  qt += (size_t)k * m * m;
-  qd_g += (size_t)k * m;
-  alpha_g += (size_t)k * 2 * m;
-  u_g += (size_t)k * m;
-  float* a = alpha_g;
-  float* u = u_g;
-  const float* qd = qd_g;
-  if (in_smem) {
-    a = smem;
-    u = smem + 2 * m;
-    float* qs = smem + 3 * m;
-    for (int j = tid; j < m; j += NT) {
-      a[j] = alpha_g[j];
-      a[m + j] = alpha_g[m + j];
-      u[j] = u_g[j];
-      qs[j] = qd_g[j];
-    }
-    qd = qs;
-    __syncthreads();
+// u + sd * q per element, rounded at each step (the plain version's order)
+__device__ __forceinline__ float4 axpy4(float4 u, float sd, float4 q) {
+  u.x = __fadd_rn(u.x, __fmul_rn(sd, q.x));
+  u.y = __fadd_rn(u.y, __fmul_rn(sd, q.y));
+  u.z = __fadd_rn(u.z, __fmul_rn(sd, q.z));
+  u.w = __fadd_rn(u.w, __fmul_rn(sd, q.w));
+  return u;
+}
+
+struct CDArgs {
+  const float* qt;  // (K, m, ld) Q^T, rows padded to ld (a multiple of 4)
+  const float* qd;  // (K, m)
+  float* alpha;     // (K, 2m) in/out
+  float* u;         // (K, m) in/out
+  float* scratch;   // (K, 2, ld): u's buffers when not in shared memory
+  int* sweeps;
+  float* kkt;
+  int m, ld, max_sweeps, in_smem;
+  float tol, cz, cb, tm1, tp1;
+};
+
+// One CTA of NW warps a partition (see the note at the top). Shared
+// memory, in floats, when in_smem: alpha 2 ld, u's two buffers 2 ld.
+template <int NW>
+__global__ void __launch_bounds__(NW * 32, 1) cd_chain_kernel(CDArgs g) {
+  constexpr int NTR = NW * 32;
+  extern __shared__ __align__(16) float sm[];
+  __shared__ float red[NW];
+  __shared__ float sdv[2][B];  // the signed deltas of the last two batches
+  const int k = blockIdx.x, tid = threadIdx.x, lane = tid % 32;
+  const int warp = tid / 32;
+  const int m = g.m, ld = g.ld, nc = ld / 4, steps = 2 * m;
+  const float cz = g.cz, cb = g.cb, tm1 = g.tm1, tp1 = g.tp1;
+  const float* qk = g.qt + (size_t)k * m * ld;
+  const float* qdk = g.qd + (size_t)k * m;
+  float* ag = g.alpha + (size_t)k * 2 * m;
+  float* ug = g.u + (size_t)k * m;
+  float* a = g.in_smem ? sm : ag;
+  float* ub = g.in_smem ? sm + 2 * ld : g.scratch + (size_t)k * 2 * ld;
+  if (g.in_smem)
+    for (int j = tid; j < steps; j += NTR) a[j] = ag[j];
+  for (int j = tid; j < ld; j += NTR) {
+    ub[j] = j < m ? ug[j] : 0.0f;
+    ub[ld + j] = 0.0f;
   }
-  float res = kkt(a, u, m, cz, cb, tm1, tp1, red);
+  // the updaters: every warp but the chain warp, or the one warp there is
+  const bool updater = NW == 1 || warp > 0;
+  const int ut = NW == 1 ? tid : tid - 32, unt = NW == 1 ? 32 : NTR - 32;
+  auto row_of = [m](int st) { return st < m ? st : st - m; };
+
+  // u(p ^ 1) = u(p) + the batch of n steps from step s0, deltas sd; a full
+  // batch keeps all 32 of a chunk's row loads in flight
+  auto apply = [&](int p, int s0, int n, const float* sd) {
+    const float* uc = ub + p * ld;
+    float* un = ub + (p ^ 1) * ld;
+    for (int c = ut; c < nc; c += unt) {
+      float4 u4 = *reinterpret_cast<const float4*>(uc + 4 * c);
+      const float* q = qk + 4 * c;
+      if (n == B) {
+        float4 qv[B];
+#pragma unroll
+        for (int b = 0; b < B; ++b)
+          qv[b] = __ldg(reinterpret_cast<const float4*>(
+              q + (size_t)row_of(s0 + b) * ld));
+#pragma unroll
+        for (int b = 0; b < B; ++b) u4 = axpy4(u4, sd[b], qv[b]);
+      } else {
+        for (int b = 0; b < n; ++b)
+          u4 = axpy4(u4, sd[b],
+                     __ldg(reinterpret_cast<const float4*>(
+                         q + (size_t)row_of(s0 + b) * ld)));
+      }
+      *reinterpret_cast<float4*>(un + 4 * c) = u4;
+    }
+  };
+
+  // chain-warp registers: lane a's column Q[r_a, r_b] of the batch's
+  // diagonal block (qb) and of the next batch's (qn), the previous batch's
+  // rows at this batch's columns (qp), diag(Q) at the next batch's rows
+  float qb[B], qn[B], qp[B], qdl = 0.0f;
+  // element b of lane's column of the block of Q^T at the rows of steps
+  // r0 .. r0 + nr - 1 and the columns of steps c0 .. c0 + ncol - 1, or 0
+  // outside it
+  auto block_at = [&](int r0, int nr, int c0, int ncol, int b) {
+    return lane < ncol && b < nr
+               ? __ldg(qk + (size_t)row_of(r0 + b) * ld +
+                       row_of(c0 + min(lane, ncol - 1)))
+               : 0.0f;
+  };
+  auto load_diag = [&](int i0) {
+    const int nb = min(B, steps - i0);
+#pragma unroll
+    for (int b = 0; b < B; ++b) qn[b] = block_at(i0, nb, i0, nb, b);
+    qdl = lane < nb ? __ldg(qdk + row_of(i0 + lane)) : 0.0f;
+  };
+  // 1 / h of lane's step st, h = diag(Q) + c (qdl)
+  auto recip = [&](int st) {
+    return __drcp_rn(
+        static_cast<double>(__fadd_rn(qdl, st < m ? cz : cb)));
+  };
+  double rq = 1.0;  // 1 / h of lane's step in the current batch
+  if (warp == 0) {
+    load_diag(0);
+#pragma unroll
+    for (int b = 0; b < B; ++b) qb[b] = qn[b];
+    rq = recip(lane);
+  }
+  __syncthreads();
+
+  int p = 0;  // u's buffer holding the state before the pending batch
+  float res = kkt<NW>(a, ub, m, cz, cb, tm1, tp1, red);
   int s = 0;
-  while (s < max_sweeps && res > tol) {
-    for (int i = 0; i < 2 * m; ++i) {
-      const bool is_zeta = i < m;
-      const int row = is_zeta ? i : i - m;
-      const float* q = qt + (size_t)row * m;
-      float qv[R];
+  while (s < g.max_sweeps && res > g.tol) {
+    int p0 = 0, pn = 0;  // the batch whose update is pending
+    for (int i0 = 0, kb = 0; i0 < steps; i0 += B, ++kb) {
+      const int nb = min(B, steps - i0);
+      if (warp == 0) {
+        const int st = i0 + lane;
+        const bool valid = lane < nb, z = st < m;
+        // lane's u: the buffer, then the pending (full) batch's updates
+        float ur = valid ? ub[p * ld + row_of(st)] : 0.0f;
+        if (pn > 0) {
+          const float* sp = sdv[(kb - 1) & 1];
 #pragma unroll
-      for (int r = 0; r < R; ++r) {
-        const int j = tid + r * NT;
-        qv[r] = j < m ? __ldg(q + j) : 0.0f;
-      }
-      const float ai = a[i];
-      const float g =
-          is_zeta ? __fadd_rn(__fadd_rn(u[row], __fmul_rn(cz, ai)), tm1)
-                  : __fadd_rn(__fadd_rn(-u[row], __fmul_rn(cb, ai)), tp1);
-      const float h = __fadd_rn(qd[row], is_zeta ? cz : cb);
-      const float nw = fmaxf(__fsub_rn(ai, __fdiv_rn(g, h)), 0.0f);
-      const float delta = __fsub_rn(nw, ai);
-      if (delta != 0.0f) {  // uniform: every thread computed the same delta
-        const float sd = is_zeta ? delta : -delta;
-        __syncthreads();  // every thread has read u[row] and a[i]
-#pragma unroll
-        for (int r = 0; r < R; ++r) {
-          const int j = tid + r * NT;
-          if (j < m) u[j] = __fadd_rn(u[j], __fmul_rn(sd, qv[r]));
+          for (int b = 0; b < B; ++b)
+            ur = __fadd_rn(ur, __fmul_rn(sp[b], qp[b]));
         }
-        for (int j = tid + R * NT; j < m; j += NT)
-          u[j] = __fadd_rn(u[j], __fmul_rn(sd, __ldg(q + j)));
-        if (tid == 0) a[i] = nw;
-        __syncthreads();
+        // the next batch's blocks (qn and qp are free again)
+        const int n0 = i0 + B < steps ? i0 + B : 0;
+        load_diag(n0);
+        if (n0 != 0) {
+          const int nn = min(B, steps - n0);
+#pragma unroll
+          for (int b = 0; b < B; ++b) qp[b] = block_at(i0, nb, n0, nn, b);
+        }
+        const float al = valid ? a[st] : 0.0f;
+        const float ca = __fmul_rn(z ? cz : cb, al), ct = z ? tm1 : tp1;
+        // the chain: lane b's delta at step b; a step past the batch's
+        // end (b >= nb) changes nothing, its column being zero
+        float nwm = al, sdm = 0.0f;
+#pragma unroll
+        for (int b = 0; b < B; ++b) {
+          const float gg = __fadd_rn(__fadd_rn(z ? ur : -ur, ca), ct);
+          const float q = __double2float_rn(
+              __dmul_rn(static_cast<double>(gg), rq));
+          const float nw = fmaxf(__fsub_rn(al, q), 0.0f);
+          const float d = __fsub_rn(nw, al);
+          const float sd = __shfl_sync(0xffffffffu, z ? d : -d, b);
+          ur = __fadd_rn(ur, __fmul_rn(sd, qb[b]));
+          if (lane == b) {
+            nwm = nw;
+            sdm = sd;
+          }
+        }
+        if (valid) a[st] = nwm;
+        sdv[kb & 1][lane] = sdm;
+#pragma unroll
+        for (int b = 0; b < B; ++b) qb[b] = qn[b];
+        rq = recip(n0 + lane);
       }
+      if (updater && pn > 0) apply(p, p0, pn, sdv[(kb - 1) & 1]);
+      __syncthreads();
+      if (pn > 0) p ^= 1;
+      p0 = i0;
+      pn = nb;
     }
+    // the sweep's last batch
+    if (updater) apply(p, p0, pn, sdv[((steps + B - 1) / B - 1) & 1]);
+    __syncthreads();
+    p ^= 1;
     ++s;
-    res = kkt(a, u, m, cz, cb, tm1, tp1, red);
+    res = kkt<NW>(a, ub + p * ld, m, cz, cb, tm1, tp1, red);
   }
-  if (in_smem) {
-    for (int j = tid; j < m; j += NT) {
-      alpha_g[j] = a[j];
-      alpha_g[m + j] = a[m + j];
-      u_g[j] = u[j];
-    }
-  }
+  const float* u = ub + p * ld;
+  if (g.in_smem)
+    for (int j = tid; j < steps; j += NTR) ag[j] = a[j];
+  for (int j = tid; j < m; j += NTR) ug[j] = u[j];
   if (tid == 0) {
-    sweeps_out[k] = s;
-    kkt_out[k] = res;
+    g.sweeps[k] = s;
+    g.kkt[k] = res;
   }
+}
+
+template <int NW>
+int launch(const CDArgs& a, int K, cudaStream_t st) {
+  const int bytes =
+      a.in_smem ? 4 * a.ld * static_cast<int>(sizeof(float)) : 0;
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        cd_chain_kernel<NW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  cd_chain_kernel<NW><<<K, NW * 32, bytes, st>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// qt (K, m, m) = Q transposed per partition (row r of qt is column r of
-// Q); qd (K, m) = diag(Q); alpha (K, 2m) and u (K, m) hold the start and
-// receive the result; sweeps (K,) int32 and kkt (K,) fp32 are outputs.
-// cz = mscale*c*ups, cb = mscale*c, tm1 = theta - 1, tp1 = theta + 1, all
-// rounded to fp32 as the plain version rounds them. Returns
-// cudaGetLastError() of the launch.
-extern "C" int cd_exact_f32(const float* qt, const float* qd, float* alpha,
-                            float* u, int* sweeps, float* kkt_out, int K,
-                            int m, int max_sweeps, float tol, float cz,
-                            float cb, float tm1, float tp1, void* stream) {
-  const size_t bytes = (size_t)4 * m * sizeof(float);
-  const int in_smem = bytes <= (size_t)SMEM_MAX ? 1 : 0;
-  const size_t dyn = in_smem ? bytes : 0;
-  if (dyn > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        cd_exact_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(dyn));
-    if (e != cudaSuccess) return static_cast<int>(e);
+// K4's shape at m for a requested block width (0: the measured default;
+// 1, 4, 8 or 16 warps) and placement (device_state: keep u and alpha in
+// device memory even where they fit in shared memory): out[0] warps,
+// out[1] 1 when the state is in shared memory. Returns
+// cudaErrorInvalidValue for a width with no kernel.
+extern "C" int cd_exact_plan(int m, int warps, int device_state, int* out) {
+  warps = warps ? warps : DEFAULT_WARPS;
+  if (warps != 1 && warps != 4 && warps != 8 && warps != 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t ld = (m + 3) / 4 * 4;
+  out[0] = warps;
+  out[1] = !device_state && 4 * ld * sizeof(float) <= (size_t)SMEM_MAX;
+  return 0;
+}
+
+// qt (K, m, ld) = Q transposed per partition (row r of qt is column r of
+// Q), rows padded to ld = m rounded up to a multiple of 4, 16-byte
+// aligned; qd (K, m) = diag(Q); alpha (K, 2m) and u (K, m) hold the start
+// and receive the result; scratch (K, 2, ld) fp32 holds u's buffers when
+// they stay in device memory; sweeps (K,) int32 and kkt (K,) fp32 are
+// outputs. cz = mscale*c*ups, cb = mscale*c, tm1 = theta - 1, tp1 =
+// theta + 1, all rounded to fp32 as the plain version rounds them. warps
+// and device_state as for cd_exact_plan. Returns cudaGetLastError() of the
+// launch.
+extern "C" int cd_exact_f32(const float* qt, int ld, const float* qd,
+                            float* alpha, float* u, float* scratch,
+                            int* sweeps, float* kkt_out, int K, int m,
+                            int max_sweeps, float tol, float cz, float cb,
+                            float tm1, float tp1, int warps,
+                            int device_state, void* stream) {
+  if (m <= 0 || ld != (m + 3) / 4 * 4)
+    return static_cast<int>(cudaErrorInvalidValue);
+  int plan[2];
+  const int bad = cd_exact_plan(m, warps, device_state, plan);
+  if (bad) return bad;
+  const CDArgs a{qt, qd, alpha, u, scratch, sweeps, kkt_out, m, ld,
+                 max_sweeps, plan[1], tol, cz, cb, tm1, tp1};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (plan[0]) {
+    case 1: return launch<1>(a, K, st);
+    case 4: return launch<4>(a, K, st);
+    case 8: return launch<8>(a, K, st);
+    default: return launch<16>(a, K, st);
   }
-  cd_exact_kernel<<<K, NT, dyn, static_cast<cudaStream_t>(stream)>>>(
-      qt, qd, alpha, u, sweeps, kkt_out, m, max_sweeps, tol, cz, cb, tm1, tp1,
-      in_smem);
-  return static_cast<int>(cudaGetLastError());
 }

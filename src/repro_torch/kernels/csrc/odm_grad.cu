@@ -10,16 +10,17 @@
 // What bounds them on an H100: bytes of X. Each element of X is used for
 // two (B7) or four (B6) multiply-adds, far below the card's ~20 flops per
 // byte, so the 3.35 TB/s memory rate is the limit. Both kernels read each
-// row of X from device memory once and take it again from L1/L2 for the
-// back-projection; the unfused form reads X twice (B7) or four times (B6).
-// At the DSVRG inner step's size (B = 64 rows of d = 18) B6 moves about
-// 5 KB, so its time is launch latency, not bandwidth.
+// row of X from device memory once; the unfused form reads X twice (B7)
+// or four times (B6). At the DSVRG inner step's size (B = 64 rows of
+// d = 18) B6 moves about 5 KB, so its time is launch latency, not
+// bandwidth. No atomics anywhere: every sum has a fixed order, so results
+// repeat bit for bit from run to run.
 //
-// Design, shared by both (block_backproject):
+// B6 (block_backproject, chunk_backproject), shared with the epoch kernel:
 //   phase 1 (margins): warps take rows, eight at a time, each lane a strided
-//     slice of the features; x.w and x.a (B6 only) come out of one pass over
-//     the row and are reduced with a fixed-order xor shuffle tree. Lane i
-//     writes row i's coefficient (difference) to shared memory.
+//     slice of the features; x.w and x.a come out of one pass over the row
+//     and are reduced with a fixed-order xor shuffle tree. Lane i writes
+//     row i's coefficient difference to shared memory.
 //   phase 2 (back-projection): threads take columns and sum the chunk's
 //     rows in order into a running per-column sum that only they touch. At
 //     d < 128 the threads form G = 256 / d row groups (14 at d = 18) so
@@ -28,12 +29,28 @@
 // Rows go in chunks of CHUNK, so any row count works with fixed shared
 // memory. B6 runs one CTA per chain (a leading chain axis advances all
 // chains of the parallel schedule in one launch) and needs no cross-CTA
-// sum. B7 runs one CTA per block of 64 to 256 rows (fewer rows when M is
-// small, so the grid still covers the SMs) writing a (n_blocks, d) partial
-// buffer, and a second launch sums the partials per column in block order.
-// No atomics anywhere: every sum has a fixed order, so results repeat bit
-// for bit from run to run. inv_n is read from a device pointer (the TPU
-// kernel's (1, 1) input), so the caller never reads a device value.
+// sum. inv_n is read from a device pointer (the TPU kernel's (1, 1)
+// input), so the caller never reads a device value.
+//
+// B7 (b7_ring_kernel, d <= 8,192): the chunked design above left most of
+// the card's memory rate unused on narrow rows (at d = 18, 14 of 32 lanes
+// idle in phase 1, a 5-level shuffle tree and three block barriers each
+// 64-row chunk, the chunk read twice; 27.6 % of the byte bound) and too
+// few CTAs on wide ones (75 CTAs for 4,800 rows). Now about two CTAs an
+// SM (264 over fixed ranges of whole tiles) each stream their rows
+// through a three-stage cp.async ring of contiguous slabs of NT / L rows
+// (up to 32 KB a stage), so each byte of X is read from device memory
+// once with tens of KB in flight on every SM. A row is L lanes (the least
+// power of 2 that leaves each lane at most 32 features: 1 at d = 18, 4 at
+// d = 123, 256 at d = 5,000); a lane keeps w, its features of the row and
+// its running back-projection sums in registers across the CTA's whole
+// range, so there is no shuffle tree at all at d <= 32 and one barrier a
+// tile. The margin is a sequential sum over the lane's features, then an
+// xor butterfly over the row's lanes (and for a row of several warps, the
+// warps' sums in order through shared memory). One fixed tree over the
+// row groups ends the CTA; a second launch sums the CTAs' partials per
+// column in block order and adds w. Rows wider than 8,192 take the
+// chunked design (odm_grad_wide_kernel, 64 to 256 rows a CTA).
 //
 // B6 over a whole epoch (svrg_epoch_kernel, odm_svrg_epoch_f32): the
 // counterpart of the reference's lax.scan over B6 (repro/core/dsvrg.py
@@ -64,16 +81,50 @@
 namespace {
 
 constexpr int NT = 256, NW = NT / 32, RPW = 8, CHUNK = NW * RPW;
-constexpr int B7_MAX_CHUNKS = 4;      // B7 takes 1..4 chunks per CTA
-constexpr int B7_TARGET_CTAS = 1056;  // 8 per SM of an H100
 
-// Rows per CTA of B7's first launch: the most chunks (up to four) that
-// still give the grid B7_TARGET_CTAS blocks.
-int b7_rows(int M) {
+// B7's row-ring kernel (b7_ring_kernel): L lanes a row, at most B7_F
+// features a lane, B7_STAGES stages of NT / L rows, B7_CTAS CTAs (two an
+// SM of an H100) over fixed ranges of whole tiles.
+constexpr int B7_F = 32, B7_STAGES = 3, B7_CTAS = 264;
+
+// Rows wider than B7_F * NT (8,192) take the chunked kernel
+// (odm_grad_wide_kernel): CTAs of CHUNK-row blocks, 64 to 256 rows each.
+constexpr int B7_MAX_CHUNKS = 4;
+constexpr int B7_TARGET_CTAS = 1056;
+
+int b7_rows(long long M) {
   const long long chunks = M / ((long long)CHUNK * B7_TARGET_CTAS);
   return CHUNK * (int)(chunks < 1 ? 1
                                   : chunks > B7_MAX_CHUNKS ? B7_MAX_CHUNKS
                                                            : chunks);
+}
+
+// The row-ring kernel's shape for (M, d); lanes == 0 when d is too wide.
+struct B7Plan {
+  int lanes;       // L: lanes a row, a power of 2 dividing NT
+  int feats;       // F: features a lane in registers (8, 16, 24 or 32)
+  int rows;        // NT / L rows a tile (a ring stage)
+  int x_floats;    // a stage's x part, rows * d rounded up to 4
+  int stage;       // floats a stage: x, then the rows' labels
+  int tiles_per;   // tiles a CTA (the last CTA may have fewer)
+  int ctas;
+};
+
+B7Plan b7_plan(long long M, int d) {
+  B7Plan p{};
+  int L = 1;
+  while (L < NT && (d + L - 1) / L > B7_F) L *= 2;
+  const int nf = (d + L - 1) / L;
+  if (nf > B7_F) return p;
+  p.lanes = L;
+  p.feats = nf <= 8 ? 8 : nf <= 16 ? 16 : nf <= 24 ? 24 : 32;
+  p.rows = NT / L;
+  p.x_floats = (p.rows * d + 3) / 4 * 4;
+  p.stage = p.x_floats + (p.rows + 3) / 4 * 4;
+  const long long tiles = (M + p.rows - 1) / p.rows;
+  p.tiles_per = (int)((tiles + B7_CTAS - 1) / B7_CTAS);
+  p.ctas = p.tiles_per ? (int)((tiles + p.tiles_per - 1) / p.tiles_per) : 0;
+  return p;
 }
 
 struct Hinge {
@@ -374,20 +425,118 @@ int launch_epoch(const Epoch& e, const Hinge& p, int C, int floats,
   return static_cast<int>(cudaGetLastError());
 }
 
-// B7, first launch: block b's partial X^T coef (rows [b rows, (b+1) rows))
-// into part[b]. At least four CTAs per SM (at most 64 registers a thread):
-// the grid has thousands of blocks, and their loads hide each other's
-// latency only if enough of them are resident.
+// B7, first launch, for d <= B7_F * NT: CTA b's partial X^T coef over its
+// fixed range of tiles into part[b]. A tile is NT / L whole rows; group g
+// of L lanes takes row g of each tile, lane l its features l + L f (f < F,
+// in registers: w, the row's values and the running sums). The tiles come
+// through a B7_STAGES-deep cp.async ring of contiguous slabs (16-byte
+// copies when every slab is 16-byte aligned), so each byte of X is read
+// from device memory once and tens of KB are in flight on every SM. The
+// margin is a sequential sum over a lane's features, then an xor
+// butterfly over the row's L lanes (and, for L > 32, the row's warps in
+// order through shared memory); each lane adds coef * x to its sums. At
+// the end a fixed tree over the groups sums the lanes' partials.
+template <int F>
+__global__ void __launch_bounds__(NT, 2)
+b7_ring_kernel(const float* __restrict__ w, const float* __restrict__ x,
+               const float* __restrict__ y, float* __restrict__ part,
+               long long M, int d, B7Plan pl, bool vec, Hinge p) {
+  extern __shared__ __align__(16) float sm[];
+  __shared__ float wred[NW];
+  const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
+  const int L = pl.lanes, TR = pl.rows, gi = tid / L, l = tid % L;
+  const int nf = l < d ? (d - l + L - 1) / L : 0;
+  float wv[F], acc[F];
+#pragma unroll
+  for (int f = 0; f < F; ++f) {
+    wv[f] = f < nf ? w[l + L * f] : 0.0f;
+    acc[f] = 0.0f;
+  }
+  const long long tile0 = (long long)blockIdx.x * pl.tiles_per;
+  const long long tiles = (M + TR - 1) / TR;
+  const int nt = (int)min((long long)pl.tiles_per, tiles - tile0);
+  auto fetch = [&](int t) {  // tile t of this CTA into stage t % STAGES
+    if (t < nt) {
+      const long long r0 = (tile0 + t) * TR;
+      const int nrow = (int)min((long long)TR, M - r0);
+      const int nfl = nrow * d;
+      float* dst = sm + (t % B7_STAGES) * pl.stage;
+      const float* src = x + r0 * d;
+      int j0 = 0;
+      if (vec) {
+        for (int c = tid; c < nfl / 4; c += NT)
+          sm90::cp_async16(dst + 4 * c, src + 4 * c, true);
+        j0 = nfl & ~3;
+      }
+      for (int j = j0 + tid; j < nfl; j += NT)
+        sm90::cp_async4(dst + j, src + j);
+      for (int j = tid; j < nrow; j += NT)
+        sm90::cp_async4(dst + pl.x_floats + j, y + r0 + j);
+    }
+    sm90::cp_async_commit();
+  };
+#pragma unroll
+  for (int t = 0; t < B7_STAGES - 1; ++t) fetch(t);
+  for (int t = 0; t < nt; ++t) {
+    sm90::cp_async_wait<B7_STAGES - 2>();
+    __syncthreads();  // tile t has landed; tile t - 1's stage is free
+    fetch(t + B7_STAGES - 1);
+    const float* xs = sm + (t % B7_STAGES) * pl.stage;
+    const int nrow = (int)min((long long)TR, M - (tile0 + t) * TR);
+    const bool valid = gi < nrow;
+    const float* xr = xs + gi * d + l;
+    float xv[F];
+    float dot = 0.0f;
+#pragma unroll
+    for (int f = 0; f < F; ++f) {
+      xv[f] = valid && f < nf ? xr[L * f] : 0.0f;
+      dot = fmaf(xv[f], wv[f], dot);
+    }
+    if (L <= 32) {
+      for (int off = L / 2; off > 0; off >>= 1)
+        dot += __shfl_xor_sync(0xffffffffu, dot, off);
+    } else {  // the row is L / 32 warps: a butterfly each, then in order
+      for (int off = 16; off > 0; off >>= 1)
+        dot += __shfl_xor_sync(0xffffffffu, dot, off);
+      if (lane == 0) wred[warp] = dot;
+      __syncthreads();
+      const int w0 = gi * (L / 32);
+      dot = wred[w0];
+      for (int k = 1; k < L / 32; ++k) dot += wred[w0 + k];
+    }
+    if (valid) {
+      const float yr = xs[pl.x_floats + gi];
+      const float coef = hinge_coef(__fmul_rn(yr, dot), yr, p);
+#pragma unroll
+      for (int f = 0; f < F; ++f) acc[f] = fmaf(coef, xv[f], acc[f]);
+    }
+  }
+  sm90::cp_async_wait<0>();
+  __syncthreads();  // the ring is free: the groups' sums go in stage 0
+  float* red = sm;  // (NT / L, d): rows * d <= a stage's x part
+#pragma unroll
+  for (int f = 0; f < F; ++f)
+    if (f < nf) red[gi * d + l + L * f] = acc[f];
+  __syncthreads();
+  for (int half = TR / 2; half > 0; half >>= 1) {
+    for (int e = tid; e < half * d; e += NT) red[e] += red[e + half * d];
+    __syncthreads();
+  }
+  for (int j = tid; j < d; j += NT) part[(size_t)blockIdx.x * d + j] = red[j];
+}
+
+// B7, first launch, for rows wider than b7_ring_kernel takes: block b's
+// partial X^T coef (rows [b rows, (b+1) rows)) into part[b], in CHUNK-row
+// pieces (block_backproject).
 __global__ void __launch_bounds__(NT, 4)
-odm_grad_partial_kernel(const float* __restrict__ w,
-                        const float* __restrict__ x,
-                        const float* __restrict__ y, float* __restrict__ part,
-                        int M, int d, int rows, Hinge p) {
+odm_grad_wide_kernel(const float* __restrict__ w, const float* __restrict__ x,
+                     const float* __restrict__ y, float* __restrict__ part,
+                     long long M, int d, int rows, Hinge p) {
   __shared__ float dc[CHUNK], red[NT];
   const int b = blockIdx.x;
-  const int r0 = b * rows;
-  block_backproject<false>(x + (size_t)r0 * d, y + r0, nullptr, nullptr, w,
-                           nullptr, min(rows, M - r0), d, p,
+  const long long r0 = (long long)b * rows;
+  block_backproject<false>(x + r0 * d, y + r0, nullptr, nullptr, w, nullptr,
+                           (int)min((long long)rows, M - r0), d, p,
                            part + (size_t)b * d, dc, red);
 }
 
@@ -470,14 +619,35 @@ extern "C" int odm_svrg_epoch_mode(int b, int d) {
   return plan.stage ? 2 : plan.cache ? 1 : 0;
 }
 
-// Row blocks of B7's first launch for M rows: the caller sizes part as
-// (odm_grad_blocks(M), d).
-extern "C" int odm_grad_blocks(int M) {
+// Partial blocks of B7's first launch for (M, d): the caller sizes part
+// as (odm_grad_blocks(M, d), d).
+extern "C" int odm_grad_blocks(int M, int d) {
+  const B7Plan pl = b7_plan(M, d);
+  if (pl.lanes) return pl.ctas;
   const int rows = b7_rows(M);
   return (M + rows - 1) / rows;
 }
 
-// B7. w (d), x (M, d), y (M), part (odm_grad_blocks(M), d) scratch ->
+template <int F>
+int launch_b7_ring(const float* w, const float* x, const float* y,
+                   float* part, long long M, int d, const B7Plan& pl,
+                   const Hinge& p, cudaStream_t st) {
+  const int bytes = B7_STAGES * pl.stage * static_cast<int>(sizeof(float));
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        b7_ring_kernel<F>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  // 16-byte copies need every tile's slab 16-byte aligned
+  const bool vec = reinterpret_cast<size_t>(x) % 16 == 0 &&
+                   (static_cast<long long>(pl.rows) * d) % 4 == 0;
+  b7_ring_kernel<F><<<pl.ctas, NT, bytes, st>>>(w, x, y, part, M, d, pl, vec,
+                                                p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// B7. w (d), x (M, d), y (M), part (odm_grad_blocks(M, d), d) scratch ->
 // out (d); fp32, contiguous. s = lam / (M (1 - theta)^2).
 extern "C" int odm_grad_f32(const float* w, const float* x, const float* y,
                             float* part, float* out, int M, int d, float s,
@@ -485,13 +655,24 @@ extern "C" int odm_grad_f32(const float* w, const float* x, const float* y,
                             float hi_edge, void* stream) {
   if (d <= 0) return 0;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const int rows = b7_rows(M);
-  const int nb = (M + rows - 1) / rows;
+  const Hinge p = make_hinge(s, theta, ups, lo_edge, hi_edge);
+  const B7Plan pl = b7_plan(M, d);
+  const int nb = odm_grad_blocks(M, d);
   if (nb > 0) {
-    odm_grad_partial_kernel<<<nb, NT, 0, st>>>(
-        w, x, y, part, M, d, rows,
-        make_hinge(s, theta, ups, lo_edge, hi_edge));
-    const int code = static_cast<int>(cudaGetLastError());
+    int code;
+    if (!pl.lanes) {
+      odm_grad_wide_kernel<<<nb, NT, 0, st>>>(w, x, y, part, M, d, b7_rows(M),
+                                              p);
+      code = static_cast<int>(cudaGetLastError());
+    } else if (pl.feats == 8) {
+      code = launch_b7_ring<8>(w, x, y, part, M, d, pl, p, st);
+    } else if (pl.feats == 16) {
+      code = launch_b7_ring<16>(w, x, y, part, M, d, pl, p, st);
+    } else if (pl.feats == 24) {
+      code = launch_b7_ring<24>(w, x, y, part, M, d, pl, p, st);
+    } else {
+      code = launch_b7_ring<32>(w, x, y, part, M, d, pl, p, st);
+    }
     if (code != 0) return code;
   }
   odm_grad_reduce_kernel<<<d, NT, 0, st>>>(w, part, out, nb, d);

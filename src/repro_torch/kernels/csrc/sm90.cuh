@@ -1,7 +1,7 @@
 // Hopper (sm_90a) building blocks in inline PTX: mbarriers, TMA tile
 // loads and stores, wgmma shared-memory descriptors and the wgmma
 // instructions that B9's bf16 kernel (flash_attn.cu) issues, and the
-// cp.async copies that B9's fp32 kernel and B6's epoch kernel
+// cp.async copies that B9's fp32 kernel, B6's epoch kernel and B7
 // (odm_grad.cu) stage their operands with. No CUTLASS: the build stays a
 // plain nvcc -c of each source.
 #pragma once

@@ -6,8 +6,9 @@ Port of ``repro.kernels.odm_grad``. Two fused passes share one layout:
 
       grad p(w) = w + s · Xᵀ[(lo + ups·hi) ⊙ y],  s = lam / (M (1-θ)²)
 
-  B7 (``csrc/odm_grad.cu``): a grid over blocks of 64 to 256 rows writes
-  a (n_blocks, d) partial buffer, a second launch sums it per column in
+  B7 (``csrc/odm_grad.cu``): about two CTAs an SM, each over a fixed
+  range of rows that streams through a shared-memory ring, write a
+  (n_blocks, d) partial buffer; a second launch sums it per column in
   block order and adds ``w``. X is read from device memory once.
 * :func:`odm_svrg_grad` — the DSVRG inner-step direction
 
@@ -209,7 +210,7 @@ def launch_odm_grad(w: Tensor, x: Tensor, y: Tensor, *, lam: float,
     _check_f32("x", x, (M, d))
     _check_f32("y", y, (M,))
     lib = _build.library()
-    part = torch.empty(lib.odm_grad_blocks(M), d, dtype=torch.float32,
+    part = torch.empty(lib.odm_grad_blocks(M, d), d, dtype=torch.float32,
                        device=x.device)
     out = torch.empty_like(w)
     s = lam / (M * (1.0 - theta) ** 2)

@@ -406,8 +406,14 @@ def test_odm_svrg_grad_takes_a_strided_chain_axis(dev):
         assert _rel(got, want) < 1e-5
 
 
+# B7's shapes: SUSY's and a7a's widths; M off a CTA's range of tiles
+# (100,003 rows) and M = 1; rows of several warps whose tiles are not
+# 16-byte aligned (d = 3,001: 4-byte copies); rows past the ring kernel's
+# 8,192 features (d = 9,000: the chunked kernel)
 @pytest.mark.parametrize("M,d", [(4096, 18), (4800, 5000), (1000, 7),
-                                 (3, 2)])
+                                 (3, 2), (262_144, 18), (26_048, 123),
+                                 (100_003, 18), (1, 18), (500, 3001),
+                                 (300, 9000)])
 def test_odm_grad_matches_plain_and_repeats(dev, M, d):
     rng = np.random.default_rng(8)
     x = torch.tensor(rng.standard_normal((M, d)) / np.sqrt(d),
@@ -609,31 +615,67 @@ def _cd_problem(dev, K, m, seed=11, lam=100.0):
     return q, ODMParams(lam=lam)
 
 
-@pytest.mark.parametrize("K,m,warm", [(4, 100, False), (1, 700, True),
-                                      (2, 2500, False)])
-def test_cd_exact_equals_plain(dev, K, m, warm):
-    """Same sweeps per partition, alpha and u equal bit for bit; m = 2,500
-    takes the register prefetch and the loop beyond it."""
-    q, params = _cd_problem(dev, K, m)
-    a0 = None
-    if warm:
-        a0 = dual_cd.solve_plain(q, params, float(m), tol=1e-2,
-                                 max_sweeps=3).alpha
-    kw = dict(mscale=float(m), alpha0=a0, tol=1e-4, max_sweeps=40)
-    before = dual_cd.solve.launches
-    got = dual_cd.solve(q, params, **kw)
-    torch.cuda.synchronize()
-    assert dual_cd.solve.launches == before + 1
-    want = dual_cd.solve_plain(q, params, **kw)
+def _cd_start(q, params, m, warm):
+    """None (cold), a rough start (3 plain sweeps to 1e-2) or one near the
+    optimum (K4 to 1e-3), where most steps of a sweep have delta = 0."""
+    if warm == "rough":
+        return dual_cd.solve_plain(q, params, float(m), tol=1e-2,
+                                   max_sweeps=3).alpha
+    if warm == "near":
+        return dual_cd.solve(q, params, float(m), tol=1e-3,
+                             max_sweeps=400).alpha
+    return None
+
+
+def _cd_equal(got, want):
     assert torch.equal(got.sweeps.cpu(), want.sweeps.cpu())
     assert torch.equal(got.alpha, want.alpha)
     assert torch.equal(got.u, want.u)
     assert torch.equal(got.kkt, want.kkt)
 
 
+# the cascade's level-3 shape (K = 8, m = 1,104) for a few sweeps; m =
+# 1,103 (rows not 16-byte aligned before padding); m = 3 (2m under one
+# batch of 32 coordinates, a row twice in a batch); a start near the
+# optimum, where most steps have delta = 0; m = 2,500
+@pytest.mark.parametrize("K,m,warm,sweeps", [
+    (4, 100, None, 40), (1, 700, "rough", 40), (2, 2500, None, 40),
+    (8, 1104, None, 3), (1, 1103, None, 10), (2, 3, None, 40),
+    (1, 700, "near", 40)])
+def test_cd_exact_equals_plain(dev, K, m, warm, sweeps):
+    """Same sweeps per partition, alpha, u and the KKT equal bit for
+    bit."""
+    q, params = _cd_problem(dev, K, m)
+    kw = dict(mscale=float(m), alpha0=_cd_start(q, params, m, warm),
+              tol=1e-4 if warm != "near" else 1e-5, max_sweeps=sweeps)
+    before = dual_cd.solve.launches
+    got = dual_cd.solve(q, params, **kw)
+    torch.cuda.synchronize()
+    assert dual_cd.solve.launches == before + 1
+    _cd_equal(got, dual_cd.solve_plain(q, params, **kw))
+
+
+@pytest.mark.parametrize("warps", [1, 4, 8, 16])
+@pytest.mark.parametrize("device_state", [False, True],
+                         ids=["smem", "device"])
+def test_cd_exact_every_width_equals_plain(dev, warps, device_state):
+    """Every block width, with alpha and u in shared or in device memory,
+    gives the plain version's bits (m = 1,103: a ragged last batch of
+    coordinates and rows not 16-byte aligned before padding)."""
+    q, params = _cd_problem(dev, 2, 1103)
+    kw = dict(mscale=1103.0, alpha0=_cd_start(q, params, 1103, "rough"),
+              tol=1e-4, max_sweeps=6)
+    plan = dual_cd.solve_plan(1103, warps, device_state)
+    assert plan == dict(warps=warps, in_smem=not device_state)
+    got = dual_cd.launch_solve(q, params, warps=warps,
+                               device_state=device_state, **kw)
+    _cd_equal(got, dual_cd.solve_plain(q, params, **kw))
+
+
 def test_cd_exact_large_m_keeps_state_in_device_memory(dev):
     """m = 13,000: 4m floats exceed the shared-memory budget, so alpha
     and u stay in device memory; two sweeps against the plain version."""
+    assert not dual_cd.solve_plan(13_000)["in_smem"]
     q, params = _cd_problem(dev, 1, 13_000, lam=10.0)
     kw = dict(mscale=13_000.0, tol=0.0, max_sweeps=2)
     got = dual_cd.solve(q, params, **kw)

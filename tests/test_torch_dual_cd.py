@@ -80,3 +80,43 @@ def test_solve_warm_start_within_tol_runs_zero_sweeps():
     assert torch.equal(again.alpha, res.alpha)
     assert float(tcd.kkt_from_u(res.u, res.alpha, params, float(m))) <= \
         float(np.float32(1e-6))
+
+
+@pytest.mark.parametrize("m", [1, 3, 4, 5, 24, 1103])
+def test_transpose_padded_aligns_rows_of_the_transpose(m):
+    """K4's copy of Q: row r is the reference's column Q[:, r], in rows
+    of a stride padded to a multiple of 4 floats with zeros, so that every
+    row is 16-byte aligned for the kernel's ring."""
+    Q = torch.tensor(_q(2, m)).reshape(1, m, m).expand(2, m, m).clone()
+    Q[1] *= 2.0
+    qt = tcd.transpose_padded(Q)
+    ld = qt.shape[-1]
+    assert qt.shape == (2, m, ld) and ld % 4 == 0 and m <= ld < m + 4
+    assert qt.is_contiguous()
+    assert torch.equal(qt[..., :m], Q.transpose(-1, -2))
+    assert torch.equal(qt[..., m:], torch.zeros(2, m, ld - m))
+
+
+def test_solve_plain_counts_moving_steps():
+    """``moves`` counts the steps whose delta is nonzero, per partition,
+    and leaves the result as it was. A sweep visits each coordinate once,
+    so its moving steps are the coordinates whose alpha changed."""
+    m = 24
+    Q = torch.tensor(np.stack([_q(3, m), _q(4, m)]))
+    p = ODMParams(lam=10.0)
+    kw = dict(mscale=float(m), tol=1e-5, max_sweeps=5)
+    moves = torch.zeros(2, dtype=torch.int64)
+    got = tcd.solve_plain(Q, p, moves=moves, **kw)
+    want = tcd.solve_plain(Q, p, **kw)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert got.sweeps.tolist() == [5, 5]
+    alpha, u = torch.zeros(2, 2 * m), torch.zeros(2, m)
+    qd = torch.diagonal(Q, dim1=-2, dim2=-1)
+    changed = torch.zeros(2, dtype=torch.int64)
+    for _ in range(5):
+        before = alpha.clone()
+        tcd._sweep(Q, qd, alpha, u, torch.ones(2, dtype=torch.bool), p,
+                   float(m))
+        changed += (alpha != before).sum(-1)
+    assert torch.equal(moves, changed)
+    assert (moves > 0).all() and (moves < 5 * 2 * m).all()
