@@ -24,9 +24,7 @@ them; rbf at the median gamma):
 * K4 at the cascade's level 3 on phishing (K=8 partitions of m=1,104,
   cold, tol 1e-4, the 100-sweep cap) and at a merged node (K=1, m=2,208,
   warm from partitions 0 and 1 of level 3), as chip_smoke.py phase 2c
-  runs them; where the checkout's K4 takes a block width
-  (``launch_solve(warps=)``), every width (1, 4, 8, 16 warps) too,
-  checked bit for bit against the default's result.
+  runs them.
 * B7 at SUSY's 4,000,000 x 18 and at 4,800 x 5,000 (gisette's width),
   device time with the card held while the calls are queued.
 * The cascade's fit on phishing (chip_smoke.py phase 8: CFG_CASCADE,
@@ -48,7 +46,6 @@ chip_smoke.py lays out its phase-2 partitions and K1 tiles with
 from __future__ import annotations
 
 import argparse
-import inspect
 import json
 import statistics
 import subprocess
@@ -243,8 +240,7 @@ def host_costs(res, phi, g_phi, ckw, gen, dev) -> None:
 
 
 def k4_times(res, phi, g_phi, rounds, dev) -> None:
-    """K4 at the cascade's level 3 and at a merged node (chip_smoke 2c),
-    with every block width where the checkout's K4 takes one."""
+    """K4 at the cascade's level 3 and at a merged node (chip_smoke 2c)."""
     p_cas = ODMParams(lam=100.0, theta=0.1, ups=0.5)
     m3 = phi.x_train.shape[0] // 8
     rbf = dict(kind="rbf", gamma=g_phi, degree=3, coef0=1.0)
@@ -258,25 +254,12 @@ def k4_times(res, phi, g_phi, rounds, dev) -> None:
     q2 = gram_mod.gram(x3[None, :2 * m3], None, y3[None, :2 * m3], **rbf)
     kw2 = dict(mscale=float(2 * m3), alpha0=a_warm.contiguous(), tol=1e-4,
                max_sweeps=100)
-    widths = "warps" in inspect.signature(dual_cd.launch_solve).parameters
     for name, q, kw in (("k4_cascade_l3", q3, kw3),
                         ("k4_merged_warm", q2, kw2)):
-        ref = dual_cd.launch_solve(q, p_cas, **kw)
-        res[name + "_sweeps"] = ref.sweeps.tolist()
+        call = lambda: dual_cd.launch_solve(q, p_cas, **kw)
+        res[name + "_sweeps"] = call().sweeps.tolist()
         res[name + "_ms"] = statistics.median(
-            _ms(lambda: dual_cd.launch_solve(q, p_cas, **kw), 3)
-            for _ in range(rounds))
-        if not widths:
-            continue
-        res[name + "_plan"] = dual_cd.solve_plan(q.shape[-1])
-        for nw in (1, 4, 8, 16):
-            call = lambda: dual_cd.launch_solve(q, p_cas, warps=nw, **kw)
-            got = call()
-            if not all(torch.equal(a, b) for a, b in zip(got, ref)):
-                raise SystemExit(f"K4 {name} warps={nw} differs from the "
-                                 "default's result")
-            res[f"{name}_ms_w{nw}"] = statistics.median(
-                _ms(call, 3) for _ in range(rounds))
+            _ms(call, 3) for _ in range(rounds))
 
 
 def b7_times(res, gen, rounds, dev) -> None:

@@ -70,8 +70,8 @@ Phases (any failed check exits nonzero):
    (torch.equal); K4 (the exact dual CD solve) at the cascade's level 3
    (K=8, m=1,104, cold) and at (K=1, m=2,208, warm), after cd_exact.cu's
    registers, shared memory and spills: the same sweeps per partition and
-   alpha, u and the KKT equal bit for bit, with its block width, window
-   and ring depth, and its us and cycles a step of the longest chain
+   alpha, u and the KKT equal bit for bit, where its state lives, and
+   its us and cycles a step of the longest chain
    (sweeps x 2m) and a moving step (delta != 0, counted by the plain
    version) at the SM clock nvidia-smi reads during the timed calls.
    Device times beside the bound and, for B8, the exp(-gamma cdist^2) *
@@ -1155,14 +1155,15 @@ def main() -> None:
         steps = max(1, int(sw.max()) * 2 * m)
         moving = max(1, int(moves[int(torch.argmax(sw))]))
         us_step, us_move = ms * 1e3 / steps, ms * 1e3 / moving
-        plan = dual_cd.solve_plan(m)
+        smem = dual_cd.state_in_smem(m)
         b_ms, b_by = bound(4 * (K_ * m * m + 5 * K_ * m + 2 * K_),
                            float(torch.sum(sw)) * 2 * m * (2 * m + 10))
         say(f"K4 cd_exact {label}: sweeps={got.sweeps.tolist()} "
             f"kkt_max={float(got.kkt.max()):.3e} sweeps, alpha, u and kkt "
             f"equal bit for bit; ms={ms:.3f} plain_ms={plain_ms:.1f} "
             + bound_text(b_ms, b_by, derate)
-            + f"; plan {plan}; {steps} steps on the longest chain, {moving}"
+            + f"; state in {'shared' if smem else 'device'} memory; "
+            f"{steps} steps on the longest chain, {moving}"
             f" moving ({moving / steps:.3f}): {us_step:.4f} us "
             f"({us_step * mhz:.0f} cycles) a step, {us_move:.4f} us "
             f"({us_move * mhz:.0f} cycles) a moving step at {mhz:.0f} MHz")

@@ -24,7 +24,6 @@ own sweep count.
 """
 from __future__ import annotations
 
-import ctypes
 from typing import NamedTuple
 
 import numpy as np
@@ -153,29 +152,19 @@ def transpose_padded(Q: Tensor) -> Tensor:
     return qt
 
 
-def solve_plan(m: int, warps: int = 0, device_state: bool = False) -> dict:
-    """K4's shape at m: its block width for the requested ``warps`` (0:
-    the measured default) and whether alpha and u live in shared memory
-    (``in_smem``; ``device_state`` keeps them in device memory). Needs the
-    built library."""
-    out = (ctypes.c_int * 2)()
-    _build.check(_build.library().cd_exact_plan(m, warps, int(device_state),
-                                                out), "cd_exact_plan")
-    return dict(warps=out[0], in_smem=bool(out[1]))
+def state_in_smem(m: int) -> bool:
+    """Whether K4 keeps alpha and u in shared memory at m (else in device
+    memory). Needs the built library."""
+    return bool(_build.library().cd_exact_state_in_smem(m))
 
 
 def launch_solve(Q: Tensor, params: ODMParams, mscale: float,
                  alpha0: Tensor | None = None, tol: float = 1e-5,
-                 max_sweeps: int = 200, u0: Tensor | None = None, *,
-                 warps: int = 0, device_state: bool = False) -> CDResult:
+                 max_sweeps: int = 200, u0: Tensor | None = None) -> CDResult:
     """K4 on CUDA tensors: Q (K, m, m), alpha0 (K, 2m), u0 (K, m). The
     start's cache is computed here as the plain version computes it, and
     Q is handed over transposed (:func:`transpose_padded`) so the kernel
-    reads the reference's column Q[:, row] as one aligned row. ``warps``
-    picks the block width (1, 4, 8 or 16; 0 takes the measured choice,
-    :func:`solve_plan`) and ``device_state`` keeps alpha and u in device
-    memory where they would fit in shared memory; every choice gives the
-    same bits."""
+    reads the reference's column Q[:, row] as one aligned row."""
     K, m, _ = Q.shape
     if Q.dtype != torch.float32 or Q.shape != (K, m, m) or m == 0:
         raise ValueError(f"Q: expected a float32 (K, m, m) tensor with "
@@ -188,6 +177,7 @@ def launch_solve(Q: Tensor, params: ODMParams, mscale: float,
                          f"{tuple(u.shape)}")
     qt = transpose_padded(Q)
     qd = torch.diagonal(Q, dim1=-2, dim2=-1).contiguous()
+    # u's two buffers, used where they do not fit in shared memory
     scratch = torch.empty(K, 2, qt.shape[-1], dtype=torch.float32,
                           device=Q.device)
     sweeps = torch.empty(K, dtype=torch.int32, device=Q.device)
@@ -201,8 +191,8 @@ def launch_solve(Q: Tensor, params: ODMParams, mscale: float,
             _build.ptr(qt), qt.shape[-1], _build.ptr(qd), _build.ptr(alpha),
             _build.ptr(u), _build.ptr(scratch), _build.ptr(sweeps),
             _build.ptr(kkt), K, m, max_sweeps, _f32(tol), cz, cb,
-            params.theta - 1.0, params.theta + 1.0, warps,
-            int(device_state), _build.stream_handle(Q.device))
+            params.theta - 1.0, params.theta + 1.0,
+            _build.stream_handle(Q.device))
     _build.check(code, "cd_exact")
     return CDResult(alpha=alpha, u=u, sweeps=sweeps, kkt=kkt)
 

@@ -116,8 +116,8 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.gram_f32.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, F,
                              P]
     lib.cd_exact_f32.argtypes = [P, I, P, P, P, P, P, P, I, I, I, F, F, F,
-                                 F, F, I, I, P]
-    lib.cd_exact_plan.argtypes = [I, I, I, ctypes.POINTER(I)]
+                                 F, F, P]
+    lib.cd_exact_state_in_smem.argtypes = [I]
     lib.flash_attn_fwd.argtypes = [P, P, P, P, I, I, I, I, I, I, I,
                                    ctypes.POINTER(L), F, I, I, P]
     lib.flash_attn_smem.argtypes = [I, I]
@@ -125,7 +125,8 @@ def _declare(lib: ctypes.CDLL) -> None:
                lib.cd_block_sweep_f32, lib.odm_svrg_grad_f32,
                lib.odm_svrg_epoch_f32, lib.odm_svrg_epoch_mode,
                lib.odm_grad_f32, lib.odm_grad_blocks, lib.gram_f32,
-               lib.cd_exact_f32, lib.cd_exact_plan, lib.flash_attn_fwd,
+               lib.cd_exact_f32, lib.cd_exact_state_in_smem,
+               lib.flash_attn_fwd,
                lib.flash_attn_smem):
         fn.restype = I
     lib.repro_error_string.argtypes = [I]

@@ -47,12 +47,13 @@
 //   the chain never waits on L2. Those loads queue behind the updaters'
 //   (the SM's outstanding misses are shared), which costs about as much as
 //   the chain itself at the cascade's shape: the next bottleneck.
-// Measured (H100 80GB HBM3, 700.00 W; bench_level.py): the cascade's level
-// 3 (K = 8, m = 1,104, 100 sweeps) in 28.2 ms at 4 warps, about 250
-// cycles a step at 1,980 MHz; the design before (512 threads, a row load
-// from L2 and two block barriers a moving step) took 108 ms, and a
-// shared-memory row ring refilled every step (cp.async or bulk copies, one
-// barrier a moving step) 89-150 ms.
+// Measured (H100 80GB HBM3, 700.00 W; bench_level.py, the parent in the
+// same run): the cascade's level 3 (K = 8, m = 1,104, 100 sweeps) in
+// 39.7 ms against 97.2 for the design before (512 threads, a row load
+// from L2 and two block barriers a moving step), about 360 cycles a step
+// at 1,980 MHz (chip_smoke.py phase 2c). A shared-memory row ring
+// refilled every step (cp.async or bulk copies, one barrier a moving
+// step) was no faster than the design before.
 // Every entry of u receives the plain version's rounded updates in the
 // plain version's order, alpha the plain version's values, and the KKT is
 // the plain version's element for element with an order-free max: sweeps,
@@ -68,15 +69,17 @@
 namespace {
 
 constexpr int B = 32;  // coordinates a batch: one lane of the chain warp each
+// Warps a CTA: the chain warp and three updaters. Measured against 1, 8
+// and 16 (PERF.md): one warp runs the chain and the update in turn, and
+// more updaters leave the chain warp's loads further behind theirs.
+constexpr int NW = 4, NTR = NW * 32;
 constexpr int SMEM_MAX = 200 * 1024;
-constexpr int DEFAULT_WARPS = 4;  // the measured choice (PERF.md)
 
 // max that propagates NaN (torch.amax's rule); order-free otherwise
 __device__ __forceinline__ float nanmax(float a, float b) {
   return (a > b || a != a) ? a : b;
 }
 
-template <int NW>
 __device__ float block_max(float v, float* red) {
   for (int off = 16; off > 0; off >>= 1)
     v = nanmax(v, __shfl_xor_sync(0xffffffffu, v, off));
@@ -89,11 +92,10 @@ __device__ float block_max(float v, float* red) {
 }
 
 // max over j of the projected violation of zeta_j and beta_j
-template <int NW>
 __device__ float kkt(const float* a, const float* u, int m, float cz,
                      float cb, float tm1, float tp1, float* red) {
   float v = -CUDART_INF_F;
-  for (int j = threadIdx.x; j < m; j += NW * 32) {
+  for (int j = threadIdx.x; j < m; j += NTR) {
     const float zj = a[j], bj = a[m + j];
     const float gz = __fadd_rn(__fadd_rn(u[j], __fmul_rn(cz, zj)), tm1);
     const float gb = __fadd_rn(__fadd_rn(-u[j], __fmul_rn(cb, bj)), tp1);
@@ -101,7 +103,7 @@ __device__ float kkt(const float* a, const float* u, int m, float cz,
     const float pb = bj > 0.0f ? fabsf(gb) : fmaxf(-gb, 0.0f);
     v = nanmax(v, nanmax(pz, pb));
   }
-  return block_max<NW>(v, red);
+  return block_max(v, red);
 }
 
 // u + sd * q per element, rounded at each step (the plain version's order)
@@ -127,9 +129,7 @@ struct CDArgs {
 
 // One CTA of NW warps a partition (see the note at the top). Shared
 // memory, in floats, when in_smem: alpha 2 ld, u's two buffers 2 ld.
-template <int NW>
-__global__ void __launch_bounds__(NW * 32, 1) cd_chain_kernel(CDArgs g) {
-  constexpr int NTR = NW * 32;
+__global__ void __launch_bounds__(NTR, 1) cd_chain_kernel(CDArgs g) {
   extern __shared__ __align__(16) float sm[];
   __shared__ float red[NW];
   __shared__ float sdv[2][B];  // the signed deltas of the last two batches
@@ -149,9 +149,9 @@ __global__ void __launch_bounds__(NW * 32, 1) cd_chain_kernel(CDArgs g) {
     ub[j] = j < m ? ug[j] : 0.0f;
     ub[ld + j] = 0.0f;
   }
-  // the updaters: every warp but the chain warp, or the one warp there is
-  const bool updater = NW == 1 || warp > 0;
-  const int ut = NW == 1 ? tid : tid - 32, unt = NW == 1 ? 32 : NTR - 32;
+  // the updaters: every warp but the chain warp
+  const bool updater = warp > 0;
+  const int ut = tid - 32, unt = NTR - 32;
   auto row_of = [m](int st) { return st < m ? st : st - m; };
 
   // u(p ^ 1) = u(p) + the batch of n steps from step s0, deltas sd; a full
@@ -214,7 +214,7 @@ __global__ void __launch_bounds__(NW * 32, 1) cd_chain_kernel(CDArgs g) {
   __syncthreads();
 
   int p = 0;  // u's buffer holding the state before the pending batch
-  float res = kkt<NW>(a, ub, m, cz, cb, tm1, tp1, red);
+  float res = kkt(a, ub, m, cz, cb, tm1, tp1, red);
   int s = 0;
   while (s < g.max_sweeps && res > g.tol) {
     int p0 = 0, pn = 0;  // the batch whose update is pending
@@ -275,7 +275,7 @@ __global__ void __launch_bounds__(NW * 32, 1) cd_chain_kernel(CDArgs g) {
     __syncthreads();
     p ^= 1;
     ++s;
-    res = kkt<NW>(a, ub + p * ld, m, cz, cb, tm1, tp1, red);
+    res = kkt(a, ub + p * ld, m, cz, cb, tm1, tp1, red);
   }
   const float* u = ub + p * ld;
   if (g.in_smem)
@@ -287,35 +287,13 @@ __global__ void __launch_bounds__(NW * 32, 1) cd_chain_kernel(CDArgs g) {
   }
 }
 
-template <int NW>
-int launch(const CDArgs& a, int K, cudaStream_t st) {
-  const int bytes =
-      a.in_smem ? 4 * a.ld * static_cast<int>(sizeof(float)) : 0;
-  if (bytes > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        cd_chain_kernel<NW>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        bytes);
-    if (e != cudaSuccess) return static_cast<int>(e);
-  }
-  cd_chain_kernel<NW><<<K, NW * 32, bytes, st>>>(a);
-  return static_cast<int>(cudaGetLastError());
-}
-
 }  // namespace
 
-// K4's shape at m for a requested block width (0: the measured default;
-// 1, 4, 8 or 16 warps) and placement (device_state: keep u and alpha in
-// device memory even where they fit in shared memory): out[0] warps,
-// out[1] 1 when the state is in shared memory. Returns
-// cudaErrorInvalidValue for a width with no kernel.
-extern "C" int cd_exact_plan(int m, int warps, int device_state, int* out) {
-  warps = warps ? warps : DEFAULT_WARPS;
-  if (warps != 1 && warps != 4 && warps != 8 && warps != 16)
-    return static_cast<int>(cudaErrorInvalidValue);
+// 1 when K4 keeps alpha and u in shared memory at m, 0 when in device
+// memory.
+extern "C" int cd_exact_state_in_smem(int m) {
   const size_t ld = (m + 3) / 4 * 4;
-  out[0] = warps;
-  out[1] = !device_state && 4 * ld * sizeof(float) <= (size_t)SMEM_MAX;
-  return 0;
+  return 4 * ld * sizeof(float) <= (size_t)SMEM_MAX ? 1 : 0;
 }
 
 // qt (K, m, ld) = Q transposed per partition (row r of qt is column r of
@@ -324,27 +302,24 @@ extern "C" int cd_exact_plan(int m, int warps, int device_state, int* out) {
 // and receive the result; scratch (K, 2, ld) fp32 holds u's buffers when
 // they stay in device memory; sweeps (K,) int32 and kkt (K,) fp32 are
 // outputs. cz = mscale*c*ups, cb = mscale*c, tm1 = theta - 1, tp1 =
-// theta + 1, all rounded to fp32 as the plain version rounds them. warps
-// and device_state as for cd_exact_plan. Returns cudaGetLastError() of the
-// launch.
+// theta + 1, all rounded to fp32 as the plain version rounds them. Returns
+// cudaGetLastError() of the launch.
 extern "C" int cd_exact_f32(const float* qt, int ld, const float* qd,
                             float* alpha, float* u, float* scratch,
                             int* sweeps, float* kkt_out, int K, int m,
                             int max_sweeps, float tol, float cz, float cb,
-                            float tm1, float tp1, int warps,
-                            int device_state, void* stream) {
+                            float tm1, float tp1, void* stream) {
   if (m <= 0 || ld != (m + 3) / 4 * 4)
     return static_cast<int>(cudaErrorInvalidValue);
-  int plan[2];
-  const int bad = cd_exact_plan(m, warps, device_state, plan);
-  if (bad) return bad;
+  const int in_smem = cd_exact_state_in_smem(m);
   const CDArgs a{qt, qd, alpha, u, scratch, sweeps, kkt_out, m, ld,
-                 max_sweeps, plan[1], tol, cz, cb, tm1, tp1};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (plan[0]) {
-    case 1: return launch<1>(a, K, st);
-    case 4: return launch<4>(a, K, st);
-    case 8: return launch<8>(a, K, st);
-    default: return launch<16>(a, K, st);
+                 max_sweeps, in_smem, tol, cz, cb, tm1, tp1};
+  const int bytes = in_smem ? 4 * ld * static_cast<int>(sizeof(float)) : 0;
+  if (bytes > 48 * 1024) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        cd_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return static_cast<int>(e);
   }
+  cd_chain_kernel<<<K, NTR, bytes, static_cast<cudaStream_t>(stream)>>>(a);
+  return static_cast<int>(cudaGetLastError());
 }

@@ -655,33 +655,16 @@ def test_cd_exact_equals_plain(dev, K, m, warm, sweeps):
     _cd_equal(got, dual_cd.solve_plain(q, params, **kw))
 
 
-@pytest.mark.parametrize("warps", [1, 4, 8, 16])
-@pytest.mark.parametrize("device_state", [False, True],
-                         ids=["smem", "device"])
-def test_cd_exact_every_width_equals_plain(dev, warps, device_state):
-    """Every block width, with alpha and u in shared or in device memory,
-    gives the plain version's bits (m = 1,103: a ragged last batch of
-    coordinates and rows not 16-byte aligned before padding)."""
-    q, params = _cd_problem(dev, 2, 1103)
-    kw = dict(mscale=1103.0, alpha0=_cd_start(q, params, 1103, "rough"),
-              tol=1e-4, max_sweeps=6)
-    plan = dual_cd.solve_plan(1103, warps, device_state)
-    assert plan == dict(warps=warps, in_smem=not device_state)
-    got = dual_cd.launch_solve(q, params, warps=warps,
-                               device_state=device_state, **kw)
-    _cd_equal(got, dual_cd.solve_plain(q, params, **kw))
-
-
 def test_cd_exact_large_m_keeps_state_in_device_memory(dev):
     """m = 13,000: 4m floats exceed the shared-memory budget, so alpha
     and u stay in device memory; two sweeps against the plain version."""
-    assert not dual_cd.solve_plan(13_000)["in_smem"]
+    assert dual_cd.state_in_smem(12_800) and not dual_cd.state_in_smem(13_000)
     q, params = _cd_problem(dev, 1, 13_000, lam=10.0)
     kw = dict(mscale=13_000.0, tol=0.0, max_sweeps=2)
     got = dual_cd.solve(q, params, **kw)
     want = dual_cd.solve_plain(q, params, **kw)
     assert int(got.sweeps) == int(want.sweeps) == 2
-    assert torch.equal(got.alpha, want.alpha)
+    _cd_equal(got, want)
 
 
 def test_scalar_level_engine_runs_b8_and_k4(dev):

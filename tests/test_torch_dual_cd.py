@@ -120,3 +120,36 @@ def test_solve_plain_counts_moving_steps():
         changed += (alpha != before).sum(-1)
     assert torch.equal(moves, changed)
     assert (moves > 0).all() and (moves < 5 * 2 * m).all()
+
+
+@pytest.mark.parametrize("kind", ["any", "moderate", "subnormal"])
+def test_double_product_quotient_is_ieee(kind):
+    """K4 divides g / h as float(double(g) * RN64(1 / h)) with no branch
+    (csrc/cd_exact.cu): that must be IEEE's correctly rounded fp32
+    quotient, the plain version's, bit for bit, special values included."""
+    rng = np.random.default_rng({"any": 0, "moderate": 1, "subnormal": 2}[
+        kind])
+    n = 400_000
+    if kind == "any":  # every finite bit pattern, either sign
+        g, h = (rng.integers(0, 0x7F800000, n, dtype=np.int64)
+                .astype(np.uint32).view(np.float32) for _ in range(2))
+        g = np.where(rng.random(n) < 0.5, -g, g)
+    elif kind == "moderate":
+        g = (rng.standard_normal(n) * 10 ** rng.uniform(-8, 3, n))
+        h = rng.random(n) * 10 ** rng.uniform(-2, 4, n)
+    else:  # quotients near and below the normal range
+        g = rng.standard_normal(n) * 10 ** rng.uniform(-45, -30, n)
+        h = 2.0 ** rng.integers(-10, 10, n)
+    g, h = g.astype(np.float32), h.astype(np.float32)
+    special = np.array([0.0, -0.0, np.inf, -np.inf, np.nan, 1e-45, 3.4e38,
+                        1.0], np.float32)
+    g = np.concatenate([g, np.repeat(special, special.size)])
+    h = np.concatenate([h, np.tile(special, special.size)])
+    with np.errstate(all="ignore"):
+        want = g / h
+        got = (g.astype(np.float64) * (1.0 / h.astype(np.float64))).astype(
+            np.float32)
+    nan = np.isnan(want) & np.isnan(got)
+    assert np.array_equal(got.view(np.uint32)[~nan],
+                          want.view(np.uint32)[~nan])
+    assert np.array_equal(np.isnan(got), np.isnan(want))
