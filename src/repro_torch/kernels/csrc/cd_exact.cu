@@ -18,14 +18,13 @@
 // Design: batches of B = 32 consecutive coordinates and a delayed rank-B
 // update.
 // * The chain warp (warp 0) runs a batch with lane a on step i0 + a. Lane
-//   a holds u[r_a] in a register, its alpha, 1 / h and its column
-//   Q[r_a, r_b] of the batch's 32 x 32 diagonal block (from Q^T, whose rows
-//   the wrapper pads to ld, a multiple of 4). Step b: every lane forms its
-//   own candidate delta, a shuffle broadcasts lane b's, and every lane adds
-//   sd * Q[r_a, r_b] to its u[r_a]: about ten dependent instructions, no
-//   memory access and no branch (the plain version adds sign * delta *
-//   Q[:, row] on every step, zero or not, so the kernel does too; a step
-//   past a ragged batch's end adds zero).
+//   a holds u[r_a] in a register, its alpha and 1 / h, and reads its
+//   column Q[r_a, r_b] of the batch's 32 x 32 diagonal block from shared
+//   memory. Step b: every lane forms its own candidate delta, a shuffle
+//   broadcasts lane b's, and every lane adds sd * Q[r_a, r_b] to its
+//   u[r_a]: about ten dependent instructions and no branch (the plain
+//   version adds sign * delta * Q[:, row] on every step, zero or not, so
+//   the kernel does too; a step past a ragged batch's end adds zero).
 // * The division: g / h as float(double(g) * RN64(1 / h)). The product is
 //   within 2^-52 (relative) of g / h, and a quotient of two floats is never
 //   closer than 2^-49 to the midpoint of two floats (nor, for subnormal
@@ -42,15 +41,19 @@
 //   updates itself (the same operations in the same order, so the same
 //   bits). One block barrier a batch; each sweep ends with the last
 //   batch's update and the KKT's block max.
-// * At the start of a batch the chain warp loads the next batch's blocks
-//   (its diagonal block, and the current batch's rows at its columns), so
-//   the chain never waits on L2. Those loads queue behind the updaters'
-//   (the SM's outstanding misses are shared), which costs about as much as
-//   the chain itself at the cascade's shape: the next bottleneck.
+// * The chain warp's blocks (the next batch's diagonal block, and the
+//   current batch's rows at the next batch's columns) come into a second
+//   shared buffer by cp.async while the chain runs: lane b copies row b,
+//   eight 16-byte copies a block (Q^T's rows are padded to ld, a multiple
+//   of 4), element by element for the one batch a sweep whose columns wrap
+//   at the zeta -> beta turn or are not 16-byte aligned. As 64 scalar
+//   loads into registers a batch they held the chain warp as long as the
+//   chain itself: its loads queue behind the updaters' for the SM's
+//   outstanding misses.
 // Measured (H100 80GB HBM3, 700.00 W; bench_level.py, the parent in the
 // same run): the cascade's level 3 (K = 8, m = 1,104, 100 sweeps) in
-// 39.7 ms against 97.2 for the design before (512 threads, a row load
-// from L2 and two block barriers a moving step), about 360 cycles a step
+// about 22 ms against 109 for the design before (512 threads, a row load
+// from L2 and two block barriers a moving step), about 200 cycles a step
 // at 1,980 MHz (chip_smoke.py phase 2c). A shared-memory row ring
 // refilled every step (cp.async or bulk copies, one barrier a moving
 // step) was no faster than the design before.
@@ -66,13 +69,15 @@
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
+#include "sm90.cuh"
+
 namespace {
 
 constexpr int B = 32;  // coordinates a batch: one lane of the chain warp each
-// Warps a CTA: the chain warp and three updaters. Measured against 1, 8
-// and 16 (PERF.md): one warp runs the chain and the update in turn, and
-// more updaters leave the chain warp's loads further behind theirs.
-constexpr int NW = 4, NTR = NW * 32;
+// Warps a CTA: the chain warp and seven updaters. Measured against 4 and
+// 16 (PERF.md): 4 keeps pace at m = 1,104 but not at 2,208, 16 caps
+// ptxas at 128 registers and spills.
+constexpr int NW = 8, NTR = NW * 32;
 constexpr int SMEM_MAX = 200 * 1024;
 
 // max that propagates NaN (torch.amax's rule); order-free otherwise
@@ -133,6 +138,7 @@ __global__ void __launch_bounds__(NTR, 1) cd_chain_kernel(CDArgs g) {
   extern __shared__ __align__(16) float sm[];
   __shared__ float red[NW];
   __shared__ float sdv[2][B];  // the signed deltas of the last two batches
+  __shared__ __align__(16) float blk[2][2][B][B];  // the chain's blocks
   const int k = blockIdx.x, tid = threadIdx.x, lane = tid % 32;
   const int warp = tid / 32;
   const int m = g.m, ld = g.ld, nc = ld / 4, steps = 2 * m;
@@ -180,35 +186,42 @@ __global__ void __launch_bounds__(NTR, 1) cd_chain_kernel(CDArgs g) {
     }
   };
 
-  // chain-warp registers: lane a's column Q[r_a, r_b] of the batch's
-  // diagonal block (qb) and of the next batch's (qn), the previous batch's
-  // rows at this batch's columns (qp), diag(Q) at the next batch's rows
-  float qb[B], qn[B], qp[B], qdl = 0.0f;
-  // element b of lane's column of the block of Q^T at the rows of steps
-  // r0 .. r0 + nr - 1 and the columns of steps c0 .. c0 + ncol - 1, or 0
-  // outside it
-  auto block_at = [&](int r0, int nr, int c0, int ncol, int b) {
-    return lane < ncol && b < nr
-               ? __ldg(qk + (size_t)row_of(r0 + b) * ld +
-                       row_of(c0 + min(lane, ncol - 1)))
-               : 0.0f;
-  };
-  auto load_diag = [&](int i0) {
-    const int nb = min(B, steps - i0);
+  // The chain warp's blocks, double-buffered by batch: blk[q][0][b][a] =
+  // Q[r_a, r_b] over the batch's rows (its diagonal block), blk[q][1][b][a]
+  // = Q[r_a, r'_b] over the pending batch's rows r'. Lane b copies row b of
+  // each (a run of Q^T's row r_b) with 16-byte cp.async, 8 copies a block,
+  // where the run is aligned and does not wrap at the zeta -> beta turn,
+  // else element by element; lane a then reads column a.
+  auto stage = [&](int q, int which, int r0, int nr, int c0, int ncol) {
+    float* dst = &blk[q][which][lane][0];
+    const float* src = qk + (size_t)row_of(r0 + min(lane, nr - 1)) * ld;
+    const int col0 = row_of(c0);
+    if (lane < nr && ncol == B && col0 + B <= m && col0 % 4 == 0) {
 #pragma unroll
-    for (int b = 0; b < B; ++b) qn[b] = block_at(i0, nb, i0, nb, b);
-    qdl = lane < nb ? __ldg(qdk + row_of(i0 + lane)) : 0.0f;
+      for (int j = 0; j < B / 4; ++j)
+        sm90::cp_async16(dst + 4 * j, src + col0 + 4 * j, true);
+    } else {
+      for (int j = 0; j < B; ++j) {
+        if (lane < nr && j < ncol)
+          sm90::cp_async4(dst + j, src + row_of(c0 + j));
+        else
+          dst[j] = 0.0f;
+      }
+    }
   };
+  float qdl = 0.0f;  // diag(Q) at lane's row of the next batch
   // 1 / h of lane's step st, h = diag(Q) + c (qdl)
   auto recip = [&](int st) {
     return __drcp_rn(
         static_cast<double>(__fadd_rn(qdl, st < m ? cz : cb)));
   };
+  int bsel = 0;     // blk's buffer of the current batch
   double rq = 1.0;  // 1 / h of lane's step in the current batch
   if (warp == 0) {
-    load_diag(0);
-#pragma unroll
-    for (int b = 0; b < B; ++b) qb[b] = qn[b];
+    const int nb = min(B, steps);
+    stage(0, 0, 0, nb, 0, nb);
+    sm90::cp_async_commit();
+    qdl = lane < nb ? __ldg(qdk + row_of(lane)) : 0.0f;
     rq = recip(lane);
   }
   __syncthreads();
@@ -223,22 +236,27 @@ __global__ void __launch_bounds__(NTR, 1) cd_chain_kernel(CDArgs g) {
       if (warp == 0) {
         const int st = i0 + lane;
         const bool valid = lane < nb, z = st < m;
+        // this batch's blocks have landed, for every lane
+        sm90::cp_async_wait<0>();
+        __syncwarp();
+        const float(*qb)[B] = blk[bsel][0];
+        const float(*qp)[B] = blk[bsel][1];
         // lane's u: the buffer, then the pending (full) batch's updates
         float ur = valid ? ub[p * ld + row_of(st)] : 0.0f;
         if (pn > 0) {
           const float* sp = sdv[(kb - 1) & 1];
 #pragma unroll
           for (int b = 0; b < B; ++b)
-            ur = __fadd_rn(ur, __fmul_rn(sp[b], qp[b]));
+            ur = __fadd_rn(ur, __fmul_rn(sp[b], qp[b][lane]));
         }
-        // the next batch's blocks (qn and qp are free again)
+        // the next batch's blocks into the other buffer (every lane has
+        // read it: the syncwarp above)
         const int n0 = i0 + B < steps ? i0 + B : 0;
-        load_diag(n0);
-        if (n0 != 0) {
-          const int nn = min(B, steps - n0);
-#pragma unroll
-          for (int b = 0; b < B; ++b) qp[b] = block_at(i0, nb, n0, nn, b);
-        }
+        const int nn = min(B, steps - n0);
+        stage(bsel ^ 1, 0, n0, nn, n0, nn);
+        if (n0 != 0) stage(bsel ^ 1, 1, i0, nb, n0, nn);
+        sm90::cp_async_commit();
+        qdl = lane < nn ? __ldg(qdk + row_of(n0 + lane)) : 0.0f;
         const float al = valid ? a[st] : 0.0f;
         const float ca = __fmul_rn(z ? cz : cb, al), ct = z ? tm1 : tp1;
         // the chain: lane b's delta at step b; a step past the batch's
@@ -252,7 +270,7 @@ __global__ void __launch_bounds__(NTR, 1) cd_chain_kernel(CDArgs g) {
           const float nw = fmaxf(__fsub_rn(al, q), 0.0f);
           const float d = __fsub_rn(nw, al);
           const float sd = __shfl_sync(0xffffffffu, z ? d : -d, b);
-          ur = __fadd_rn(ur, __fmul_rn(sd, qb[b]));
+          ur = __fadd_rn(ur, __fmul_rn(sd, qb[b][lane]));
           if (lane == b) {
             nwm = nw;
             sdm = sd;
@@ -260,8 +278,7 @@ __global__ void __launch_bounds__(NTR, 1) cd_chain_kernel(CDArgs g) {
         }
         if (valid) a[st] = nwm;
         sdv[kb & 1][lane] = sdm;
-#pragma unroll
-        for (int b = 0; b < B; ++b) qb[b] = qn[b];
+        bsel ^= 1;
         rq = recip(n0 + lane);
       }
       if (updater && pn > 0) apply(p, p0, pn, sdv[(kb - 1) & 1]);
@@ -277,6 +294,7 @@ __global__ void __launch_bounds__(NTR, 1) cd_chain_kernel(CDArgs g) {
     ++s;
     res = kkt(a, ub + p * ld, m, cz, cb, tm1, tp1, red);
   }
+  if (warp == 0) sm90::cp_async_wait<0>();  // the last prefetch has landed
   const float* u = ub + p * ld;
   if (g.in_smem)
     for (int j = tid; j < steps; j += NTR) ag[j] = a[j];
@@ -315,7 +333,7 @@ extern "C" int cd_exact_f32(const float* qt, int ld, const float* qd,
   const CDArgs a{qt, qd, alpha, u, scratch, sweeps, kkt_out, m, ld,
                  max_sweeps, in_smem, tol, cz, cb, tm1, tp1};
   const int bytes = in_smem ? 4 * ld * static_cast<int>(sizeof(float)) : 0;
-  if (bytes > 48 * 1024) {
+  if (bytes > 0) {  // past 48 KB with the 17 KB of static shared memory
     const cudaError_t e = cudaFuncSetAttribute(
         cd_chain_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
     if (e != cudaSuccess) return static_cast<int>(e);
