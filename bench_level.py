@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Time K1 (greedy tile sweep), K2 (Gram matvec), K4 (the exact dual CD
-solve) and B7 (the DSVRG anchor gradient) at their main paths' shapes on
-one card.
+solve), B7 (the DSVRG anchor gradient) and B8 (the materialized Gram) at
+their main paths' shapes on one card, and the fits that run them.
 
-  PYTHONPATH=src python3 bench_level.py [--rounds 3] [--seed 0]
+  PYTHONPATH=src python3 bench_level.py [--rounds 3] [--seed 0] \
+      [--only k2,k1,host,k4,b7,b8,cascade,fits]
 
 Shapes (data from ``repro_torch.data.synthetic``, as chip_smoke.py makes
 them; rbf at the median gamma):
@@ -27,11 +28,25 @@ them; rbf at the median gamma):
   runs them.
 * B7 at SUSY's 4,000,000 x 18 and at 4,800 x 5,000 (gisette's width),
   device time with the card held while the calls are queued.
+* B8 (rbf, signed, z is x) at the cascade's level 3 (K=8, M=N=1,104,
+  D=68), at ijcnn1's level-3 diagonal tiles (448 tiles of 256 x 256,
+  D=22, zero labels on padding) and at phishing's dense level 3 (K=8,
+  M=N=1,280 padded, D=68), each beside ``kf.signed_gram`` (the plain
+  PyTorch the level engine ran before), device time with the card held
+  while the calls are queued; and the first 16 hex digits of
+  the SHA-256 of B8's output bytes at the cascade's shape and at ragged
+  shapes (every family at 1,000 x 777 x 68, z not x; rbf and laplacian
+  at K=3, M=N=1,103, z is x), to compare two checkouts bit for bit.
 * The cascade's fit on phishing (chip_smoke.py phase 8: CFG_CASCADE,
   levels=3, max_sweeps=100, lam=100), end to end through
   ``ODMEstimator``: the least fit time of three after a warm-up fit, its
   test accuracy and the sum of its decision values (to compare two
   checkouts' results).
+* ``fits``: Algorithm 1 on phishing and ijcnn1 and the dip and dc routes
+  on ijcnn1 (chip_smoke.py phases 3, 4 and 8: the pallas engine,
+  levels=3, max_sweeps=200, lam=100): the least fit time of two after a
+  warm-up fit, the passes per level, the peak device memory of a fit,
+  the test accuracy and the sum of the decision values.
 
 It prints one JSON line: the card's name and power limit, the build's
 hash, and per shape the median over ``--rounds`` of the mean ms per call
@@ -46,6 +61,7 @@ chip_smoke.py lays out its phase-2 partitions and K1 tiles with
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import statistics
 import subprocess
@@ -132,7 +148,7 @@ def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=3)
     ap.add_argument("--seed", type=int, default=0)
-    ap.add_argument("--only", default="k2,k1,host,k4,b7,cascade",
+    ap.add_argument("--only", default="k2,k1,host,k4,b7,b8,cascade,fits",
                     help="comma-separated groups to time (default: all)")
     args = ap.parse_args(argv)
     only = set(args.only.split(","))
@@ -202,8 +218,12 @@ def main(argv=None) -> dict:
         k4_times(res, phi, g_phi, args.rounds, dev)
     if "b7" in only:
         b7_times(res, gen, args.rounds, dev)
+    if "b8" in only:
+        b8_times(res, ijc, phi, g_ijc, g_phi, args.rounds, dev)
     if "cascade" in only:
         cascade_fit(res, phi, g_phi)
+    if "fits" in only:
+        level_fits(res, ijc, phi, g_ijc, g_phi)
 
     card = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -276,6 +296,78 @@ def b7_times(res, gen, rounds, dev) -> None:
         res[name + "_ms"] = statistics.median(
             _ms(lambda: og.launch_odm_grad(w_, x_, y_, **gkw), reps,
                 hold=True) for _ in range(rounds))
+
+
+def _sha(t: torch.Tensor) -> str:
+    return hashlib.sha256(t.cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def b8_times(res, ijc, phi, g_ijc, g_phi, rounds, dev) -> None:
+    """B8 at three level shapes beside kf.signed_gram; output hashes."""
+    m3 = phi.x_train.shape[0] // 8
+    xc = phi.x_train[:8 * m3].reshape(8, m3, -1).to(dev).contiguous()
+    yc = phi.y_train[:8 * m3].reshape(8, m3).to(dev).contiguous()
+    xi, yi = partitions(ijc.x_train, ijc.y_train, 8, dev)
+    xi, yi = xi.reshape(-1, 256, xi.shape[-1]), yi.reshape(-1, 256)
+    xd, yd = partitions(phi.x_train, phi.y_train, 8, dev)
+    for name, x, y, gamma, reps in (
+            ("b8_cascade_l3", xc, yc, g_phi, 20),
+            ("b8_ijcnn1_l3_tiles", xi, yi, g_ijc, 10),
+            ("b8_phishing_l3_dense", xd, yd, g_phi, 20)):
+        kw = dict(kind="rbf", gamma=gamma, degree=3, coef0=1.0)
+        xx = gram_mod.row_norms(x)
+        call = lambda: gram_mod.launch_gram(x, x, y, y, xx=xx, zz=xx, **kw)
+        if name == "b8_cascade_l3":
+            res[name + "_sha"] = _sha(call())
+        res[name + "_ms"] = statistics.median(
+            _ms(call, reps, hold=True) for _ in range(rounds))
+        spec = kf.KernelSpec("rbf", gamma)
+        res[name + "_signed_gram_ms"] = statistics.median(
+            _ms(lambda: kf.signed_gram(spec, x, y), reps, hold=True)
+            for _ in range(rounds))
+    xp = phi.x_train.to(dev).contiguous()
+    xr, zr = xp[None, :1000], xp[None, -777:]
+    for kind, gamma in (("rbf", g_phi), ("laplacian", g_phi / 4),
+                        ("poly", 1.0 / xp.shape[1]), ("linear", 1.0)):
+        kw = dict(kind=kind, gamma=gamma, degree=3, coef0=1.0)
+        res[f"b8_ragged_{kind}_sha"] = _sha(gram_mod.launch_gram(
+            xr, zr, xx=gram_mod.row_norms(xr) if kind == "rbf" else None,
+            zz=gram_mod.row_norms(zr) if kind == "rbf" else None, **kw))
+    xs = xp[:3 * 1103].reshape(3, 1103, -1).contiguous()
+    ys = phi.y_train[:3 * 1103].reshape(3, 1103).to(dev).contiguous()
+    for kind, gamma in (("rbf", g_phi), ("laplacian", g_phi / 4)):
+        res[f"b8_sym1103_{kind}_sha"] = _sha(gram_mod.gram(
+            xs, None, ys, kind=kind, gamma=gamma, degree=3, coef0=1.0))
+
+
+def level_fits(res, ijc, phi, g_ijc, g_phi) -> None:
+    """Algorithm 1 on phishing and ijcnn1, dip and dc on ijcnn1."""
+    from repro_torch.api import ODMEstimator, ProblemSpec
+    from repro_torch.core.sodm import SODMConfig
+    cfg = SODMConfig(p=2, levels=3, n_landmarks=8, tol=1e-4,
+                     max_sweeps=200, engine="pallas")
+    for name, ds, gamma, route in (("phishing", phi, g_phi, None),
+                                   ("ijcnn1", ijc, g_ijc, None),
+                                   ("dip", ijc, g_ijc, "dip"),
+                                   ("dc", ijc, g_ijc, "dc")):
+        est = ODMEstimator(ProblemSpec(kernel=kf.KernelSpec("rbf", gamma),
+                                       params=ODMParams(lam=100.0)),
+                           route=route, cfg=cfg)
+        times = []
+        for _ in range(3):  # the first fit warms up
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            _, rep = est.fit(ds.x_train, ds.y_train, 0)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        res[f"fit_{name}_s"] = min(times[1:])
+        res[f"fit_{name}_passes"] = list(rep.passes)
+        res[f"fit_{name}_peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        f = est.decision_function(ds.x_test)
+        res[f"fit_{name}_test_acc"] = float(
+            (torch.sign(f).cpu() == ds.y_test).float().mean())
+        res[f"fit_{name}_f_sum"] = float(f.double().sum())
 
 
 def cascade_fit(res, phi, g_phi) -> None:

@@ -20,11 +20,14 @@ Phases (any failed check exits nonzero):
    (torch.equal), with the bytes its design moves a step; K3.
 3. A whole Algorithm-1 fit of phishing (8.8k rows, d=68, rbf): levels 3
    and 2 take the dense pass (K1 + K3), levels 1 and 0 the matrix-free
-   pass (K1 + K2); then the test set is scored (K2 as score_tiles).
+   pass (K1 + K2); each level builds its Grams (the dense padded Q, or
+   the diagonal tiles) with one B8 launch; then the test set is scored
+   (K2 as score_tiles).
 4. The same at real size: ijcnn1 (113k training rows, d=22), all levels
    matrix-free. The launch counts are set to 0 just before each of the
-   two fits and read just after its scoring: on phishing every kernel
-   must have launched, on ijcnn1 K1, K2 and the scorer, and K3 not at all.
+   two fits and read just after its scoring: on phishing every Algorithm-1
+   kernel must have launched, on ijcnn1 K1, K2 and the scorer, and K3 not
+   at all; on both B8 exactly once per level.
    Then K2 as the scorer (ijcnn1's test set against its support vectors,
    the general walk) against its plain version as in phase 2.
 5. One small fit on the card against the same fit on the CPU (plain
@@ -63,11 +66,16 @@ Phases (any failed check exits nonzero):
    epochs, batch 16) on the card against the CPU, once per schedule:
    ||dw||/||w|| <= 1e-2 and prediction agreement >= 0.99, the band
    documented for DSVRG across reduction orders.
-2c. (after phase 7) B8 (gram) against its plain version at phishing's
-   full signed Q (8,832 x 8,832 x 68), at a cascade level (K=8 nodes of
-   1,104) and for the four kernel families at a ragged 1,000 x 777 x 68,
-   within 1e-5 x max(1, max|out|), with gram(x, x) symmetric bit for bit
-   (torch.equal); K4 (the exact dual CD solve) at the cascade's level 3
+2c. (after phase 7) B8 (gram), after gram.cu's registers, shared memory
+   and spills, against its plain version at phishing's full signed Q
+   (8,832 x 8,832 x 68), at a cascade level (K=8 nodes of 1,104), at
+   ijcnn1's level-3 diagonal tiles (448 x 256 x 256 x 22) and phishing's
+   dense level 3 (K=8, 1,280 x 1,280 x 68), both with zero labels on the
+   padded rows, and for the four kernel families at a ragged 1,000 x 777
+   x 68, within 1e-5 x max(1, max|out|), with gram(x, x) symmetric bit for
+   bit (torch.equal), its time beside its bound (the unique pairs when z
+   is x) and kf.signed_gram's (the plain PyTorch the level engine ran
+   before B8); K4 (the exact dual CD solve) at the cascade's level 3
    (K=8, m=1,104, cold) and at (K=1, m=2,208, warm), after cd_exact.cu's
    registers, shared memory and spills: the same sweeps per partition and
    alpha, u and the KKT equal bit for bit, where its state lives, and
@@ -80,8 +88,8 @@ Phases (any failed check exits nonzero):
    levels=3, max_sweeps=100), then save, load and rescore (the scores
    must equal the in-memory model's); dip and dc on ijcnn1 with the
    pallas engine. The cascade must launch B8 and K4 once per level (4
-   each) and the scorer once; dip and dc K1, K2 and the scorer, never
-   B8 or K4. The cascade is not held to chance: at lam=100 its levels
+   each) and the scorer once; dip and dc K1, K2, the scorer and B8 once
+   per level, never K4. The cascade is not held to chance: at lam=100 its levels
    stop at the sweep cap and it scores below the majority rate, as the
    reference does on the same inputs.
 9. Table 3's gradient rivals at full size: svrg and csvrg on a7a (26,048
@@ -133,10 +141,10 @@ of bytes moved over 3.35 TB/s and operations over the peak of their type
 — 67 TFLOP/s fp32, 989 TFLOP/s bf16 for B9 — the published H100 SXM
 peaks at 700 W; the text lines also give it scaled to the card's printed
 power limit), and its launches: on the ijcnn1 path for the kernels that
-path runs, on the phishing path for K3 (which runs on phishing's dense
-levels only), on the SUSY path for the epoch kernel, B6 (0: its
-arithmetic runs inside the epoch kernel) and B7, on the cascade path for
-B8 and K4, on the qwen3-0.6b path for B9 in bf16 and on its fp32 prefill
+path runs (B8 among them), on the phishing path for K3 (which runs on
+phishing's dense levels only), on the SUSY path for the epoch kernel, B6
+(0: its arithmetic runs inside the epoch kernel) and B7, on the cascade
+path for K4, on the qwen3-0.6b path for B9 in bf16 and on its fp32 prefill
 for B9 in fp32 (flash_attention_f32); ``launches_by_path`` gives every
 path. The last line is the result.
 """
@@ -614,22 +622,25 @@ def main() -> None:
     # arithmetic step by step)
     alg2 = ("odm_svrg_epoch", "odm_grad")
     b6 = ("odm_svrg_grad",)
-    exact = ("gram", "cd_exact")
+    # B8 builds every level's Grams (the level engines and the cascade),
+    # K4 solves the cascade's nodes
+    b8, k4 = ("gram",), ("cd_exact",)
     mfree = ("cd_block_sweep", "gram_matvec", "score_tiles")
     lm = ("flash_attention",)
     # the kernels each path must launch, and those it must not
-    expect = {"phishing": (alg1, alg2 + b6 + exact + lm),
-              "ijcnn1": (mfree, ("dense_matvec",) + alg2 + b6 + exact + lm),
-              "SUSY": (alg2, alg1 + b6 + exact + lm),
-              "cascade": (exact + ("score_tiles",),
+    expect = {"phishing": (alg1 + b8, alg2 + b6 + k4 + lm),
+              "ijcnn1": (mfree + b8, ("dense_matvec",) + alg2 + b6 + k4
+                         + lm),
+              "SUSY": (alg2, alg1 + b6 + b8 + k4 + lm),
+              "cascade": (b8 + k4 + ("score_tiles",),
                           ("cd_block_sweep", "gram_matvec", "dense_matvec")
                           + alg2 + b6 + lm),
-              "dip": (mfree, ("dense_matvec",) + alg2 + b6 + exact + lm),
-              "dc": (mfree, ("dense_matvec",) + alg2 + b6 + exact + lm),
-              "svrg": (alg2, alg1 + b6 + exact + lm),
-              "csvrg": (alg2, alg1 + b6 + exact + lm),
-              "qwen3-0.6b": (lm, alg1 + alg2 + b6 + exact),
-              "qwen3-0.6b fp32": (lm, alg1 + alg2 + b6 + exact)}
+              "dip": (mfree + b8, ("dense_matvec",) + alg2 + b6 + k4 + lm),
+              "dc": (mfree + b8, ("dense_matvec",) + alg2 + b6 + k4 + lm),
+              "svrg": (alg2, alg1 + b6 + b8 + k4 + lm),
+              "csvrg": (alg2, alg1 + b6 + b8 + k4 + lm),
+              "qwen3-0.6b": (lm, alg1 + alg2 + b6 + b8 + k4),
+              "qwen3-0.6b fp32": (lm, alg1 + alg2 + b6 + b8 + k4)}
     fits, path_launches = {}, {}
     for phase, ds, gamma in ((3, phishing, g_phish), (4, ijcnn1, g_ijc)):
         say(f"== phase {phase}: fit {ds.name} M={ds.x_train.shape[0]} "
@@ -676,6 +687,9 @@ def main() -> None:
             if launches[name] != 0:
                 fail(f"kernel {name} launched on the {ds.name} path, "
                      f"which has no level that runs it")
+        if launches["gram"] != len(levels.rows):
+            fail(f"{ds.name} launched B8 {launches['gram']} times in "
+                 f"{len(levels.rows)} levels, not once per level")
         if not acc > 0.5:
             fail(f"{ds.name} test accuracy {acc} is no better than chance")
         fits[ds.name] = (model, f)
@@ -1061,7 +1075,9 @@ def main() -> None:
         return (y[..., :, None] * y[..., None, :]) * k
 
     def gram_case(label, x, z, yx, yz, kw, reps, yard=None):
-        """B8 against its plain version; returns the stats of the case."""
+        """B8 against its plain version; returns the stats of the case and
+        B8's output. Signed cases with z = x also time kf.signed_gram, the
+        plain PyTorch the level engine ran before B8."""
         same = z is x
         xx = gram_mod.row_norms(x) if kw["kind"] == "rbf" else None
         zz = xx if same else (gram_mod.row_norms(z) if xx is not None
@@ -1075,24 +1091,40 @@ def main() -> None:
                  f"max_abs_err {err} > 1e-5 x {scale}")
         if same and not torch.equal(got, got.mT):
             fail(f"gram {label}: gram(x, x) is not symmetric bit for bit")
-        ms = time_ms(lambda: gram_mod.launch_gram(x, z, yx, yz, xx=xx,
-                                                  zz=zz, **kw), reps)
+        # device times (the host's launch cost, tens of us a call, is
+        # longer than the kernel at the level shapes)
+        ms = device_ms(lambda: gram_mod.launch_gram(x, z, yx, yz, xx=xx,
+                                                    zz=zz, **kw), reps)
         plain_ms = time_ms(lambda: gram_mod.gram_plain(x, z, yx, yz, **kw),
                            2)
-        lib_ms = None if yard is None else time_ms(yard, reps)
+        lib_ms = None if yard is None else device_ms(yard, reps)
+        sg_ms = None
+        if same and yx is not None:
+            spec = kf.KernelSpec(kw["kind"], kw["gamma"], kw["degree"],
+                                 kw["coef0"])
+            sg_ms = device_ms(lambda: kf.signed_gram(spec, x, yx), reps)
         K_, M_, D_ = x.shape
         N_ = z.shape[1]
         labels = 0 if yx is None else K_ * (M_ + N_)
+        # z is x: K(x, x) is symmetric, so the work is the unique pairs
+        pairs = K_ * M_ * (M_ + 1) // 2 if same else K_ * M_ * N_
         b_ms, b_by = bound(4 * (K_ * (M_ + N_) * D_ + labels + K_ * M_ * N_),
-                           2 * K_ * M_ * N_ * (D_ + 1))
+                           2 * pairs * (D_ + 1))
+        b_bytes = 4 * (K_ * (M_ + N_) * D_ + labels + K_ * M_ * N_) \
+            / PEAK_BYTES_PER_S * 1e3
         say(f"B8 gram {label}: max_abs_err={err:.3e} (max |out| "
             f"{scale:.3e})" + (" symmetric bit for bit" if same else "")
-            + f" ms={ms:.3f} plain_ms={plain_ms:.3f}"
-            + ("" if lib_ms is None else f" library_ms={lib_ms:.3f}")
-            + " " + bound_text(b_ms, b_by, derate))
+            + f" ms={ms:.4f} plain_ms={plain_ms:.3f}"
+            + ("" if lib_ms is None else f" library_ms={lib_ms:.4f}")
+            + ("" if sg_ms is None else f" signed_gram_ms={sg_ms:.4f}")
+            + " " + bound_text(b_ms, b_by, derate)
+            + f" (bytes alone {b_bytes:.4f} ms)")
         return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by), got
 
+    for name, regs, smem, spills in kernel_resources(log, "gram.cu"):
+        say(f"  gram.cu: {name}: {regs} registers, {smem} bytes static "
+            f"shared, spills {spills}")
     rbf_kw = dict(kind="rbf", gamma=g_phish, degree=3, coef0=1.0)
     x1, y1 = xph[None], yph[None]
     gram_case(f"phishing full Q K=1 M=N={Mp} D={Dp} rbf signed", x1, x1, y1,
@@ -1103,6 +1135,24 @@ def main() -> None:
     stats["gram"], Qc = gram_case(
         f"cascade level K={kcas} M=N={mcas} D={Dp} rbf signed", xc, xc, yc,
         yc, rbf_kw, 10, lambda: yard_b8(xc, yc, g_phish))
+    # the level engine's Grams: ijcnn1's level-3 diagonal tiles (K=8
+    # partitions of 14,168 rows padded to 56 tiles of 256) and phishing's
+    # dense level-3 Q (K=8 of 1,104 padded to 1,280), zero labels on the
+    # padded rows
+    for label, ds, K_lvl, gamma, tiles in (
+            ("ijcnn1 level-3 diagonal tiles", ijcnn1, 8, g_ijc, True),
+            ("phishing dense level 3", phishing, 8, g_phish, False)):
+        xs_l, ys_l = partitions(ds.x_train, ds.y_train, K_lvl, dev)
+        if tiles:
+            xs_l = xs_l.reshape(-1, 256, xs_l.shape[-1])
+            ys_l = ys_l.reshape(-1, 256)
+        kw_l = dict(kind="rbf", gamma=gamma, degree=3, coef0=1.0)
+        Kl, Ml, Dl = xs_l.shape
+        shape = f"{label} K={Kl} M=N={Ml} D={Dl} rbf signed"
+        st_l, _ = gram_case(shape, xs_l, xs_l, ys_l, ys_l, kw_l, 10)
+        stats["gram"].setdefault("shapes", []).append(dict(shape=shape,
+                                                           **st_l))
+        del xs_l, ys_l
     for kind, gamma in (("rbf", g_phish), ("laplacian", g_phish / 4),
                         ("poly", 1.0 / Dp), ("linear", 1.0)):
         xr, zr = xph[None, :1000], xph[None, -777:]
@@ -1229,6 +1279,9 @@ def main() -> None:
         for n in idle:
             if launches[n] != 0:
                 fail(f"kernel {n} launched on the {name} path")
+        if name in ("dip", "dc") and launches["gram"] != len(log.rows):
+            fail(f"{name} launched B8 {launches['gram']} times in "
+                 f"{len(log.rows)} levels, not once per level")
         if chance_check and not acc > 0.5:
             fail(f"{name} test accuracy {acc} is no better than chance")
         return est, report, f, fit_s

@@ -20,7 +20,10 @@ along the ray (:func:`repro_torch.core.odm.warm_start_scale`).
   (:mod:`repro_torch.kernels.dual_cd_block`; the name is kept from the
   reference so one ``SODMConfig`` drives both packages). Partitions above
   ``gram_threshold`` rebuild off-diagonal Gram tiles from the features
-  (O(m·B) memory) for every kernel family.
+  (O(m·B) memory) for every kernel family. A level's Grams (its diagonal
+  tiles, or its dense padded Q) take one :func:`ops.gram` call: B8 on the
+  card, its plain version on the CPU. The reference builds the same
+  Grams with ``vmap(kf.signed_gram)``, which computes the same function.
 
 ``"dsvrg"`` is a whole-problem route, not a level solver:
 ``sodm._solve`` dispatches it before the level loop
@@ -90,6 +93,19 @@ def solve_level_block(xs: Tensor, ys: Tensor, alphas: Tensor, *,
     return res.alpha, res.sweeps, res.kkt
 
 
+def diag_blocks(spec: kf.KernelSpec, xp: Tensor, yp: Tensor,
+                B: int) -> Tensor:
+    """The signed diagonal Gram tiles (K, nblk, B, B) of row-padded
+    partitions xp (K, nblk·B, d) with labels yp (K, nblk·B), 0 on padded
+    rows (so padded rows and columns come out 0): one :func:`ops.gram`
+    over the (K·nblk, B, d) reshape."""
+    K, mp, d = xp.shape
+    nblk = mp // B
+    qb = ops.gram(xp.reshape(K * nblk, B, d), None, spec,
+                  yx=yp.reshape(K * nblk, B))
+    return qb.reshape(K, nblk, B, B)
+
+
 def solve_level_pallas(xs: Tensor, ys: Tensor, alphas: Tensor, *,
                        spec: kf.KernelSpec, params: ODMParams, tol: float,
                        max_sweeps: int, block: int = 256,
@@ -111,11 +127,10 @@ def solve_level_pallas(xs: Tensor, ys: Tensor, alphas: Tensor, *,
 
     if m > gram_threshold:
         # diagonal Gram tiles only, (K, nblk, B, B): O(m·B) per partition
-        x_t = xp.reshape(K, nblk, B, -1)
-        qb = kf.signed_gram(spec, x_t, yp.reshape(K, nblk, B))
+        qb = diag_blocks(spec, xp, yp, B)
         src = gram_mod.make_kernel_source(spec, xp, yp, bm=B)
     else:
-        Qp = kf.signed_gram(spec, xp, yp)
+        Qp = ops.gram(xp, None, spec, yx=yp)
         Qp = Qp * (valid[None, :, None] * valid[None, None, :])
         qb = cdk.extract_diag_blocks(Qp, B)
         src = gram_mod.DenseSource(Qp.contiguous())

@@ -10,17 +10,14 @@
 // of the reference's _L1_CHUNK path. finalize_tile turns a finished
 // accumulator into the kernel value.
 //
-// Two operand layouts, one arithmetic:
-//   * accum_tile (B8, gram.cu): feature-major shared slabs, scalar reads,
-//     a 4 x 4 register micro-tile a thread;
-//   * accum_rows (K2, gram_matvec.cu): row-major shared tiles read four
-//     features at a time as float4 (a ragged tail one at a time). With
-//     an 8 x 8 micro-tile a thread issues 16 float4 loads for 256 FMAs
-//     (8 scalar loads for 16 FMAs in accum_tile's 4 x 4 form). Row-major
-//     tiles also arrive by plain 16-byte cp.async copies, with no
-//     transpose on the way in.
-// Both walk the features of a pair in the same order, so they give the
-// same accumulator bits.
+// accum_rows (K2 in gram_matvec.cu, B8 in gram.cu) reads row-major
+// shared tiles four features at a time as float4 (a ragged tail one at a
+// time). With an 8 x 8 micro-tile a thread issues 16 float4 loads for 256
+// FMAs (PR 13's feature-major accum_tile, 4 x 4 a thread, issued 8 scalar
+// loads for 16 FMAs, and its slabs had to be transposed on the way in).
+// It walks a pair's features in ascending order with one fmaf chain (L1:
+// 8-feature chunks from feature 0), the order accum_tile walked, so the
+// accumulator bits did not change with the layout.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -41,51 +38,6 @@ __device__ __forceinline__ float ipow(float b, int e) {
     e >>= 1;
   }
   return r;
-}
-
-// acc[i][j] += the contribution of features [0, dlen) of two shared-memory
-// slabs stored feature-major: x row (x0 + i * step) at xs[d * ldx + ...],
-// z row (z0 + j * step) at zs[d * ldz + ...].
-template <int KIND, int TM, int TN>
-__device__ __forceinline__ void accum_tile(float (&acc)[TM][TN],
-                                           const float* __restrict__ xs,
-                                           int ldx, int x0,
-                                           const float* __restrict__ zs,
-                                           int ldz, int z0, int step,
-                                           int dlen) {
-  if (KIND == kLaplacian) {
-    for (int c = 0; c < dlen; c += kL1Chunk) {
-      const int ce = min(c + kL1Chunk, dlen);
-      float part[TM][TN] = {};
-      for (int d = c; d < ce; ++d) {
-        float a[TM], b[TN];
-#pragma unroll
-        for (int i = 0; i < TM; ++i) a[i] = xs[d * ldx + x0 + i * step];
-#pragma unroll
-        for (int j = 0; j < TN; ++j) b[j] = zs[d * ldz + z0 + j * step];
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) part[i][j] += fabsf(a[i] - b[j]);
-      }
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] += part[i][j];
-    }
-  } else {
-    for (int d = 0; d < dlen; ++d) {
-      float a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = xs[d * ldx + x0 + i * step];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = zs[d * ldz + z0 + j * step];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-  }
 }
 
 // acc[i][j] += the contribution of features [0, dlen) of x row

@@ -15,6 +15,7 @@ hand-written kernel.
 :func:`gram` materializes ``K(x[k], z[k])`` or the signed
 ``(yx yzᵀ) ⊙ K`` of every partition in one call: B8 (``csrc/gram.cu``) on
 CUDA tensors, the blocked plain version :func:`gram_plain` on CPU tensors.
+When z is x, B8 computes each pair once and mirrors it.
 
 :func:`gram_matvec` computes ``u[k] = K(x[k], z[k]) @ g[k]`` without an
 (M, N) Gram leaving the kernel. On CUDA tensors it launches K2
@@ -247,8 +248,12 @@ def launch_gram(x: Tensor, z: Tensor, yx: Tensor | None = None,
     """B8 on CUDA tensors: x (K, M, D), z (K, N, D) -> (K, M, N), signed
     when ``yx`` (K, M) and ``yz`` (K, N) are given. ``xx``/``zz`` are the
     squared row norms, which only rbf reads; computed here when not
-    given (pass the same tensor for both, as :func:`gram` does for
-    z = x, and the result is symmetric bit for bit)."""
+    given. When z is x, zz is xx (rbf) and yz is yx (signed), as
+    :func:`gram` passes them for z = x, the kernel computes the tiles on
+    and above the diagonal and mirrors them; the general walk gives the
+    same bits, and either is symmetric bit for bit. Any D and any
+    alignment: the kernel copies rows 16 bytes at a time where it can,
+    else 4."""
     K, M, D = x.shape
     N = z.shape[1]
     _check_f32("x", x, (K, M, D))

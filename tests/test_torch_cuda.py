@@ -14,7 +14,9 @@ sweep counts. K2, K3, B6, B7
 and B8 sum in another order than the plain versions (register micro-tiles,
 shuffle trees and per-column row loops against cuBLAS-style blocked
 sums), so they agree to a relative 1e-5 of the largest value; K2 sums in
-a fixed order, so a repeated call gives the same bits. B6's
+a fixed order, so a repeated call gives the same bits; B8 sums each
+pair's features in one fixed order, so its symmetric walk (z is x)
+equals its general walk bit for bit. B6's
 whole-epoch kernel repeats B6's launches and the host loop's
 `w - eta * dir` step for step, so it equals that per-step loop on the
 card bit for bit (torch.equal). A whole DSVRG fit, card against CPU,
@@ -573,9 +575,11 @@ def test_svrg_fit_on_card_launches_one_epoch_kernel_an_epoch(dev):
 # B8 (csrc/gram.cu) and K4 (csrc/cd_exact.cu)
 # ---------------------------------------------------------------------------
 
+# D = 96 and 123 stream feature slabs (96: 16-byte copies, 123: 4-byte)
 @pytest.mark.parametrize("kind,gamma,degree,coef0", FAMILIES)
 @pytest.mark.parametrize("K,M,N,D", [(1, 1000, 777, 68), (3, 70, 129, 33),
-                                     (2, 64, 64, 5)])
+                                     (2, 64, 64, 5), (1, 129, 200, 96),
+                                     (2, 300, 131, 123)])
 @pytest.mark.parametrize("signed", [False, True], ids=["K", "Q"])
 def test_gram_matches_plain(dev, kind, gamma, degree, coef0, K, M, N, D,
                             signed):
@@ -602,6 +606,54 @@ def test_gram_of_x_with_itself_is_symmetric_bit_for_bit(dev, kind):
     q = gram_mod.gram(x, None, y, kind=kind, gamma=0.05, degree=3,
                       coef0=1.0)
     assert torch.equal(q, q.mT)
+
+
+# B8's symmetric walk (z is x: the tiles J >= I, mirrored) against its
+# general walk (z a copy of x) at M on, off and under the 128-row tiles,
+# with D resident by 4-byte copies (22), by 16-byte copies (68) and
+# streamed in slabs (123)
+@pytest.mark.parametrize("kind,gamma,degree,coef0", FAMILIES)
+@pytest.mark.parametrize("M", [3, 257, 1103, 1104])
+@pytest.mark.parametrize("K", [1, 3])
+@pytest.mark.parametrize("D", [22, 68, 123])
+def test_gram_symmetric_walk_equals_general_walk(dev, kind, gamma, degree,
+                                                 coef0, M, K, D):
+    rng = np.random.default_rng(M + K + D)
+    x = torch.tensor(rng.random((K, M, D)), dtype=torch.float32,
+                     device=dev)
+    y = torch.tensor(np.sign(rng.standard_normal((K, M))),
+                     dtype=torch.float32, device=dev)
+    kw = dict(kind=kind, gamma=gamma, degree=degree, coef0=coef0)
+    sym = gram_mod.gram(x, None, y, **kw)
+    full = gram_mod.gram(x, x.clone(), y, y.clone(), **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(sym, full)
+    assert torch.equal(sym, sym.mT)
+
+
+@pytest.mark.parametrize("threshold", [4096, 16], ids=["dense", "mfree"])
+def test_solve_level_pallas_launches_b8_once(dev, threshold):
+    """A level's Grams (dense Q, or the diagonal tiles) are one B8 launch,
+    and the card's level solve agrees with the CPU's."""
+    from repro_torch.core import engines
+    from repro_torch.core.odm import ODMParams
+    rng = np.random.default_rng(13)
+    K, m, d = 2, 90, 7
+    x = torch.tensor(rng.random((K, m, d)), dtype=torch.float32)
+    y = torch.tensor(np.sign(rng.standard_normal((K, m))),
+                     dtype=torch.float32)
+    a0 = torch.zeros(K, 2 * m)
+    kw = dict(spec=kf.KernelSpec("rbf", 0.5), params=ODMParams(lam=10.),
+              tol=1e-4, max_sweeps=100, block=32, gram_threshold=threshold)
+    before = gram_mod.gram.launches
+    ag, sg, kg = engines.solve_level_pallas(x.to(dev), y.to(dev), a0.to(dev),
+                                            **kw)
+    torch.cuda.synchronize()
+    assert gram_mod.gram.launches == before + 1
+    ac, _, _ = engines.solve_level_pallas(x, y, a0, **kw)
+    assert gram_mod.gram.launches == before + 1
+    assert float((ag.cpu() - ac).abs().max()) < 1e-4
+    assert float(kg.max()) <= 1e-4 or int(sg.max()) == 100
 
 
 def _cd_problem(dev, K, m, seed=11, lam=100.0):

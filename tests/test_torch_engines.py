@@ -3,8 +3,11 @@
 Every level engine gets the same partitions and merged warm start as the
 reference's: alphas and KKTs at 1e-5, equal sweep counts. The pallas
 engine is run dense (m <= gram_threshold) and matrix-free (threshold
-lowered below m) for all four kernel families.
+lowered below m) for all four kernel families. Its diagonal Gram tiles,
+which the port builds with one ``ops.gram`` call (B8 on the card), are
+held to the reference's ``vmap(kf.signed_gram)`` at 1e-5.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -13,6 +16,7 @@ import torch
 from repro.core import engines as jeng, kernel_fns as jkf, odm as jodm
 from repro_torch.core import engines as teng, kernel_fns as tkf
 from repro_torch.core import odm as todm
+from repro_torch.kernels import gram as tgram
 
 FAMILIES = [("rbf", 0.7, 3, 1.0), ("laplacian", 0.3, 3, 1.0),
             ("poly", 0.3, 2, 1.0), ("linear", 1.0, 3, 1.0)]
@@ -85,3 +89,46 @@ def test_converged_warm_start_reports_zero_sweeps():
                                          a, **kw)
     assert int(s.max()) > 0 and int(s2.max()) == 0
     torch.testing.assert_close(a2, a)
+
+
+@pytest.mark.parametrize("family", FAMILIES, ids=lambda f: f[0])
+def test_diag_blocks_match_reference_vmap(family):
+    """engines.diag_blocks (one ops.gram over the (K·nblk, B, d) reshape)
+    against the reference's vmap(kf.signed_gram) of the same blocks;
+    padded rows and columns (label 0) come out exactly 0."""
+    name, gamma, degree, coef0 = family
+    K, m, d, B = 3, 37, 5, 16
+    nblk = -(-m // B)
+    mp = nblk * B
+    rng = np.random.default_rng(7)
+    xp = np.zeros((K, mp, d), np.float32)
+    xp[:, :m] = rng.random((K, m, d))
+    yp = np.zeros((K, mp), np.float32)
+    yp[:, :m] = np.sign(rng.standard_normal((K, m)))
+    spec = jkf.KernelSpec(name, gamma, degree, coef0)
+    want = jax.vmap(lambda xb, yb: jkf.signed_gram(spec, xb, yb))(
+        jnp.asarray(xp.reshape(K * nblk, B, d)),
+        jnp.asarray(yp.reshape(K * nblk, B)))
+    before = tgram.gram.launches
+    got = teng.diag_blocks(tkf.KernelSpec(name, gamma, degree, coef0),
+                           torch.tensor(xp), torch.tensor(yp), B)
+    assert tgram.gram.launches == before  # CPU: the plain version
+    assert tuple(got.shape) == (K, nblk, B, B)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(want).reshape(K, nblk, B, B), rtol=1e-5,
+        atol=1e-5)
+    pad = (yp == 0).reshape(K, nblk, B)
+    g = got.numpy()
+    assert np.all(g[pad] == 0.0)                                # rows
+    assert np.all(np.swapaxes(g, -1, -2)[pad] == 0.0)           # columns
+
+
+@pytest.mark.parametrize("threshold", [4096, 8], ids=["dense", "mfree"])
+def test_pallas_engine_on_cpu_launches_no_b8(threshold):
+    x, y, a = _level(2)
+    before = tgram.gram.launches
+    teng.solve_level_pallas(torch.tensor(x), torch.tensor(y),
+                            torch.tensor(a), spec=tkf.KernelSpec("rbf", 0.7),
+                            params=todm.ODMParams(5.0), tol=1e-5,
+                            max_sweeps=20, block=8, gram_threshold=threshold)
+    assert tgram.gram.launches == before
