@@ -1122,9 +1122,13 @@ def main() -> None:
         return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                     library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by), got
 
+    lib = _build.library()
     for name, regs, smem, spills in kernel_resources(log, "gram.cu"):
         say(f"  gram.cu: {name}: {regs} registers, {smem} bytes static "
             f"shared, spills {spills}")
+    say(f"  gram.cu: dynamic shared memory {lib.gram_smem(22)} bytes at "
+        f"D=22, {lib.gram_smem(68)} at D=68, {lib.gram_smem(123)} at "
+        f"D=123 (streamed slabs)")
     rbf_kw = dict(kind="rbf", gamma=g_phish, degree=3, coef0=1.0)
     x1, y1 = xph[None], yph[None]
     gram_case(f"phishing full Q K=1 M=N={Mp} D={Dp} rbf signed", x1, x1, y1,

@@ -115,6 +115,7 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.odm_grad_blocks.argtypes = [I, I]
     lib.gram_f32.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I, I, F, I, F,
                              P]
+    lib.gram_smem.argtypes = [I]
     lib.cd_exact_f32.argtypes = [P, I, P, P, P, P, P, P, I, I, I, F, F, F,
                                  F, F, P]
     lib.cd_exact_state_in_smem.argtypes = [I]
@@ -125,6 +126,7 @@ def _declare(lib: ctypes.CDLL) -> None:
                lib.cd_block_sweep_f32, lib.odm_svrg_grad_f32,
                lib.odm_svrg_epoch_f32, lib.odm_svrg_epoch_mode,
                lib.odm_grad_f32, lib.odm_grad_blocks, lib.gram_f32,
+               lib.gram_smem,
                lib.cd_exact_f32, lib.cd_exact_state_in_smem,
                lib.flash_attn_fwd,
                lib.flash_attn_smem):

@@ -13,10 +13,10 @@
 // What bounds it on an H100: at the level shapes, the store. A call writes
 // K*M*N*4 bytes and reads K*(M+N)*D*4; when z is x it does K*M*(M+1)/2
 // unique pairs of D fp32 multiply-adds and one transform each. At the
-// cascade's level (K = 8, M = N = 1,104, D = 68) the 39 MB store takes
-// 0.012 ms at 3.35 TB/s against 0.010 ms of unique-pair FMAs at 67 TFLOP/s;
-// at ijcnn1's diagonal tiles (448 x 256 x 256, D = 22) the 117 MB store
-// alone is the bound (0.035 ms).
+// cascade's level (K = 8, M = N = 1,104, D = 68) the 44 MB moved take
+// 0.013 ms at 3.35 TB/s against 0.010 ms of unique-pair FMAs at 67
+// TFLOP/s; at ijcnn1's level-3 diagonal tiles (448 x 256 x 256, D = 22),
+// 0.041 ms, nearly all of it the 117 MB store.
 //
 // PR 13's design (64 x 64 tiles, 4 x 4 register micro-tiles read from
 // feature-major slabs, 8 scalar shared loads for 16 FMAs, the slabs
@@ -31,10 +31,9 @@
 //     float4 (row_stride), so a warp's 16 distinct rows hit every bank.
 //   * Up to kResident features both tiles arrive whole, by cp.async
 //     (16-byte copies when D is a multiple of 4 and x, z are 16-byte
-//     aligned, else 4-byte copies, so callers pad nothing); with two CTAs
-//     an SM one's loads overlap the other's FMAs. A larger D streams
-//     feature slabs of kSlab through a 2- or 3-stage ring, one barrier a
-//     slab.
+//     aligned, else 4-byte copies, so callers pad nothing); two CTAs fit
+//     an SM (128 registers, 75,776 bytes). A larger D streams feature
+//     slabs of kSlab through a 2- or 3-stage ring, one barrier a slab.
 //   * When z is x (the same pointer, and the same norms and labels) the
 //     Gram is symmetric: the grid runs only the tiles J >= I, by a
 //     flattened triangular index per partition. An off-diagonal tile is
@@ -58,6 +57,16 @@
 //     general walk computes for them.
 //   * Not on the tensor cores: TF32 cannot hold the 1e-5 band under
 //     xx + zz - 2 acc's cancellation (see gram_matvec.cu).
+// Measured (NVIDIA H100 80GB HBM3, 700 W, device time): 0.041 ms at the
+// cascade's level against PR 13's 0.117, 0.077 ms at ijcnn1's level-3
+// tiles. 64 x 64 tiles of 64 threads and evict-first (__stcs) stores
+// moved neither shape past about 6 %. What is left: a CTA loads, computes
+// and then stores its one tile, and the two CTAs of an SM do not hide
+// each other's phases (switching the stores off saves 0.008 ms at the
+// cascade's level, the FMA loop 0.018). A persistent CTA that prefetches
+// the next tile and lets bulk stores of the last one run under its FMAs
+// would need a second operand buffer that two CTAs an SM do not leave
+// room for.
 #include <cstddef>
 #include <map>
 #include <mutex>
@@ -90,13 +99,6 @@ struct Shape {
   int nrb, ncb;    // row and column tiles of a partition
   int tiles;       // tiles a partition runs
 };
-
-// Row stride for a slab of w features: w rounded to a multiple of 4 and
-// made an odd number of float4, as in gram_matvec.cu.
-constexpr int row_stride(int w) {
-  w = (w + 3) / 4 * 4;
-  return (w / 4) % 2 == 1 ? w : w + 4;
-}
 
 // tiles J >= I of the row blocks before I (of n)
 __device__ __forceinline__ long long tiles_before(int I, int n) {
@@ -365,6 +367,22 @@ bool aligned16(const void* p) {
   return (reinterpret_cast<size_t>(p) & 15) == 0;
 }
 
+// The feature layout of a call: both tiles whole up to kResident
+// features, else kSlab-feature slabs through three ring stages where two
+// CTAs still fit an SM.
+Shape feature_shape(int D) {
+  Shape s{};
+  s.D = D;
+  const int D4 = (D + 3) / 4 * 4;
+  const bool resident = D4 <= kResident;
+  s.W = resident ? (D4 > 0 ? D4 : 4) : kSlab;
+  s.LD = repro::row_stride(s.W);
+  s.nslab = resident ? 1 : (D + kSlab - 1) / kSlab;
+  s.NS = 3;
+  if (smem_bytes(s) > kTwoCtaSmem) s.NS = 2;
+  return s;
+}
+
 }  // namespace
 
 // x (K, M, D), z (K, N, D) -> out (K, M, N); xx (K, M), zz (K, N) are the
@@ -385,17 +403,9 @@ extern "C" int gram_f32(const float* x, const float* z, const float* xx,
   const bool sign = signed_ != 0;
   const bool sym = x == z && M == N && (kind != repro::kRbf || xx == zz) &&
                    (!sign || yx == yz);
-  Shape s{};
+  Shape s = feature_shape(D);
   s.M = M;
   s.N = N;
-  s.D = D;
-  const int D4 = (D + 3) / 4 * 4;
-  const bool resident = D4 <= kResident;
-  s.W = resident ? (D4 > 0 ? D4 : 4) : kSlab;
-  s.LD = row_stride(s.W);
-  s.nslab = resident ? 1 : (D + kSlab - 1) / kSlab;
-  s.NS = 3;
-  if (smem_bytes(s) > kTwoCtaSmem) s.NS = 2;
   s.vec_in = D % 4 == 0 && aligned16(x) && aligned16(z);
   s.vec_out = N % 4 == 0;
   s.nrb = (M + BM - 1) / BM;
@@ -417,3 +427,6 @@ extern "C" int gram_f32(const float* x, const float* z, const float* xx,
   }
 #undef REPRO_B8_KIND
 }
+
+// Bytes of dynamic shared memory a CTA of gram_f32 takes at D features.
+extern "C" int gram_smem(int D) { return smem_bytes(feature_shape(D)); }

@@ -114,13 +114,6 @@ struct Shape {
   int L;            // symmetric walk: column tiles a unit walks at most
 };
 
-// Row stride for a slab of w features: w rounded to a multiple of 4 and
-// made an odd number of float4, so 8 consecutive threads reading float4
-// from 8 consecutive rows hit 8 different bank groups.
-__host__ __device__ constexpr int row_stride(int w) {
-  return (w / 4) % 2 == 1 ? w : w + 4;
-}
-
 // The symmetric walk (z is x): row block I takes the column tiles J >= I
 // in units of at most L tiles. sum_{m=1..n} ceil(m / L):
 __host__ __device__ inline long long chunks(long long n, int L) {
@@ -417,7 +410,7 @@ Shape make_shape(int M, int N, int D, int D4, bool sym) {
   s.D4 = D4;
   s.resident = D4 <= kResident;
   s.W = s.resident ? (D4 > 0 ? D4 : 4) : kSlab;
-  s.LD = row_stride(s.W);
+  s.LD = repro::row_stride(s.W);
   s.nslab = s.resident ? 1 : (D4 + kSlab - 1) / kSlab;
   s.NS = smem_bytes(s, 3, sym) <= kTwoCtaSmem ? 3 : 2;
   return s;

@@ -29,6 +29,13 @@ enum Kind : int { kLinear = 0, kRbf = 1, kLaplacian = 2, kPoly = 3 };
 
 constexpr int kL1Chunk = 8;
 
+// Shared row stride for rows of w features (w a multiple of 4): w made an
+// odd number of float4, so 8 consecutive threads reading float4 from 8
+// consecutive rows hit 8 different bank groups.
+__host__ __device__ constexpr int row_stride(int w) {
+  return (w / 4) % 2 == 1 ? w : w + 4;
+}
+
 __device__ __forceinline__ float ipow(float b, int e) {
   // binary exponentiation, as XLA lowers an integer power
   float r = 1.0f;
