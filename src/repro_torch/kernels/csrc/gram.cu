@@ -18,11 +18,11 @@
 // TFLOP/s; at ijcnn1's level-3 diagonal tiles (448 x 256 x 256, D = 22),
 // 0.041 ms, nearly all of it the 117 MB store.
 //
-// PR 13's design (64 x 64 tiles, 4 x 4 register micro-tiles read from
+// The first design (64 x 64 tiles, 4 x 4 register micro-tiles read from
 // feature-major slabs, 8 scalar shared loads for 16 FMAs, the slabs
 // transposed element by element on the way in, every pair computed even
-// when z is x, 4-byte stores) took 0.119 ms at the cascade's level. This
-// design:
+// when z is x, 4-byte stores) took 0.114-0.119 ms at the cascade's level.
+// This design:
 //   * One CTA of 256 threads (a 16 x 16 grid) computes one 128 x 128 output
 //     tile. Each thread accumulates an 8 x 8 register micro-tile (rows
 //     ty + 16 i, columns tx + 16 j) reading row-major shared tiles four
@@ -47,8 +47,8 @@
 //     16-byte rows; only the ragged last row and column tiles are masked,
 //     and a row length N that is not a multiple of 4 falls back to 4-byte
 //     stores.
-//   * Every entry has PR 13's bits: accum_rows walks a pair's features in
-//     the order PR 13's feature-major loop did, with one fmaf chain
+//   * Every entry has the first design's bits: accum_rows walks a pair's
+//     features in the order its feature-major loop did, with one fmaf chain
 //     (laplacian: the same 8-feature chunks), and finalize_rn and the
 //     signing are unchanged. The cross term of (i, j) and (j, i)
 //     multiplies the same pairs (an FMA's product is exact) and xx + zz
@@ -58,15 +58,15 @@
 //   * Not on the tensor cores: TF32 cannot hold the 1e-5 band under
 //     xx + zz - 2 acc's cancellation (see gram_matvec.cu).
 // Measured (NVIDIA H100 80GB HBM3, 700 W, device time): 0.041 ms at the
-// cascade's level against PR 13's 0.117, 0.077 ms at ijcnn1's level-3
-// tiles. 64 x 64 tiles of 64 threads and evict-first (__stcs) stores
-// moved neither shape past about 6 %. What is left: a CTA loads, computes
-// and then stores its one tile, and the two CTAs of an SM do not hide
-// each other's phases (switching the stores off saves 0.008 ms at the
-// cascade's level, the FMA loop 0.018). A persistent CTA that prefetches
-// the next tile and lets bulk stores of the last one run under its FMAs
-// would need a second operand buffer that two CTAs an SM do not leave
-// room for.
+// cascade's level against the first design's 0.114, 0.077 ms at ijcnn1's
+// level-3 tiles. 64 x 64 tiles of 64 threads and evict-first (__stcs)
+// stores moved no level shape by more than 8 %. What is left: a CTA
+// loads, computes and then stores its one tile, and the two CTAs of an SM
+// do not hide each other's phases (switching the stores off saves 0.008
+// ms at the cascade's level, the FMA loop 0.018). A persistent CTA that
+// prefetches the next tile and lets bulk stores of the last one run under
+// its FMAs would need a second operand buffer that two CTAs an SM do not
+// leave room for.
 #include <cstddef>
 #include <map>
 #include <mutex>

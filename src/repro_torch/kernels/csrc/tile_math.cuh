@@ -13,8 +13,9 @@
 // accum_rows (K2 in gram_matvec.cu, B8 in gram.cu) reads row-major
 // shared tiles four features at a time as float4 (a ragged tail one at a
 // time). With an 8 x 8 micro-tile a thread issues 16 float4 loads for 256
-// FMAs (PR 13's feature-major accum_tile, 4 x 4 a thread, issued 8 scalar
-// loads for 16 FMAs, and its slabs had to be transposed on the way in).
+// FMAs (the first Gram kernel's feature-major accum_tile, 4 x 4 a thread,
+// issued 8 scalar loads for 16 FMAs, and its slabs had to be transposed on
+// the way in).
 // It walks a pair's features in ascending order with one fmaf chain (L1:
 // 8-feature chunks from feature 0), the order accum_tile walked, so the
 // accumulator bits did not change with the layout.
