@@ -30,6 +30,35 @@ Phases (any failed check exits nonzero):
    at all; on both B8 exactly once per level.
    Then K2 as the scorer (ijcnn1's test set against its support vectors,
    the general walk) against its plain version as in phase 2.
+4b. ijcnn1's fitted model (93,675 SVs, d=22, rbf) served through
+   MicrobatchScorer(max_batch=256), one captured CUDA graph per bucket of
+   the ladder 1, 2, 4, ..., 256 with K2 inside, and Batcher: batch sizes
+   1, 3, 17, 64, 256 and 300 (300 chunks) from host rows within 1e-5 x
+   max|f| of decision_function; then the first 20,000 test rows through
+   serve_stream on a virtual clock (arrivals 5 us apart, max_batch=64,
+   max_wait=2e-3), every score within the same band, and again with a
+   FaultPlan(sleeper=None) delay on serve.flush, which must shift the
+   completion times of exactly the delayed batch by exactly the delay.
+   The launch counts are set to 0 before this serving run and read after
+   it (the serve path): K2's launches there are the graphs' warm-up
+   launches plus their replays, no other kernel runs. Then each bucket's
+   replay equals an eager score_tiles call at its shape bit for bit
+   (torch.equal), again after new rows are copied into the static
+   buffer; compiles <= len(buckets); one replay under torch.profiler
+   runs exactly one K2 kernel (gram_matvec_kernel). Printed, not held:
+   per bucket the replay's and the eager call's ms by CUDA events beside
+   the bound, the host us of one Batcher.flush of 64 host rows, and the
+   stream's wall-clock requests/s.
+4c. ijcnn1's Algorithm-1 fit (phase 4's configuration and seed) killed
+   by FaultPlan().kill_at_level(1) (Preemption), then resumed from the
+   same directory: alpha, sweeps_per_level and the test decision values
+   equal phase 4's bit for bit (torch.equal), with 2 level solves
+   against a cold fit's 4. Killed at level 2, then by
+   kill_mid_checkpoint() on the resumed run (step 1 stays the last
+   committed step, the torn write is left as a temp dir), then resumed:
+   the same bits with 3 solves. A resume with seed 1 against seed 0's
+   directory raises ProvenanceError; with strict=False it warns and
+   cold-starts.
 5. One small fit on the card against the same fit on the CPU (plain
    versions): alpha within 1e-4 and decision values within 1e-3 (the
    greedy argmax turns last-bit differences in the card's reductions into
@@ -62,6 +91,10 @@ Phases (any failed check exits nonzero):
    must launch exactly 10 times (one an epoch), B7 exactly 10, B6's
    per-step kernel and the four Algorithm-1 kernels never; none of the
    three runs on the phishing or ijcnn1 paths.
+6b. The SUSY fit of phase 6 killed by kill_at_epoch(5) and resumed: w
+   and the objective history equal phase 6's bit for bit, the epoch
+   kernel launched 5 + 5 times across the two runs (no epoch twice); then
+   ResumeConfig(segment=2) (checkpoints every 2 epochs): the same bits.
 7. One small DSVRG fit (a7a at scale 0.05, identity partitions, 5
    epochs, batch 16) on the card against the CPU, once per schedule:
    ||dw||/||w|| <= 1e-2 and prediction agreement >= 0.99, the band
@@ -146,7 +179,9 @@ phishing's dense levels only), on the SUSY path for the epoch kernel, B6
 (0: its arithmetic runs inside the epoch kernel) and B7, on the cascade
 path for K4, on the qwen3-0.6b path for B9 in bf16 and on its fp32 prefill
 for B9 in fp32 (flash_attention_f32); ``launches_by_path`` gives every
-path. The last line is the result.
+path, among them ``serve`` (phase 4b), where score_tiles' entry counts
+the bucket graphs' warm-up launches plus their replays, as its
+``launches_counting`` says. The last line is the result.
 """
 from __future__ import annotations
 
@@ -396,6 +431,305 @@ class LevelLog:
             self.rows.append(dict(metrics))
 
 
+def serve_phase(fit, ds, counters, expect, path_launches, derate) -> None:
+    """Phase 4b: ijcnn1's fitted model through MicrobatchScorer and
+    Batcher (see the module docs)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.distributed.faults import FaultPlan
+    from repro_torch.kernels import score as score_mod
+    from repro_torch.serve import server as server_mod
+    model, f_test, _ = fit
+    dev = model.device
+    S, D = model.x_sv.shape
+    say(f"== phase 4b: serve {ds.name} (S={S} SVs, d={D}, rbf) through "
+        f"MicrobatchScorer(max_batch=256) and Batcher")
+    fmax = float(f_test.abs().max())
+    rows = ds.x_test                     # requests arrive from the host
+    sizes = (1, 3, 17, 64, 256, 300)
+    n_stream = 20_000
+    want = model.decision_function(rows[:max(sizes)])
+    want_stream = model.decision_function(rows[:n_stream]).cpu()
+    torch.cuda.synchronize()
+
+    # the serving path: counts from 0, then the batch sizes and a
+    # virtual-clock stream; K2's launches are the graphs' warm-ups
+    # (score_tiles' count) and replays (each graph's count)
+    for fn in counters.values():
+        fn.launches = 0
+    scorer = server_mod.MicrobatchScorer(model, max_batch=256)
+    t0 = time.perf_counter()
+    got = {B: scorer.score(rows[:B]) for B in sizes}
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    arrivals = [(i * 5e-6, rows[i]) for i in range(n_stream)]
+    batcher = server_mod.Batcher(scorer, max_batch=64, max_wait=2e-3)
+    t0 = time.perf_counter()
+    st = server_mod.serve_stream(batcher, arrivals)
+    torch.cuda.synchronize()
+    stream_s = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    warmups = launches["score_tiles"]
+    replays = scorer.replays
+    launches["score_tiles"] += sum(replays.values())
+    path_launches["serve"] = launches
+    say(f"  batch sizes {sizes}: {first_s * 1e3:.1f} ms with "
+        f"{len(scorer.graphs)} captures; compiles={scorer.compiles} of "
+        f"{len(scorer.buckets)} buckets {scorer.buckets}")
+    say(f"  K2 on the serving path: {warmups} warm-up launches + "
+        f"{sum(replays.values())} replays {replays}")
+    say(f"  launches on the serve path: {launches}")
+    ran, idle = expect["serve"]
+    for name in ran:
+        if launches[name] <= 0:
+            fail(f"kernel {name} never launched on the serve path")
+    for name in idle:
+        if launches[name] != 0:
+            fail(f"kernel {name} launched on the serve path")
+    if scorer.compiles > len(scorer.buckets) or \
+            scorer.compiles != len(scorer.graphs):
+        fail(f"compiles={scorer.compiles} with {len(scorer.graphs)} graphs "
+             f"and {len(scorer.buckets)} buckets")
+    for B in sizes:
+        err = float((got[B] - want[:B]).abs().max())
+        say(f"  B={B}: max|f_served - f| = {err:.3e} (band 1e-5 x max|f| = "
+            f"{1e-5 * fmax:.3e})")
+        if got[B].shape != (B,) or not err <= 1e-5 * fmax:
+            fail(f"served scores at B={B} disagree with decision_function")
+    res = st["results"]
+    if len(res) != n_stream or sorted(r.rid for r in res) != \
+            list(range(n_stream)):
+        fail("serve_stream lost or duplicated requests")
+    got_s = torch.tensor([r.score for r in sorted(res, key=lambda r: r.rid)])
+    err = float((got_s - want_stream).abs().max())
+    say(f"  serve_stream: {n_stream} requests 5 us apart, max_batch=64, "
+        f"max_wait=2e-3: {len(st['batches'])} flushes, mean batch "
+        f"{st['mean_batch']:.2f}, p50/p95/p99 latency (virtual clock) "
+        f"{st['p50'] * 1e6:.1f}/{st['p95'] * 1e6:.1f}/{st['p99'] * 1e6:.1f} "
+        f"us; max|f_served - f| = {err:.3e}; wall {stream_s:.3f} s, "
+        f"{n_stream / stream_s:.0f} requests/s")
+    if not err <= 1e-5 * fmax:
+        fail("serve_stream's scores disagree with decision_function")
+
+    # a virtual-clock delay on one flush shifts that batch's completion
+    # times by exactly the delay and no other
+    delay = 0.01
+    plan = FaultPlan(sleeper=None).delay("serve.flush", delay, batch=64)
+    st2 = server_mod.serve_stream(
+        server_mod.Batcher(scorer, max_batch=64, max_wait=2e-3,
+                           faults=plan), arrivals)
+    hit = [b.rid for a, b in zip(res, st2["results"])
+           if b.t_done != a.t_done]
+    shifted = all(b.t_done == a.t_done + delay
+                  for a, b in zip(res, st2["results"]) if b.rid in hit)
+    say(f"  serve.flush delay {delay} s: {len(hit)} completions moved, each "
+        f"by exactly the delay: {shifted}; fired {plan.fired}")
+    if len(hit) != 64 or not shifted or len(plan.fired) != 1:
+        fail("the serve.flush delay did not shift exactly its batch")
+
+    # each bucket's replay against an eager K2 call at its shape, before
+    # and after new rows are copied into the static buffer
+    kw = dict(kind=model.spec.name, gamma=model.spec.gamma,
+              degree=model.spec.degree, coef0=model.spec.coef0)
+    xd = rows.to(dev)
+    for b in scorer.buckets:
+        if b not in scorer.graphs:
+            scorer.score(rows[:b])
+    same = {}
+    for b, bg in sorted(scorer.graphs.items()):
+        eq = []
+        for r0 in (0, 1000):
+            bg.x.copy_(xd[r0:r0 + b])
+            bg.replay()
+            eager = score_mod.score_tiles(bg.x, model.x_sv, model.coef, **kw)
+            eq.append(torch.equal(bg.out, eager))
+        same[b] = all(eq)
+    say(f"  replay == eager score_tiles bit for bit (two inputs each): "
+        f"{same}")
+    if not all(same.values()):
+        fail("a bucket's graph replay differs from an eager K2 call")
+
+    # one replay under the profiler: one K2 kernel
+    bg = scorer.graphs[256]
+    bg.replay()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        bg.replay()
+        torch.cuda.synchronize()
+    from torch.autograd import DeviceType
+    kern = [(e.key, e.count, e.self_device_time_total)
+            for e in prof.key_averages()
+            if e.device_type == DeviceType.CUDA and e.count > 0
+            and e.self_device_time_total > 0]
+    n_k2 = sum(c for k, c, _ in kern if "gram_matvec_kernel" in k)
+    say("  one replay of bucket 256 under the profiler: " + "; ".join(
+        f"{k[:60]} x{c} {t:.1f} us" for k, c, t in kern))
+    if n_k2 != 1:
+        fail(f"one replay ran {n_k2} K2 kernels, not 1")
+
+    # per bucket: the replay and the eager call by CUDA events, beside
+    # the bound (the slab, coefficients and rows read once; 2 (D + 1)
+    # flops a pair, as phase 2 counts K2's)
+    for b, bg in sorted(scorer.graphs.items()):
+        r_ms = time_ms(bg.replay, 50)
+        e_ms = time_ms(lambda: score_mod.score_tiles(
+            bg.x, model.x_sv, model.coef, **kw), 20)
+        b_ms, b_by = bound(4 * (S * D + S + b * D + b), 2 * b * S * (D + 1))
+        say(f"  bucket {b}: replay_ms={r_ms:.4f} eager_ms={e_ms:.4f} "
+            f"(eager/replay {e_ms / r_ms:.2f}) " + bound_text(b_ms, b_by,
+                                                             derate))
+    # host time of one Batcher.flush of 64 host rows (stack, copy in,
+    # replay, clone, copy out)
+    fb = server_mod.Batcher(scorer, max_batch=64, max_wait=1.0)
+    flush_s = []
+    for r in range(100):
+        for i in range(64):
+            fb.submit(rows[(r * 64 + i) % rows.shape[0]], 0.0)
+        t0 = time.perf_counter()
+        fb.flush(0.0)
+        flush_s.append(time.perf_counter() - t0)
+    flush_s.sort()
+    say(f"  Batcher.flush of 64 host rows: median "
+        f"{flush_s[50] * 1e6:.1f} us, min {flush_s[0] * 1e6:.1f} us "
+        f"(100 flushes; host clock, ends in the copy to the host)")
+
+
+def resume_phase(fit, ds, params, cfg, gamma) -> None:
+    """Phase 4c: ijcnn1's Algorithm-1 fit killed and resumed (see the
+    module docs)."""
+    import torch
+    import warnings
+    from repro_torch.api import ODMEstimator, ProblemSpec
+    from repro_torch.core import kernel_fns as kf
+    from repro_torch.core import sodm
+    from repro_torch.distributed.checkpoint import CheckpointManager
+    from repro_torch.distributed.faults import FaultPlan, Preemption
+    from repro_torch.distributed.resume import ProvenanceError, ResumeConfig
+    _, f_base, rep_base = fit
+    say(f"== phase 4c: kill and resume {ds.name}'s Algorithm-1 fit "
+        f"(pallas, seed 0)")
+    est = ODMEstimator(ProblemSpec(kernel=kf.KernelSpec("rbf", gamma),
+                                   params=params), cfg=cfg)
+    base = rep_base.raw
+
+    def fit_(d, key=0, faults=None):
+        c0 = sodm.level_solve_count()
+        t0 = time.perf_counter()
+        try:
+            _, rep = est.fit(ds.x_train, ds.y_train, key, resume=d,
+                             faults=faults)
+        except Preemption as e:
+            say(f"    killed at {e.site} {e.info} after "
+                f"{sodm.level_solve_count() - c0} level solves, "
+                f"{time.perf_counter() - t0:.2f} s; committed steps "
+                f"{CheckpointManager(str(d)).all_steps()}")
+            return None, None
+        f = est.decision_function(ds.x_test)
+        torch.cuda.synchronize()
+        ran = sodm.level_solve_count() - c0
+        say(f"    resumed: {ran} level solves, passes "
+            f"{list(rep.passes)}, {time.perf_counter() - t0:.2f} s")
+        return rep, (f, ran)
+
+    def same(rep, out, want_ran, what):
+        f, ran = out
+        eq = (torch.equal(rep.raw.alpha, base.alpha),
+              rep.raw.sweeps_per_level == base.sweeps_per_level,
+              torch.equal(f, f_base))
+        say(f"  {what}: alpha, sweeps_per_level, test decision values "
+            f"equal to phase 4's bit for bit: {eq}; level solves {ran} "
+            f"(want {want_ran}, a cold fit runs {cfg.levels + 1})")
+        if not all(eq):
+            fail(f"{what}: the resumed fit differs from phase 4's")
+        if ran != want_ran:
+            fail(f"{what}: {ran} level solves, not {want_ran}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        d1 = os.path.join(tmp, "kill_at_level")
+        rep, out = fit_(d1, faults=FaultPlan().kill_at_level(1))
+        if rep is not None:
+            fail("kill_at_level(1) did not raise Preemption")
+        same(*fit_(d1), 2, "kill_at_level(1) then resume")
+
+        d2 = os.path.join(tmp, "kill_mid_checkpoint")
+        fit_(d2, faults=FaultPlan().kill_at_level(2))
+        rep, _ = fit_(d2, faults=FaultPlan().kill_mid_checkpoint())
+        steps = CheckpointManager(d2).all_steps()
+        torn = [n for n in os.listdir(d2) if ".tmp." in n]
+        say(f"  kill_mid_checkpoint: committed steps {steps}, torn write "
+            f"left as {torn}")
+        if rep is not None or steps != [1] or len(torn) != 1:
+            fail("kill_mid_checkpoint did not leave step 1 as the last "
+                 "committed step")
+        same(*fit_(d2), cfg.levels, "kill_mid_checkpoint then resume")
+
+        try:
+            est.fit(ds.x_train, ds.y_train, 1, resume=d1)
+            fail("a resume against another seed did not raise")
+        except ProvenanceError as e:
+            say(f"  seed 1 against seed 0's directory (strict): "
+                f"ProvenanceError: {str(e)[:100]}")
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            rep, out = fit_(ResumeConfig(d1, strict=False), key=1)
+        warned = any("different run" in str(w.message) for w in caught)
+        say(f"  seed 1 with strict=False: warned {warned}, cold start with "
+            f"{out[1]} level solves")
+        if not warned or out[1] != cfg.levels + 1:
+            fail("strict=False did not warn and cold-start")
+
+
+def susy_resume_phase(est, ds, base_w, base_hist, og) -> None:
+    """Phase 6b: the SUSY dsvrg fit killed and resumed (see the module
+    docs)."""
+    import torch
+    from repro_torch.distributed.checkpoint import CheckpointManager
+    from repro_torch.distributed.faults import FaultPlan, Preemption
+    from repro_torch.distributed.resume import ResumeConfig
+    epochs = est.cfg.dsvrg.epochs
+    say(f"== phase 6b: kill and resume the {ds.name} dsvrg fit "
+        f"({epochs} epochs)")
+
+    def check(rep, what):
+        eq = (torch.equal(rep.raw.w, base_w),
+              torch.equal(rep.raw.history, base_hist))
+        say(f"  {what}: w and history equal to phase 6's bit for bit: {eq}")
+        if not all(eq):
+            fail(f"{what}: the fit differs from phase 6's")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        d = os.path.join(tmp, "kill_at_epoch")
+        og.odm_svrg_epoch.launches = 0
+        t0 = time.perf_counter()
+        try:
+            est.fit(ds.x_train, ds.y_train, 0, resume=d,
+                    faults=FaultPlan().kill_at_epoch(5))
+            fail("kill_at_epoch(5) did not raise Preemption")
+        except Preemption as e:
+            n1 = og.odm_svrg_epoch.launches
+            say(f"  killed at {e.site} {e.info} after {n1} epoch-kernel "
+                f"launches, {time.perf_counter() - t0:.2f} s; committed "
+                f"steps {CheckpointManager(d).all_steps()}")
+        t0 = time.perf_counter()
+        _, rep = est.fit(ds.x_train, ds.y_train, 0, resume=d)
+        torch.cuda.synchronize()
+        n2 = og.odm_svrg_epoch.launches - n1
+        say(f"  resumed: {n2} epoch-kernel launches, "
+            f"{time.perf_counter() - t0:.2f} s")
+        check(rep, "kill_at_epoch(5) then resume")
+        if (n1, n2) != (5, epochs - 5):
+            fail(f"the epoch kernel launched {n1} + {n2} times across the "
+                 f"killed and the resumed fit, not 5 + {epochs - 5}")
+        t0 = time.perf_counter()
+        _, rep = est.fit(ds.x_train, ds.y_train, 0,
+                         resume=ResumeConfig(os.path.join(tmp, "seg2"),
+                                             segment=2))
+        torch.cuda.synchronize()
+        say(f"  ResumeConfig(segment=2): {time.perf_counter() - t0:.2f} s")
+        check(rep, "segments of 2 epochs")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -640,7 +974,13 @@ def main() -> None:
               "svrg": (alg2, alg1 + b6 + b8 + k4 + lm),
               "csvrg": (alg2, alg1 + b6 + b8 + k4 + lm),
               "qwen3-0.6b": (lm, alg1 + alg2 + b6 + b8 + k4),
-              "qwen3-0.6b fp32": (lm, alg1 + alg2 + b6 + b8 + k4)}
+              "qwen3-0.6b fp32": (lm, alg1 + alg2 + b6 + b8 + k4),
+              # ijcnn1's model served through the bucket graphs (4b): K2
+              # as the scorer, its launches the graphs' warm-ups and
+              # replays
+              "serve": (("score_tiles",),
+                        ("cd_block_sweep", "gram_matvec", "dense_matvec")
+                        + alg2 + b6 + b8 + k4 + lm)}
     fits, path_launches = {}, {}
     for phase, ds, gamma in ((3, phishing, g_phish), (4, ijcnn1, g_ijc)):
         say(f"== phase {phase}: fit {ds.name} M={ds.x_train.shape[0]} "
@@ -692,16 +1032,20 @@ def main() -> None:
                  f"{len(levels.rows)} levels, not once per level")
         if not acc > 0.5:
             fail(f"{ds.name} test accuracy {acc} is no better than chance")
-        fits[ds.name] = (model, f)
+        fits[ds.name] = (model, f, report)
         path_launches[ds.name] = launches
 
     # K2 as score_tiles: ijcnn1's support vectors against its test set
-    model, _ = fits["ijcnn1"]
+    model, _, _ = fits["ijcnn1"]
     xt = ijcnn1.x_test.to(dev).contiguous()
     stats["score_tiles"] = k2_case(
         "score_tiles", xt[None], model.x_sv[None], model.coef[None], g_ijc, 5,
         norms=False)
     del xt
+
+    serve_phase(fits["ijcnn1"], ijcnn1, counters, expect, path_launches,
+                derate)
+    resume_phase(fits["ijcnn1"], ijcnn1, params, cfg, g_ijc)
 
     # -- 5. the card against the CPU on one fit -------------------------------
     small = synthetic.load("phishing", scale=0.25)
@@ -1032,6 +1376,7 @@ def main() -> None:
         f"{susy_epoch_ms:.2f} ms, phase 2b), B7 {b7_s:.4f} s and "
         f"{epochs_s - kern_s - b7_s:.3f} s the objective, h and the host")
     del xs_tr, ys_tr
+    susy_resume_phase(est, susy, report.raw.w, report.raw.history, og)
 
     # -- 7. the card against the CPU on one small linear fit ------------------
     small = synthetic.load("a7a", scale=0.05)
@@ -1759,6 +2104,13 @@ def main() -> None:
             "launches_path": path,
             "launches_by_path": {p: n[counter] for p, n in
                                  path_launches.items()}, **s})
+    # on the serve path K2 runs inside the bucket graphs: a replay makes
+    # no host call, so the count there is the graphs' warm-up launches
+    # (score_tiles' own count) plus their replays (each graph's count)
+    next(k for k in kernels if k["name"] == "score_tiles")[
+        "launches_counting"] = ("host launches; on the serve path the "
+                                "bucket graphs' warm-up launches plus "
+                                "their replays")
     say(json.dumps({"kernels": kernels}))
     say(card_line())
     say(json.dumps({"ok": True, "device": {

@@ -14,8 +14,9 @@ PyTorch version. ``fit`` validates the data once, resolves the route,
 runs it and returns a deployable :class:`FittedODM` plus a
 :class:`FitReport`. ``save``/``load`` persist the artifact in the
 reference's checkpoint layout, so either package loads the other's.
-``resume``/``faults`` (ROADMAP A12), ``profile_dir`` (A15) and streaming
-sources (A14) are not ported yet and raise.
+``fit(resume=..., faults=...)`` makes the sodm and dsvrg routes
+preemption-proof, as in the reference. ``profile_dir`` (ROADMAP A15) and
+streaming sources (A14) are not ported yet and raise.
 """
 from __future__ import annotations
 
@@ -68,6 +69,10 @@ class ODMEstimator:
         self.model_: serve_model.FittedODM | None = None
         self.report_: FitReport | None = None
 
+    #: routes with a resume/faults seam (the paper's two regimes; the
+    #: Section-4 rivals have no mid-solve state worth persisting)
+    INSTRUMENTED_ROUTES = ("dsvrg", "sodm")
+
     def fit(self, x, y=None, key: torch.Generator | int | None = None, *,
             resume=None, faults=None, tracker=None, profile_dir=None,
             trace_dir=None, **fit_kw
@@ -76,17 +81,33 @@ class ODMEstimator:
 
         ``key`` seeds the partitioning (a ``torch.Generator`` or an int;
         ``None`` is seed 0). ``tracker`` receives per-level metrics and one
-        final summary; ``trace_dir`` exports host spans (fit → route →
+        final summary, on every route (the reference rejects it on the
+        rival routes; the port's rivals report their levels and epochs
+        through it); ``trace_dir`` exports host spans (fit → route →
         cascade.level) to ``<trace_dir>/trace.json``. ``fit_kw`` forwards
         ``level_callback``.
+
+        Preemption-proofing (sodm and dsvrg routes only; the others
+        raise rather than silently ignore these):
+
+        resume: a directory (or :class:`repro_torch.distributed.resume
+            .ResumeConfig`) holding mid-solve checkpoints, written per
+            level / per DSVRG segment as the solve progresses. A directory
+            left behind by a preempted fit restarts at the first unsolved
+            level or epoch, and the result equals the uninterrupted fit's
+            bit for bit. The provenance (kernel, params, cfg, data, key)
+            is fingerprinted: resuming against another problem raises.
+            A ``torch.Generator`` key is fingerprinted before the
+            partitioning draws from it, so a resume needs a generator in
+            the same state, not the one the killed fit consumed.
+        faults: a :class:`repro_torch.distributed.faults.FaultPlan` for
+            deterministic chaos testing (kill at a level or an epoch,
+            kill inside the checkpoint's crash window).
         """
         if y is None:
             raise NotImplementedError(
                 "streaming fits from a ShardedSource are not ported yet "
                 "(ROADMAP A14)")
-        if resume is not None or faults is not None:
-            raise NotImplementedError(
-                "resume/faults are not ported yet (ROADMAP A12)")
         if profile_dir is not None:
             raise NotImplementedError(
                 "profile_dir is not ported yet (ROADMAP A15)")
@@ -94,6 +115,18 @@ class ODMEstimator:
         M = int(x.shape[0])
         entry = registry.resolve(self.problem, M, route=self.route,
                                  cfg=self.cfg)
+        if entry.name not in self.INSTRUMENTED_ROUTES:
+            bad = [n for n, v in (("resume", resume), ("faults", faults))
+                   if v is not None]
+            if bad:
+                raise ValueError(
+                    f"route {entry.name!r} has no {'/'.join(bad)} seam — "
+                    f"instrumented routes: {list(self.INSTRUMENTED_ROUTES)}")
+        if resume is not None:
+            fit_kw["resume"] = self._resume_manager(entry.name, resume, x, y,
+                                                    key, faults)
+        if faults is not None:
+            fit_kw["faults"] = faults
         if tracker is not None:
             fit_kw["tracker"] = tracker
         t0 = time.perf_counter()
@@ -120,6 +153,20 @@ class ODMEstimator:
                 "wall_clock": wall, "rows_per_s": M / max(wall, 1e-9)})
         self.model_, self.report_ = out.model, report
         return out.model, report
+
+    def _resume_manager(self, route: str, resume, x: Tensor, y: Tensor,
+                        key, faults):
+        """The route's resume manager, fingerprinting THIS fit's (kernel,
+        params, cfg, data, key) so a stale directory is rejected instead
+        of splicing foreign duals into the solve."""
+        from repro_torch.distributed import resume as resume_mod
+        rc = resume_mod.ResumeConfig.of(resume)
+        prov = resume_mod.provenance(self.problem.kernel,
+                                     self.problem.params, self.cfg, x, y,
+                                     key)
+        cls = (resume_mod.DsvrgResumeManager if route == "dsvrg"
+               else resume_mod.CascadeResumeManager)
+        return cls(rc, prov, faults=faults)
 
     def _fitted(self) -> serve_model.FittedODM:
         if self.model_ is None:

@@ -15,7 +15,10 @@ All seven routes of the reference are registered, with its capabilities:
 ``sodm``, ``dsvrg`` and the Section-4 baselines ``cascade``, ``dip``,
 ``dc``, ``svrg`` and ``csvrg``, on resident data. A streaming fit (a
 ``ShardedSource``) is ROADMAP A14 and raises ``NotImplementedError``
-naming it.
+naming it. The ``sodm`` and ``dsvrg`` routes take the reference's
+``faults``/``tracker``/``resume`` seams; the rival routes take the
+tracker only, which the reference rejects on them (a known difference:
+the port reads their per-level and per-epoch times through it).
 """
 from __future__ import annotations
 
@@ -170,12 +173,18 @@ def _pin_level_engine(cfg, route: str):
     return cfg
 
 
+def _hooks(fit_kw) -> dict:
+    """The preemption/observability seams of the instrumented routes,
+    forwarded from ``ODMEstimator.fit(faults=, tracker=, resume=)``."""
+    return {k: fit_kw[k] for k in ("faults", "tracker", "resume")
+            if fit_kw.get(k) is not None}
+
+
 def _fit_sodm(problem, x, y, key, *, cfg, compile_kw,
               fit_kw) -> RouteOutput:
     cfg = _pin_level_engine(cfg, "sodm")
     res = sodm_mod._solve(problem.kernel, x, y, problem.params, cfg, key,
-                          fit_kw.get("level_callback"),
-                          tracker=fit_kw.get("tracker"))
+                          fit_kw.get("level_callback"), **_hooks(fit_kw))
     model = serve_model.from_sodm(problem.kernel, res, x, y, **compile_kw)
     return RouteOutput(model=model, raw=res, engine=cfg.engine,
                        passes=tuple(res.sweeps_per_level),
@@ -186,8 +195,7 @@ def _fit_dsvrg(problem, x, y, key, *, cfg, compile_kw,
                fit_kw) -> RouteOutput:
     del compile_kw                     # the artifact is the primal w
     res, dres = sodm_mod._solve_dsvrg(problem.kernel, x, y, problem.params,
-                                      cfg, key,
-                                      tracker=fit_kw.get("tracker"))
+                                      cfg, key, **_hooks(fit_kw))
     model = dataclasses.replace(serve_model.from_dsvrg(dres),
                                 spec=problem.kernel)
     return RouteOutput(model=model, raw=dres, engine="dsvrg",

@@ -29,11 +29,16 @@ the device until the solve returns. The parallel schedule advances all K
 chains together (one CTA per chain in the epoch kernel), which is what
 ``jax.vmap(chain)`` amounts to on the TPU.
 
+With a fault plan, a tracker or a resume manager the epochs run as
+checkpointable segments (:func:`_segmented`): the ``dsvrg.segment`` fault
+site before each, the tracker's row and the resume checkpoint after each.
+Each segment still runs its epochs through the epoch kernel, one launch
+an epoch, and a segmented fit equals the unsegmented one bit for bit.
+
 Not ported here (ROADMAP): ``epoch_trace_count``/``_TRACE_EVENTS`` (they
 pin a JAX trace count; eager PyTorch has no trace), the streaming solve
 ``_solve_stream`` (A14), the multi-device ``_solve_sharded`` and
-``make_sharded_epoch`` (A13), and the legacy warn-once ``solve`` shim. The
-``faults``/``resume`` seams raise (A12).
+``make_sharded_epoch`` (A13), and the legacy warn-once ``solve`` shim.
 """
 from __future__ import annotations
 
@@ -236,9 +241,6 @@ def _solve(x: Tensor, y: Tensor, params: ODMParams, cfg: DSVRGConfig,
         raise ValueError(f"K={K} must divide M={M}")
     if cfg.schedule not in ("serial", "parallel"):
         raise ValueError(f"unknown schedule {cfg.schedule!r}")
-    if faults is not None or resume is not None:
-        raise NotImplementedError(
-            "faults/resume seams are not ported yet (ROADMAP A12)")
 
     perm = _partition_perm(x, cfg, K, key)
     xp, yp = x[perm], y[perm]
@@ -246,14 +248,16 @@ def _solve(x: Tensor, y: Tensor, params: ODMParams, cfg: DSVRGConfig,
                                yp.reshape(K, M // K), cfg.batch)
     w0 = torch.zeros(d, dtype=x.dtype, device=x.device) if w0 is None \
         else w0
-    if tracker is None:
+    if faults is None and tracker is None and resume is None:
         w, hist, eta = _run(w0, xs, ys, wts, params=params, cfg=cfg, M=M)
     else:
         def runner(w, n):
             return _run(w, xs, ys, wts, params=params,
                         cfg=dataclasses.replace(cfg, epochs=n), M=M)
 
-        w, hist, eta = _segmented(runner, w0, cfg, M, tracker=tracker)
+        w, hist, eta = _segmented(runner, w0, cfg, M, perm=perm,
+                                  faults=faults, tracker=tracker,
+                                  resume=resume)
     return DSVRGResult(w=w, history=hist, perm=perm, eta=eta)
 
 
@@ -261,28 +265,51 @@ def _solve(x: Tensor, y: Tensor, params: ODMParams, cfg: DSVRGConfig,
 # segmented epochs (the instrumented path)
 # ---------------------------------------------------------------------------
 
-def _segmented(runner, w0: Tensor, cfg: DSVRGConfig, M: int, *, tracker):
-    """Run ``cfg.epochs`` as segments of one epoch each through
-    ``runner(w, n) -> (w', hist_n, eta)``. SVRG re-anchors at every epoch
-    start, so the iterate alone restarts the next epoch exactly and
-    splitting never changes the math. After each segment the tracker logs
-    ``(epoch, objective, eta, wall_s, rows_per_s)`` — the only host reads
-    of the solve. The reference's ``faults``/``resume`` seams here are
-    ROADMAP A12 (``_solve`` raises for them)."""
+def _segmented(runner, w0: Tensor, cfg: DSVRGConfig, M: int, *,
+               perm: Tensor, faults=None, tracker=None, resume=None):
+    """Run ``cfg.epochs`` as checkpointable segments through
+    ``runner(w, n) -> (w', hist_n, eta)``, ``resume.segment`` epochs each
+    (one without a resume manager). SVRG re-anchors at every epoch start,
+    so the iterate alone restarts the next epoch exactly and splitting
+    never changes the math: a resumed run and an uninterrupted one are
+    bit-identical by construction.
+
+    A resume directory's latest ``{w, history}`` + ``{epoch, eta}``
+    restarts the loop at its epoch. Between segments: the
+    ``"dsvrg.segment"`` fault site fires (before), the tracker logs
+    ``(epoch, objective, eta, wall_s, rows_per_s)`` and the resume
+    manager checkpoints ``{w, history, perm}`` + ``{epoch, eta}`` (after)
+    — the only host reads of the solve.
+    """
     w, done, parts = w0, 0, []
     eta = torch.zeros((), dtype=w0.dtype, device=w0.device)
+    seg = resume.segment if resume is not None else 1
+    if resume is not None:
+        restored = resume.restore(device=w0.device)
+        if restored is not None:
+            w, done = restored.w, restored.epoch
+            parts = [restored.history]
+            eta = torch.tensor(restored.eta, dtype=w0.dtype,
+                               device=w0.device)
     while done < cfg.epochs:
+        if faults is not None:
+            faults.site("dsvrg.segment", epoch=done)
+        n = min(seg, cfg.epochs - done)
         t0 = time.perf_counter()
-        with _span("dsvrg.segment", epoch=done, epochs=1):
-            w, h, eta = runner(w, 1)
+        with _span("dsvrg.segment", epoch=done, epochs=n):
+            w, h, eta = runner(w, n)
         parts.append(h)
-        done += 1
-        if w.is_cuda:
-            torch.cuda.synchronize(w.device)
-        wall = time.perf_counter() - t0
-        tracker.log_metrics(done, {
-            "route": "dsvrg", "epoch": done, "objective": float(h[-1]),
-            "eta": float(eta), "wall_s": wall,
-            "rows_per_s": M / max(wall, 1e-9)})
+        done += n
+        if tracker is not None:
+            if w.is_cuda:
+                torch.cuda.synchronize(w.device)
+            wall = time.perf_counter() - t0
+            tracker.log_metrics(done, {
+                "route": "dsvrg", "epoch": done, "objective": float(h[-1]),
+                "eta": float(eta), "wall_s": wall,
+                "rows_per_s": n * M / max(wall, 1e-9)})
+        if resume is not None:
+            resume.save_segment(epoch=done, w=w, history=torch.cat(parts),
+                                perm=perm, eta=eta)
     hist = torch.cat(parts) if parts else w0.new_zeros(0)
     return w, hist, eta

@@ -10,8 +10,13 @@ first: children solved at scale m_l, the parent solves at p·m_l.
 
 Linear-kernel problems may instead take the whole-problem DSVRG route
 (Algorithm 2, :func:`_solve_dsvrg`) under the registry's dispatch rule.
-The multi-device solve (``_solve_sharded``, ROADMAP A13) and the fault and
-resume seams (A12) are not ported yet and raise.
+The level loop carries the reference's seams: a fault plan's
+``cascade.level`` site before each level solve, a resume manager's
+checkpoint after it, and re-entry at the first unsolved level of a
+resume directory (:mod:`repro_torch.distributed.resume`);
+:func:`level_solve_count` counts the solves actually run. The
+multi-device solve (``_solve_sharded``, ROADMAP A13) is not ported yet
+and raises.
 """
 from __future__ import annotations
 
@@ -30,6 +35,16 @@ from repro_torch.core.odm import ODMParams
 from repro_torch.observe.spans import span as _span
 
 Tensor = torch.Tensor
+
+# one per level solve actually run (restored levels do not count); a
+# resumed fit's delta is smaller than a cold restart's
+_LEVEL_SOLVES = [0]
+
+
+def level_solve_count() -> int:
+    """How many level solves have run in this process — resumed fits skip
+    their restored levels."""
+    return _LEVEL_SOLVES[0]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,39 +139,69 @@ def _level_loop(run_level, x: Tensor, y: Tensor, perm: Tensor,
     """The Algorithm-1 level loop: ``run_level(xs, ys, alphas, K) ->
     (alphas, sweeps, kkts)`` per level, then merge p siblings.
 
-    ``tracker`` (anything with ``log_metrics(step, dict)``) receives
-    per-level KKT / sweeps / SV count / throughput. ``faults`` and
-    ``resume`` are not ported yet (ROADMAP A12).
+    Instrumentation seams, all default-off:
+
+    * ``faults`` — a :class:`repro_torch.distributed.faults.FaultPlan`;
+      the ``"cascade.level"`` site fires BEFORE each level solve, so a kill
+      at level k leaves level k+1's checkpoint as the last committed state.
+    * ``tracker`` (anything with ``log_metrics(step, dict)``) — per-level
+      KKT / sweeps / SV count / throughput.
+    * ``resume`` — a :class:`repro_torch.distributed.resume
+      .CascadeResumeManager`; every solved level is checkpointed, and a
+      non-empty resume directory re-enters the loop at the first unsolved
+      level with the restored ``perm``, duals, sweeps and KKT (the
+      restored level counts as solved: straight to the convergence check
+      and the merge). Level solves are deterministic on either device and
+      the checkpoint round trip is exact, so the resumed result equals an
+      uninterrupted run's bit for bit.
     """
-    if faults is not None or resume is not None:
-        raise NotImplementedError(
-            "faults/resume seams are not ported yet (ROADMAP A12)")
+    restored = resume.restore(device=x.device) if resume is not None \
+        else None
     M = x.shape[0]
-    K = cfg.p ** cfg.levels
-    m = M // K
-    alphas = torch.zeros(K, 2 * m, dtype=x.dtype, device=x.device)
-    sweeps_per_level: list[int] = []
-    kkt = torch.tensor(float("inf"), dtype=x.dtype, device=x.device)
-    level = cfg.levels
+    if restored is not None:
+        level, K, m = restored.level, restored.K, restored.m
+        alphas, perm = restored.alphas, restored.perm
+        sweeps_per_level = list(restored.sweeps_per_level)
+        kkt = restored.kkt
+        pending = False          # the restored level is already solved
+    else:
+        K = cfg.p ** cfg.levels
+        m = M // K
+        alphas = torch.zeros(K, 2 * m, dtype=x.dtype, device=x.device)
+        sweeps_per_level = []
+        kkt = torch.tensor(float("inf"), dtype=x.dtype, device=x.device)
+        level = cfg.levels
+        pending = True
     xp, yp = x[perm], y[perm]
 
     while True:
-        t0 = time.perf_counter()
-        with _span("cascade.level", level=level, K=K, m=m):
-            alphas, sweeps, kkts = run_level(xp.reshape(K, m, -1),
-                                             yp.reshape(K, m), alphas, K)
-            sweeps_per_level.append(int(torch.max(sweeps)))
-            kkt = torch.max(kkts)
-        if tracker is not None:
-            wall = time.perf_counter() - t0
-            sv = int(torch.sum(torch.abs(alphas[:, :m] - alphas[:, m:]) > 0))
-            tracker.log_metrics(len(sweeps_per_level), {
-                "route": "sodm", "level": level, "K": K, "m": m,
-                "sweeps": sweeps_per_level[-1], "kkt": float(kkt),
-                "sv_count": sv, "wall_s": wall,
-                "rows_per_s": M / max(wall, 1e-9)})
-        if level_callback is not None:
-            level_callback(level, alphas)
+        if pending:
+            if faults is not None:
+                faults.site("cascade.level", level=level, K=K)
+            _LEVEL_SOLVES[0] += 1
+            t0 = time.perf_counter()
+            with _span("cascade.level", level=level, K=K, m=m):
+                alphas, sweeps, kkts = run_level(xp.reshape(K, m, -1),
+                                                 yp.reshape(K, m), alphas, K)
+                sweeps_per_level.append(int(torch.max(sweeps)))
+                kkt = torch.max(kkts)
+            if tracker is not None:
+                wall = time.perf_counter() - t0
+                sv = int(torch.sum(
+                    torch.abs(alphas[:, :m] - alphas[:, m:]) > 0))
+                tracker.log_metrics(len(sweeps_per_level), {
+                    "route": "sodm", "level": level, "K": K, "m": m,
+                    "sweeps": sweeps_per_level[-1], "kkt": float(kkt),
+                    "sv_count": sv, "wall_s": wall,
+                    "rows_per_s": M / max(wall, 1e-9)})
+            if resume is not None:
+                resume.save_level(level=level, K=K, m=m, alphas=alphas,
+                                  perm=perm,
+                                  sweeps_per_level=sweeps_per_level,
+                                  kkt=kkt)
+            if level_callback is not None:
+                level_callback(level, alphas)
+        pending = True
         # Algorithm 1 line 5: a level whose warm start was already within
         # tol everywhere (0 sweeps) ends the cascade
         converged = cfg.early_stop and sweeps_per_level[-1] == 0 \

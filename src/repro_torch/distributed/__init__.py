@@ -1,3 +1,9 @@
 """Distributed-systems layer of the port. Port of ``repro.distributed``:
-so far ``checkpoint`` (atomic versioned save and restore); faults,
-resume and stragglers are ROADMAP A12, elastic multi-device A13."""
+``checkpoint`` (atomic versioned save, restore and async save),
+``faults`` (deterministic fault injection), ``resume`` (mid-solve
+checkpoints of the level loop and the DSVRG epochs) and ``straggler``
+(the speculative partition scheduler); elastic multi-device is ROADMAP
+A13."""
+from repro_torch.distributed import checkpoint, faults, resume, straggler
+
+__all__ = ["checkpoint", "faults", "resume", "straggler"]

@@ -1,14 +1,21 @@
-"""Versioned, atomic checkpoints with retention.
+"""Versioned, atomic checkpoints with async write and retention.
 
-Port of the synchronous half of ``repro.distributed.checkpoint``, in the
-reference's on-disk format, so either package reads the other's steps:
+Port of ``repro.distributed.checkpoint``, in the reference's on-disk
+format, so either package reads the other's steps:
 
     <dir>/step_<n:010d>/manifest.json + arrays.npz      (committed)
     <dir>/step_<n:010d>.tmp.<pid>/...                   (in flight)
 
 * **Atomic commit**: a step is written into a temp dir, the manifest is
   fsync'd, then the dir is renamed into place; a crash never leaves a
-  half-readable step visible.
+  half-readable step visible. A ``faults`` plan
+  (:class:`repro_torch.distributed.faults.FaultPlan`) fires the
+  ``checkpoint.pre_rename`` site inside that crash window.
+* **Async**: ``save_async`` takes the snapshot to host memory on the
+  caller's thread (a ``.cpu()`` copy of every tensor, so a later in-place
+  update on the card cannot race the writer) and serializes it on a
+  background thread; one write is in flight at a time, and ``wait()``
+  joins it and raises again any error the writer met.
 * **Format 1**: ``arrays.npz`` holds one array per leaf under its path
   (dict keys and sequence indices joined by ``/``); ``manifest.json``
   holds ``step``, ``metadata``, each leaf's shape and dtype, and
@@ -18,16 +25,15 @@ reference's on-disk format, so either package reads the other's steps:
 * **Retention**: the newest ``keep`` steps stay; older steps and orphaned
   temp dirs are removed after each commit.
 
-Not ported yet (ROADMAP A12): ``save_async`` (the background writer) and
-the ``checkpoint.pre_rename`` fault site; both raise. The reference's
-elastic re-sharding on restore (``shardings=``) waits for the multi-device
-port (A13).
+The reference's elastic re-sharding on restore (``shardings=``) waits for
+the multi-device port (ROADMAP A13).
 """
 from __future__ import annotations
 
 import json
 import os
 import shutil
+import threading
 from typing import Any, Optional
 
 import numpy as np
@@ -67,16 +73,26 @@ def _unflatten_into(template, flat: dict[str, Any], prefix: str = ""):
     return flat[prefix]
 
 
-def _to_numpy(leaf) -> tuple[np.ndarray, str]:
-    """A leaf as a numpy array numpy can store, and its true dtype name."""
+def _to_numpy(leaf, copy: bool = False) -> tuple[np.ndarray, str]:
+    """A leaf as a numpy array numpy can store, and its true dtype name.
+    ``copy``: the array never shares memory with the leaf (a CUDA
+    tensor's ``.cpu()`` already is a copy; a CPU tensor's is not)."""
     if isinstance(leaf, torch.Tensor):
-        t = leaf.detach().cpu().contiguous()
+        t = leaf.detach().cpu()
+        if copy and t.data_ptr() == leaf.data_ptr():
+            t = t.clone()
+        t = t.contiguous()
         if t.dtype == torch.bfloat16:
             return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
         arr = t.numpy()
     else:
-        arr = np.asarray(leaf)
+        arr = np.array(leaf) if copy else np.asarray(leaf)
     return arr, str(arr.dtype)
+
+
+def _host(tree, copy: bool = False) -> dict[str, tuple[np.ndarray, str]]:
+    """The tree's leaves on the host, by path: ``(array, dtype name)``."""
+    return {k: _to_numpy(v, copy) for k, v in _flatten(tree).items()}
 
 
 def _from_numpy(arr: np.ndarray, dtype: str) -> torch.Tensor:
@@ -90,50 +106,76 @@ def _from_numpy(arr: np.ndarray, dtype: str) -> torch.Tensor:
 
 class CheckpointManager:
     """Atomic, versioned steps under ``directory``; keeps the newest
-    ``keep``. ``faults`` (the ``checkpoint.pre_rename`` site) is ROADMAP
-    A12 and raises."""
+    ``keep`` (0 keeps every step). ``faults``: a fault plan whose
+    ``checkpoint.pre_rename`` site fires between the fsync'd temp write
+    and the rename."""
 
     def __init__(self, directory: str, keep: int = 3, faults=None):
-        if faults is not None:
-            raise NotImplementedError(
-                "the checkpoint.pre_rename fault site is not ported yet "
-                "(ROADMAP A12)")
         self.dir = directory
         self.keep = keep
+        self.faults = faults
         os.makedirs(directory, exist_ok=True)
+        self._thread: Optional[threading.Thread] = None
+        self._error: Optional[BaseException] = None
 
     # -- write ---------------------------------------------------------------
 
     def save(self, step: int, tree, metadata: Optional[dict] = None) -> str:
         """Synchronous checkpoint of a tree of tensors / arrays."""
+        return self._write(step, _host(tree), metadata or {})
+
+    def save_async(self, step: int, tree,
+                   metadata: Optional[dict] = None) -> None:
+        """Snapshot now (on this thread), serialize in the background."""
+        self.wait()                      # one in flight at a time
+        host = _host(tree, copy=True)
+        md = dict(metadata or {})
+
+        def run():
+            try:
+                self._write(step, host, md)
+            except BaseException as e:   # raised again by wait()
+                self._error = e
+
+        self._thread = threading.Thread(target=run, daemon=True)
+        self._thread.start()
+
+    def wait(self) -> None:
+        """Join the write in flight; raise again the error it met."""
+        if self._thread is not None:
+            self._thread.join()
+            self._thread = None
+        if self._error is not None:
+            err, self._error = self._error, None
+            raise err
+
+    def _write(self, step: int, host: dict, metadata: dict) -> str:
         with _span("checkpoint.commit", step=step):
-            return self._write(step, tree, metadata or {})
+            return self._write_inner(step, host, metadata)
 
-    def save_async(self, step: int, tree, metadata: Optional[dict] = None):
-        raise NotImplementedError(
-            "save_async is not ported yet (ROADMAP A12): use save")
-
-    def _write(self, step: int, tree, metadata: dict) -> str:
+    def _write_inner(self, step: int, host: dict, metadata: dict) -> str:
         final = os.path.join(self.dir, f"step_{step:010d}")
         tmp = final + f".tmp.{os.getpid()}"
         if os.path.exists(tmp):
             shutil.rmtree(tmp)
         os.makedirs(tmp)
-        savable, dtypes = {}, {}
-        for k, v in _flatten(tree).items():
-            savable[k], dtypes[k] = _to_numpy(v)
-        np.savez(os.path.join(tmp, "arrays.npz"), **savable)
+        np.savez(os.path.join(tmp, "arrays.npz"),
+                 **{k: arr for k, (arr, _) in host.items()})
         manifest = {
             "step": step,
             "metadata": metadata,
-            "leaves": {k: {"shape": list(v.shape), "dtype": dtypes[k]}
-                       for k, v in savable.items()},
+            "leaves": {k: {"shape": list(arr.shape), "dtype": dtype}
+                       for k, (arr, dtype) in host.items()},
             "format": 1,
         }
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
             json.dump(manifest, f)
             f.flush()
             os.fsync(f.fileno())
+        if self.faults is not None:
+            # the crash window: a kill here leaves an orphaned temp dir and
+            # must not disturb the step committed before it
+            self.faults.site("checkpoint.pre_rename", step=step)
         if os.path.exists(final):
             shutil.rmtree(final)
         os.rename(tmp, final)

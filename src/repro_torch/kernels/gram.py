@@ -145,11 +145,13 @@ def pad_features(x: Tensor) -> Tensor:
 
 def launch_gram_matvec(x: Tensor, z: Tensor, g: Tensor, *, kind: str,
                        gamma: float, degree: int, coef0: float,
-                       xx: Tensor | None = None,
-                       zz: Tensor | None = None) -> Tensor:
+                       xx: Tensor | None = None, zz: Tensor | None = None,
+                       zp: Tensor | None = None) -> Tensor:
     """K2 on CUDA tensors: x (K, M, D), z (K, N, D), g (K, N) -> (K, M).
     ``xx`` (K, M) and ``zz`` (K, N) are the squared row norms, which only
-    rbf reads; they are computed here when not given."""
+    rbf reads; they are computed here when not given. ``zp`` is
+    ``pad_features(z)`` when the caller keeps it (a served model's SV
+    slab), else it is made here."""
     K, M, D = x.shape
     N = z.shape[1]
     _check_f32("x", x, (K, M, D))
@@ -173,7 +175,12 @@ def launch_gram_matvec(x: Tensor, z: Tensor, g: Tensor, *, kind: str,
         _check_f32("zz", zz, (K, N))
         xx_p, zz_p = _build.ptr(xx), _build.ptr(zz)
     xp = pad_features(x)
-    zp = xp if z is x else pad_features(z)
+    if zp is None:
+        zp = xp if z is x else pad_features(z)
+    else:
+        _check_f32("zp", zp, (K, N, xp.shape[-1]))
+        if zp.data_ptr() % 16:
+            raise ValueError("zp: expected a 16-byte aligned tensor")
     D4 = xp.shape[-1]
     kc = KIND_CODES[kind]
     lib = _build.library()

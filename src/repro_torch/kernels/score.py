@@ -9,6 +9,11 @@ rows as ``x`` and the SV slab as ``z``.
 * :func:`score_tiles`   — on CUDA tensors, K2 (``csrc/gram_matvec.cu``)
   with K = 1, counted in ``score_tiles.launches``; on CPU tensors, its
   plain version :func:`score_blocked`.
+* :func:`launch_score`  — the same launch, uncounted, for a caller that
+  counts the launches itself: the server captures it into one CUDA graph
+  per bucket and counts each graph's replays.
+* :func:`prepare_slab`  — the SV slab's squared row norms and padded
+  features, made once per served model instead of on every call.
 * :func:`score_ref`     — dense oracle (materializes (T, S)).
 * :func:`score_blocked` — row-block streaming scorer, O(bt·S) memory.
 """
@@ -24,18 +29,41 @@ Tensor = torch.Tensor
 
 def score_tiles(x: Tensor, z: Tensor, coef: Tensor, *, kind: str = "rbf",
                 gamma: float = 1.0, degree: int = 3, coef0: float = 1.0,
-                bt: int = 256) -> Tensor:
+                bt: int = 256, slab: tuple | None = None) -> Tensor:
     """f (T,) = K(x, z) @ coef; ragged shapes are masked in the kernel,
-    ``bt`` sizes the plain version's row blocks."""
+    ``bt`` sizes the plain version's row blocks. ``slab``:
+    :func:`prepare_slab` of z, which the kernel then reads instead of
+    making it again (the plain version needs none)."""
     if on_cpu(x, z, coef):
         return score_blocked(x, z, coef, kind=kind, gamma=gamma,
                              degree=degree, coef0=coef0, bt=bt)
-    f = gram_mod.launch_gram_matvec(
-        x[None].contiguous(), z[None].contiguous(),
-        coef.to(torch.float32)[None].contiguous(), kind=kind, gamma=gamma,
-        degree=degree, coef0=coef0)[0]
+    f = launch_score(x, z, coef, kind=kind, gamma=gamma, degree=degree,
+                     coef0=coef0, slab=slab)
     score_tiles.launches += 1
     return f
+
+
+def launch_score(x: Tensor, z: Tensor, coef: Tensor, *, kind: str,
+                 gamma: float, degree: int, coef0: float,
+                 slab: tuple | None = None) -> Tensor:
+    """K2 with one partition on CUDA tensors, not counted: the caller
+    counts its launches (:func:`score_tiles`, or a captured graph's
+    replays)."""
+    zz, zp = (None, None) if slab is None else slab
+    return gram_mod.launch_gram_matvec(
+        x[None].contiguous(), z[None].contiguous(),
+        coef.to(torch.float32)[None].contiguous(), kind=kind, gamma=gamma,
+        degree=degree, coef0=coef0, zz=zz, zp=zp)[0]
+
+
+def prepare_slab(z: Tensor, kind: str) -> tuple:
+    """(zz, zp) of the (S, d) SV slab as K2 reads it: the squared row
+    norms (1, S) for rbf (else None) and the features padded to a multiple
+    of 4 (1, S, d4) — the same tensors the launcher makes on each call, so
+    a call given them returns the same bits."""
+    z1 = z[None].contiguous()
+    zz = gram_mod.row_norms(z1) if kind == "rbf" else None
+    return zz, gram_mod.pad_features(z1)
 
 
 score_tiles.launches = 0

@@ -903,3 +903,111 @@ def test_serve_entry_point_on_card(dev, capsys):
                        "--gen", "3", "--batch", "2"]) == 0
     assert flash_attn.flash_attention.launches == before + 2  # 2 layers
     assert capsys.readouterr().out.count("[serve]") == 3
+
+
+# ---------------------------------------------------------------------------
+# the microbatching server's CUDA graphs, and kill/resume on the card
+# ---------------------------------------------------------------------------
+
+def _served_model(dev, kind, S=3000, d=22, seed=13):
+    from repro_torch.serve.model import FittedODM
+    rng = np.random.default_rng(seed)
+    T = lambda a: torch.tensor(a, dtype=torch.float32, device=dev)  # noqa
+    spec = kf.KernelSpec(kind, 0.05)
+    model = FittedODM(spec=spec, x_sv=T(rng.random((S, d))),
+                      coef=T(rng.standard_normal(S)))
+    return model, T(rng.random((300, d)))
+
+
+@pytest.mark.parametrize("kind", ["rbf", "laplacian"])
+def test_scorer_graph_replay_equals_eager_call(dev, kind):
+    """One captured graph per bucket: its replay equals an eager K2 call
+    at the bucket's shape bit for bit, again after new rows are copied
+    into the static buffer (a graph that baked in its first input would
+    fail); bucketed scores match decision_function; warm-ups are the only
+    counted launches, replays are counted per bucket."""
+    from repro_torch.serve.server import MicrobatchScorer
+    model, xq = _served_model(dev, kind)
+    sc = MicrobatchScorer(model, max_batch=32)
+    kw = dict(kind=kind, gamma=0.05, degree=3, coef0=1.0)
+    before = score_mod.score_tiles.launches
+    for B in (1, 3, 17, 32, 77):
+        got = sc.score(xq[:B])
+        want = model.decision_function(xq[:B])
+        assert got.shape == (B,) and _rel(got, want) < 1e-5, B
+    assert score_mod.score_tiles.launches - before == 5 + len(sc.graphs)
+    assert sc.compiles == len(sc.graphs) <= len(sc.buckets)
+    assert sc.replays == {1: 1, 4: 1, 16: 1, 32: 4}
+    for b, bg in sc.graphs.items():
+        for rows in (xq[:b], xq[100:100 + b]):
+            bg.x.copy_(rows)
+            bg.replay()
+            assert torch.equal(bg.out, score_mod.score_tiles(
+                bg.x, model.x_sv, model.coef, **kw)), b
+
+
+def test_scorer_replay_runs_one_k2_kernel(dev):
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serve.server import MicrobatchScorer
+    model, xq = _served_model(dev, "rbf")
+    sc = MicrobatchScorer(model, max_batch=64)
+    sc.score(xq[:64])
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        sc.graphs[64].replay()
+        torch.cuda.synchronize()
+    k2 = [e for e in prof.key_averages() if "gram_matvec_kernel" in e.key]
+    assert sum(e.count for e in k2) == 1, [e.key for e in
+                                           prof.key_averages()]
+
+
+def _small_fit(dev, route, cfg, **kw):
+    from repro_torch.api import ODMEstimator, ProblemSpec
+    rng = np.random.default_rng(14)
+    x = rng.random((512, 8)).astype(np.float32) - 0.5
+    y = np.sign(x @ rng.standard_normal(8)).astype(np.float32)
+    kernel = kf.KernelSpec("rbf", 0.5) if route == "sodm" \
+        else kf.KernelSpec("linear")
+    est = ODMEstimator(ProblemSpec(kernel=kernel), route=route, cfg=cfg,
+                       device=dev)
+    return est.fit(x, y, 0, **kw)
+
+
+def test_sodm_kill_and_resume_on_card_bit_for_bit(dev, tmp_path):
+    from repro_torch.core import sodm
+    from repro_torch.distributed.faults import FaultPlan, Preemption
+    cfg = sodm.SODMConfig(p=2, levels=2, n_landmarks=4, tol=1e-4,
+                          max_sweeps=100, engine="pallas", block=32,
+                          gram_threshold=64)
+    model, base = _small_fit(dev, "sodm", cfg)
+    d = str(tmp_path)
+    with pytest.raises(Preemption):
+        _small_fit(dev, "sodm", cfg, resume=d,
+                   faults=FaultPlan().kill_at_level(1))
+    c0 = sodm.level_solve_count()
+    model2, resumed = _small_fit(dev, "sodm", cfg, resume=d)
+    assert sodm.level_solve_count() - c0 == 2
+    assert torch.equal(resumed.raw.alpha, base.raw.alpha)
+    assert resumed.raw.sweeps_per_level == base.raw.sweeps_per_level
+    assert torch.equal(model2.coef, model.coef)
+
+
+@pytest.mark.parametrize("schedule", ["serial", "parallel"])
+def test_dsvrg_kill_and_resume_on_card_bit_for_bit(dev, tmp_path, schedule):
+    from repro_torch.core import sodm
+    from repro_torch.core.dsvrg import DSVRGConfig
+    from repro_torch.distributed.faults import FaultPlan, Preemption
+    cfg = sodm.SODMConfig(dsvrg=DSVRGConfig(n_partitions=4, epochs=4,
+                                            batch=16, schedule=schedule))
+    model, base = _small_fit(dev, "dsvrg", cfg)
+    d = str(tmp_path)
+    n0 = odm_grad_mod.odm_svrg_epoch.launches
+    with pytest.raises(Preemption):
+        _small_fit(dev, "dsvrg", cfg, resume=d,
+                   faults=FaultPlan().kill_at_epoch(2))
+    model2, resumed = _small_fit(dev, "dsvrg", cfg, resume=d)
+    torch.cuda.synchronize()
+    assert odm_grad_mod.odm_svrg_epoch.launches - n0 == 4
+    assert torch.equal(model2.w, model.w)
+    assert torch.equal(resumed.raw.history, base.raw.history)

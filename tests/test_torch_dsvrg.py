@@ -180,9 +180,18 @@ def test_solve_errors_and_unported_seams():
         td._solve(X, Y, p, td.DSVRGConfig(n_partitions=7), 0)
     with pytest.raises(ValueError, match="schedule"):
         td._solve(X, Y, p, td.DSVRGConfig(n_partitions=4, schedule="x"), 0)
-    for kw in (dict(faults=object()), dict(resume=object())):
-        with pytest.raises(NotImplementedError, match="A12"):
-            td._solve(X, Y, p, td.DSVRGConfig(n_partitions=4), 0, **kw)
+    # the faults/resume seams are ported: a plan's dsvrg.segment site
+    # fires once a segment (tests/test_torch_resume.py holds the rest)
+    from repro_torch.distributed.faults import FaultPlan
+    plan = FaultPlan()
+    td._solve(X, Y, p, td.DSVRGConfig(n_partitions=4, epochs=2), 0,
+              faults=plan)
+    assert plan.fired == []
+    plan = FaultPlan().kill_at_epoch(1)
+    with pytest.raises(RuntimeError, match="dsvrg.segment"):
+        td._solve(X, Y, p, td.DSVRGConfig(n_partitions=4, epochs=2), 0,
+                  faults=plan)
+    assert plan.fired == [("kill", "dsvrg.segment", {"epoch": 1})]
 
 
 def test_tracker_segments_repeat_the_untracked_solve():

@@ -58,12 +58,17 @@ def test_unported_routes_raise_with_roadmap_item():
                            route=route)
         with pytest.raises(NotImplementedError, match="A14"):
             est.fit(x)                     # a ShardedSource: streaming
-    est = ODMEstimator(ProblemSpec.create("linear"), device="cpu",
-                       route="dsvrg")
-    with pytest.raises(NotImplementedError, match="A12"):
-        est.fit(x, y, faults=object())
-    with pytest.raises(NotImplementedError, match="A12"):
-        ODMEstimator(device="cpu").fit(x, y, resume="/nonexistent")
+    # resume/faults are ported on the sodm and dsvrg routes; every other
+    # route raises the reference's ValueError naming the seam
+    for route in ("cascade", "dip", "dc", "svrg", "csvrg"):
+        kernel = "linear" if route in ("svrg", "csvrg") else "rbf"
+        est = ODMEstimator(ProblemSpec.create(kernel), device="cpu",
+                           route=route)
+        with pytest.raises(ValueError, match=f"route '{route}' has no "
+                                             f"faults seam"):
+            est.fit(x, y, faults=object())
+        with pytest.raises(ValueError, match="has no resume seam"):
+            est.fit(x, y, resume="/nonexistent")
     with pytest.raises(NotImplementedError, match="A15"):
         ODMEstimator(device="cpu").fit(x, y, profile_dir="/nonexistent")
 

@@ -118,14 +118,19 @@ def test_unported_seams_raise():
     X, Y = torch.tensor(x), torch.tensor(y)
     from repro_torch.core.kernel_fns import KernelSpec
     from repro_torch.core.odm import ODMParams
-    with pytest.raises(NotImplementedError, match="A12"):
+    # the faults seam is ported (A12): the cascade.level site fires
+    # before each level solve, on the level loop and on the dsvrg route
+    from repro_torch.distributed.faults import FaultPlan, Preemption
+    with pytest.raises(Preemption, match="cascade.level"):
         tsodm._solve(KernelSpec(), X, Y, ODMParams(),
-                     tsodm.SODMConfig(levels=1), 0, faults=object())
+                     tsodm.SODMConfig(levels=1), 0,
+                     faults=FaultPlan().kill_at_level(0))
     with pytest.raises(NotImplementedError, match="A13"):
         tsodm._solve_sharded(KernelSpec(), X, Y)
-    with pytest.raises(NotImplementedError, match="A12"):
+    with pytest.raises(Preemption, match="dsvrg.segment"):
         tsodm._solve(KernelSpec("linear"), X, Y, ODMParams(),
-                     tsodm.SODMConfig(engine="dsvrg"), 0, faults=object())
+                     tsodm.SODMConfig(engine="dsvrg"), 0,
+                     faults=FaultPlan().kill_at_epoch(0))
     # the cluster strategy is ported; an unknown one raises
     res = tsodm._solve(KernelSpec(), X, Y, ODMParams(),
                        tsodm.SODMConfig(levels=1, max_sweeps=5,
