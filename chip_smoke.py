@@ -34,18 +34,25 @@ Phases (any failed check exits nonzero):
    MicrobatchScorer(max_batch=256), one captured CUDA graph per bucket of
    the ladder 1, 2, 4, ..., 256 with K2 inside, and Batcher: batch sizes
    1, 3, 17, 64, 256 and 300 (300 chunks) from host rows within 1e-5 x
-   max|f| of decision_function; then the first 20,000 test rows through
-   serve_stream on a virtual clock (arrivals 5 us apart, max_batch=64,
-   max_wait=2e-3), every score within the same band, and again with a
-   FaultPlan(sleeper=None) delay on serve.flush, which must shift the
-   completion times of exactly the delayed batch by exactly the delay.
-   The launch counts are set to 0 before this serving run and read after
-   it (the serve path): K2's launches there are the graphs' warm-up
-   launches plus their replays, no other kernel runs. Then each bucket's
+   max|f| of K2's plain version (score_blocked on the card, the same
+   rows) and of decision_function; then the first 20,000 test rows
+   through serve_stream on a virtual clock (arrivals 5 us apart,
+   max_batch=64, max_wait=2e-3), every score within the same band of
+   both, and again with a FaultPlan(sleeper=None) delay on serve.flush,
+   which must shift the completion times of exactly the delayed batch by
+   exactly the delay. The launch counts are set to 0 before this serving
+   run and read after it (the serve path): K2's launches there are the
+   graphs' warm-ups plus their replays, each of which bumps
+   score_tiles' counter, and no other kernel runs. Then each bucket's
    replay equals an eager score_tiles call at its shape bit for bit
-   (torch.equal), again after new rows are copied into the static
-   buffer; compiles <= len(buckets); one replay under torch.profiler
-   runs exactly one K2 kernel (gram_matvec_kernel). Printed, not held:
+   (torch.equal) and lies within the band of the plain version, again
+   after new rows are copied into the static buffer; compiles <=
+   len(buckets); one replay under torch.profiler runs exactly one K2
+   kernel (gram_matvec_kernel), and so does the same call captured with
+   the SV slab's padding and norms made inside the graph instead of once
+   a model (score.prepare_slab), whose output must equal the scorer's
+   bit for bit; both profiles and replay times are printed, with the
+   share of the padding and norms. Printed, not held:
    per bucket the replay's and the eager call's ms by CUDA events beside
    the bound, the host us of one Batcher.flush of 64 host rows, and the
    stream's wall-clock requests/s.
@@ -180,8 +187,10 @@ phishing's dense levels only), on the SUSY path for the epoch kernel, B6
 path for K4, on the qwen3-0.6b path for B9 in bf16 and on its fp32 prefill
 for B9 in fp32 (flash_attention_f32); ``launches_by_path`` gives every
 path, among them ``serve`` (phase 4b), where score_tiles' entry counts
-the bucket graphs' warm-up launches plus their replays, as its
-``launches_counting`` says. The last line is the result.
+the bucket graphs' warm-ups plus their replays, as its
+``launches_counting`` says. Every count is read from the process-wide
+``launch.<kernel>`` counters of repro_torch.analysis.invariants. The last
+line is the result.
 """
 from __future__ import annotations
 
@@ -249,6 +258,25 @@ def time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def reset_launches() -> None:
+    """Set every kernel's process-wide launch counter to 0."""
+    from repro_torch.analysis import invariants as inv
+    for name, c in inv.counters().items():
+        if name.startswith("launch."):
+            c.reset()
+
+
+def read_launches() -> dict:
+    """Each kernel's launches since :func:`reset_launches`, by its
+    wrapper's name: the process-wide ``launch.<name>`` counters, which
+    each wrapper bumps where it launches its kernel and each bucket graph
+    bumps on its warm-up and its replays."""
+    from repro_torch.analysis import invariants as inv
+    return {name[len("launch."):]: c.count
+            for name, c in inv.counters().items()
+            if name.startswith("launch.")}
 
 
 def device_ms(fn, reps: int) -> float:
@@ -431,7 +459,7 @@ class LevelLog:
             self.rows.append(dict(metrics))
 
 
-def serve_phase(fit, ds, counters, expect, path_launches, derate) -> None:
+def serve_phase(fit, ds, expect, path_launches, derate) -> None:
     """Phase 4b: ijcnn1's fitted model through MicrobatchScorer and
     Batcher (see the module docs)."""
     import torch
@@ -448,15 +476,23 @@ def serve_phase(fit, ds, counters, expect, path_launches, derate) -> None:
     rows = ds.x_test                     # requests arrive from the host
     sizes = (1, 3, 17, 64, 256, 300)
     n_stream = 20_000
+    kw = dict(kind=model.spec.name, gamma=model.spec.gamma,
+              degree=model.spec.degree, coef0=model.spec.coef0)
+    xd = rows.to(dev)
+    # two references on the same rows: decision_function (on the card K2
+    # as score_tiles) and K2's plain PyTorch version
     want = model.decision_function(rows[:max(sizes)])
     want_stream = model.decision_function(rows[:n_stream]).cpu()
+    plain_stream = score_mod.score_blocked(xd[:n_stream], model.x_sv,
+                                           model.coef, **kw)
+    plain = plain_stream[:max(sizes)]
+    plain_stream = plain_stream.cpu()
     torch.cuda.synchronize()
 
     # the serving path: counts from 0, then the batch sizes and a
-    # virtual-clock stream; K2's launches are the graphs' warm-ups
-    # (score_tiles' count) and replays (each graph's count)
-    for fn in counters.values():
-        fn.launches = 0
+    # virtual-clock stream; K2's launches are the graphs' warm-ups and
+    # replays, each of which bumps score_tiles' counter
+    reset_launches()
     scorer = server_mod.MicrobatchScorer(model, max_batch=256)
     t0 = time.perf_counter()
     got = {B: scorer.score(rows[:B]) for B in sizes}
@@ -468,16 +504,18 @@ def serve_phase(fit, ds, counters, expect, path_launches, derate) -> None:
     st = server_mod.serve_stream(batcher, arrivals)
     torch.cuda.synchronize()
     stream_s = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
-    warmups = launches["score_tiles"]
+    launches = read_launches()
     replays = scorer.replays
-    launches["score_tiles"] += sum(replays.values())
     path_launches["serve"] = launches
     say(f"  batch sizes {sizes}: {first_s * 1e3:.1f} ms with "
         f"{len(scorer.graphs)} captures; compiles={scorer.compiles} of "
         f"{len(scorer.buckets)} buckets {scorer.buckets}")
-    say(f"  K2 on the serving path: {warmups} warm-up launches + "
-        f"{sum(replays.values())} replays {replays}")
+    say(f"  K2 on the serving path: {launches['score_tiles']} launches = "
+        f"{len(scorer.graphs)} graph warm-ups + {sum(replays.values())} "
+        f"replays {replays}")
+    if launches["score_tiles"] != len(scorer.graphs) + sum(replays.values()):
+        fail("score_tiles' count on the serve path is not the graphs' "
+             "warm-ups plus their replays")
     say(f"  launches on the serve path: {launches}")
     ran, idle = expect["serve"]
     for name in ran:
@@ -492,24 +530,31 @@ def serve_phase(fit, ds, counters, expect, path_launches, derate) -> None:
              f"and {len(scorer.buckets)} buckets")
     for B in sizes:
         err = float((got[B] - want[:B]).abs().max())
-        say(f"  B={B}: max|f_served - f| = {err:.3e} (band 1e-5 x max|f| = "
-            f"{1e-5 * fmax:.3e})")
+        err_p = float((got[B] - plain[:B]).abs().max())
+        say(f"  B={B}: max|f_served - f| = {err:.3e}, against the plain "
+            f"version {err_p:.3e} (band 1e-5 x max|f| = {1e-5 * fmax:.3e})")
         if got[B].shape != (B,) or not err <= 1e-5 * fmax:
             fail(f"served scores at B={B} disagree with decision_function")
+        if not err_p <= 1e-5 * fmax:
+            fail(f"served scores at B={B} disagree with the plain version")
     res = st["results"]
     if len(res) != n_stream or sorted(r.rid for r in res) != \
             list(range(n_stream)):
         fail("serve_stream lost or duplicated requests")
     got_s = torch.tensor([r.score for r in sorted(res, key=lambda r: r.rid)])
     err = float((got_s - want_stream).abs().max())
+    err_p = float((got_s - plain_stream).abs().max())
     say(f"  serve_stream: {n_stream} requests 5 us apart, max_batch=64, "
         f"max_wait=2e-3: {len(st['batches'])} flushes, mean batch "
         f"{st['mean_batch']:.2f}, p50/p95/p99 latency (virtual clock) "
         f"{st['p50'] * 1e6:.1f}/{st['p95'] * 1e6:.1f}/{st['p99'] * 1e6:.1f} "
-        f"us; max|f_served - f| = {err:.3e}; wall {stream_s:.3f} s, "
+        f"us; max|f_served - f| = {err:.3e}, against the plain version "
+        f"{err_p:.3e}; wall {stream_s:.3f} s, "
         f"{n_stream / stream_s:.0f} requests/s")
     if not err <= 1e-5 * fmax:
         fail("serve_stream's scores disagree with decision_function")
+    if not err_p <= 1e-5 * fmax:
+        fail("serve_stream's scores disagree with the plain version")
 
     # a virtual-clock delay on one flush shifts that batch's completion
     # times by exactly the delay and no other
@@ -527,46 +572,69 @@ def serve_phase(fit, ds, counters, expect, path_launches, derate) -> None:
     if len(hit) != 64 or not shifted or len(plan.fired) != 1:
         fail("the serve.flush delay did not shift exactly its batch")
 
-    # each bucket's replay against an eager K2 call at its shape, before
-    # and after new rows are copied into the static buffer
-    kw = dict(kind=model.spec.name, gamma=model.spec.gamma,
-              degree=model.spec.degree, coef0=model.spec.coef0)
-    xd = rows.to(dev)
+    # each bucket's replay against an eager K2 call at its shape (bit for
+    # bit) and against the plain version (the band), before and after
+    # new rows are copied into the static buffer
     for b in scorer.buckets:
         if b not in scorer.graphs:
             scorer.score(rows[:b])
-    same = {}
+    same, err_p = {}, {}
     for b, bg in sorted(scorer.graphs.items()):
-        eq = []
+        eq, errs = [], []
         for r0 in (0, 1000):
             bg.x.copy_(xd[r0:r0 + b])
             bg.replay()
             eager = score_mod.score_tiles(bg.x, model.x_sv, model.coef, **kw)
             eq.append(torch.equal(bg.out, eager))
-        same[b] = all(eq)
+            errs.append(float((bg.out - score_mod.score_blocked(
+                bg.x, model.x_sv, model.coef, **kw)).abs().max()))
+        same[b], err_p[b] = all(eq), max(errs)
     say(f"  replay == eager score_tiles bit for bit (two inputs each): "
         f"{same}")
+    say("  max|replay - plain version| per bucket (two inputs each): "
+        + ", ".join(f"{b}: {e:.3e}" for b, e in err_p.items())
+        + f" (band {1e-5 * fmax:.3e})")
     if not all(same.values()):
         fail("a bucket's graph replay differs from an eager K2 call")
+    if not all(e <= 1e-5 * fmax for e in err_p.values()):
+        fail("a bucket's graph replay disagrees with the plain version")
 
-    # one replay under the profiler: one K2 kernel
-    bg = scorer.graphs[256]
-    bg.replay()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        bg.replay()
-        torch.cuda.synchronize()
+    # one replay of bucket 256 under the profiler: one K2 kernel. Beside
+    # it the same call captured with the SV slab's padding and norms made
+    # inside the graph (no prepare_slab): the same bits, and what making
+    # the slab once per model saves a replay
     from torch.autograd import DeviceType
-    kern = [(e.key, e.count, e.self_device_time_total)
-            for e in prof.key_averages()
-            if e.device_type == DeviceType.CUDA and e.count > 0
-            and e.self_device_time_total > 0]
-    n_k2 = sum(c for k, c, _ in kern if "gram_matvec_kernel" in k)
-    say("  one replay of bucket 256 under the profiler: " + "; ".join(
-        f"{k[:60]} x{c} {t:.1f} us" for k, c, t in kern))
-    if n_k2 != 1:
-        fail(f"one replay ran {n_k2} K2 kernels, not 1")
+    bg = scorer.graphs[256]
+    inline, inline_out = server_mod.capture_graph(
+        lambda: score_mod.launch_score(bg.x, model.x_sv, model.coef, **kw))
+    for label, graph in (("the scorer's graph (slab made once a model)",
+                          bg.graph),
+                         ("the slab made inside the graph", inline)):
+        graph.replay()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            graph.replay()
+            torch.cuda.synchronize()
+        kern = [(e.key, e.count, e.self_device_time_total)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and e.count > 0
+                and e.self_device_time_total > 0]
+        n_k2 = sum(c for k, c, _ in kern if "gram_matvec_kernel" in k)
+        t_all = sum(t for _, _, t in kern)
+        t_k2 = sum(t for k, _, t in kern if "gram_matvec_kernel" in k
+                   or "reduce_splits" in k)
+        say(f"  one replay of bucket 256, {label}, under the profiler: "
+            + "; ".join(f"{k[:60]} x{c} {t:.1f} us" for k, c, t in kern))
+        say(f"    of its {t_all:.1f} us of kernels, K2 and its split "
+            f"reduction {t_k2:.1f} us, padding and norms "
+            f"{t_all - t_k2:.1f} us ({100 * (t_all - t_k2) / t_all:.1f} %); "
+            f"replay_ms={time_ms(graph.replay, 50):.4f} by CUDA events")
+        if n_k2 != 1:
+            fail(f"one replay ran {n_k2} K2 kernels, not 1")
+    if not torch.equal(inline_out, bg.out):
+        fail("the slab made once a model changed the scores' bits")
+    del inline, inline_out
 
     # per bucket: the replay and the eager call by CUDA events, beside
     # the bound (the slab, coefficients and rows read once; 2 (D + 1)
@@ -700,21 +768,21 @@ def susy_resume_phase(est, ds, base_w, base_hist, og) -> None:
 
     with tempfile.TemporaryDirectory() as tmp:
         d = os.path.join(tmp, "kill_at_epoch")
-        og.odm_svrg_epoch.launches = 0
+        og.odm_svrg_epoch.launches.reset()
         t0 = time.perf_counter()
         try:
             est.fit(ds.x_train, ds.y_train, 0, resume=d,
                     faults=FaultPlan().kill_at_epoch(5))
             fail("kill_at_epoch(5) did not raise Preemption")
         except Preemption as e:
-            n1 = og.odm_svrg_epoch.launches
+            n1 = og.odm_svrg_epoch.launches.count
             say(f"  killed at {e.site} {e.info} after {n1} epoch-kernel "
                 f"launches, {time.perf_counter() - t0:.2f} s; committed "
                 f"steps {CheckpointManager(d).all_steps()}")
         t0 = time.perf_counter()
         _, rep = est.fit(ds.x_train, ds.y_train, 0, resume=d)
         torch.cuda.synchronize()
-        n2 = og.odm_svrg_epoch.launches - n1
+        n2 = og.odm_svrg_epoch.launches.count - n1
         say(f"  resumed: {n2} epoch-kernel launches, "
             f"{time.perf_counter() - t0:.2f} s")
         check(rep, "kill_at_epoch(5) then resume")
@@ -940,16 +1008,6 @@ def main() -> None:
     del Q, dq, got, want
 
     # -- 3 + 4. the main path: fit -> serve, phishing then ijcnn1 -------------
-    counters = {"cd_block_sweep": cdk.cd_block_sweep,
-                "gram_matvec": gram_mod.gram_matvec,
-                "score_tiles": score_mod.score_tiles,
-                "dense_matvec": cdk.dense_matvec,
-                "odm_svrg_grad": og.odm_svrg_grad,
-                "odm_svrg_epoch": og.odm_svrg_epoch,
-                "odm_grad": og.odm_grad,
-                "gram": gram_mod.gram,
-                "cd_exact": dual_cd.solve,
-                "flash_attention": fa_mod.flash_attention}
     alg1 = ("cd_block_sweep", "gram_matvec", "score_tiles", "dense_matvec")
     # Algorithm 2 and the gradient rivals take one epoch kernel launch an
     # epoch; B6's per-step launch is on no path (the epoch kernel runs its
@@ -985,8 +1043,7 @@ def main() -> None:
     for phase, ds, gamma in ((3, phishing, g_phish), (4, ijcnn1, g_ijc)):
         say(f"== phase {phase}: fit {ds.name} M={ds.x_train.shape[0]} "
             f"d={ds.x_train.shape[1]} gamma={gamma:.4g}")
-        for fn in counters.values():
-            fn.launches = 0
+        reset_launches()
         torch.cuda.reset_peak_memory_stats()
         est = ODMEstimator(ProblemSpec(kernel=kf.KernelSpec("rbf", gamma),
                                        params=params), cfg=cfg)
@@ -1017,7 +1074,7 @@ def main() -> None:
             f"(majority {major:.4f}) score_s={score_s:.4f} "
             f"(T={ds.x_test.shape[0]}) max_memory_allocated="
             f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
-        launches = {name: fn.launches for name, fn in counters.items()}
+        launches = read_launches()
         say(f"  launches on the {ds.name} path: {launches}")
         ran, idle = expect[ds.name]
         for name in ran:
@@ -1043,7 +1100,7 @@ def main() -> None:
         norms=False)
     del xt
 
-    serve_phase(fits["ijcnn1"], ijcnn1, counters, expect, path_launches,
+    serve_phase(fits["ijcnn1"], ijcnn1, expect, path_launches,
                 derate)
     resume_phase(fits["ijcnn1"], ijcnn1, params, cfg, g_ijc)
 
@@ -1307,8 +1364,7 @@ def main() -> None:
 
     # -- 6. Algorithm 2 at real size: SUSY through the auto route ------------
     say(f"== phase 6: fit SUSY M={M} d={D} linear lam={lam} (route=None)")
-    for fn in counters.values():
-        fn.launches = 0
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     cfg6 = SODMConfig()
     est = ODMEstimator(ProblemSpec(kernel=kf.KernelSpec("linear"),
@@ -1331,7 +1387,7 @@ def main() -> None:
     acc = float((torch.sign(f).cpu() == susy.y_test).float().mean())
     major = float(max((susy.y_test > 0).float().mean(),
                       (susy.y_test < 0).float().mean()))
-    launches = {name: fn.launches for name, fn in counters.items()}
+    launches = read_launches()
     dc = cfg6.dsvrg
     m_part = M // dc.n_partitions
     S = -(-m_part // dc.batch)
@@ -1586,8 +1642,7 @@ def main() -> None:
         """Counts from 0 -> fit -> score, the checks every path shares.
         ``chance_check=False`` skips the better-than-chance check for a
         route whose reference falls below it on these inputs."""
-        for fn in counters.values():
-            fn.launches = 0
+        reset_launches()
         torch.cuda.reset_peak_memory_stats()
         est = ODMEstimator(problem, route=route, cfg=cfg_r)
         log = LevelLog()
@@ -1607,7 +1662,7 @@ def main() -> None:
         f = est.decision_function(ds.x_test)
         torch.cuda.synchronize()
         score_s = time.perf_counter() - t0
-        launches = {n: fn.launches for n, fn in counters.items()}
+        launches = read_launches()
         path_launches[name] = launches
         if f.shape != (ds.x_test.shape[0],) or not bool(
                 torch.isfinite(f).all()):
@@ -1906,11 +1961,10 @@ def main() -> None:
     serve_mod.serve(params, lm_cfg, toks[:, :128], gen=2, max_len=130)
     say(f"  init_params: {n_params} parameters (fp32), with the warm-up "
         f"{time.perf_counter() - t0:.1f} s")
-    for fn in counters.values():
-        fn.launches = 0
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     res = serve_mod.serve(params, lm_cfg, toks, gen=G11, max_len=max_len)
-    launches = {n: fn.launches for n, fn in counters.items()}
+    launches = read_launches()
     path_launches["qwen3-0.6b"] = launches
     peak_gib = torch.cuda.max_memory_allocated() / 2**30
     say(f"  prefill {res['prefill_s'] * 1e3:.1f} ms "
@@ -1974,13 +2028,12 @@ def main() -> None:
             if f32_path:
                 # the fp32 serving path: a prefill with compute_dtype
                 # float32 runs B9's fp32 kernel once a layer
-                for fn in counters.values():
-                    fn.launches = 0
+                reset_launches()
             out_lg, _ = lm_model.prefill(params, {"tokens": toks}, c,
                                          max_len=max_len, impl=impl)
             lg[cdt, impl] = out_lg.float()
             if f32_path:
-                launches = {n: fn.launches for n, fn in counters.items()}
+                launches = read_launches()
                 path_launches["qwen3-0.6b fp32"] = launches
                 if launches["flash_attention"] != lm_cfg.n_layers:
                     fail(f"flash_attention launched "
@@ -2104,13 +2157,12 @@ def main() -> None:
             "launches_path": path,
             "launches_by_path": {p: n[counter] for p, n in
                                  path_launches.items()}, **s})
-    # on the serve path K2 runs inside the bucket graphs: a replay makes
-    # no host call, so the count there is the graphs' warm-up launches
-    # (score_tiles' own count) plus their replays (each graph's count)
+    # on the serve path K2 runs inside the bucket graphs, which bump
+    # score_tiles' counter on each warm-up and each replay
     next(k for k in kernels if k["name"] == "score_tiles")[
         "launches_counting"] = ("host launches; on the serve path the "
-                                "bucket graphs' warm-up launches plus "
-                                "their replays")
+                                "bucket graphs' warm-ups plus their "
+                                "replays")
     say(json.dumps({"kernels": kernels}))
     say(card_line())
     say(json.dumps({"ok": True, "device": {

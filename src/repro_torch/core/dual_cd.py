@@ -29,6 +29,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.analysis.invariants import counter as _counter
 from repro_torch.core.odm import (ODMParams, dual_grad_from_u,
                                   dual_objective, projected_violation,
                                   split_alpha)
@@ -133,11 +134,11 @@ def solve(Q: Tensor, params: ODMParams, mscale: float,
     single, Qb, a0, ub = _batched(Q, alpha0, u0)
     res = launch_solve(Qb, params, mscale, alpha0=a0, tol=tol,
                        max_sweeps=max_sweeps, u0=ub)
-    solve.launches += 1
+    solve.launches.bump()
     return _unbatch(single, res)
 
 
-solve.launches = 0
+solve.launches = _counter("launch.cd_exact")
 
 
 def transpose_padded(Q: Tensor) -> Tensor:

@@ -26,6 +26,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from repro_torch.analysis.invariants import counter as _counter
 from repro_torch.core import dsvrg as dsvrg_mod
 from repro_torch.core import engines, kernel_fns as kf
 from repro_torch.core import odm as odm_mod
@@ -38,13 +39,13 @@ Tensor = torch.Tensor
 
 # one per level solve actually run (restored levels do not count); a
 # resumed fit's delta is smaller than a cold restart's
-_LEVEL_SOLVES = [0]
+_LEVEL_SOLVES = _counter("sodm.level_solve")
 
 
 def level_solve_count() -> int:
     """How many level solves have run in this process — resumed fits skip
     their restored levels."""
-    return _LEVEL_SOLVES[0]
+    return _LEVEL_SOLVES.count
 
 
 @dataclasses.dataclass(frozen=True)
@@ -178,7 +179,7 @@ def _level_loop(run_level, x: Tensor, y: Tensor, perm: Tensor,
         if pending:
             if faults is not None:
                 faults.site("cascade.level", level=level, K=K)
-            _LEVEL_SOLVES[0] += 1
+            _LEVEL_SOLVES.bump()
             t0 = time.perf_counter()
             with _span("cascade.level", level=level, K=K, m=m):
                 alphas, sweeps, kkts = run_level(xp.reshape(K, m, -1),

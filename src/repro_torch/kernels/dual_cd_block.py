@@ -36,6 +36,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.analysis.invariants import counter as _counter
 from repro_torch.kernels import _build
 from repro_torch.kernels import gram as gram_mod
 from repro_torch.kernels._device import on_cpu
@@ -192,11 +193,11 @@ def cd_block_sweep(q_blocks: Tensor, alphas: Tensor, us: Tensor, *,
     out = launch_cd_block_sweep(q_blocks, alphas, us, valids, c=c, ups=ups,
                                 theta=theta, mscale=mscale, n_steps=n_steps,
                                 exit_tol=exit_tol)
-    cd_block_sweep.launches += 1
+    cd_block_sweep.launches.bump()
     return out
 
 
-cd_block_sweep.launches = 0
+cd_block_sweep.launches = _counter("launch.cd_block_sweep")
 
 
 def extract_diag_blocks(Q: Tensor, block: int) -> Tensor:
@@ -244,11 +245,11 @@ def dense_matvec(q: Tensor, d: Tensor, bm: int = 256) -> Tensor:
     if on_cpu(q, d):
         return dense_matvec_plain(q, d, bm=bm)
     u = launch_dense_matvec(q, d)
-    dense_matvec.launches += 1
+    dense_matvec.launches.bump()
     return u
 
 
-dense_matvec.launches = 0
+dense_matvec.launches = _counter("launch.dense_matvec")
 
 
 # ---------------------------------------------------------------------------

@@ -46,6 +46,7 @@ import ctypes
 
 import torch
 
+from repro_torch.analysis.invariants import counter as _counter
 from repro_torch.kernels import _build
 from repro_torch.kernels._device import on_cpu
 
@@ -188,8 +189,8 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
                                      scale=scale)
     out = launch_flash_attention(q, k, v, causal=causal, window=window,
                                  scale=scale)
-    flash_attention.launches += 1
+    flash_attention.launches.bump()
     return out
 
 
-flash_attention.launches = 0
+flash_attention.launches = _counter("launch.flash_attention")

@@ -43,6 +43,7 @@ import dataclasses
 
 import torch
 
+from repro_torch.analysis.invariants import counter as _counter
 from repro_torch.kernels import _build
 from repro_torch.kernels._device import on_cpu
 
@@ -218,11 +219,11 @@ def gram_matvec(x: Tensor, z: Tensor, g: Tensor, *, kind: str = "rbf",
                                  degree=degree, coef0=coef0, bm=bm)
     u = launch_gram_matvec(x, z, g, kind=kind, gamma=gamma, degree=degree,
                            coef0=coef0, xx=xx, zz=zz)
-    gram_matvec.launches += 1
+    gram_matvec.launches.bump()
     return u
 
 
-gram_matvec.launches = 0
+gram_matvec.launches = _counter("launch.gram_matvec")
 
 
 # ---------------------------------------------------------------------------
@@ -317,11 +318,11 @@ def gram(x: Tensor, z: Tensor | None = None, yx: Tensor | None = None,
     xx = row_norms(x) if kind == "rbf" else None
     out = launch_gram(x, z, yx, yz, xx=xx,
                       zz=xx if same else None, **kw)
-    gram.launches += 1
+    gram.launches.bump()
     return out
 
 
-gram.launches = 0
+gram.launches = _counter("launch.gram")
 
 
 # ---------------------------------------------------------------------------

@@ -41,6 +41,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis.invariants import counter as _counter
 from repro_torch.kernels import _build
 from repro_torch.kernels._device import on_cpu
 from repro_torch.kernels.gram import _check_f32
@@ -235,11 +236,11 @@ def odm_grad(w: Tensor, x: Tensor, y: Tensor, *, lam: float = 1.0,
     if on_cpu(w, x, y):
         return odm_grad_plain(w, x, y, lam=lam, theta=theta, ups=ups)
     out = launch_odm_grad(w, x, y, lam=lam, theta=theta, ups=ups)
-    odm_grad.launches += 1
+    odm_grad.launches.bump()
     return out
 
 
-odm_grad.launches = 0
+odm_grad.launches = _counter("launch.odm_grad")
 
 
 def odm_svrg_grad(w: Tensor, anchor: Tensor, h: Tensor, x: Tensor,
@@ -256,11 +257,11 @@ def odm_svrg_grad(w: Tensor, anchor: Tensor, h: Tensor, x: Tensor,
                                    theta=theta, ups=ups)
     out = launch_odm_svrg_grad(w, anchor, h, x, y, wt, inv_n, s=s,
                                theta=theta, ups=ups)
-    odm_svrg_grad.launches += 1
+    odm_svrg_grad.launches.bump()
     return out
 
 
-odm_svrg_grad.launches = 0
+odm_svrg_grad.launches = _counter("launch.odm_svrg_grad")
 
 
 def odm_svrg_epoch(w: Tensor, anchor: Tensor, h: Tensor, xs: Tensor,
@@ -281,8 +282,8 @@ def odm_svrg_epoch(w: Tensor, anchor: Tensor, h: Tensor, xs: Tensor,
                                     schedule=schedule)
     out = launch_odm_svrg_epoch(w, anchor, h, xs, ys, wts, inv_n, eta, s=s,
                                 theta=theta, ups=ups, schedule=schedule)
-    odm_svrg_epoch.launches += 1
+    odm_svrg_epoch.launches.bump()
     return out
 
 
-odm_svrg_epoch.launches = 0
+odm_svrg_epoch.launches = _counter("launch.odm_svrg_epoch")

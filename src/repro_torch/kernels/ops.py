@@ -11,7 +11,6 @@ coordinates masked). The reference's
 counterpart: the Hopper kernels stream rows in fixed chunks whatever d
 is. Dispatch goes by the tensors' device
 (:mod:`repro_torch.kernels._device`), not by what the host has.
-:func:`launch_counts` reads every kernel wrapper's launch counter.
 """
 from __future__ import annotations
 
@@ -182,17 +181,3 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     del bq, bk
     return _fa.flash_attention(q, k, v, causal=causal, window=window,
                                scale=scale)
-
-
-def launch_counts() -> dict[str, int]:
-    """``launch.<kernel>`` -> launches so far in this process, for every
-    wrapper under ``kernels/`` (each counts where it launches its kernel;
-    the plain versions count nothing)."""
-    fns = {"cd_block_sweep": _cd.cd_block_sweep,
-           "dense_matvec": _cd.dense_matvec,
-           "gram_matvec": _gram.gram_matvec, "gram": _gram.gram,
-           "score_tiles": _score.score_tiles, "odm_grad": _og.odm_grad,
-           "odm_svrg_grad": _og.odm_svrg_grad,
-           "odm_svrg_epoch": _og.odm_svrg_epoch,
-           "flash_attention": _fa.flash_attention}
-    return {f"launch.{name}": fn.launches for name, fn in fns.items()}

@@ -17,9 +17,9 @@ tracker (``log_metrics`` observes every numeric value into the histogram
 of the same name), so it composes with any tracker backend, and it
 *drains* back through the protocol: ``registry.drain(tracker, step)``
 emits one flat snapshot record (``<name>.count``, ``<name>.p99``, ...).
-``snapshot(include_counters=True)`` folds in the port's process-wide
-counters — each kernel wrapper's launch count and the level solves — the
-counterpart of the reference's ``repro.analysis.invariants`` counters.
+``snapshot(include_counters=True)`` folds in the process-wide
+:mod:`repro_torch.analysis.invariants` counters (each kernel's launches,
+the level solves).
 
 The shared :func:`percentile` helper is THE nearest-rank definition used
 by both the histograms and ``serve.serve_stream``.
@@ -29,6 +29,8 @@ from __future__ import annotations
 import bisect
 import threading
 from typing import Mapping, Sequence
+
+from repro_torch.analysis import invariants as inv
 
 __all__ = ["percentile", "Counter", "Gauge", "Histogram",
            "MetricsRegistry", "DEFAULT_BUCKETS"]
@@ -220,23 +222,19 @@ class MetricsRegistry:
     def snapshot(self, include_counters: bool = False) -> dict:
         """One flat {name.stat: value} dict over every instrument.
 
-        ``include_counters=True`` folds in the port's process-wide
-        counters as ``counter.<name>.count`` — each kernel wrapper's
-        launches (``launch.<kernel>``) and the level solves
-        (``sodm.level_solve``) — so a drained record carries the
-        structural accounting next to the latency distributions.
+        ``include_counters=True`` folds in the process-wide
+        :mod:`repro_torch.analysis.invariants` counters as
+        ``counter.<name>.count`` — kernel launches (``launch.<kernel>``,
+        a captured graph's replays included) and level solves — so a
+        drained record carries the structural accounting next to the
+        latency distributions.
         """
         out: dict[str, object] = {}
         for inst in self.instruments().values():
             out.update(inst.snapshot())
         if include_counters:
-            from repro_torch.core import dual_cd, sodm
-            from repro_torch.kernels import ops
-            counts = ops.launch_counts()
-            counts["launch.cd_exact"] = dual_cd.solve.launches
-            counts["sodm.level_solve"] = sodm.level_solve_count()
-            for name, n in counts.items():
-                out[f"counter.{name}.count"] = n
+            for name, c in inv.counters().items():
+                out[f"counter.{name}.count"] = c.count
         return out
 
     def drain(self, tracker, step: int = 0, *,

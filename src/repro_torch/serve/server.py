@@ -8,16 +8,20 @@ Port of ``repro.serve.server``. Two layers, composable:
   traffic produces; batches above the top bucket are chunked. Where the
   reference traces one jit per bucket, the port captures, on a CUDA model
   with a kernel expansion, one ``torch.cuda.CUDAGraph`` per bucket at the
-  bucket's first use: a static ``(bucket, d)`` input buffer and K2
-  (``kernels.score``'s scorer) inside the graph, the SV slab's row norms
-  and padded features prepared once per model
-  (:func:`repro_torch.kernels.score.prepare_slab`). A call copies each
-  chunk into its bucket's buffer (rows past the chunk zeroed, as the
-  reference's pad is), replays the graph and clones the slice it returns
-  before the next replay overwrites the static output. ``compiles``
-  counts the buckets prepared (on the card, the captured graphs); each
-  graph counts its replays, which are K2's launches on the serving path
-  (``score_tiles.launches`` counts host calls, and a replay makes none).
+  bucket's first use: a static ``(bucket, d)`` input buffer and the
+  scoring call inside the graph (the rows' padding and norms, K2 —
+  ``kernels.score``'s scorer — and its split reduction). The SV slab's
+  row norms and padded features are made once per model
+  (:func:`repro_torch.kernels.score.prepare_slab`) and read by every
+  graph: made in each replay they took 5.5 % of it on an H100 (PERF.md
+  §6). A call copies each chunk into its bucket's buffer (rows
+  past the chunk zeroed, as the reference's pad is), replays the graph
+  and clones the slice it returns before the next replay overwrites the
+  static output. ``compiles`` counts the buckets prepared (on the card,
+  the captured graphs). K2's launches on the serving path are the
+  graphs' warm-ups and replays: each bumps ``score_tiles.launches``
+  (the process-wide ``launch.score_tiles`` counter), and each graph also
+  counts its own replays.
   A CPU model runs the same ladder eagerly through the kernel's plain
   version; the linear-collapse model (``model.w``) scores ``x @ w``
   eagerly on either device (one library matvec, no kernel of the port).
@@ -59,18 +63,18 @@ def _bucket_ladder(max_batch: int) -> tuple[int, ...]:
     return tuple(out)
 
 
-def capture_graph(run, warmup) -> tuple[torch.cuda.CUDAGraph, object]:
-    """One call of ``run`` captured into a CUDA graph, after one call of
-    ``warmup`` (the same work, launched) on a side stream, as PyTorch's
-    graph recipe does: the library load, the kernel's cached plan and its
-    shared-memory attribute are all made there, outside the capture.
+def capture_graph(run) -> tuple[torch.cuda.CUDAGraph, object]:
+    """One call of ``run`` captured into a CUDA graph, after one launched
+    call of it on a side stream, as PyTorch's graph recipe does: the
+    library load, the kernel's cached plan and its shared-memory
+    attribute are all made there, outside the capture.
     Returns ``(graph, run's output)``; the output's storage lives in the
     graph's private pool and every replay rewrites it. A failed capture
     raises."""
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):
-        warmup()
+        run()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
     with torch.cuda.graph(graph):
@@ -81,22 +85,27 @@ def capture_graph(run, warmup) -> tuple[torch.cuda.CUDAGraph, object]:
 class _BucketGraph:
     """One bucket's captured scoring call: the static input ``x``
     (bucket, d), the static output ``out`` (bucket,), the graph, and the
-    count of its replays."""
+    count of its replays. Its warm-up and each replay launch K2 once and
+    bump ``score_tiles.launches``."""
 
     def __init__(self, bucket: int, z: Tensor, coef: Tensor, spec,
                  slab: tuple):
         self.x = torch.zeros(bucket, z.shape[1], dtype=torch.float32,
                              device=z.device)
-        kw = dict(kind=spec.name, gamma=spec.gamma, degree=spec.degree,
-                  coef0=spec.coef0, slab=slab)
+
+        def run():
+            return score_mod.launch_score(
+                self.x, z, coef, kind=spec.name, gamma=spec.gamma,
+                degree=spec.degree, coef0=spec.coef0, slab=slab)
+
         with torch.cuda.device(z.device):
-            self.graph, self.out = capture_graph(
-                lambda: score_mod.launch_score(self.x, z, coef, **kw),
-                warmup=lambda: score_mod.score_tiles(self.x, z, coef, **kw))
+            self.graph, self.out = capture_graph(run)
+        score_mod.score_tiles.launches.bump()
         self.replays = 0
 
     def replay(self) -> None:
         self.graph.replay()
+        score_mod.score_tiles.launches.bump()
         self.replays += 1
 
 
@@ -130,8 +139,8 @@ class MicrobatchScorer:
 
     @property
     def replays(self) -> dict[int, int]:
-        """Replays per captured bucket: K2's launches on the serving
-        path."""
+        """Replays per captured bucket (each also bumps
+        ``score_tiles.launches``)."""
         return {b: g.replays for b, g in sorted(self.graphs.items())}
 
     def _bucket_for(self, n: int) -> int:

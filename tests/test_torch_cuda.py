@@ -71,10 +71,10 @@ def test_gram_matvec_matches_plain(dev, kind, gamma, degree, coef0, K, M,
     g = torch.tensor(rng.standard_normal((K, N)), dtype=torch.float32,
                      device=dev)
     kw = dict(kind=kind, gamma=gamma, degree=degree, coef0=coef0)
-    before = gram_mod.gram_matvec.launches
+    before = gram_mod.gram_matvec.launches.count
     got = gram_mod.gram_matvec(x, z, g, **kw)
     torch.cuda.synchronize()
-    assert gram_mod.gram_matvec.launches == before + 1
+    assert gram_mod.gram_matvec.launches.count == before + 1
     want = gram_mod.gram_matvec_plain(x, z, g, **kw)
     assert _rel(got, want) < 1e-5
 
@@ -208,10 +208,10 @@ def test_score_tiles_matches_ref(dev):
     z = torch.tensor(rng.random((129, 22)), dtype=torch.float32, device=dev)
     c = torch.tensor(rng.standard_normal(129), dtype=torch.float32,
                      device=dev)
-    before = score_mod.score_tiles.launches
+    before = score_mod.score_tiles.launches.count
     got = score_mod.score_tiles(x, z, c, kind="rbf", gamma=0.7)
     torch.cuda.synchronize()
-    assert score_mod.score_tiles.launches == before + 1
+    assert score_mod.score_tiles.launches.count == before + 1
     want = score_mod.score_ref(x, z, c, kind="rbf", gamma=0.7)
     assert _rel(got, want) < 1e-5
 
@@ -239,10 +239,10 @@ def test_dense_matvec_matches_plain(dev, K, M):
                      device=dev)
     d = torch.tensor(rng.standard_normal((K, M)), dtype=torch.float32,
                      device=dev)
-    before = cdk.dense_matvec.launches
+    before = cdk.dense_matvec.launches.count
     got = cdk.dense_matvec(q, d)
     torch.cuda.synchronize()
-    assert cdk.dense_matvec.launches == before + 1
+    assert cdk.dense_matvec.launches.count == before + 1
     assert _rel(got, cdk.dense_matvec_plain(q, d)) < 1e-5
 
 
@@ -270,10 +270,10 @@ def test_cd_block_sweep_matches_plain(dev, B, exit_tol):
     valid[-1, B // 2:] = 0.0
     kw = dict(c=2.0, ups=0.5, theta=0.1, mscale=float(T * B),
               n_steps=2 * B, exit_tol=exit_tol)
-    before = cdk.cd_block_sweep.launches
+    before = cdk.cd_block_sweep.launches.count
     a1, u1 = cdk.cd_block_sweep(q, a, u, valids=valid, **kw)
     torch.cuda.synchronize()
-    assert cdk.cd_block_sweep.launches == before + 1
+    assert cdk.cd_block_sweep.launches.count == before + 1
     a2, u2 = cdk._greedy_tile_sweep(q, a, u, torch.cat([valid, valid], 1),
                                     **kw)
     assert torch.equal(a1, a2) and torch.equal(u1, u2)
@@ -319,13 +319,14 @@ def test_solve_level_transposes_tiles_once_per_level(dev, source):
         qb = kf.signed_gram(spec, x.reshape(K, nblk, B, 6),
                             y.reshape(K, nblk, B)).contiguous()
         src = gram_mod.make_kernel_source(spec, x, y, bm=B)
-    copies, launches = cdk.transpose_tiles.copies, cdk.cd_block_sweep.launches
+    copies = cdk.transpose_tiles.copies
+    launches = cdk.cd_block_sweep.launches.count
     _, _, passes = cdk.solve_level(qb, src, torch.zeros(K, 2 * m,
                                                         device=dev),
                                    c=1.0, ups=0.5, theta=0.1,
                                    mscale=float(m), n_passes=6, tol=1e-12)
     assert passes == 6
-    assert cdk.cd_block_sweep.launches - launches == passes
+    assert cdk.cd_block_sweep.launches.count - launches == passes
     assert cdk.transpose_tiles.copies - copies == 1
     # alone, a sweep on contiguous tiles makes its own copy
     cdk.cd_block_sweep(qb.reshape(K * nblk, B, B),
@@ -381,10 +382,10 @@ def _svrg_inputs(dev, B, d, C=None, n_valid=None, seed=6):
 def test_odm_svrg_grad_matches_plain(dev, B, d, C, n_valid):
     w, a, h, x, y, wt, inv = _svrg_inputs(dev, B, d, C, n_valid)
     kw = dict(s=100.0 / 0.81, theta=0.1, ups=0.5)
-    before = odm_grad_mod.odm_svrg_grad.launches
+    before = odm_grad_mod.odm_svrg_grad.launches.count
     got = odm_grad_mod.odm_svrg_grad(w, a, h, x, y, wt, inv, **kw)
     torch.cuda.synchronize()
-    assert odm_grad_mod.odm_svrg_grad.launches == before + 1
+    assert odm_grad_mod.odm_svrg_grad.launches.count == before + 1
     want = odm_grad_mod.odm_svrg_grad_plain(w, a, h, x, y, wt, inv, **kw)
     assert got.shape == want.shape
     assert _rel(got, want) < 1e-5
@@ -425,11 +426,11 @@ def test_odm_grad_matches_plain_and_repeats(dev, M, d):
     w = torch.tensor(2.0 * rng.standard_normal(d), dtype=torch.float32,
                      device=dev)
     kw = dict(lam=100.0, theta=0.1, ups=0.5)
-    before = odm_grad_mod.odm_grad.launches
+    before = odm_grad_mod.odm_grad.launches.count
     got = odm_grad_mod.odm_grad(w, x, y, **kw)
     again = odm_grad_mod.odm_grad(w, x, y, **kw)
     torch.cuda.synchronize()
-    assert odm_grad_mod.odm_grad.launches == before + 2
+    assert odm_grad_mod.odm_grad.launches.count == before + 2
     assert torch.equal(got, again)              # fixed-order sums
     assert _rel(got, odm_grad_mod.odm_grad_plain(w, x, y, **kw)) < 1e-5
 
@@ -448,16 +449,16 @@ def test_dsvrg_fit_on_card_matches_cpu(dev, schedule):
     cfg = dsvrg.DSVRGConfig(n_partitions=4, epochs=4, batch=16,
                             schedule=schedule, partition_strategy="identity")
     p = ODMParams(100.0, 0.1, 0.5)
-    counts = (odm_grad_mod.odm_grad.launches,
-              odm_grad_mod.odm_svrg_grad.launches,
-              odm_grad_mod.odm_svrg_epoch.launches)
+    counts = (odm_grad_mod.odm_grad.launches.count,
+              odm_grad_mod.odm_svrg_grad.launches.count,
+              odm_grad_mod.odm_svrg_epoch.launches.count)
     rc = dsvrg._solve(x, y, p, cfg, 0)
     rg = dsvrg._solve(x.to(dev), y.to(dev), p, cfg, 0)
     torch.cuda.synchronize()
     # one B7 and one epoch-kernel launch an epoch, no per-step B6
-    assert (odm_grad_mod.odm_grad.launches,
-            odm_grad_mod.odm_svrg_grad.launches,
-            odm_grad_mod.odm_svrg_epoch.launches) == (
+    assert (odm_grad_mod.odm_grad.launches.count,
+            odm_grad_mod.odm_svrg_grad.launches.count,
+            odm_grad_mod.odm_svrg_epoch.launches.count) == (
                 counts[0] + 4, counts[1], counts[2] + 4)
     wg = rg.w.cpu()
     assert float((wg - rc.w).norm() / rc.w.norm()) <= 1e-2
@@ -533,12 +534,12 @@ def test_odm_svrg_epoch_equals_the_per_step_loop(dev, case, schedule):
     args = _epoch_inputs(dev, K, m, b, d, seed=40 + d, shared=shared)
     assert _build.library().odm_svrg_epoch_mode(b, d) == mode
     kw = dict(s=100.0 / 0.81, theta=0.1, ups=0.5)
-    before = (odm_grad_mod.odm_svrg_epoch.launches,
-              odm_grad_mod.odm_svrg_grad.launches)
+    before = (odm_grad_mod.odm_svrg_epoch.launches.count,
+              odm_grad_mod.odm_svrg_grad.launches.count)
     got = odm_grad_mod.odm_svrg_epoch(*args, schedule=schedule, **kw)
     torch.cuda.synchronize()
-    assert (odm_grad_mod.odm_svrg_epoch.launches,
-            odm_grad_mod.odm_svrg_grad.launches) == (before[0] + 1,
+    assert (odm_grad_mod.odm_svrg_epoch.launches.count,
+            odm_grad_mod.odm_svrg_grad.launches.count) == (before[0] + 1,
                                                      before[1])
     want = _per_step_epoch(*args, schedule, kw)
     assert got.shape == want.shape == ((d,) if schedule == "serial"
@@ -559,14 +560,14 @@ def test_svrg_fit_on_card_launches_one_epoch_kernel_an_epoch(dev):
                      dtype=torch.float32)
     perms = [torch.tensor(rng.permutation(400)) for _ in range(3)]
     p = ODMParams(10.0, 0.1, 0.5)
-    before = (odm_grad_mod.odm_grad.launches,
-              odm_grad_mod.odm_svrg_epoch.launches)
+    before = (odm_grad_mod.odm_grad.launches.count,
+              odm_grad_mod.odm_svrg_epoch.launches.count)
     rc = baselines._svrg_solve(x, y, p, 3, 0.05, batch=4, _perms=perms)
     rg = baselines._svrg_solve(x.to(dev), y.to(dev), p, 3, 0.05, batch=4,
                                _perms=perms)
     torch.cuda.synchronize()
-    assert (odm_grad_mod.odm_grad.launches,
-            odm_grad_mod.odm_svrg_epoch.launches) == (before[0] + 3,
+    assert (odm_grad_mod.odm_grad.launches.count,
+            odm_grad_mod.odm_svrg_epoch.launches.count) == (before[0] + 3,
                                                       before[1] + 3)
     assert float((rg.w.cpu() - rc.w).norm() / rc.w.norm()) <= 1e-2
 
@@ -589,10 +590,10 @@ def test_gram_matches_plain(dev, kind, gamma, degree, coef0, K, M, N, D,
     yx = T(np.sign(rng.standard_normal((K, M)))) if signed else None
     yz = T(np.sign(rng.standard_normal((K, N)))) if signed else None
     kw = dict(kind=kind, gamma=gamma, degree=degree, coef0=coef0)
-    before = gram_mod.gram.launches
+    before = gram_mod.gram.launches.count
     got = gram_mod.gram(x, z, yx, yz, **kw)
     torch.cuda.synchronize()
-    assert gram_mod.gram.launches == before + 1
+    assert gram_mod.gram.launches.count == before + 1
     assert _rel(got, gram_mod.gram_plain(x, z, yx, yz, **kw)) <= 1e-5
 
 
@@ -645,13 +646,13 @@ def test_solve_level_pallas_launches_b8_once(dev, threshold):
     a0 = torch.zeros(K, 2 * m)
     kw = dict(spec=kf.KernelSpec("rbf", 0.5), params=ODMParams(lam=10.),
               tol=1e-4, max_sweeps=100, block=32, gram_threshold=threshold)
-    before = gram_mod.gram.launches
+    before = gram_mod.gram.launches.count
     ag, sg, kg = engines.solve_level_pallas(x.to(dev), y.to(dev), a0.to(dev),
                                             **kw)
     torch.cuda.synchronize()
-    assert gram_mod.gram.launches == before + 1
+    assert gram_mod.gram.launches.count == before + 1
     ac, _, _ = engines.solve_level_pallas(x, y, a0, **kw)
-    assert gram_mod.gram.launches == before + 1
+    assert gram_mod.gram.launches.count == before + 1
     assert float((ag.cpu() - ac).abs().max()) < 1e-4
     assert float(kg.max()) <= 1e-4 or int(sg.max()) == 100
 
@@ -700,10 +701,10 @@ def test_cd_exact_equals_plain(dev, K, m, warm, sweeps):
     q, params = _cd_problem(dev, K, m)
     kw = dict(mscale=float(m), alpha0=_cd_start(q, params, m, warm),
               tol=1e-4 if warm != "near" else 1e-5, max_sweeps=sweeps)
-    before = dual_cd.solve.launches
+    before = dual_cd.solve.launches.count
     got = dual_cd.solve(q, params, **kw)
     torch.cuda.synchronize()
-    assert dual_cd.solve.launches == before + 1
+    assert dual_cd.solve.launches.count == before + 1
     _cd_equal(got, dual_cd.solve_plain(q, params, **kw))
 
 
@@ -729,11 +730,11 @@ def test_scalar_level_engine_runs_b8_and_k4(dev):
     a0 = torch.zeros(2, 160)
     kw = dict(spec=kf.KernelSpec("rbf", 0.5), params=ODMParams(lam=10.),
               tol=1e-4, max_sweeps=100)
-    g0, s0 = gram_mod.gram.launches, dual_cd.solve.launches
+    g0, s0 = gram_mod.gram.launches.count, dual_cd.solve.launches.count
     ag, sg, _ = engines.solve_level_scalar(x.to(dev), y.to(dev), a0.to(dev),
                                            **kw)
-    assert (gram_mod.gram.launches, dual_cd.solve.launches) == (g0 + 1,
-                                                                s0 + 1)
+    assert (gram_mod.gram.launches.count,
+            dual_cd.solve.launches.count) == (g0 + 1, s0 + 1)
     ac, sc, _ = engines.solve_level_scalar(x, y, a0, **kw)
     assert float((ag.cpu() - ac).abs().max()) < 1e-4
 
@@ -781,10 +782,10 @@ def test_flash_attention_matches_plain(dev, dtype, B, Hq, Hkv, T, S, D,
     row's largest)."""
     from repro_torch.kernels import flash_attn
     q, k, v = _flash_inputs(B, Hq, Hkv, T, S, D, dtype, dev)
-    before = flash_attn.flash_attention.launches
+    before = flash_attn.flash_attention.launches.count
     got = flash_attn.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
-    assert flash_attn.flash_attention.launches == before + 1
+    assert flash_attn.flash_attention.launches.count == before + 1
     assert got.dtype == dtype and got.shape == q.shape
     want = flash_attn.flash_attention_plain(q, k, v, causal=causal,
                                             window=window)
@@ -880,10 +881,10 @@ def test_lm_prefill_and_decode_on_card_match_cpu(dev):
         out = {}
         for where in ("cuda", "cpu"):
             pw = p.to(where)
-            before = flash_attn.flash_attention.launches
+            before = flash_attn.flash_attention.launches.count
             lg, cache = M.prefill(pw, {"tokens": toks[:, :36].to(where)},
                                   cfg, max_len=40)
-            launched = flash_attn.flash_attention.launches - before
+            launched = flash_attn.flash_attention.launches.count - before
             assert launched == (cfg.n_layers if where == "cuda" else 0)
             logits = [lg]
             for t in range(36, 40):
@@ -898,10 +899,10 @@ def test_lm_prefill_and_decode_on_card_match_cpu(dev):
 def test_serve_entry_point_on_card(dev, capsys):
     from repro_torch.kernels import flash_attn
     from repro_torch.launch import serve
-    before = flash_attn.flash_attention.launches
+    before = flash_attn.flash_attention.launches.count
     assert serve.main(["--arch", "qwen3-0.6b", "--prompt-len", "70",
                        "--gen", "3", "--batch", "2"]) == 0
-    assert flash_attn.flash_attention.launches == before + 2  # 2 layers
+    assert flash_attn.flash_attention.launches.count == before + 2  # 2 layers
     assert capsys.readouterr().out.count("[serve]") == 3
 
 
@@ -924,26 +925,33 @@ def test_scorer_graph_replay_equals_eager_call(dev, kind):
     """One captured graph per bucket: its replay equals an eager K2 call
     at the bucket's shape bit for bit, again after new rows are copied
     into the static buffer (a graph that baked in its first input would
-    fail); bucketed scores match decision_function; warm-ups are the only
-    counted launches, replays are counted per bucket."""
+    fail); bucketed scores and every replay match the plain version on
+    the card (and decision_function, which is K2 again); each graph's
+    warm-up and each replay bump ``score_tiles.launches``, and each graph
+    counts its replays."""
     from repro_torch.serve.server import MicrobatchScorer
     model, xq = _served_model(dev, kind)
     sc = MicrobatchScorer(model, max_batch=32)
     kw = dict(kind=kind, gamma=0.05, degree=3, coef0=1.0)
-    before = score_mod.score_tiles.launches
+    plain = score_mod.score_blocked(xq, model.x_sv, model.coef, **kw)
+    before = score_mod.score_tiles.launches.count
     for B in (1, 3, 17, 32, 77):
         got = sc.score(xq[:B])
         want = model.decision_function(xq[:B])
         assert got.shape == (B,) and _rel(got, want) < 1e-5, B
-    assert score_mod.score_tiles.launches - before == 5 + len(sc.graphs)
+        assert _rel(got, plain[:B]) < 1e-5, B
     assert sc.compiles == len(sc.graphs) <= len(sc.buckets)
     assert sc.replays == {1: 1, 4: 1, 16: 1, 32: 4}
+    assert score_mod.score_tiles.launches.count - before == \
+        5 + len(sc.graphs) + sum(sc.replays.values())
     for b, bg in sc.graphs.items():
         for rows in (xq[:b], xq[100:100 + b]):
             bg.x.copy_(rows)
             bg.replay()
             assert torch.equal(bg.out, score_mod.score_tiles(
                 bg.x, model.x_sv, model.coef, **kw)), b
+            assert _rel(bg.out, score_mod.score_blocked(
+                bg.x, model.x_sv, model.coef, **kw)) < 1e-5, b
 
 
 def test_scorer_replay_runs_one_k2_kernel(dev):
@@ -1002,12 +1010,12 @@ def test_dsvrg_kill_and_resume_on_card_bit_for_bit(dev, tmp_path, schedule):
                                             batch=16, schedule=schedule))
     model, base = _small_fit(dev, "dsvrg", cfg)
     d = str(tmp_path)
-    n0 = odm_grad_mod.odm_svrg_epoch.launches
+    n0 = odm_grad_mod.odm_svrg_epoch.launches.count
     with pytest.raises(Preemption):
         _small_fit(dev, "dsvrg", cfg, resume=d,
                    faults=FaultPlan().kill_at_epoch(2))
     model2, resumed = _small_fit(dev, "dsvrg", cfg, resume=d)
     torch.cuda.synchronize()
-    assert odm_grad_mod.odm_svrg_epoch.launches - n0 == 4
+    assert odm_grad_mod.odm_svrg_epoch.launches.count - n0 == 4
     assert torch.equal(model2.w, model.w)
     assert torch.equal(resumed.raw.history, base.raw.history)

@@ -69,9 +69,9 @@ def test_plain_matches_interpret_kernel_fp32(B, Hq, Hkv, T, S, D, causal,
     arrs = _qkv(B, Hq, Hkv, T, S, D)
     want = jfa.flash_attention(*_jax(arrs), causal=causal, window=window,
                                bq=32, bk=32, interpret=True)
-    before = tfa.flash_attention.launches
+    before = tfa.flash_attention.launches.count
     got = tfa.flash_attention(*_port(arrs), causal=causal, window=window)
-    assert tfa.flash_attention.launches == before   # CPU: no launch
+    assert tfa.flash_attention.launches.count == before   # CPU: no launch
     assert got.dtype == torch.float32 and got.shape == (B, Hq, T, D)
     assert _err(got, want) < FP32_TOL
     ref = jref.mha(*_jax(arrs), causal=causal, window=window)

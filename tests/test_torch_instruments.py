@@ -1,11 +1,18 @@
 """repro_torch.observe.instruments against repro.observe.instruments on the
 same seeded observations: the nearest-rank percentile, the histogram and
 counter/gauge snapshots, and the registry as a draining tracker."""
+import os
+import subprocess
+import sys
+
 import numpy as np
 import pytest
 
 from repro.observe import instruments as ref
 from repro_torch.observe import instruments as port
+
+SRC = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "src")
 
 
 def _values(seed: int, n: int) -> list[float]:
@@ -75,8 +82,39 @@ def test_registry_snapshot_and_drain_equal_reference():
 
 
 def test_snapshot_folds_in_the_port_counters():
-    snap = port.MetricsRegistry().snapshot(include_counters=True)
-    for name in ("launch.score_tiles", "launch.gram_matvec",
-                 "launch.odm_svrg_epoch", "launch.cd_exact",
-                 "sodm.level_solve"):
-        assert isinstance(snap[f"counter.{name}.count"], int)
+    """One process-wide counter store: each wrapper's ``launches`` and the
+    level solves are counters of ``repro_torch.analysis.invariants``, and
+    the snapshot reads that store, whose bumps it sees."""
+    from repro_torch.analysis import invariants as inv
+    from repro_torch.core import dual_cd, sodm
+    from repro_torch.kernels import gram, odm_grad, score
+    for name, c in (("launch.score_tiles", score.score_tiles.launches),
+                    ("launch.gram_matvec", gram.gram_matvec.launches),
+                    ("launch.odm_svrg_epoch",
+                     odm_grad.odm_svrg_epoch.launches),
+                    ("launch.cd_exact", dual_cd.solve.launches),
+                    ("sodm.level_solve", sodm._LEVEL_SOLVES)):
+        assert inv.counter(name) is c
+        before = port.MetricsRegistry().snapshot(include_counters=True)
+        c.bump(3)
+        snap = port.MetricsRegistry().snapshot(include_counters=True)
+        c.bump(-3)
+        assert snap[f"counter.{name}.count"] == \
+            before[f"counter.{name}.count"] + 3 == c.count + 3
+    assert sodm.level_solve_count() == sodm._LEVEL_SOLVES.count
+
+
+def test_instruments_import_no_higher_layer():
+    """The observe layer reads the neutral counter store and knows nothing
+    of the kernels, the solvers or the server."""
+    code = ("import sys, repro_torch.observe.instruments; "
+            "print(sorted(m for m in sys.modules "
+            "if m.startswith('repro_torch.')))")
+    out = subprocess.run([sys.executable, "-c", code], check=True,
+                         capture_output=True, text=True,
+                         env={**os.environ, "PYTHONPATH": SRC}).stdout
+    assert eval(out) == ["repro_torch.analysis",
+                         "repro_torch.analysis.invariants",
+                         "repro_torch.observe",
+                         "repro_torch.observe.instruments",
+                         "repro_torch.observe.spans"]

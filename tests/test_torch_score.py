@@ -42,9 +42,9 @@ def test_score_paths_match_reference(kind, gamma, degree, coef0):
     tx, tz, tc = torch.tensor(x), torch.tensor(z), torch.tensor(c)
     _close(tscore.score_ref(tx, tz, tc, **kw), want)
     _close(tscore.score_blocked(tx, tz, tc, bt=8, **kw), want)
-    before = tscore.score_tiles.launches
+    before = tscore.score_tiles.launches.count
     _close(tscore.score_tiles(tx, tz, tc, bt=8, **kw), want)
-    assert tscore.score_tiles.launches == before   # CPU: plain version
+    assert tscore.score_tiles.launches.count == before   # CPU: plain version
     js = jkf.KernelSpec(kind, gamma, degree, coef0)
     ts = tkf.KernelSpec(kind, gamma, degree, coef0)
     for tiled in (None, True, False):
