@@ -102,6 +102,30 @@ Phases (any failed check exits nonzero):
    and the objective history equal phase 6's bit for bit, the epoch
    kernel launched 5 + 5 times across the two runs (no epoch twice); then
    ResumeConfig(segment=2) (checkpoints every 2 epochs): the same bits.
+6c. SUSY streamed through the dsvrg route (fit(source), SODMConfig()'s
+   DSVRGConfig: 10 epochs, batch 64, slabs of 4,096 rows: 977 slabs, the
+   last 2,304 rows = 36 live minibatches and 28 empty ones), from an
+   NpyShardSource written under a temporary directory in two layouts
+   (shards of 250,000 and of 65,537 rows, which straddle slabs). B7 must
+   launch 977 x 11 times (10 anchor passes and the terminal one), the
+   epoch kernel 977 x 10 (one a slab of each inner pass), B6 and the
+   Algorithm-1 kernels never (the dsvrg_stream path). w, history, kkt
+   and eta equal across the layouts (torch.equal); every inner-chain
+   launch is recorded, and the last slab's runs exactly 36 steps; those
+   36 steps through the epoch kernel lie within 1e-5 of the reference's
+   masked chain over all 64 minibatches (B6's plain version on the card,
+   an empty step a no-op), and the unmasked chain lies far from both.
+   Against a resident fit of the same rows with n_partitions=1 and
+   identity partitions: max|dw|/||w|| <= 1e-2, eta within 1e-5, history
+   within 1e-3 relative, prediction agreement >= 0.99 on the 1,000,000
+   test rows. The ByteAccountant's peak must lie under a quarter of the
+   source's bytes, and the device peak above the phase's baseline under
+   phase 6's resident fit's. Killed by kill_at_epoch(5), then by a
+   data.prefetch kill at shard 8 inside the resumed epoch 5, then
+   resumed: w and history equal layout A's bit for bit, the epoch kernel
+   launched 977 x 5 + 0 + 977 x 5 times. Printed: fit time, us per inner
+   step, the anchor and inner passes' host spans, and one pass of the
+   loader alone and with the copies to the card.
 7. One small DSVRG fit (a7a at scale 0.05, identity partitions, 5
    epochs, batch 16) on the card against the CPU, once per schedule:
    ||dw||/||w|| <= 1e-2 and prediction agreement >= 0.99, the band
@@ -132,6 +156,16 @@ Phases (any failed check exits nonzero):
    per level, never K4. The cascade is not held to chance: at lam=100 its levels
    stop at the sweep cap and it scores below the majority rate, as the
    reference does on the same inputs.
+8b. (after dip and dc) phishing streamed through the cascade
+   (fit(source), CFG_CASCADE: 8 leaves of 1,104 rows, 15 node solves)
+   from an NpyShardSource in two layouts (shards of 1,000 and 2,944
+   rows): exactly 15 B8, 15 K4 and one scorer launch (the cascade_stream
+   path); test scores equal across the layouts (torch.equal) and within
+   1e-5 x max|f| of the dense cascade with perm = arange(M); killed by
+   kill_at_shard(5) and resumed: the same scores bit for bit, and no
+   shard wholly before leaf 5 read again; sketch_landmarks with a
+   reservoir of all M rows gives on the card the dense select_landmarks
+   set (torch.equal).
 9. Table 3's gradient rivals at full size: svrg and csvrg on a7a (26,048
    rows, d=123, DSVRGConfig() defaults): exactly 10 epoch-kernel launches
    (each 26,048 steps) and 10 B7 launches per route, B6 never.
@@ -186,9 +220,9 @@ phishing's dense levels only), on the SUSY path for the epoch kernel, B6
 (0: its arithmetic runs inside the epoch kernel) and B7, on the cascade
 path for K4, on the qwen3-0.6b path for B9 in bf16 and on its fp32 prefill
 for B9 in fp32 (flash_attention_f32); ``launches_by_path`` gives every
-path, among them ``serve`` (phase 4b), where score_tiles' entry counts
-the bucket graphs' warm-ups plus their replays, as its
-``launches_counting`` says. Every count is read from the process-wide
+path, among them ``dsvrg_stream`` (6c), ``cascade_stream`` (8b) and
+``serve`` (phase 4b), where score_tiles' entry counts the bucket graphs'
+warm-ups plus their replays, as its ``launches_counting`` says. Every count is read from the process-wide
 ``launch.<kernel>`` counters of repro_torch.analysis.invariants. The last
 line is the result.
 """
@@ -798,6 +832,384 @@ def susy_resume_phase(est, ds, base_w, base_hist, og) -> None:
         check(rep, "segments of 2 epochs")
 
 
+def masked_chain_plain(w, anchor, h, xs, ys, wts, eta, skw, og):
+    """The reference's streamed inner chain on one slab (C, b, d): a step
+    whose minibatch has no live row is a no-op (``w − 0·dir``), every
+    other one B6's plain arithmetic, step by step."""
+    import torch
+    inv_n = 1.0 / torch.clamp_min(wts.sum(-1), 1.0)
+    live = (wts.sum(-1) > 0).tolist()
+    for t in range(ys.shape[0]):
+        if live[t]:
+            w = w - eta * og.odm_svrg_grad_plain(
+                w, anchor, h, xs[t], ys[t], wts[t], inv_n[t:t + 1], **skw)
+    return w
+
+
+def span_seconds(rec, name: str) -> float:
+    """Total seconds of the recorded host spans called ``name``."""
+    return sum(e["dur"] for e in rec.spans(name)) / 1e6
+
+
+def stream_dsvrg_phase(ds, problem, cfg, resident, expect, path_launches,
+                       og) -> None:
+    """Phase 6c: SUSY streamed through the dsvrg route from npy shards
+    (see the module docs). ``resident`` holds phase 6's fit time and
+    device peak above its baseline."""
+    import numpy as np
+    import torch
+    from repro_torch.api import ODMEstimator
+    from repro_torch.core import dsvrg as dsvrg_mod
+    from repro_torch.data import streaming as stream
+    from repro_torch.distributed.faults import FaultPlan, Preemption
+    from repro_torch.observe.spans import SpanRecorder, install
+    dc = cfg.dsvrg
+    M, D = ds.x_train.shape
+    b, R = dc.batch, dc.stream_slab
+    n_slabs = -(-M // R)
+    tail = M - (n_slabs - 1) * R
+    live_tail, C = -(-tail // b), R // b
+    steps = -(-M // b)                   # live minibatches an epoch
+    say(f"== phase 6c: stream {ds.name} M={M} d={D} through the dsvrg "
+        f"route from npy shards ({dc.epochs} epochs, batch {b}, slabs of "
+        f"{R}: {n_slabs} slabs, the last {tail} rows = {live_tail} live "
+        f"minibatches and {C - live_tail} empty)")
+    x, y = ds.x_train.numpy(), ds.y_train.numpy()
+    est = ODMEstimator(problem, route="dsvrg", cfg=cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        srcs = [stream.NpyShardSource.write(os.path.join(tmp, f"s{r}"), x,
+                                            y, r)
+                for r in (250_000, 65_537)]
+        say(f"  wrote two layouts ({srcs[0].n_shards} and "
+            f"{srcs[1].n_shards} shards, {srcs[0].total_bytes / 2**20:.1f} "
+            f"MiB each) in {time.perf_counter() - t0:.2f} s")
+
+        # layout A: counts from 0, spans on, the accountant and the peak
+        reset_launches()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        acct = stream.ByteAccountant()
+        rec = SpanRecorder()
+        t0 = time.perf_counter()
+        with install(rec):
+            _, rep_a = est.fit(srcs[0], accountant=acct)
+        fit_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() - base
+        launches = read_launches()
+        path_launches["dsvrg_stream"] = launches
+        want = {"odm_grad": n_slabs * (dc.epochs + 1),
+                "odm_svrg_epoch": n_slabs * dc.epochs, "odm_svrg_grad": 0}
+        say(f"  layout A ({srcs[0].n_shards} shards): fit_s={fit_s:.2f} "
+            f"us_per_inner_step={fit_s / (dc.epochs * steps) * 1e6:.2f} "
+            f"(phase 6 resident: {resident['fit_s']:.2f} s) eta="
+            f"{rep_a.eta:.6g} kkt={rep_a.kkt:.3e} history="
+            f"{[round(h, 6) for h in rep_a.history]}")
+        say(f"  launches on the dsvrg_stream path: {launches}")
+        for name, n in want.items():
+            if launches[name] != n:
+                fail(f"the streamed fit launched {name} {launches[name]} "
+                     f"times, not {n}")
+        for name in expect["dsvrg_stream"][1]:
+            if launches[name] != 0:
+                fail(f"kernel {name} launched on the dsvrg_stream path")
+        # the accountant does not charge the read still in flight: the
+        # live bytes may reach depth shards plus the carry and one slab
+        row_b = srcs[0].total_bytes / M
+        live = (2 * max(srcs[0].shard_sizes()) + 2 * R) * row_b
+        say(f"  host bytes: ByteAccountant peak {acct.peak / 2**20:.2f} MiB "
+            f"(reads in flight uncounted; with them at most "
+            f"{live / 2**20:.2f} MiB) against source.total_bytes / 4 = "
+            f"{srcs[0].total_bytes / 4 / 2**20:.1f} MiB")
+        if not 0 < acct.peak < srcs[0].total_bytes / 4:
+            fail(f"the loader held {acct.peak} bytes, not under a quarter "
+                 f"of the data's {srcs[0].total_bytes}")
+        say(f"  device peak above the phase's baseline: streamed "
+            f"{peak / 2**20:.1f} MiB, resident (phase 6) "
+            f"{resident['peak'] / 2**20:.1f} MiB")
+        if not peak < resident["peak"]:
+            fail(f"the streamed fit's device peak {peak} is not under the "
+                 f"resident fit's {resident['peak']}")
+
+        # where the time goes: the passes' host spans, and the copies
+        # alone (the loader and one synchronous copy a slab, no kernel)
+        anchor_s = span_seconds(rec, "dsvrg.stream.anchor")
+        inner_s = span_seconds(rec, "dsvrg.stream.inner")
+        t0 = time.perf_counter()
+        for slab in stream.iter_slabs(srcs[0], R):
+            torch.from_numpy(slab.x).to("cuda")
+            torch.from_numpy(slab.y).to("cuda")
+        torch.cuda.synchronize()
+        copy_pass = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        for slab in stream.iter_slabs(srcs[0], R):
+            pass
+        loader_pass = time.perf_counter() - t0
+        n_pass = 2 * dc.epochs + 1
+        say(f"  split: {dc.epochs + 1} anchor passes {anchor_s:.3f} s, "
+            f"{dc.epochs} inner passes {inner_s:.3f} s (of which the epoch "
+            f"kernel's {dc.epochs * steps} steps at phase 6's rate "
+            f"{dc.epochs * steps * resident['us_per_step'] / 1e6:.3f} s), "
+            f"the rest {fit_s - anchor_s - inner_s:.3f} s; one pass of the "
+            f"loader alone {loader_pass:.3f} s, loader + copies "
+            f"{copy_pass:.3f} s, so about {n_pass * copy_pass:.2f} s of "
+            f"loader and copies in {n_pass} passes")
+
+        # layout B, the inner chain's step counts recorded on the way
+        seen = []
+        launch_epoch = og.odm_svrg_epoch
+
+        def recording(w, anchor, h, xs, *a, **kw):
+            seen.append(int(xs.shape[1]))
+            return launch_epoch(w, anchor, h, xs, *a, **kw)
+
+        # the wrapper bumps its counter through the module's name
+        recording.launches = launch_epoch.launches
+        og.odm_svrg_epoch = recording
+        try:
+            t0 = time.perf_counter()
+            _, rep_b = est.fit(srcs[1])
+            fit_b = time.perf_counter() - t0
+        finally:
+            og.odm_svrg_epoch = launch_epoch
+        same = (torch.equal(rep_b.raw.w, rep_a.raw.w),
+                torch.equal(rep_b.raw.history, rep_a.raw.history),
+                rep_b.kkt == rep_a.kkt, rep_b.eta == rep_a.eta)
+        say(f"  layout B ({srcs[1].n_shards} shards of 65,537, straddling "
+            f"slabs): fit_s={fit_b:.2f}; w, history, kkt, eta equal to A: "
+            f"{same}")
+        if not all(same):
+            fail("the streamed fit depends on the shard layout")
+        tails = seen[n_slabs - 1::n_slabs]
+        say(f"  inner-chain launches {len(seen)}, steps {sum(seen)}; the "
+            f"last slab's chain runs {sorted(set(tails))} steps each epoch")
+        if (len(seen), sum(seen), set(tails)) != (
+                n_slabs * dc.epochs, steps * dc.epochs, {live_tail}):
+            fail(f"the inner chains ran {len(seen)} launches of "
+                 f"{sum(seen)} steps, the last slab {set(tails)}, not "
+                 f"{n_slabs * dc.epochs}, {steps * dc.epochs}, "
+                 f"{live_tail}")
+
+        # the last slab: its live minibatches through the epoch kernel
+        # against the reference's masked chain over all C (plain, card)
+        last = next(iter(stream.iter_slabs(srcs[0], R,
+                                           start_row=(n_slabs - 1) * R)))
+        xs = torch.from_numpy(last.x).to("cuda").reshape(C, b, D)
+        ys = torch.from_numpy(last.y).to("cuda").reshape(C, b)
+        wts = (torch.arange(R, device="cuda") < last.n_valid).float() \
+            .reshape(C, b)
+        w_fit = rep_a.raw.w
+        anchor = 0.9 * w_fit
+        h = anchor + dsvrg_mod._loss_grad(
+            anchor, xs.reshape(R, D), ys.reshape(R), problem.params, M,
+            True)
+        eta = rep_a.raw.eta
+        skw = dsvrg_mod._hinge_kw(problem.params)
+        inv_n = (1.0 / torch.clamp_min(wts[:live_tail].sum(-1),
+                                       1.0))[:, None]
+        got = og.odm_svrg_epoch(w_fit, anchor, h,
+                                xs[:live_tail].reshape(1, live_tail, b, D),
+                                ys[:live_tail].reshape(1, live_tail, b),
+                                wts[:live_tail], inv_n, eta, **skw)
+        masked = masked_chain_plain(w_fit, anchor, h, xs, ys, wts, eta, skw,
+                                    og)
+        unmasked = og.odm_svrg_epoch_plain(
+            w_fit, anchor, h, xs[None], ys[None], wts,
+            (1.0 / torch.clamp_min(wts.sum(-1), 1.0))[:, None], eta, **skw)
+        err = float((got - masked).abs().max() / masked.norm())
+        off = float((unmasked - masked).abs().max() / masked.norm())
+        say(f"  last slab ({last.n_valid} rows): the epoch kernel over its "
+            f"{live_tail} live minibatches against the masked chain over "
+            f"all {C}: max|dw|/||w|| = {err:.3e}; the unmasked chain lies "
+            f"{off:.3e} away")
+        if not (err <= 1e-5 and off > 100 * err):
+            fail(f"the last slab's chain: {err} from the masked chain, the "
+                 f"unmasked one {off}")
+
+        # the two kernels at one full slab's shape, device time with the
+        # host held (timing only)
+        full = next(iter(stream.iter_slabs(srcs[0], R)))
+        xf = torch.from_numpy(full.x).to("cuda")
+        yf = torch.from_numpy(full.y).to("cuda")
+        p = problem.params
+        b7_ms = device_ms(lambda: og.odm_grad(w_fit, xf, yf,
+                                              lam=p.lam * R / M,
+                                              theta=p.theta, ups=p.ups), 200)
+        ones = torch.ones(C, b, device="cuda")
+        inv_b = torch.full((C, 1), 1.0 / b, device="cuda")
+        ep_ms = device_ms(lambda: og.odm_svrg_epoch(
+            w_fit, anchor, h, xf.reshape(1, C, b, D), yf.reshape(1, C, b),
+            ones, inv_b, eta, **skw), 50)
+        say(f"  one full slab's kernels, device time: B7 ({R} x {D}) "
+            f"{b7_ms * 1e3:.2f} us, the epoch kernel ({C} steps of {b}) "
+            f"{ep_ms * 1e3:.2f} us")
+
+        # against the resident fit of the same rows in the same order
+        # the outer partition_strategy too: the route hands a stratified
+        # or random outer strategy down to DSVRGConfig
+        cfg_id = dataclasses.replace(
+            cfg, partition_strategy="identity",
+            dsvrg=dataclasses.replace(dc, n_partitions=1,
+                                      partition_strategy="identity"))
+        t0 = time.perf_counter()
+        m_res, rep_res = ODMEstimator(problem, route="dsvrg",
+                                      cfg=cfg_id).fit(ds.x_train,
+                                                      ds.y_train, 0)
+        torch.cuda.synchronize()
+        res_s = time.perf_counter() - t0
+        w_s, w_r = rep_a.raw.w, m_res.w
+        rel = float((w_s - w_r).abs().max() / w_r.norm())
+        xt = ds.x_test.to("cuda")
+        agree = float((torch.sign(xt @ w_s) == torch.sign(xt @ w_r))
+                      .float().mean())
+        eta_rel = abs(rep_a.eta - rep_res.eta) / abs(rep_res.eta)
+        hist_rel = float(np.max(np.abs(np.subtract(rep_a.history,
+                                                   rep_res.history))
+                                / np.abs(rep_res.history)))
+        say(f"  against the resident identity fit ({res_s:.2f} s): "
+            f"max|dw|/||w|| = {rel:.3e} (band 1e-2), eta {eta_rel:.2e} "
+            f"(1e-5), history {hist_rel:.2e} (1e-3), prediction agreement "
+            f"{agree:.6f} on {xt.shape[0]} test rows (0.99)")
+        if not (rel <= 1e-2 and eta_rel <= 1e-5 and hist_rel <= 1e-3
+                and agree >= 0.99):
+            fail("the streamed fit lies outside the band of the resident "
+                 "identity fit")
+        del xt
+
+        # killed at epoch 5, then by a shard read in the middle of the
+        # resumed epoch 5, then resumed to the end
+        d = os.path.join(tmp, "resume")
+        n0 = og.odm_svrg_epoch.launches.count
+        runs = []
+        for plan in (FaultPlan().kill_at_epoch(5),
+                     FaultPlan().kill("data.prefetch", shard=8), None):
+            t0 = time.perf_counter()
+            try:
+                _, rep_k = est.fit(srcs[0], resume=d, faults=plan)
+                if plan is not None:
+                    fail(f"{plan} did not raise Preemption")
+                what = "resumed to the end"
+            except Preemption as e:
+                what = f"killed at {e.site} {e.info}"
+            torch.cuda.synchronize()
+            n1 = og.odm_svrg_epoch.launches.count
+            runs.append(n1 - n0)
+            n0 = n1
+            say(f"  {what}: {runs[-1]} epoch-kernel launches, "
+                f"{time.perf_counter() - t0:.2f} s")
+        eq = (torch.equal(rep_k.raw.w, rep_a.raw.w),
+              torch.equal(rep_k.raw.history, rep_a.raw.history))
+        say(f"  w and history equal to layout A's bit for bit: {eq}")
+        if not all(eq):
+            fail("the resumed stream differs from the uninterrupted fit")
+        if runs != [5 * n_slabs, 0, (dc.epochs - 5) * n_slabs]:
+            fail(f"the epoch kernel launched {runs} times across the "
+                 f"killed and resumed fits (an epoch run twice?)")
+
+
+def stream_cascade_phase(ds, problem, cfg, dense_fit_s, expect,
+                         path_launches) -> None:
+    """Phase 8b: phishing streamed through the cascade from npy shards
+    (see the module docs)."""
+    import torch
+    from repro_torch.api import ODMEstimator
+    from repro_torch.core import baselines
+    from repro_torch.core import partition as part_mod
+    from repro_torch.data import streaming as stream
+    from repro_torch.distributed.faults import FaultPlan, Preemption
+    from repro_torch.serve import model as serve_model
+    M, D = ds.x_train.shape
+    K = 2 ** cfg.levels
+    nodes = 2 * K - 1
+    say(f"== phase 8b: stream {ds.name} M={M} d={D} through the cascade "
+        f"({K} leaves of {M // K}, {nodes} node solves)")
+    x, y = ds.x_train.numpy(), ds.y_train.numpy()
+    est = ODMEstimator(problem, route="cascade", cfg=cfg)
+    with tempfile.TemporaryDirectory() as tmp:
+        srcs = [stream.NpyShardSource.write(os.path.join(tmp, f"s{r}"), x,
+                                            y, r) for r in (1000, 2944)]
+        reset_launches()
+        t0 = time.perf_counter()
+        _, rep = est.fit(srcs[0])
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        f = est.decision_function(ds.x_test)
+        torch.cuda.synchronize()
+        launches = read_launches()
+        path_launches["cascade_stream"] = launches
+        say(f"  layout A ({srcs[0].n_shards} shards of 1,000): fit_s="
+            f"{fit_s:.4f} (phase 8's dense cascade {dense_fit_s:.4f}) "
+            f"n_sv={rep.n_sv} passes={list(rep.passes)}")
+        say(f"  launches on the cascade_stream path: {launches}")
+        if (launches["gram"], launches["cd_exact"],
+                launches["score_tiles"]) != (nodes, nodes, 1):
+            fail(f"the streamed cascade launched B8 {launches['gram']}, K4 "
+                 f"{launches['cd_exact']} and the scorer "
+                 f"{launches['score_tiles']} times, not {nodes}, {nodes}, 1")
+        for name in expect["cascade_stream"][1]:
+            if launches[name] != 0:
+                fail(f"kernel {name} launched on the cascade_stream path")
+        if f.shape != (ds.x_test.shape[0],) or not bool(
+                torch.isfinite(f).all()):
+            fail(f"streamed cascade scores malformed: {tuple(f.shape)}")
+        est_b = ODMEstimator(problem, route="cascade", cfg=cfg)
+        est_b.fit(srcs[1])
+        f_b = est_b.decision_function(ds.x_test)
+        say(f"  layout B ({srcs[1].n_shards} shards of 2,944): scores equal "
+            f"to A's bit for bit: {torch.equal(f_b, f)}")
+        if not torch.equal(f_b, f):
+            fail("the streamed cascade depends on the shard layout")
+
+        xd, yd = ds.x_train.to("cuda"), ds.y_train.to("cuda")
+        t0 = time.perf_counter()
+        dense = baselines._cascade_solve(
+            problem.kernel, xd, yd, problem.params, levels=cfg.levels,
+            tol=cfg.tol, max_sweeps=cfg.max_sweeps,
+            perm=torch.arange(M, device="cuda"))
+        torch.cuda.synchronize()
+        dense_s = time.perf_counter() - t0
+        f_d = serve_model.from_cascade(problem.kernel,
+                                       dense).decision_function(ds.x_test)
+        gap = float((f_d - f).abs().max())
+        scale = float(f_d.abs().max())
+        say(f"  against the dense cascade with perm = arange(M) "
+            f"({dense_s:.4f} s): max|df| = {gap:.3e} (band 1e-5 x "
+            f"max|f| = {1e-5 * scale:.3e})")
+        if not gap <= 1e-5 * scale:
+            fail("the streamed cascade lies outside the band of the dense "
+                 "identity cascade")
+
+        src = stream.NpyShardSource(srcs[0].pairs)
+        d = os.path.join(tmp, "resume")
+        try:
+            est.fit(src, resume=d, faults=FaultPlan().kill_at_shard(5))
+            fail("kill_at_shard(5) did not raise Preemption")
+        except Preemption as e:
+            say(f"  killed at {e.site} {e.info}; reads {src.reads}")
+        est.fit(src, resume=d)
+        f_r = est.decision_function(ds.x_test)
+        done = (5 * (M // K)) // 1000         # shards wholly before leaf 5
+        say(f"  resumed: reads {src.reads}; scores equal bit for bit: "
+            f"{torch.equal(f_r, f)}")
+        if not torch.equal(f_r, f):
+            fail("the resumed streamed cascade differs")
+        if src.reads[:done] != [1] * done:
+            fail(f"the resume read completed shards again: {src.reads}")
+
+        t0 = time.perf_counter()
+        z = stream.sketch_landmarks(problem.kernel, srcs[0],
+                                    cfg.n_landmarks, reservoir=M,
+                                    device="cuda")
+        sketch_s = time.perf_counter() - t0
+        idx = part_mod.select_landmarks(problem.kernel, xd, cfg.n_landmarks)
+        same = torch.equal(z, xd[idx])
+        say(f"  sketch_landmarks(reservoir={M}) on the card: the dense "
+            f"select_landmarks set: {same} ({sketch_s:.2f} s)")
+        if not same:
+            fail("the sketched landmarks differ from the dense ones")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1024,9 +1436,17 @@ def main() -> None:
               "ijcnn1": (mfree + b8, ("dense_matvec",) + alg2 + b6 + k4
                          + lm),
               "SUSY": (alg2, alg1 + b6 + b8 + k4 + lm),
+              # SUSY streamed from npy shards (6c): B7 and the epoch
+              # kernel once a slab of each pass
+              "dsvrg_stream": (alg2, alg1 + b6 + b8 + k4 + lm),
               "cascade": (b8 + k4 + ("score_tiles",),
                           ("cd_block_sweep", "gram_matvec", "dense_matvec")
                           + alg2 + b6 + lm),
+              # phishing streamed through the cascade (8b): B8 and K4 once
+              # a node
+              "cascade_stream": (b8 + k4 + ("score_tiles",),
+                                 ("cd_block_sweep", "gram_matvec",
+                                  "dense_matvec") + alg2 + b6 + lm),
               "dip": (mfree + b8, ("dense_matvec",) + alg2 + b6 + k4 + lm),
               "dc": (mfree + b8, ("dense_matvec",) + alg2 + b6 + k4 + lm),
               "svrg": (alg2, alg1 + b6 + b8 + k4 + lm),
@@ -1365,6 +1785,8 @@ def main() -> None:
     # -- 6. Algorithm 2 at real size: SUSY through the auto route ------------
     say(f"== phase 6: fit SUSY M={M} d={D} linear lam={lam} (route=None)")
     reset_launches()
+    torch.cuda.synchronize()
+    base6 = torch.cuda.memory_allocated()
     torch.cuda.reset_peak_memory_stats()
     cfg6 = SODMConfig()
     est = ODMEstimator(ProblemSpec(kernel=kf.KernelSpec("linear"),
@@ -1373,6 +1795,7 @@ def main() -> None:
     t0 = time.perf_counter()
     model, report = est.fit(susy.x_train, susy.y_train, 0, tracker=epochs)
     fit_s = time.perf_counter() - t0
+    peak6 = torch.cuda.max_memory_allocated() - base6
     for row in epochs.rows:
         say(f"  epoch {row['epoch']}: objective={row['objective']:.6f} "
             f"eta={row['eta']:.6g} seconds={row['wall_s']:.3f} "
@@ -1433,6 +1856,10 @@ def main() -> None:
         f"{epochs_s - kern_s - b7_s:.3f} s the objective, h and the host")
     del xs_tr, ys_tr
     susy_resume_phase(est, susy, report.raw.w, report.raw.history, og)
+    stream_dsvrg_phase(susy, est.problem, cfg6, {
+        "fit_s": fit_s, "peak": peak6,
+        "us_per_step": susy_epoch_ms * 1e3 / (dc.n_partitions * S)},
+        expect, path_launches, og)
 
     # -- 7. the card against the CPU on one small linear fit ------------------
     small = synthetic.load("a7a", scale=0.05)
@@ -1699,8 +2126,9 @@ def main() -> None:
     # reference's cascade is on the same inputs (its correctness is held
     # by the CPU parity tests and by phase 10, not by a threshold)
     say("  cascade (CFG_CASCADE: levels=3, max_sweeps=100)")
-    est, report, f, _ = fit_path("cascade", phishing, problem_ph, "cascade",
-                                 cfg_cas, chance_check=False)
+    est, report, f, cas_fit_s = fit_path("cascade", phishing, problem_ph,
+                                         "cascade", cfg_cas,
+                                         chance_check=False)
     launches = path_launches["cascade"]
     n_lvl = cfg_cas.levels + 1
     if (launches["gram"], launches["cd_exact"],
@@ -1721,6 +2149,8 @@ def main() -> None:
     for route in ("dip", "dc"):
         say(f"  {route} (engine=pallas, max_sweeps=200)")
         fit_path(route, ijcnn1, problem_ij, route, cfg)
+    stream_cascade_phase(phishing, problem_ph, cfg_cas, cas_fit_s, expect,
+                         path_launches)
 
     # -- 9. Table 3's gradient rivals at full size ----------------------------
     a7a = synthetic.load("a7a")

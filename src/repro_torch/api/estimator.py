@@ -15,8 +15,11 @@ runs it and returns a deployable :class:`FittedODM` plus a
 :class:`FitReport`. ``save``/``load`` persist the artifact in the
 reference's checkpoint layout, so either package loads the other's.
 ``fit(resume=..., faults=...)`` makes the sodm and dsvrg routes
-preemption-proof, as in the reference. ``profile_dir`` (ROADMAP A15) and
-streaming sources (A14) are not ported yet and raise.
+preemption-proof, as in the reference. ``fit(source)`` trains the dsvrg
+or cascade route out of core from a
+:class:`repro_torch.data.streaming.ShardedSource`, each slab copied to the
+estimator's device. ``profile_dir`` (ROADMAP A15) is not ported yet and
+raises.
 """
 from __future__ import annotations
 
@@ -72,12 +75,24 @@ class ODMEstimator:
     #: routes with a resume/faults seam (the paper's two regimes; the
     #: Section-4 rivals have no mid-solve state worth persisting)
     INSTRUMENTED_ROUTES = ("dsvrg", "sodm")
+    #: the streaming routes' resume/faults seams (both checkpoint)
+    STREAM_INSTRUMENTED_ROUTES = ("dsvrg", "cascade")
 
     def fit(self, x, y=None, key: torch.Generator | int | None = None, *,
             resume=None, faults=None, tracker=None, profile_dir=None,
             trace_dir=None, **fit_kw
             ) -> tuple[serve_model.FittedODM, FitReport]:
         """Train through the resolved route; returns (artifact, report).
+
+        ``x`` is either a dense ``(M, d)`` feature matrix with ``y`` its
+        ±1 labels, or a :class:`repro_torch.data.streaming.ShardedSource`
+        with ``y`` omitted (a source carries its own labels). A source
+        streams through an out-of-core route (dsvrg for linear kernels,
+        cascade otherwise; ``registry.streaming_routes``) slab by slab
+        onto the estimator's device, never materializing the (M, d)
+        matrix; ``fit_kw`` then also takes the loader knobs ``depth``,
+        ``executor``, ``metrics`` and ``accountant``, which a dense fit
+        rejects.
 
         ``key`` seeds the partitioning (a ``torch.Generator`` or an int;
         ``None`` is seed 0). ``tracker`` receives per-level metrics and one
@@ -87,8 +102,8 @@ class ODMEstimator:
         cascade.level) to ``<trace_dir>/trace.json``. ``fit_kw`` forwards
         ``level_callback``.
 
-        Preemption-proofing (sodm and dsvrg routes only; the others
-        raise rather than silently ignore these):
+        Preemption-proofing (sodm and dsvrg routes, and both streaming
+        routes; the others raise rather than silently ignore these):
 
         resume: a directory (or :class:`repro_torch.distributed.resume
             .ResumeConfig`) holding mid-solve checkpoints, written per
@@ -104,34 +119,55 @@ class ODMEstimator:
             deterministic chaos testing (kill at a level or an epoch,
             kill inside the checkpoint's crash window).
         """
-        if y is None:
-            raise NotImplementedError(
-                "streaming fits from a ShardedSource are not ported yet "
-                "(ROADMAP A14)")
+        from repro_torch.data.streaming import is_source
         if profile_dir is not None:
             raise NotImplementedError(
                 "profile_dir is not ported yet (ROADMAP A15)")
-        x, y = self.problem.validate(x, y, self.device)
-        M = int(x.shape[0])
+        streaming = is_source(x)
+        if streaming:
+            if y is not None:
+                raise ValueError(
+                    "fit(source) carries its own labels — passing y "
+                    "alongside a ShardedSource is ambiguous; drop y")
+            self.problem.validate_source(x)
+            M = int(x.n_rows)
+            fit_kw["device"] = self.device
+        else:
+            if y is None:
+                raise ValueError(
+                    "fit(x) needs the labels y, unless x is a "
+                    "ShardedSource (which carries its own labels)")
+            loader_kw = [k for k in ("depth", "executor", "metrics",
+                                     "accountant") if k in fit_kw]
+            if loader_kw:
+                raise ValueError(
+                    f"{'/'.join(loader_kw)} are streaming loader knobs — "
+                    f"they only apply to fit(source); a dense fit has no "
+                    f"prefetch loader to configure")
+            x, y = self.problem.validate(x, y, self.device)
+            M = int(x.shape[0])
         entry = registry.resolve(self.problem, M, route=self.route,
-                                 cfg=self.cfg)
-        if entry.name not in self.INSTRUMENTED_ROUTES:
+                                 cfg=self.cfg, streaming=streaming)
+        instrumented = self.STREAM_INSTRUMENTED_ROUTES if streaming \
+            else self.INSTRUMENTED_ROUTES
+        if entry.name not in instrumented:
             bad = [n for n, v in (("resume", resume), ("faults", faults))
                    if v is not None]
             if bad:
                 raise ValueError(
                     f"route {entry.name!r} has no {'/'.join(bad)} seam — "
-                    f"instrumented routes: {list(self.INSTRUMENTED_ROUTES)}")
+                    f"instrumented routes: {list(instrumented)}")
         if resume is not None:
             fit_kw["resume"] = self._resume_manager(entry.name, resume, x, y,
-                                                    key, faults)
+                                                    key, faults, streaming)
         if faults is not None:
             fit_kw["faults"] = faults
         if tracker is not None:
             fit_kw["tracker"] = tracker
         t0 = time.perf_counter()
         with trace_ctx(trace_dir), span("fit", route=entry.name, n_train=M,
-                                        device=str(self.device)):
+                                        device=str(self.device),
+                                        streaming=streaming):
             with span(f"route.{entry.name}", engine=self.cfg.engine):
                 out = entry.fit(self.problem, x, y, key, cfg=self.cfg,
                                 compile_kw=dict(self.compile_kw),
@@ -154,16 +190,23 @@ class ODMEstimator:
         self.model_, self.report_ = out.model, report
         return out.model, report
 
-    def _resume_manager(self, route: str, resume, x: Tensor, y: Tensor,
-                        key, faults):
+    def _resume_manager(self, route: str, resume, x, y: Tensor | None,
+                        key, faults, streaming: bool = False):
         """The route's resume manager, fingerprinting THIS fit's (kernel,
         params, cfg, data, key) so a stale directory is rejected instead
-        of splicing foreign duals into the solve."""
+        of splicing foreign duals into the solve. A streaming fit
+        fingerprints the source (``source.fingerprint()``) instead of
+        summing rows nobody holds."""
         from repro_torch.distributed import resume as resume_mod
         rc = resume_mod.ResumeConfig.of(resume)
-        prov = resume_mod.provenance(self.problem.kernel,
-                                     self.problem.params, self.cfg, x, y,
-                                     key)
+        if streaming:
+            prov = resume_mod.provenance_source(self.problem.kernel,
+                                                self.problem.params,
+                                                self.cfg, x, key)
+        else:
+            prov = resume_mod.provenance(self.problem.kernel,
+                                         self.problem.params, self.cfg, x,
+                                         y, key)
         cls = (resume_mod.DsvrgResumeManager if route == "dsvrg"
                else resume_mod.CascadeResumeManager)
         return cls(rc, prov, faults=faults)

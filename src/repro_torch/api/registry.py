@@ -13,12 +13,13 @@ rule for rule:
 
 All seven routes of the reference are registered, with its capabilities:
 ``sodm``, ``dsvrg`` and the Section-4 baselines ``cascade``, ``dip``,
-``dc``, ``svrg`` and ``csvrg``, on resident data. A streaming fit (a
-``ShardedSource``) is ROADMAP A14 and raises ``NotImplementedError``
-naming it. The ``sodm`` and ``dsvrg`` routes take the reference's
-``faults``/``tracker``/``resume`` seams; the rival routes take the
-tracker only, which the reference rejects on them (a known difference:
-the port reads their per-level and per-epoch times through it).
+``dc``, ``svrg`` and ``csvrg``. ``dsvrg`` and ``cascade`` also train from
+a ``ShardedSource`` out of core (``streaming_routes()``; the ``y is
+None`` branch of their fits). The ``sodm`` and ``dsvrg`` routes, and
+both streaming routes, take the reference's ``faults``/``tracker``/
+``resume`` seams; the resident rival routes take the tracker only, which
+the reference rejects on them (a known difference: the port reads their
+per-level and per-epoch times through it).
 """
 from __future__ import annotations
 
@@ -85,7 +86,8 @@ class SolverEntry:
         if streaming and not self.streaming:
             raise ValueError(
                 f"route {self.name!r} cannot train from a ShardedSource — "
-                f"its capabilities: {self.capabilities()}")
+                f"its capabilities: {self.capabilities()}. Streaming routes: "
+                f"{streaming_routes()}")
 
 
 _REGISTRY: dict[str, SolverEntry] = {}
@@ -109,6 +111,11 @@ def get(name: str) -> SolverEntry:
 
 def routes() -> tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
+
+
+def streaming_routes() -> list[str]:
+    """Route names that can consume a ShardedSource out of core."""
+    return [e.name for e in _REGISTRY.values() if e.streaming]
 
 
 def resolve(problem, M: int, mesh=None, route: str | None = None, cfg=None,
@@ -180,6 +187,18 @@ def _hooks(fit_kw) -> dict:
             if fit_kw.get(k) is not None}
 
 
+def _stream_hooks(fit_kw) -> dict:
+    """:func:`_hooks` plus what only the streaming drivers take: the
+    loader knobs (prefetch ``depth``, injected ``executor``/``metrics``,
+    the host-byte ``accountant``) and the ``device`` the slabs go to."""
+    kw = _hooks(fit_kw)
+    kw.update({k: fit_kw[k]
+               for k in ("depth", "executor", "metrics", "accountant",
+                         "device")
+               if fit_kw.get(k) is not None})
+    return kw
+
+
 def _fit_sodm(problem, x, y, key, *, cfg, compile_kw,
               fit_kw) -> RouteOutput:
     cfg = _pin_level_engine(cfg, "sodm")
@@ -194,6 +213,18 @@ def _fit_sodm(problem, x, y, key, *, cfg, compile_kw,
 def _fit_dsvrg(problem, x, y, key, *, cfg, compile_kw,
                fit_kw) -> RouteOutput:
     del compile_kw                     # the artifact is the primal w
+    if y is None:                      # x is a ShardedSource (streaming fit)
+        dres, kkt = dsvrg_mod._solve_stream(x, problem.params, cfg.dsvrg,
+                                            key, **_stream_hooks(fit_kw))
+        # the resident path's dual recovery is O(M) state: a streaming
+        # fit compiles the artifact straight from the primal w
+        model = serve_model.FittedODM(spec=problem.kernel, w=dres.w,
+                                      n_train=int(x.n_rows),
+                                      compression="linear")
+        return RouteOutput(model=model, raw=dres, engine="dsvrg",
+                           passes=(len(dres.history),), kkt=float(kkt),
+                           eta=float(dres.eta),
+                           history=tuple(float(h) for h in dres.history))
     res, dres = sodm_mod._solve_dsvrg(problem.kernel, x, y, problem.params,
                                       cfg, key, **_hooks(fit_kw))
     model = dataclasses.replace(serve_model.from_dsvrg(dres),
@@ -206,14 +237,16 @@ def _fit_dsvrg(problem, x, y, key, *, cfg, compile_kw,
 
 def _fit_cascade(problem, x, y, key, *, cfg, compile_kw,
                  fit_kw) -> RouteOutput:
-    if y is None:
-        raise NotImplementedError(
-            "the streaming cascade is not ported yet (ROADMAP A14)")
-    res = baselines_mod._cascade_solve(problem.kernel, x, y, problem.params,
-                                       levels=cfg.levels, key=key,
-                                       tol=cfg.tol,
-                                       max_sweeps=cfg.max_sweeps,
-                                       tracker=fit_kw.get("tracker"))
+    if y is None:                      # x is a ShardedSource (streaming fit)
+        res = baselines_mod._cascade_solve_stream(
+            problem.kernel, x, problem.params, levels=cfg.levels, key=key,
+            tol=cfg.tol, max_sweeps=cfg.max_sweeps, **_stream_hooks(fit_kw))
+    else:
+        res = baselines_mod._cascade_solve(problem.kernel, x, y,
+                                           problem.params, levels=cfg.levels,
+                                           key=key, tol=cfg.tol,
+                                           max_sweeps=cfg.max_sweeps,
+                                           tracker=fit_kw.get("tracker"))
     model = serve_model.from_cascade(problem.kernel, res, **compile_kw)
     return RouteOutput(model=model, raw=res, engine="scalar",
                        passes=(res.levels_run,))
@@ -285,16 +318,17 @@ register(SolverEntry(
 register(SolverEntry(
     name="dsvrg", fit=_fit_dsvrg,
     algorithm="Alg. 2 (communication-efficient SVRG)",
-    kernels=_LINEAR, mesh_aware=False, matrix_free=True,
+    kernels=_LINEAR, mesh_aware=False, matrix_free=True, streaming=True,
     scale_min=DSVRG_AUTO_THRESHOLD,
     description="primal round-robin SVRG; dual recovered via "
-                "odm.alpha_from_w; auto-selected for big linear problems"))
+                "odm.alpha_from_w; auto-selected for big linear problems; "
+                "accepts a ShardedSource (out-of-core epochs)"))
 register(SolverEntry(
     name="cascade", fit=_fit_cascade,
     algorithm="Ca-ODM (Graf et al. 2004 cascade)",
     kernels=None, mesh_aware=False, matrix_free=False, streaming=True,
     description="binary support-vector funnel; fast but lossy baseline; "
-                "the streaming form is ROADMAP A14"))
+                "accepts a ShardedSource (leaves train as shards arrive)"))
 register(SolverEntry(
     name="dip", fit=_fit_dip,
     algorithm="DiP-ODM (Singh et al. 2017)",

@@ -2,8 +2,9 @@
 
 Port of ``repro.api.spec``: the kernel (:class:`KernelSpec`) and the ODM
 hyperparameters (:class:`ODMParams`) in one frozen object, with
-hyperparameter checks at construction and data checks at
-:meth:`ProblemSpec.validate`.
+hyperparameter checks at construction, data checks at
+:meth:`ProblemSpec.validate` and a streaming source's metadata checks at
+:meth:`ProblemSpec.validate_source`.
 """
 from __future__ import annotations
 
@@ -74,3 +75,23 @@ class ProblemSpec:
                 f"margin formula assume it); {bad} of {y.shape[0]} rows "
                 f"are not")
         return x.contiguous(), y.contiguous()
+
+    def validate_source(self, source) -> None:
+        """Structural checks for a streaming fit's ShardedSource.
+
+        Metadata only: per-shard label checks happen as shards stream
+        through the loader (``iter_slabs``), not here — nobody reads all
+        of a source up front.
+        """
+        n_rows = int(getattr(source, "n_rows"))
+        n_features = int(getattr(source, "n_features"))
+        if n_rows <= 0:
+            raise ValueError(f"empty training source (n_rows={n_rows})")
+        if n_features < 1:
+            raise ValueError(
+                f"source must have >= 1 feature, got {n_features}")
+        sizes = tuple(source.shard_sizes())
+        if sum(sizes) != n_rows:
+            raise ValueError(
+                f"source shard sizes sum to {sum(sizes)} but n_rows is "
+                f"{n_rows} — the source is inconsistent")

@@ -29,10 +29,14 @@ Random draws come from a ``torch.Generator``; the parity tests inject the
 reference's draws instead (``perm=`` for the cascade, dip and dc,
 ``_perms=`` for the per-epoch permutations of svrg and csvrg).
 
-Not ported here: ``_cascade_solve_stream`` (ROADMAP A14), the warn-once
-legacy shims (``cascade_solve``, ``dip_solve``, ``dc_solve``,
-``svrg_solve``, ``csvrg_solve``) and ``cascade_predict``: the port has
-no legacy callers (serve through ``serve.model.from_cascade``).
+The cascade also trains from a sharded source that is never resident
+(:func:`_cascade_solve_stream`): leaves solve as the shards arrive, each
+node one B8 and one K4 launch.
+
+Not ported here: the warn-once legacy shims (``cascade_solve``,
+``dip_solve``, ``dc_solve``, ``svrg_solve``, ``csvrg_solve``) and
+``cascade_predict``: the port has no legacy callers (serve through
+``serve.model.from_cascade``).
 """
 from __future__ import annotations
 
@@ -106,7 +110,7 @@ def _cascade_solve(spec: kf.KernelSpec, x: Tensor, y: Tensor,
     m = M // K
     xs = x[perm].reshape(K, m, -1)
     ys = y[perm].reshape(K, m)
-    alphas = torch.zeros(K, 2 * m, dtype=x.dtype, device=x.device)
+    alphas = None                      # the zero start at the leaves
     lvl = 0
     while True:
         t0 = time.perf_counter()
@@ -136,6 +140,115 @@ def _cascade_solve(spec: kf.KernelSpec, x: Tensor, y: Tensor,
         alphas = sodm_mod.merge_alphas(ak.reshape(Kn, 2, 2 * keep))
     return CascadeResult(x_sv=xs[0], y_sv=ys[0], alpha=alphas[0],
                          levels_run=lvl)
+
+
+def _cascade_solve_stream(spec: kf.KernelSpec, source, params: ODMParams,
+                          levels: int, key=None, tol: float = 1e-4,
+                          max_sweeps: int = 100, *,
+                          device: str | torch.device, faults=None,
+                          tracker=None, resume=None, depth: int = 2,
+                          executor=None, metrics=None,
+                          accountant=None) -> CascadeResult:
+    """Out-of-core cascade: level-0 leaves train as the shards arrive.
+
+    The cascade runs as an online binary tournament: each arriving leaf
+    (one ``M / 2^levels``-row slab of the stream, cut on global row
+    indices by ``iter_slabs`` and copied to ``device``) is solved at
+    once, and whenever two same-tier survivors sit on top of the merge
+    stack they funnel — keep the top half of each (:func:`_top_support`),
+    concatenate, warm-start from the merged duals
+    (:func:`repro_torch.core.sodm.merge_alphas`) and re-solve. At most
+    ``levels + 1`` partially merged nodes are ever resident. Each node
+    solve is one B8 launch for its signed Gram (``ops.gram``) and one K4
+    launch (``dual_cd.solve``), K = 1 each.
+
+    With the dense solver given ``perm = arange(M)`` the tournament pairs
+    the same instances into the same nodes. Leaves stream in stream
+    order; ``key`` is accepted for signature parity and unused.
+
+    Instrumentation: the ``cascade.shard`` fault site fires per leaf
+    (``data.prefetch`` fires underneath, inside the loader), a
+    ``cascade.shard`` span wraps each leaf's solve and merges, the
+    tracker logs per-leaf throughput (one synchronize a leaf), and
+    ``resume`` (a :class:`~repro_torch.distributed.resume
+    .CascadeResumeManager`) checkpoints the merge stack after each leaf,
+    so a restart re-enters the stream at the first unprocessed leaf
+    without reading completed shards again.
+    """
+    from repro_torch.data.streaming import loader as stream_loader
+    from repro_torch.observe.spans import span as _span
+
+    M = int(source.n_rows)
+    K = 2 ** levels
+    if M % K != 0:
+        raise ValueError(f"2^levels={K} must divide M={M}")
+    del key
+    device = torch.device(device)
+    m0 = M // K
+    if metrics is None and tracker is not None:
+        from repro_torch.observe.instruments import MetricsRegistry
+        metrics = MetricsRegistry()
+
+    def solve_node(xn: Tensor, yn: Tensor, a0: Tensor | None) -> Tensor:
+        Q = ops.gram(xn[None], None, spec, yx=yn[None])
+        return dual_cd.solve(Q[0], params, mscale=float(xn.shape[0]),
+                             alpha0=a0, tol=tol,
+                             max_sweeps=max_sweeps).alpha
+
+    # merge stack: (tier, x (m, d), y (m,), alpha (2m,)) — tier t holds
+    # the solved merge of 2^t consecutive leaves
+    stack: list[tuple[int, Tensor, Tensor, Tensor]] = []
+    start_leaf = 0
+    if resume is not None:
+        restored = resume.restore_stream(device=device)
+        if restored is not None:
+            start_leaf, stack = restored.leaf, list(restored.stack)
+
+    def funnel():
+        while len(stack) >= 2 and stack[-1][0] == stack[-2][0]:
+            tier, xb, yb, ab = stack.pop()
+            _, xa, ya, aa = stack.pop()
+            keep = int(xa.shape[0]) // 2
+            xa, ya, aa = _top_support(xa, ya, aa, keep)
+            xb, yb, ab = _top_support(xb, yb, ab, keep)
+            xm = torch.cat([xa, xb])
+            ym = torch.cat([ya, yb])
+            am = sodm_mod.merge_alphas(torch.stack([aa, ab]))
+            stack.append((tier + 1, xm, ym, solve_node(xm, ym, am)))
+
+    slabs = stream_loader.iter_slabs(
+        source, m0, start_row=start_leaf * m0, depth=depth,
+        executor=executor, metrics=metrics, faults=faults,
+        accountant=accountant)
+    for slab in slabs:
+        leaf = slab.start // m0
+        if faults is not None:
+            faults.site("cascade.shard", shard=leaf)
+        t0 = time.perf_counter()
+        with _span("cascade.shard", shard=leaf, rows=m0):
+            xl = torch.from_numpy(slab.x).to(device=device,
+                                             dtype=torch.float32)
+            yl = torch.from_numpy(slab.y).to(device=device,
+                                             dtype=torch.float32)
+            al = solve_node(xl, yl, None)     # the zero start
+            stack.append((0, xl, yl, al))
+            funnel()
+        if tracker is not None:
+            if device.type == "cuda":
+                torch.cuda.synchronize(device)
+            wall = time.perf_counter() - t0
+            tracker.log_metrics(leaf + 1, {
+                "route": "cascade", "leaf": leaf, "rows": m0,
+                "wall_s": wall, "rows_per_s": m0 / max(wall, 1e-9)})
+        if resume is not None:
+            resume.save_stream(leaf=leaf + 1, stack=stack)
+    if len(stack) != 1:               # K is a power of two: cannot happen
+        raise RuntimeError(f"merge stack did not collapse: {len(stack)}")
+    if metrics is not None and tracker is not None:
+        metrics.drain(tracker, step=K)
+    _, x_sv, y_sv, alpha = stack[0]
+    return CascadeResult(x_sv=x_sv, y_sv=y_sv, alpha=alpha,
+                         levels_run=levels + 1)
 
 
 # ---------------------------------------------------------------------------

@@ -35,10 +35,15 @@ site before each, the tracker's row and the resume checkpoint after each.
 Each segment still runs its epochs through the epoch kernel, one launch
 an epoch, and a segmented fit equals the unsegmented one bit for bit.
 
+:func:`_solve_stream` trains from a sharded source that is never
+resident: per slab of ``stream_slab`` rows one B7 launch in the anchor
+pass and one epoch-kernel launch over the slab's live minibatches in
+the inner pass.
+
 Not ported here (ROADMAP): ``epoch_trace_count``/``_TRACE_EVENTS`` (they
-pin a JAX trace count; eager PyTorch has no trace), the streaming solve
-``_solve_stream`` (A14), the multi-device ``_solve_sharded`` and
-``make_sharded_epoch`` (A13), and the legacy warn-once ``solve`` shim.
+pin a JAX trace count; eager PyTorch has no trace), the multi-device
+``_solve_sharded`` and ``make_sharded_epoch`` (A13), and the legacy
+warn-once ``solve`` shim.
 """
 from __future__ import annotations
 
@@ -259,6 +264,154 @@ def _solve(x: Tensor, y: Tensor, params: ODMParams, cfg: DSVRGConfig,
                                   faults=faults, tracker=tracker,
                                   resume=resume)
     return DSVRGResult(w=w, history=hist, perm=perm, eta=eta)
+
+
+# ---------------------------------------------------------------------------
+# streaming solve (out-of-core: consumes a ShardedSource slab by slab)
+# ---------------------------------------------------------------------------
+
+def _solve_stream(source, params: ODMParams, cfg: DSVRGConfig, key=None,
+                  w0: Tensor | None = None, *,
+                  device: str | torch.device, faults=None,
+                  tracker=None, resume=None, depth: int = 2, executor=None,
+                  metrics=None, accountant=None
+                  ) -> tuple[DSVRGResult, Tensor]:
+    """Out-of-core DSVRG: epochs stream ``cfg.stream_slab``-row slabs
+    from a :class:`repro_torch.data.streaming.sources.ShardedSource`
+    through the prefetch loader onto ``device``; the (M, d) matrix is
+    never resident.
+
+    Per epoch, two passes over the stream: an anchor pass summing, in
+    slab order, each slab's hinge gradient (one B7 launch on the card,
+    lam scaled by the slab's share of M), objective part and, on the
+    first pass only, ‖x‖² part (the auto step size); then the serial
+    SVRG inner chain over the global minibatch sequence, one epoch-kernel
+    launch a slab. A terminal pass gives the last objective and
+    ``kkt = ‖w + g‖∞``. Slab boundaries are global row indices
+    (``iter_slabs``), so every reduction runs in a fixed order: ``w`` is
+    bitwise invariant to how the source is sharded, and a kill/resume
+    through :class:`~repro_torch.distributed.resume.DsvrgResumeManager`
+    equals the uninterrupted run. Relative to the resident solver this is
+    the K = 1 stream-order chain (``partition_strategy="identity"``);
+    ``n_partitions`` / ``partition_strategy`` are ignored.
+
+    The zero-padded last slab may hold minibatches with no live row. The
+    reference masks such a step to ``w − 0·dir = w``; here only the
+    slab's ``ceil(n_valid / b)`` live minibatches reach the chain, which
+    is the same arithmetic (the epoch kernel has no such mask). Each slab
+    reaches the device by a plain synchronous copy, and no device value
+    is read on the host inside the slab loops.
+
+    Returns ``(result, kkt)`` with ``result.perm = None`` (a stream has
+    no materialized permutation).
+    """
+    from repro_torch.data.streaming import loader as stream_loader
+
+    M, d = int(source.n_rows), int(source.n_features)
+    if M <= 0:
+        raise ValueError("streaming solve needs a non-empty source")
+    if cfg.schedule != "serial":
+        raise ValueError(
+            "streaming DSVRG supports schedule='serial' only (the "
+            "parallel schedule needs all K chains resident at once); "
+            f"got {cfg.schedule!r}")
+    del key                      # stream order is the partition order
+    device = torch.device(device)
+    f32 = torch.float32
+    b = min(cfg.batch, M)
+    R = -(-max(cfg.stream_slab, b) // b) * b      # slab rows, multiple of b
+    fused = _resolve_fused(cfg)
+
+    if metrics is None and tracker is not None:
+        from repro_torch.observe.instruments import MetricsRegistry
+        metrics = MetricsRegistry()
+
+    def slabs():
+        return stream_loader.iter_slabs(
+            source, R, depth=depth, executor=executor, metrics=metrics,
+            faults=faults, accountant=accountant)
+
+    def to_dev(a) -> Tensor:
+        return torch.from_numpy(a).to(device=device, dtype=f32)
+
+    masks: dict[int, tuple[Tensor, Tensor, Tensor]] = {}
+
+    def slab_masks(n_valid: int):
+        """(row weights (R,), live steps' weights (live, b), their
+        1/n_valid (live, 1)) — made once a solve for each of the (at
+        most two) slab fills."""
+        if n_valid not in masks:
+            wf = (torch.arange(R, device=device) < n_valid).to(f32)
+            wts = wf[:-(-n_valid // b) * b].reshape(-1, b)
+            inv_n = (1.0 / torch.clamp_min(torch.sum(wts, dim=-1),
+                                           1.0))[:, None]
+            masks[n_valid] = (wf, wts, inv_n)
+        return masks[n_valid]
+
+    def anchor_pass(anchor: Tensor, want_sq: bool):
+        g = torch.zeros(d, dtype=f32, device=device)
+        loss = torch.zeros((), dtype=f32, device=device)
+        sq = torch.zeros((), dtype=f32, device=device)
+        ridge = 0.5 * anchor @ anchor
+        with _span("dsvrg.stream.anchor"):
+            for slab in slabs():
+                xf, yf = to_dev(slab.x), to_dev(slab.y)
+                wf = slab_masks(slab.n_valid)[0]
+                g = g + _loss_grad(anchor, xf, yf, params, M, fused)
+                loss = loss + (odm.primal_objective(
+                    anchor, xf, yf, params, weights=wf, total=M) - ridge)
+                if want_sq:
+                    sq = sq + torch.sum(wf * torch.sum(xf * xf, dim=-1))
+        return g, loss, sq
+
+    def inner_pass(w: Tensor, anchor: Tensor, h: Tensor, eta: Tensor):
+        with _span("dsvrg.stream.inner"):
+            for slab in slabs():
+                _, wts, inv_n = slab_masks(slab.n_valid)
+                live = wts.shape[0]
+                xs = to_dev(slab.x[:live * b]).reshape(1, live, b, d)
+                ys = to_dev(slab.y[:live * b]).reshape(1, live, b)
+                w = _epoch_serial(w, xs, ys, wts, inv_n, anchor, h, eta,
+                                  params, fused)
+        return w
+
+    eta_box: list = [torch.tensor(cfg.eta, dtype=f32, device=device)
+                     if cfg.eta > 0 else None]
+    kkt_box: list = [torch.zeros((), dtype=f32, device=device)]
+
+    def runner(w: Tensor, n: int):
+        """n epochs from iterate w -> (w', hist_n, eta), the _segmented
+        contract. History entry e is obj(w after epoch e), read off the
+        next epoch's anchor pass (or the terminal pass for the last)."""
+        if n <= 0:
+            eta0 = eta_box[0] if eta_box[0] is not None else \
+                torch.zeros((), dtype=f32, device=device)
+            return w, w.new_zeros(0), eta0
+        hist = []
+        for e in range(n):
+            anchor = w
+            g, loss, sq = anchor_pass(anchor, eta_box[0] is None)
+            if eta_box[0] is None:
+                eta_box[0] = _eta_from_sumsq(sq, params, M).to(f32)
+            if e > 0:
+                hist.append(0.5 * anchor @ anchor + loss)
+            w = inner_pass(w, anchor, anchor + g, eta_box[0])
+        g, loss, _ = anchor_pass(w, False)
+        hist.append(0.5 * w @ w + loss)
+        kkt_box[0] = torch.max(torch.abs(w + g))
+        return w, torch.stack(hist), eta_box[0]
+
+    w0 = torch.zeros(d, dtype=f32, device=device) if w0 is None else w0
+    if faults is None and tracker is None and resume is None:
+        w, hist, eta = runner(w0, cfg.epochs)
+    else:
+        w, hist, eta = _segmented(
+            runner, w0, cfg, M,
+            perm=torch.zeros(0, dtype=torch.int64, device=device),
+            faults=faults, tracker=tracker, resume=resume)
+    if metrics is not None and tracker is not None:
+        metrics.drain(tracker, step=cfg.epochs)
+    return DSVRGResult(w=w, history=hist, perm=None, eta=eta), kkt_box[0]
 
 
 # ---------------------------------------------------------------------------

@@ -103,15 +103,23 @@ def _sweep(Q: Tensor, q_diag: Tensor, alpha: Tensor, u: Tensor,
 def _start(Q: Tensor, alpha0: Tensor | None,
            u0: Tensor | None) -> tuple[Tensor, Tensor]:
     """Fresh copies of the start: alpha (zeros by default) and its cache
-    u = Q (zeta - beta), computed here when not given."""
+    u = Q (zeta - beta), computed here when not given (zero for the
+    zero start). One matvec a partition: a batched product sums in an
+    order that depends on K on the card, and a partition's solve must not
+    depend on how many others share its launch (the streamed cascade
+    solves its nodes one at a time, the resident one a level at a
+    time)."""
     K, m, _ = Q.shape
+    if u0 is not None:
+        u = u0.clone()
+    elif alpha0 is None:
+        u = torch.zeros(K, m, dtype=Q.dtype, device=Q.device)
+    else:
+        zeta, beta = split_alpha(alpha0)
+        g = zeta - beta
+        u = torch.stack([torch.mv(Q[k], g[k]) for k in range(K)])
     alpha = (torch.zeros(K, 2 * m, dtype=Q.dtype, device=Q.device)
              if alpha0 is None else alpha0.clone())
-    if u0 is None:
-        zeta, beta = split_alpha(alpha)
-        u = torch.einsum("kij,kj->ki", Q, zeta - beta)
-    else:
-        u = u0.clone()
     return alpha, u
 
 

@@ -1,10 +1,7 @@
 """Deterministic fault injection — the chaos-test substrate.
 
 A copy of the pure-Python ``repro.distributed.faults`` (the port imports
-nothing of ``repro``). The port's loops fire the same sites; the
-``data.prefetch`` and ``cascade.shard`` sites have no caller until the
-streaming port (ROADMAP A14), and a plan accepts rules for them all the
-same.
+nothing of ``repro``). The port's loops fire the same sites.
 
 Distributed kernel-machine practice treats worker loss as the common
 case, not the exception: a long-running cascade solve WILL be preempted,

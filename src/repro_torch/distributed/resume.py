@@ -1,10 +1,10 @@
 """Mid-solve resume: per-level cascade checkpoints + DSVRG segments.
 
-Port of the resident half of ``repro.distributed.resume``. The solve
-state is made durable through
-:class:`repro_torch.distributed.checkpoint.CheckpointManager` (atomic,
-versioned, retention-managed), so ``fit(resume=dir)`` restarts a killed
-level-k solve from the merged level-(k+1) duals instead of from scratch.
+Port of ``repro.distributed.resume``. The solve state is made durable
+through :class:`repro_torch.distributed.checkpoint.CheckpointManager`
+(atomic, versioned, retention-managed), so ``fit(resume=dir)`` restarts
+a killed level-k solve from the merged level-(k+1) duals instead of from
+scratch.
 
 File layout (one resume directory per fit; the reference's)::
 
@@ -36,9 +36,14 @@ card's reduction order on a CUDA tensor), so a directory written by a fit
 on the card need not match the same fit on the CPU — and must not, since
 the two devices' solves differ in the last bits.
 
-The streaming half — ``provenance_source``, ``save_stream``,
-``restore_stream`` and their ``RestoredStream`` — waits for the streaming
-port (ROADMAP A14) and raises.
+The *streaming* cascade (``fit(source)``) checkpoints its binary-counter
+merge stack after each consumed level-0 leaf (``mode="stream"`` in the
+manifest; one ``s{i}_x/s{i}_y/s{i}_alpha`` triple per stack entry, the
+tiers and the leaf in the metadata), so a mid-stream kill re-enters at
+the first unprocessed shard without reading completed ones again. Dense
+level checkpoints and stream leaf checkpoints refuse to resume each
+other. A streaming fit's provenance fingerprints the source
+(:func:`provenance_source`), not the rows.
 """
 from __future__ import annotations
 
@@ -94,8 +99,22 @@ def provenance(kernel, params, cfg, x: Tensor, y: Tensor, key) -> dict:
 
 
 def provenance_source(kernel, params, cfg, source, key) -> dict:
-    raise NotImplementedError(
-        "streaming-fit provenance is not ported yet (ROADMAP A14)")
+    """Streaming-fit provenance: fingerprint the *source*, not the rows.
+
+    A streaming fit never holds the (M, d) matrix, so summing it here
+    would defeat the point. ``source.fingerprint()`` is each source's
+    own cheap identity (paths + shard sizes for file-backed shards,
+    generator seed + shape for synthetic ones, exact float64 sums for
+    in-memory arrays, the reference's keys for each).
+    """
+    return {
+        "format": 1,
+        "kernel": repr(kernel),
+        "params": repr(params),
+        "cfg": repr(cfg),
+        "data": source.fingerprint(),
+        "key": _key_fingerprint(key),
+    }
 
 
 def _check_provenance(saved: dict, want: dict, strict: bool,
@@ -144,6 +163,11 @@ class RestoredCascade(NamedTuple):
     perm: Tensor             # (M,) partition permutation
     sweeps_per_level: list
     kkt: Tensor
+
+
+class RestoredStream(NamedTuple):
+    leaf: int                # level-0 leaves fully consumed so far
+    stack: list              # [(tier, x (m, d), y (m,), alpha (2m,)), ...]
 
 
 class RestoredSegments(NamedTuple):
@@ -228,13 +252,37 @@ class CascadeResumeManager(_Manager):
             kkt=torch.tensor(md["kkt"], dtype=alphas.dtype,
                              device=alphas.device))
 
-    def save_stream(self, *, leaf: int, stack) -> None:
-        raise NotImplementedError(
-            "streaming cascade checkpoints are not ported yet (ROADMAP A14)")
+    # -- streaming cascade: merge-stack checkpoints per consumed leaf --------
 
-    def restore_stream(self):
-        raise NotImplementedError(
-            "streaming cascade checkpoints are not ported yet (ROADMAP A14)")
+    def save_stream(self, *, leaf: int, stack) -> None:
+        """Checkpoint the binary-counter merge stack after leaf ``leaf``.
+        The entries' row counts differ by tier, so each entry is saved
+        under its own ``s{i}_*`` keys and the tier list rides in the
+        metadata."""
+        tree = {}
+        for i, (_, xs, ys, alpha) in enumerate(stack):
+            tree[f"s{i}_x"] = xs
+            tree[f"s{i}_y"] = ys
+            tree[f"s{i}_alpha"] = alpha
+        self.ckpt.save(leaf, tree, metadata={
+            "route": self.route,
+            "mode": "stream",
+            "leaf": int(leaf),
+            "tiers": [int(t) for t, *_ in stack],
+            "provenance": self.prov,
+        })
+
+    def restore_stream(self, device=None) -> RestoredStream | None:
+        """The latest merge stack on ``device`` (None: the CPU), or None
+        for a cold start."""
+        md, manifest, step = self._latest("stream")
+        if md is None:
+            return None
+        tree = self._restore_tree(manifest, step, device)
+        stack = [(int(t), tree[f"s{i}_x"], tree[f"s{i}_y"],
+                  tree[f"s{i}_alpha"])
+                 for i, t in enumerate(md["tiers"])]
+        return RestoredStream(leaf=int(md["leaf"]), stack=stack)
 
 
 class DsvrgResumeManager(_Manager):

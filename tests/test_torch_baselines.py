@@ -322,9 +322,22 @@ def test_route_fits_scores_saves_and_loads(route, tmp_path):
 
 
 def test_streaming_cascade_raises_naming_its_item():
-    with pytest.raises(NotImplementedError, match="A14"):
-        treg._fit_cascade(ProblemSpec(), np.zeros((8, 2)), None, 0,
-                          cfg=tsodm.SODMConfig(), compile_kw={}, fit_kw={})
+    """The streaming cascade (y is None: x is a ShardedSource) trains as
+    the registry's cascade route; it pairs the leaves of the dense
+    cascade with the identity layout, and scores alike."""
+    from repro_torch.data import streaming as tds
+    x, y, xt, _ = _data(12, M=64)
+    cfg = tsodm.SODMConfig(levels=2, max_sweeps=50)
+    out = treg._fit_cascade(ProblemSpec(), tds.ArraySource(x, y, 20), None,
+                            0, cfg=cfg, compile_kw={},
+                            fit_kw={"device": "cpu"})
+    assert out.passes == (3,) and out.raw.x_sv.shape[0] == 16
+    dense = tb._cascade_solve(ProblemSpec().kernel, _t(x), _t(y),
+                              ProblemSpec().params, levels=2,
+                              max_sweeps=50, perm=torch.arange(64))
+    _close(out.model.decision_function(_t(xt)),
+           tmodel.from_cascade(ProblemSpec().kernel,
+                               dense).decision_function(_t(xt)), 1e-5)
 
 
 def test_cascade_result_interop_serves_like_the_reference():

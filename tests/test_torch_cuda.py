@@ -1019,3 +1019,144 @@ def test_dsvrg_kill_and_resume_on_card_bit_for_bit(dev, tmp_path, schedule):
     assert odm_grad_mod.odm_svrg_epoch.launches.count - n0 == 4
     assert torch.equal(model2.w, model.w)
     assert torch.equal(resumed.raw.history, base.raw.history)
+
+
+# -- the streamed fits (out of core: one slab on the card at a time) --------
+
+def _stream_rows(M, d, seed=0):
+    rng = np.random.default_rng(seed)
+    x = rng.normal(size=(M, d)).astype(np.float32)
+    y = np.where(x @ rng.normal(size=d) + 0.3 * rng.normal(size=M) > 0,
+                 1.0, -1.0).astype(np.float32)
+    return x, y
+
+
+def _masked_chain_plain(w, anchor, h, xs, ys, wts, eta, params):
+    """The reference's streamed inner chain on one slab (C, b, d): a step
+    whose minibatch has no live row is a no-op, every other one B6's
+    plain arithmetic."""
+    from repro_torch.core import dsvrg
+    inv_n = 1.0 / torch.clamp_min(wts.sum(-1), 1.0)
+    for t in range(ys.shape[0]):
+        if float(wts[t].sum()) > 0:
+            w = w - eta * odm_grad_mod.odm_svrg_grad_plain(
+                w, anchor, h, xs[t], ys[t], wts[t], inv_n[t:t + 1],
+                **dsvrg._hinge_kw(params))
+    return w
+
+
+def test_streamed_dsvrg_on_card_equal_across_layouts(dev, tmp_path):
+    from repro_torch.api import ODMEstimator, ProblemSpec
+    from repro_torch.core import odm, sodm
+    from repro_torch.core.dsvrg import DSVRGConfig
+    from repro_torch.data import streaming as ds
+    # 5,000 rows in slabs of 1,024: the last slab holds 904 rows, 15 live
+    # minibatches of 64 and one empty one
+    x, y = _stream_rows(5000, 18)
+    problem = ProblemSpec(kernel=kf.KernelSpec("linear"),
+                          params=odm.ODMParams(lam=100.0))
+    cfg = sodm.SODMConfig(engine="dsvrg", dsvrg=DSVRGConfig(
+        epochs=3, batch=64, stream_slab=1024))
+    outs = []
+    for src in (ds.ArraySource(x, y, shard_rows=700),
+                ds.NpyShardSource.write(str(tmp_path), x, y, 1111)):
+        n0 = (odm_grad_mod.odm_svrg_epoch.launches.count,
+              odm_grad_mod.odm_grad.launches.count)
+        model, rep = ODMEstimator(problem, route="dsvrg", cfg=cfg).fit(src)
+        assert model.w.is_cuda
+        assert (odm_grad_mod.odm_svrg_epoch.launches.count - n0[0],
+                odm_grad_mod.odm_grad.launches.count - n0[1]) == (15, 20)
+        outs.append((model.w, rep.history, rep.kkt, rep.eta))
+    assert torch.equal(outs[0][0], outs[1][0])
+    assert outs[0][1:] == outs[1][1:]
+    cpu, _ = ODMEstimator(problem, route="dsvrg", cfg=cfg,
+                          device="cpu").fit(ds.ArraySource(x, y, 700))
+    w = outs[0][0].cpu()
+    assert float((w - cpu.w).abs().max() / cpu.w.norm()) <= 1e-2
+    xt = torch.from_numpy(_stream_rows(2000, 18, seed=3)[0])
+    assert float((torch.sign(xt @ w) == torch.sign(xt @ cpu.w)).float()
+                 .mean()) >= 0.99
+
+
+def test_streamed_last_slab_skips_empty_minibatches_like_the_mask(dev):
+    """The epoch kernel over the last slab's live minibatches equals the
+    reference's masked chain over all of them (plain version, card)."""
+    from repro_torch.core import dsvrg, odm
+    params = odm.ODMParams(lam=100.0)
+    x, y = _stream_rows(904, 18, seed=5)
+    C, b, d = 16, 64, 18
+    xs = torch.zeros(C * b, d, device=dev)
+    ys = torch.zeros(C * b, device=dev)
+    xs[:904], ys[:904] = torch.from_numpy(x).to(dev), \
+        torch.from_numpy(y).to(dev)
+    wts = (torch.arange(C * b, device=dev) < 904).float().reshape(C, b)
+    g = torch.Generator().manual_seed(0)
+    w0, anchor, h = (0.1 * torch.randn(d, generator=g)).to(dev), \
+        (0.1 * torch.randn(d, generator=g)).to(dev), \
+        (0.01 * torch.randn(d, generator=g)).to(dev)
+    eta = torch.tensor(0.05, device=dev)
+    live = 15
+    inv_n = (1.0 / torch.clamp_min(wts[:live].sum(-1), 1.0))[:, None]
+    got = odm_grad_mod.odm_svrg_epoch(
+        w0, anchor, h, xs[:live * b].reshape(1, live, b, d),
+        ys[:live * b].reshape(1, live, b), wts[:live], inv_n, eta,
+        **dsvrg._hinge_kw(params))
+    want = _masked_chain_plain(w0, anchor, h, xs.reshape(C, b, d),
+                               ys.reshape(C, b), wts, eta, params)
+    assert _rel(got, want) <= 1e-5
+    unmasked = odm_grad_mod.odm_svrg_epoch_plain(
+        w0, anchor, h, xs.reshape(1, C, b, d), ys.reshape(1, C, b), wts,
+        (1.0 / torch.clamp_min(wts.sum(-1), 1.0))[:, None], eta,
+        **dsvrg._hinge_kw(params))
+    assert _rel(unmasked, want) > 1e-4
+
+
+def test_streamed_cascade_on_card_equal_across_layouts(dev, tmp_path):
+    from repro_torch.api import ODMEstimator, ProblemSpec
+    from repro_torch.core import baselines, odm, sodm
+    from repro_torch.data import streaming as ds
+    from repro_torch.serve import model as serve_model
+    x, y = _stream_rows(1024, 12)
+    xt = torch.from_numpy(_stream_rows(300, 12, seed=2)[0]).to(dev)
+    problem = ProblemSpec(kernel=kf.KernelSpec("rbf", 0.1),
+                          params=odm.ODMParams(lam=10.0))
+    cfg = sodm.SODMConfig(levels=3, max_sweeps=100)
+    scores = []
+    for src in (ds.ArraySource(x, y, shard_rows=100),
+                ds.NpyShardSource.write(str(tmp_path), x, y, 384)):
+        n0 = (gram_mod.gram.launches.count, dual_cd.solve.launches.count)
+        model, rep = ODMEstimator(problem, route="cascade",
+                                  cfg=cfg).fit(src)
+        assert (gram_mod.gram.launches.count - n0[0],
+                dual_cd.solve.launches.count - n0[1]) == (15, 15)
+        scores.append(model.decision_function(xt))
+    assert torch.equal(scores[0], scores[1])
+    dense = baselines._cascade_solve(
+        problem.kernel, torch.from_numpy(x).to(dev),
+        torch.from_numpy(y).to(dev), problem.params, levels=3,
+        max_sweeps=100, perm=torch.arange(1024, device=dev))
+    f = serve_model.from_cascade(problem.kernel, dense).decision_function(xt)
+    assert float((f - scores[0]).abs().max()) <= 1e-5 * float(
+        f.abs().max())
+
+
+def test_cd_exact_partition_does_not_depend_on_its_batch(dev):
+    """A warm-started partition's K4 solve equals its solve alone bit for
+    bit (the start's cache is one matvec a partition): the streamed
+    cascade solves nodes one at a time, the resident one a level at a
+    time."""
+    from repro_torch.core.odm import ODMParams
+    x, y = _stream_rows(8 * 300, 10, seed=6)
+    xs = torch.from_numpy(x).to(dev).reshape(8, 300, 10)
+    ys = torch.from_numpy(y).to(dev).reshape(8, 300)
+    Q = gram_mod.gram(xs, None, ys, kind="rbf", gamma=0.2)
+    g = torch.Generator().manual_seed(1)
+    a0 = (0.01 * torch.rand(8, 600, generator=g)).to(dev)
+    params = ODMParams(lam=100.0)
+    together = dual_cd.solve(Q, params, 300.0, alpha0=a0, tol=1e-6,
+                             max_sweeps=50)
+    for k in range(8):
+        alone = dual_cd.solve(Q[k], params, 300.0, alpha0=a0[k], tol=1e-6,
+                              max_sweeps=50)
+        assert torch.equal(alone.alpha, together.alpha[k])
+        assert torch.equal(alone.u, together.u[k])

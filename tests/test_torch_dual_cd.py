@@ -69,6 +69,18 @@ def test_solve_batched_is_per_partition_reference():
                                    atol=1e-5)
 
 
+def test_solve_zero_start_equals_explicit_zeros():
+    # alpha0=None skips the start's matvec: u is zero, as Q @ 0 is
+    m = 16
+    Q = torch.tensor(np.stack([_q(6, m), _q(7, m)]))
+    params = ODMParams(lam=20.0)
+    cold = tcd.solve(Q, params, mscale=float(m), tol=1e-5, max_sweeps=40)
+    zeros = tcd.solve(Q, params, mscale=float(m), tol=1e-5, max_sweeps=40,
+                      alpha0=torch.zeros(2, 2 * m))
+    for a, b in zip(cold, zeros):
+        assert torch.equal(a, b)
+
+
 def test_solve_warm_start_within_tol_runs_zero_sweeps():
     m = 12
     Q = torch.tensor(_q(5, m))

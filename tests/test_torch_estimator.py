@@ -47,8 +47,10 @@ def test_default_device_is_the_card(monkeypatch):
 
 def test_unported_routes_raise_with_roadmap_item():
     """Every route of the reference is registered; what is not ported yet
-    (streaming sources, resume/faults, profiling) raises naming its
-    ROADMAP item."""
+    (profiling) raises naming its ROADMAP item. A ShardedSource trains
+    the dsvrg and cascade routes out of core; an array without labels
+    raises."""
+    from repro_torch.data import streaming as tds
     with pytest.raises(ValueError, match="unknown route"):
         ODMEstimator(route="nope", device="cpu")
     x, y, _, _ = _blobs()
@@ -56,8 +58,11 @@ def test_unported_routes_raise_with_roadmap_item():
         kernel = "linear" if route == "dsvrg" else "rbf"
         est = ODMEstimator(ProblemSpec.create(kernel), device="cpu",
                            route=route)
-        with pytest.raises(NotImplementedError, match="A14"):
-            est.fit(x)                     # a ShardedSource: streaming
+        model, rep = est.fit(tds.ArraySource(x.numpy(), y.numpy(), 40))
+        assert rep.route == route and rep.n_train == x.shape[0]
+        assert model.device.type == "cpu"
+        with pytest.raises(ValueError, match="labels"):
+            est.fit(x)                     # an array, not a source
     # resume/faults are ported on the sodm and dsvrg routes; every other
     # route raises the reference's ValueError naming the seam
     for route in ("cascade", "dip", "dc", "svrg", "csvrg"):

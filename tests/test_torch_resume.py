@@ -422,11 +422,23 @@ class TestAgainstReference:
             assert sorted(pa["data"]) == sorted(pb["data"])
             for k in ("shape", "dtype"):
                 assert pa["data"][k] == pb["data"][k]
-        with pytest.raises(NotImplementedError, match="A14"):
-            resume_mod.provenance_source(None, None, None, None, 0)
+        # the streaming provenance fingerprints the source with the
+        # reference's keys, and a dense level directory does not feed a
+        # streaming fit (nor the other way round)
+        from repro.data import streaming as jds
+        from repro.distributed import resume as jresume
+        from repro_torch.data import streaming as tds
+        prov = resume_mod.provenance_source(
+            kf.KernelSpec("rbf", 0.5), odm.ODMParams(), cfg,
+            tds.ArraySource(x, y, 16), 0)
+        jprov = jresume.provenance_source(
+            jkf.KernelSpec("rbf", 0.5), None, jcfg,
+            jds.ArraySource(x, y, 16), jax.random.PRNGKey(0))
+        assert sorted(prov) == sorted(jprov)
+        assert prov["data"] == jprov["data"]
         mgr = resume_mod.CascadeResumeManager(
             resume_mod.ResumeConfig(dp), {})
-        with pytest.raises(NotImplementedError, match="A14"):
+        with pytest.raises(resume_mod.ProvenanceError, match="'level'"):
             mgr.restore_stream()
 
 
