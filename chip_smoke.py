@@ -207,6 +207,35 @@ Phases (any failed check exits nonzero):
    layers, one numpy draw of the weights (lm_params_from_numpy), B=1,
    T=64 and 8 teacher-forced decode steps: logits within 1e-3 x
    max|logits| with fp32 compute, 0.02 x in bf16.
+13. The SPMD paths over torch.distributed (repro_torch.sharding; every
+   rank calls the same entry point with the same arguments).
+   13a. A one-rank NCCL world in this process (a FileStore under a temp
+   dir) and its ("data",) mesh: ijcnn1's Algorithm-1 fit through
+   ODMEstimator(mesh=...), whose alphas must equal phase 4's bit for bit
+   (every level takes the replicated branch at n_dev = 1); SUSY through
+   route=None on the mesh, the AUTO upgrade to the parallel schedule,
+   whose w must equal a one-process parallel-schedule fit's bit for bit
+   and its history lie within 1e-6 relative of it; score_sharded of
+   ijcnn1's model within 1e-5 x max|f| of decision_function. The fit
+   times beside the one-process ones, each collective's calls and bytes
+   (collective.<op> counters), and the launches of each path: K1, K2 and
+   B8 once a level on ijcnn1, no gather, one perm broadcast; the epoch
+   kernel and B7 once an epoch on SUSY with the reference's pattern of
+   psums (one of |x|^2, two an epoch) and one pmean an epoch.
+   13b. Two ranks spawned after the build (this script with --mesh-rank),
+   over gloo sharing cuda:0 (NCCL refuses two ranks on one card), or over
+   NCCL with one rank a card when the host has two or more. Each rank
+   draws its data from the seed. phishing's Algorithm-1 fit: levels 3,
+   2 and 1 sharded (one gather each), level 0 replicated, the dual
+   objective within 1e-3 of phase 3's, each rank's device peak per level
+   printed; SUSY on both schedules through route="dsvrg": objective
+   within 1e-3, max|dw| <= 1e-4 and eta within 1e-6 of the one-process
+   fits (phase 6's serial one, 13a's parallel one), the collectives the
+   reference's pattern (one slab gather a serial solve); ijcnn1's saved
+   model (93,675 SVs) loaded on both ranks and scored by score_sharded
+   within 1e-5 x max|f| of decision_function. Every replicated result
+   equals rank 0's bit for bit. The two ranks time-share one card, so
+   their times are no scaling figure.
 Each phase prints its wall time.
 
 The kernels line reports, per kernel: its time, its plain version's and
@@ -220,9 +249,10 @@ phishing's dense levels only), on the SUSY path for the epoch kernel, B6
 (0: its arithmetic runs inside the epoch kernel) and B7, on the cascade
 path for K4, on the qwen3-0.6b path for B9 in bf16 and on its fp32 prefill
 for B9 in fp32 (flash_attention_f32); ``launches_by_path`` gives every
-path, among them ``dsvrg_stream`` (6c), ``cascade_stream`` (8b) and
+path, among them ``dsvrg_stream`` (6c), ``cascade_stream`` (8b),
 ``serve`` (phase 4b), where score_tiles' entry counts the bucket graphs'
-warm-ups plus their replays, as its ``launches_counting`` says. Every count is read from the process-wide
+warm-ups plus their replays, as its ``launches_counting`` says, and the
+mesh paths of phase 13 (``... mesh1``, and rank 0's ``... 2 ranks``). Every count is read from the process-wide
 ``launch.<kernel>`` counters of repro_torch.analysis.invariants. The last
 line is the result.
 """
@@ -1210,6 +1240,439 @@ def stream_cascade_phase(ds, problem, cfg, dense_fit_s, expect,
             fail("the sketched landmarks differ from the dense ones")
 
 
+# ---------------------------------------------------------------------------
+# phase 13: the SPMD paths (one rank over NCCL; two ranks sharing the card)
+# ---------------------------------------------------------------------------
+
+MESH_OPS = ("psum", "pmean", "all_gather", "broadcast")
+
+
+def reset_collectives() -> None:
+    """Set the process-wide ``collective.*`` counters to 0."""
+    from repro_torch.analysis import invariants as inv
+    for name, c in inv.counters().items():
+        if name.startswith("collective."):
+            c.reset()
+
+
+def read_collectives() -> dict:
+    """op -> (calls, payload bytes) since :func:`reset_collectives`."""
+    from repro_torch.analysis import invariants as inv
+    cs = inv.counters()
+
+    def n(key):
+        return cs[key].count if key in cs else 0
+
+    return {op: (n(f"collective.{op}"), n(f"collective.{op}.bytes"))
+            for op in MESH_OPS}
+
+
+def collective_text(c: dict) -> str:
+    return ", ".join(f"{op} {n} ({b:,} B)" for op, (n, b) in c.items())
+
+
+def dsvrg_pattern(epochs: int, schedule: str) -> dict:
+    """The calls of one auto-eta DSVRG solve on a mesh: per solve one psum
+    of ‖x‖² and one perm broadcast; per epoch an anchor-gradient psum and
+    an objective psum, plus a pmean on the parallel schedule; one slab
+    gather per serial solve."""
+    par = schedule == "parallel"
+    return dict(psum=1 + 2 * epochs, pmean=epochs if par else 0,
+                all_gather=0 if par else 1, broadcast=1)
+
+
+class PeakLog(LevelLog):
+    """Level rows, each with the device peak during its level."""
+
+    def log_metrics(self, step, metrics):
+        import torch
+        if "level" in metrics:
+            row = dict(metrics)
+            row["peak"] = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            self.rows.append(row)
+
+
+def mesh_phase(data, fits, susy6, fit_times, params, cfg, g_phish, g_ijc,
+               expect, path_launches) -> None:
+    """Phase 13 (module docs): 13a on a one-rank NCCL mesh in this process,
+    then 13b in two spawned ranks."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch import sharding
+    from repro_torch.api import ODMEstimator, ProblemSpec
+    from repro_torch.core import kernel_fns as kf
+    from repro_torch.core import odm as odm_mod
+    from repro_torch.core.sodm import SODMConfig
+    from repro_torch.serve import server
+    dev = torch.device("cuda")
+    ijcnn1, susy, phishing = data["ijcnn1"], data["SUSY"], data["phishing"]
+    linear = ProblemSpec(kernel=kf.KernelSpec("linear"), params=params)
+    cfg_par = SODMConfig(dsvrg=dataclasses.replace(SODMConfig().dsvrg,
+                                                   schedule="parallel"))
+    say("== phase 13a: a one-rank NCCL mesh: ijcnn1's Algorithm-1 fit, "
+        "SUSY through route=None (the parallel upgrade), score_sharded")
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_mesh_")
+    dist.init_process_group("nccl", store=dist.FileStore(
+        os.path.join(tmp.name, "store1"), 1), rank=0, world_size=1)
+    try:
+        mesh = sharding.make_mesh((1,), ("data",), "cuda")
+        # NCCL sets its communicator up at the first collective: time that
+        # once here, so the fit below is timed in steady state
+        t0 = time.perf_counter()
+        sharding.mesh_all_ok(mesh, True)
+        say(f"  NCCL's first collective (communicator set-up): "
+            f"{time.perf_counter() - t0:.3f} s")
+        reset_launches()
+        reset_collectives()
+        est = ODMEstimator(ProblemSpec(kernel=kf.KernelSpec("rbf", g_ijc),
+                                       params=params), cfg=cfg, mesh=mesh)
+        t0 = time.perf_counter()
+        model, rep = est.fit(ijcnn1.x_train, ijcnn1.y_train, 0)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        launches, coll = read_launches(), read_collectives()
+        base = fits["ijcnn1"][2].raw
+        eq = torch.equal(rep.raw.alpha, base.alpha) and \
+            torch.equal(rep.raw.perm, base.perm)
+        say(f"  ijcnn1 on the mesh: fit_s={fit_s:.2f} (phase 4, one "
+            f"process: {fit_times['ijcnn1'][0]:.2f}) passes={rep.passes}; "
+            f"alphas equal to phase 4's bit for bit: {eq}")
+        say(f"  collectives: {collective_text(coll)}")
+        say(f"  launches on the ijcnn1 mesh path: {launches}")
+        if not eq:
+            fail("ijcnn1's fit on a one-rank mesh differs from phase 4's")
+        if (coll["all_gather"][0], coll["broadcast"][0]) != (0, 1):
+            fail("a one-rank mesh must gather no level and broadcast the "
+                 f"perm once: {coll}")
+        ran, idle = expect["ijcnn1"]
+        for name in ran:
+            if name != "score_tiles" and launches[name] <= 0:
+                fail(f"kernel {name} never launched on the ijcnn1 mesh path")
+        for name in idle:
+            if launches[name] != 0:
+                fail(f"kernel {name} launched on the ijcnn1 mesh path")
+        if launches["gram"] != len(rep.passes):
+            fail(f"the ijcnn1 mesh path launched B8 {launches['gram']} "
+                 f"times in {len(rep.passes)} levels")
+        path_launches["ijcnn1 mesh1"] = launches
+
+        xt = ijcnn1.x_test.to(dev)
+        f_full = model.decision_function(xt)
+        reset_launches()
+        reset_collectives()
+        f_sh = server.score_sharded(model, xt, mesh)
+        torch.cuda.synchronize()
+        launches, coll = read_launches(), read_collectives()
+        err = float((f_sh - f_full).abs().max())
+        scale = float(f_full.abs().max())
+        say(f"  score_sharded (T={xt.shape[0]}, S={model.n_sv}): "
+            f"max|f_sharded - decision_function|={err:.3e} (band 1e-5 x "
+            f"{scale:.4g}); score_tiles launches {launches['score_tiles']}; "
+            f"collectives: {collective_text(coll)}")
+        if not err <= 1e-5 * scale or launches["score_tiles"] != 1:
+            fail("score_sharded on a one-rank mesh disagrees with "
+                 "decision_function")
+        path_launches["ijcnn1 score_sharded mesh1"] = launches
+        del xt, f_full, f_sh
+
+        t0 = time.perf_counter()
+        _, one = ODMEstimator(linear, cfg=cfg_par).fit(susy.x_train,
+                                                       susy.y_train, 0)
+        torch.cuda.synchronize()
+        one_s = time.perf_counter() - t0
+        reset_launches()
+        reset_collectives()
+        t0 = time.perf_counter()
+        _, rep = ODMEstimator(linear, cfg=SODMConfig(), mesh=mesh).fit(
+            susy.x_train, susy.y_train, 0)
+        torch.cuda.synchronize()
+        mesh_s = time.perf_counter() - t0
+        launches, coll = read_launches(), read_collectives()
+        E = cfg_par.dsvrg.epochs
+        eq = torch.equal(rep.raw.w, one.raw.w)
+        hrel = float(((rep.raw.history - one.raw.history).abs()
+                      / one.raw.history.abs()).max())
+        say(f"  SUSY route=None on the mesh: route={rep.route} fit_s="
+            f"{mesh_s:.2f} (one process, parallel schedule: {one_s:.2f}; "
+            f"phase 6, serial: {fit_times['SUSY'][0]:.2f}); w equal to the "
+            f"one-process parallel fit's bit for bit: {eq}; history within "
+            f"{hrel:.2e} relative")
+        say(f"  collectives: {collective_text(coll)}")
+        say(f"  launches on the SUSY mesh path: {launches}")
+        want = dsvrg_pattern(E, "parallel")
+        got = {op: n for op, (n, _) in coll.items()}
+        if rep.route != "dsvrg" or not eq or not hrel <= 1e-6:
+            fail("SUSY on a one-rank mesh differs from the one-process "
+                 "parallel fit")
+        if got != want:
+            fail(f"SUSY's collectives {got} are not the pattern {want}")
+        if (launches["odm_svrg_epoch"], launches["odm_grad"]) != (E, E):
+            fail(f"the SUSY mesh path launched the epoch kernel "
+                 f"{launches['odm_svrg_epoch']} and B7 "
+                 f"{launches['odm_grad']} times, not {E} each")
+        path_launches["SUSY mesh1"] = launches
+        del rep
+    finally:
+        dist.destroy_process_group()
+
+    n_cards = torch.cuda.device_count()
+    backend = "nccl" if n_cards >= 2 else "gloo"
+    say(f"== phase 13b: two ranks over {backend}"
+        + (" sharing cuda:0 (their times are no scaling figure: the ranks "
+           "time-share one card)" if backend == "gloo" else
+           ", one rank a card"))
+    base3 = fits["phishing"][2].raw
+    x3 = phishing.x_train.to(dev)[base3.perm]
+    y3 = phishing.y_train.to(dev)[base3.perm]
+    q3 = kf.signed_gram(kf.KernelSpec("rbf", g_phish), x3, y3)
+    o1 = float(odm_mod.dual_objective(q3, base3.alpha, params,
+                                      float(x3.shape[0])))
+    del x3, y3, q3
+    model_dir = os.path.join(tmp.name, "ijcnn1_model")
+    fits["ijcnn1"][0].save(model_dir)
+    inputs = os.path.join(tmp.name, "inputs.npz")
+    np.savez(inputs,
+             susy_serial_w=susy6.w.cpu().numpy(),
+             susy_serial_hist=susy6.history.cpu().numpy(),
+             susy_serial_eta=float(susy6.eta),
+             susy_parallel_w=one.raw.w.cpu().numpy(),
+             susy_parallel_hist=one.raw.history.cpu().numpy(),
+             susy_parallel_eta=float(one.raw.eta))
+    with open(os.path.join(tmp.name, "inputs.json"), "w") as fh:
+        json.dump({"params": dataclasses.asdict(params),
+                   "cfg": {f.name: getattr(cfg, f.name)
+                           for f in dataclasses.fields(cfg)
+                           if f.name != "dsvrg"},
+                   "g_phish": g_phish, "phish_obj": o1,
+                   "model_dir": model_dir}, fh)
+    del one
+    world = 2
+    procs, logs = [], []
+    t0 = time.perf_counter()
+    try:
+        for r in range(world):
+            log = open(os.path.join(tmp.name, f"rank{r}.log"), "w")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                [sys.executable, os.path.abspath(__file__), "--mesh-rank",
+                 str(r), str(world), backend,
+                 os.path.join(tmp.name, "store2"), tmp.name],
+                stdout=log, stderr=subprocess.STDOUT))
+        deadline = time.time() + 600
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or \
+                    time.time() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for log in logs:
+            log.close()
+    ranks_s = time.perf_counter() - t0
+    results = []
+    for r, p in enumerate(procs):
+        path = os.path.join(tmp.name, f"rank{r}.json")
+        if p.returncode != 0 or not os.path.exists(path):
+            with open(os.path.join(tmp.name, f"rank{r}.log")) as fh:
+                tail = fh.read()[-4000:]
+            tmp.cleanup()
+            fail(f"rank {r} of phase 13b exited with {p.returncode}:\n{tail}")
+        with open(path) as fh:
+            results.append(json.load(fh))
+    tmp.cleanup()
+    peak3, peak4 = fit_times["phishing"][1], fit_times["ijcnn1"][1]
+    say(f"  the ranks ran {ranks_s:.1f} s (start, data from the seed, "
+        f"fits, scoring); one process, phase 3's phishing fit peak "
+        f"{peak3 / 2**20:.1f} MiB, phase 4's ijcnn1 fit peak "
+        f"{peak4 / 2**20:.1f} MiB")
+    failed = []
+    for res in results:
+        for text in res["lines"]:
+            say(f"  rank {res['rank']}: {text}")
+        for name, ok, info in res["checks"]:
+            say(f"  rank {res['rank']}: {'PASS' if ok else 'FAIL'} {name} "
+                f"{info}")
+            if not ok:
+                failed.append(f"rank {res['rank']}: {name} ({info})")
+    if failed:
+        fail("phase 13b: " + "; ".join(failed))
+    names = list(path_launches["ijcnn1"])
+    for path, launches in results[0]["paths"].items():
+        path_launches[f"{path} 2 ranks"] = {n: launches.get(n, 0)
+                                            for n in names}
+
+
+def mesh_rank_main(args) -> None:
+    """One rank of phase 13b: ``--mesh-rank RANK WORLD BACKEND STORE DIR``
+    (DIR holds the parent's inputs and receives ``rank<RANK>.json``)."""
+    import traceback
+    rank, world, backend, store, tmp = (int(args[0]), int(args[1]), args[2],
+                                        args[3], args[4])
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    from repro_torch import sharding
+    from repro_torch.api import ODMEstimator, ProblemSpec
+    from repro_torch.core import kernel_fns as kf
+    from repro_torch.core import odm as odm_mod
+    from repro_torch.core.odm import ODMParams
+    from repro_torch.core.sodm import SODMConfig
+    from repro_torch.data import synthetic
+    from repro_torch.kernels import _build, flash_attn  # noqa: F401
+    from repro_torch.serve import model as serve_model
+    from repro_torch.serve import server
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda", rank if backend == "nccl" else 0)
+    torch.cuda.set_device(dev)
+    dist.init_process_group(backend, store=dist.FileStore(store, world),
+                            rank=rank, world_size=world)
+    res = {"rank": rank, "checks": [], "lines": [], "paths": {}}
+
+    def check(name, ok, info=""):
+        res["checks"].append([name, bool(ok), str(info)])
+
+    def same_as_rank0(name, t):
+        t0 = t.detach().clone()
+        dist.broadcast(t0, src=0)
+        check(f"{name} equal to rank 0's", torch.equal(t, t0))
+
+    try:
+        with open(os.path.join(tmp, "inputs.json")) as fh:
+            inp = json.load(fh)
+        arr = np.load(os.path.join(tmp, "inputs.npz"))
+        params = ODMParams(**inp["params"])
+        cfg = SODMConfig(**inp["cfg"])
+        mesh = sharding.make_mesh((world,), ("data",), "cuda")
+        _build.library()
+
+        phishing = synthetic.load("phishing")
+        spec = kf.KernelSpec("rbf", inp["g_phish"])
+        reset_launches()
+        reset_collectives()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        levels = PeakLog()
+        t0 = time.perf_counter()
+        _, rep = ODMEstimator(ProblemSpec(kernel=spec, params=params),
+                              cfg=cfg, mesh=mesh).fit(
+            phishing.x_train, phishing.y_train, 0, tracker=levels)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        coll = read_collectives()
+        res["paths"]["phishing"] = read_launches()
+        x = phishing.x_train.to(dev)[rep.raw.perm]
+        y = phishing.y_train.to(dev)[rep.raw.perm]
+        obj = float(odm_mod.dual_objective(kf.signed_gram(spec, x, y),
+                                           rep.raw.alpha, params,
+                                           float(x.shape[0])))
+        del x, y
+        n_sharded = 0
+        for row in levels.rows:
+            sharded = row["K"] >= world and row["K"] % world == 0
+            n_sharded += sharded
+            res["lines"].append(
+                f"phishing level {row['level']} K={row['K']} "
+                f"{'sharded' if sharded else 'replicated'}: passes="
+                f"{row['sweeps']} kkt={row['kkt']:.3e} seconds="
+                f"{row['wall_s']:.3f} device peak "
+                f"{row['peak'] / 2**20:.1f} MiB")
+        res["lines"].append(
+            f"phishing fit_s={fit_s:.2f} dual objective {obj:.6f} (one "
+            f"process {inp['phish_obj']:.6f}); collectives: "
+            f"{collective_text(coll)}")
+        check("phishing dual objective within 1e-3 of the one-process fit",
+              abs(obj - inp["phish_obj"]) < 1e-3,
+              f"{obj:.6f} vs {inp['phish_obj']:.6f}")
+        check("phishing one gather per sharded level",
+              coll["all_gather"][0] == n_sharded and n_sharded == 3,
+              f"{coll['all_gather'][0]} gathers, {n_sharded} sharded levels")
+        launches = res["paths"]["phishing"]
+        check("phishing launched K1, K2, K3, B8",
+              all(launches[k] > 0 for k in ("cd_block_sweep", "gram_matvec",
+                                            "dense_matvec", "gram")),
+              launches)
+        same_as_rank0("phishing alphas", rep.raw.alpha)
+        del rep
+
+        susy = synthetic.load("SUSY")
+        linear = ProblemSpec(kernel=kf.KernelSpec("linear"), params=params)
+        for sched in ("serial", "parallel"):
+            dcfg = dataclasses.replace(SODMConfig().dsvrg, schedule=sched)
+            reset_launches()
+            reset_collectives()
+            t0 = time.perf_counter()
+            _, rep = ODMEstimator(linear, route="dsvrg",
+                                  cfg=SODMConfig(dsvrg=dcfg), mesh=mesh).fit(
+                susy.x_train, susy.y_train, 0)
+            torch.cuda.synchronize()
+            fit_s = time.perf_counter() - t0
+            coll = read_collectives()
+            launches = read_launches()
+            res["paths"][f"SUSY {sched}"] = launches
+            w1 = torch.tensor(arr[f"susy_{sched}_w"], device=dev)
+            h1 = float(arr[f"susy_{sched}_hist"][-1])
+            dobj = abs(float(rep.raw.history[-1]) - h1)
+            dw = float((rep.raw.w - w1).abs().max())
+            deta = abs(float(rep.raw.eta) - float(arr[f"susy_{sched}_eta"]))
+            res["lines"].append(
+                f"SUSY {sched}: fit_s={fit_s:.2f} objective "
+                f"{float(rep.raw.history[-1]):.6f} (one process {h1:.6f}) "
+                f"max|dw|={dw:.2e} |d eta|={deta:.2e}; collectives: "
+                f"{collective_text(coll)}; epoch kernel "
+                f"{launches['odm_svrg_epoch']}, B7 {launches['odm_grad']}")
+            check(f"SUSY {sched} objective within 1e-3", dobj < 1e-3, dobj)
+            check(f"SUSY {sched} max|dw| <= 1e-4", dw <= 1e-4, dw)
+            check(f"SUSY {sched} eta within 1e-6", deta < 1e-6, deta)
+            E = dcfg.epochs
+            got = {op: n for op, (n, _) in coll.items()}
+            check(f"SUSY {sched} collectives are the reference's pattern",
+                  got == dsvrg_pattern(E, sched),
+                  f"{got} vs {dsvrg_pattern(E, sched)}")
+            check(f"SUSY {sched} launched the epoch kernel and B7 once an "
+                  f"epoch", (launches["odm_svrg_epoch"],
+                             launches["odm_grad"]) == (E, E))
+            same_as_rank0(f"SUSY {sched} w", rep.raw.w)
+            del rep
+        del susy
+
+        ijcnn1 = synthetic.load("ijcnn1")
+        model = serve_model.load_model(inp["model_dir"], device=dev)
+        xt = ijcnn1.x_test.to(dev)
+        f_full = model.decision_function(xt)
+        reset_launches()
+        reset_collectives()
+        f_sh = server.score_sharded(model, xt, mesh)
+        torch.cuda.synchronize()
+        res["paths"]["ijcnn1 score_sharded"] = launches = read_launches()
+        err = float((f_sh - f_full).abs().max())
+        scale = float(f_full.abs().max())
+        res["lines"].append(
+            f"score_sharded of ijcnn1's model (S={model.n_sv}, "
+            f"{-(-model.n_sv // world)} SVs a rank, T={xt.shape[0]}): "
+            f"max|f_sharded - decision_function|={err:.3e}; collectives: "
+            f"{collective_text(read_collectives())}")
+        check("score_sharded within 1e-5 x max|f| of decision_function",
+              err <= 1e-5 * scale, f"{err:.3e} vs {scale:.4g}")
+        check("score_sharded launched K2 once", launches["score_tiles"] == 1,
+              launches["score_tiles"])
+        same_as_rank0("score_sharded f", f_sh)
+    except BaseException:
+        res["checks"].append(["no exception", False,
+                              traceback.format_exc()[-3000:]])
+        raise
+    finally:
+        with open(os.path.join(tmp, f"rank{rank}.json"), "w") as fh:
+            json.dump(res, fh)
+        dist.destroy_process_group()
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -1263,6 +1726,8 @@ def main() -> None:
     params = ODMParams(lam=100.0, theta=0.1, ups=0.5)
     cfg = SODMConfig(p=2, levels=3, n_landmarks=8, tol=1e-4,
                      max_sweeps=200, engine="pallas")
+    odm_params, odm_cfg = params, cfg   # phase 13's: the LM phases reuse
+    #                                     both names
     phishing = synthetic.load("phishing")
     ijcnn1 = synthetic.load("ijcnn1")
     g_phish = kf.median_gamma(phishing.x_train)
@@ -1459,7 +1924,7 @@ def main() -> None:
               "serve": (("score_tiles",),
                         ("cd_block_sweep", "gram_matvec", "dense_matvec")
                         + alg2 + b6 + b8 + k4 + lm)}
-    fits, path_launches = {}, {}
+    fits, path_launches, fit_times = {}, {}, {}
     for phase, ds, gamma in ((3, phishing, g_phish), (4, ijcnn1, g_ijc)):
         say(f"== phase {phase}: fit {ds.name} M={ds.x_train.shape[0]} "
             f"d={ds.x_train.shape[1]} gamma={gamma:.4g}")
@@ -1511,6 +1976,7 @@ def main() -> None:
             fail(f"{ds.name} test accuracy {acc} is no better than chance")
         fits[ds.name] = (model, f, report)
         path_launches[ds.name] = launches
+        fit_times[ds.name] = (fit_s, torch.cuda.max_memory_allocated())
 
     # K2 as score_tiles: ijcnn1's support vectors against its test set
     model, _, _ = fits["ijcnn1"]
@@ -1855,6 +2321,8 @@ def main() -> None:
         f"{susy_epoch_ms:.2f} ms, phase 2b), B7 {b7_s:.4f} s and "
         f"{epochs_s - kern_s - b7_s:.3f} s the objective, h and the host")
     del xs_tr, ys_tr
+    fit_times["SUSY"] = (fit_s, peak6)
+    susy6 = report.raw
     susy_resume_phase(est, susy, report.raw.w, report.raw.history, og)
     stream_dsvrg_phase(susy, est.problem, cfg6, {
         "fit_s": fit_s, "peak": peak6,
@@ -2535,6 +3003,11 @@ def main() -> None:
                  f"CPU's")
     del tree
 
+    # -- 13. the SPMD paths: one rank over NCCL, two ranks sharing the card ---
+    mesh_phase(dict(phishing=phishing, ijcnn1=ijcnn1, SUSY=susy), fits,
+               susy6, fit_times, odm_params, odm_cfg, g_phish, g_ijc, expect,
+               path_launches)
+
     # -- report ---------------------------------------------------------------
     end_phase()
     meta = {
@@ -2601,4 +3074,7 @@ def main() -> None:
 
 
 if __name__ == "__main__":
-    main()
+    if "--mesh-rank" in sys.argv:
+        mesh_rank_main(sys.argv[sys.argv.index("--mesh-rank") + 1:])
+    else:
+        main()

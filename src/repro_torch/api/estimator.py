@@ -18,8 +18,11 @@ reference's checkpoint layout, so either package loads the other's.
 preemption-proof, as in the reference. ``fit(source)`` trains the dsvrg
 or cascade route out of core from a
 :class:`repro_torch.data.streaming.ShardedSource`, each slab copied to the
-estimator's device. ``profile_dir`` (ROADMAP A15) is not ported yet and
-raises.
+estimator's device. ``ODMEstimator(mesh=...)`` fits the mesh-aware
+routes (sodm, dsvrg) SPMD over a ``torch.distributed`` device mesh: every
+rank constructs the estimator and calls ``fit`` with the same arguments,
+and each gets the same model on its own device. ``profile_dir`` (ROADMAP
+A15) is not ported yet and raises.
 """
 from __future__ import annotations
 
@@ -27,6 +30,7 @@ import time
 
 import torch
 
+from repro_torch import sharding as shd
 from repro_torch.api import registry
 from repro_torch.api.report import FitReport
 from repro_torch.api.spec import ProblemSpec
@@ -47,14 +51,20 @@ class ODMEstimator:
         default ``ODMParams``); ``None`` is the default rbf problem.
     route: registry route name, or ``None`` for the auto policy.
     cfg: the ``SODMConfig`` of the solve.
+    mesh / data_axis: SPMD placement for the mesh-aware routes (a
+        ``torch.distributed`` device mesh and the axis its partitions
+        shard over).
     prune_tol / budget / target: artifact compression knobs.
     device: ``None`` or ``"cuda"`` runs on the card (the hand-written
-        kernels); ``"cpu"`` runs their plain versions.
+        kernels); ``"cpu"`` runs their plain versions. With a mesh,
+        ``None`` means this rank's device of the mesh, and another device
+        type than the mesh's raises.
     """
 
     def __init__(self, problem: ProblemSpec | kf.KernelSpec | None = None,
                  *, route: str | None = None,
-                 cfg: SODMConfig | None = None, prune_tol: float = 0.0,
+                 cfg: SODMConfig | None = None, mesh=None,
+                 data_axis: str = "data", prune_tol: float = 0.0,
                  budget: int | None = None, target: float | None = None,
                  device: str | torch.device | None = None):
         if problem is None:
@@ -66,6 +76,16 @@ class ODMEstimator:
             registry.get(route)            # unknown route: fail eagerly
         self.route = route
         self.cfg = cfg if cfg is not None else SODMConfig()
+        self.mesh = mesh
+        self.data_axis = data_axis
+        if mesh is not None:
+            mesh_dev = shd.mesh_device(mesh)
+            if device is not None and \
+                    torch.device(device).type != mesh_dev.type:
+                raise ValueError(
+                    f"device={device!r} differs from the mesh's device "
+                    f"type {mesh.device_type!r}")
+            device = mesh_dev
         self.device = resolve_device(device)
         self.compile_kw = {"prune_tol": prune_tol, "budget": budget,
                            "target": target}
@@ -146,8 +166,9 @@ class ODMEstimator:
                     f"prefetch loader to configure")
             x, y = self.problem.validate(x, y, self.device)
             M = int(x.shape[0])
-        entry = registry.resolve(self.problem, M, route=self.route,
-                                 cfg=self.cfg, streaming=streaming)
+        entry = registry.resolve(self.problem, M, mesh=self.mesh,
+                                 route=self.route, cfg=self.cfg,
+                                 streaming=streaming)
         instrumented = self.STREAM_INSTRUMENTED_ROUTES if streaming \
             else self.INSTRUMENTED_ROUTES
         if entry.name not in instrumented:
@@ -164,13 +185,18 @@ class ODMEstimator:
             fit_kw["faults"] = faults
         if tracker is not None:
             fit_kw["tracker"] = tracker
+        # the schedule upgrade applies to an AUTO dsvrg dispatch only (an
+        # explicit choice keeps whatever cfg.dsvrg says)
+        auto = (entry.name == "dsvrg" and self.route is None
+                and self.cfg.engine != "dsvrg")
         t0 = time.perf_counter()
         with trace_ctx(trace_dir), span("fit", route=entry.name, n_train=M,
                                         device=str(self.device),
                                         streaming=streaming):
             with span(f"route.{entry.name}", engine=self.cfg.engine):
                 out = entry.fit(self.problem, x, y, key, cfg=self.cfg,
-                                compile_kw=dict(self.compile_kw),
+                                mesh=self.mesh, data_axis=self.data_axis,
+                                auto=auto, compile_kw=dict(self.compile_kw),
                                 fit_kw=fit_kw)
             if self.device.type == "cuda":
                 with span("fit.synchronize"):

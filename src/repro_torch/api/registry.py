@@ -15,7 +15,11 @@ All seven routes of the reference are registered, with its capabilities:
 ``sodm``, ``dsvrg`` and the Section-4 baselines ``cascade``, ``dip``,
 ``dc``, ``svrg`` and ``csvrg``. ``dsvrg`` and ``cascade`` also train from
 a ``ShardedSource`` out of core (``streaming_routes()``; the ``y is
-None`` branch of their fits). The ``sodm`` and ``dsvrg`` routes, and
+None`` branch of their fits). ``sodm`` and ``dsvrg`` are mesh-aware:
+given a ``torch.distributed`` device mesh they run their SPMD drivers
+(``sodm._solve_sharded``, the sharded DSVRG), and a mesh on another route,
+or with a streaming source, raises the reference's ``ValueError``. The
+``sodm`` and ``dsvrg`` routes, and
 both streaming routes, take the reference's ``faults``/``tracker``/
 ``resume`` seams; the resident rival routes take the tracker only, which
 the reference rejects on them (a known difference: the port reads their
@@ -80,14 +84,22 @@ class SolverEntry:
             raise ValueError(
                 f"route {self.name!r} does not support kernel "
                 f"{kernel_name!r} — its capabilities: {self.capabilities()}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "multi-device fits are not ported yet (ROADMAP A13)")
+        if mesh is not None and not self.mesh_aware:
+            raise ValueError(
+                f"route {self.name!r} has no SPMD driver but a mesh was "
+                f"given — its capabilities: {self.capabilities()}. "
+                f"Mesh-aware routes: "
+                f"{[e.name for e in _REGISTRY.values() if e.mesh_aware]}")
         if streaming and not self.streaming:
             raise ValueError(
                 f"route {self.name!r} cannot train from a ShardedSource — "
                 f"its capabilities: {self.capabilities()}. Streaming routes: "
                 f"{streaming_routes()}")
+        if streaming and mesh is not None:
+            raise ValueError(
+                "streaming fits have no SPMD driver yet (ROADMAP open "
+                "item 2: mesh-sharded shard ingestion) — drop the mesh or "
+                "materialize the source")
 
 
 _REGISTRY: dict[str, SolverEntry] = {}
@@ -199,19 +211,26 @@ def _stream_hooks(fit_kw) -> dict:
     return kw
 
 
-def _fit_sodm(problem, x, y, key, *, cfg, compile_kw,
-              fit_kw) -> RouteOutput:
+def _fit_sodm(problem, x, y, key, *, cfg, mesh=None, data_axis="data",
+              auto=False, compile_kw, fit_kw) -> RouteOutput:
+    del auto
     cfg = _pin_level_engine(cfg, "sodm")
-    res = sodm_mod._solve(problem.kernel, x, y, problem.params, cfg, key,
-                          fit_kw.get("level_callback"), **_hooks(fit_kw))
+    if mesh is None:
+        res = sodm_mod._solve(problem.kernel, x, y, problem.params, cfg,
+                              key, fit_kw.get("level_callback"),
+                              **_hooks(fit_kw))
+    else:
+        res = sodm_mod._solve_sharded(problem.kernel, x, y, problem.params,
+                                      cfg, key, mesh, data_axis=data_axis,
+                                      **_hooks(fit_kw))
     model = serve_model.from_sodm(problem.kernel, res, x, y, **compile_kw)
     return RouteOutput(model=model, raw=res, engine=cfg.engine,
                        passes=tuple(res.sweeps_per_level),
                        kkt=float(res.kkt))
 
 
-def _fit_dsvrg(problem, x, y, key, *, cfg, compile_kw,
-               fit_kw) -> RouteOutput:
+def _fit_dsvrg(problem, x, y, key, *, cfg, mesh=None, data_axis="data",
+               auto=False, compile_kw, fit_kw) -> RouteOutput:
     del compile_kw                     # the artifact is the primal w
     if y is None:                      # x is a ShardedSource (streaming fit)
         dres, kkt = dsvrg_mod._solve_stream(x, problem.params, cfg.dsvrg,
@@ -226,7 +245,9 @@ def _fit_dsvrg(problem, x, y, key, *, cfg, compile_kw,
                            eta=float(dres.eta),
                            history=tuple(float(h) for h in dres.history))
     res, dres = sodm_mod._solve_dsvrg(problem.kernel, x, y, problem.params,
-                                      cfg, key, **_hooks(fit_kw))
+                                      cfg, key, mesh=mesh,
+                                      data_axis=data_axis, auto=auto,
+                                      **_hooks(fit_kw))
     model = dataclasses.replace(serve_model.from_dsvrg(dres),
                                 spec=problem.kernel)
     return RouteOutput(model=model, raw=dres, engine="dsvrg",
@@ -235,8 +256,8 @@ def _fit_dsvrg(problem, x, y, key, *, cfg, compile_kw,
                        history=tuple(float(h) for h in dres.history))
 
 
-def _fit_cascade(problem, x, y, key, *, cfg, compile_kw,
-                 fit_kw) -> RouteOutput:
+def _fit_cascade(problem, x, y, key, *, cfg, mesh=None, data_axis="data",
+                 auto=False, compile_kw, fit_kw) -> RouteOutput:
     if y is None:                      # x is a ShardedSource (streaming fit)
         res = baselines_mod._cascade_solve_stream(
             problem.kernel, x, problem.params, levels=cfg.levels, key=key,
@@ -252,7 +273,8 @@ def _fit_cascade(problem, x, y, key, *, cfg, compile_kw,
                        passes=(res.levels_run,))
 
 
-def _fit_dip(problem, x, y, key, *, cfg, compile_kw, fit_kw) -> RouteOutput:
+def _fit_dip(problem, x, y, key, *, cfg, mesh=None, data_axis="data",
+             auto=False, compile_kw, fit_kw) -> RouteOutput:
     cfg = _pin_level_engine(cfg, "dip")
     res = baselines_mod._dip_solve(problem.kernel, x, y, problem.params,
                                    cfg, key, tracker=fit_kw.get("tracker"))
@@ -262,7 +284,8 @@ def _fit_dip(problem, x, y, key, *, cfg, compile_kw, fit_kw) -> RouteOutput:
                        kkt=float(res.kkt))
 
 
-def _fit_dc(problem, x, y, key, *, cfg, compile_kw, fit_kw) -> RouteOutput:
+def _fit_dc(problem, x, y, key, *, cfg, mesh=None, data_axis="data",
+            auto=False, compile_kw, fit_kw) -> RouteOutput:
     cfg = _pin_level_engine(cfg, "dc")
     res = baselines_mod._dc_solve(problem.kernel, x, y, problem.params,
                                   cfg, key, tracker=fit_kw.get("tracker"))
@@ -287,8 +310,8 @@ def _grad_output(problem, x, res, name: str, epochs: int,
                        history=tuple(float(h) for h in res.history))
 
 
-def _fit_svrg(problem, x, y, key, *, cfg, compile_kw,
-              fit_kw) -> RouteOutput:
+def _fit_svrg(problem, x, y, key, *, cfg, mesh=None, data_axis="data",
+              auto=False, compile_kw, fit_kw) -> RouteOutput:
     del compile_kw, fit_kw
     d = cfg.dsvrg
     eta = _grad_eta(x, cfg, problem.params)
@@ -297,8 +320,8 @@ def _fit_svrg(problem, x, y, key, *, cfg, compile_kw,
     return _grad_output(problem, x, res, "svrg", d.epochs, eta)
 
 
-def _fit_csvrg(problem, x, y, key, *, cfg, compile_kw,
-               fit_kw) -> RouteOutput:
+def _fit_csvrg(problem, x, y, key, *, cfg, mesh=None, data_axis="data",
+               auto=False, compile_kw, fit_kw) -> RouteOutput:
     del compile_kw, fit_kw
     d = cfg.dsvrg
     eta = _grad_eta(x, cfg, problem.params)
@@ -312,13 +335,13 @@ def _fit_csvrg(problem, x, y, key, *, cfg, compile_kw,
 register(SolverEntry(
     name="sodm", fit=_fit_sodm,
     algorithm="Alg. 1 (hierarchical partitioned dual CD)",
-    kernels=None, mesh_aware=False, matrix_free=True,
+    kernels=None, mesh_aware=True, matrix_free=True,
     description="stratified partitions, warm-started level merges; level "
                 "engines scalar | block | pallas"))
 register(SolverEntry(
     name="dsvrg", fit=_fit_dsvrg,
     algorithm="Alg. 2 (communication-efficient SVRG)",
-    kernels=_LINEAR, mesh_aware=False, matrix_free=True, streaming=True,
+    kernels=_LINEAR, mesh_aware=True, matrix_free=True, streaming=True,
     scale_min=DSVRG_AUTO_THRESHOLD,
     description="primal round-robin SVRG; dual recovered via "
                 "odm.alpha_from_w; auto-selected for big linear problems; "

@@ -1,6 +1,6 @@
 """DSVRG for linear-kernel ODM (paper Algorithm 2, after Lee et al. 2017).
 
-Port of the single-process half of ``repro.core.dsvrg``. Per epoch:
+Port of ``repro.core.dsvrg``. Per epoch:
 
 1. the full gradient h at the anchor (the epoch's starting iterate) over
    every partition — one fused pass over X (B7 on the card,
@@ -40,10 +40,32 @@ resident: per slab of ``stream_slab`` rows one B7 launch in the anchor
 pass and one epoch-kernel launch over the slab's live minibatches in
 the inner pass.
 
+SPMD (:func:`_solve_sharded`, :func:`make_sharded_epoch`): the K
+partitions are sharded over the ``data`` axis of a ``torch.distributed``
+device mesh, K / n_dev a rank, and every rank calls with the same
+arguments. The communication is the reference's, pinned by the
+``collective.*`` counters of :mod:`repro_torch.sharding`:
+
+* per solve, one ``psum`` of the local ‖x‖² sums for the auto step size
+  (so every rank, and the one-process solve, land on the same eta), and
+  one broadcast of the partition permutation, drawn on the first rank;
+* per epoch, one ``psum`` of the local anchor gradients — the paper's
+  single center-node reduction — and one ``psum`` of the local loss sums
+  (the objective history is ``psum(loss − ridge) + ridge``, assembled on
+  the device); ``schedule="parallel"`` adds one ``pmean`` of the
+  ranks' averaged chains;
+* ``schedule="serial"``: the slab is gathered ONCE per solve (the
+  reference hoists it out of its epoch scan), and every rank runs the
+  whole round-robin chain, one epoch-kernel launch an epoch.
+
+Each rank launches B7 over its own slab for the anchor gradient and the
+epoch kernel over its own chains (parallel) or the gathered chain
+(serial).
+
 Not ported here (ROADMAP): ``epoch_trace_count``/``_TRACE_EVENTS`` (they
-pin a JAX trace count; eager PyTorch has no trace), the multi-device
-``_solve_sharded`` and ``make_sharded_epoch`` (A13), and the legacy
-warn-once ``solve`` shim.
+pin a JAX trace count; eager PyTorch has no trace; the collective
+counters pin the pattern instead) and the legacy warn-once ``solve`` and
+``solve_sharded`` shims.
 """
 from __future__ import annotations
 
@@ -53,6 +75,7 @@ from typing import NamedTuple
 
 import torch
 
+from repro_torch import sharding as shd
 from repro_torch.core import kernel_fns as kf
 from repro_torch.core import odm
 from repro_torch.core import partition as part_mod
@@ -190,6 +213,11 @@ def _flatten(xs: Tensor, ys: Tensor, wts: Tensor):
     return xf, yf, wf
 
 
+def _inv_n(wts: Tensor) -> Tensor:
+    """Each step's 1/n_valid as an (S, 1) device tensor."""
+    return (1.0 / torch.clamp_min(torch.sum(wts, dim=-1), 1.0))[:, None]
+
+
 def _partition_perm(x: Tensor, cfg: DSVRGConfig, K: int, key) -> Tensor:
     M = x.shape[0]
     if cfg.partition_strategy == "identity":
@@ -221,9 +249,8 @@ def _run(w0: Tensor, xs: Tensor, ys: Tensor, wts: Tensor, *,
     else:
         eta = _eta_from_sumsq(torch.sum(wf * torch.sum(xf * xf, dim=-1)),
                               params, M).to(xs.dtype)
-    # each step's 1/n_valid (the divisor of svrg_direction) as an (S, 1)
-    # device tensor: the tail mask is static, so once per solve
-    inv_n = (1.0 / torch.clamp_min(torch.sum(wts, dim=-1), 1.0))[:, None]
+    # the tail mask is static, so each step's divisor is made once a solve
+    inv_n = _inv_n(wts)
     w, hist = w0, []
     for _ in range(cfg.epochs):
         anchor = w
@@ -412,6 +439,164 @@ def _solve_stream(source, params: ODMParams, cfg: DSVRGConfig, key=None,
     if metrics is not None and tracker is not None:
         metrics.drain(tracker, step=cfg.epochs)
     return DSVRGResult(w=w, history=hist, perm=None, eta=eta), kkt_box[0]
+
+
+# ---------------------------------------------------------------------------
+# SPMD: partitions sharded over the mesh's data axis
+# ---------------------------------------------------------------------------
+
+def _gather_slab(xs: Tensor, ys: Tensor, mesh,
+                 data_axis: str) -> tuple[Tensor, Tensor]:
+    """The (K, S, b, ·) partition slab of every rank, on every rank: one
+    tiled all-gather of x and y packed side by side."""
+    d = xs.shape[-1]
+    full = shd.all_gather(torch.cat([xs, ys[..., None]], dim=-1), mesh,
+                          data_axis)
+    return full[..., :d].contiguous(), full[..., d].contiguous()
+
+
+def _sharded_eta(xs: Tensor, ys: Tensor, wts: Tensor, params: ODMParams,
+                 cfg: DSVRGConfig, M: int, mesh, data_axis: str,
+                 eta: float | None) -> Tensor:
+    """The step size on a mesh. An explicit ``eta`` wins, then
+    ``cfg.eta > 0``; otherwise the auto step from a ``psum`` of the local
+    ‖x‖² sums, the one-process solve's value."""
+    if eta is not None:
+        return torch.tensor(eta, dtype=xs.dtype, device=xs.device)
+    if cfg.eta > 0:
+        return torch.tensor(cfg.eta, dtype=xs.dtype, device=xs.device)
+    xf, _, wf = _flatten(xs, ys, wts)
+    sumsq = shd.psum(torch.sum(wf * torch.sum(xf * xf, dim=-1)), mesh,
+                     data_axis)
+    return _eta_from_sumsq(sumsq, params, M).to(xs.dtype)
+
+
+def _sharded_epoch(w: Tensor, xs: Tensor, ys: Tensor, wts: Tensor,
+                   inv_n: Tensor, eta: Tensor, params: ODMParams,
+                   cfg: DSVRGConfig, M: int, mesh, data_axis: str,
+                   fused: bool, gathered: tuple[Tensor, Tensor] | None = None
+                   ) -> tuple[Tensor, Tensor]:
+    """One epoch on this rank's slab xs (K_loc, S, b, d) -> (w', the
+    GLOBAL objective). Step 1's full gradient is a ``psum``; step 2
+    follows ``cfg.schedule``; the objective is the ``psum`` of the local
+    loss sums plus one ridge term. ``gathered``: the serial schedule's
+    whole slab, gathered once per solve by the caller."""
+    anchor = w
+    xf, yf, wf = _flatten(xs, ys, wts)
+    g_local = _loss_grad(anchor, xf, yf, params, M, fused)
+    h = shd.psum(g_local, mesh, data_axis) + anchor
+    if cfg.schedule == "parallel":
+        wk = _epoch_parallel(w, xs, ys, wts, inv_n, anchor, h, eta, params,
+                             fused)
+        w = shd.pmean(wk, mesh, data_axis)
+    else:
+        xg, yg = gathered if gathered is not None else \
+            _gather_slab(xs, ys, mesh, data_axis)
+        w = _epoch_serial(w, xg, yg, wts, inv_n, anchor, h, eta, params,
+                          fused)
+    ridge = 0.5 * w @ w
+    loss_local = odm.primal_objective(w, xf, yf, params, weights=wf,
+                                      total=M) - ridge
+    return w, shd.psum(loss_local, mesh, data_axis) + ridge
+
+
+def _sharded_run(w0: Tensor, xs: Tensor, ys: Tensor, wts: Tensor, eta,
+                 gathered, *, params: ODMParams, cfg: DSVRGConfig, M: int,
+                 mesh, data_axis: str) -> tuple[Tensor, Tensor, Tensor]:
+    """``cfg.epochs`` epochs from ``w0`` on this rank's slab -> (w,
+    history, eta): the reference's ``_make_sharded_run``. The step size
+    and the serial schedule's gathered slab are made once a solve by the
+    caller and passed in."""
+    fused = _resolve_fused(cfg)
+    inv_n = _inv_n(wts)
+    w, hist = w0, []
+    for _ in range(cfg.epochs):
+        w, obj = _sharded_epoch(w, xs, ys, wts, inv_n, eta, params, cfg, M,
+                                mesh, data_axis, fused, gathered)
+        hist.append(obj)
+    history = torch.stack(hist) if hist else xs.new_zeros(0)
+    return w, history, eta
+
+
+def make_sharded_epoch(mesh, params: ODMParams, cfg: DSVRGConfig, M: int,
+                       data_axis: str = "data", eta: float | None = None):
+    """A single-epoch function over partitions sharded on ``data_axis``:
+    ``(w, xs, ys) -> (w', obj_global)``, with xs (K, m, d) and ys (K, m)
+    the WHOLE partition layout (the same on every rank; each rank takes
+    its slab of K / n_dev partitions). A validation helper: solves go
+    through :func:`_solve_sharded`. Without ``eta`` and with
+    ``cfg.eta <= 0`` the step size is the auto step from the sharded data
+    (a ``psum`` of the local ‖x‖² sums), the one-process solve's."""
+    fused = _resolve_fused(cfg)
+    n_dev = shd.axis_size(mesh, data_axis)
+    r = shd.axis_index(mesh, data_axis)
+    dev = shd.mesh_device(mesh)
+
+    def epoch(w: Tensor, xs: Tensor, ys: Tensor):
+        Kl = xs.shape[0] // n_dev
+        xsb, ysb, wts = _pad_batches(xs[r * Kl:(r + 1) * Kl].to(dev),
+                                     ys[r * Kl:(r + 1) * Kl].to(dev),
+                                     cfg.batch)
+        eta_v = _sharded_eta(xsb, ysb, wts, params, cfg, M, mesh,
+                             data_axis, eta)
+        return _sharded_epoch(w.to(dev), xsb, ysb, wts, _inv_n(wts), eta_v,
+                              params, cfg, M, mesh, data_axis, fused)
+
+    return epoch
+
+
+def _solve_sharded(x: Tensor, y: Tensor, params: ODMParams,
+                   cfg: DSVRGConfig, key, mesh, data_axis: str = "data",
+                   w0: Tensor | None = None, *, faults=None, tracker=None,
+                   resume=None) -> DSVRGResult:
+    """SPMD DSVRG over ``mesh[data_axis]`` (the module docs). Every rank
+    calls it with the same arguments and returns the same replicated
+    result on its own device; x and y may lie on the host, and a rank then
+    moves only its slab (and, on the serial schedule, the gathered one)
+    to its device. The permutation is drawn on the mesh's first rank and
+    broadcast. ``faults``/``tracker``/``resume`` run the epochs as
+    segments (:func:`_segmented`); checkpoints are committed by the
+    first rank alone."""
+    M, d = x.shape
+    K = cfg.n_partitions
+    n_dev = shd.axis_size(mesh, data_axis)
+    if M % K != 0:
+        raise ValueError(f"K={K} must divide M={M}")
+    if K % n_dev != 0:
+        raise ValueError(f"K={K} must be a multiple of data axis size {n_dev}")
+    if cfg.schedule not in ("serial", "parallel"):
+        raise ValueError(f"unknown schedule {cfg.schedule!r}")
+    dev = shd.mesh_device(mesh)
+    if shd.is_mesh_rank0(mesh):
+        perm = _partition_perm(x, cfg, K, key).to(dev, torch.int64)
+    else:
+        perm = torch.empty(M, dtype=torch.int64, device=dev)
+    perm = shd.broadcast(perm, mesh)
+    if resume is not None:
+        resume.bind(mesh)
+    m, Kl = M // K, K // n_dev
+    r = shd.axis_index(mesh, data_axis)
+    mine = perm[r * Kl * m:(r + 1) * Kl * m].to(x.device)
+    xs, ys, wts = _pad_batches(x[mine].reshape(Kl, m, d).to(dev),
+                               y[mine].reshape(Kl, m).to(dev), cfg.batch)
+    eta = _sharded_eta(xs, ys, wts, params, cfg, M, mesh, data_axis, None)
+    gathered = _gather_slab(xs, ys, mesh, data_axis) \
+        if cfg.schedule == "serial" else None
+    w0 = torch.zeros(d, dtype=x.dtype, device=dev) if w0 is None \
+        else w0.to(dev)
+
+    def runner(w, n):
+        return _sharded_run(w, xs, ys, wts, eta, gathered, params=params,
+                            cfg=dataclasses.replace(cfg, epochs=n), M=M,
+                            mesh=mesh, data_axis=data_axis)
+
+    if faults is None and tracker is None and resume is None:
+        w, hist, eta = runner(w0, cfg.epochs)
+    else:
+        w, hist, eta = _segmented(runner, w0, cfg, M, perm=perm,
+                                  faults=faults, tracker=tracker,
+                                  resume=resume)
+    return DSVRGResult(w=w, history=hist, perm=perm, eta=eta)
 
 
 # ---------------------------------------------------------------------------

@@ -1,6 +1,6 @@
 """SODM Algorithm 1 — hierarchical partitioned ODM solve with warm starts.
 
-Port of the single-process half of ``repro.core.sodm``. Level l has
+Port of ``repro.core.sodm``. Level l has
 K_l = p^l partitions of size m_l = M / K_l; each partition's local ODM
 dual is solved by a level engine (:mod:`repro_torch.core.engines`); when
 p siblings merge, their duals are concatenated as the parent's warm start
@@ -14,9 +14,27 @@ The level loop carries the reference's seams: a fault plan's
 ``cascade.level`` site before each level solve, a resume manager's
 checkpoint after it, and re-entry at the first unsolved level of a
 resume directory (:mod:`repro_torch.distributed.resume`);
-:func:`level_solve_count` counts the solves actually run. The
-multi-device solve (``_solve_sharded``, ROADMAP A13) is not ported yet
-and raises.
+:func:`level_solve_count` counts the solves actually run.
+
+Two execution layouts, as in the reference:
+
+* :func:`_solve` — one process: all partitions of a level advance
+  together on one device.
+* :func:`_solve_sharded` — SPMD over the ``data`` axis of a
+  ``torch.distributed`` device mesh (:mod:`repro_torch.sharding`). Every
+  rank calls it with the same arguments. The partition permutation is
+  drawn once, on the mesh's first rank, and broadcast. While
+  K_l >= n_dev (and divides by it) each rank solves its contiguous slab
+  of K_l / n_dev partitions with the same level engine — the only device
+  work of the level is its own slab's, and its slab alone is moved to
+  its device — and one tiled all-gather (:func:`repro_torch.sharding
+  .all_gather`) hands every rank the level's duals, sweeps and KKTs, so
+  the loop's ``max(sweeps)`` / ``max(kkts)`` see every partition (the
+  reference's ``out_specs=P(data_axis)``). Once K_l < n_dev the residual
+  levels run replicated on every rank. A rank's slab stops on its own
+  partitions' KKT, so a sharded fit is not bit for bit the one-process
+  fit at n_dev > 1 (nor is the reference's); at n_dev = 1 every level
+  takes the replicated branch and equals it bit for bit.
 """
 from __future__ import annotations
 
@@ -26,6 +44,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from repro_torch import sharding as shd
 from repro_torch.analysis.invariants import counter as _counter
 from repro_torch.core import dsvrg as dsvrg_mod
 from repro_torch.core import engines, kernel_fns as kf
@@ -98,7 +117,8 @@ def split_to_partitions(alpha: Tensor, K: int) -> Tensor:
 
 
 def _solve_dsvrg(spec: kf.KernelSpec, x: Tensor, y: Tensor,
-                 params: ODMParams, cfg: SODMConfig, key=None, *,
+                 params: ODMParams, cfg: SODMConfig, key=None, mesh=None,
+                 data_axis: str = "data", auto: bool = False, *,
                  faults=None, tracker=None, resume=None,
                  ) -> tuple[SODMResult, dsvrg_mod.DSVRGResult]:
     """Whole-problem linear-kernel route (the registry's dsvrg entry).
@@ -112,18 +132,35 @@ def _solve_dsvrg(spec: kf.KernelSpec, x: Tensor, y: Tensor,
     ``partition_strategy``/``n_landmarks`` carry over for the strategies
     DSVRG has (stratified, random). The solve is epoch-budgeted:
     ``tol``/``max_sweeps`` are level-loop knobs and do not apply.
+
+    On a ``mesh`` the solve is :func:`repro_torch.core.dsvrg
+    ._solve_sharded` over ``mesh[data_axis]``, with K a multiple of the
+    axis size. An AUTO-dispatched solve on a mesh (``auto=True``) runs the
+    ``"parallel"`` schedule: the serial chain is replicated compute over a
+    gathered slab, wrong for the big-data regime that triggers the auto
+    route. An explicit ``engine="dsvrg"`` keeps ``cfg.dsvrg``'s schedule.
+    The dual is recovered from w on every rank (replicated).
     """
     del spec
     from repro_torch.api import registry
     M = x.shape[0]
-    K = registry.dsvrg_partition_count(M, cfg.dsvrg.n_partitions)
+    n_dev = shd.axis_size(mesh, data_axis) if mesh is not None else 1
+    K = registry.dsvrg_partition_count(M, cfg.dsvrg.n_partitions, n_dev)
     dcfg = dataclasses.replace(cfg.dsvrg, n_partitions=K)
+    if auto and mesh is not None:
+        dcfg = dataclasses.replace(dcfg, schedule="parallel")
     if cfg.partition_strategy in ("stratified", "random"):
         dcfg = dataclasses.replace(
             dcfg, partition_strategy=cfg.partition_strategy,
             n_landmarks=cfg.n_landmarks)
-    res = dsvrg_mod._solve(x, y, params, dcfg, key, faults=faults,
-                           tracker=tracker, resume=resume)
+    if mesh is not None:
+        res = dsvrg_mod._solve_sharded(x, y, params, dcfg, key, mesh,
+                                       data_axis=data_axis, faults=faults,
+                                       tracker=tracker, resume=resume)
+        x, y = x.to(res.w.device), y.to(res.w.device)
+    else:
+        res = dsvrg_mod._solve(x, y, params, dcfg, key, faults=faults,
+                               tracker=tracker, resume=resume)
     xp, yp = x[res.perm], y[res.perm]
     alpha = odm_mod.alpha_from_w(res.w, xp, yp, params)
     # grad p(w) = w − w_from_alpha(alpha_from_w(w)) exactly, so the
@@ -136,7 +173,7 @@ def _solve_dsvrg(spec: kf.KernelSpec, x: Tensor, y: Tensor,
 def _level_loop(run_level, x: Tensor, y: Tensor, perm: Tensor,
                 cfg: SODMConfig, *, faults=None, tracker=None, resume=None,
                 level_callback: Callable[[int, Tensor], None] | None = None,
-                ) -> SODMResult:
+                device: torch.device | None = None) -> SODMResult:
     """The Algorithm-1 level loop: ``run_level(xs, ys, alphas, K) ->
     (alphas, sweeps, kkts)`` per level, then merge p siblings.
 
@@ -155,8 +192,12 @@ def _level_loop(run_level, x: Tensor, y: Tensor, perm: Tensor,
       and the merge). Level solves are deterministic on either device and
       the checkpoint round trip is exact, so the resumed result equals an
       uninterrupted run's bit for bit.
+
+    The duals live on ``device`` (default: the device of ``x``; the
+    sharded driver may leave the data on the host and move slabs).
     """
-    restored = resume.restore(device=x.device) if resume is not None \
+    device = x.device if device is None else device
+    restored = resume.restore(device=device) if resume is not None \
         else None
     M = x.shape[0]
     if restored is not None:
@@ -168,12 +209,12 @@ def _level_loop(run_level, x: Tensor, y: Tensor, perm: Tensor,
     else:
         K = cfg.p ** cfg.levels
         m = M // K
-        alphas = torch.zeros(K, 2 * m, dtype=x.dtype, device=x.device)
+        alphas = torch.zeros(K, 2 * m, dtype=x.dtype, device=device)
         sweeps_per_level = []
-        kkt = torch.tensor(float("inf"), dtype=x.dtype, device=x.device)
+        kkt = torch.tensor(float("inf"), dtype=x.dtype, device=device)
         level = cfg.levels
         pending = True
-    xp, yp = x[perm], y[perm]
+    xp, yp = x[perm.to(x.device)], y[perm.to(x.device)]
 
     while True:
         if pending:
@@ -265,6 +306,75 @@ def _solve(spec: kf.KernelSpec, x: Tensor, y: Tensor, params: ODMParams,
                        level_callback=level_callback)
 
 
-def _solve_sharded(*args, **kwargs) -> SODMResult:
-    raise NotImplementedError(
-        "the multi-device SODM solve is not ported yet (ROADMAP A13)")
+# ---------------------------------------------------------------------------
+# SPMD: partitions sharded over the mesh's data axis
+# ---------------------------------------------------------------------------
+
+def _sharded_perm(spec: kf.KernelSpec, x: Tensor, cfg: SODMConfig, K0: int,
+                  key) -> Tensor:
+    """The reference's sharded partitioning: stratified, or random for
+    every other strategy (``src/repro/core/sodm.py:414-418``)."""
+    if cfg.partition_strategy == "stratified":
+        return part_mod.make_plan(spec, x, cfg.n_landmarks, K0, key).perm
+    return part_mod.random_partitions(x.shape[0], K0, key, device=x.device)
+
+
+def _solve_sharded(spec: kf.KernelSpec, x: Tensor, y: Tensor,
+                   params: ODMParams, cfg: SODMConfig, key, mesh,
+                   data_axis: str = "data", *, faults=None, tracker=None,
+                   resume=None) -> SODMResult:
+    """Algorithm 1 with partitions sharded over ``mesh[data_axis]`` (the
+    module docs). Every rank of the mesh calls it with the same arguments
+    and returns the same result, on its own device. Preconditions: p^L
+    partitions with p^L % n_dev == 0. Linear problems that resolve to
+    DSVRG take the sharded DSVRG route (an AUTO dispatch upgrades it to
+    the parallel schedule). ``faults``, ``tracker`` and ``resume`` behave
+    as in :func:`_solve`; a resume manager checkpoints from the mesh's
+    first rank only (:meth:`repro_torch.distributed.resume._Manager
+    .bind`)."""
+    from repro_torch.api import registry
+    M = x.shape[0]
+    if registry.resolve_auto(spec.name, M, engine=cfg.engine,
+                             threshold=cfg.dsvrg_threshold).name == "dsvrg":
+        return _solve_dsvrg(spec, x, y, params, cfg, key, mesh=mesh,
+                            data_axis=data_axis,
+                            auto=cfg.engine != "dsvrg", faults=faults,
+                            tracker=tracker, resume=resume)[0]
+    K0 = cfg.p ** cfg.levels
+    n_dev = shd.axis_size(mesh, data_axis)
+    if K0 % n_dev != 0:
+        raise ValueError(f"p^L={K0} must be a multiple of data axis {n_dev}")
+    if M % K0 != 0:
+        raise ValueError(f"p^L={K0} must divide M={M}")
+    dev = shd.mesh_device(mesh)
+    # one permutation for the whole mesh: drawn on the first rank only
+    if shd.is_mesh_rank0(mesh):
+        perm = _sharded_perm(spec, x, cfg, K0, key).to(dev, torch.int64)
+    else:
+        perm = torch.empty(M, dtype=torch.int64, device=dev)
+    perm = shd.broadcast(perm, mesh)
+    if resume is not None:
+        resume.bind(mesh)
+    solver = engines.make_local_solver(cfg.engine, block=cfg.block,
+                                       gram_threshold=cfg.gram_threshold,
+                                       adaptive=cfg.adaptive)
+    r = shd.axis_index(mesh, data_axis)
+
+    def run_level(xs, ys, alphas, K):
+        kw = dict(spec=spec, params=params, tol=cfg.tol,
+                  max_sweeps=cfg.max_sweeps)
+        if not (K >= n_dev and K % n_dev == 0 and n_dev > 1):
+            # the replicated tail (K < n_dev: one in-memory QP by now)
+            return solver(xs.to(dev), ys.to(dev), alphas, **kw)
+        # this rank's slab of partitions, then one gather of its duals,
+        # sweeps and KKTs (packed as fp32 rows, exact for counts < 2^24)
+        lo, hi = r * (K // n_dev), (r + 1) * (K // n_dev)
+        a, sweeps, kkts = solver(xs[lo:hi].to(dev), ys[lo:hi].to(dev),
+                                 alphas[lo:hi], **kw)
+        packed = torch.cat([a, sweeps.to(a.dtype)[:, None],
+                            kkts.to(a.dtype)[:, None]], dim=1)
+        full = shd.all_gather(packed, mesh, data_axis)
+        return full[:, :-2], full[:, -2].to(torch.int32), full[:, -1]
+
+    return _level_loop(run_level, x, y, perm, cfg, faults=faults,
+                       tracker=tracker, resume=resume, device=dev)

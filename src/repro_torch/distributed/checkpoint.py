@@ -24,9 +24,12 @@ format, so either package reads the other's steps:
   manifest.
 * **Retention**: the newest ``keep`` steps stay; older steps and orphaned
   temp dirs are removed after each commit.
-
-The reference's elastic re-sharding on restore (``shardings=``) waits for
-the multi-device port (ROADMAP A13).
+* **Meshes**: ``save`` of a tree with ``DTensor`` leaves gathers each one
+  whole on every rank of its mesh (``full_tensor()``, a collective), and
+  only the mesh's first rank writes; the others wait at a barrier that
+  also fails them if the write failed. ``restore(shardings=...)`` places
+  each leaf on the mesh of its sharding (the elastic path: that mesh may
+  differ from the mesh at save time).
 """
 from __future__ import annotations
 
@@ -73,10 +76,21 @@ def _unflatten_into(template, flat: dict[str, Any], prefix: str = ""):
     return flat[prefix]
 
 
+def _dtensor_meshes(tree) -> list:
+    """The meshes of the tree's ``DTensor`` leaves."""
+    from torch.distributed.tensor import DTensor
+    return [v.device_mesh for v in _flatten(tree).values()
+            if isinstance(v, DTensor)]
+
+
 def _to_numpy(leaf, copy: bool = False) -> tuple[np.ndarray, str]:
     """A leaf as a numpy array numpy can store, and its true dtype name.
     ``copy``: the array never shares memory with the leaf (a CUDA
-    tensor's ``.cpu()`` already is a copy; a CPU tensor's is not)."""
+    tensor's ``.cpu()`` already is a copy; a CPU tensor's is not). A
+    ``DTensor`` leaf is gathered whole first (a collective)."""
+    from torch.distributed.tensor import DTensor
+    if isinstance(leaf, DTensor):
+        leaf = leaf.full_tensor()
     if isinstance(leaf, torch.Tensor):
         t = leaf.detach().cpu()
         if copy and t.data_ptr() == leaf.data_ptr():
@@ -121,12 +135,36 @@ class CheckpointManager:
     # -- write ---------------------------------------------------------------
 
     def save(self, step: int, tree, metadata: Optional[dict] = None) -> str:
-        """Synchronous checkpoint of a tree of tensors / arrays."""
-        return self._write(step, _host(tree), metadata or {})
+        """Synchronous checkpoint of a tree of tensors / arrays. With
+        ``DTensor`` leaves every rank of their mesh calls this; the mesh's
+        first rank writes and the others wait for its commit."""
+        meshes = _dtensor_meshes(tree)
+        host = _host(tree)
+        if not meshes:
+            return self._write(step, host, metadata or {})
+        from repro_torch import sharding as shd
+        mesh, err = meshes[0], None
+        if shd.is_mesh_rank0(mesh):
+            try:
+                self._write(step, host, metadata or {})
+            except BaseException as e:   # raised after the barrier
+                err = e
+        ok = shd.mesh_all_ok(mesh, err is None)
+        if err is not None:
+            raise err
+        if not ok:
+            raise RuntimeError(
+                f"the mesh's first rank failed to commit step {step} "
+                f"under {self.dir}")
+        return os.path.join(self.dir, f"step_{step:010d}")
 
     def save_async(self, step: int, tree,
                    metadata: Optional[dict] = None) -> None:
-        """Snapshot now (on this thread), serialize in the background."""
+        """Snapshot now (on this thread), serialize in the background.
+        ``DTensor`` leaves are refused: their gather is a collective of
+        every rank, and only :meth:`save` has the mesh's writer rule."""
+        if _dtensor_meshes(tree):
+            raise ValueError("save_async takes no DTensor leaves: use save")
         self.wait()                      # one in flight at a time
         host = _host(tree, copy=True)
         md = dict(metadata or {})
@@ -220,11 +258,15 @@ class CheckpointManager:
             return json.load(f)
 
     def restore(self, template, step: Optional[int] = None, *,
-                device=None):
+                device=None, shardings=None):
         """Restore into the structure of ``template`` (a tree whose leaves
         are tensors, or anything: only the structure is read). Leaves come
         back as tensors of their saved dtype, exactly, on ``device``
-        (default: the CPU)."""
+        (default: the CPU). ``shardings`` (a tree of
+        :class:`repro_torch.sharding.NamedSharding` matching ``template``)
+        places each leaf on its mesh as a ``DTensor`` instead — the
+        elastic path: the mesh may differ from the mesh at save time.
+        Every rank of that mesh calls this."""
         step = self.latest_step() if step is None else step
         if step is None:
             raise FileNotFoundError(f"no checkpoints under {self.dir}")
@@ -235,4 +277,18 @@ class CheckpointManager:
                     for k in z.files}
         if device is not None:
             flat = {k: v.to(device) for k, v in flat.items()}
-        return _unflatten_into(template, flat)
+        tree = _unflatten_into(template, flat)
+        if shardings is not None:
+            from repro_torch import sharding as shd
+            tree = _map2(lambda x, s: shd.place(x, s.mesh, s.placements),
+                         tree, shardings)
+        return tree
+
+
+def _map2(fn, tree, other):
+    """``fn(leaf, other_leaf)`` over two trees of the same structure."""
+    if isinstance(tree, dict):
+        return {k: _map2(fn, v, other[k]) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map2(fn, a, b) for a, b in zip(tree, other))
+    return fn(tree, other)

@@ -44,6 +44,15 @@ the first unprocessed shard without reading completed ones again. Dense
 level checkpoints and stream leaf checkpoints refuse to resume each
 other. A streaming fit's provenance fingerprints the source
 (:func:`provenance_source`), not the rows.
+
+On a mesh (the sharded level loop and DSVRG segments) every rank holds
+the same replicated state and the same manager: the mesh's first rank
+alone commits each checkpoint, while the others visit the same
+``checkpoint.pre_rename`` fault site (so a kill there strikes every rank
+alike) and wait at a barrier that fails them too if the commit failed;
+every rank restores, and no rank leaves the restore before all have read
+(a later commit's retention could otherwise remove the step a slower
+rank is reading). The solver binds the mesh (:meth:`_Manager.bind`).
 """
 from __future__ import annotations
 
@@ -187,8 +196,42 @@ class _Manager:
     def __init__(self, cfg: ResumeConfig, prov: dict, faults=None):
         self.cfg = cfg
         self.prov = prov
+        self.faults = faults
+        self.mesh = None
         self.ckpt = CheckpointManager(cfg.directory, keep=cfg.keep,
                                       faults=faults)
+
+    def bind(self, mesh) -> None:
+        """Checkpoint as one rank of ``mesh`` (the rank-0-writes rule)."""
+        self.mesh = mesh
+
+    def _commit(self, step: int, tree: dict, metadata: dict) -> None:
+        if self.mesh is None:
+            self.ckpt.save(step, tree, metadata)
+            return
+        from repro_torch import sharding as shd
+        err = None
+        try:
+            if shd.is_mesh_rank0(self.mesh):
+                self.ckpt.save(step, tree, metadata)
+            elif self.faults is not None:
+                self.faults.site("checkpoint.pre_rename", step=step)
+        except BaseException as e:       # raised after the barrier
+            err = e
+        ok = shd.mesh_all_ok(self.mesh, err is None)
+        if err is not None:
+            raise err
+        if not ok:
+            raise RuntimeError(
+                f"another rank failed to commit step {step} of "
+                f"{self.cfg.directory!r}")
+
+    def _synced(self, restored):
+        """Hold every rank of the bound mesh until all have read."""
+        if self.mesh is not None:
+            from repro_torch import sharding as shd
+            shd.mesh_all_ok(self.mesh, True)
+        return restored
 
     def _latest(self, mode: str | None = None):
         """The latest checkpoint's (metadata, manifest, step), or
@@ -229,7 +272,7 @@ class CascadeResumeManager(_Manager):
     def save_level(self, *, level: int, K: int, m: int, alphas: Tensor,
                    perm: Tensor, sweeps_per_level: list, kkt) -> None:
         step = len(sweeps_per_level)          # levels solved so far
-        self.ckpt.save(step, {"alphas": alphas, "perm": perm}, metadata={
+        self._commit(step, {"alphas": alphas, "perm": perm}, {
             "route": self.route,
             "level": int(level), "K": int(K), "m": int(m),
             "sweeps_per_level": [int(s) for s in sweeps_per_level],
@@ -242,15 +285,15 @@ class CascadeResumeManager(_Manager):
         for a cold start."""
         md, manifest, step = self._latest("level")
         if md is None:
-            return None
+            return self._synced(None)
         tree = self._restore_tree(manifest, step, device)
         alphas = tree["alphas"]
-        return RestoredCascade(
+        return self._synced(RestoredCascade(
             level=int(md["level"]), K=int(md["K"]), m=int(md["m"]),
             alphas=alphas, perm=tree["perm"],
             sweeps_per_level=list(md["sweeps_per_level"]),
             kkt=torch.tensor(md["kkt"], dtype=alphas.dtype,
-                             device=alphas.device))
+                             device=alphas.device)))
 
     # -- streaming cascade: merge-stack checkpoints per consumed leaf --------
 
@@ -296,8 +339,7 @@ class DsvrgResumeManager(_Manager):
 
     def save_segment(self, *, epoch: int, w: Tensor, history: Tensor,
                      perm: Tensor, eta) -> None:
-        self.ckpt.save(epoch, {"w": w, "history": history, "perm": perm},
-                       metadata={
+        self._commit(epoch, {"w": w, "history": history, "perm": perm}, {
             "route": self.route,
             "epoch": int(epoch),
             "eta": float(eta),
@@ -309,8 +351,8 @@ class DsvrgResumeManager(_Manager):
         None for a cold start."""
         md, manifest, step = self._latest()
         if md is None:
-            return None
+            return self._synced(None)
         tree = self._restore_tree(manifest, step, device)
-        return RestoredSegments(
+        return self._synced(RestoredSegments(
             epoch=int(md["epoch"]), w=tree["w"], history=tree["history"],
-            perm=tree["perm"], eta=float(md["eta"]))
+            perm=tree["perm"], eta=float(md["eta"])))

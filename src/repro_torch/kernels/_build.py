@@ -9,12 +9,19 @@ the flags, so an edit rebuilds and an unchanged tree reuses the build.
 Nothing here runs at import time: the CPU tests import every module on
 hosts with no ``nvcc``.
 
+Several processes may ask for the library at once (the ranks of a
+multi-process world on one host): the first takes an exclusive lock on
+the build directory and builds; the others wait on the lock and then
+load what it built, without building again.
+
 Each C entry point returns ``cudaGetLastError()`` of its launch;
 :func:`check` turns a nonzero code into an exception.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import functools
 import hashlib
 import os
@@ -135,12 +142,27 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.repro_error_string.restype = ctypes.c_char_p
 
 
+@contextlib.contextmanager
+def _build_lock(directory: Path):
+    """An exclusive lock on ``directory`` across processes."""
+    directory.mkdir(parents=True, exist_ok=True)
+    with open(directory / ".lock", "w") as fh:
+        fcntl.flock(fh, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(fh, fcntl.LOCK_UN)
+
+
 @functools.cache
 def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
+    """The loaded kernel library, built on first call (once per host: a
+    process that finds the build in progress waits for it)."""
     path = library_path()
     if not path.exists():
-        build(path)
+        with _build_lock(path.parent):
+            if not path.exists():
+                build(path)
     lib = ctypes.CDLL(str(path))
     _declare(lib)
     return lib

@@ -1,3 +1,3 @@
-"""Launchers. Port of ``repro.launch`` (``serve`` only; ``train`` waits for
-ROADMAP A17's second part, ``dryrun``, ``hlo_analysis`` and ``mesh`` for
+"""Launchers. Port of ``repro.launch`` (``serve`` and ``mesh``; ``train``
+waits for ROADMAP A17's second part, ``dryrun`` and ``hlo_analysis`` for
 A19)."""

@@ -8,8 +8,8 @@ Port of ``repro.models.attention``. Two attention impls:
 
 The reference's ``flash_xla`` (a ``lax.scan`` with a flash-style custom
 VJP, ``attention.py:84-213``) exists for training and raises here, naming
-the LM training slice (ROADMAP A17, second part); its head-sharded
-``_flash_sharded`` waits for multi-GPU (A13).
+the LM training slice (ROADMAP A17, second part), and its head-sharded
+``_flash_sharded`` with it (the LM's mesh path).
 
 Decode attends a (B, S, kv, dh) static cache, as the reference does:
 sliding-window layers keep a ring buffer of W slots. Unlike the

@@ -16,7 +16,8 @@ waits for the LM training slice (ROADMAP A17, second part); the moe,
 ssm, hybrid (RG-LRU), encdec and vlm families, and llama4's iRoPE
 window/global layers, wait for A18 and raise when a model is built from
 them (``check_supported``). ``param_shapes``, ``input_specs`` and
-``batch_axes`` serve the TPU dry-run and sharding (A19, A13).
+``batch_axes`` serve the TPU dry-run (A19) and the LM's mesh path
+(with A17).
 """
 from __future__ import annotations
 

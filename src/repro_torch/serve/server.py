@@ -33,16 +33,21 @@ Port of ``repro.serve.server``. Two layers, composable:
   through it and reports latency/throughput stats.
 
 A graph's capture failing raises; nothing gives way to an eager call.
-The SV-sharded scorer ``score_sharded`` waits for the multi-device port
-(ROADMAP A13) and raises.
+
+:func:`score_sharded` slabs the support vectors over the ``data`` axis of
+a ``torch.distributed`` device mesh: every rank scores the replicated
+request batch with K2 against its own slice of the slab and one ``psum``
+assembles f.
 """
 from __future__ import annotations
 
 import dataclasses
 import time
+import weakref
 
 import torch
 
+from repro_torch import sharding as shd
 from repro_torch.kernels import ops
 from repro_torch.kernels import score as score_mod
 from repro_torch.observe.instruments import MetricsRegistry, percentile
@@ -333,6 +338,65 @@ def serve_stream(batcher: Batcher, arrivals, *, tick: float | None = None
     }
 
 
-def score_sharded(model: FittedODM, x, mesh=None, data_axis: str = "data"):
-    raise NotImplementedError(
-        "SV-sharded scoring across devices is not ported yet (ROADMAP A13)")
+# ---------------------------------------------------------------------------
+# SPMD: the SV slab sharded across the mesh
+# ---------------------------------------------------------------------------
+
+# each rank's slice of a padded SV slab, one per (model slab, mesh, axis):
+# re-padding and re-slicing O(S·d) bytes per request batch would defeat
+# the O(S/n_dev)-per-rank goal. Weakref-keyed (a live weakref proves the
+# id) and FIFO-capped, like the reference's _SLAB_CACHE.
+_SLAB_CACHE: dict = {}
+_SLAB_CACHE_CAP = 8
+
+
+def _sharded_slab(model: FittedODM, mesh, data_axis: str):
+    """(z, coef, prepared slab) of this rank's slice, on its device."""
+    key = (id(model.x_sv), mesh, data_axis)
+    hit = _SLAB_CACHE.get(key)
+    if hit is not None and hit[0]() is model.x_sv:
+        return hit[1]
+    n_dev = shd.axis_size(mesh, data_axis)
+    r = shd.axis_index(mesh, data_axis)
+    dev = shd.mesh_device(mesh)
+    pad = -model.n_sv % n_dev
+    n = (model.n_sv + pad) // n_dev
+    z = torch.nn.functional.pad(model.x_sv, (0, 0, 0, pad))
+    c = torch.nn.functional.pad(model.coef, (0, pad))
+    z = z[r * n:(r + 1) * n].to(dev).contiguous()
+    c = c[r * n:(r + 1) * n].to(dev).contiguous()
+    slab = None if dev.type == "cpu" else \
+        score_mod.prepare_slab(z, model.spec.name)
+    if len(_SLAB_CACHE) >= _SLAB_CACHE_CAP:
+        _SLAB_CACHE.pop(next(iter(_SLAB_CACHE)))
+    _SLAB_CACHE[key] = (weakref.ref(model.x_sv), (z, c, slab))
+    return z, c, slab
+
+
+def score_sharded(model: FittedODM, x, mesh, data_axis: str = "data"
+                  ) -> Tensor:
+    """Decision scores with the SV slab sharded over ``mesh[data_axis]``.
+
+    Every rank of the mesh calls this with the same request batch. The
+    expansion is linear in the SVs, so each rank scores the batch against
+    its slice (K2 on the card, counted in ``score_tiles.launches``; its
+    plain version on the CPU) and one ``psum`` assembles f on every rank.
+    The slab is padded to a multiple of the axis size with zero
+    coefficients (zero rows contribute exactly nothing) and each rank's
+    slice moved to its device ONCE per (model, mesh). A linear model
+    scores ``x @ w`` replicated.
+    """
+    dev = shd.mesh_device(mesh)
+    x = torch.as_tensor(x, dtype=torch.float32).to(dev)
+    if model.w is not None:
+        return x @ model.w.to(dev)
+    z, c, slab = _sharded_slab(model, mesh, data_axis)
+    spec = model.spec
+    kw = dict(kind=spec.name, gamma=spec.gamma, degree=spec.degree,
+              coef0=spec.coef0)
+    if slab is None:
+        part = score_mod.score_tiles(x.contiguous(), z, c, **kw)
+    else:
+        part = score_mod.launch_score(x.contiguous(), z, c, slab=slab, **kw)
+        score_mod.score_tiles.launches.bump()
+    return shd.psum(part, mesh, data_axis)

@@ -292,10 +292,10 @@ def test_grad_baselines_take_one_epoch_call_an_epoch(monkeypatch, route):
 # ---------------------------------------------------------------------------
 
 def test_registry_holds_the_reference_routes_and_capabilities():
-    """All seven routes; the baselines with the reference's capabilities
-    (sodm's and dsvrg's mesh and streaming forms are ROADMAP A13/A14)."""
+    """All seven routes, each with the reference's capabilities (sodm and
+    dsvrg mesh-aware since A13)."""
     assert treg.routes() == jreg.routes()
-    for name in ("cascade", "dip", "dc", "svrg", "csvrg"):
+    for name in jreg.routes():
         assert treg.get(name).capabilities() == jreg.get(name).capabilities()
 
 

@@ -1160,3 +1160,168 @@ def test_cd_exact_partition_does_not_depend_on_its_batch(dev):
                               max_sweeps=50)
         assert torch.equal(alone.alpha, together.alpha[k])
         assert torch.equal(alone.u, together.u[k])
+
+
+# -- A13: the SPMD paths on the card ------------------------------------------
+
+@pytest.fixture
+def nccl_mesh1(dev, tmp_path):
+    """A one-rank NCCL world on the card and its ("data",) mesh."""
+    import torch.distributed as dist
+    from repro_torch import sharding
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        yield sharding.make_mesh((1,), ("data",), "cuda")
+    finally:
+        dist.destroy_process_group()
+
+
+def _collectives():
+    from repro_torch.analysis.invariants import counter
+    return {op: counter(f"collective.{op}").count
+            for op in ("psum", "pmean", "all_gather", "broadcast")}
+
+
+@pytest.mark.parametrize("schedule", ["serial", "parallel"])
+def test_mesh_dsvrg_collective_pattern_on_card(dev, nccl_mesh1, schedule):
+    """Per epoch one anchor-gradient psum and one objective psum, plus one
+    pmean on the parallel schedule; per solve one psum of ‖x‖², one perm
+    broadcast and, on the serial schedule, one slab gather. One rank: w
+    equals the one-process fit's bit for bit."""
+    from repro_torch.api import ODMEstimator, ProblemSpec
+    from repro_torch.core import sodm
+    from repro_torch.core.dsvrg import DSVRGConfig
+    E = 5
+    cfg = sodm.SODMConfig(dsvrg=DSVRGConfig(n_partitions=4, epochs=E,
+                                            batch=16, schedule=schedule))
+    _, one = _small_fit(dev, "dsvrg", cfg)
+    rng = np.random.default_rng(14)
+    x = rng.random((512, 8)).astype(np.float32) - 0.5
+    y = np.sign(x @ rng.standard_normal(8)).astype(np.float32)
+    before = _collectives()
+    b7 = odm_grad_mod.odm_grad.launches.count
+    ep = odm_grad_mod.odm_svrg_epoch.launches.count
+    _, rep = ODMEstimator(ProblemSpec(kernel=kf.KernelSpec("linear")),
+                          route="dsvrg", cfg=cfg, mesh=nccl_mesh1).fit(x, y, 0)
+    torch.cuda.synchronize()
+    got = {k: v - before[k] for k, v in _collectives().items()}
+    par = schedule == "parallel"
+    assert got == dict(psum=1 + 2 * E, pmean=E if par else 0,
+                       all_gather=0 if par else 1, broadcast=1)
+    assert odm_grad_mod.odm_grad.launches.count - b7 == E
+    assert odm_grad_mod.odm_svrg_epoch.launches.count - ep == E
+    assert torch.equal(rep.raw.w, one.raw.w)
+    torch.testing.assert_close(rep.raw.history, one.raw.history, rtol=1e-6,
+                               atol=0)
+
+
+def test_mesh_sodm_gathers_once_per_sharded_level_on_card(dev, nccl_mesh1):
+    """One rank shards no level (n_dev = 1): no gather, one perm
+    broadcast, and the duals equal the one-process fit's bit for bit."""
+    from repro_torch.api import ODMEstimator, ProblemSpec
+    from repro_torch.core import sodm
+    cfg = sodm.SODMConfig(p=2, levels=2, n_landmarks=4, tol=1e-4,
+                          max_sweeps=100, engine="pallas", block=32,
+                          gram_threshold=64)
+    model, one = _small_fit(dev, "sodm", cfg)
+    rng = np.random.default_rng(14)
+    x = rng.random((512, 8)).astype(np.float32) - 0.5
+    y = np.sign(x @ rng.standard_normal(8)).astype(np.float32)
+    before = _collectives()
+    m2, rep = ODMEstimator(ProblemSpec(kernel=kf.KernelSpec("rbf", 0.5)),
+                           route="sodm", cfg=cfg,
+                           mesh=nccl_mesh1).fit(x, y, 0)
+    torch.cuda.synchronize()
+    got = {k: v - before[k] for k, v in _collectives().items()}
+    assert got == dict(psum=0, pmean=0, all_gather=0, broadcast=1)
+    assert torch.equal(rep.raw.alpha, one.raw.alpha)
+    from repro_torch.serve import server
+    n0 = score_mod.score_tiles.launches.count
+    f = server.score_sharded(m2, x[:100], nccl_mesh1)
+    torch.cuda.synchronize()
+    assert score_mod.score_tiles.launches.count - n0 == 1
+    assert torch.equal(f, model.decision_function(x[:100]))
+
+
+_TWO_RANKS = r"""
+import json, sys
+import numpy as np, torch, torch.distributed as dist
+rank, store, out = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+dist.init_process_group("gloo", store=dist.FileStore(store, 2), rank=rank,
+                        world_size=2)
+from repro_torch import sharding
+from repro_torch.analysis.invariants import counter
+from repro_torch.api import ODMEstimator, ProblemSpec
+from repro_torch.core import kernel_fns as kf, sodm
+from repro_torch.kernels import gram
+mesh = sharding.make_mesh((2,), ("data",), "cuda")
+rng = np.random.default_rng(14)
+x = rng.random((512, 8)).astype(np.float32) - 0.5
+y = np.sign(x @ rng.standard_normal(8)).astype(np.float32)
+cfg = sodm.SODMConfig(p=2, levels=2, n_landmarks=4, tol=1e-4,
+                      max_sweeps=100, engine="pallas", block=32,
+                      gram_threshold=64)
+_, rep = ODMEstimator(ProblemSpec(kernel=kf.KernelSpec("rbf", 0.5)),
+                      route="sodm", cfg=cfg, mesh=mesh).fit(x, y, 0)
+torch.cuda.synchronize()
+a0 = rep.raw.alpha.clone()
+dist.broadcast(a0, src=0)
+json.dump({"gathers": counter("collective.all_gather").count,
+           "levels": rep.raw.sweeps_per_level,
+           "b8": gram.gram.launches.count,
+           "device": str(rep.raw.alpha.device),
+           "same_as_rank0": bool(torch.equal(a0, rep.raw.alpha)),
+           "alpha": rep.raw.alpha.cpu().tolist(),
+           "perm": rep.raw.perm.cpu().tolist()}, open(out, "w"))
+dist.destroy_process_group()
+"""
+
+
+def test_mesh_two_ranks_share_one_card_over_gloo(dev, tmp_path):
+    """Two ranks on cuda:0 over gloo: levels 2 and 1 (K = 4, 2) are
+    sharded, one gather each; level 0 is replicated. Both ranks hold the
+    same duals, within the reference battery's band of the one-process
+    fit's dual objective."""
+    import json
+    import os
+    import subprocess
+    import sys
+    from repro_torch.core import odm, sodm
+    from repro_torch.kernels import _build
+    _build.library()             # built once, before the ranks start
+    cfg = sodm.SODMConfig(p=2, levels=2, n_landmarks=4, tol=1e-4,
+                          max_sweeps=100, engine="pallas", block=32,
+                          gram_threshold=64)
+    _, one = _small_fit(dev, "sodm", cfg)
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"))
+    outs = [tmp_path / f"rank{r}.json" for r in range(2)]
+    procs = [subprocess.Popen([sys.executable, "-c", _TWO_RANKS, str(r),
+                               str(tmp_path / "store"), str(outs[r])],
+                              env=env, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for r in range(2)]
+    logs = [p.communicate(timeout=300)[0] for p in procs]
+    for p, log in zip(procs, logs):
+        assert p.returncode == 0, log[-3000:]
+    res = [json.loads(o.read_text()) for o in outs]
+    for r in res:
+        sharded = sum(1 for i in range(len(r["levels"]))
+                      if 2 ** (2 - i) >= 2)
+        assert r["gathers"] == sharded and r["same_as_rank0"]
+        assert r["device"].startswith("cuda") and r["b8"] > 0
+    rng = np.random.default_rng(14)
+    xn = rng.random((512, 8)).astype(np.float32) - 0.5
+    yn = np.sign(xn @ rng.standard_normal(8)).astype(np.float32)
+    x, y = torch.tensor(xn, device=dev), torch.tensor(yn, device=dev)
+    spec = kf.KernelSpec("rbf", 0.5)
+
+    def obj(alpha, perm):
+        Q = kf.signed_gram(spec, x[perm], y[perm])
+        return float(odm.dual_objective(Q, alpha, odm.ODMParams(), 512.0))
+
+    o1 = obj(one.raw.alpha, one.raw.perm)
+    o2 = obj(torch.tensor(res[0]["alpha"], device=dev),
+             torch.tensor(res[0]["perm"], device=dev))
+    assert abs(o1 - o2) < 1e-3

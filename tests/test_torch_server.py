@@ -224,7 +224,15 @@ def test_request_batch_contains_score_span():
     assert snap["serve.queue_depth.max"] >= 1
 
 
-def test_sharded_scoring_waits_for_multi_device():
-    _, tm, xq = _models(SPECS[0])
-    with pytest.raises(NotImplementedError, match="A13"):
-        server.score_sharded(tm, xq[:4])
+def test_sharded_scoring_waits_for_multi_device(tmp_path):
+    """score_sharded on a one-rank gloo mesh equals decision_function
+    (the multi-rank cases: tests/test_torch_spmd.py)."""
+    from repro_torch.launch.mesh import make_host_mesh
+    from torch_dist_util import gloo_world
+    with gloo_world(tmp_path / "store"):
+        mesh = make_host_mesh((1,), ("data",))
+        for spec in SPECS:
+            _, tm, xq = _models(spec)
+            got = server.score_sharded(tm, xq[:40], mesh)
+            want = tm.decision_function(torch.tensor(xq[:40]))
+            assert torch.equal(got, want), spec

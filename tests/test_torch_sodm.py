@@ -113,7 +113,7 @@ def test_tracker_and_trace_spans(tmp_path):
             e["ts"] + e["dur"] <= fit[0]["ts"] + fit[0]["dur"]
 
 
-def test_unported_seams_raise():
+def test_unported_seams_raise(tmp_path):
     x, y, _, _ = _data(2, M=32)
     X, Y = torch.tensor(x), torch.tensor(y)
     from repro_torch.core.kernel_fns import KernelSpec
@@ -125,8 +125,18 @@ def test_unported_seams_raise():
         tsodm._solve(KernelSpec(), X, Y, ODMParams(),
                      tsodm.SODMConfig(levels=1), 0,
                      faults=FaultPlan().kill_at_level(0))
-    with pytest.raises(NotImplementedError, match="A13"):
-        tsodm._solve_sharded(KernelSpec(), X, Y)
+    # the sharded solve runs (A13): on a one-rank gloo mesh every level is
+    # replicated, so it equals the one-process solve bit for bit
+    from repro_torch.launch.mesh import make_host_mesh
+    from torch_dist_util import gloo_world
+    with gloo_world(tmp_path / "store"):
+        cfg = tsodm.SODMConfig(levels=2, max_sweeps=20)
+        one = tsodm._solve(KernelSpec(), X, Y, ODMParams(), cfg, 0)
+        shd = tsodm._solve_sharded(KernelSpec(), X, Y, ODMParams(), cfg, 0,
+                                   make_host_mesh((1,), ("data",)))
+        assert torch.equal(one.perm, shd.perm)
+        assert torch.equal(one.alpha, shd.alpha)
+        assert one.sweeps_per_level == shd.sweeps_per_level
     with pytest.raises(Preemption, match="dsvrg.segment"):
         tsodm._solve(KernelSpec("linear"), X, Y, ODMParams(),
                      tsodm.SODMConfig(engine="dsvrg"), 0,
