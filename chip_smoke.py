@@ -236,6 +236,21 @@ Phases (any failed check exits nonzero):
    within 1e-5 x max|f| of decision_function. Every replicated result
    equals rank 0's bit for bit. The two ranks time-share one card, so
    their times are no scaling figure.
+14. The observability and analysis layer (repro_torch.observe,
+   repro_torch.analysis).
+   14a. ijcnn1's Algorithm-1 fit with phase 4's configuration and seed,
+   under profile_dir (torch.profiler, CUDA activity), trace_dir and a
+   JsonlTracker: alphas equal to phase 4's bit for bit, K1/K2/B8
+   launches equal to phase 4's; from the Chrome trace each kernel's
+   device time and device-kernel count, and their sum over the fit's
+   wall time (the device's busy share); fails if the trace holds none of
+   a kernel the counters saw, or the jsonl stream lacks a level record.
+   14b. hopper_check.check_device: every kernel's main-path plan against
+   the built library's attributes (registers, static shared memory,
+   local memory, CTAs an SM) and plan queries; fails on a spill or a
+   mirror that differs; then every compiled variant's local memory.
+   14c. invariants.verify_all(device="cuda"): every quick declaration on
+   the card, each count also held against the launch counters.
 Each phase prints its wall time.
 
 The kernels line reports, per kernel: its time, its plain version's and
@@ -257,6 +272,9 @@ mesh paths of phase 13 (``... mesh1``, and rank 0's ``... 2 ranks``). Every coun
 line is the result.
 """
 from __future__ import annotations
+
+# lint: allow[P001] — a measurement harness: it times the kernels' launches
+# and reads their plan queries from the built library directly.
 
 import dataclasses
 import json
@@ -1673,9 +1691,115 @@ def mesh_rank_main(args) -> None:
         dist.destroy_process_group()
 
 
+# ---------------------------------------------------------------------------
+# phase 14: the observability and analysis layer on the card
+# ---------------------------------------------------------------------------
+
+def observe_phase(ds, fit4, launches4, params, cfg, gamma) -> None:
+    """Phase 14 (see the module docs): 14a ijcnn1's Algorithm-1 fit under
+    profile_dir, trace_dir and a JsonlTracker against phase 4's; 14b the
+    plan checker against the built library; 14c verify_all on the
+    card."""
+    import tempfile
+
+    import torch
+    from repro_torch.analysis import hopper_check as hc
+    from repro_torch.analysis import invariants as inv
+    from repro_torch.api import ODMEstimator, ProblemSpec
+    from repro_torch.core import kernel_fns as kf
+    from repro_torch.observe import JsonlTracker, profiler, read_jsonl
+
+    say(f"== phase 14a: {ds.name}'s Algorithm-1 fit (phase 4's "
+        f"configuration and seed) under profile_dir, trace_dir and a "
+        f"JsonlTracker")
+    _, _, report4 = fit4
+    with tempfile.TemporaryDirectory() as tmp:
+        est = ODMEstimator(ProblemSpec(kernel=kf.KernelSpec("rbf", gamma),
+                                       params=params), cfg=cfg)
+        reset_launches()
+        path = os.path.join(tmp, "metrics.jsonl")
+        with JsonlTracker(path) as jt:
+            t0 = time.perf_counter()
+            _, report = est.fit(ds.x_train, ds.y_train, 0, tracker=jt,
+                                profile_dir=os.path.join(tmp, "profile"),
+                                trace_dir=os.path.join(tmp, "trace"))
+            wall = time.perf_counter() - t0
+        launches = read_launches()
+        records = read_jsonl(path)
+        trace_path = os.path.join(tmp, "profile", profiler.FILENAME)
+        if not os.path.exists(trace_path):
+            fail("the profiled fit wrote no trace (the profiler did not "
+                 "start)")
+        with open(trace_path) as fh:
+            trace = json.load(fh)
+        with open(os.path.join(tmp, "trace", "trace.json")) as fh:
+            spans_trace = json.load(fh)
+    eq = torch.equal(report.raw.alpha, report4.raw.alpha)
+    say(f"  fit_s={wall:.2f} (profiled; phase 4 {report4.wall_clock:.2f} "
+        f"unprofiled) alphas equal to phase 4's bit for bit: {eq}")
+    if not eq:
+        fail("the profiled fit's alphas differ from phase 4's")
+    for name in ("cd_block_sweep", "gram_matvec", "gram"):
+        say(f"  {name}: {launches[name]} launches (phase 4: "
+            f"{launches4[name]})")
+        if launches[name] != launches4[name]:
+            fail(f"{name} launched {launches[name]} times under the "
+                 f"profiler, {launches4[name]} in phase 4")
+    summary = profiler.kernel_summary(trace)
+    ours_us = 0.0
+    for name, row in sorted(summary.items()):
+        ours_us += row["us"]
+        say(f"  trace {name}: {row['count']} device kernels "
+            f"{row['symbols']}, {row['us'] / 1e3:.3f} ms device time, "
+            f"{row['us'] / max(row['count'], 1):.2f} us each")
+    seen = [n for n in ("cd_block_sweep", "gram_matvec", "gram",
+                        "dense_matvec") if launches[n] > 0]
+    missing = [n for n in seen if n not in summary]
+    if missing:
+        fail(f"the trace holds no device time of {missing}, which the "
+             f"counters saw launch")
+    busy = profiler.busy_share(trace, wall)
+    say(f"  device busy share of the fit's wall time: ours "
+        f"{ours_us / 1e6 / wall:.4f} ({ours_us / 1e3:.1f} ms of "
+        f"{wall * 1e3:.1f} ms), every kernel {busy:.4f}")
+    levels = [r for r in records if "level" in r]
+    if len(levels) != len(report4.passes):
+        fail(f"the jsonl stream holds {len(levels)} level records for "
+             f"{len(report4.passes)} levels")
+    if not records or not records[-1].get("fit_done"):
+        fail("the jsonl stream lacks the fit summary")
+    spans = [e["name"] for e in spans_trace["traceEvents"]]
+    say(f"  jsonl: {len(levels)} level records + summary; host spans: "
+        f"{spans.count('cascade.level')} cascade.level in "
+        f"{spans.count('fit')} fit")
+
+    say("== phase 14b: the plan checker against the built library")
+    attrs = hc.check_device()
+    for key, plan in hc.default_plans().items():
+        a = attrs[key]
+        say(f"  {key} {plan.symbol}: {a['regs']} registers (cap "
+            f"{plan.reg_cap}), static {a['smem_static']} B, dynamic "
+            f"{plan.smem_dynamic} B, local {a['local_bytes']} B, "
+            f"{a['ctas_per_sm']} CTA(s) an SM (plan >= "
+            f"{plan.ctas_per_sm}), {a['threads']} threads")
+    spills = []
+    for entry, v, a in hc.variant_report():
+        if a["local_bytes"] > 0:
+            spills.append(f"{entry}[{v}] {a['local_bytes']} B "
+                          f"({a['regs']} registers)")
+    say(f"  compiled variants off the main path with local memory: "
+        f"{spills or 'none'}")
+
+    say("== phase 14c: verify_all on the card")
+    t0 = time.perf_counter()
+    got = inv.verify_all(device="cuda")
+    say(f"  {len(got)} invariants hold on the card "
+        f"({time.perf_counter() - t0:.1f} s): {sorted(got)}")
+
+
 def main() -> None:
     import torch
-    if not torch.cuda.is_available():
+    if not torch.cuda.is_available():  # lint: ignore[D001]
         fail("torch.cuda.is_available() is false: this script needs a card")
     sys.path.insert(0, os.path.join(ROOT, "src"))
     try:
@@ -3007,6 +3131,10 @@ def main() -> None:
     mesh_phase(dict(phishing=phishing, ijcnn1=ijcnn1, SUSY=susy), fits,
                susy6, fit_times, odm_params, odm_cfg, g_phish, g_ijc, expect,
                path_launches)
+
+    # -- 14. trackers, the profiler, the plan checker, the invariants --------
+    observe_phase(ijcnn1, fits["ijcnn1"], path_launches["ijcnn1"],
+                  odm_params, odm_cfg, g_ijc)
 
     # -- report ---------------------------------------------------------------
     end_phase()

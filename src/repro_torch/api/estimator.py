@@ -21,8 +21,9 @@ or cascade route out of core from a
 estimator's device. ``ODMEstimator(mesh=...)`` fits the mesh-aware
 routes (sodm, dsvrg) SPMD over a ``torch.distributed`` device mesh: every
 rank constructs the estimator and calls ``fit`` with the same arguments,
-and each gets the same model on its own device. ``profile_dir`` (ROADMAP
-A15) is not ported yet and raises.
+and each gets the same model on its own device. ``fit(profile_dir=...)``
+records the fit with ``torch.profiler`` (CUDA activity on the card) into
+``<profile_dir>/profile.json``.
 """
 from __future__ import annotations
 
@@ -38,6 +39,7 @@ from repro_torch.core import kernel_fns as kf
 from repro_torch.core import odm as odm_mod
 from repro_torch.core.sodm import SODMConfig
 from repro_torch.kernels._device import resolve_device
+from repro_torch.observe.profiler import profile_ctx
 from repro_torch.observe.spans import span, trace_ctx
 from repro_torch.serve import model as serve_model
 
@@ -119,7 +121,10 @@ class ODMEstimator:
         final summary, on every route (the reference rejects it on the
         rival routes; the port's rivals report their levels and epochs
         through it); ``trace_dir`` exports host spans (fit → route →
-        cascade.level) to ``<trace_dir>/trace.json``. ``fit_kw`` forwards
+        cascade.level) to ``<trace_dir>/trace.json``; ``profile_dir``
+        records the fit with ``torch.profiler`` (the kernels' device time
+        when the estimator runs on the card) into
+        ``<profile_dir>/profile.json``. ``fit_kw`` forwards
         ``level_callback``.
 
         Preemption-proofing (sodm and dsvrg routes, and both streaming
@@ -140,9 +145,6 @@ class ODMEstimator:
             kill inside the checkpoint's crash window).
         """
         from repro_torch.data.streaming import is_source
-        if profile_dir is not None:
-            raise NotImplementedError(
-                "profile_dir is not ported yet (ROADMAP A15)")
         streaming = is_source(x)
         if streaming:
             if y is not None:
@@ -190,9 +192,9 @@ class ODMEstimator:
         auto = (entry.name == "dsvrg" and self.route is None
                 and self.cfg.engine != "dsvrg")
         t0 = time.perf_counter()
-        with trace_ctx(trace_dir), span("fit", route=entry.name, n_train=M,
-                                        device=str(self.device),
-                                        streaming=streaming):
+        with trace_ctx(trace_dir), profile_ctx(profile_dir, self.device), \
+                span("fit", route=entry.name, n_train=M,
+                     device=str(self.device), streaming=streaming):
             with span(f"route.{entry.name}", engine=self.cfg.engine):
                 out = entry.fit(self.problem, x, y, key, cfg=self.cfg,
                                 mesh=self.mesh, data_axis=self.data_axis,

@@ -252,12 +252,14 @@ def _run(w0: Tensor, xs: Tensor, ys: Tensor, wts: Tensor, *,
     # the tail mask is static, so each step's divisor is made once a solve
     inv_n = _inv_n(wts)
     w, hist = w0, []
-    for _ in range(cfg.epochs):
-        anchor = w
-        h = anchor + _loss_grad(anchor, xf, yf, params, M, fused)
-        w = epoch_fn(w, xs, ys, wts, inv_n, anchor, h, eta, params, fused)
-        hist.append(odm.primal_objective(w, xf, yf, params, weights=wf,
-                                         total=M))
+    for i in range(cfg.epochs):
+        with _span("dsvrg.epoch", epoch=i):
+            anchor = w
+            h = anchor + _loss_grad(anchor, xf, yf, params, M, fused)
+            w = epoch_fn(w, xs, ys, wts, inv_n, anchor, h, eta, params,
+                         fused)
+            hist.append(odm.primal_objective(w, xf, yf, params, weights=wf,
+                                             total=M))
     history = torch.stack(hist) if hist else xs.new_zeros(0)
     return w, history, eta
 
@@ -510,9 +512,10 @@ def _sharded_run(w0: Tensor, xs: Tensor, ys: Tensor, wts: Tensor, eta,
     fused = _resolve_fused(cfg)
     inv_n = _inv_n(wts)
     w, hist = w0, []
-    for _ in range(cfg.epochs):
-        w, obj = _sharded_epoch(w, xs, ys, wts, inv_n, eta, params, cfg, M,
-                                mesh, data_axis, fused, gathered)
+    for i in range(cfg.epochs):
+        with _span("dsvrg.epoch", epoch=i):
+            w, obj = _sharded_epoch(w, xs, ys, wts, inv_n, eta, params, cfg,
+                                    M, mesh, data_axis, fused, gathered)
         hist.append(obj)
     history = torch.stack(hist) if hist else xs.new_zeros(0)
     return w, history, eta

@@ -24,6 +24,9 @@ own sweep count.
 """
 from __future__ import annotations
 
+# lint: allow[P001] — K4's wrapper (solve, launch_solve) lives here beside its
+# plain version, the counterpart of the reference's core.dual_cd.
+
 from typing import NamedTuple
 
 import numpy as np
@@ -136,7 +139,7 @@ def solve(Q: Tensor, params: ODMParams, mscale: float,
     (:func:`launch_solve`, counted in ``solve.launches``).
     """
     given = [t for t in (Q, alpha0, u0) if t is not None]
-    if on_cpu(*given):
+    if on_cpu(*given, kernel="cd_exact"):
         return solve_plain(Q, params, mscale, alpha0=alpha0, tol=tol,
                            max_sweeps=max_sweeps, u0=u0)
     single, Qb, a0, ub = _batched(Q, alpha0, u0)

@@ -35,6 +35,13 @@ CSRC = _HERE / "csrc"
 BUILD_ROOT = _HERE / "_build"
 LIB_NAME = "librepro_kernels.so"
 
+#: each source's C entry reporting a compiled kernel variant's resources
+#: (``csrc/attributes.cuh``)
+ATTRIBUTE_ENTRIES = ("cd_sweep_attributes", "dense_matvec_attributes",
+                     "cd_exact_attributes", "gram_attributes",
+                     "gram_matvec_attributes", "odm_grad_attributes",
+                     "flash_attn_attributes")
+
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -129,6 +136,14 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.flash_attn_fwd.argtypes = [P, P, P, P, I, I, I, I, I, I, I,
                                    ctypes.POINTER(L), F, I, I, P]
     lib.flash_attn_smem.argtypes = [I, I]
+    # the plan checker's queries (analysis/hopper_check.py): each source's
+    # <kernel>_attributes(variant, smem, int out[6]) and the dynamic
+    # shared memory of the plans that had no query of their own
+    for name in ATTRIBUTE_ENTRIES:
+        getattr(lib, name).argtypes = [I, I, ctypes.POINTER(I)]
+    lib.gram_matvec_smem.argtypes = [I, I]
+    lib.odm_grad_smem.argtypes = [I, I]
+    lib.odm_svrg_epoch_smem.argtypes = [I, I]
     for fn in (lib.gram_matvec_f32, lib.dense_matvec_f32,
                lib.cd_block_sweep_f32, lib.odm_svrg_grad_f32,
                lib.odm_svrg_epoch_f32, lib.odm_svrg_epoch_mode,
@@ -136,7 +151,9 @@ def _declare(lib: ctypes.CDLL) -> None:
                lib.gram_smem,
                lib.cd_exact_f32, lib.cd_exact_state_in_smem,
                lib.flash_attn_fwd,
-               lib.flash_attn_smem):
+               lib.flash_attn_smem, lib.gram_matvec_smem, lib.odm_grad_smem,
+               lib.odm_svrg_epoch_smem,
+               *(getattr(lib, n) for n in ATTRIBUTE_ENTRIES)):
         fn.restype = I
     lib.repro_error_string.argtypes = [I]
     lib.repro_error_string.restype = ctypes.c_char_p

@@ -16,6 +16,8 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.analysis import launch_lint as _lint
+
 
 def resolve_device(device: str | torch.device | None = None) -> torch.device:
     """``None`` means the card. Asking for CUDA without one raises."""
@@ -29,17 +31,21 @@ def resolve_device(device: str | torch.device | None = None) -> torch.device:
     return dev
 
 
-def on_cpu(*tensors: torch.Tensor) -> bool:
+def on_cpu(*tensors: torch.Tensor, kernel: str | None = None) -> bool:
     """The dispatch rule: True → plain version, False → kernel.
 
     All tensors must share one device type; a mix raises instead of
-    silently copying.
+    silently copying. ``kernel``: the calling wrapper's name (its
+    ``launch.<name>`` counter), given by each public kernel wrapper at
+    its one dispatch point; while the launch lint records, the dispatch
+    is recorded as a site on either branch.
     """
     kinds = {t.device.type for t in tensors}
-    if kinds == {"cpu"}:
-        return True
-    if kinds == {"cuda"}:
-        return False
+    if kinds == {"cpu"} or kinds == {"cuda"}:
+        cpu = kinds == {"cpu"}
+        if kernel is not None and _lint.ACTIVE is not None:
+            _lint.ACTIVE.kernel(kernel, "cpu" if cpu else "cuda", tensors)
+        return cpu
     raise ValueError(
         f"kernel inputs lie on {sorted(kinds)}: pass all-CPU tensors (plain "
         f"version) or all-CUDA tensors (hand-written kernel)")

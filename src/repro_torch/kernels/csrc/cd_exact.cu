@@ -70,6 +70,7 @@
 #include <math_constants.h>
 
 #include "sm90.cuh"
+#include "attributes.cuh"
 
 namespace {
 
@@ -340,4 +341,11 @@ extern "C" int cd_exact_f32(const float* qt, int ld, const float* qd,
   }
   cd_chain_kernel<<<K, NTR, bytes, static_cast<cudaStream_t>(stream)>>>(a);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Resources of K4 (variant 0; see attributes.cuh).
+extern "C" int cd_exact_attributes(int v, int smem, int* out) {
+  if (v != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return repro::kernel_attributes(
+      reinterpret_cast<const void*>(cd_chain_kernel), NTR, smem, out);
 }

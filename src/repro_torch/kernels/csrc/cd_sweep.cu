@@ -56,6 +56,7 @@
 #include <cstddef>
 
 #include <cuda_runtime.h>
+#include "attributes.cuh"
 
 namespace {
 
@@ -256,4 +257,30 @@ extern "C" int cd_block_sweep_f32(const float* qt, const float* alpha,
       return static_cast<int>(cudaErrorInvalidValue);
   }
 #undef REPRO_K1
+}
+
+// Resources of K1's variant v = 2 log2(RPL) + (B == 32 RPL ? 0 : 1),
+// RPL = 1 .. 32 (cd_block_sweep_f32's switch), at `smem` bytes of
+// dynamic shared memory (see attributes.cuh).
+extern "C" int cd_sweep_attributes(int v, int smem, int* out) {
+  const void* fn;
+  switch (v) {
+#define REPRO_K1_ATTR(I, R)                                      \
+  case 2 * I:                                                    \
+    fn = reinterpret_cast<const void*>(cd_sweep_kernel<R, true>); \
+    break;                                                       \
+  case 2 * I + 1:                                                \
+    fn = reinterpret_cast<const void*>(cd_sweep_kernel<R, false>); \
+    break;
+    REPRO_K1_ATTR(0, 1)
+    REPRO_K1_ATTR(1, 2)
+    REPRO_K1_ATTR(2, 4)
+    REPRO_K1_ATTR(3, 8)
+    REPRO_K1_ATTR(4, 16)
+    REPRO_K1_ATTR(5, 32)
+#undef REPRO_K1_ATTR
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return repro::kernel_attributes(fn, WPC * 32, smem, out);
 }

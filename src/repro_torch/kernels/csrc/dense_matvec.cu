@@ -18,6 +18,7 @@
 #include <cstddef>
 
 #include <cuda_runtime.h>
+#include "attributes.cuh"
 
 namespace {
 
@@ -57,4 +58,11 @@ extern "C" int dense_matvec_f32(const float* q, const float* d, float* u,
   dense_matvec_kernel<<<grid, NT, 0, static_cast<cudaStream_t>(stream)>>>(
       q, d, u, M, N);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Resources of K3 (variant 0; see attributes.cuh).
+extern "C" int dense_matvec_attributes(int v, int smem, int* out) {
+  if (v != 0) return static_cast<int>(cudaErrorInvalidValue);
+  return repro::kernel_attributes(
+      reinterpret_cast<const void*>(dense_matvec_kernel), NT, smem, out);
 }

@@ -107,6 +107,7 @@
 #include <cuda_runtime.h>
 
 #include "sm90.cuh"
+#include "attributes.cuh"
 
 namespace {
 
@@ -868,4 +869,25 @@ extern "C" int flash_attn_smem(int bf16, int D) {
     case 128: return bf16 ? Tiles<128>::SMEM : F32Tiles<128>::SMEM;
     default: return -1;
   }
+}
+
+// Resources of B9's variant v = 4 (fp32) + i, head dim 16 << i (i = 0 ..
+// 3): v = 0 .. 3 flash_bf16<D>, 4 .. 7 flash_f32<D> (see attributes.cuh).
+extern "C" int flash_attn_attributes(int v, int smem, int* out) {
+  const void* fn;
+  int threads = 3 * NT;
+  switch (v) {
+    case 0: fn = reinterpret_cast<const void*>(flash_bf16<16>); break;
+    case 1: fn = reinterpret_cast<const void*>(flash_bf16<32>); break;
+    case 2: fn = reinterpret_cast<const void*>(flash_bf16<64>); break;
+    case 3: fn = reinterpret_cast<const void*>(flash_bf16<128>); break;
+    case 4: fn = reinterpret_cast<const void*>(flash_f32<16>); break;
+    case 5: fn = reinterpret_cast<const void*>(flash_f32<32>); break;
+    case 6: fn = reinterpret_cast<const void*>(flash_f32<64>); break;
+    case 7: fn = reinterpret_cast<const void*>(flash_f32<128>); break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (v >= 4) threads = F_NT;
+  return repro::kernel_attributes(fn, threads, smem, out);
 }

@@ -75,6 +75,7 @@
 
 #include "sm90.cuh"
 #include "tile_math.cuh"
+#include "attributes.cuh"
 
 namespace {
 
@@ -430,3 +431,33 @@ extern "C" int gram_f32(const float* x, const float* z, const float* xx,
 
 // Bytes of dynamic shared memory a CTA of gram_f32 takes at D features.
 extern "C" int gram_smem(int D) { return smem_bytes(feature_shape(D)); }
+
+// Resources of B8's variant v = 4 kind + 2 signed + sym (kind as
+// tile_math.cuh numbers it: linear, rbf, laplacian, poly; see
+// attributes.cuh).
+extern "C" int gram_attributes(int v, int smem, int* out) {
+  const void* fn;
+  switch (v) {
+#define REPRO_B8_ATTR(KIND)                                               \
+  case 4 * KIND:                                                          \
+    fn = reinterpret_cast<const void*>(gram_kernel<KIND, false, false>); \
+    break;                                                                \
+  case 4 * KIND + 1:                                                      \
+    fn = reinterpret_cast<const void*>(gram_kernel<KIND, false, true>);  \
+    break;                                                                \
+  case 4 * KIND + 2:                                                      \
+    fn = reinterpret_cast<const void*>(gram_kernel<KIND, true, false>);  \
+    break;                                                                \
+  case 4 * KIND + 3:                                                      \
+    fn = reinterpret_cast<const void*>(gram_kernel<KIND, true, true>);   \
+    break;
+    REPRO_B8_ATTR(repro::kLinear)
+    REPRO_B8_ATTR(repro::kRbf)
+    REPRO_B8_ATTR(repro::kLaplacian)
+    REPRO_B8_ATTR(repro::kPoly)
+#undef REPRO_B8_ATTR
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return repro::kernel_attributes(fn, NT, smem, out);
+}

@@ -87,6 +87,7 @@
 
 #include "sm90.cuh"
 #include "tile_math.cuh"
+#include "attributes.cuh"
 
 namespace {
 
@@ -622,4 +623,44 @@ extern "C" int gram_matvec_f32(const float* x, const float* z, const float* g,
 
 extern "C" const char* repro_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// Bytes of dynamic shared memory a CTA of K2 takes at D4 padded
+// features, on the symmetric walk (sym) or the general one.
+extern "C" int gram_matvec_smem(int D4, int sym) {
+  const Shape s = make_shape(0, 0, D4, D4, sym != 0);
+  return smem_bytes(s, s.NS, sym != 0);
+}
+
+// Resources of K2's variant v = 2 kind + sym (kind as tile_math.cuh
+// numbers it), v = 8 reduce_splits, v = 9 reduce_sym (see
+// attributes.cuh).
+extern "C" int gram_matvec_attributes(int v, int smem, int* out) {
+  const void* fn;
+  int threads = NT;
+  switch (v) {
+#define REPRO_K2_ATTR(KIND)                                               \
+  case 2 * KIND:                                                          \
+    fn = reinterpret_cast<const void*>(gram_matvec_kernel<KIND, false>); \
+    break;                                                                \
+  case 2 * KIND + 1:                                                      \
+    fn = reinterpret_cast<const void*>(gram_matvec_kernel<KIND, true>);  \
+    break;
+    REPRO_K2_ATTR(repro::kLinear)
+    REPRO_K2_ATTR(repro::kRbf)
+    REPRO_K2_ATTR(repro::kLaplacian)
+    REPRO_K2_ATTR(repro::kPoly)
+#undef REPRO_K2_ATTR
+    case 8:
+      fn = reinterpret_cast<const void*>(reduce_splits);
+      threads = 256;
+      break;
+    case 9:
+      fn = reinterpret_cast<const void*>(reduce_sym);
+      threads = BM;
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return repro::kernel_attributes(fn, threads, smem, out);
 }

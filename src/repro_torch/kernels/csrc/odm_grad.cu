@@ -81,6 +81,7 @@
 #include <cuda_runtime.h>
 
 #include "sm90.cuh"
+#include "attributes.cuh"
 
 namespace {
 
@@ -681,4 +682,51 @@ extern "C" int odm_grad_f32(const float* w, const float* x, const float* y,
   }
   odm_grad_reduce_kernel<<<d, NT, 0, st>>>(w, part, out, nb, d);
   return static_cast<int>(cudaGetLastError());
+}
+
+// Bytes of dynamic shared memory B7's row-ring kernel takes at (M, d),
+// 0 when d is too wide for it (the chunked kernel takes none).
+extern "C" int odm_grad_smem(int M, int d) {
+  const B7Plan pl = b7_plan(M, d);
+  return pl.lanes ? B7_STAGES * pl.stage * static_cast<int>(sizeof(float))
+                  : 0;
+}
+
+// Bytes of dynamic shared memory the epoch kernel takes at (b, d)
+// (epoch_plan).
+extern "C" int odm_svrg_epoch_smem(int b, int d) {
+  return epoch_plan(b, d).floats * static_cast<int>(sizeof(float));
+}
+
+// Resources of this source's kernels (see attributes.cuh): v = 0 B6
+// (svrg_grad_kernel); v = 1 + mode the epoch kernel in
+// odm_svrg_epoch_mode's mode (0: svrg_epoch_kernel<false, false>, 1:
+// <true, false>, 2: <true, true>); v = 4 .. 7 B7's b7_ring_kernel<F>,
+// F = 8, 16, 24, 32; v = 8 odm_grad_wide_kernel; v = 9
+// odm_grad_reduce_kernel.
+extern "C" int odm_grad_attributes(int v, int smem, int* out) {
+  const void* fn;
+  switch (v) {
+    case 0: fn = reinterpret_cast<const void*>(svrg_grad_kernel); break;
+    case 1:
+      fn = reinterpret_cast<const void*>(svrg_epoch_kernel<false, false>);
+      break;
+    case 2:
+      fn = reinterpret_cast<const void*>(svrg_epoch_kernel<true, false>);
+      break;
+    case 3:
+      fn = reinterpret_cast<const void*>(svrg_epoch_kernel<true, true>);
+      break;
+    case 4: fn = reinterpret_cast<const void*>(b7_ring_kernel<8>); break;
+    case 5: fn = reinterpret_cast<const void*>(b7_ring_kernel<16>); break;
+    case 6: fn = reinterpret_cast<const void*>(b7_ring_kernel<24>); break;
+    case 7: fn = reinterpret_cast<const void*>(b7_ring_kernel<32>); break;
+    case 8: fn = reinterpret_cast<const void*>(odm_grad_wide_kernel); break;
+    case 9:
+      fn = reinterpret_cast<const void*>(odm_grad_reduce_kernel);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return repro::kernel_attributes(fn, NT, smem, out);
 }

@@ -185,7 +185,8 @@ def cd_block_sweep(q_blocks: Tensor, alphas: Tensor, us: Tensor, *,
     if valids is None:
         valids = torch.ones(nblk, B, dtype=q_blocks.dtype,
                             device=q_blocks.device)
-    if on_cpu(q_blocks, alphas, us, valids):
+    if on_cpu(q_blocks, alphas, us, valids,
+              kernel="cd_block_sweep"):
         return _greedy_tile_sweep(q_blocks, alphas, us,
                                   torch.cat([valids, valids], dim=1), c=c,
                                   ups=ups, theta=theta, mscale=mscale,
@@ -242,7 +243,7 @@ def launch_dense_matvec(q: Tensor, d: Tensor) -> Tensor:
 def dense_matvec(q: Tensor, d: Tensor, bm: int = 256) -> Tensor:
     """u_d[k] = Q[k] @ d[k] for the dense fused pass. CPU tensors run the
     plain version; CUDA tensors launch K3 (``dense_matvec.launches``)."""
-    if on_cpu(q, d):
+    if on_cpu(q, d, kernel="dense_matvec"):
         return dense_matvec_plain(q, d, bm=bm)
     u = launch_dense_matvec(q, d)
     dense_matvec.launches.bump()

@@ -184,7 +184,7 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
     """q (B, Hq, T, D); k/v (B, Hkv, S, D) -> (B, Hq, T, D). CPU tensors
     run the plain version; CUDA tensors launch B9 (counted in
     ``flash_attention.launches``)."""
-    if on_cpu(q, k, v):
+    if on_cpu(q, k, v, kernel="flash_attention"):
         return flash_attention_plain(q, k, v, causal=causal, window=window,
                                      scale=scale)
     out = launch_flash_attention(q, k, v, causal=causal, window=window,

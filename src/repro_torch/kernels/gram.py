@@ -214,7 +214,7 @@ def gram_matvec(x: Tensor, z: Tensor, g: Tensor, *, kind: str = "rbf",
     norms for rbf, when the caller keeps them. CPU tensors run the plain
     version; CUDA tensors launch K2 (counted in ``gram_matvec.launches``).
     """
-    if on_cpu(x, z, g):
+    if on_cpu(x, z, g, kernel="gram_matvec"):
         return gram_matvec_plain(x, z, g, kind=kind, gamma=gamma,
                                  degree=degree, coef0=coef0, bm=bm)
     u = launch_gram_matvec(x, z, g, kind=kind, gamma=gamma, degree=degree,
@@ -313,7 +313,7 @@ def gram(x: Tensor, z: Tensor | None = None, yx: Tensor | None = None,
         yz = yx
     kw = dict(kind=kind, gamma=gamma, degree=degree, coef0=coef0)
     labels = () if yx is None else (yx, yz)
-    if on_cpu(x, z, *labels):
+    if on_cpu(x, z, *labels, kernel="gram"):
         return gram_plain(x, z, yx, yz, bm=bm, **kw)
     xx = row_norms(x) if kind == "rbf" else None
     out = launch_gram(x, z, yx, yz, xx=xx,

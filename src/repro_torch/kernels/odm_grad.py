@@ -233,7 +233,7 @@ def odm_grad(w: Tensor, x: Tensor, y: Tensor, *, lam: float = 1.0,
     """Full-batch grad p(w), s = lam / (M (1-θ)²) with M = x.shape[0]. CPU
     tensors run the plain version; CUDA tensors launch B7 (counted in
     ``odm_grad.launches``)."""
-    if on_cpu(w, x, y):
+    if on_cpu(w, x, y, kernel="odm_grad"):
         return odm_grad_plain(w, x, y, lam=lam, theta=theta, ups=ups)
     out = launch_odm_grad(w, x, y, lam=lam, theta=theta, ups=ups)
     odm_grad.launches.bump()
@@ -252,7 +252,8 @@ def odm_svrg_grad(w: Tensor, anchor: Tensor, h: Tensor, x: Tensor,
     1/n_valid; ``s`` is the per-instance hinge scale lam/(1-θ)² (no 1/M).
     CPU tensors run the plain version; CUDA tensors launch B6 (counted in
     ``odm_svrg_grad.launches``)."""
-    if on_cpu(w, anchor, h, x, y, wt, inv_n):
+    if on_cpu(w, anchor, h, x, y, wt, inv_n,
+              kernel="odm_svrg_grad"):
         return odm_svrg_grad_plain(w, anchor, h, x, y, wt, inv_n, s=s,
                                    theta=theta, ups=ups)
     out = launch_odm_svrg_grad(w, anchor, h, x, y, wt, inv_n, s=s,
@@ -276,7 +277,8 @@ def odm_svrg_epoch(w: Tensor, anchor: Tensor, h: Tensor, xs: Tensor,
     last iterates (K, d) (the caller averages them). CPU tensors run the
     plain version; CUDA tensors launch the epoch kernel once (counted in
     ``odm_svrg_epoch.launches``)."""
-    if on_cpu(w, anchor, h, xs, ys, wts, inv_n, eta):
+    if on_cpu(w, anchor, h, xs, ys, wts, inv_n, eta,
+              kernel="odm_svrg_epoch"):
         return odm_svrg_epoch_plain(w, anchor, h, xs, ys, wts, inv_n, eta,
                                     s=s, theta=theta, ups=ups,
                                     schedule=schedule)

@@ -35,7 +35,7 @@ def score_tiles(x: Tensor, z: Tensor, coef: Tensor, *, kind: str = "rbf",
                 bt: int = 256) -> Tensor:
     """f (T,) = K(x, z) @ coef; ragged shapes are masked in the kernel,
     ``bt`` sizes the plain version's row blocks."""
-    if on_cpu(x, z, coef):
+    if on_cpu(x, z, coef, kernel="score_tiles"):
         return score_blocked(x, z, coef, kind=kind, gamma=gamma,
                              degree=degree, coef0=coef0, bt=bt)
     f = launch_score(x, z, coef, kind=kind, gamma=gamma, degree=degree,

@@ -24,16 +24,23 @@ from the per-event ``tid``.
 A device profiler sees kernels; these spans see the host-side
 orchestration — levels, segments, request batches — that the device
 timeline cannot name.
+
+While a recorder is installed, each thread also keeps the stack of its
+open spans (:func:`stack`), and a listener (set by
+:func:`repro_torch.analysis.launch_lint.record`) hears every span open:
+that is how the launch lint gives each kernel dispatch its structural
+path, such as ``fit/route.dsvrg/dsvrg.epoch``.
 """
 from __future__ import annotations
 
+import itertools
 import json
 import os
 import threading
 import time
 
 __all__ = ["Span", "SpanRecorder", "span", "trace_ctx", "install",
-           "current_recorder"]
+           "current_recorder", "stack"]
 
 
 class _NoopSpan:
@@ -53,24 +60,50 @@ _NOOP = _NoopSpan()
 #: the process-wide recorder; None means tracing is off (the fast path)
 _ACTIVE: "SpanRecorder | None" = None
 
+#: called with each span as it opens (the launch lint's recording); None
+#: when nothing listens
+_LISTENER = None
+
+_IDS = itertools.count(1)
+_TLS = threading.local()
+
+
+def stack() -> tuple["Span", ...]:
+    """The calling thread's open spans, outermost first (empty when no
+    recorder is installed)."""
+    return tuple(getattr(_TLS, "stack", ()))
+
 
 class Span:
     """One in-flight span; records itself into the recorder on exit."""
 
-    __slots__ = ("recorder", "name", "attrs", "t0")
+    __slots__ = ("recorder", "name", "attrs", "t0", "sid")
 
     def __init__(self, recorder: "SpanRecorder", name: str, attrs: dict):
         self.recorder = recorder
         self.name = name
         self.attrs = attrs
         self.t0 = 0
+        self.sid = 0
 
     def __enter__(self):
+        self.sid = next(_IDS)
+        st = getattr(_TLS, "stack", None)
+        if st is None:
+            st = _TLS.stack = []
+        st.append(self)
+        if _LISTENER is not None:
+            _LISTENER(self)
         self.t0 = time.perf_counter_ns()
         return self
 
     def __exit__(self, *exc):
         t1 = time.perf_counter_ns()
+        st = _TLS.stack
+        if st and st[-1] is self:
+            st.pop()
+        elif self in st:
+            st.remove(self)
         self.recorder.add_span(self.name, self.t0 / 1e3,
                                (t1 - self.t0) / 1e3,
                                tid=threading.get_ident(), **self.attrs)

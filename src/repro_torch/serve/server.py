@@ -48,6 +48,7 @@ import weakref
 import torch
 
 from repro_torch import sharding as shd
+from repro_torch.analysis import launch_lint as _lint
 from repro_torch.kernels import ops
 from repro_torch.kernels import score as score_mod
 from repro_torch.observe.instruments import MetricsRegistry, percentile
@@ -106,11 +107,14 @@ class _BucketGraph:
         with torch.cuda.device(z.device):
             self.graph, self.out = capture_graph(run)
         score_mod.score_tiles.launches.bump()
+        _lint.note_kernel("score_tiles", "cuda", (self.x, z, coef))
+        self.z, self.coef = z, coef
         self.replays = 0
 
     def replay(self) -> None:
         self.graph.replay()
         score_mod.score_tiles.launches.bump()
+        _lint.note_kernel("score_tiles", "cuda", (self.x, self.z, self.coef))
         self.replays += 1
 
 
@@ -399,4 +403,5 @@ def score_sharded(model: FittedODM, x, mesh, data_axis: str = "data"
     else:
         part = score_mod.launch_score(x.contiguous(), z, c, slab=slab, **kw)
         score_mod.score_tiles.launches.bump()
+        _lint.note_kernel("score_tiles", "cuda", (x, z, c))
     return shd.psum(part, mesh, data_axis)

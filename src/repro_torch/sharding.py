@@ -45,6 +45,7 @@ from typing import Any, Mapping, Sequence
 
 import torch
 
+from repro_torch.analysis import launch_lint as _lint
 from repro_torch.analysis.invariants import counter as _counter
 from repro_torch.observe.spans import span as _span
 
@@ -283,6 +284,7 @@ def _collective(op: str, t: Tensor):
     nbytes = t.numel() * t.element_size()
     _counter(f"collective.{op}").bump()
     _counter(f"collective.{op}.bytes").bump(nbytes)
+    _lint.note_collective(op, nbytes)
     return _span(f"collective.{op}", bytes=nbytes)
 
 

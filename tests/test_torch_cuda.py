@@ -1325,3 +1325,42 @@ def test_mesh_two_ranks_share_one_card_over_gloo(dev, tmp_path):
     o2 = obj(torch.tensor(res[0]["alpha"], device=dev),
              torch.tensor(res[0]["perm"], device=dev))
     assert abs(o1 - o2) < 1e-3
+
+
+# -- the observability and analysis layer on the card --------------------------
+
+def test_kernel_attributes_match_their_plans(dev):
+    """Every kernel's main-path plan against the built library: no spill,
+    the mirror's static shared memory, block size and register cap, at
+    least its CTAs an SM, and the library's plan queries equal to the
+    mirror (hopper_check.check_device)."""
+    from repro_torch.analysis import hopper_check as hc
+    attrs = hc.check_device()
+    assert set(attrs) == set(hc.default_plans())
+    for key, a in attrs.items():
+        assert a["local_bytes"] == 0, key
+    assert len(hc.variant_report()) == sum(hc.VARIANTS.values())
+
+
+def test_verify_all_on_the_card(dev):
+    from repro_torch.analysis import invariants as inv
+    got = inv.verify_all(device="cuda")
+    assert set(got) == {i.name for i in inv.invariants() if not i.slow}
+
+
+def test_profiled_fit_on_the_card_holds_its_kernels(dev, tmp_path):
+    """fit(profile_dir=) on the card writes a Chrome trace holding K1, K3
+    and B8's device time, and equals the unprofiled fit bit for bit."""
+    import json
+
+    from repro_torch.analysis import invariants as inv
+    from repro_torch.observe import profiler
+    x, y = inv._toy_data(256, 6, device="cuda")
+    _, bare = inv._estimator("sodm", "cuda", engine="pallas").fit(x, y, 0)
+    _, prof = inv._estimator("sodm", "cuda", engine="pallas").fit(
+        x, y, 0, profile_dir=tmp_path)
+    assert torch.equal(bare.raw.alpha, prof.raw.alpha)
+    with open(tmp_path / profiler.FILENAME) as f:
+        summary = profiler.kernel_summary(json.load(f))
+    for name in ("cd_block_sweep", "dense_matvec", "gram"):
+        assert summary[name]["count"] > 0 and summary[name]["us"] > 0, name

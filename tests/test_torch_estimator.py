@@ -1,6 +1,7 @@
 """repro_torch.api (spec, registry, report, estimator) and data.synthetic
 against the reference's behavior."""
 import dataclasses
+import json
 
 import numpy as np
 import pytest
@@ -45,11 +46,11 @@ def test_default_device_is_the_card(monkeypatch):
         ODMEstimator(device="cuda")
 
 
-def test_unported_routes_raise_with_roadmap_item():
-    """Every route of the reference is registered; what is not ported yet
-    (profiling) raises naming its ROADMAP item. A ShardedSource trains
-    the dsvrg and cascade routes out of core; an array without labels
-    raises."""
+def test_unported_routes_raise_with_roadmap_item(tmp_path):
+    """Every route of the reference is registered, and everything of the
+    facade is ported: ``profile_dir`` writes a Chrome trace. A
+    ShardedSource trains the dsvrg and cascade routes out of core; an
+    array without labels raises."""
     from repro_torch.data import streaming as tds
     with pytest.raises(ValueError, match="unknown route"):
         ODMEstimator(route="nope", device="cpu")
@@ -74,8 +75,10 @@ def test_unported_routes_raise_with_roadmap_item():
             est.fit(x, y, faults=object())
         with pytest.raises(ValueError, match="has no resume seam"):
             est.fit(x, y, resume="/nonexistent")
-    with pytest.raises(NotImplementedError, match="A15"):
-        ODMEstimator(device="cpu").fit(x, y, profile_dir="/nonexistent")
+    ODMEstimator(ProblemSpec.create("linear"), device="cpu",
+                 route="dsvrg").fit(x, y, profile_dir=tmp_path)
+    with open(tmp_path / "profile.json") as f:
+        assert json.load(f)["traceEvents"]
 
 
 @pytest.mark.parametrize("kernel", ["rbf", "linear", "poly"])

@@ -115,6 +115,10 @@ def test_instruments_import_no_higher_layer():
                          env={**os.environ, "PYTHONPATH": SRC}).stdout
     assert eval(out) == ["repro_torch.analysis",
                          "repro_torch.analysis.invariants",
+                         "repro_torch.analysis.launch_lint",
                          "repro_torch.observe",
                          "repro_torch.observe.instruments",
-                         "repro_torch.observe.spans"]
+                         "repro_torch.observe.profiler",
+                         "repro_torch.observe.spans",
+                         "repro_torch.observe.tracker",
+                         "repro_torch.observe.trend"]

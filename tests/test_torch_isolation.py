@@ -56,10 +56,21 @@ def test_no_module_imports_jax_or_repro(path):
 def test_every_module_names_its_counterpart():
     """Layout rule: repro_torch/<sub>/<mod>.py ports repro/<sub>/<mod>.py
     and exists only where the reference module does (plus the port's own
-    helpers)."""
+    helpers). Two analysis modules port a TPU-specific reference module
+    under a name that says what they check on the port: the launch lint
+    (jaxpr_lint.py) and the Hopper plan checker (pallas_check.py)."""
     own = {"interop.py", "_device.py", "_build.py", "__init__.py"}
+    renamed = {os.path.join("analysis", "launch_lint.py"):
+               os.path.join("analysis", "jaxpr_lint.py"),
+               os.path.join("analysis", "hopper_check.py"):
+               os.path.join("analysis", "pallas_check.py")}
     for path in _py_files():
         rel = os.path.relpath(path, PKG)
         if os.path.basename(rel) in own:
             continue
-        assert os.path.exists(os.path.join(ROOT, "src", "repro", rel)), rel
+        ref = renamed.get(rel, rel)
+        assert os.path.exists(os.path.join(ROOT, "src", "repro", ref)), rel
+        if ref != rel:
+            with open(path) as fh:
+                assert f"repro.{ref[:-3].replace(os.sep, '.')}" in \
+                    fh.read(), f"{rel} does not name {ref}"

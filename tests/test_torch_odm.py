@@ -191,20 +191,24 @@ def test_svrg_direction_matches_reference(masked):
 
 def test_svrg_direction_batches_over_chains():
     """A leading chain axis (the parallel schedule's) equals one chain at
-    a time."""
+    a time, within the port's kernel-parity band (1e-5 of the largest
+    value): a batched and an unbatched matmul may round one fp32 sum
+    differently. Every input comes from the test's own seed."""
     rng = np.random.default_rng(4)
     xs = torch.tensor(rng.standard_normal((3, 12, 5)), dtype=torch.float32)
     ys = torch.tensor(np.sign(rng.standard_normal((3, 12))),
                       dtype=torch.float32)
     ws = torch.tensor(rng.standard_normal((3, 5)), dtype=torch.float32)
-    a, h = torch.randn(5), torch.randn(5)
+    a, h = (torch.tensor(rng.standard_normal(5), dtype=torch.float32)
+            for _ in range(2))
     wb = (torch.arange(12) < 9).float()
     tp = todm.ODMParams(20.0)
     got = todm.svrg_direction(ws, a, h, xs, ys, tp, wb=wb)
     for c in range(3):
+        want = todm.svrg_direction(ws[c], a, h, xs[c], ys[c], tp, wb=wb)
         torch.testing.assert_close(
-            got[c], todm.svrg_direction(ws[c], a, h, xs[c], ys[c], tp,
-                                        wb=wb), rtol=1e-6, atol=1e-6)
+            got[c], want, rtol=0.0,
+            atol=1e-5 * float(want.abs().max()))
 
 
 def test_primal_dual_bridges():
