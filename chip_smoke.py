@@ -251,6 +251,45 @@ Phases (any failed check exits nonzero):
    mirror that differs; then every compiled variant's local memory.
    14c. invariants.verify_all(device="cuda"): every quick declaration on
    the card, each count also held against the launch counters.
+2e. (after phase 2d) The LM training attention's kernels against their
+   plain versions (the reference's _blocked_flash_fwd / _bwd step by
+   step over 512-key blocks), fp32 arithmetic, TF32 off: F
+   (flash_f32_stats: out, m, l), N1-dq (dq and D) and N1-dkdv (dk, dv),
+   after N1's registers, shared memory and spills from the build log. The
+   qwen3-0.6b training shape (B=4, Hq=16, Hkv=8, T=S=2048, D=128, causal),
+   ragged T=S=1000 and 2049, a window of 256, q_offset 300 with T < S,
+   GQA groups 1 and 4 at D=64, D=32 and 16, and bf16 inputs. Bands: out,
+   dq, dk, dv within 1e-5 x max(1, max|.|); m and l 1e-5 relative; bf16
+   results within one bf16 ulp plus the fp32 band. At the qwen3 shape each
+   kernel's ms beside its bound (F: two products; the backward's five
+   shared out, N1-dq dQ and D, N1-dkdv S, dP, dV and dK, so the S and dP
+   that N1-dq recomputes show against the bounds; the split's seven as
+   text) and the yardstick: scaled_dot_product_attention
+   (memory-efficient backend, TF32 off, enable_gqa; PyTorch's own choice
+   where that backend refuses GQA) forward, and torch.autograd.grad
+   through it.
+15. The LM training path at full width and depth: qwen3-0.6b (28 layers,
+   d_model 1,024, vocab 152,064, tied, fp32 weights, bf16 compute,
+   remat="full"), random weights from a seeded generator, 8
+   make_train_step steps on one batch of B=4 x T=2,048 from data/lm
+   (seed 0, step 0), AdamWConfig(lr=1e-3, warmup_steps=1). Every loss and
+   grad norm finite, the last loss below the first; over the 8 steps F
+   launches 56 a step (28 forward + 28 recomputed), N1-dq and N1-dkdv 28
+   each, B9 and every ODM kernel never. Step time (host clock to a
+   synchronize), tokens/s, peak memory, the kernels' share of a step;
+   then one more step under torch.profiler (device time, launches, the
+   largest device-time entries).
+   One gradient with remat="none" equal to remat="full"'s bit for bit,
+   with F launched 28 times.
+   15b. Card against CPU: qwen3-0.6b at full width, 2 layers, one numpy
+   draw of the weights (interop.train_state_from_numpy), B=1, T=64: the
+   loss within 1e-5 relative and every gradient leaf within 1e-4 x its
+   max with fp32 compute (0.05 x in bf16, the CPU tests' band); one train
+   step's loss; grad_accum=2 against the full batch of 2: the first
+   moment m within 1e-5 of each leaf's max, the parameters within 1e-4.
+   15c. launch/train.train at 2 layers, full width, T=256: 4 steps
+   straight against 2 steps with --ckpt-every 2 and --resume for 2 more:
+   the resumed losses and final parameters equal bit for bit.
 Each phase prints its wall time.
 
 The kernels line reports, per kernel: its time, its plain version's and
@@ -263,7 +302,11 @@ path runs (B8 among them), on the phishing path for K3 (which runs on
 phishing's dense levels only), on the SUSY path for the epoch kernel, B6
 (0: its arithmetic runs inside the epoch kernel) and B7, on the cascade
 path for K4, on the qwen3-0.6b path for B9 in bf16 and on its fp32 prefill
-for B9 in fp32 (flash_attention_f32); ``launches_by_path`` gives every
+for B9 in fp32 (flash_attention_f32), on the qwen3-0.6b training path
+(phase 15's 8 steps, ``qwen3-0.6b train``) for F and N1 (N1-dq's and
+N1-dkdv's plain_ms and library_ms are those of the whole backward, which
+their plain version and the yardstick compute in one call);
+``launches_by_path`` gives every
 path, among them ``dsvrg_stream`` (6c), ``cascade_stream`` (8b),
 ``serve`` (phase 4b), where score_tiles' entry counts the bucket graphs'
 warm-ups plus their replays, as its ``launches_counting`` says, and the
@@ -1797,6 +1840,398 @@ def observe_phase(ds, fit4, launches4, params, cfg, gamma) -> None:
         f"({time.perf_counter() - t0:.1f} s): {sorted(got)}")
 
 
+# ---------------------------------------------------------------------------
+# phases 2e and 15: the LM training path (F, N1, the train step)
+# ---------------------------------------------------------------------------
+
+def bf16_rounding_band(got, want) -> bool:
+    """bf16 results of fp32 arithmetic against the plain version's: each
+    element within one bf16 ulp (2^-7 of its magnitude: the two fp32
+    values round apart at most that far) plus the fp32 band, 1e-5 of the
+    largest (a tiny element's fp32 error is a large share of its own
+    ulp)."""
+    import torch
+    a, b = got.float(), want.float()
+    mag = torch.maximum(a.abs(), b.abs())
+    lim = mag * 2.0 ** -7 + 1e-5 * max(1.0, float(b.abs().max()))
+    return bool(((a - b).abs() <= lim).all())
+
+
+def train_kernels_phase(fa_mod, dev, derate, stats) -> None:
+    """Phase 2e: F (``flash_f32_stats``), N1-dq and N1-dkdv against their
+    plain versions on the card, fp32 arithmetic (TF32 off), timed beside
+    their bounds and the SDPA yardstick. See the module docs."""
+    import torch
+    from repro_torch.kernels import _build
+    say("== phase 2e: F (training forward) and N1 (dq, dk, dv) vs their "
+        "plain versions on the card")
+    log = (_build.library_path().parent / "build.log").read_text()
+    lib = _build.library()
+    for name, regs, smem, spills in kernel_resources(log, "flash_bwd.cu"):
+        dim = int(name[name.index("<") + 1:-1])
+        dyn = lib.flash_bwd_smem(int(name.startswith("flash_bwd_dkdv")), dim)
+        say(f"  {name}: {regs} registers, {smem} bytes static shared + "
+            f"{dyn} bytes dynamic, spills {spills}")
+    gen = torch.Generator(device=dev).manual_seed(24)
+
+    def case(label, B, hq, hkv, T, S, D, dtype=torch.float32, window=None,
+             q_offset=0, timed=False):
+        q, dout = (torch.randn(B, T, hq, D, generator=gen, device=dev)
+                   .to(dtype) for _ in range(2))
+        k, v = (torch.randn(B, S, hkv, D, generator=gen, device=dev)
+                .to(dtype) for _ in range(2))
+        kw = dict(causal=True, window=window, q_offset=q_offset)
+        # the arithmetic is fp32 whatever the inputs (the wrappers upcast
+        # them): compare the fp32 results, then the bf16 roundings
+        qf, kf, vf, df = (t.float() for t in (q, k, v, dout))
+        out, m, l = fa_mod.launch_flash_attention_train(qf, kf, vf, **kw)
+        out_p, m_p, l_p = fa_mod.flash_attention_train_plain(qf, kf, vf,
+                                                             **kw)
+        ops = fa_mod.bwd_operands(qf, kf, vf, out, df)
+        dq, delta = fa_mod.launch_flash_bwd_dq(*ops, m, l, **kw)
+        dk, dv = fa_mod.launch_flash_bwd_dkdv(*ops[:3], ops[4], m, l,
+                                              delta, **kw)
+        dq_p, dk_p, dv_p = fa_mod.flash_attention_bwd_plain(
+            qf, kf, vf, out, m, l, df, **kw)
+        errs = {}
+        for n, a, b in (("out", out, out_p), ("dq", dq, dq_p),
+                        ("dk", dk, dk_p), ("dv", dv, dv_p)):
+            errs[n] = (float((a - b).abs().max()),
+                       max(1.0, float(b.abs().max())))
+        rel = {n: float(((a - b).abs() / b.abs()).max())
+               for n, a, b in (("m", m, m_p), ("l", l, l_p))}
+        ok = all(e <= 1e-5 * s for e, s in errs.values()) and all(
+            r <= 1e-5 for r in rel.values()) and all(
+            bool(torch.isfinite(t).all()) for t in (out, dq, dk, dv))
+        text = ", ".join(f"{n} {e:.2e} (max {s:.3g})"
+                         for n, (e, s) in errs.items())
+        if dtype == torch.bfloat16:
+            # the dispatch path as training runs it: bf16 in, bf16 out
+            got = fa_mod.flash_attention_train(q, k, v, **kw)
+            want = fa_mod.flash_attention_train_plain(q, k, v, **kw)
+            grads = fa_mod.flash_attention_bwd(q, k, v, got[0], got[1],
+                                               got[2], dout, **kw)
+            grads_p = fa_mod.flash_attention_bwd_plain(
+                q, k, v, got[0], got[1], got[2], dout, **kw)
+            in_band = bf16_rounding_band(got[0], want[0]) and all(
+                bf16_rounding_band(a, b) for a, b in zip(grads, grads_p))
+            text += (f"; bf16 results within one bf16 ulp (+ the fp32 "
+                     f"band): {in_band}")
+            ok = ok and in_band
+        say(f"  {label}: {text}; m {rel['m']:.1e}, l {rel['l']:.1e} relative")
+        if not ok:
+            fail(f"F / N1 {label} disagree with their plain versions")
+        if not timed:
+            return None
+        f_ms = time_ms(lambda: fa_mod.launch_flash_attention_train(
+            qf, kf, vf, **kw), 5)
+        dq_ms = time_ms(lambda: fa_mod.launch_flash_bwd_dq(*ops, m, l, **kw),
+                        5)
+        dkdv_ms = time_ms(lambda: fa_mod.launch_flash_bwd_dkdv(
+            *ops[:3], ops[4], m, l, delta, **kw), 5)
+        f_plain = time_ms(lambda: fa_mod.flash_attention_train_plain(
+            qf, kf, vf, **kw), 2)
+        bwd_plain = time_ms(lambda: fa_mod.flash_attention_bwd_plain(
+            qf, kf, vf, out, m, l, df, **kw), 2)
+        # the yardstick: SDPA's memory-efficient backend (TF32 off), GQA
+        # through enable_gqa, forward and then autograd's backward
+        from torch.nn.attention import SDPBackend, sdpa_kernel
+        qs, ks, vs, ds = (t.transpose(1, 2) for t in (qf, kf, vf, df))
+        leaves = [t.detach().requires_grad_() for t in (qs, ks, vs)]
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                *leaves, is_causal=True, enable_gqa=True)
+
+        def yardstick():
+            lib_f = time_ms(sdpa, 5)
+            o = sdpa()
+            return lib_f, time_ms(lambda: torch.autograd.grad(
+                o, leaves, ds, retain_graph=True), 5)
+        try:
+            with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+                lib_f, lib_b = yardstick()
+            yard = "SDPA, memory-efficient backend"
+        except RuntimeError as e:
+            # the backend takes no GQA in this build: PyTorch's own choice
+            lib_f, lib_b = yardstick()
+            yard = (f"SDPA, PyTorch's own backend choice (the efficient "
+                    f"backend refused: {str(e).splitlines()[0][:80]})")
+        pairs = B * hq * visible_pairs(T, S, True, window)
+        elt = 4
+        qo = B * T * hq * D * elt
+        kv = B * S * hkv * D * elt
+        st = B * hq * T * elt
+        f_b = bound(2 * kv + 2 * qo + 2 * st, 4 * D * pairs)
+        # the backward's bound is its five products; the two kernels share
+        # it: N1-dq is charged dQ and D, N1-dkdv S, dP, dV and dK. The S
+        # and dP that N1-dq recomputes are the split's own cost, charged to
+        # neither, so the kernels' times against these bounds show it
+        dq_b = bound(4 * qo + 2 * kv + 3 * st,
+                     2 * D * pairs + 2 * B * hq * T * D)
+        dkdv_b = bound(2 * qo + 4 * kv + 3 * st, 8 * D * pairs)
+        bwd_b = bound(4 * qo + 4 * kv + 2 * st, 10 * D * pairs)
+        say(f"  F ms={f_ms:.3f} plain_ms={f_plain:.3f} library_ms="
+            f"{lib_f:.3f} ({yard}) "
+            + bound_text(*f_b, derate)
+            + f"; {4 * D * pairs / f_ms / 1e9:.1f} TFLOP/s")
+        say(f"  N1-dq ms={dq_ms:.3f} " + bound_text(*dq_b, derate)
+            + f" (dQ and D of the five products); N1-dkdv ms="
+            f"{dkdv_ms:.3f} " + bound_text(*dkdv_b, derate)
+            + " (S, dP, dV and dK)")
+        say(f"  backward: N1-dq + N1-dkdv {dq_ms + dkdv_ms:.3f} ms, plain "
+            f"{bwd_plain:.3f} ms, library_ms={lib_b:.3f} ({yard}); the "
+            f"five products' bound {bound_text(*bwd_b, derate)}, "
+            f"{10 * D * pairs / (dq_ms + dkdv_ms) / 1e9:.1f} TFLOP/s of "
+            f"them; the two-kernel split computes S and dP twice, seven "
+            f"products, {bwd_b[0] * 7 / 5:.3f} ms at the fp32 peak")
+        # per kernel: the plain backward computes dq, dk and dv together;
+        # its time stands beside each of the two kernels
+        common = dict(plain_ms=bwd_plain, library_ms=lib_b)
+        stats["flash_attention_train"] = dict(
+            max_abs_err=errs["out"][0], ms=f_ms, plain_ms=f_plain,
+            library_ms=lib_f, bound_ms=f_b[0], bound_by=f_b[1])
+        stats["flash_bwd_dq"] = dict(max_abs_err=errs["dq"][0], ms=dq_ms,
+                                     bound_ms=dq_b[0], bound_by=dq_b[1],
+                                     **common)
+        stats["flash_bwd_dkdv"] = dict(
+            max_abs_err=max(errs["dk"][0], errs["dv"][0]), ms=dkdv_ms,
+            bound_ms=dkdv_b[0], bound_by=dkdv_b[1], **common)
+        return None
+
+    case("qwen3-0.6b training B=4 Hq=16 Hkv=8 T=S=2048 D=128", 4, 16, 8,
+         2048, 2048, 128, timed=True)
+    for n in (1000, 2049):
+        case(f"ragged T=S={n}", 1, 16, 8, n, n, 128)
+    case("window 256 T=S=2048", 1, 16, 8, 2048, 2048, 128, window=256)
+    case("q_offset 300, T=700 < S=1000, window 256", 1, 16, 8, 700, 1000,
+         128, window=256, q_offset=300)
+    for hq, hkv in ((8, 8), (16, 4)):
+        case(f"group {hq // hkv} Hq={hq} Hkv={hkv} D=64 T=S=1024", 2, hq, hkv,
+             1024, 1024, 64)
+    case("D=32 Hq=4 Hkv=2 T=S=333 window 100", 2, 4, 2, 333, 333, 32,
+         window=100)
+    case("D=16 Hq=4 Hkv=1 T=S=200", 2, 4, 1, 200, 200, 16)
+    case("bf16 inputs B=2 Hq=16 Hkv=8 T=S=1024 D=128", 2, 16, 8, 1024, 1024,
+         128, dtype=torch.bfloat16)
+
+
+def numpy_train_state(tree: dict) -> dict:
+    """A fresh train state in the JAX package's layout, as numpy arrays:
+    the parameters, and AdamW's step 0 with zero m and v."""
+    import numpy as np
+
+    def zeros(t):
+        if isinstance(t, dict):
+            return {k: zeros(v) for k, v in t.items()}
+        if isinstance(t, list):
+            return [zeros(v) for v in t]
+        return np.zeros_like(t)
+    return {"params": tree, "opt": (np.int32(0), zeros(tree), zeros(tree))}
+
+
+def train_phase(lm_cfg, expect, path_launches, stats, derate) -> None:
+    """Phases 15, 15b and 15c: the LM training path at full width. See
+    the module docs."""
+    import torch
+
+    from repro_torch import interop
+    from repro_torch.data import lm as lm_data
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.launch import train as train_mod
+    from repro_torch.models import model as lm_model
+    from repro_torch.optim import adamw
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.train import steps as steps_mod
+    dev = torch.device("cuda")
+    B, T, n_steps = 4, 2048, 8
+    L = lm_cfg.n_layers
+    say(f"== phase 15: train qwen3-0.6b ({L} layers, d_model "
+        f"{lm_cfg.d_model}, vocab {lm_cfg.padded_vocab}, fp32 weights, "
+        f"{lm_cfg.compute_dtype} compute, remat={lm_cfg.remat}): "
+        f"{n_steps} steps on one batch of B={B} x T={T} from data.lm")
+    t0 = time.perf_counter()
+    params = lm_model.init_params(
+        lm_cfg, generator=torch.Generator(device=dev).manual_seed(0),
+        device=dev, trainable=True)
+    state = steps_mod.TrainState.create(params, use_ef=False)
+    tc = steps_mod.TrainConfig(optimizer=adamw.AdamWConfig(
+        lr=1e-3, warmup_steps=1))
+    step = steps_mod.make_train_step(lm_cfg, tc)
+    dcfg = lm_data.LMDataConfig(vocab=lm_cfg.vocab, seq_len=T,
+                                global_batch=B, seed=0)
+    batch = lm_data.batch_at(dcfg, 0, device=dev)
+    torch.cuda.synchronize()
+    say(f"  init_params + state + batch: {time.perf_counter() - t0:.1f} s; "
+        f"{sum(p.numel() for p in params.parameters())} parameters")
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    losses, gnorms, secs = [], [], []
+    for _ in range(n_steps):
+        t0 = time.perf_counter()
+        state, mets = step(state, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(mets["loss"])
+        gnorms.append(mets["grad_norm"])
+    launches = read_launches()
+    path_launches["qwen3-0.6b train"] = launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(x) for x in losses]
+    gnorms = [float(x) for x in gnorms]
+    steady = sorted(secs[1:])[len(secs[1:]) // 2]
+    say(f"  losses {[round(x, 4) for x in losses]}")
+    say(f"  grad norms {[round(x, 4) for x in gnorms]}")
+    say(f"  step seconds {[round(x, 3) for x in secs]} (the first with "
+        f"cuBLAS's warm-up); median after it {steady:.3f} s, "
+        f"{B * T / steady:.0f} tokens/s; max_memory_allocated="
+        f"{peak_gib:.2f} GiB")
+    want = {"flash_attention_train": 2 * L * n_steps,
+            "flash_bwd_dq": L * n_steps, "flash_bwd_dkdv": L * n_steps}
+    say(f"  launches over the {n_steps} steps: "
+        + ", ".join(f"{n} {launches[n]} (want {w})" for n, w in want.items()))
+    for n, w in want.items():
+        if launches[n] != w:
+            fail(f"{n} launched {launches[n]} times in {n_steps} train "
+                 f"steps, not {w}")
+    for n in expect["qwen3-0.6b train"][1]:
+        if launches[n] != 0:
+            fail(f"kernel {n} launched on the training path")
+    if not (all(math.isfinite(x) for x in losses + gnorms)
+            and losses[-1] < losses[0]):
+        fail(f"qwen3-0.6b training: losses {losses}, grad norms {gnorms}")
+    dev_ms, n_launch, top = profile_window(lambda: step(state, batch), 1)
+    say("  one more step under the profiler: device "
+        + ("not measured" if dev_ms is None else
+           f"{dev_ms:.1f} ms ({dev_ms / 1e3 / steady:.1%} of the median "
+           f"step)")
+        + f", {n_launch:.0f} kernel launches; by device time: {top}")
+    share = {n: stats[n]["ms"] * want[n] / n_steps / 1e3 / steady
+             for n in want}
+    say("  the kernels' share of a step (CUDA-event times of phase 2e x "
+        "launches a step over the median step): "
+        + ", ".join(f"{n} {s:.1%}" for n, s in share.items())
+        + f", together {sum(share.values()):.1%}")
+
+    # one gradient with remat="none" against remat="full", bit for bit
+    grads = {}
+    for mode in ("full", "none"):
+        c = dataclasses.replace(lm_cfg, remat=mode)
+        reset_launches()
+        loss, _ = lm_model.loss_fn(params, batch, c)
+        g = torch.autograd.grad(loss, leaves(params))
+        grads[mode] = (loss.detach(), g)
+        n_f = read_launches()["flash_attention_train"]
+        say(f"  remat={mode}: loss {float(grads[mode][0]):.6f}, F launched "
+            f"{n_f} times")
+        if n_f != (2 * L if mode == "full" else L):
+            fail(f"remat={mode}: F launched {n_f} times")
+        del loss, g
+    same = torch.equal(grads["full"][0], grads["none"][0]) and all(
+        torch.equal(a, b) for a, b in zip(grads["full"][1],
+                                          grads["none"][1]))
+    say(f"  remat none vs full: loss and every gradient equal bit for bit: "
+        f"{same}")
+    if not same:
+        fail("remat='none' and remat='full' give different gradients")
+    del grads, state, params, batch
+
+    # -- 15b. card against CPU ---------------------------------------------
+    cfg2 = dataclasses.replace(lm_cfg, n_layers=2)
+    say("== phase 15b: card vs CPU: one train step of qwen3-0.6b at full "
+        "width, 2 layers, B=1, T=64, one numpy draw of the weights")
+    tree = numpy_lm_params(cfg2, seed=0)
+    toks = serve_mod.make_prompts(cfg2, 2, 65, seed=3)
+    res = {}
+    for cdt in ("float32", "bfloat16"):
+        c = dataclasses.replace(cfg2, compute_dtype=cdt)
+        for where in ("cuda", "cpu"):
+            tk = torch.as_tensor(toks, device=where)
+            b1 = {"tokens": tk[:1, :64], "labels": tk[:1, 1:65]}
+            st = interop.train_state_from_numpy(c, numpy_train_state(tree),
+                                                device=where)
+            loss, _ = lm_model.loss_fn(st["params"], b1, c)
+            g = torch.autograd.grad(loss, leaves(st["params"]))
+            res[cdt, where] = (float(loss.detach()),
+                               [x.detach().cpu() for x in g])
+            if cdt == "float32":
+                st, mets = steps_mod.make_train_step(
+                    c, steps_mod.TrainConfig())(st, b1)
+                res["step", where] = (float(mets["loss"]), [
+                    p.detach().cpu() for p in leaves(st["params"])])
+            del st
+        lc, gc = res[cdt, "cuda"]
+        lp, gp = res[cdt, "cpu"]
+        worst = max(float((a - b).abs().max()) / float(b.abs().max())
+                    for a, b in zip(gc, gp))
+        band = 1e-4 if cdt == "float32" else 0.05
+        say(f"  compute {cdt}: loss card {lc:.6f} cpu {lp:.6f} (relative "
+            f"{abs(lc - lp) / abs(lp):.2e}); worst gradient leaf "
+            f"{worst:.2e} of its max (band {band})")
+        if cdt == "float32" and abs(lc - lp) > 1e-5 * abs(lp):
+            fail("the card's fp32 loss disagrees with the CPU's")
+        if not worst <= band:
+            fail(f"the card's {cdt} gradients disagree with the CPU's")
+    lc, pc = res["step", "cuda"]
+    lp, pp = res["step", "cpu"]
+    dp = max(float((a - b).abs().max()) for a, b in zip(pc, pp))
+    say(f"  one train step (fp32): loss card {lc:.6f} cpu {lp:.6f}; "
+        f"max|params_card - params_cpu| {dp:.3e}")
+    if abs(lc - lp) > 1e-5 * abs(lp):
+        fail("the card's train step loss disagrees with the CPU's")
+    # grad_accum=2 against one batch of 2 (the reference's
+    # test_accum_matches_full_batch), fp32 compute, on the card. The first
+    # step moves each parameter by about lr * sign(g) = 3e-6, so the
+    # parameters cannot show a wrong gradient; m, (1 - b1) times the
+    # clipped mean gradient, can, and is the gate (1e-5 of each leaf's max)
+    c = dataclasses.replace(cfg2, compute_dtype="float32")
+    tk = torch.as_tensor(toks, device=dev)
+    b2 = {"tokens": tk[:, :64], "labels": tk[:, 1:65]}
+    after = {}
+    for accum in (1, 2):
+        st = interop.train_state_from_numpy(c, numpy_train_state(tree),
+                                            device=dev)
+        st, mets = steps_mod.make_train_step(
+            c, steps_mod.TrainConfig(grad_accum=accum))(st, b2)
+        after[accum] = ([p.detach() for p in leaves(st["params"])],
+                        [m.detach() for m in leaves(st["opt"].m)],
+                        float(mets["lr"]))
+        del st
+    dmax = max(float((a - b).abs().max()) for a, b in zip(after[1][0],
+                                                          after[2][0]))
+    dm = max(float((a - b).abs().max()) / float(b.abs().max())
+             for a, b in zip(after[2][1], after[1][1]))
+    say(f"  grad_accum=2 vs 1: m (the clipped gradients) within {dm:.2e} "
+        f"of its max (band 1e-5); max|params difference| {dmax:.3e} (band "
+        f"1e-4)")
+    if not (dm <= 1e-5 and dmax < 1e-4):
+        fail("grad_accum=2 differs from the full batch")
+    del after, res, tree
+
+    # -- 15c. the launcher's resume, bit for bit ----------------------------
+    say("== phase 15c: launch/train at 2 layers, full width, T=256: 4 "
+        "steps straight against 2 steps, a checkpoint and --resume for 2")
+    base = ["--arch", "qwen3-0.6b", "--full-config", "--seq-len", "256",
+            "--global-batch", "2"]
+    with tempfile.TemporaryDirectory() as d:
+        t0 = time.perf_counter()
+        straight, l_all = train_mod.train(train_mod.parse(
+            base + ["--steps", "4", "--ckpt-dir", os.path.join(d, "a")]),
+            cfg=cfg2)
+        train_mod.train(train_mod.parse(
+            base + ["--steps", "2", "--ckpt-every", "2", "--ckpt-dir",
+                    os.path.join(d, "b")]), cfg=cfg2)
+        resumed, l_b = train_mod.train(train_mod.parse(
+            base + ["--steps", "4", "--resume", "--ckpt-dir",
+                    os.path.join(d, "b")]), cfg=cfg2)
+        eq = l_b == l_all[2:] and all(
+            torch.equal(a, b) for a, b in zip(leaves(straight["params"]),
+                                              leaves(resumed["params"])))
+        say(f"  losses straight {l_all}, resumed {l_b}; final params equal "
+            f"bit for bit: {eq} ({time.perf_counter() - t0:.1f} s)")
+        if not eq:
+            fail("the resumed training run differs from the straight one")
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():  # lint: ignore[D001]
@@ -2020,34 +2455,43 @@ def main() -> None:
     b8, k4 = ("gram",), ("cd_exact",)
     mfree = ("cd_block_sweep", "gram_matvec", "score_tiles")
     lm = ("flash_attention",)
+    # the LM training path: F, then N1-dq and N1-dkdv; idle on every other
+    # path, as B9 is on the training path
+    train_k = ("flash_attention_train", "flash_bwd_dq", "flash_bwd_dkdv")
+    lm_idle = lm + train_k
     # the kernels each path must launch, and those it must not
-    expect = {"phishing": (alg1 + b8, alg2 + b6 + k4 + lm),
+    expect = {"phishing": (alg1 + b8, alg2 + b6 + k4 + lm_idle),
               "ijcnn1": (mfree + b8, ("dense_matvec",) + alg2 + b6 + k4
-                         + lm),
-              "SUSY": (alg2, alg1 + b6 + b8 + k4 + lm),
+                         + lm_idle),
+              "SUSY": (alg2, alg1 + b6 + b8 + k4 + lm_idle),
               # SUSY streamed from npy shards (6c): B7 and the epoch
               # kernel once a slab of each pass
-              "dsvrg_stream": (alg2, alg1 + b6 + b8 + k4 + lm),
+              "dsvrg_stream": (alg2, alg1 + b6 + b8 + k4 + lm_idle),
               "cascade": (b8 + k4 + ("score_tiles",),
                           ("cd_block_sweep", "gram_matvec", "dense_matvec")
-                          + alg2 + b6 + lm),
+                          + alg2 + b6 + lm_idle),
               # phishing streamed through the cascade (8b): B8 and K4 once
               # a node
               "cascade_stream": (b8 + k4 + ("score_tiles",),
                                  ("cd_block_sweep", "gram_matvec",
-                                  "dense_matvec") + alg2 + b6 + lm),
-              "dip": (mfree + b8, ("dense_matvec",) + alg2 + b6 + k4 + lm),
-              "dc": (mfree + b8, ("dense_matvec",) + alg2 + b6 + k4 + lm),
-              "svrg": (alg2, alg1 + b6 + b8 + k4 + lm),
-              "csvrg": (alg2, alg1 + b6 + b8 + k4 + lm),
-              "qwen3-0.6b": (lm, alg1 + alg2 + b6 + b8 + k4),
-              "qwen3-0.6b fp32": (lm, alg1 + alg2 + b6 + b8 + k4),
+                                  "dense_matvec") + alg2 + b6 + lm_idle),
+              "dip": (mfree + b8, ("dense_matvec",) + alg2 + b6 + k4
+                      + lm_idle),
+              "dc": (mfree + b8, ("dense_matvec",) + alg2 + b6 + k4
+                     + lm_idle),
+              "svrg": (alg2, alg1 + b6 + b8 + k4 + lm_idle),
+              "csvrg": (alg2, alg1 + b6 + b8 + k4 + lm_idle),
+              "qwen3-0.6b": (lm, alg1 + alg2 + b6 + b8 + k4 + train_k),
+              "qwen3-0.6b fp32": (lm, alg1 + alg2 + b6 + b8 + k4
+                                  + train_k),
+              "qwen3-0.6b train": (train_k, alg1 + alg2 + b6 + b8 + k4
+                                   + lm),
               # ijcnn1's model served through the bucket graphs (4b): K2
               # as the scorer, its launches the graphs' warm-ups and
               # replays
               "serve": (("score_tiles",),
                         ("cd_block_sweep", "gram_matvec", "dense_matvec")
-                        + alg2 + b6 + b8 + k4 + lm)}
+                        + alg2 + b6 + b8 + k4 + lm_idle)}
     fits, path_launches, fit_times = {}, {}, {}
     for phase, ds, gamma in ((3, phishing, g_phish), (4, ijcnn1, g_ijc)):
         say(f"== phase {phase}: fit {ds.name} M={ds.x_train.shape[0]} "
@@ -2967,6 +3411,9 @@ def main() -> None:
             flash_case(f"D={D} Hq=4 Hkv=2 T=100 < S=333 as views {tag}", 2,
                        4, 2, 100, 333, D, dt, views=True)
 
+    # -- 2e. F and N1 against their plain versions ---------------------------
+    train_kernels_phase(fa_mod, dev, derate, stats)
+
     # -- 11. the LM serving path: qwen3-0.6b at full width and depth ---------
     say(f"== phase 11: serve qwen3-0.6b ({lm_cfg.n_layers} layers, d_model "
         f"{lm_cfg.d_model}, vocab {lm_cfg.padded_vocab}): B={B11} prompts "
@@ -3136,6 +3583,9 @@ def main() -> None:
     observe_phase(ijcnn1, fits["ijcnn1"], path_launches["ijcnn1"],
                   odm_params, odm_cfg, g_ijc)
 
+    # -- 15. the LM training path: qwen3-0.6b, card vs CPU, resume ----------
+    train_phase(lm_cfg, expect, path_launches, stats, derate)
+
     # -- report ---------------------------------------------------------------
     end_phase()
     meta = {
@@ -3164,13 +3614,26 @@ def main() -> None:
                             "src/repro/kernels/flash_attn.py:93"),
         "flash_attention_f32": ("src/repro_torch/kernels/csrc/flash_attn.cu",
                                 "src/repro/kernels/flash_attn.py:93"),
+        "flash_attention_train": (
+            "src/repro_torch/kernels/csrc/flash_attn.cu",
+            "no TPU kernel: src/repro/models/attention.py:126 "
+            "(_blocked_flash_fwd, plain JAX under a custom VJP)"),
+        "flash_bwd_dq": (
+            "src/repro_torch/kernels/csrc/flash_bwd.cu",
+            "no TPU kernel: src/repro/models/attention.py:153 "
+            "(_blocked_flash_bwd, plain JAX: dq)"),
+        "flash_bwd_dkdv": (
+            "src/repro_torch/kernels/csrc/flash_bwd.cu",
+            "no TPU kernel: src/repro/models/attention.py:153 "
+            "(_blocked_flash_bwd, plain JAX: dk, dv)"),
     }
     # the path whose launches each kernel reports: the first path that
     # runs it; B6's per-step kernel runs on no path (the epoch kernel
     # does its arithmetic), so it reports SUSY's 0; B9's fp32 kernel the
     # fp32 prefill
     report_path = {"odm_svrg_grad": "SUSY",
-                   "flash_attention_f32": "qwen3-0.6b fp32"}
+                   "flash_attention_f32": "qwen3-0.6b fp32",
+                   **{n: "qwen3-0.6b train" for n in train_k}}
     kernels = []
     for name, (source, replaces) in meta.items():
         s = stats[name]

@@ -23,6 +23,7 @@ local memory, most threads a block) and
 ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` at the plan's dynamic
 shared memory, and the library's own plan queries (``gram_smem``,
 ``gram_matvec_smem``, ``gram_matvec_scratch``, ``flash_attn_smem``,
+``flash_bwd_smem``,
 ``odm_grad_blocks``, ``odm_grad_smem``, ``odm_svrg_epoch_smem`` and
 ``odm_svrg_epoch_mode``, ``cd_exact_state_in_smem``) give the dynamic
 shared memory, grid and mode of the same shapes. A spill
@@ -50,7 +51,8 @@ __all__ = [
     "variant_report", "cd_sweep_plan", "gram_matvec_plan",
     "dense_matvec_plan", "cd_exact_plan", "svrg_grad_plan",
     "svrg_epoch_plan", "b7_ring_plan", "gram_plan", "flash_bf16_plan",
-    "flash_f32_plan",
+    "flash_f32_plan", "flash_f32_stats_plan", "flash_bwd_dq_plan",
+    "flash_bwd_dkdv_plan",
 ]
 
 #: the H100's per-block and per-SM limits (compute capability 9.0)
@@ -506,6 +508,56 @@ def flash_f32_plan(B: int = 4, Hq: int = 16, T: int = 2048,
         min_ctas=1, shape=(("B", B), ("Hq", Hq), ("T", T), ("D", D)))
 
 
+def flash_f32_stats_plan(B: int = 4, Hq: int = 16, T: int = 2048,
+                         D: int = 128) -> KernelPlan:
+    """F, the training forward (``csrc/flash_attn.cu::flash_f32_stats``):
+    B9 fp32's body and plan, which also stores each row's m and l."""
+    plan = flash_f32_plan(B=B, Hq=Hq, T=T, D=D)
+    idx = {16: 8, 32: 9, 64: 10, 128: 11}.get(D, -1)
+    return dataclasses.replace(plan, kernel="flash_f32_stats",
+                               symbol=f"flash_f32_stats<{D}>", variant=idx)
+
+
+def _bwd_tile(D: int) -> tuple[int, ...]:
+    """One staged 64-row tile of N1 (``csrc/flash_bwd.cu::BTiles``), rows
+    padded to D + 4 floats."""
+    return (64, D + 4)
+
+
+def flash_bwd_dq_plan(B: int = 4, Hq: int = 16, T: int = 2048,
+                      D: int = 128) -> KernelPlan:
+    """N1-dq (``csrc/flash_bwd.cu::flash_bwd_dq``): 256 threads a
+    (b, q head, 64-row query block); Q and dO resident, a two-stage ring
+    of 64-key K and V tiles, dSᵀ (64 x 68) and the block's D."""
+    idx = {16: 0, 32: 1, 64: 2, 128: 3}.get(D, -1)
+    return KernelPlan(
+        kernel="flash_bwd_dq", symbol=f"flash_bwd_dq<{D}>",
+        entry="flash_bwd_attributes", variant=idx, threads=256,
+        grid=(-(-T // 64) * Hq * B,),
+        blocks=(Block("q", _bwd_tile(D)), Block("dout", _bwd_tile(D)),
+                Block("k_ring", (2,) + _bwd_tile(D)),
+                Block("v_ring", (2,) + _bwd_tile(D)),
+                Block("ds_t", (64, 68)), Block("delta", (64,))),
+        min_ctas=1, shape=(("B", B), ("Hq", Hq), ("T", T), ("D", D)))
+
+
+def flash_bwd_dkdv_plan(B: int = 4, Hkv: int = 8, S: int = 2048,
+                        D: int = 128) -> KernelPlan:
+    """N1-dkdv (``csrc/flash_bwd.cu::flash_bwd_dkdv``): 256 threads a
+    (b, kv head, 64-key block); K and V resident, a two-stage ring of
+    64-row Q and dO tiles, one 64 x 68 tile for P and then dS."""
+    idx = {16: 4, 32: 5, 64: 6, 128: 7}.get(D, -1)
+    return KernelPlan(
+        kernel="flash_bwd_dkdv", symbol=f"flash_bwd_dkdv<{D}>",
+        entry="flash_bwd_attributes", variant=idx, threads=256,
+        grid=(-(-S // 64) * Hkv * B,),
+        blocks=(Block("k", _bwd_tile(D)), Block("v", _bwd_tile(D)),
+                Block("q_ring", (2,) + _bwd_tile(D)),
+                Block("dout_ring", (2,) + _bwd_tile(D)),
+                Block("p_ds", (64, 68))),
+        min_ctas=1, shape=(("B", B), ("Hkv", Hkv), ("S", S), ("D", D)))
+
+
 #: kernel name -> plan builder (kwargs: the call's shape)
 PLAN_BUILDERS: dict[str, Callable[..., KernelPlan]] = {
     "cd_sweep": cd_sweep_plan,
@@ -518,13 +570,16 @@ PLAN_BUILDERS: dict[str, Callable[..., KernelPlan]] = {
     "gram": gram_plan,
     "flash_bf16": flash_bf16_plan,
     "flash_f32": flash_f32_plan,
+    "flash_f32_stats": flash_f32_stats_plan,
+    "flash_bwd_dq": flash_bwd_dq_plan,
+    "flash_bwd_dkdv": flash_bwd_dkdv_plan,
 }
 
 #: the main path's shapes (chip_smoke.py's configurations): ijcnn1's
 #: level (D = 22, blocks of 256) for K1/K2/B8, phishing's for K3/K4, the
 #: SUSY stand-in (4M rows, d = 18, minibatches of 64) for B6/B7 and the
-#: epoch kernel, qwen3-0.6b prefill (head dim 128) for B9; K2 at both
-#: walks
+#: epoch kernel, qwen3-0.6b prefill (head dim 128) for B9 and its
+#: training step for F and N1; K2 at both walks
 DEFAULT_SHAPES: dict[str, tuple[dict, ...]] = {
     "cd_sweep": ({"T": 64, "B": 256},),
     "gram_matvec": ({"K": 8, "M": 6250, "D": 22, "sym": True},
@@ -538,6 +593,9 @@ DEFAULT_SHAPES: dict[str, tuple[dict, ...]] = {
     "gram": ({"K": 8, "M": 6250, "D": 22},),
     "flash_bf16": ({"B": 4, "Hq": 16, "T": 2048, "D": 128},),
     "flash_f32": ({"B": 4, "Hq": 16, "T": 2048, "D": 128},),
+    "flash_f32_stats": ({"B": 4, "Hq": 16, "T": 2048, "D": 128},),
+    "flash_bwd_dq": ({"B": 4, "Hq": 16, "T": 2048, "D": 128},),
+    "flash_bwd_dkdv": ({"B": 4, "Hkv": 8, "S": 2048, "D": 128},),
 }
 
 
@@ -566,7 +624,7 @@ def check_kernels() -> dict[str, str]:
 VARIANTS = {"cd_sweep_attributes": 12, "dense_matvec_attributes": 1,
             "cd_exact_attributes": 1, "gram_attributes": 16,
             "gram_matvec_attributes": 10, "odm_grad_attributes": 10,
-            "flash_attn_attributes": 8}
+            "flash_attn_attributes": 12, "flash_bwd_attributes": 8}
 
 _ATTR_KEYS = ("regs", "smem_static", "local_bytes", "max_threads",
               "ctas_per_sm", "threads")
@@ -605,9 +663,12 @@ def _library_queries(plan: KernelPlan, sms: int, ctas: int) -> list[str]:
         want("gram_matvec_scratch", lib.gram_matvec_scratch(
             s["K"], s["M"], s["N"], s["D"], s["D4"], _kind_code(s["kind"]),
             int(s["sym"])), _k2_scratch(s, sms, ctas))
-    elif plan.kernel in ("flash_bf16", "flash_f32"):
+    elif plan.kernel in ("flash_bf16", "flash_f32", "flash_f32_stats"):
         want("flash_attn_smem", lib.flash_attn_smem(
             int(plan.kernel == "flash_bf16"), s["D"]), plan.smem_dynamic)
+    elif plan.kernel in ("flash_bwd_dq", "flash_bwd_dkdv"):
+        want("flash_bwd_smem", lib.flash_bwd_smem(
+            int(plan.kernel == "flash_bwd_dkdv"), s["D"]), plan.smem_dynamic)
     elif plan.kernel == "b7_ring":
         want("odm_grad_smem", lib.odm_grad_smem(s["M"], s["d"]),
              plan.smem_dynamic)

@@ -340,6 +340,30 @@ def _flash_single_launch(dtype: str):
     return run
 
 
+def _flash_train_dispatches(kernel: str):
+    """The training attention: a forward is one dispatch (F), a backward
+    two in order (N1-dq, whose D N1-dkdv reads, then N1-dkdv); each
+    declaration holds its kernel's place in that plan."""
+    def run(device: str):
+        import torch
+        from repro_torch.models import attention as A
+        g = torch.Generator().manual_seed(0)
+        q = torch.randn(1, 24, 4, 16, generator=g).to(device)
+        k, v = (torch.randn(1, 24, 2, 16, generator=g).to(device)
+                for _ in range(2))
+        q.requires_grad_()
+        fwd = _expect_dispatches(
+            lambda: A.attend(q, k, v, impl="flash_xla"),
+            ["flash_attention_train"], "flash_xla forward", device)
+        out = A.attend(q, k, v, impl="flash_xla")
+        bwd = _expect_dispatches(
+            lambda: torch.autograd.grad(out.sum(), q),
+            ["flash_bwd_dq", "flash_bwd_dkdv"], "flash_xla backward",
+            device)
+        return f"{kernel}: {fwd}; {bwd}"
+    return run
+
+
 def _smem_plan(kernel: str):
     def run(device: str):
         from repro_torch.analysis import hopper_check as hc
@@ -879,6 +903,13 @@ def _declare_builtins() -> None:
                        _flash_single_launch("bfloat16")),
         "flash_f32": ("one dispatch an attention call",
                       _flash_single_launch("float32")),
+        "flash_f32_stats": ("one dispatch a training attention forward",
+                            _flash_train_dispatches("flash_f32_stats")),
+        "flash_bwd_dq": ("a training attention backward is N1-dq, then "
+                         "N1-dkdv", _flash_train_dispatches("flash_bwd_dq")),
+        "flash_bwd_dkdv": ("a training attention backward is N1-dq, then "
+                           "N1-dkdv",
+                           _flash_train_dispatches("flash_bwd_dkdv")),
     }
     for kernel, (desc, fn) in single.items():
         declare(Invariant(name=f"kernels.{kernel}.single_launch",

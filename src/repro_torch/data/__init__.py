@@ -1,1 +1,3 @@
-"""Data sets of the port (``repro_torch.data.synthetic``)."""
+"""Data of the port: ``synthetic`` (the ODM data sets), ``streaming``,
+``lm`` (synthetic LM token batches), ``stratified`` (stratified
+data-parallel sharding)."""

@@ -17,7 +17,9 @@ format, so either package reads the other's steps:
   background thread; one write is in flight at a time, and ``wait()``
   joins it and raises again any error the writer met.
 * **Format 1**: ``arrays.npz`` holds one array per leaf under its path
-  (dict keys and sequence indices joined by ``/``); ``manifest.json``
+  (dict keys, named-tuple field names and sequence indices joined by
+  ``/``; an LM's parameter module and a train state's ``AdamWState``
+  are trees like any other); ``manifest.json``
   holds ``step``, ``metadata``, each leaf's shape and dtype, and
   ``format: 1``. A dtype numpy cannot store (bfloat16) is saved as the
   unsigned integer view of its width, with the true dtype in the
@@ -41,21 +43,39 @@ from typing import Any, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 from repro_torch.observe.spans import span as _span
 
 SEP = "/"
 
 
-def _flatten(tree, prefix: str = "") -> dict[str, Any]:
-    """Leaves of nested dicts / lists / tuples under '/'-joined paths (the
-    reference's ``tree_flatten_with_path`` keys: dict keys in sorted
-    order, sequence indices)."""
+def _items(tree) -> list | None:
+    """A node's (key, child) pairs in the reference's
+    ``tree_flatten_with_path`` order — dict keys sorted, named-tuple
+    fields by name, sequence indices — or None for a leaf. A parameter
+    module (``ParameterDict`` / ``ModuleDict`` / ``ModuleList``, an LM's
+    parameter tree) is the dict or list it holds."""
+    if isinstance(tree, (nn.ParameterDict, nn.ModuleDict)):
+        tree = dict(tree.items())
+    elif isinstance(tree, nn.ModuleList):
+        tree = list(tree)
+    elif isinstance(tree, nn.Module):
+        raise TypeError(f"{type(tree).__name__} is not a parameter tree")
     if isinstance(tree, dict):
-        items = sorted(tree.items(), key=lambda kv: str(kv[0]))
-    elif isinstance(tree, (list, tuple)):
-        items = list(enumerate(tree))
-    else:
+        return sorted(tree.items(), key=lambda kv: str(kv[0]))
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return list(zip(tree._fields, tree))
+    if isinstance(tree, (list, tuple)):
+        return list(enumerate(tree))
+    return None
+
+
+def _flatten(tree, prefix: str = "") -> dict[str, Any]:
+    """Leaves of nested dicts / lists / tuples / parameter modules under
+    '/'-joined paths (:func:`_items`)."""
+    items = _items(tree)
+    if items is None:
         return {prefix: tree}
     flat: dict[str, Any] = {}
     for k, v in items:
@@ -64,12 +84,31 @@ def _flatten(tree, prefix: str = "") -> dict[str, Any]:
 
 
 def _unflatten_into(template, flat: dict[str, Any], prefix: str = ""):
+    """``template``'s structure with ``flat``'s leaves: a parameter module
+    comes back as a new module of its types, each parameter with the
+    template's ``requires_grad``."""
+    def sub(k):
+        return f"{prefix}{SEP}{k}" if prefix else str(k)
+    if isinstance(template, nn.ParameterDict):
+        return nn.ParameterDict({
+            k: nn.Parameter(_unflatten_into(v, flat, sub(k)),
+                            requires_grad=v.requires_grad)
+            for k, v in template.items()})
+    if isinstance(template, nn.ModuleDict):
+        return nn.ModuleDict({k: _unflatten_into(v, flat, sub(k))
+                              for k, v in template.items()})
+    if isinstance(template, nn.ModuleList):
+        return nn.ModuleList([_unflatten_into(v, flat, sub(i))
+                              for i, v in enumerate(template)])
     if isinstance(template, dict):
-        return {k: _unflatten_into(v, flat, f"{prefix}{SEP}{k}" if prefix
-                                   else str(k)) for k, v in template.items()}
+        return {k: _unflatten_into(v, flat, sub(k))
+                for k, v in template.items()}
+    if isinstance(template, tuple) and hasattr(template, "_fields"):
+        return type(template)(*(_unflatten_into(v, flat, sub(k))
+                                for k, v in zip(template._fields, template)))
     if isinstance(template, (list, tuple)):
-        out = [_unflatten_into(v, flat, f"{prefix}{SEP}{i}" if prefix
-                               else str(i)) for i, v in enumerate(template)]
+        out = [_unflatten_into(v, flat, sub(i))
+               for i, v in enumerate(template)]
         return type(template)(out)
     if prefix not in flat:
         raise KeyError(f"checkpoint missing leaf {prefix!r}")

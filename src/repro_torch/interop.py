@@ -13,6 +13,8 @@ arrays (no import of ``repro`` here), become the port's objects:
   csvrg).
 * :func:`lm_params_from_numpy` builds an LM's parameter module from the
   reference's parameter pytree (``repro.models.model.init_params``).
+* :func:`train_state_from_numpy` builds an LM train state (parameters,
+  ``AdamWState``, optional ``EFState``) from the reference's.
 """
 from __future__ import annotations
 
@@ -90,16 +92,44 @@ def grad_result_from_numpy(w, history, device=None) -> GradResult:
                       history=_tensor(history, torch.float32, dev))
 
 
-def lm_params_from_numpy(cfg, params: dict, device=None):
+def lm_params_from_numpy(cfg, params: dict, device=None,
+                         trainable: bool = False):
     """The reference's LM parameter pytree, as numpy arrays
     (``{"embed", "stack": {"scan": {"u0": stacked, ...}, "tail": [...]},
     "final_norm", ["unembed"]}``), -> the port's model on ``device``. The
     scan-stacked layers are taken apart in the reference's order: for each
-    repeat, the unit's positions in turn, then the tail."""
+    repeat, the unit's positions in turn, then the tail. ``trainable``
+    parameters require grad."""
     M.check_supported(cfg)
-    dev = resolve_device(device)
-    dtype = L.dtype_of(cfg.param_dtype)
+    return M.from_tree(_lm_tree(cfg, params, L.dtype_of(cfg.param_dtype),
+                                resolve_device(device)), trainable)
 
+
+def train_state_from_numpy(cfg, state: dict, device=None) -> dict:
+    """The reference's LM train state (``repro.train.steps.TrainState``:
+    ``{"params", "opt": AdamWState(step, m, v), ["ef": EFState]}``), as
+    numpy arrays, -> the port's, on ``device``: trainable parameters, and
+    m, v and the EF residual as fp32 trees un-stacked like them."""
+    from repro_torch.optim import adamw, compress
+    dev = resolve_device(device)
+    step, m, v = state["opt"]
+    out = {"params": lm_params_from_numpy(cfg, state["params"], dev,
+                                          trainable=True),
+           "opt": adamw.AdamWState(
+               step=torch.as_tensor(np.array(step), dtype=torch.int32,
+                                    device=dev),
+               m=_lm_tree(cfg, m, torch.float32, dev),
+               v=_lm_tree(cfg, v, torch.float32, dev))}
+    if "ef" in state:
+        (residual,) = state["ef"]
+        out["ef"] = compress.EFState(
+            residual=_lm_tree(cfg, residual, torch.float32, dev))
+    return out
+
+
+def _lm_tree(cfg, params: dict, dtype, dev) -> dict:
+    """A reference LM pytree as the port's nested dicts of ``dtype``
+    tensors, the scanned layers un-stacked."""
     def convert(tree, rep=None):
         if isinstance(tree, (list, tuple)):
             return [convert(t, rep) for t in tree]
@@ -114,4 +144,4 @@ def lm_params_from_numpy(cfg, params: dict, device=None):
               for i in range(len(unit))] + convert(list(stack["tail"]))
     tree = {k: convert(v) for k, v in params.items() if k != "stack"}
     tree["stack"] = {"layers": layers}
-    return M.from_tree(tree)
+    return tree

@@ -1,4 +1,5 @@
-"""Flash attention, forward: causal and/or sliding window, GQA (B9).
+"""Flash attention: the prefill's forward (B9), and the training
+attention's forward with its softmax statistics (F) and backward (N1).
 
 Port of ``repro.kernels.flash_attn``. q (B, Hq, T, D), k/v (B, Hkv, S, D)
 with Hq % Hkv == 0 give (B, Hq, T, D): query head h attends kv head
@@ -39,6 +40,26 @@ and spills. The card tests are ``tests/test_torch_cuda.py`` (marker
 
 The kernel masks ragged T and S itself, so nothing is padded. The
 reference's ``bq``/``bk`` (its VMEM tiling) have no counterpart.
+
+The training attention (the model's ``flash_xla``; no TPU kernel: the
+reference's ``models/attention.py:84-196`` is plain JAX under a custom
+VJP) takes the model's layout, q (B, T, H, dh) and k/v (B, S, KV, dh),
+with query t at position t + q_offset:
+
+* :func:`flash_attention_train_plain` / :func:`flash_attention_bwd_plain`
+  — the reference's ``_blocked_flash_fwd`` and ``_blocked_flash_bwd``
+  step by step over ``bk``-key blocks (fp32 arithmetic; fp64 inputs
+  compute in fp64, for ``gradcheck``);
+* :func:`launch_flash_attention_train` — F, B9's fp32 kernel body as
+  ``flash_f32_stats``, fed q·scale (the reference scales q in fp32
+  before the dot) with scale 1, storing m and max(l, 1e-30) per row;
+* :func:`launch_flash_bwd_dq` / :func:`launch_flash_bwd_dkdv` — N1
+  (``csrc/flash_bwd.cu``): N1-dq, a CTA a 64-row query block, computes
+  D = Σ dout·out and dq; N1-dkdv, a CTA a 64-key block, dk and dv over
+  the GQA group's query heads. No atomics: every sum has a fixed order;
+* :func:`flash_attention_train` / :func:`flash_attention_bwd` — dispatch
+  by device, counted in ``launch.flash_attention_train``,
+  ``launch.flash_bwd_dq`` and ``launch.flash_bwd_dkdv``.
 """
 from __future__ import annotations
 
@@ -194,3 +215,283 @@ def flash_attention(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
 
 
 flash_attention.launches = _counter("launch.flash_attention")
+
+
+# ---------------------------------------------------------------------------
+# the training attention: F (forward with its softmax statistics) and N1
+# (the backward, N1-dq and N1-dkdv)
+# ---------------------------------------------------------------------------
+#
+# Counterpart of ``repro.models.attention._blocked_flash_core`` (plain JAX
+# with a flash-style custom VJP, ``attention.py:112-196``). Its layout is
+# the model's: q (B, T, H, dh), k/v (B, S, KV, dh), query t at position
+# t + q_offset. Its arithmetic differs from B9's: q is scaled in fp32
+# before the dot, p stays fp32 (v is upcast), and the keys are walked in
+# ``bk``-key blocks (512 in the model). The softmax statistics m and
+# max(l, 1e-30) are (B, H, T) fp32 on both paths.
+
+def train_shape(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
+                window: int | None, q_offset: int):
+    """(B, T, H, S, KV, dh) of a training attention call; raises on a
+    shape the kernels do not take and on a call where some query row sees
+    no key (the reference's softmax is then not a softmax of any key)."""
+    B, T, H, dh = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    if (k.shape != (B, S, KV, dh) or v.shape != k.shape or H % KV):
+        raise ValueError(
+            f"flash_attention_train: q {tuple(q.shape)}, k "
+            f"{tuple(k.shape)}, v {tuple(v.shape)}: need q (B, T, H, dh), "
+            f"k/v (B, S, KV, dh) with H % KV == 0")
+    if q_offset < 0 or (window is not None
+                        and (window < 1 or q_offset + T - window >= S)):
+        raise ValueError(
+            f"flash_attention_train: q_offset={q_offset}, window={window}, "
+            f"T={T}, S={S} leave a query row that sees no key")
+    del causal
+    return B, T, H, S, KV, dh
+
+
+def _ftype(dtype: torch.dtype) -> torch.dtype:
+    """The arithmetic's type: fp32, or fp64 for fp64 inputs (gradcheck)."""
+    return torch.float64 if dtype == torch.float64 else torch.float32
+
+
+def _penalty(j: int, bk: int, S: int, qpos: Tensor, causal: bool,
+             window: int | None, dtype) -> Tensor:
+    """The reference's ``_mask_for``: an additive (T, bk) term, 0 where
+    attendable and NEG_INF where not (keys past S included)."""
+    kpos = (j * bk + torch.arange(bk, device=qpos.device))[None, :]
+    mask = kpos <= S - 1
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window is not None:
+        mask = mask & (kpos > qpos - window)
+    return torch.where(mask, 0.0, NEG_INF).to(dtype)
+
+
+def _blocks(k: Tensor, v: Tensor, bk: int):
+    """k and v zero-padded to whole ``bk``-key blocks."""
+    S = k.shape[1]
+    pad = -(-S // bk) * bk - S
+    if pad:
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    return k, v, (S + pad) // bk
+
+
+def flash_attention_train_plain(q: Tensor, k: Tensor, v: Tensor, *,
+                                causal: bool, window: int | None,
+                                q_offset: int, bk: int = 512):
+    """Plain version of F: the reference's ``_blocked_flash_fwd`` and
+    ``_flash_fwd_scan`` step by step, every ``bk``-key block in order.
+    Returns (out in q's dtype, m, max(l, 1e-30)), the statistics
+    (B, H, T)."""
+    B, T, H, S, KV, dh = train_shape(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset)
+    G = H // KV
+    ft = _ftype(q.dtype)
+    qg = q.reshape(B, T, KV, G, dh).to(ft) * dh ** -0.5
+    kp, vp, nblk = _blocks(k, v, bk)
+    qpos = (torch.arange(T, device=q.device) + q_offset)[:, None]
+    acc = torch.zeros(B, T, KV, G, dh, dtype=ft, device=q.device)
+    m = torch.full((B, T, KV, G), NEG_INF, dtype=ft, device=q.device)
+    l = torch.zeros(B, T, KV, G, dtype=ft, device=q.device)
+    for j in range(nblk):
+        kblk = kp[:, j * bk:(j + 1) * bk].to(ft)
+        vblk = vp[:, j * bk:(j + 1) * bk].to(ft)
+        logits = torch.einsum("btkgd,bskd->btkgs", qg, kblk)
+        pen = _penalty(j, bk, S, qpos, causal, window, ft)
+        logits = logits + pen[None, :, None, None, :]
+        m_new = torch.maximum(m, logits.amax(-1))
+        p = torch.exp(logits - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + torch.einsum("btkgs,bskd->btkgd", p,
+                                                   vblk)
+        m = m_new
+    lsafe = torch.clamp(l, min=1e-30)
+    out = (acc / lsafe[..., None]).reshape(B, T, H, dh).to(q.dtype)
+
+    def stat(x):
+        return x.reshape(B, T, H).transpose(1, 2).contiguous()
+    return out, stat(m), stat(lsafe)
+
+
+def flash_attention_bwd_plain(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
+                              m: Tensor, l: Tensor, dout: Tensor, *,
+                              causal: bool, window: int | None,
+                              q_offset: int, bk: int = 512):
+    """Plain version of N1: the reference's ``_blocked_flash_bwd`` step by
+    step over ``bk``-key blocks. m and l (B, H, T) as F returns them.
+    Returns (dq, dk, dv) in q's, k's and v's dtypes."""
+    B, T, H, S, KV, dh = train_shape(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset)
+    G = H // KV
+    ft = _ftype(q.dtype)
+    scale = dh ** -0.5
+    qg = q.reshape(B, T, KV, G, dh).to(ft) * scale
+    og = out.reshape(B, T, KV, G, dh).to(ft)
+    dog = dout.reshape(B, T, KV, G, dh).to(ft)
+    D = torch.sum(dog * og, dim=-1)                        # (B,T,KV,G)
+
+    def unstat(x):
+        return x.to(ft).transpose(1, 2).reshape(B, T, KV, G)
+    m5, l5 = unstat(m), unstat(l)
+    kp, vp, nblk = _blocks(k, v, bk)
+    qpos = (torch.arange(T, device=q.device) + q_offset)[:, None]
+    dq = torch.zeros(B, T, KV, G, dh, dtype=ft, device=q.device)
+    dks, dvs = [], []
+    for j in range(nblk):
+        kblk = kp[:, j * bk:(j + 1) * bk].to(ft)
+        vblk = vp[:, j * bk:(j + 1) * bk].to(ft)
+        logits = torch.einsum("btkgd,bskd->btkgs", qg, kblk)
+        pen = _penalty(j, bk, S, qpos, causal, window, ft)
+        logits = logits + pen[None, :, None, None, :]
+        p = torch.exp(logits - m5[..., None]) / l5[..., None]
+        dp = torch.einsum("btkgd,bskd->btkgs", dog, vblk)
+        dvs.append(torch.einsum("btkgs,btkgd->bskd", p, dog))
+        ds = p * (dp - D[..., None])
+        # qg already carries the softmax scale: dlogits/dq = scale * k,
+        # dlogits/dk = qg, so dk takes no second scale
+        dq = dq + torch.einsum("btkgs,bskd->btkgd", ds, kblk) * scale
+        dks.append(torch.einsum("btkgs,btkgd->bskd", ds, qg))
+    dk = torch.cat(dks, dim=1)[:, :S]
+    dv = torch.cat(dvs, dim=1)[:, :S]
+    return (dq.reshape(B, T, H, dh).to(q.dtype), dk.to(k.dtype),
+            dv.to(v.dtype))
+
+
+def _fp32_aligned(name: str, t: Tensor) -> Tensor:
+    if t.dtype != torch.float32 or not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"{name}: the training kernels take contiguous, "
+                         f"16-byte aligned fp32 tensors")
+    return t
+
+
+def _train_head_dim(dh: int) -> None:
+    if dh not in HEAD_DIMS:
+        raise ValueError(f"the training kernels take head dims {HEAD_DIMS}, "
+                         f"got {dh}")
+
+
+def launch_flash_attention_train(q: Tensor, k: Tensor, v: Tensor, *,
+                                 causal: bool, window: int | None,
+                                 q_offset: int):
+    """F on CUDA tensors: q·scale, k and v upcast to fp32 and the fp32
+    kernel (``flash_f32_stats``) launched with scale 1. Returns (out in
+    q's dtype, m, l)."""
+    B, T, H, S, KV, dh = train_shape(q, k, v, causal=causal, window=window,
+                                     q_offset=q_offset)
+    _train_head_dim(dh)
+    qs = _fp32_aligned("q", (q.float() * dh ** -0.5).contiguous())
+    kf = _fp32_aligned("k", k.float().contiguous())
+    vf = _fp32_aligned("v", v.float().contiguous())
+    out = torch.empty(B, T, H, dh, dtype=torch.float32, device=q.device)
+    m = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
+    l = torch.empty_like(m)
+    strides = (ctypes.c_longlong * 12)(
+        *(s for t in (qs, kf, vf, out)
+          for s in t.transpose(1, 2).stride()[:3]))
+    with torch.cuda.device(q.device):
+        code = _build.library().flash_attn_fwd_stats(
+            _build.ptr(qs), _build.ptr(kf), _build.ptr(vf), _build.ptr(out),
+            _build.ptr(m), _build.ptr(l), B, H, KV, T, S, dh, strides, 1.0,
+            int(causal), 0 if window is None else window, q_offset,
+            _build.stream_handle(q.device))
+    _build.check(code, "flash_attention_train")
+    return out.to(q.dtype), m, l
+
+
+def bwd_operands(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
+                 dout: Tensor) -> tuple[Tensor, ...]:
+    """The backward kernels' fp32 operands: q·scale, k, v, out, dout."""
+    scale = q.shape[-1] ** -0.5
+    return tuple(_fp32_aligned(n, t.contiguous()) for n, t in (
+        ("q", q.float() * scale), ("k", k.float()), ("v", v.float()),
+        ("out", out.float()), ("dout", dout.float())))
+
+
+def launch_flash_bwd_dq(qs: Tensor, kf: Tensor, vf: Tensor, of: Tensor,
+                        df: Tensor, m: Tensor, l: Tensor, *, causal: bool,
+                        window: int | None, q_offset: int):
+    """N1-dq on :func:`bwd_operands`: (dq fp32, D (B, H, T))."""
+    B, T, H, S, KV, dh = train_shape(qs, kf, vf, causal=causal,
+                                     window=window, q_offset=q_offset)
+    _train_head_dim(dh)
+    for name, t in (("m", m), ("l", l)):
+        _fp32_aligned(name, t)
+    dq = torch.empty_like(qs)
+    delta = torch.empty(B, H, T, dtype=torch.float32, device=qs.device)
+    with torch.cuda.device(qs.device):
+        code = _build.library().flash_bwd_dq_f32(
+            *(_build.ptr(t) for t in (qs, kf, vf, of, df, m, l, dq, delta)),
+            B, T, S, H, KV, dh, q_offset, int(causal),
+            0 if window is None else window, dh ** -0.5,
+            _build.stream_handle(qs.device))
+    _build.check(code, "flash_bwd_dq")
+    return dq, delta
+
+
+def launch_flash_bwd_dkdv(qs: Tensor, kf: Tensor, vf: Tensor, df: Tensor,
+                          m: Tensor, l: Tensor, delta: Tensor, *,
+                          causal: bool, window: int | None, q_offset: int):
+    """N1-dkdv on :func:`bwd_operands` and N1-dq's D: (dk, dv) fp32."""
+    B, T, H, S, KV, dh = train_shape(qs, kf, vf, causal=causal,
+                                     window=window, q_offset=q_offset)
+    _train_head_dim(dh)
+    for name, t in (("m", m), ("l", l), ("delta", delta)):
+        _fp32_aligned(name, t)
+    dk = torch.empty_like(kf)
+    dv = torch.empty_like(vf)
+    with torch.cuda.device(qs.device):
+        code = _build.library().flash_bwd_dkdv_f32(
+            *(_build.ptr(t) for t in (qs, kf, vf, df, m, l, delta, dk, dv)),
+            B, T, S, H, KV, dh, q_offset, int(causal),
+            0 if window is None else window, _build.stream_handle(qs.device))
+    _build.check(code, "flash_bwd_dkdv")
+    return dk, dv
+
+
+def flash_attention_train(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
+                          window: int | None, q_offset: int = 0,
+                          bk: int = 512):
+    """The training forward: (out, m, l). CPU tensors run the plain
+    version over ``bk``-key blocks; CUDA tensors launch F (counted in
+    ``flash_attention_train.launches``), which walks its own 64-key tiles
+    (``bk`` moves only the plain version's summation order)."""
+    if on_cpu(q, k, v, kernel="flash_attention_train"):
+        return flash_attention_train_plain(q, k, v, causal=causal,
+                                           window=window, q_offset=q_offset,
+                                           bk=bk)
+    res = launch_flash_attention_train(q, k, v, causal=causal, window=window,
+                                       q_offset=q_offset)
+    flash_attention_train.launches.bump()
+    return res
+
+
+def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
+                        m: Tensor, l: Tensor, dout: Tensor, *, causal: bool,
+                        window: int | None, q_offset: int = 0,
+                        bk: int = 512):
+    """The training backward: (dq, dk, dv) in q's, k's and v's dtypes.
+    CPU tensors run the plain version; CUDA tensors launch N1-dq, then
+    N1-dkdv on the same stream (counted in ``.dq_launches``,
+    ``launch.flash_bwd_dq``, and ``.dkdv_launches``,
+    ``launch.flash_bwd_dkdv``)."""
+    args = (q, k, v, out, m, l, dout)
+    cpu = on_cpu(*args, kernel="flash_bwd_dq")
+    on_cpu(*args, kernel="flash_bwd_dkdv")
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    if cpu:
+        return flash_attention_bwd_plain(*args, bk=bk, **kw)
+    qs, kf, vf, of, df = bwd_operands(q, k, v, out, dout)
+    dq, delta = launch_flash_bwd_dq(qs, kf, vf, of, df, m, l, **kw)
+    flash_attention_bwd.dq_launches.bump()
+    dk, dv = launch_flash_bwd_dkdv(qs, kf, vf, df, m, l, delta, **kw)
+    flash_attention_bwd.dkdv_launches.bump()
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
+flash_attention_train.launches = _counter("launch.flash_attention_train")
+flash_attention_bwd.dq_launches = _counter("launch.flash_bwd_dq")
+flash_attention_bwd.dkdv_launches = _counter("launch.flash_bwd_dkdv")

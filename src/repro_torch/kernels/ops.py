@@ -3,6 +3,9 @@
 Port of ``repro.kernels.ops`` (the ported paths' subset: ``gram``,
 ``rbf_gram``, ``gram_matvec``, ``rbf_gram_matvec``, ``dual_cd_solve``,
 ``decision_scores``, ``odm_grad``, ``svrg_grad``, ``flash_attention``).
+The training attention's kernels (F, N1), which the reference writes in
+plain JAX (``models/attention.py``), are called from the model directly
+(``kernels.flash_attn.flash_attention_train`` / ``flash_attention_bwd``).
 The CUDA kernels mask
 ragged edges themselves, so only the block solve, whose greedy
 trajectory depends on the tile, pads (to the block, with the padded

@@ -1,15 +1,30 @@
-"""GQA attention: prefill (flash, B9) and cached decode.
+"""GQA attention: training (flash_xla: F and N1), prefill (flash, B9) and
+cached decode.
 
-Port of ``repro.models.attention``. Two attention impls:
+Port of ``repro.models.attention``. Three attention impls:
 
-* ``flash_pallas`` (the port's default) — ``kernels.ops.flash_attention``:
-  B9 on a CUDA tensor, its plain version on a CPU tensor;
-* ``ref`` — ``kernels.ref.mha``, O(T·S) (small shapes and checks only).
+* ``flash_xla`` (the training attention, ``TrainConfig``'s default) —
+  :func:`_blocked_flash`, the reference's blocked online softmax with a
+  flash-style backward (``attention.py:84-213``), as the custom op
+  ``repro_torch::flash_core``: its forward is
+  ``kernels.flash_attn.flash_attention_train`` (F on a CUDA tensor, the
+  plain version of the reference's ``_blocked_flash_fwd`` on a CPU
+  tensor), its backward ``kernels.flash_attn.flash_attention_bwd``
+  (N1-dq and N1-dkdv, or the plain version of ``_blocked_flash_bwd``).
+  Registered with
+  ``torch.library`` so that selective checkpointing
+  (``transformer._remat``) sees the core as one op. Queries sit at
+  ``arange(T) + q_offset``;
+* ``flash_pallas`` (serving's default) — ``kernels.ops.flash_attention``:
+  B9 on a CUDA tensor, its plain version on a CPU tensor. B9 has no
+  backward, so a call that autograd would differentiate raises (the
+  reference's ``jax.grad`` raises there too);
+* ``ref`` — ``kernels.ref.mha``, O(T·S), differentiable through plain
+  autograd (small shapes and checks only).
 
-The reference's ``flash_xla`` (a ``lax.scan`` with a flash-style custom
-VJP, ``attention.py:84-213``) exists for training and raises here, naming
-the LM training slice (ROADMAP A17, second part), and its head-sharded
-``_flash_sharded`` with it (the LM's mesh path).
+The reference's head-sharded ``_flash_sharded`` and its
+``sharding.constrain`` pins belong to the LM's mesh path (ROADMAP A17,
+third part).
 
 Decode attends a (B, S, kv, dh) static cache, as the reference does:
 sliding-window layers keep a ring buffer of W slots. Unlike the
@@ -25,13 +40,13 @@ from typing import Optional
 import torch
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.kernels import ops, ref
+from repro_torch.kernels import flash_attn, ops, ref
 from repro_torch.models import layers as L
 
 Tensor = torch.Tensor
 
 NEG_INF = -1e30
-IMPLS = ("flash_pallas", "ref")
+IMPLS = ("flash_xla", "flash_pallas", "ref")
 
 
 # ---------------------------------------------------------------------------
@@ -58,24 +73,71 @@ def init(gen: torch.Generator, cfg: ArchConfig, dtype,
 # core attention math
 # ---------------------------------------------------------------------------
 
+@torch.library.custom_op("repro_torch::flash_core", mutates_args=())
+def _blocked_flash_core(q: Tensor, k: Tensor, v: Tensor, causal: bool,
+                        window: Optional[int], q_offset: int,
+                        bk: int) -> tuple[Tensor, Tensor, Tensor]:
+    """The training attention's forward: (out, m, l), m and
+    max(l, 1e-30) (B, H, T) fp32 — what the backward re-walks the keys
+    from, as the reference's custom VJP saves them."""
+    return flash_attn.flash_attention_train(q, k, v, causal=causal,
+                                            window=window, q_offset=q_offset,
+                                            bk=bk)
+
+
+def _core_setup(ctx, inputs, output):
+    q, k, v, causal, window, q_offset, bk = inputs
+    ctx.save_for_backward(q, k, v, *output)
+    ctx.opts = dict(causal=causal, window=window, q_offset=q_offset, bk=bk)
+
+
+def _core_backward(ctx, dout, dm, dl):
+    del dm, dl                  # m and l are statistics, not outputs
+    q, k, v, out, m, l = ctx.saved_tensors
+    dq, dk, dv = flash_attn.flash_attention_bwd(q, k, v, out, m, l,
+                                                dout.contiguous(), **ctx.opts)
+    return dq, dk, dv, None, None, None, None
+
+
+_blocked_flash_core.register_autograd(_core_backward,
+                                      setup_context=_core_setup)
+
+#: the core as the dispatcher sees it (what selective checkpointing's
+#: policies match)
+FLASH_CORE = torch.ops.repro_torch.flash_core.default
+
+
+def _blocked_flash(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
+                   window: Optional[int], q_offset: int,
+                   bk: int = 512) -> Tensor:
+    """The reference's ``_blocked_flash``: q (B, T, H, dh), k/v (B, S, KV,
+    dh) -> (B, T, H, dh), differentiable through F's statistics and N1."""
+    bk = min(bk, k.shape[1])
+    out, _, _ = _blocked_flash_core(q, k, v, causal, window, q_offset, bk)
+    return out
+
+
 def attend(q: Tensor, k: Tensor, v: Tensor, *, causal: bool = True,
            window: Optional[int] = None, q_offset: int = 0,
            impl: str = "flash_pallas") -> Tensor:
     """q (B, T, H, dh); k/v (B, S, KV, dh) -> (B, T, H, dh).
 
-    Both impls place the queries at the end of the kv history (q_offset =
-    S - T), as the reference's ``flash_pallas`` and ``ref`` paths do;
-    ``q_offset`` is the ``flash_xla`` scan's argument and is unused here.
+    ``flash_xla`` places the queries at ``arange(T) + q_offset``; B9
+    (``flash_pallas``) and ``ref`` place them at the end of the kv
+    history (S - T), as the reference's do, and ignore ``q_offset``.
     """
-    del q_offset
     if impl not in IMPLS:
-        if impl == "flash_xla":
-            raise NotImplementedError(
-                "impl='flash_xla' is the reference's training scan with a "
-                "flash-style custom VJP: it comes with the LM training slice "
-                "(ROADMAP A17, second part); serving uses 'flash_pallas'")
         raise ValueError(f"unknown attention impl {impl!r}; choose from "
                          f"{IMPLS}")
+    if impl == "flash_xla":
+        return _blocked_flash(q, k, v, causal=causal, window=window,
+                              q_offset=q_offset)
+    if impl == "flash_pallas" and torch.is_grad_enabled() and any(
+            t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "impl='flash_pallas' (B9) has no backward: autograd would get no "
+            "gradient for q, k or v. Train with impl='flash_xla', the "
+            "training attention (F forward, N1 backward)")
     fn = ops.flash_attention if impl == "flash_pallas" else ref.mha
     o = fn(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
            causal=causal, window=window)

@@ -1,23 +1,24 @@
 """Top-level model: embeddings + stack + head, for the dense families.
 
-Port of ``repro.models.model`` (its serving surface). Public functions
-keep the reference's names and argument order, with the parameter tree
-``p`` an ``nn.Module`` (``ModuleDict``/``ParameterDict``/``ModuleList``
-keyed as the reference's pytree, the stack's layers un-stacked):
+Port of ``repro.models.model``. Public functions keep the reference's
+names and argument order, with the parameter tree ``p`` an ``nn.Module``
+(``ModuleDict``/``ParameterDict``/``ModuleList`` keyed as the
+reference's pytree, the stack's layers un-stacked):
 
-  init_params(cfg, *, generator, device)  -> model       [random weights]
+  init_params(cfg, *, generator, device, trainable) -> model
   logits_fn(p, batch, cfg)                -> (logits, aux)
+  loss_fn(p, batch, cfg)                  -> (loss, metrics)  [train step]
   prefill(p, batch, cfg, *, max_len)      -> (last_logits, cache)
   decode(p, cache, tok, pos, cfg)         -> (logits, cache)
   cache_shapes(cfg, batch, max_len)       -> per-layer meta tensors
 
-``impl`` defaults to ``"flash_pallas"`` (B9 on the card). ``loss_fn``
-waits for the LM training slice (ROADMAP A17, second part); the moe,
+``impl`` defaults to ``"flash_pallas"`` (B9 on the card) for serving;
+training passes ``"flash_xla"`` (``TrainConfig.attn_impl``). The moe,
 ssm, hybrid (RG-LRU), encdec and vlm families, and llama4's iRoPE
 window/global layers, wait for A18 and raise when a model is built from
 them (``check_supported``). ``param_shapes``, ``input_specs`` and
 ``batch_axes`` serve the TPU dry-run (A19) and the LM's mesh path
-(with A17).
+(A17, third part).
 """
 from __future__ import annotations
 
@@ -53,23 +54,26 @@ def check_supported(cfg: ArchConfig) -> None:
 # params
 # ---------------------------------------------------------------------------
 
-def from_tree(tree) -> nn.Module:
+def from_tree(tree, trainable: bool = False) -> nn.Module:
     """A nested dict/list of tensors (the reference's pytree layout) as an
-    ``nn.Module`` whose parameters do not require grad."""
+    ``nn.Module``; its parameters require grad only if ``trainable``
+    (serving keeps them frozen)."""
     if isinstance(tree, list):
-        return nn.ModuleList([from_tree(t) for t in tree])
+        return nn.ModuleList([from_tree(t, trainable) for t in tree])
     if all(isinstance(v, Tensor) for v in tree.values()):
-        return nn.ParameterDict({k: nn.Parameter(v, requires_grad=False)
+        return nn.ParameterDict({k: nn.Parameter(v, requires_grad=trainable)
                                  for k, v in tree.items()})
-    return nn.ModuleDict({k: from_tree(v) for k, v in tree.items()})
+    return nn.ModuleDict({k: from_tree(v, trainable)
+                          for k, v in tree.items()})
 
 
 def init_params(cfg: ArchConfig, *, generator: torch.Generator,
-                device=None) -> nn.Module:
+                device=None, trainable: bool = False) -> nn.Module:
     """Random weights with the reference's distributions: normal ·
     in_dim^-0.5 for projections, normal · d^-0.5 for the embedding, ones
     for norm scales (zeros for biases). Drawn on ``generator``'s device,
-    then moved to ``device`` (None: the card)."""
+    then moved to ``device`` (None: the card); ``trainable`` parameters
+    require grad."""
     check_supported(cfg)
     dev = resolve_device(device)
     dtype = L.dtype_of(cfg.param_dtype)
@@ -81,7 +85,7 @@ def init_params(cfg: ArchConfig, *, generator: torch.Generator,
     if not cfg.tie_embeddings:
         tree["unembed"] = L.dense_init(gen, cfg.d_model, cfg.padded_vocab,
                                        dtype)
-    return from_tree(tree).to(dev)
+    return from_tree(tree, trainable).to(dev)
 
 
 # ---------------------------------------------------------------------------
@@ -117,10 +121,29 @@ def logits_fn(p, batch: dict, cfg: ArchConfig, *,
     return _head(p, x, cfg, cdt), aux
 
 
-def loss_fn(p, batch: dict, cfg: ArchConfig, *, impl: str = "flash_pallas",
+def loss_fn(p, batch: dict, cfg: ArchConfig, *, impl: str = "flash_xla",
             aux_weight: float = 0.01):
-    raise NotImplementedError(
-        "loss_fn belongs to the LM training slice: ROADMAP A17, second part")
+    """Causal-LM cross entropy in fp32 (+ aux, 0 without MoE). Returns
+    (loss, metrics {nll, aux, ppl_proxy}); labels < 0 are masked.
+
+    The gold logit is a ``torch.gather``, where the reference contracts a
+    one-hot (to keep a sharded vocab dim local): the contraction has one
+    nonzero term, so the number is the same, and at qwen3-0.6b's training
+    shape the one-hot would be 8,192 × 152,064 fp32 values (5 GB)."""
+    logits, aux = logits_fn(p, batch, cfg, impl=impl)
+    labels = batch["labels"]
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        torch.clamp(labels, min=0)[..., None].long())[..., 0]
+    nll = logz - gold
+    mask = (labels >= 0).float()
+    nll = torch.where(labels >= 0, nll, 0.0)
+    denom = torch.clamp(torch.sum(mask), min=1.0)
+    loss = torch.sum(nll) / denom
+    total = loss + aux_weight * aux
+    return total, {"nll": loss, "aux": aux,
+                   "ppl_proxy": torch.exp(torch.clamp(loss, max=20.0))}
 
 
 # ---------------------------------------------------------------------------

@@ -11,13 +11,25 @@ the tail). The cache is one ``{"k", "v"}`` pair of bf16 tensors
 Layer kinds: ``"attn"`` runs; the llama4 iRoPE kinds (``attn_window``,
 ``attn_global``), ``ssm`` (mamba), ``rec`` (RG-LRU), mixture-of-experts
 MLPs and cross-attention raise ``NotImplementedError`` naming ROADMAP
-A18. ``remat`` has no counterpart in serving (no backward pass).
+A18.
+
+The train-mode :func:`apply_stack` wraps each layer in the reference's
+remat policy (``_remat``, ``cfg.remat``): ``none``; ``full`` (every
+config's default: ``torch.utils.checkpoint`` around each layer, which
+recomputes its forward, the flash forward F included, in the backward);
+``dots`` (selective checkpointing that saves the matmuls' outputs,
+``checkpoint_dots``); ``attn`` (selective checkpointing that saves only
+the attention core's outputs, so the backward recomputes the layer but
+never F: the reference's ``save_only_these_names("attn_out")`` and its
+aim). Every mode gives the same numbers.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention, layers as L
@@ -175,16 +187,45 @@ def init_stack(gen: torch.Generator, cfg: ArchConfig, dtype,
                        for kind in layer_kinds(cfg)]}
 
 
+def _save_only(ops):
+    """A selective-checkpoint policy: keep the outputs of ``ops``,
+    recompute everything else."""
+    def policy(ctx, op, *args, **kwargs):
+        return (ckpt.CheckpointPolicy.MUST_SAVE if op in ops
+                else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+    return functools.partial(ckpt.create_selective_checkpoint_contexts,
+                             policy)
+
+
+def _remat(fn, cfg: ArchConfig):
+    """``fn`` under the config's remat policy (the reference's
+    ``_remat``, ``transformer.py:350``)."""
+    if cfg.remat == "none":
+        return fn
+    kw = {}
+    if cfg.remat == "dots":
+        kw["context_fn"] = _save_only({torch.ops.aten.mm.default,
+                                       torch.ops.aten.bmm.default,
+                                       torch.ops.aten.addmm.default})
+    elif cfg.remat == "attn":
+        kw["context_fn"] = _save_only({attention.FLASH_CORE})
+    return functools.partial(ckpt.checkpoint, fn, use_reentrant=False, **kw)
+
+
 def apply_stack(p, x: Tensor, cfg: ArchConfig, *, pos: Tensor,
                 pos3: Optional[Tensor] = None,
                 memory: Optional[Tensor] = None, causal: bool = True,
                 impl: str = "flash_pallas", compute_dtype=torch.bfloat16):
-    """Full-sequence stack. Returns (x, total_aux)."""
+    """Full-sequence stack. Returns (x, total_aux). While autograd
+    records, each layer runs under the remat policy."""
+    layer = functools.partial(apply_layer, cfg=cfg, pos=pos, pos3=pos3,
+                              memory=memory, causal=causal, impl=impl,
+                              compute_dtype=compute_dtype)
+    if torch.is_grad_enabled():
+        layer = _remat(layer, cfg)
     aux = torch.zeros((), device=x.device)
     for lp, kind in zip(p["layers"], layer_kinds(cfg)):
-        x, a = apply_layer(lp, x, kind, cfg, pos=pos, pos3=pos3,
-                           memory=memory, causal=causal, impl=impl,
-                           compute_dtype=compute_dtype)
+        x, a = layer(lp, x, kind)
         aux = aux + a
     return x, aux
 

@@ -1,4 +1,4 @@
-"""Step builders. Port of ``repro.train`` (the serving half of ``steps``)."""
+"""Step builders. Port of ``repro.train``."""
 from repro_torch.train import steps
 
 __all__ = ["steps"]

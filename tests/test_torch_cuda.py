@@ -21,7 +21,11 @@ whole-epoch kernel repeats B6's launches and the host loop's
 `w - eta * dir` step for step, so it equals that per-step loop on the
 card bit for bit (torch.equal). A whole DSVRG fit, card against CPU,
 holds to the band documented for DSVRG across reduction orders (relative
-1e-2 on w, prediction agreement 0.99).
+1e-2 on w, prediction agreement 0.99). The training attention's F, N1-dq
+and N1-dkdv sum in other orders than their plain versions (the
+reference's 512-key blocks through cuBLAS), so they agree to a relative
+1e-5; N1 sums in a fixed order, so a repeated backward gives the same
+bits.
 """
 import numpy as np
 import pytest
@@ -863,6 +867,104 @@ def test_flash_attention_refuses_strides_it_cannot_map(dev):
     with pytest.raises(ValueError, match=r"v: .*contiguous last dim"):
         flash_attn.flash_attention(q, k, v.transpose(2, 3))
     assert flash_attn.flash_attention(q, k, v).shape == q.shape
+
+
+# the training attention (F, N1-dq, N1-dkdv): (B, T, S, Hq, Hkv, D,
+# window, q_offset), every case causal; ragged T and S, windows, queries
+# past a longer history, GQA groups 1, 2 and 4, every head dim
+TRAIN_CASES = [(1, 2048, 2048, 16, 8, 128, None, 0),
+               (1, 1000, 1000, 16, 8, 128, None, 0),
+               (1, 129, 129, 4, 1, 64, None, 0),
+               (1, 300, 300, 8, 2, 128, 64, 0),
+               (1, 70, 333, 4, 4, 32, 50, 200),
+               (2, 65, 65, 4, 2, 16, None, 0)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,S,Hq,Hkv,D,window,q_offset", TRAIN_CASES)
+def test_flash_train_kernels_match_plain(dev, dtype, B, T, S, Hq, Hkv, D,
+                                         window, q_offset):
+    """F's out, m, l and N1's dq, dk, dv through the autograd op against
+    the plain versions on the same inputs: fp32 within 1e-5 of each
+    result's scale (m, l 1e-5 relative); bf16 results within 1e-2 of it
+    (the fp32 results round to bf16 values an ulp apart)."""
+    from repro_torch.kernels import flash_attn
+    from repro_torch.models import attention
+    rng = np.random.default_rng(T + S)
+    q, dout = (torch.tensor(rng.standard_normal((B, T, Hq, D)),
+                            dtype=torch.float32).to(dtype).to(dev)
+               for _ in range(2))
+    k, v = (torch.tensor(rng.standard_normal((B, S, Hkv, D)),
+                         dtype=torch.float32).to(dtype).to(dev)
+            for _ in range(2))
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    out, m, l = flash_attn.flash_attention_train(q, k, v, **kw)
+    out_p, m_p, l_p = flash_attn.flash_attention_train_plain(q, k, v, **kw)
+    tol = 1e-5 if dtype == torch.float32 else 1e-2
+    assert _rel(out, out_p) <= tol
+    for a, b in ((m, m_p), (l, l_p)):
+        assert float(((a - b).abs() / b.abs()).max()) <= 1e-5
+    c = [flash_attn.flash_attention_train.launches,
+         flash_attn.flash_attention_bwd.dq_launches,
+         flash_attn.flash_attention_bwd.dkdv_launches]
+    before = [x.count for x in c]
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    got_out = attention._blocked_flash(*leaves, bk=512, **kw)
+    got = torch.autograd.grad(got_out, leaves, dout)
+    torch.cuda.synchronize()
+    assert [x.count - b for x, b in zip(c, before)] == [1, 1, 1]
+    want = flash_attn.flash_attention_bwd_plain(q, k, v, out, m, l, dout,
+                                                **kw)
+    for g, w, t in zip(got, want, (q, k, v)):
+        assert g.dtype == t.dtype and bool(torch.isfinite(g).all())
+        assert _rel(g, w) <= tol
+
+
+def test_flash_train_backward_is_deterministic(dev):
+    """N1 sums in a fixed order (no atomics): two backward passes give the
+    same bits."""
+    from repro_torch.models import attention
+    g = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn(2, 256, 8, 64, device=dev, generator=g)
+    k, v = (torch.randn(2, 256, 2, 64, device=dev, generator=g)
+            for _ in range(2))
+    res = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = attention.attend(*leaves, impl="flash_xla")
+        res.append(torch.autograd.grad(out.square().sum(), leaves))
+    assert all(torch.equal(a, b) for a, b in zip(*res))
+
+
+def test_lm_train_step_on_card_matches_cpu(dev):
+    """One make_train_step of a smoke LM with fp32 compute: the card's
+    loss within 1e-5 relative of the CPU's and its parameters within 2 lr
+    (Adam's first step is lr · sign(g) where the gradients nearly vanish)."""
+    import dataclasses
+
+    from repro_torch import configs
+    from repro_torch.models import model as M
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.train import steps
+    cfg = dataclasses.replace(configs.get_smoke("qwen3-0.6b"),
+                              compute_dtype="float32")
+    rng = np.random.default_rng(0)
+    toks = torch.tensor(rng.integers(0, cfg.vocab, (2, 33)))
+    out = {}
+    for where in ("cpu", "cuda"):
+        p = M.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                          device=where, trainable=True)
+        st = steps.TrainState.create(p, use_ef=False)
+        t = toks.to(where)
+        st, mets = steps.make_train_step(cfg, steps.TrainConfig())(
+            st, {"tokens": t[:, :32], "labels": t[:, 1:]})
+        out[where] = (float(mets["loss"]),
+                      [x.detach().cpu() for x in leaves(st["params"])],
+                      float(mets["lr"]))
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5 * out["cpu"][0]
+    lr = out["cpu"][2]
+    for a, b in zip(out["cuda"][1], out["cpu"][1]):
+        assert float((a - b).abs().max()) <= 2 * lr + 1e-6
 
 
 def test_lm_prefill_and_decode_on_card_match_cpu(dev):

@@ -212,11 +212,20 @@ def test_fill_kv_cache_matches_reference(window, T, max_len):
 
 
 def test_unported_attention_impls_raise():
-    q = torch.zeros(1, 4, 2, 16)
-    with pytest.raises(NotImplementedError, match="A17"):
-        tattn.attend(q, q, q, impl="flash_xla")
+    """flash_xla (the training attention) runs and agrees with ref; an
+    unknown impl raises; B9 (flash_pallas) has no backward, so it raises
+    when autograd would differentiate it, naming flash_xla."""
+    g = torch.Generator().manual_seed(0)
+    q = torch.randn(1, 4, 2, 16, generator=g)
+    got = tattn.attend(q, q, q, impl="flash_xla")
+    _close(got, tattn.attend(q, q, q, impl="ref").numpy(), 1e-5)
     with pytest.raises(ValueError, match="unknown attention impl"):
         tattn.attend(q, q, q, impl="splash")
+    qg = q.clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="flash_xla"):
+        tattn.attend(qg, q, q, impl="flash_pallas")
+    with torch.no_grad():
+        tattn.attend(qg, q, q, impl="flash_pallas")
 
 
 # ---------------------------------------------------------------------------
@@ -333,10 +342,24 @@ def test_unported_families_raise_with_roadmap_item(arch):
 
 
 def test_training_entry_points_raise_with_roadmap_item():
+    """Training runs (loss_fn, make_train_step); the sharded step
+    (launch/train --mesh) raises, naming A17's third part."""
+    from repro_torch.launch import train as ttrain
     cfg = tconfigs.get_smoke("qwen3-0.6b")
-    with pytest.raises(NotImplementedError, match="A17"):
-        tM.loss_fn(None, {}, cfg)
-    assert not hasattr(tsteps, "make_train_step")
+    p = tM.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                       device="cpu", trainable=True)
+    toks = torch.randint(0, cfg.vocab, (1, 8),
+                         generator=torch.Generator().manual_seed(1))
+    batch = {"tokens": toks, "labels": torch.roll(toks, -1, 1)}
+    loss, mets = tM.loss_fn(p, batch, cfg)
+    assert torch.isfinite(loss) and set(mets) == {"nll", "aux",
+                                                  "ppl_proxy"}
+    state = tsteps.TrainState.create(p, use_ef=False)
+    _, mets = tsteps.make_train_step(cfg, tsteps.TrainConfig())(state, batch)
+    assert torch.isfinite(mets["loss"])
+    with pytest.raises(NotImplementedError, match="A17, third part"):
+        ttrain.main(["--arch", "qwen3-0.6b", "--mesh", "2x4",
+                     "--device", "cpu"])
 
 
 def test_serve_entry_point_on_the_cpu(capsys):
