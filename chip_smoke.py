@@ -258,13 +258,22 @@ Phases (any failed check exits nonzero):
    after N1's registers, shared memory and spills from the build log. The
    qwen3-0.6b training shape (B=4, Hq=16, Hkv=8, T=S=2048, D=128, causal),
    ragged T=S=1000 and 2049, a window of 256, q_offset 300 with T < S,
-   GQA groups 1 and 4 at D=64, D=32 and 16, and bf16 inputs. Bands: out,
-   dq, dk, dv within 1e-5 x max(1, max|.|); m and l 1e-5 relative; bf16
-   results within one bf16 ulp plus the fp32 band. At the qwen3 shape each
-   kernel's ms beside its bound (F: two products; the backward's five
-   shared out, N1-dq dQ and D, N1-dkdv S, dP, dV and dK, so the S and dP
-   that N1-dq recomputes show against the bounds; the split's seven as
-   text) and the yardstick: scaled_dot_product_attention
+   GQA groups 1 and 4 at D=64, D=32 and 16, and bf16 inputs at the qwen3
+   training shape (N1's exact variant, which skips k's, v's and dout's
+   zero small halves: the variant and shape the training step runs, held
+   to the fp32 band and timed); then the
+   cancelling case (q x 4 for peaked logits, dout = out + 1e-3 noise so
+   that dP - D cancels) in fp32 and from bf16 values, N1 against the fp64
+   plain version, the fp32 plain version's distance from it printed
+   beside. Bands: out, dq, dk, dv within 1e-5 x max(1, max|.|); m and l
+   1e-5 relative; bf16 results within one bf16 ulp plus the fp32 band.
+   At the qwen3 shape each kernel's ms beside two bounds, its products at
+   the fp32 CUDA-core peak and as a three-term TF32 split at the TF32
+   tensor-core peak (the least time for fp32-accurate products, and the
+   bound in the kernels line) (F: two products, fp32 bound only; the
+   backward's five shared out, N1-dq dQ and D, N1-dkdv S, dP, dV and dK,
+   so the S and dP that N1-dq recomputes show against the bounds; the
+   split's seven as text) and the yardstick: scaled_dot_product_attention
    (memory-efficient backend, TF32 off, enable_gqa; PyTorch's own choice
    where that backend refuses GQA) forward, and torch.autograd.grad
    through it.
@@ -276,9 +285,10 @@ Phases (any failed check exits nonzero):
    grad norm finite, the last loss below the first; over the 8 steps F
    launches 56 a step (28 forward + 28 recomputed), N1-dq and N1-dkdv 28
    each, B9 and every ODM kernel never. Step time (host clock to a
-   synchronize), tokens/s, peak memory, the kernels' share of a step;
-   then one more step under torch.profiler (device time, launches, the
-   largest device-time entries).
+   synchronize), tokens/s, peak memory; then one more step under
+   torch.profiler (device time, launches, the largest device-time
+   entries, and F's, N1-dq's and N1-dkdv's device time in that step as
+   their share of the median step).
    One gradient with remat="none" equal to remat="full"'s bit for bit,
    with F launched 28 times.
    15b. Card against CPU: qwen3-0.6b at full width, 2 layers, one numpy
@@ -332,6 +342,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 PEAK_BYTES_PER_S = 3.35e12
 PEAK_FP32_FLOPS = 67e12
 PEAK_BF16_FLOPS = 989e12
+PEAK_TF32_FLOPS = 495e12
 
 
 def fail(msg: str) -> None:
@@ -437,6 +448,17 @@ def bound(nbytes: float, flops: float,
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
 
+def split_bound(nbytes: float, product_flops: float,
+                fp32_flops: float = 0.0) -> tuple[float, str]:
+    """The bound of fp32-accurate products on the tensor cores: each as
+    three TF32 products (big x big, big x small, small x big) at the TF32
+    peak, the other fp32 work at the CUDA cores' peak."""
+    t_b = nbytes / PEAK_BYTES_PER_S * 1e3
+    t_f = (3 * product_flops / PEAK_TF32_FLOPS
+           + fp32_flops / PEAK_FP32_FLOPS) * 1e3
+    return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
 def visible_pairs(T: int, S: int, causal: bool, window) -> int:
     """Unmasked (query, key) pairs of one attention head: queries at
     positions S - T .. S - 1, keys 0 .. S - 1."""
@@ -452,7 +474,8 @@ def profile_window(fn, n: int):
     """Run ``fn`` n times under torch.profiler after one warm-up. Returns
     (device ms per call or None when the profiler saw no device time,
     kernel launches per call, the five largest device-time entries as
-    "name ms" per call)."""
+    "name ms" per call, every device-time entry's ms per call by its
+    name)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -474,7 +497,8 @@ def profile_window(fn, n: int):
     total = sum(t for t, _ in dev)
     top = "; ".join(f"{k[:48]} {t:.2f} ms"
                     for t, k in sorted(dev, reverse=True)[:5])
-    return (total if total > 0 else None), launches, top
+    return (total if total > 0 else None), launches, top, {
+        k: t for t, k in dev}
 
 
 def _demangle(mangled: str) -> str:
@@ -1868,7 +1892,7 @@ def train_kernels_phase(fa_mod, dev, derate, stats) -> None:
     log = (_build.library_path().parent / "build.log").read_text()
     lib = _build.library()
     for name, regs, smem, spills in kernel_resources(log, "flash_bwd.cu"):
-        dim = int(name[name.index("<") + 1:-1])
+        dim = int(name[name.index("<") + 1:-1].split(",")[0])  # <D, exact>
         dyn = lib.flash_bwd_smem(int(name.startswith("flash_bwd_dkdv")), dim)
         say(f"  {name}: {regs} registers, {smem} bytes static shared + "
             f"{dyn} bytes dynamic, spills {spills}")
@@ -1887,10 +1911,13 @@ def train_kernels_phase(fa_mod, dev, derate, stats) -> None:
         out, m, l = fa_mod.launch_flash_attention_train(qf, kf, vf, **kw)
         out_p, m_p, l_p = fa_mod.flash_attention_train_plain(qf, kf, vf,
                                                              **kw)
-        ops = fa_mod.bwd_operands(qf, kf, vf, out, df)
-        dq, delta = fa_mod.launch_flash_bwd_dq(*ops, m, l, **kw)
-        dk, dv = fa_mod.launch_flash_bwd_dkdv(*ops[:3], ops[4], m, l,
-                                              delta, **kw)
+        # from the inputs' own dtypes: bf16 k, v and dout are TF32-exact,
+        # and bwd_operands picks N1's exact variant for them
+        ops = fa_mod.bwd_operands(q, k, v, out, dout)
+        if ops.exact != (dtype == torch.bfloat16):
+            fail(f"bwd_operands gave exact={ops.exact} for {dtype} inputs")
+        dq, delta = fa_mod.launch_flash_bwd_dq(ops, m, l, **kw)
+        dk, dv = fa_mod.launch_flash_bwd_dkdv(ops, m, l, delta, **kw)
         dq_p, dk_p, dv_p = fa_mod.flash_attention_bwd_plain(
             qf, kf, vf, out, m, l, df, **kw)
         errs = {}
@@ -1923,12 +1950,18 @@ def train_kernels_phase(fa_mod, dev, derate, stats) -> None:
             fail(f"F / N1 {label} disagree with their plain versions")
         if not timed:
             return None
-        f_ms = time_ms(lambda: fa_mod.launch_flash_attention_train(
-            qf, kf, vf, **kw), 5)
-        dq_ms = time_ms(lambda: fa_mod.launch_flash_bwd_dq(*ops, m, l, **kw),
+        dq_ms = time_ms(lambda: fa_mod.launch_flash_bwd_dq(ops, m, l, **kw),
                         5)
         dkdv_ms = time_ms(lambda: fa_mod.launch_flash_bwd_dkdv(
-            *ops[:3], ops[4], m, l, delta, **kw), 5)
+            ops, m, l, delta, **kw), 5)
+        if ops.exact:
+            # the variant the training step runs: its times, beside the
+            # fp32 case's that the kernels line carries
+            say(f"  exact variant: N1-dq ms={dq_ms:.3f}, N1-dkdv ms="
+                f"{dkdv_ms:.3f}, together {dq_ms + dkdv_ms:.3f} ms")
+            return None
+        f_ms = time_ms(lambda: fa_mod.launch_flash_attention_train(
+            qf, kf, vf, **kw), 5)
         f_plain = time_ms(lambda: fa_mod.flash_attention_train_plain(
             qf, kf, vf, **kw), 2)
         bwd_plain = time_ms(lambda: fa_mod.flash_attention_bwd_plain(
@@ -1965,25 +1998,36 @@ def train_kernels_phase(fa_mod, dev, derate, stats) -> None:
         # the backward's bound is its five products; the two kernels share
         # it: N1-dq is charged dQ and D, N1-dkdv S, dP, dV and dK. The S
         # and dP that N1-dq recomputes are the split's own cost, charged to
-        # neither, so the kernels' times against these bounds show it
-        dq_b = bound(4 * qo + 2 * kv + 3 * st,
-                     2 * D * pairs + 2 * B * hq * T * D)
-        dkdv_b = bound(2 * qo + 4 * kv + 3 * st, 8 * D * pairs)
+        # neither, so the kernels' times against these bounds show it.
+        # Each at the fp32 CUDA-core peak and as a TF32 split on the
+        # tensor cores (the least time for fp32-accurate products)
+        dq_bytes = 4 * qo + 2 * kv + 3 * st
+        dkdv_bytes = 2 * qo + 4 * kv + 3 * st
+        dq_b = bound(dq_bytes, 2 * D * pairs + 2 * B * hq * T * D)
+        dkdv_b = bound(dkdv_bytes, 8 * D * pairs)
         bwd_b = bound(4 * qo + 4 * kv + 2 * st, 10 * D * pairs)
+        dq_s = split_bound(dq_bytes, 2 * D * pairs, 2 * B * hq * T * D)
+        dkdv_s = split_bound(dkdv_bytes, 8 * D * pairs)
+        bwd_s = split_bound(4 * qo + 4 * kv + 2 * st, 10 * D * pairs,
+                            2 * B * hq * T * D)
         say(f"  F ms={f_ms:.3f} plain_ms={f_plain:.3f} library_ms="
             f"{lib_f:.3f} ({yard}) "
             + bound_text(*f_b, derate)
             + f"; {4 * D * pairs / f_ms / 1e9:.1f} TFLOP/s")
-        say(f"  N1-dq ms={dq_ms:.3f} " + bound_text(*dq_b, derate)
+        say(f"  N1-dq ms={dq_ms:.3f} fp32 " + bound_text(*dq_b, derate)
+            + "; split-TF32 " + bound_text(*dq_s, derate)
             + f" (dQ and D of the five products); N1-dkdv ms="
-            f"{dkdv_ms:.3f} " + bound_text(*dkdv_b, derate)
+            f"{dkdv_ms:.3f} fp32 " + bound_text(*dkdv_b, derate)
+            + "; split-TF32 " + bound_text(*dkdv_s, derate)
             + " (S, dP, dV and dK)")
         say(f"  backward: N1-dq + N1-dkdv {dq_ms + dkdv_ms:.3f} ms, plain "
             f"{bwd_plain:.3f} ms, library_ms={lib_b:.3f} ({yard}); the "
-            f"five products' bound {bound_text(*bwd_b, derate)}, "
+            f"five products' bound fp32 {bound_text(*bwd_b, derate)}, "
+            f"split-TF32 {bound_text(*bwd_s, derate)}, "
             f"{10 * D * pairs / (dq_ms + dkdv_ms) / 1e9:.1f} TFLOP/s of "
             f"them; the two-kernel split computes S and dP twice, seven "
-            f"products, {bwd_b[0] * 7 / 5:.3f} ms at the fp32 peak")
+            f"products, {bwd_b[0] * 7 / 5:.3f} ms at the fp32 peak, "
+            f"{bwd_s[0] * 7 / 5:.3f} ms as a TF32 split")
         # per kernel: the plain backward computes dq, dk and dv together;
         # its time stands beside each of the two kernels
         common = dict(plain_ms=bwd_plain, library_ms=lib_b)
@@ -1991,12 +2035,53 @@ def train_kernels_phase(fa_mod, dev, derate, stats) -> None:
             max_abs_err=errs["out"][0], ms=f_ms, plain_ms=f_plain,
             library_ms=lib_f, bound_ms=f_b[0], bound_by=f_b[1])
         stats["flash_bwd_dq"] = dict(max_abs_err=errs["dq"][0], ms=dq_ms,
-                                     bound_ms=dq_b[0], bound_by=dq_b[1],
+                                     bound_ms=dq_s[0], bound_by=dq_s[1],
                                      **common)
         stats["flash_bwd_dkdv"] = dict(
             max_abs_err=max(errs["dk"][0], errs["dv"][0]), ms=dkdv_ms,
-            bound_ms=dkdv_b[0], bound_by=dkdv_b[1], **common)
+            bound_ms=dkdv_s[0], bound_by=dkdv_s[1], **common)
         return None
+
+    def cancelling(label, B, hq, hkv, T, D, bf16):
+        """N1 on peaked logits (q x 4) and dout = out + 1e-3 noise, so that
+        dP - D cancels: against the fp64 plain version on the same fp32
+        (or bf16-valued) inputs and the card's own F residuals, beside the
+        fp32 plain version's distance from it."""
+        q = torch.randn(B, T, hq, D, generator=gen, device=dev) * 4
+        k, v = (torch.randn(B, T, hkv, D, generator=gen, device=dev)
+                for _ in range(2))
+        if bf16:
+            q, k, v = (t.bfloat16().float() for t in (q, k, v))
+        kw = dict(causal=True, window=None, q_offset=0)
+        out, m, l = fa_mod.launch_flash_attention_train(q, k, v, **kw)
+        dout = out + 1e-3 * torch.randn(out.shape, generator=gen,
+                                        device=dev)
+        if bf16:
+            dout = dout.bfloat16().float()
+        # bf16 values go in as bf16 tensors (exactly), so that
+        # bwd_operands picks the exact variant
+        as_in = (lambda t: t.bfloat16()) if bf16 else (lambda t: t)
+        ops = fa_mod.bwd_operands(q, as_in(k), as_in(v), out, as_in(dout))
+        if ops.exact != bf16:
+            fail(f"bwd_operands gave exact={ops.exact} for the {label}")
+        dq, delta = fa_mod.launch_flash_bwd_dq(ops, m, l, **kw)
+        dk, dv = fa_mod.launch_flash_bwd_dkdv(ops, m, l, delta, **kw)
+        want = fa_mod.flash_attention_bwd_plain(
+            *(t.double() for t in (q, k, v, out, m, l, dout)), **kw)
+        plain = fa_mod.flash_attention_bwd_plain(q, k, v, out, m, l, dout,
+                                                 **kw)
+        text, ok = [], True
+        for n, a, p32, w in zip(("dq", "dk", "dv"), (dq, dk, dv), plain,
+                                want):
+            scale = max(1.0, float(w.abs().max()))
+            e = float((a.double() - w).abs().max()) / scale
+            e32 = float((p32.double() - w).abs().max()) / scale
+            ok = ok and e <= 1e-5 and bool(torch.isfinite(a).all())
+            text.append(f"{n} {e:.2e} (fp32 plain {e32:.2e})")
+        say(f"  {label}: vs fp64, x max(1, max|.|): " + ", ".join(text))
+        if not ok:
+            fail(f"N1 {label} outside the 1e-5 band of the fp64 plain "
+                 "version")
 
     case("qwen3-0.6b training B=4 Hq=16 Hkv=8 T=S=2048 D=128", 4, 16, 8,
          2048, 2048, 128, timed=True)
@@ -2011,8 +2096,13 @@ def train_kernels_phase(fa_mod, dev, derate, stats) -> None:
     case("D=32 Hq=4 Hkv=2 T=S=333 window 100", 2, 4, 2, 333, 333, 32,
          window=100)
     case("D=16 Hq=4 Hkv=1 T=S=200", 2, 4, 1, 200, 200, 16)
-    case("bf16 inputs B=2 Hq=16 Hkv=8 T=S=1024 D=128", 2, 16, 8, 1024, 1024,
-         128, dtype=torch.bfloat16)
+    # the variant and the shape the training step gives N1
+    case("bf16 inputs, qwen3-0.6b training B=4 Hq=16 Hkv=8 T=S=2048 D=128",
+         4, 16, 8, 2048, 2048, 128, dtype=torch.bfloat16, timed=True)
+    for bf16 in (False, True):
+        cancelling(f"cancelling case (q x 4, dout = out + 1e-3 noise) "
+                   f"{'bf16 values, exact variant' if bf16 else 'fp32'} "
+                   f"Hq=16 Hkv=8 T=S=2048 D=128", 1, 16, 8, 2048, 128, bf16)
 
 
 def numpy_train_state(tree: dict) -> dict:
@@ -2029,7 +2119,7 @@ def numpy_train_state(tree: dict) -> dict:
     return {"params": tree, "opt": (np.int32(0), zeros(tree), zeros(tree))}
 
 
-def train_phase(lm_cfg, expect, path_launches, stats, derate) -> None:
+def train_phase(lm_cfg, expect, path_launches) -> None:
     """Phases 15, 15b and 15c: the LM training path at full width. See
     the module docs."""
     import torch
@@ -2099,18 +2189,28 @@ def train_phase(lm_cfg, expect, path_launches, stats, derate) -> None:
     if not (all(math.isfinite(x) for x in losses + gnorms)
             and losses[-1] < losses[0]):
         fail(f"qwen3-0.6b training: losses {losses}, grad norms {gnorms}")
-    dev_ms, n_launch, top = profile_window(lambda: step(state, batch), 1)
+    dev_ms, n_launch, top, by_name = profile_window(
+        lambda: step(state, batch), 1)
     say("  one more step under the profiler: device "
         + ("not measured" if dev_ms is None else
            f"{dev_ms:.1f} ms ({dev_ms / 1e3 / steady:.1%} of the median "
            f"step)")
         + f", {n_launch:.0f} kernel launches; by device time: {top}")
-    share = {n: stats[n]["ms"] * want[n] / n_steps / 1e3 / steady
-             for n in want}
-    say("  the kernels' share of a step (CUDA-event times of phase 2e x "
-        "launches a step over the median step): "
-        + ", ".join(f"{n} {s:.1%}" for n, s in share.items())
-        + f", together {sum(share.values()):.1%}")
+    # each kernel's device time in that profiled step (the variants the
+    # step runs: bf16 inputs take N1's exact variant), by its symbol
+    import re
+    from repro_torch.observe.profiler import KERNEL_SYMBOLS
+    in_step = {n: sum(t for k, t in by_name.items()
+                      if any(re.search(rf"\b{sym}\b", k)
+                             for sym in KERNEL_SYMBOLS[n]))
+               for n in want}
+    say("  the kernels' share of a step (their device time in the profiled "
+        "step over the median step): "
+        + ", ".join(f"{n} {t:.2f} ms, "
+                    + (f"{t / want[n] * n_steps:.3f} ms a launch, "
+                       f"{t / 1e3 / steady:.1%}" if t > 0 else
+                       "not measured") for n, t in in_step.items())
+        + f"; together {sum(in_step.values()) / 1e3 / steady:.1%}")
 
     # one gradient with remat="none" against remat="full", bit for bit
     grads = {}
@@ -3465,7 +3565,7 @@ def main() -> None:
     # under the profiler, against the host-paced step
     step_ms = res["decode_s"] / G11 * 1e3
     tok = res["tokens"][:, -1:]
-    dev_ms, n_launch, top = profile_window(
+    dev_ms, n_launch, top, _ = profile_window(
         lambda: lm_model.decode(params, cache, tok, max_len - 1, lm_cfg), 3)
     say(f"  decode step under the profiler: device "
         + ("not measured" if dev_ms is None else
@@ -3479,7 +3579,7 @@ def main() -> None:
     say(f"  prefill by CUDA events {prefill_ms:.1f} ms; B9 "
         f"{lm_cfg.n_layers} x {stats['flash_attention']['ms']:.3f} ms = "
         f"{b9_ms:.1f} ms, {b9_ms / prefill_ms:.1%} of the prefill")
-    _, n_launch, top = profile_window(lambda: lm_model.prefill(
+    _, n_launch, top, _ = profile_window(lambda: lm_model.prefill(
         params, {"tokens": toks}, lm_cfg, max_len=max_len), 1)
     say(f"  prefill under the profiler: {n_launch:.0f} kernel launches; by "
         f"device time: {top}")
@@ -3584,7 +3684,7 @@ def main() -> None:
                   odm_params, odm_cfg, g_ijc)
 
     # -- 15. the LM training path: qwen3-0.6b, card vs CPU, resume ----------
-    train_phase(lm_cfg, expect, path_launches, stats, derate)
+    train_phase(lm_cfg, expect, path_launches)
 
     # -- report ---------------------------------------------------------------
     end_phase()

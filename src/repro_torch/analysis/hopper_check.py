@@ -518,44 +518,63 @@ def flash_f32_stats_plan(B: int = 4, Hq: int = 16, T: int = 2048,
                                symbol=f"flash_f32_stats<{D}>", variant=idx)
 
 
-def _bwd_tile(D: int) -> tuple[int, ...]:
-    """One staged 64-row tile of N1 (``csrc/flash_bwd.cu::BTiles``), rows
-    padded to D + 4 floats."""
-    return (64, D + 4)
+def _bwd_blocks(D: int, kernel: str) -> tuple[Block, ...]:
+    """N1's shared memory (``csrc/flash_bwd.cu::BTiles``): raw 64-row
+    tiles of Q and dO in TMA's 128-byte swizzle (boxes of 32 floats a
+    row, one at D = 16), split 32-key K and V tiles (a TF32 big and a
+    small half of 32 x D each), split dS or P tiles (two halves of
+    64 x 32), and N1-dkdv's four mbarriers (each warpgroup's Q and dO
+    copies)."""
+    raw = (64, 32 * max(1, D // 32))
+    if kernel == "flash_bwd_dq":   # Q and dO shared; each warpgroup's own
+        return (Block("q", raw), Block("dout", raw),
+                Block("k_split", (2, 2, 32, D)),
+                Block("v_split", (2, 2, 32, D)),
+                Block("ds_split", (2, 2, 64, 32)), Block("delta", (64,)))
+    return (Block("k_split", (2, 32, D)), Block("v_split", (2, 32, D)),
+            Block("q", (2,) + raw), Block("dout", (2,) + raw),
+            Block("p_ds_split", (2, 2, 32, 64)),
+            Block("bars", (4,), "uint64"))
+
+
+def _bwd_variant(D: int, kernel: str, exact: bool) -> int:
+    """``flash_bwd_attributes``'s variant: D = 16 << (v % 4), N1-dkdv at
+    4 .. 7, the exact variant (k, v and dout TF32-exact) 8 on."""
+    idx = {16: 0, 32: 1, 64: 2, 128: 3}.get(D)
+    if idx is None:
+        return -1
+    return idx + 4 * (kernel == "flash_bwd_dkdv") + 8 * exact
 
 
 def flash_bwd_dq_plan(B: int = 4, Hq: int = 16, T: int = 2048,
-                      D: int = 128) -> KernelPlan:
-    """N1-dq (``csrc/flash_bwd.cu::flash_bwd_dq``): 256 threads a
-    (b, q head, 64-row query block); Q and dO resident, a two-stage ring
-    of 64-key K and V tiles, dSᵀ (64 x 68) and the block's D."""
-    idx = {16: 0, 32: 1, 64: 2, 128: 3}.get(D, -1)
+                      D: int = 128, exact: bool = False) -> KernelPlan:
+    """N1-dq (``csrc/flash_bwd.cu::flash_bwd_dq``): 256 threads (two
+    warpgroups) a (b, q head, 64-row query block); raw Q and dO shared,
+    each warpgroup's own split K, V (32 keys) and dS tiles, the block's D.
+    ``exact``: the variant that skips k's, v's and dout's small halves
+    (same plan)."""
     return KernelPlan(
-        kernel="flash_bwd_dq", symbol=f"flash_bwd_dq<{D}>",
-        entry="flash_bwd_attributes", variant=idx, threads=256,
-        grid=(-(-T // 64) * Hq * B,),
-        blocks=(Block("q", _bwd_tile(D)), Block("dout", _bwd_tile(D)),
-                Block("k_ring", (2,) + _bwd_tile(D)),
-                Block("v_ring", (2,) + _bwd_tile(D)),
-                Block("ds_t", (64, 68)), Block("delta", (64,))),
-        min_ctas=1, shape=(("B", B), ("Hq", Hq), ("T", T), ("D", D)))
+        kernel="flash_bwd_dq", symbol=f"flash_bwd_dq<{D}, "
+        f"{str(exact).lower()}>", entry="flash_bwd_attributes",
+        variant=_bwd_variant(D, "flash_bwd_dq", exact), threads=256,
+        grid=(-(-T // 64) * Hq * B,), blocks=_bwd_blocks(D, "flash_bwd_dq"),
+        min_ctas=1,
+        shape=(("B", B), ("Hq", Hq), ("T", T), ("D", D), ("exact", exact)))
 
 
 def flash_bwd_dkdv_plan(B: int = 4, Hkv: int = 8, S: int = 2048,
-                        D: int = 128) -> KernelPlan:
-    """N1-dkdv (``csrc/flash_bwd.cu::flash_bwd_dkdv``): 256 threads a
-    (b, kv head, 64-key block); K and V resident, a two-stage ring of
-    64-row Q and dO tiles, one 64 x 68 tile for P and then dS."""
-    idx = {16: 4, 32: 5, 64: 6, 128: 7}.get(D, -1)
+                        D: int = 128, exact: bool = False) -> KernelPlan:
+    """N1-dkdv (``csrc/flash_bwd.cu::flash_bwd_dkdv``): 256 threads (two
+    warpgroups) a (b, kv head, 32-key block); split K and V shared, each
+    warpgroup's own raw Q and dO tiles (copied by TMA) and a split tile
+    for P, then dS."""
     return KernelPlan(
-        kernel="flash_bwd_dkdv", symbol=f"flash_bwd_dkdv<{D}>",
-        entry="flash_bwd_attributes", variant=idx, threads=256,
-        grid=(-(-S // 64) * Hkv * B,),
-        blocks=(Block("k", _bwd_tile(D)), Block("v", _bwd_tile(D)),
-                Block("q_ring", (2,) + _bwd_tile(D)),
-                Block("dout_ring", (2,) + _bwd_tile(D)),
-                Block("p_ds", (64, 68))),
-        min_ctas=1, shape=(("B", B), ("Hkv", Hkv), ("S", S), ("D", D)))
+        kernel="flash_bwd_dkdv", symbol=f"flash_bwd_dkdv<{D}, "
+        f"{str(exact).lower()}>", entry="flash_bwd_attributes",
+        variant=_bwd_variant(D, "flash_bwd_dkdv", exact), threads=256,
+        grid=(-(-S // 32) * Hkv * B,),
+        blocks=_bwd_blocks(D, "flash_bwd_dkdv"), min_ctas=1,
+        shape=(("B", B), ("Hkv", Hkv), ("S", S), ("D", D), ("exact", exact)))
 
 
 #: kernel name -> plan builder (kwargs: the call's shape)
@@ -594,8 +613,11 @@ DEFAULT_SHAPES: dict[str, tuple[dict, ...]] = {
     "flash_bf16": ({"B": 4, "Hq": 16, "T": 2048, "D": 128},),
     "flash_f32": ({"B": 4, "Hq": 16, "T": 2048, "D": 128},),
     "flash_f32_stats": ({"B": 4, "Hq": 16, "T": 2048, "D": 128},),
-    "flash_bwd_dq": ({"B": 4, "Hq": 16, "T": 2048, "D": 128},),
-    "flash_bwd_dkdv": ({"B": 4, "Hkv": 8, "S": 2048, "D": 128},),
+    "flash_bwd_dq": ({"B": 4, "Hq": 16, "T": 2048, "D": 128},
+                     {"B": 4, "Hq": 16, "T": 2048, "D": 128, "exact": True}),
+    "flash_bwd_dkdv": ({"B": 4, "Hkv": 8, "S": 2048, "D": 128},
+                       {"B": 4, "Hkv": 8, "S": 2048, "D": 128,
+                        "exact": True}),
 }
 
 
@@ -624,7 +646,7 @@ def check_kernels() -> dict[str, str]:
 VARIANTS = {"cd_sweep_attributes": 12, "dense_matvec_attributes": 1,
             "cd_exact_attributes": 1, "gram_attributes": 16,
             "gram_matvec_attributes": 10, "odm_grad_attributes": 10,
-            "flash_attn_attributes": 12, "flash_bwd_attributes": 8}
+            "flash_attn_attributes": 12, "flash_bwd_attributes": 16}
 
 _ATTR_KEYS = ("regs", "smem_static", "local_bytes", "max_threads",
               "ctas_per_sm", "threads")

@@ -139,9 +139,9 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.flash_attn_fwd_stats.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I,
                                          ctypes.POINTER(L), F, I, I, I, P]
     lib.flash_bwd_dq_f32.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I,
-                                     I, I, I, I, I, F, P]
+                                     I, I, I, I, I, F, I, P]
     lib.flash_bwd_dkdv_f32.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I,
-                                       I, I, I, I, I, I, P]
+                                       I, I, I, I, I, I, I, P]
     lib.flash_bwd_smem.argtypes = [I, I]
     # the plan checker's queries (analysis/hopper_check.py): each source's
     # <kernel>_attributes(variant, smem, int out[6]) and the dynamic

@@ -753,38 +753,12 @@ __global__ void __launch_bounds__(F_NT, 1) flash_f32_stats(const Params p) {
   flash_f32_body<D, true>(p);
 }
 
-// cuTensorMapEncodeTiled, reached through the runtime's driver entry
-// point so that the library needs no -lcuda.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
-                                 cuuint32_t, void*, const cuuint64_t*,
-                                 const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave,
-                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
-                                 CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* f = nullptr;
-    cudaDriverEntryPointQueryResult found{};
-#if CUDART_VERSION >= 12050
-    const cudaError_t e = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t e = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
-#endif
-    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(f)
-               : nullptr;
-  }();
-  return fn;
-}
-
 // A bf16 (D, rows, heads, batch) map with the element strides (batch,
 // head, row) and boxes of CW x box_rows; false if the driver refuses it.
 template <int D>
-bool encode(EncodeTiled fn, CUtensorMap* map, const void* base, int rows,
-            int heads, int batch, const long long* st, int box_rows) {
+bool encode(sm90::EncodeTiled fn, CUtensorMap* map, const void* base,
+            int rows, int heads, int batch, const long long* st,
+            int box_rows) {
   using L = Tiles<D>;
   const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
                               static_cast<cuuint64_t>(rows),
@@ -812,7 +786,7 @@ int launch_bf16(const void* const (&ptr)[4], int B, int Hq, int Hkv, int T,
                 int S, const long long* strides, float scale, int causal,
                 int window, cudaStream_t st) {
   using L = Tiles<D>;
-  const EncodeTiled fn = encode_tiled();
+  const sm90::EncodeTiled fn = sm90::encode_tiled();
   if (fn == nullptr) return -5;
   CUtensorMap maps[4];
   const int rows[4] = {T, S, S, T}, heads[4] = {Hq, Hkv, Hkv, Hq};

@@ -1,5 +1,6 @@
 // N1 — flash attention backward (dq, dk, dv): causal and/or sliding
-// window, GQA, queries at positions t + q_offset, fp32 arithmetic.
+// window, GQA, queries at positions t + q_offset; fp32-accurate products
+// on the tensor cores as a three-term TF32 split.
 //
 // Replaces no TPU kernel: the reference's training attention is plain JAX,
 //   repro/models/attention.py::_blocked_flash_bwd (the custom VJP of
@@ -13,35 +14,113 @@
 //   reads kv head h / group, and the dk and dv of a kv head sum over its
 //   group's query heads.
 //
-// What bounds it on an H100: operations. The five products are 10 D
-// flops a visible pair and head; at the qwen3-0.6b training shape (B = 4,
-// Hq = 16, Hkv = 8, T = S = 2048, D = 128, causal) 172 GFLOP, 2.56 ms at
-// the 67 TFLOP/s of fp32 on the CUDA cores (no TF32: the 1e-5 band of the
-// reference's fp32 gradients rules it out), against about 270 MB of
-// fp32 operands and results (0.08 ms at 3.35 TB/s).
+// What bounds it on an H100: operations. The five products are 10 D flops
+// a visible pair and head: at the qwen3-0.6b training shape (B = 4,
+// Hq = 16, Hkv = 8, T = S = 2048, D = 128, causal) 172 GFLOP against about
+// 270 MB of operands and results. On the CUDA cores (67 TFLOP/s of fp32)
+// that is 2.57 ms; as three TF32 products each on the tensor cores (495
+// TFLOP/s) 1.04 ms, the bound the kernels are now held to (chip_smoke
+// phase 2e prints both: N1-dq 0.21 ms, N1-dkdv 0.83). The two kernels
+// compute S and dP both, seven products, 1.46 ms as a split. Measured
+// there (an H100 80GB HBM3 at 700 W): N1-dq 2.37 ms + N1-dkdv 2.71 ms in
+// fp32, against 3.70 + 4.45 on the CUDA cores before and 8.07 for SDPA's
+// backward; about 1.84 + 2.07 ms with bf16 inputs in the training step.
+// What holds them there is latency, not the tensor cores: a warpgroup's
+// loads, splits and softmax run between its products, and two
+// warpgroups an SM, at up to 255 registers, cannot hide all of it.
 //
-// Design: two kernels, so that every sum is taken in a fixed order (the
-// port's determinism rule rules out atomicAdd into dq):
-//   * flash_bwd_dq: one CTA of 256 threads (a 16 x 16 grid) per (b, q
-//     head, 64-row query block), heaviest first under causality. It
-//     computes D for its rows (4 threads a row, then two shuffles) and
-//     writes it for the second kernel, then walks the live 64-key tiles
-//     through a two-stage cp.async ring of K and V: S = Qs K^T and
-//     dP = dO V^T as 4 x 4 register micro-tiles (rows ty*4 + i, keys
-//     tx + 16 kk: a quarter-warp's float4 reads of K and V rows padded to
-//     D + 4 floats fall on all 32 banks, Q and dO reads broadcast), dS^T
-//     into shared memory, dq += dS K as 4 rows x D/16 columns a thread.
-//   * flash_bwd_dkdv: one CTA per (b, kv head, 64-key block), which holds
-//     its K and V tiles and walks the group's query heads and, for each,
-//     the query tiles that see its keys, Q and dO through a two-stage
-//     ring. S^T = K Qs^T and dP^T = V dO^T as micro-tiles (keys ty*4 + i,
-//     rows tx + 16 rr); P goes to shared memory for dv += P^T dO, then dS
-//     into the same buffer for dk += dS^T Qs.
-//   The two kernels compute S and dP both, so the pair does seven
-//   products where one fused kernel would do five.
-// Every tile that crosses an edge (the causal diagonal, the window's edge,
-// the end of S or of T) is masked element by element; the others are not.
-// Rows past T and keys past S load as zeros and are never written.
+// The split. Each fp32 operand x of a product becomes big = tf32(x),
+// rounded to nearest, and small = tf32(x - big); the product is big·big +
+// big·small + small·big, each term a wgmma.m64nNk8.f32.tf32.tf32 into an
+// fp32 accumulator, and small·small (about 2^-22 of it) is dropped. An
+// operand exact in TF32 has a zero small half and skips its terms: with
+// exact = 1 (bwd_operands' flag, set from the dtypes of k, v and dout
+// when they are bf16 or fp16, as in the training step's bf16 compute) dP = dO V^T is one term, S = Qs K^T, dQ
+// and dV two, and dK three (qs = q * D^-1/2 is not exact).
+//
+// The band. Plain TF32 (one term) misses the reference's 1e-5 ×
+// max(1, max|.|) band; the split holds it, as fp32 products do.
+// tests/test_torch_flash_split.py emulates the arithmetic on the CPU
+// against the reference's _blocked_flash_bwd: the split within 2.9e-7 to
+// 5.1e-6, plain TF32 3.3e-4 to 2.7e-3, the largest of each on the
+// cancelling case (q × 4, dout = out + 1e-3 noise, so that dP - D
+// cancels). Unlike K2's xx + zz - 2 xz, attention's backward has no
+// cancellation that amplifies the split's error. The tensor cores read
+// only a TF32 operand's top 19 bits and do not round their fp32 sums to
+// nearest: a long sum in one accumulator drifts toward zero. So no
+// tensor-core sum runs long: each chunk of k-steps (over D: 4 in N1-dq, 2
+// in N1-dkdv; over keys or rows: 4) starts a fresh accumulator, issues its
+// cross terms first (while it is small) and then the big terms, and is
+// added to the running sum on the CUDA cores, rounded to nearest. On the
+// card (chip_smoke phase 2e) the kernels sit within 2.6e-6 of the fp32
+// plain version at the qwen3 shape and, on the cancelling case, within
+// 3.1e-6 of the fp64 plain version, where the fp32 plain version is
+// 6.7e-6 from it (both × max(1, max|.|)).
+//
+// Design: two kernels, so that every sum is taken in a fixed order (no
+// atomic adds: the port's determinism rule); each CTA is two warpgroups
+// (256 threads, one CTA an SM) that take alternate tiles, one in flight
+// each, so that one's loads and softmax run beside the other's products,
+// and sum their partial results through shared memory at the end,
+// warpgroup 0's first:
+//   * flash_bwd_dq: a CTA a (b, q head, 64-row query block), heaviest
+//     first. It loads raw Q and dO (cp.async), computes D for its rows
+//     (written for N1-dkdv), then per 32-key tile a warpgroup stages split
+//     K and V (global to registers, split, to K-major tiles), computes S =
+//     Qs K^T and dP = dO V^T (m64n32k8, A the raw rows split in
+//     registers), p and dS, writes dS split, and adds dQ^T += K^T dS^T
+//     (m64n64k8, A = K read down its split tile's columns; D / 64
+//     m-tiles).
+//   * flash_bwd_dkdv: a CTA a (b, kv head, 32-key block), lowest keys
+//     first; it stages split K and V once, then per (query head, 64-row
+//     tile) step a warpgroup has raw Q and dO copied by TMA (one thread
+//     issues them, an mbarrier each; dO of the next step loads under dK),
+//     computes S and dP as above, writes P split as a keys x rows tile,
+//     adds dV^T += dO^T P, writes dS into the same tile, and adds dK^T +=
+//     Qs^T dS (A = the raw tiles read down their columns, split in
+//     registers).
+//   N1-dq departs from a TMA or cp.async ring with a producer warpgroup
+//   (B9 bf16's shape): each consumer warpgroup reads its K and V tile
+//   itself (__ldg into registers), splits it and stores both halves, one
+//   tile in flight a warpgroup. A ring's stage would hold the raw tile
+//   until it is split, 32 KB at D = 128 for K and V, and the CTA has
+//   2,816 B left (below); the split halves cannot be the landing zone,
+//   since the warpgroup is still reading the previous tile's. So each
+//   tile's load latency sits on its warpgroup's path, hidden only by the
+//   other warpgroup's products: the latency that holds N1-dq near 20 % of
+//   its split bound. Freeing shared memory for a raw stage (fewer split
+//   tiles, D in two halves) is ROADMAP's first N1 lever. N1-dkdv has the
+//   ring's shape for what it streams: Q and dO come by TMA.
+//   Every tile that crosses an edge (the causal diagonal, the window's
+//   edge, the end of S or of T) is masked element by element; rows past T
+//   and keys past S load as zeros and are never written.
+//
+// Layouts. A tf32 wgmma takes no transpose flag: A and B are K-major, the
+// contraction contiguous. B tiles are written by threads (that is where
+// the split happens) in the no-swizzle K-major layout: 8 x 4 core
+// matrices of 128 bytes, LBO 128 B, SBO 32 C B for C columns.
+//   * S and dP contract over D, the stored layout: B = the K or V tile, A
+//     = the raw Q or dO rows, four scalar loads a k-step.
+//   * dV, dK and dQ contract over rows or keys. Their B is P or dS, which
+//     the threads write from the accumulators in whatever layout B needs
+//     (keys x rows in N1-dkdv, rows x keys in N1-dq), and the transposed
+//     operand is A from registers, loaded down the columns of a raw tile
+//     or of the split K tile: the transpose costs only the loads. (An
+//     accumulator is not reused as A: its column pairs 2t, 2t + 1 are not
+//     the tf32 A fragment's t, t + 4, and P and dS are B here anyway.)
+//   * Raw tiles are laid out as TMA's 128-byte swizzle writes them (no
+//     padding; raw_at). Reads along rows are conflict-free as they come;
+//     reads down columns are when A's columns t and t + 4 take rows 2t and
+//     2t + 1, so P and dS store their rows in that order (row_col).
+// Shared memory. Big and small halves double a split operand, so only B
+// operands are staged split: K and V (32 keys, 2 x 16 KB each at D = 128)
+// and P or dS (2 x 8 KB); the A operands Q and dO stay raw (32 KB a
+// 64-row tile) and are split in registers. N1-dq: raw Q and dO 64 KB +
+// each warpgroup's K, V and dS 80 KB + D = 229,632 B; N1-dkdv: K and V 64
+// KB + each warpgroup's raw Q, dO and P / dS 80 KB + 4 mbarriers =
+// 229,408 B, of the 232,448 a block may take. Registers: the running dq
+// (dk and dv) take 64 a thread at D = 128; 254 (N1-dq) and 218 / 248
+// (N1-dkdv, split / exact) in all, no spills (ptxas, phase 2e).
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -51,9 +130,10 @@
 
 namespace {
 
-constexpr int TB = 64;       // query rows of a q tile, keys of a k tile
-constexpr int NT = 256;      // threads a CTA: a 16 x 16 grid
-constexpr int PS = TB + 4;   // row stride of the dS^T / P / dS tiles
+constexpr int BQ = 64;    // query rows: N1-dq's block, N1-dkdv's tile
+constexpr int BK = 32;    // keys: N1-dq's tile, N1-dkdv's block
+constexpr int WT = 128;   // threads a warpgroup
+constexpr int NT = 256;   // threads a CTA: two warpgroups
 constexpr unsigned FULL = 0xffffffffu;
 
 struct Bwd {
@@ -74,128 +154,45 @@ struct Bwd {
 
 template <int D>
 struct BTiles {
-  static constexpr int LD = D + 4;        // row stride of a staged tile
-  static constexpr int TILE = TB * LD;    // floats of one staged tile
-  static constexpr int CPT = D / 16;      // D-wide columns a thread
-  static constexpr int VEC = CPT < 4 ? CPT : 4;
-  static constexpr int NG = CPT / VEC;    // ... as NG vectors 16 VEC apart
-  // dq: Q, dO; two stages of K and V; dS^T; D of the block's rows
-  static constexpr int DQ_SMEM = 4 * (6 * TILE + TB * PS + TB);
-  // dkdv: K, V; two stages of Q and dO; P (then dS)
-  static constexpr int DKDV_SMEM = 4 * (6 * TILE + TB * PS);
+  static constexpr int KS = D / 8;                 // k-steps over D
+  static constexpr int MT = D < 64 ? 1 : D / 64;   // 64-row m-tiles over D
+  static constexpr int NBOX = D < 32 ? 1 : D / 32;  // 32-float boxes a row
+  static constexpr int RAW = BQ * 32 * NBOX;  // floats of a raw 64-row tile
+  static constexpr int KV = BK * D;    // ... of a half of a split K or V tile
+  static constexpr int PS = BQ * BK;   // ... of a half of a split dS or P tile
+  // N1-dq: raw Q and dO; a warpgroup's split K, V and dS; D of the rows
+  static constexpr int DQ_SMEM = 4 * (2 * RAW + 2 * (4 * KV + 2 * PS) + BQ);
+  // N1-dkdv: split K and V; a warpgroup's raw Q and dO and split P / dS;
+  // the four mbarriers of the warpgroups' Q and dO copies
+  static constexpr int BARS = 4 * KV + 2 * (2 * RAW + 2 * PS);  // floats in
+  static constexpr int DKDV_SMEM = 4 * BARS + 4 * 8;
 };
 
-template <int N>
-struct Vec;
-template <>
-struct Vec<1> {
-  __device__ static void get(const float* p, float* o) { o[0] = *p; }
-  __device__ static void put(float* p, const float* o) { *p = o[0]; }
-};
-template <>
-struct Vec<2> {
-  __device__ static void get(const float* p, float* o) {
-    const float2 v = *reinterpret_cast<const float2*>(p);
-    o[0] = v.x;
-    o[1] = v.y;
-  }
-  __device__ static void put(float* p, const float* o) {
-    *reinterpret_cast<float2*>(p) = make_float2(o[0], o[1]);
-  }
-};
-template <>
-struct Vec<4> {
-  __device__ static void get(const float* p, float* o) {
-    const float4 v = *reinterpret_cast<const float4*>(p);
-    o[0] = v.x;
-    o[1] = v.y;
-    o[2] = v.z;
-    o[3] = v.w;
-  }
-  __device__ static void put(float* p, const float* o) {
-    *reinterpret_cast<float4*>(p) = make_float4(o[0], o[1], o[2], o[3]);
-  }
-};
-
-// Rows [0, n) of a TB x D tile at src (row stride ld floats) into shared
-// memory at row stride D + 4, zeros for rows [n, TB): 16-byte cp.async.
-template <int D>
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          long long ld, int n) {
-  constexpr int C4 = D / 4;
-  for (int i = threadIdx.x; i < TB * C4; i += NT) {
-    const int r = i / C4, c = 4 * (i % C4);
-    const bool ok = r < n;
-    sm90::cp_async16(dst + r * (D + 4) + c, ok ? src + r * ld + c : src, ok);
-  }
+// A raw tile, as TMA's 128-byte swizzle writes it: NBOX boxes of 64 rows x
+// 32 floats (columns past D unused), each row's 16-byte chunk j at j ^ (r %
+// 8). A warp's reads along rows (8 rows x 4 columns) and down columns (4
+// rows x 8 columns, the rows in the order of dot_cols) fall on 32 banks.
+__device__ __forceinline__ int raw_at(int r, int c) {
+  return (c >> 5) * (BQ * 32) + r * 32 + ((((c >> 2) & 7) ^ (r & 7)) << 2) +
+         (c & 3);
 }
 
-// acc[i][j] = A[a0 + i] . Bm[b0 + 16 j] over D (tiles at row stride D + 4).
-template <int D>
-__device__ __forceinline__ void tile_dots(float (&acc)[4][4], const float* A,
-                                          int a0, const float* Bm, int b0) {
-  constexpr int LD = D + 4;
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.0f;
-#pragma unroll 2
-  for (int c = 0; c < D; c += 4) {
-    float a[4][4], b[4][4];
-#pragma unroll
-    for (int j = 0; j < 4; ++j) Vec<4>::get(Bm + (b0 + 16 * j) * LD + c, b[j]);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) Vec<4>::get(A + (a0 + i) * LD + c, a[i]);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[i][j] = fmaf(a[i][e], b[j][e], acc[i][j]);
-  }
+// A K-major wgmma operand of rows x C (C the contraction) without swizzle:
+// 8 x 4 core matrices of 128 bytes, the C / 4 of an 8-row group in a row
+// (LBO 128 bytes), the groups 32 C bytes apart (SBO).
+template <int C>
+__device__ __forceinline__ int km_at(int r, int c) {
+  return (r >> 3) * (8 * C) + (c >> 2) * 32 + (r & 7) * 4 + (c & 3);
 }
 
-// acc[i][c] += sum_{k < TB} W[k][w0 + i] X[k][col(c)], W at row stride PS,
-// X at D + 4; col(c) = g 16 VEC + tx VEC + e for c = g VEC + e.
-template <int D>
-__device__ __forceinline__ void tile_acc(float (&acc)[4][D / 16],
-                                         const float* W, int w0,
-                                         const float* X, int tx) {
-  using L = BTiles<D>;
-#pragma unroll 2
-  for (int k = 0; k < TB; ++k) {
-    float w[4], x[L::CPT];
-    Vec<4>::get(W + k * PS + w0, w);
-#pragma unroll
-    for (int g = 0; g < L::NG; ++g)
-      Vec<L::VEC>::get(X + k * L::LD + g * 16 * L::VEC + tx * L::VEC,
-                       x + g * L::VEC);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int c = 0; c < L::CPT; ++c) acc[i][c] = fmaf(w[i], x[c], acc[i][c]);
-  }
+template <int C>
+__device__ __forceinline__ uint64_t km_desc(uint32_t addr) {
+  return sm90::desc(addr, 128, 32 * C, 0);
 }
 
-// acc's rows [0, 4) (rows first + i, skipped from n on) into dst at row
-// stride ld, times s.
-template <int D>
-__device__ __forceinline__ void store_rows(float* dst, long long ld,
-                                           const float (&acc)[4][D / 16],
-                                           int first, int n, int tx,
-                                           float s) {
-  using L = BTiles<D>;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    if (first + i >= n) continue;
-    float out[L::CPT];
-#pragma unroll
-    for (int c = 0; c < L::CPT; ++c) out[c] = acc[i][c] * s;
-#pragma unroll
-    for (int g = 0; g < L::NG; ++g)
-      Vec<L::VEC>::put(dst + (first + i) * ld + g * 16 * L::VEC + tx * L::VEC,
-                       out + g * L::VEC);
-  }
+// The column of row r in a P or dS tile (dot_cols' contraction order).
+__device__ __forceinline__ int row_col(int r) {
+  return (r & ~7) | ((r & 1) << 2) | ((r & 7) >> 1);
 }
 
 __device__ __forceinline__ bool visible(const Bwd& p, int row, int kpos) {
@@ -206,61 +203,348 @@ __device__ __forceinline__ bool visible(const Bwd& p, int row, int kpos) {
   return true;
 }
 
+// Rows [0, n) of a 64 x D tile at src (row stride ld) into the raw tile at
+// dst, zeros for rows [n, 64): 16-byte cp.async by the CTA's threads.
 template <int D>
+__device__ __forceinline__ void load_raw(float* dst, const float* src,
+                                         long long ld, int n, int tid) {
+  constexpr int C4 = D / 4;
+#pragma unroll 1
+  for (int j = 0; j < BQ * C4 / NT; ++j) {
+    const int i = tid + j * NT;
+    const int r = i / C4, c = 4 * (i % C4);
+    const bool ok = r < n;
+    sm90::cp_async16(dst + raw_at(r, c), ok ? src + r * ld + c : src, ok);
+  }
+}
+
+// x as big and small TF32 halves; SPLIT false: x is exact in TF32 (an
+// upcast bf16 or fp16 value), its own big half, and small is not used.
+template <bool SPLIT>
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  if constexpr (SPLIT) {
+    sm90::split_tf32(x, big, small);
+  } else {
+    big = __float_as_uint(x);
+    small = 0u;
+  }
+}
+
+__device__ __forceinline__ void put4(float* dst, const uint32_t (&x)[4]) {
+  *reinterpret_cast<float4*>(dst) =
+      make_float4(__uint_as_float(x[0]), __uint_as_float(x[1]),
+                  __uint_as_float(x[2]), __uint_as_float(x[3]));
+}
+
+// Keys [0, n) of the 32 x D K and V tiles at k and v (row stride ld) split
+// into the K-major tiles kt and vt (big, then the small half KV floats
+// on; zeros past n), by THREADS threads: every load is issued before the
+// first split. SPLIT false: the inputs are exact in TF32 and the small
+// halves are not written (nothing reads them).
+//
+// A thread takes 8-float units (r, 8 m). A warp's 32 units are LR keys x
+// LU consecutive units of each: a load touches LR 128-byte lines (one a
+// key at D >= 32), not 32, and each 8-lane phase of the 16-byte stores
+// fills one 128-byte row of core matrices.
+template <int D, bool SPLIT, int THREADS>
+__device__ __forceinline__ void stage_kv(float* kt, float* vt,
+                                         const float* k, const float* v,
+                                         long long ld, int n, int tid) {
+  using L = BTiles<D>;
+  constexpr int UNITS = BK * (D / 8);               // 8-float units
+  constexpr int U = (UNITS + THREADS - 1) / THREADS;  // ... a thread
+  constexpr int LU = D / 8 < 4 ? D / 8 : 4;         // units a key, a warp
+  constexpr int LR = 32 / LU;                       // keys a warp
+  auto unit = [&](int u, int& r, int& c) {
+    const int lane = u % 32, w = u / 32;
+    r = lane % LR + LR * (w % (BK / LR));
+    c = 8 * (lane / LR + LU * (w / (BK / LR)));
+  };
+  float4 ld4[U][4];
+#pragma unroll
+  for (int j = 0; j < U; ++j) {
+    const int u = tid + j * THREADS;
+    int r, c;
+    unit(u, r, c);
+    const bool in = r < n && (UNITS % THREADS == 0 || u < UNITS);
+    const float4 z = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    const float4* kp = reinterpret_cast<const float4*>(k + r * ld + c);
+    const float4* vp = reinterpret_cast<const float4*>(v + r * ld + c);
+    ld4[j][0] = in ? __ldg(kp) : z;
+    ld4[j][1] = in ? __ldg(kp + 1) : z;
+    ld4[j][2] = in ? __ldg(vp) : z;
+    ld4[j][3] = in ? __ldg(vp + 1) : z;
+  }
+#pragma unroll
+  for (int j = 0; j < U; ++j) {
+    const int u = tid + j * THREADS;
+    if (UNITS % THREADS != 0 && u >= UNITS) break;
+    int r, c;
+    unit(u, r, c);
+    const float4 ka = ld4[j][0], kb = ld4[j][1], va = ld4[j][2],
+                 vb = ld4[j][3];
+    const int lo = km_at<D>(r, c), hi = km_at<D>(r, c + 4);
+    auto put = [&](float* t, float4 a, float4 b) {
+      const float x[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+      uint32_t big[8], small[8];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) split<SPLIT>(x[e], big[e], small[e]);
+      put4(t + lo, {big[0], big[1], big[2], big[3]});
+      put4(t + hi, {big[4], big[5], big[6], big[7]});
+      if constexpr (SPLIT) {
+        put4(t + L::KV + lo, {small[0], small[1], small[2], small[3]});
+        put4(t + L::KV + hi, {small[4], small[5], small[6], small[7]});
+      }
+    };
+    put(kt, ka, kb);
+    put(vt, va, vb);
+  }
+}
+
+// c (+)= a b: m64n32k8 or m64n64k8 by c's 16 or 32 registers
+template <int N>
+__device__ __forceinline__ void mma(float (&c)[N], const uint32_t (&a)[4],
+                                    uint64_t b, int acc) {
+  if constexpr (N == 16) sm90::wgmma_tf32_n32(c, a, b, acc);
+  else sm90::wgmma_tf32_n64(c, a, b, acc);
+}
+
+// Issue one chunk of KC split k-steps into the fresh accumulator c (an
+// m64nNk8 wgmma, N twice c's registers) against the B tile of
+// contraction width C at big (its small half at small): every cross term
+// (big x small, small x big) first, while c is still small, then the
+// big x big terms, so that c's truncating tensor-core sums cut the large
+// value once a k-step. AS / BS false: that operand's small half is zero.
+template <int C, int KC, bool AS, bool BS, int N>
+__device__ __forceinline__ void issue_chunk(float (&c)[N],
+                                            const uint32_t (&ab)[KC][4],
+                                            const uint32_t (&as)[KC][4],
+                                            uint32_t big, uint32_t small) {
+  int acc = 0;
+#pragma unroll
+  for (int kk = 0; kk < KC; ++kk) {   // two core matrices a k-step
+    if constexpr (BS) {
+      mma(c, ab[kk], km_desc<C>(small + 256 * kk), acc);
+      acc = 1;
+    }
+    if constexpr (AS) {
+      mma(c, as[kk], km_desc<C>(big + 256 * kk), acc);
+      acc = 1;
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < KC; ++kk) {
+    mma(c, ab[kk], km_desc<C>(big + 256 * kk), acc);
+    acc = 1;
+  }
+}
+
+// acc (the warpgroup's 64 rows x 32 keys) = X Y^T over D: X the raw tile
+// (A from registers, split there), Y the split K-major tile at y (B).
+// Each chunk of KC0 (at most KS) k-steps goes to a fresh accumulator,
+// added to acc in fp32 (round to nearest), so that no tensor-core sum
+// runs longer than a chunk. XS / YS false: that operand is exact in TF32
+// and its small half is skipped. The chunks are unrolled UN at a time:
+// more lets the compiler load a chunk's fragments sooner, fewer holds
+// fewer registers.
+template <int D, int KC0, int UN, bool XS, bool YS>
+__device__ __forceinline__ void dot_rows(float (&acc)[16], const float* x,
+                                         uint32_t y, int row, int t) {
+  using L = BTiles<D>;
+  constexpr int KC = KC0 < L::KS ? KC0 : L::KS;
+#pragma unroll
+  for (int i = 0; i < 16; ++i) acc[i] = 0.0f;
+  const float* xr = x + row * 32 + t;  // rows row, row + 8 (raw_at)
+#pragma unroll 1
+  for (int g0 = 0; g0 < L::KS; g0 += KC * UN) {
+    // the rows' swizzle, opaque here so that the compiler computes the
+    // offsets in the loop and does not hold them across the caller's
+    int sw = row & 7;
+    asm volatile("" : "+r"(sw));
+#pragma unroll
+    for (int u = 0; u < UN; ++u) {
+      const int c0 = g0 + KC * u;
+      if (L::KS % (KC * UN) != 0 && c0 >= L::KS) break;
+      uint32_t ab[KC][4], as[KC][4];
+#pragma unroll
+      for (int kk = 0; kk < KC; ++kk) {
+        // columns 8 k + t and 8 k + t + 4: chunks 2 k and 2 k + 1
+        const int k = c0 + kk, box = (k >> 2) * (BQ * 32);
+        const int lo = box + ((((2 * k) & 7) ^ sw) << 2);
+        const int hi = box + ((((2 * k + 1) & 7) ^ sw) << 2);
+        split<XS>(xr[lo], ab[kk][0], as[kk][0]);
+        split<XS>(xr[lo + 8 * 32], ab[kk][1], as[kk][1]);
+        split<XS>(xr[hi], ab[kk][2], as[kk][2]);
+        split<XS>(xr[hi + 8 * 32], ab[kk][3], as[kk][3]);
+      }
+      float c[16];
+      sm90::wgmma_fence();
+      const uint32_t off = y + 256 * c0;
+      issue_chunk<D, KC, XS, YS>(c, ab, as, off, off + 4 * L::KV);
+      sm90::wgmma_commit();
+      sm90::wgmma_wait<0>();
+      sm90::fence_regs(c);
+#pragma unroll
+      for (int i = 0; i < 16; ++i) acc[i] += c[i];
+    }
+  }
+}
+
+// acc[mt] (rows 64 mt .. of D x 32 keys) += X^T W over the 64 rows: X the
+// raw tile read down its columns (A from registers, split there; rows
+// past D read as zeros), W the split 32 x 64 K-major P or dS tile at w,
+// whose contraction runs over each 8 rows in the order 0, 2, 4, 6, 1, 3,
+// 5, 7 (row_col): A's columns t and t + 4 are rows 2 t and 2 t + 1. The
+// 8 k-steps in two chunks, UN (1 or 2) unrolled at a time.
+template <int D, bool XS, int UN>
+__device__ __forceinline__ void dot_cols(float (&acc)[BTiles<D>::MT][16],
+                                         const float* x, uint32_t w, int d0,
+                                         int t) {
+  using L = BTiles<D>;
+#pragma unroll
+  for (int mt = 0; mt < L::MT; ++mt) {
+    const int d = 64 * mt + d0;
+#pragma unroll 1
+    for (int g0 = 0; g0 < BQ / 8; g0 += 4 * UN) {
+#pragma unroll
+      for (int u = 0; u < UN; ++u) {
+        const int c0 = g0 + 4 * u;
+        uint32_t ab[4][4], as[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk) {
+          const int r = 8 * (c0 + kk) + 2 * t;
+          const bool in0 = D >= 64 || d < D, in1 = D >= 64 || d + 8 < D;
+          const float e[4] = {in0 ? x[raw_at(r, d)] : 0.0f,
+                              in1 ? x[raw_at(r, d + 8)] : 0.0f,
+                              in0 ? x[raw_at(r + 1, d)] : 0.0f,
+                              in1 ? x[raw_at(r + 1, d + 8)] : 0.0f};
+#pragma unroll
+          for (int i = 0; i < 4; ++i) split<XS>(e[i], ab[kk][i], as[kk][i]);
+        }
+        float c[16];
+        sm90::wgmma_fence();
+        const uint32_t off = w + 256 * c0;
+        issue_chunk<BQ, 4, XS, true>(c, ab, as, off, off + 4 * L::PS);
+        sm90::wgmma_commit();
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(c);
+#pragma unroll
+        for (int i = 0; i < 16; ++i) acc[mt][i] += c[i];
+      }
+    }
+  }
+}
+
+// acc[mt] (rows 64 mt .. of D x 64 query rows) += K^T dS^T over the 32
+// keys: K read down the columns of its split tile kt (big and small
+// halves as they lie), dS the split 64 x 32 K-major tile at ds.
+template <int D, bool KSPLIT>
+__device__ __forceinline__ void dot_kt(float (&acc)[BTiles<D>::MT][32],
+                                       const float* kt, uint32_t ds, int d0,
+                                       int t) {
+  using L = BTiles<D>;
+#pragma unroll
+  for (int mt = 0; mt < L::MT; ++mt) {
+    const int d = 64 * mt + d0;
+    const bool in0 = D >= 64 || d < D, in1 = D >= 64 || d + 8 < D;
+    uint32_t ab[BK / 8][4], as[BK / 8][4];
+#pragma unroll
+    for (int kk = 0; kk < BK / 8; ++kk) {
+      const int r = 8 * kk + t;
+      const int at[4] = {km_at<D>(r, d), km_at<D>(r, d + 8),
+                         km_at<D>(r + 4, d), km_at<D>(r + 4, d + 8)};
+      const bool in[4] = {in0, in1, in0, in1};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const bool sm = KSPLIT && in[i];
+        ab[kk][i] = in[i] ? __float_as_uint(kt[at[i]]) : 0u;
+        as[kk][i] = sm ? __float_as_uint(kt[L::KV + at[i]]) : 0u;
+      }
+    }
+    float c[32];
+    sm90::wgmma_fence();
+    issue_chunk<BK, BK / 8, KSPLIT, true>(c, ab, as, ds, ds + 4 * L::PS);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(c);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[mt][i] += c[i];
+  }
+}
+
+// The softmax statistics and D of a thread's two rows (r, r + 8).
+struct RowStats {
+  float m[2], l[2], d[2];
+};
+
+// p and ds of a thread's S and dP accumulator entries (rows r0 + row,
+// + 8; keys k0 + 8 j + 2 t + e), masked element by element on an edge.
+__device__ __forceinline__ void softmax_grad(const Bwd& p, float (&s)[16],
+                                             float (&dp)[16],
+                                             const RowStats& rs, bool edge,
+                                             int r0, int row, int k0, int t) {
+  const float rl[2] = {__frcp_rn(rs.l[0]), __frcp_rn(rs.l[1])};
+#pragma unroll
+  for (int i = 0; i < 16; ++i) {
+    const int h = (i >> 1) & 1;
+    const int r = r0 + row + 8 * h;
+    const int key = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+    const bool hid = edge && !visible(p, r, key);
+    const float pr = hid ? 0.0f : __expf(s[i] - rs.m[h]) * rl[h];
+    s[i] = pr;
+    dp[i] = pr * (dp[i] - rs.d[h]);
+  }
+}
+
+template <int D, bool EXACT>
 __global__ void __launch_bounds__(NT, 1) flash_bwd_dq(const Bwd p) {
   using L = BTiles<D>;
-  extern __shared__ __align__(16) float bsm[];
-  float* Qs = bsm;                    // TB x LD
-  float* dOs = Qs + L::TILE;          // TB x LD
-  float* Ks = dOs + L::TILE;          // 2 stages of TB x LD
-  float* Vs = Ks + 2 * L::TILE;       // 2 stages of TB x LD
-  float* dSt = Vs + 2 * L::TILE;      // TB keys x PS
-  float* Dsm = dSt + TB * PS;         // D of the block's rows
+  extern __shared__ __align__(1024) float bsm[];
+  const int tid = threadIdx.x, wg = tid / WT, wtid = tid % WT;
+  const int warp = wtid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  float* Qs = bsm;                                 // raw, 64 rows
+  float* dOs = Qs + L::RAW;                        // raw, 64 rows
+  float* Kt = dOs + L::RAW + wg * (4 * L::KV + 2 * L::PS);  // split, 32 x D
+  float* Vt = Kt + 2 * L::KV;                      // split, 32 x D
+  float* dSt = Vt + 2 * L::KV;                     // split, 64 x 32
+  float* Dsm = dOs + L::RAW + 2 * (4 * L::KV + 2 * L::PS);   // D, 64
 
   const int heads = p.Hq * p.B;
-  const int nqb = (p.T + TB - 1) / TB;
+  const int nqb = (p.T + BQ - 1) / BQ;
   int qb = blockIdx.x / heads;
   if (p.causal) qb = nqb - 1 - qb;    // heaviest first
   const int h = blockIdx.x % p.Hq, b = (blockIdx.x / p.Hq) % p.B;
   const int hk = h / p.group;
-  const int r0 = qb * TB;
+  const int r0 = qb * BQ;
   const long long qrs = static_cast<long long>(p.Hq) * D;   // row strides
   const long long krs = static_cast<long long>(p.Hkv) * D;
   const long long qoff = (static_cast<long long>(b) * p.T + r0) * qrs + h * D;
   const long long koff = static_cast<long long>(b) * p.S * krs + hk * D;
   const long long soff = (static_cast<long long>(b) * p.Hq + h) * p.T + r0;
   const int q_first = r0 + p.q_offset;
-  const int q_last = min(r0 + TB, p.T) - 1 + p.q_offset;
-  int hi = (p.S + TB - 1) / TB;
-  if (p.causal) hi = min(hi, q_last / TB + 1);
+  const int q_last = min(r0 + BQ, p.T) - 1 + p.q_offset;
+  int hi = (p.S + BK - 1) / BK;
+  if (p.causal) hi = min(hi, q_last / BK + 1);
   int lo = 0;
   if (p.window > 0 && q_first - p.window + 1 > 0)
-    lo = (q_first - p.window + 1) / TB;
+    lo = (q_first - p.window + 1) / BK;
 
-  auto load_kv = [&](int j, int st) {
-    const int k0 = j * TB;
-    load_rows<D>(Ks + st * L::TILE, p.k + koff + k0 * krs, krs, p.S - k0);
-    load_rows<D>(Vs + st * L::TILE, p.v + koff + k0 * krs, krs, p.S - k0);
-  };
-  load_rows<D>(Qs, p.q + qoff, qrs, p.T - r0);
-  load_rows<D>(dOs, p.dout + qoff, qrs, p.T - r0);
-  load_kv(lo, 0);
+  load_raw<D>(Qs, p.q + qoff, qrs, p.T - r0, tid);
+  load_raw<D>(dOs, p.dout + qoff, qrs, p.T - r0, tid);
   sm90::cp_async_commit();
-  if (lo + 1 < hi) load_kv(lo + 1, 1);
-  sm90::cp_async_commit();
-  sm90::cp_async_wait<1>();
+  sm90::cp_async_wait<0>();
   __syncthreads();
-
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  // D = sum_d dout out: 4 threads a row, D / 4 columns each, in order
+  // D = sum_d dout out: 4 threads a row, every 4th column each from its
+  // own (the row's lanes read neighbouring floats), in order
   {
     const int row = tid / 4, part = tid % 4;
     float d = 0.0f;
     if (r0 + row < p.T) {
-      const float* orow = p.o + qoff + row * qrs + part * (D / 4);
-      const float* grow = dOs + row * L::LD + part * (D / 4);
-#pragma unroll
-      for (int c = 0; c < D / 4; ++c) d = fmaf(grow[c], orow[c], d);
+      const float* orow = p.o + qoff + row * qrs;
+#pragma unroll 8
+      for (int c = part; c < D; c += 4)
+        d = fmaf(dOs[raw_at(row, c)], orow[c], d);
     }
     d += __shfl_xor_sync(FULL, d, 1);
     d += __shfl_xor_sync(FULL, d, 2);
@@ -270,182 +554,287 @@ __global__ void __launch_bounds__(NT, 1) flash_bwd_dq(const Bwd p) {
     }
   }
   __syncthreads();
-  float mr[4], lr[4], dr[4];
+  const int row = 16 * warp + g;   // the thread's accumulator rows: + 0, 8
+  RowStats rs;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = ty * 4 + i;
-    const bool in = r0 + row < p.T;
-    mr[i] = in ? p.m[soff + row] : 0.0f;
-    lr[i] = in ? p.l[soff + row] : 1.0f;
-    dr[i] = Dsm[row];
+  for (int e = 0; e < 2; ++e) {
+    const int r = row + 8 * e;
+    const bool in = r0 + r < p.T;
+    rs.m[e] = in ? p.m[soff + r] : 0.0f;
+    rs.l[e] = in ? p.l[soff + r] : 1.0f;
+    rs.d[e] = Dsm[r];
   }
 
-  float dq[4][L::CPT];
+  float dq[L::MT][32];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int mt = 0; mt < L::MT; ++mt)
 #pragma unroll
-    for (int c = 0; c < L::CPT; ++c) dq[i][c] = 0.0f;
+    for (int i = 0; i < 32; ++i) dq[mt][i] = 0.0f;
+  const uint32_t k_addr = sm90::smem_addr(Kt), v_addr = sm90::smem_addr(Vt);
+  const uint32_t ds_addr = sm90::smem_addr(dSt);
+  const int bar = 1 + wg;
 
-  for (int j = lo; j < hi; ++j) {
-    const int st = (j - lo) & 1;
-    const float* Kt = Ks + st * L::TILE;
-    const float* Vt = Vs + st * L::TILE;
-    sm90::cp_async_wait<1>();  // all but the newest group: tile j is in
-    __syncthreads();
-    float s[4][4], dp[4][4];
-    tile_dots<D>(s, Qs, ty * 4, Kt, tx);
-    tile_dots<D>(dp, dOs, ty * 4, Vt, tx);
-    const int k0 = j * TB;
-    const bool edge = k0 + TB > p.S || (p.causal && k0 + TB - 1 > q_first) ||
+  // the two warpgroups take alternate key tiles
+  for (int j = lo + wg; j < hi; j += 2) {
+    const int k0 = j * BK;
+    stage_kv<D, !EXACT, WT>(Kt, Vt, p.k + koff + k0 * krs,
+                            p.v + koff + k0 * krs, krs, p.S - k0, wtid);
+    sm90::fence_proxy_async();
+    sm90::named_sync(bar, WT);
+    float s[16], dp[16];
+    dot_rows<D, 4, 4, true, !EXACT>(s, Qs, k_addr, row, t);
+    dot_rows<D, 4, 4, !EXACT, !EXACT>(dp, dOs, v_addr, row, t);
+    const bool edge = k0 + BK > p.S || (p.causal && k0 + BK - 1 > q_first) ||
                       (p.window > 0 && k0 <= q_last - p.window);
+    softmax_grad(p, s, dp, rs, edge, r0, row, k0, t);
+    // dS as the B operand of dQ^T: rows x keys, keys the contraction
 #pragma unroll
-    for (int kk = 0; kk < 4; ++kk) {
-      float ds[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const bool hid = edge && !visible(p, r0 + ty * 4 + i, k0 + tx + 16 * kk);
-        const float pr = hid ? 0.0f : __fdiv_rn(expf(s[i][kk] - mr[i]), lr[i]);
-        ds[i] = pr * (dp[i][kk] - dr[i]);
-      }
-      Vec<4>::put(dSt + (tx + 16 * kk) * PS + ty * 4, ds);
+    for (int i = 0; i < 16; i += 2) {
+      const int r = row + 8 * ((i >> 1) & 1);
+      const int key = 8 * (i >> 2) + 2 * t;
+      uint32_t b0, s0, b1, s1;
+      sm90::split_tf32(dp[i], b0, s0);
+      sm90::split_tf32(dp[i + 1], b1, s1);
+      const int at = km_at<BK>(r, key);
+      *reinterpret_cast<float2*>(dSt + at) =
+          make_float2(__uint_as_float(b0), __uint_as_float(b1));
+      *reinterpret_cast<float2*>(dSt + L::PS + at) =
+          make_float2(__uint_as_float(s0), __uint_as_float(s1));
     }
-    __syncthreads();  // dS^T is complete
-    tile_acc<D>(dq, dSt, ty * 4, Kt, tx);
-    __syncthreads();  // stage st and dS^T are free
-    if (j + 2 < hi) load_kv(j + 2, st);
-    sm90::cp_async_commit();
+    sm90::fence_proxy_async();
+    sm90::named_sync(bar, WT);
+    dot_kt<D, !EXACT>(dq, Kt, ds_addr, row, t);
+    sm90::named_sync(bar, WT);   // K, V and dS are free
   }
-  sm90::cp_async_wait<0>();
-  store_rows<D>(p.dq + qoff, qrs, dq, ty * 4, p.T - r0, tx, p.scale);
+
+  // dq = (warpgroup 0's sum + warpgroup 1's) * scale, through shared memory
+  float* part = Kt;  // warpgroup 1's own tiles, free now
+  if (wg == 1) {
+#pragma unroll
+    for (int mt = 0; mt < L::MT; ++mt)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) part[(mt * 32 + i) * WT + wtid] = dq[mt][i];
+  }
+  __syncthreads();
+  if (wg == 1) return;
+  part += 4 * L::KV + 2 * L::PS;
+#pragma unroll
+  for (int mt = 0; mt < L::MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int d = 64 * mt + row + 8 * ((i >> 1) & 1);
+      const int r = 8 * (i >> 2) + 2 * t + (i & 1);
+      if (d < D && r0 + r < p.T)
+        p.dq[qoff + r * qrs + d] =
+            (dq[mt][i] + part[(mt * 32 + i) * WT + wtid]) * p.scale;
+    }
 }
 
-template <int D>
-__global__ void __launch_bounds__(NT, 1) flash_bwd_dkdv(const Bwd p) {
+// q and dout as TMA reads them: (D, Hq, T, B) with boxes of 32 floats x
+// 64 rows of one head, 128-byte swizzled (raw_at). tq and tdo's maps.
+template <int D, bool EXACT>
+__global__ void __launch_bounds__(NT, 1)
+    flash_bwd_dkdv(const __grid_constant__ CUtensorMap tq,
+                   const __grid_constant__ CUtensorMap tdo, const Bwd p) {
   using L = BTiles<D>;
-  extern __shared__ __align__(16) float bsm[];
-  float* Ks = bsm;                    // TB x LD
-  float* Vs = Ks + L::TILE;           // TB x LD
-  float* Qs = Vs + L::TILE;           // 2 stages of TB x LD
-  float* dOs = Qs + 2 * L::TILE;      // 2 stages of TB x LD
-  float* Pb = dOs + 2 * L::TILE;      // TB rows x PS: P, then dS
+  extern __shared__ __align__(1024) float bsm[];
+  const int tid = threadIdx.x, wg = tid / WT, wtid = tid % WT;
+  const int warp = wtid / 32, lane = tid % 32, g = lane / 4, t = lane % 4;
+  float* Kt = bsm;                                 // split, 32 x D
+  float* Vt = Kt + 2 * L::KV;                      // split, 32 x D
+  float* Qs = Vt + 2 * L::KV + wg * (2 * L::RAW + 2 * L::PS);  // raw
+  float* dOs = Qs + L::RAW;                        // raw, 64 rows
+  float* Pt = dOs + L::RAW;                        // split, 32 x 64: P, dS
+  // the warpgroup's mbarriers: its Q copy, its dO copy
+  uint64_t* bq = reinterpret_cast<uint64_t*>(bsm + L::BARS) + 2 * wg;
+  uint64_t* bdo = bq + 1;
 
   const int heads = p.Hkv * p.B;
   const int kb = blockIdx.x / heads;  // the lowest keys are the heaviest
   const int hk = blockIdx.x % p.Hkv, b = (blockIdx.x / p.Hkv) % p.B;
-  const int k0 = kb * TB;
-  const int k_last = min(k0 + TB, p.S) - 1;
-  const long long qrs = static_cast<long long>(p.Hq) * D;
+  const int k0 = kb * BK;
+  const int k_last = min(k0 + BK, p.S) - 1;
   const long long krs = static_cast<long long>(p.Hkv) * D;
   const long long koff = (static_cast<long long>(b) * p.S + k0) * krs + hk * D;
   // query tiles [qlo, qhi) whose rows see some key of the block
-  const int nqt = (p.T + TB - 1) / TB;
+  const int nqt = (p.T + BQ - 1) / BQ;
   int qlo = 0, qhi = nqt;
-  if (p.causal && k0 - p.q_offset > 0) qlo = min(nqt, (k0 - p.q_offset) / TB);
+  if (p.causal && k0 - p.q_offset > 0) qlo = min(nqt, (k0 - p.q_offset) / BQ);
   if (p.window > 0) {
     const int last = k_last + p.window - 1 - p.q_offset;  // last row
-    qhi = last < 0 ? 0 : min(nqt, last / TB + 1);
+    qhi = last < 0 ? 0 : min(nqt, last / BQ + 1);
   }
   const int nq = max(0, qhi - qlo);
   const int steps = p.group * nq;
 
-  auto load_step = [&](int s, int st) {
-    const int h = hk * p.group + s / nq, r0 = (qlo + s % nq) * TB;
-    const long long off = (static_cast<long long>(b) * p.T + r0) * qrs + h * D;
-    load_rows<D>(Qs + st * L::TILE, p.q + off, qrs, p.T - r0);
-    load_rows<D>(dOs + st * L::TILE, p.dout + off, qrs, p.T - r0);
-  };
-  load_rows<D>(Ks, p.k + koff, krs, p.S - k0);
-  load_rows<D>(Vs, p.v + koff, krs, p.S - k0);
-  if (steps > 0) load_step(0, 0);
-  sm90::cp_async_commit();
-  if (steps > 1) load_step(1, 1);
-  sm90::cp_async_commit();
-
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  float dk[4][L::CPT], dv[4][L::CPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < L::CPT; ++c) dk[i][c] = dv[i][c] = 0.0f;
-
-  for (int s = 0; s < steps; ++s) {
-    const int st = s & 1;
-    const int h = hk * p.group + s / nq, r0 = (qlo + s % nq) * TB;
-    const float* Qt = Qs + st * L::TILE;
-    const float* dOt = dOs + st * L::TILE;
-    const long long soff = (static_cast<long long>(b) * p.Hq + h) * p.T + r0;
-    float mr[4], lr[4], dr[4];
-#pragma unroll
-    for (int rr = 0; rr < 4; ++rr) {
-      const int row = tx + 16 * rr;
-      const bool in = r0 + row < p.T;
-      mr[rr] = in ? p.m[soff + row] : 0.0f;
-      lr[rr] = in ? p.l[soff + row] : 1.0f;
-      dr[rr] = in ? p.delta[soff + row] : 0.0f;
-    }
-    sm90::cp_async_wait<1>();  // step s is in
-    __syncthreads();
-    float sc[4][4], dp[4][4];
-    tile_dots<D>(sc, Ks, ty * 4, Qt, tx);   // [key ty*4+i][row tx+16rr]
-    tile_dots<D>(dp, Vs, ty * 4, dOt, tx);
-    const int q_first = r0 + p.q_offset;
-    const int q_last = r0 + TB - 1 + p.q_offset;
-    const bool edge = k0 + TB > p.S || r0 + TB > p.T ||
-                      (p.causal && q_first < k0 + TB - 1) ||
-                      (p.window > 0 && k0 <= q_last - p.window);
-    float ds[4][4];
-#pragma unroll
-    for (int rr = 0; rr < 4; ++rr) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const bool hid = edge && !visible(p, r0 + tx + 16 * rr, k0 + ty * 4 + i);
-        const float pr = hid ? 0.0f : __fdiv_rn(expf(sc[i][rr] - mr[rr]), lr[rr]);
-        sc[i][rr] = pr;
-        ds[i][rr] = pr * (dp[i][rr] - dr[rr]);
-      }
-      const float pw[4] = {sc[0][rr], sc[1][rr], sc[2][rr], sc[3][rr]};
-      Vec<4>::put(Pb + (tx + 16 * rr) * PS + ty * 4, pw);
-    }
-    __syncthreads();  // P is complete
-    tile_acc<D>(dv, Pb, ty * 4, dOt, tx);
-    __syncthreads();  // P is read
-#pragma unroll
-    for (int rr = 0; rr < 4; ++rr) {
-      const float dw[4] = {ds[0][rr], ds[1][rr], ds[2][rr], ds[3][rr]};
-      Vec<4>::put(Pb + (tx + 16 * rr) * PS + ty * 4, dw);
-    }
-    __syncthreads();  // dS is complete
-    tile_acc<D>(dk, Pb, ty * 4, Qt, tx);
-    __syncthreads();  // stage st and the buffer are free
-    if (s + 2 < steps) load_step(s + 2, st);
-    sm90::cp_async_commit();
+  if (tid == 0) {
+    for (int i = 0; i < 4; ++i)
+      sm90::bar_init(reinterpret_cast<uint64_t*>(bsm + L::BARS) + i, 1);
+    sm90::bar_init_fence();
   }
-  sm90::cp_async_wait<0>();
-  store_rows<D>(p.dk + koff, krs, dk, ty * 4, p.S - k0, tx, 1.0f);
-  store_rows<D>(p.dv + koff, krs, dv, ty * 4, p.S - k0, tx, 1.0f);
+  stage_kv<D, !EXACT, NT>(Kt, Vt, p.k + koff, p.v + koff, krs, p.S - k0, tid);
+  sm90::fence_proxy_async();
+  __syncthreads();
+
+  const int row = 16 * warp + g;   // accumulator rows (+ 0, 8) of S and dP
+  // Unrolling dot_cols' two chunks lets the second's loads run under the
+  // first's products, and loading the row statistics after S shortens
+  // their lives: both fit 255 registers without spills at D = 128 only
+  // when dO has no small half (and measured faster there on an H100).
+  constexpr int UC = EXACT ? 2 : 1;
+  float dk[L::MT][16], dv[L::MT][16];
+#pragma unroll
+  for (int mt = 0; mt < L::MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < 16; ++i) dk[mt][i] = dv[mt][i] = 0.0f;
+  const uint32_t k_addr = sm90::smem_addr(Kt), v_addr = sm90::smem_addr(Vt);
+  const uint32_t p_addr = sm90::smem_addr(Pt);
+  const int bar = 1 + wg;
+
+  // P or dS (in s) into the split 32 x 64 tile: keys x rows, rows the
+  // contraction in dot_cols' order
+  auto put_keys_rows = [&](const float (&s)[16]) {
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int r = row + 8 * ((i >> 1) & 1);
+      const int key = 8 * (i >> 2) + 2 * t + (i & 1);
+      uint32_t bg, sm;
+      sm90::split_tf32(s[i], bg, sm);
+      const int at = km_at<BQ>(key, row_col(r));
+      Pt[at] = __uint_as_float(bg);
+      Pt[L::PS + at] = __uint_as_float(sm);
+    }
+    sm90::fence_proxy_async();
+    sm90::named_sync(bar, WT);
+  };
+
+  // the two warpgroups take alternate (query head, query tile) steps; one
+  // thread of each copies a step's Q or dO tile by TMA once the
+  // warpgroup has read the last one (dO of the next step under dK)
+  const bool lead = wtid == 0;
+  auto copy_tile = [&](const CUtensorMap* map, float* dst, uint64_t* mbar,
+                       int s) {
+    const int h = hk * p.group + s / nq, r0 = (qlo + s % nq) * BQ;
+    sm90::fence_proxy_async();  // after the warpgroup's reads of dst
+    sm90::bar_expect(mbar, 4 * L::RAW);
+#pragma unroll
+    for (int bx = 0; bx < L::NBOX; ++bx)
+      sm90::tma_load_4d(dst + bx * BQ * 32, map, mbar, 32 * bx, h, r0, b);
+  };
+  if (lead && wg < steps) {
+    copy_tile(&tq, Qs, bq, wg);
+    copy_tile(&tdo, dOs, bdo, wg);
+  }
+  for (int s = wg, n = 0; s < steps; s += 2, ++n) {
+    const int h = hk * p.group + s / nq, r0 = (qlo + s % nq) * BQ;
+    const long long soff = (static_cast<long long>(b) * p.Hq + h) * p.T + r0;
+    RowStats rs;
+    auto stats = [&] {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int r = row + 8 * e;
+        const bool in = r0 + r < p.T;
+        rs.m[e] = in ? p.m[soff + r] : 0.0f;
+        rs.l[e] = in ? p.l[soff + r] : 1.0f;
+        rs.d[e] = in ? p.delta[soff + r] : 0.0f;
+      }
+    };
+    if (!EXACT) stats();
+    sm90::bar_wait(bq, n & 1);
+    sm90::bar_wait(bdo, n & 1);
+    float sc[16], dp[16];
+    dot_rows<D, 2, 4, true, !EXACT>(sc, Qs, k_addr, row, t);
+    if (EXACT) stats();
+    dot_rows<D, 2, 4, !EXACT, !EXACT>(dp, dOs, v_addr, row, t);
+    const int q_first = r0 + p.q_offset;
+    const int q_last = r0 + BQ - 1 + p.q_offset;
+    const bool edge = k0 + BK > p.S || r0 + BQ > p.T ||
+                      (p.causal && q_first < k0 + BK - 1) ||
+                      (p.window > 0 && k0 <= q_last - p.window);
+    softmax_grad(p, sc, dp, rs, edge, r0, row, k0, t);
+    put_keys_rows(sc);
+    dot_cols<D, !EXACT, UC>(dv, dOs, p_addr, row, t);  // dV^T += dO^T P
+    sm90::named_sync(bar, WT);                         // P and dO are read
+    if (lead && s + 2 < steps) copy_tile(&tdo, dOs, bdo, s + 2);
+    put_keys_rows(dp);
+    dot_cols<D, true, UC>(dk, Qs, p_addr, row, t);      // dK^T += Qs^T dS
+    sm90::named_sync(bar, WT);   // Q and dS are read
+    if (lead && s + 2 < steps) copy_tile(&tq, Qs, bq, s + 2);
+  }
+
+  // dk, dv = warpgroup 0's sums + warpgroup 1's, through shared memory
+  float* part = Qs;  // warpgroup 1's own tiles, free now
+  if (wg == 1) {
+#pragma unroll
+    for (int mt = 0; mt < L::MT; ++mt)
+#pragma unroll
+      for (int i = 0; i < 16; ++i) {
+        part[(mt * 16 + i) * WT + wtid] = dk[mt][i];
+        part[((L::MT + mt) * 16 + i) * WT + wtid] = dv[mt][i];
+      }
+  }
+  __syncthreads();
+  if (wg == 1) return;
+  part += 2 * L::RAW + 2 * L::PS;
+#pragma unroll
+  for (int mt = 0; mt < L::MT; ++mt)
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      const int d = 64 * mt + row + 8 * ((i >> 1) & 1);
+      const int key = 8 * (i >> 2) + 2 * t + (i & 1);
+      if (d < D && k0 + key < p.S) {
+        const long long at = koff + key * krs + d;
+        p.dk[at] = dk[mt][i] + part[(mt * 16 + i) * WT + wtid];
+        p.dv[at] = dv[mt][i] + part[((L::MT + mt) * 16 + i) * WT + wtid];
+      }
+    }
 }
 
-template <int D>
+template <int D, bool EXACT>
 int launch_dq(const Bwd& p, cudaStream_t st) {
   using L = BTiles<D>;
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dq<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dq<D, EXACT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       L::DQ_SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
-  flash_bwd_dq<D><<<(p.T + TB - 1) / TB * p.Hq * p.B, NT, L::DQ_SMEM, st>>>(
-      p);
+  flash_bwd_dq<D, EXACT><<<(p.T + BQ - 1) / BQ * p.Hq * p.B, NT, L::DQ_SMEM,
+                           st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+// The TMA map of a (B, T, Hq, D) fp32 tensor (flash_bwd_dkdv's tq, tdo);
+// false if the driver refuses it.
+bool encode_rows(sm90::EncodeTiled fn, CUtensorMap* map, const float* base,
+                 const Bwd& p, int D) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(D),
+                              static_cast<cuuint64_t>(p.Hq),
+                              static_cast<cuuint64_t>(p.T),
+                              static_cast<cuuint64_t>(p.B)};
+  const cuuint64_t head = static_cast<cuuint64_t>(D) * 4;
+  const cuuint64_t bytes[3] = {head, head * p.Hq, head * p.Hq * p.T};
+  const cuuint32_t box[4] = {32, 1, BQ, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4,
+            const_cast<float*>(base), dims, bytes, box, unit,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D, bool EXACT>
 int launch_dkdv(const Bwd& p, cudaStream_t st) {
   using L = BTiles<D>;
+  const sm90::EncodeTiled fn = sm90::encode_tiled();
+  if (fn == nullptr) return -5;
+  CUtensorMap maps[2];
+  if (!encode_rows(fn, &maps[0], p.q, p, D)) return -1;
+  if (!encode_rows(fn, &maps[1], p.dout, p, D)) return -2;
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dkdv<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      flash_bwd_dkdv<D, EXACT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       L::DKDV_SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
-  flash_bwd_dkdv<D><<<(p.S + TB - 1) / TB * p.Hkv * p.B, NT, L::DKDV_SMEM,
-                      st>>>(p);
+  flash_bwd_dkdv<D, EXACT><<<(p.S + BK - 1) / BK * p.Hkv * p.B, NT,
+                             L::DKDV_SMEM, st>>>(maps[0], maps[1], p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -454,56 +843,69 @@ bool valid(int B, int T, int S, int Hq, int Hkv, int q_offset) {
          q_offset >= 0;
 }
 
+template <bool EXACT>
+int dq_by_dim(const Bwd& p, int D, cudaStream_t st) {
+  switch (D) {
+    case 16: return launch_dq<16, EXACT>(p, st);
+    case 32: return launch_dq<32, EXACT>(p, st);
+    case 64: return launch_dq<64, EXACT>(p, st);
+    case 128: return launch_dq<128, EXACT>(p, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+template <bool EXACT>
+int dkdv_by_dim(const Bwd& p, int D, cudaStream_t st) {
+  switch (D) {
+    case 16: return launch_dkdv<16, EXACT>(p, st);
+    case 32: return launch_dkdv<32, EXACT>(p, st);
+    case 64: return launch_dkdv<64, EXACT>(p, st);
+    case 128: return launch_dkdv<128, EXACT>(p, st);
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
 }  // namespace
 
 // N1-dq: dq (B, T, Hq, D) and delta (B, Hq, T) from q (already scaled by
 // `scale`), k, v, o, dout, m, l; every tensor fp32 and contiguous in the
-// layout its comment in Bwd gives. window <= 0 means no window. Returns
-// cudaGetLastError() of the launch.
+// layout its comment in Bwd gives. window <= 0 means no window. exact != 0:
+// k, v and dout hold TF32-exact values (upcast bf16 or fp16), and their
+// small halves are skipped. Returns cudaGetLastError() of the launch.
 extern "C" int flash_bwd_dq_f32(const float* q, const float* k,
                                 const float* v, const float* o,
                                 const float* dout, const float* m,
                                 const float* l, float* dq, float* delta,
                                 int B, int T, int S, int Hq, int Hkv, int D,
                                 int q_offset, int causal, int window,
-                                float scale, void* stream) {
+                                float scale, int exact, void* stream) {
   if (!valid(B, T, S, Hq, Hkv, q_offset))
     return static_cast<int>(cudaErrorInvalidValue);
   const Bwd p{q,  k,  v,  o,  dout,     m,        l,      dq,     nullptr,
               nullptr, delta, B, T, S, Hq, Hkv, Hq / Hkv, q_offset, causal,
               window,  scale};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch_dq<16>(p, st);
-    case 32: return launch_dq<32>(p, st);
-    case 64: return launch_dq<64>(p, st);
-    case 128: return launch_dq<128>(p, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return exact ? dq_by_dim<true>(p, D, st) : dq_by_dim<false>(p, D, st);
 }
 
 // N1-dkdv: dk and dv (B, S, Hkv, D) from the same inputs and the delta
 // that flash_bwd_dq_f32 wrote (launch it first, on the same stream).
+// Returns -1 or -2 when cuTensorMapEncodeTiled refused q's or dout's map,
+// -5 when the driver has none.
 extern "C" int flash_bwd_dkdv_f32(const float* q, const float* k,
                                   const float* v, const float* dout,
                                   const float* m, const float* l,
                                   const float* delta, float* dk, float* dv,
                                   int B, int T, int S, int Hq, int Hkv,
                                   int D, int q_offset, int causal,
-                                  int window, void* stream) {
+                                  int window, int exact, void* stream) {
   if (!valid(B, T, S, Hq, Hkv, q_offset))
     return static_cast<int>(cudaErrorInvalidValue);
   const Bwd p{q,  k,  v,  nullptr, dout, m, l, nullptr, dk, dv,
               const_cast<float*>(delta), B, T, S, Hq, Hkv, Hq / Hkv,
               q_offset, causal, window, 1.0f};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch_dkdv<16>(p, st);
-    case 32: return launch_dkdv<32>(p, st);
-    case 64: return launch_dkdv<64>(p, st);
-    case 128: return launch_dkdv<128>(p, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return exact ? dkdv_by_dim<true>(p, D, st) : dkdv_by_dim<false>(p, D, st);
 }
 
 // Dynamic shared memory of flash_bwd_dq (kernel 0) or flash_bwd_dkdv
@@ -519,20 +921,27 @@ extern "C" int flash_bwd_smem(int kernel, int D) {
 }
 
 // Resources of the variant v, head dim D = 16 << (v % 4): v = 0 .. 3
-// flash_bwd_dq<D>, 4 .. 7 flash_bwd_dkdv<D> (see attributes.cuh).
+// flash_bwd_dq<D>, 4 .. 7 flash_bwd_dkdv<D>, both with split k, v and
+// dout; v + 8 the same kernels with exact ones (see attributes.cuh).
 extern "C" int flash_bwd_attributes(int v, int smem, int* out) {
-  const void* fn;
-  switch (v) {
-    case 0: fn = reinterpret_cast<const void*>(flash_bwd_dq<16>); break;
-    case 1: fn = reinterpret_cast<const void*>(flash_bwd_dq<32>); break;
-    case 2: fn = reinterpret_cast<const void*>(flash_bwd_dq<64>); break;
-    case 3: fn = reinterpret_cast<const void*>(flash_bwd_dq<128>); break;
-    case 4: fn = reinterpret_cast<const void*>(flash_bwd_dkdv<16>); break;
-    case 5: fn = reinterpret_cast<const void*>(flash_bwd_dkdv<32>); break;
-    case 6: fn = reinterpret_cast<const void*>(flash_bwd_dkdv<64>); break;
-    case 7: fn = reinterpret_cast<const void*>(flash_bwd_dkdv<128>); break;
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return repro::kernel_attributes(fn, NT, smem, out);
+  using F = const void*;
+  const F fns[16] = {
+      reinterpret_cast<F>(flash_bwd_dq<16, false>),
+      reinterpret_cast<F>(flash_bwd_dq<32, false>),
+      reinterpret_cast<F>(flash_bwd_dq<64, false>),
+      reinterpret_cast<F>(flash_bwd_dq<128, false>),
+      reinterpret_cast<F>(flash_bwd_dkdv<16, false>),
+      reinterpret_cast<F>(flash_bwd_dkdv<32, false>),
+      reinterpret_cast<F>(flash_bwd_dkdv<64, false>),
+      reinterpret_cast<F>(flash_bwd_dkdv<128, false>),
+      reinterpret_cast<F>(flash_bwd_dq<16, true>),
+      reinterpret_cast<F>(flash_bwd_dq<32, true>),
+      reinterpret_cast<F>(flash_bwd_dq<64, true>),
+      reinterpret_cast<F>(flash_bwd_dq<128, true>),
+      reinterpret_cast<F>(flash_bwd_dkdv<16, true>),
+      reinterpret_cast<F>(flash_bwd_dkdv<32, true>),
+      reinterpret_cast<F>(flash_bwd_dkdv<64, true>),
+      reinterpret_cast<F>(flash_bwd_dkdv<128, true>)};
+  if (v < 0 || v >= 16) return static_cast<int>(cudaErrorInvalidValue);
+  return repro::kernel_attributes(fns[v], NT, smem, out);
 }

@@ -1,6 +1,8 @@
 // Hopper (sm_90a) building blocks in inline PTX: mbarriers, TMA tile
-// loads and stores, wgmma shared-memory descriptors and the wgmma
-// instructions that B9's bf16 kernel (flash_attn.cu) issues, and the
+// loads and stores (and the host's tensor-map encoder), wgmma
+// shared-memory descriptors, the bf16 wgmma instructions that B9's bf16
+// kernel (flash_attn.cu) issues, the tf32 ones and the TF32 split of N1
+// (flash_bwd.cu), and the
 // cp.async copies that B9's fp32 kernel, B6's epoch kernel and B7
 // (odm_grad.cu) stage their operands with. No CUTLASS: the build stays a
 // plain nvcc -c of each source.
@@ -9,8 +11,38 @@
 #include <cstdint>
 
 #include <cuda.h>  // CUtensorMap
+#include <cuda_runtime.h>
 
 namespace sm90 {
+
+// --- host: cuTensorMapEncodeTiled --------------------------------------------
+
+// cuTensorMapEncodeTiled, reached through the runtime's driver entry point
+// so that the library needs no -lcuda; null when the driver has none.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* f = nullptr;
+    cudaDriverEntryPointQueryResult found{};
+#if CUDART_VERSION >= 12050
+    const cudaError_t e = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &f, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t e = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &f, cudaEnableDefault, &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(f)
+               : nullptr;
+  }();
+  return fn;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -306,6 +338,78 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
         "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));
+}
+
+// --- TF32 --------------------------------------------------------------------
+
+// x rounded to the nearest TF32 value, ties away from zero, as PTX's
+// cvt.rna.tf32.f32 rounds a finite x: half a TF32 ulp added to the bit
+// pattern, the low 13 mantissa bits cleared: two integer operations, in
+// place of the conversion instruction, on N1's hot loops.
+__device__ __forceinline__ uint32_t tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xFFFFE000u;
+}
+
+// The split of x into big = tf32(x) and small = tf32(x - big): big + small
+// carries 22 of x's 24 significand bits, big * big + big * small +
+// small * big an fp32 product to about 2^-22 of its size.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big,
+                                           uint32_t& small) {
+  big = tf32(x);
+  small = tf32(x - __uint_as_float(big));
+}
+
+// Keep the compiler from moving reads of wgmma accumulators above the
+// wgmma_wait that completes them.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The tf32 register A operand of m64nNk8: a[0] at row 16 (t / 32) +
+// (t % 32) / 4 and column t % 4, a[1] eight rows down, a[2] and a[3] the
+// same rows at column t % 4 + 4. (An accumulator's columns are 2 (t % 4)
+// and 2 (t % 4) + 1: it is not an A fragment as it stands.)
+
+// D(64 x 32) (+)= A(64 x 8, registers, tf32) B(32 x 8, shared, K-major tf32)
+__device__ __forceinline__ void wgmma_tf32_n32(float (&d)[16],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      "%14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+// D(64 x 64) (+)= A(64 x 8, registers, tf32) B(64 x 8, shared, K-major tf32)
+__device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      "%26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
 }
 
 }  // namespace sm90

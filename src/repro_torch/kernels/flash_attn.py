@@ -54,9 +54,13 @@ with query t at position t + q_offset:
   ``flash_f32_stats``, fed q·scale (the reference scales q in fp32
   before the dot) with scale 1, storing m and max(l, 1e-30) per row;
 * :func:`launch_flash_bwd_dq` / :func:`launch_flash_bwd_dkdv` — N1
-  (``csrc/flash_bwd.cu``): N1-dq, a CTA a 64-row query block, computes
-  D = Σ dout·out and dq; N1-dkdv, a CTA a 64-key block, dk and dv over
-  the GQA group's query heads. No atomics: every sum has a fixed order;
+  (``csrc/flash_bwd.cu``), its products on the tensor cores as a
+  three-term TF32 split (fp32-accurate): N1-dq, a CTA a 64-row query
+  block, computes D = Σ dout·out and dq; N1-dkdv, a CTA a 32-key block,
+  dk and dv over the GQA group's query heads. No atomics: every sum has
+  a fixed order. Both take :func:`bwd_operands`, which also says whether
+  k, v and dout were bf16 or fp16 (:func:`tf32_exact`): then N1 skips
+  their zero small halves;
 * :func:`flash_attention_train` / :func:`flash_attention_bwd` — dispatch
   by device, counted in ``launch.flash_attention_train``,
   ``launch.flash_bwd_dq`` and ``launch.flash_bwd_dkdv``.
@@ -64,6 +68,7 @@ with query t at position t + q_offset:
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
@@ -402,40 +407,64 @@ def launch_flash_attention_train(q: Tensor, k: Tensor, v: Tensor, *,
     return out.to(q.dtype), m, l
 
 
+def tf32_exact(*ts: Tensor) -> bool:
+    """Whether every element of these tensors is exact in TF32 (10
+    mantissa bits, fp32's exponent range) by its dtype: bf16 and fp16
+    are, so their fp32 upcasts split into a TF32 value and a zero."""
+    return all(t.dtype in (torch.bfloat16, torch.float16) for t in ts)
+
+
+class BwdOperands(NamedTuple):
+    """The backward kernels' fp32 operands and whether k, v and dout hold
+    TF32-exact values (:func:`tf32_exact` of the tensors they came from),
+    so that N1 skips their zero small halves. Made only by
+    :func:`bwd_operands`, which reads ``exact`` off the source dtypes."""
+    qs: Tensor      # q·scale
+    k: Tensor
+    v: Tensor
+    out: Tensor
+    dout: Tensor
+    exact: bool
+
+
 def bwd_operands(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
-                 dout: Tensor) -> tuple[Tensor, ...]:
-    """The backward kernels' fp32 operands: q·scale, k, v, out, dout."""
+                 dout: Tensor) -> BwdOperands:
+    """The backward kernels' operands: q·scale, k, v, out, dout as fp32,
+    and ``exact`` from k's, v's and dout's dtypes."""
     scale = q.shape[-1] ** -0.5
-    return tuple(_fp32_aligned(n, t.contiguous()) for n, t in (
+    return BwdOperands(*(_fp32_aligned(n, t.contiguous()) for n, t in (
         ("q", q.float() * scale), ("k", k.float()), ("v", v.float()),
-        ("out", out.float()), ("dout", dout.float())))
+        ("out", out.float()), ("dout", dout.float()))),
+        exact=tf32_exact(k, v, dout))
 
 
-def launch_flash_bwd_dq(qs: Tensor, kf: Tensor, vf: Tensor, of: Tensor,
-                        df: Tensor, m: Tensor, l: Tensor, *, causal: bool,
-                        window: int | None, q_offset: int):
-    """N1-dq on :func:`bwd_operands`: (dq fp32, D (B, H, T))."""
-    B, T, H, S, KV, dh = train_shape(qs, kf, vf, causal=causal,
+def launch_flash_bwd_dq(ops: BwdOperands, m: Tensor, l: Tensor, *,
+                        causal: bool, window: int | None, q_offset: int):
+    """N1-dq on :func:`bwd_operands`: (dq fp32, D (B, H, T)); the exact
+    variant when ``ops.exact``."""
+    B, T, H, S, KV, dh = train_shape(ops.qs, ops.k, ops.v, causal=causal,
                                      window=window, q_offset=q_offset)
     _train_head_dim(dh)
     for name, t in (("m", m), ("l", l)):
         _fp32_aligned(name, t)
-    dq = torch.empty_like(qs)
-    delta = torch.empty(B, H, T, dtype=torch.float32, device=qs.device)
-    with torch.cuda.device(qs.device):
+    dq = torch.empty_like(ops.qs)
+    delta = torch.empty(B, H, T, dtype=torch.float32, device=ops.qs.device)
+    with torch.cuda.device(ops.qs.device):
         code = _build.library().flash_bwd_dq_f32(
-            *(_build.ptr(t) for t in (qs, kf, vf, of, df, m, l, dq, delta)),
+            *(_build.ptr(t) for t in (*ops[:5], m, l, dq, delta)),
             B, T, S, H, KV, dh, q_offset, int(causal),
-            0 if window is None else window, dh ** -0.5,
-            _build.stream_handle(qs.device))
+            0 if window is None else window, dh ** -0.5, int(ops.exact),
+            _build.stream_handle(ops.qs.device))
     _build.check(code, "flash_bwd_dq")
     return dq, delta
 
 
-def launch_flash_bwd_dkdv(qs: Tensor, kf: Tensor, vf: Tensor, df: Tensor,
-                          m: Tensor, l: Tensor, delta: Tensor, *,
-                          causal: bool, window: int | None, q_offset: int):
-    """N1-dkdv on :func:`bwd_operands` and N1-dq's D: (dk, dv) fp32."""
+def launch_flash_bwd_dkdv(ops: BwdOperands, m: Tensor, l: Tensor,
+                          delta: Tensor, *, causal: bool,
+                          window: int | None, q_offset: int):
+    """N1-dkdv on :func:`bwd_operands` and N1-dq's D: (dk, dv) fp32; the
+    exact variant when ``ops.exact``."""
+    qs, kf, vf, df = ops.qs, ops.k, ops.v, ops.dout
     B, T, H, S, KV, dh = train_shape(qs, kf, vf, causal=causal,
                                      window=window, q_offset=q_offset)
     _train_head_dim(dh)
@@ -447,7 +476,15 @@ def launch_flash_bwd_dkdv(qs: Tensor, kf: Tensor, vf: Tensor, df: Tensor,
         code = _build.library().flash_bwd_dkdv_f32(
             *(_build.ptr(t) for t in (qs, kf, vf, df, m, l, delta, dk, dv)),
             B, T, S, H, KV, dh, q_offset, int(causal),
-            0 if window is None else window, _build.stream_handle(qs.device))
+            0 if window is None else window, int(ops.exact),
+            _build.stream_handle(qs.device))
+    if code == -5:
+        raise RuntimeError("N1-dkdv: the CUDA driver has no "
+                           "cuTensorMapEncodeTiled")
+    if code in (-1, -2):
+        name, t = (("q", qs), ("dout", df))[-code - 1]
+        raise RuntimeError(f"N1-dkdv: cuTensorMapEncodeTiled refused {name} "
+                           f"{tuple(t.shape)}")
     _build.check(code, "flash_bwd_dkdv")
     return dk, dv
 
@@ -484,10 +521,10 @@ def flash_attention_bwd(q: Tensor, k: Tensor, v: Tensor, out: Tensor,
     kw = dict(causal=causal, window=window, q_offset=q_offset)
     if cpu:
         return flash_attention_bwd_plain(*args, bk=bk, **kw)
-    qs, kf, vf, of, df = bwd_operands(q, k, v, out, dout)
-    dq, delta = launch_flash_bwd_dq(qs, kf, vf, of, df, m, l, **kw)
+    ops = bwd_operands(q, k, v, out, dout)
+    dq, delta = launch_flash_bwd_dq(ops, m, l, **kw)
     flash_attention_bwd.dq_launches.bump()
-    dk, dv = launch_flash_bwd_dkdv(qs, kf, vf, df, m, l, delta, **kw)
+    dk, dv = launch_flash_bwd_dkdv(ops, m, l, delta, **kw)
     flash_attention_bwd.dkdv_launches.bump()
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 

@@ -869,25 +869,38 @@ def test_flash_attention_refuses_strides_it_cannot_map(dev):
     assert flash_attn.flash_attention(q, k, v).shape == q.shape
 
 
+def _train_case(*case, cancel=False):
+    """A TRAIN_CASES entry, its id the values as pytest writes them."""
+    return pytest.param(*case, cancel,
+                        id="-".join(str(x) for x in case)
+                        + ("-cancelling" if cancel else ""))
+
+
 # the training attention (F, N1-dq, N1-dkdv): (B, T, S, Hq, Hkv, D,
-# window, q_offset), every case causal; ragged T and S, windows, queries
-# past a longer history, GQA groups 1, 2 and 4, every head dim
-TRAIN_CASES = [(1, 2048, 2048, 16, 8, 128, None, 0),
-               (1, 1000, 1000, 16, 8, 128, None, 0),
-               (1, 129, 129, 4, 1, 64, None, 0),
-               (1, 300, 300, 8, 2, 128, 64, 0),
-               (1, 70, 333, 4, 4, 32, 50, 200),
-               (2, 65, 65, 4, 2, 16, None, 0)]
+# window, q_offset, cancel), every case causal; ragged T and S, windows,
+# queries past a longer history, GQA groups 1, 2 and 4, every head dim;
+# cancel: q x 4 for peaked logits and dout = out + 1e-3 noise, so that
+# dP - D cancels, N1 held to the fp64 plain version
+TRAIN_CASES = [_train_case(1, 2048, 2048, 16, 8, 128, None, 0),
+               _train_case(1, 1000, 1000, 16, 8, 128, None, 0),
+               _train_case(1, 129, 129, 4, 1, 64, None, 0),
+               _train_case(1, 300, 300, 8, 2, 128, 64, 0),
+               _train_case(1, 70, 333, 4, 4, 32, 50, 200),
+               _train_case(2, 65, 65, 4, 2, 16, None, 0),
+               _train_case(1, 1024, 1024, 16, 8, 128, None, 0, cancel=True)]
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("B,T,S,Hq,Hkv,D,window,q_offset", TRAIN_CASES)
+@pytest.mark.parametrize("B,T,S,Hq,Hkv,D,window,q_offset,cancel",
+                         TRAIN_CASES)
 def test_flash_train_kernels_match_plain(dev, dtype, B, T, S, Hq, Hkv, D,
-                                         window, q_offset):
+                                         window, q_offset, cancel):
     """F's out, m, l and N1's dq, dk, dv through the autograd op against
     the plain versions on the same inputs: fp32 within 1e-5 of each
     result's scale (m, l 1e-5 relative); bf16 results within 1e-2 of it
-    (the fp32 results round to bf16 values an ulp apart)."""
+    (the fp32 results round to bf16 values an ulp apart). The cancelling
+    case holds N1 to the fp64 plain version within 1e-5 in both dtypes
+    (bf16 inputs take N1's exact variant)."""
     from repro_torch.kernels import flash_attn
     from repro_torch.models import attention
     rng = np.random.default_rng(T + S)
@@ -898,6 +911,20 @@ def test_flash_train_kernels_match_plain(dev, dtype, B, T, S, Hq, Hkv, D,
                          dtype=torch.float32).to(dtype).to(dev)
             for _ in range(2))
     kw = dict(causal=True, window=window, q_offset=q_offset)
+    if cancel:
+        q = (q.float() * 4).to(dtype)
+        out, m, l = flash_attn.flash_attention_train(q, k, v, **kw)
+        noise = torch.tensor(1e-3 * rng.standard_normal(out.shape),
+                             dtype=torch.float32).to(dev)
+        dout = (out.float() + noise).to(dtype)
+        got = flash_attn.flash_attention_bwd(q, k, v, out, m, l, dout, **kw)
+        want = flash_attn.flash_attention_bwd_plain(
+            *(t.double() for t in (q, k, v, out, m, l, dout)), **kw)
+        for g, w in zip(got, want):
+            assert bool(torch.isfinite(g).all())
+            assert _rel(g.float(), w) <= (1e-5 if dtype == torch.float32
+                                          else 1e-2)
+        return
     out, m, l = flash_attn.flash_attention_train(q, k, v, **kw)
     out_p, m_p, l_p = flash_attn.flash_attention_train_plain(q, k, v, **kw)
     tol = 1e-5 if dtype == torch.float32 else 1e-2
@@ -922,18 +949,23 @@ def test_flash_train_kernels_match_plain(dev, dtype, B, T, S, Hq, Hkv, D,
 
 def test_flash_train_backward_is_deterministic(dev):
     """N1 sums in a fixed order (no atomics): two backward passes give the
-    same bits."""
+    same bits, in fp32 and at the qwen3-0.6b training shape in bf16 (N1's
+    exact variant)."""
     from repro_torch.models import attention
     g = torch.Generator(device=dev).manual_seed(5)
-    q = torch.randn(2, 256, 8, 64, device=dev, generator=g)
-    k, v = (torch.randn(2, 256, 2, 64, device=dev, generator=g)
-            for _ in range(2))
-    res = []
-    for _ in range(2):
-        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        out = attention.attend(*leaves, impl="flash_xla")
-        res.append(torch.autograd.grad(out.square().sum(), leaves))
-    assert all(torch.equal(a, b) for a, b in zip(*res))
+    for (B, T, Hq, Hkv, D), dtype in (((2, 256, 8, 2, 64), torch.float32),
+                                      ((4, 2048, 16, 8, 128),
+                                       torch.bfloat16)):
+        q = torch.randn(B, T, Hq, D, device=dev, generator=g).to(dtype)
+        k, v = (torch.randn(B, T, Hkv, D, device=dev, generator=g)
+                .to(dtype) for _ in range(2))
+        res = []
+        for _ in range(2):
+            leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+            out = attention.attend(*leaves, impl="flash_xla")
+            res.append(torch.autograd.grad(out.float().square().sum(),
+                                           leaves))
+        assert all(torch.equal(a, b) for a, b in zip(*res))
 
 
 def test_lm_train_step_on_card_matches_cpu(dev):

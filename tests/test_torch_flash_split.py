@@ -1,0 +1,178 @@
+"""The band argument for N1's split-TF32 products, on the CPU.
+
+N1 (``csrc/flash_bwd.cu``) runs the training attention backward's
+products on the tensor cores as a three-term TF32 split: each fp32
+operand x becomes big = tf32(x) (rounded to nearest) and small =
+tf32(x - big); a product is big·big + big·small + small·big, summed in
+fp32, and small·small is dropped. This test emulates that arithmetic in
+torch on the CPU — TF32 as the fp32 bit pattern rounded to nearest at
+bit 13 and masked, exact partial products, fp32 sums in chunks as the
+kernels take them (32 columns of D for S and dP, as N1-dq does; 32-key
+tiles for dq, 64-row tiles for dk and dv) — and holds the emulated
+backward within 1e-5 × max(1, max|ref|) of the reference's
+``_blocked_flash_bwd`` (JAX on the CPU, on the reference forward's own
+residuals): the band the kernels are held to on the card. The same
+emulation with plain TF32 products (one term) falls outside that band,
+so the band tells the two apart. The emulation lives here, not in the
+port: the port's plain version stays the reference's fp32 arithmetic.
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.models import attention as JA
+from repro_torch.kernels import flash_attn as tfa
+
+FP32_TOL = 1e-5
+
+
+def tf32(x: torch.Tensor) -> torch.Tensor:
+    """x rounded to the nearest TF32 value, ties away from zero (PTX
+    ``cvt.rna.tf32.f32``): the low 13 mantissa bits zero."""
+    bits = x.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def product(eq: str, a: torch.Tensor, b: torch.Tensor, terms: str):
+    """One of the kernel's products: three split terms, or plain TF32."""
+    ab, bb = tf32(a), tf32(b)
+    if terms == "tf32":
+        return torch.einsum(eq, ab, bb)
+    cross = (torch.einsum(eq, ab, tf32(b - bb))
+             + torch.einsum(eq, tf32(a - ab), bb))
+    return torch.einsum(eq, ab, bb) + cross
+
+
+def emulated_bwd(q, k, v, out, m, l, dout, *, causal, window, q_offset,
+                 terms):
+    """N1's backward with ``terms`` products: q, out, dout (B, T, H, D),
+    k, v (B, S, KV, D), m, l (B, T, H); returns (dq, dk, dv) fp32."""
+    B, T, H, D = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = D ** -0.5
+    qs = q * scale
+    delta = (dout * out).sum(-1)                         # (B, T, H)
+    kh, vh = (x.repeat_interleave(G, dim=2) for x in (k, v))
+
+    def over_d(x, y):
+        acc = torch.zeros(B, H, T, S)
+        for c in range(0, D, 32):
+            acc = acc + product("bthd,bshd->bhts", x[..., c:c + 32],
+                                y[..., c:c + 32], terms)
+        return acc
+    qpos = torch.arange(T)[:, None] + q_offset
+    kpos = torch.arange(S)[None, :]
+    seen = torch.ones(T, S, dtype=torch.bool)
+    if causal:
+        seen &= kpos <= qpos
+    if window is not None:
+        seen &= kpos > qpos - window
+    st = lambda x: x.permute(0, 2, 1)[..., None]         # (B, H, T, 1)
+    p = torch.where(seen, torch.exp(over_d(qs, kh) - st(m)) / st(l), 0.0)
+    ds = p * (over_d(dout, vh) - st(delta))
+    dq = torch.zeros(B, T, H, D)
+    for j in range(0, S, 32):
+        dq = dq + product("bhts,bshd->bthd", ds[..., j:j + 32],
+                          kh[:, j:j + 32], terms)
+    dkh, dvh = torch.zeros(B, S, H, D), torch.zeros(B, S, H, D)
+    for r in range(0, T, 64):
+        rows = slice(r, r + 64)
+        dvh = dvh + product("bhts,bthd->bshd", p[:, :, rows], dout[:, rows],
+                            terms)
+        dkh = dkh + product("bhts,bthd->bshd", ds[:, :, rows], qs[:, rows],
+                            terms)
+    def group(x):
+        return x.reshape(B, S, KV, G, D).sum(3)
+    return dq * scale, group(dkh), group(dvh)
+
+
+# (B, T, S, H, KV, D, causal, window, q_offset, cancel): causal, windowed,
+# GQA groups 1, 2 and 4, queries past a longer history; cancel: q × 4 for
+# peaked logits and dout = out + 1e-3 noise, so that dP - D cancels
+CASES = [
+    (2, 40, 40, 4, 2, 16, True, None, 0, False),
+    (1, 70, 70, 4, 4, 32, True, 24, 0, False),
+    (1, 48, 90, 8, 2, 64, True, 30, 42, False),
+    (1, 96, 96, 4, 1, 128, True, None, 0, False),
+    (1, 128, 128, 4, 2, 128, True, None, 0, True),
+]
+
+
+def _reference(case, seed=3):
+    """The inputs, the reference forward's residuals as torch tensors and
+    the reference's ``_blocked_flash_bwd``."""
+    B, T, S, H, KV, D, causal, window, q_offset, cancel = case
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, T, H, D)).astype(np.float32)
+    k, v = (rng.standard_normal((B, S, KV, D)).astype(np.float32)
+            for _ in range(2))
+    if cancel:
+        q = q * 4
+    kw = dict(causal=causal, window=window, q_offset=q_offset)
+    _, res = JA._blocked_flash_fwd(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), causal, window, q_offset,
+                                   16)
+    out = np.asarray(res[3])
+    dout = (out + 1e-3 * rng.standard_normal(out.shape)).astype(np.float32) \
+        if cancel else rng.standard_normal(out.shape).astype(np.float32)
+    want = JA._blocked_flash_bwd(causal, window, q_offset, 16, res,
+                                 jnp.asarray(dout))
+    m, l = (torch.tensor(np.asarray(a).reshape(B, T, H)) for a in res[4:])
+    ts = [torch.tensor(a) for a in (q, k, v, out)]
+    return ts, m, l, torch.tensor(dout), kw, [np.asarray(w) for w in want]
+
+
+def _errors(case, terms):
+    (q, k, v, out), m, l, dout, kw, want = _reference(case)
+    got = emulated_bwd(q, k, v, out, m, l, dout, terms=terms, **kw)
+    return [float(np.abs(g.numpy() - w).max()) / max(1.0, np.abs(w).max())
+            for g, w in zip(got, want)]
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_split_tf32_within_band(case):
+    """The three-term split holds dq, dk and dv within 1e-5 of each
+    result's scale, as fp32 products do."""
+    errs = _errors(case, "split")
+    assert max(errs) <= FP32_TOL, errs
+
+
+@pytest.mark.parametrize("case", CASES)
+def test_plain_tf32_outside_band(case):
+    """One TF32 term a product misses the band: the test has teeth."""
+    errs = _errors(case, "tf32")
+    assert max(errs) > FP32_TOL, errs
+
+
+def test_bf16_inputs_have_zero_small_halves():
+    """What the exact variant skips: bf16 and fp16 values upcast to fp32
+    are TF32 values, so their small halves are zero; fp32 ones are not."""
+    g = torch.Generator().manual_seed(0)
+    x = torch.randn(4096, generator=g)
+    for dt in (torch.bfloat16, torch.float16):
+        y = x.to(dt).float()
+        assert tfa.tf32_exact(x.to(dt))
+        assert torch.equal(tf32(y), y)
+        assert not bool((tf32(y - tf32(y)) != 0).any())
+    assert not tfa.tf32_exact(x)
+    assert bool((tf32(x - tf32(x)) != 0).any())
+
+
+@pytest.mark.parametrize("dt,exact", [(torch.float32, False),
+                                      (torch.bfloat16, True),
+                                      (torch.float16, True)])
+def test_bwd_operands_take_exact_from_dtypes(dt, exact):
+    """The exact variant is chosen only by ``bwd_operands``, from k's, v's
+    and dout's own dtypes; one fp32 tensor among them turns it off. The
+    operands are fp32 copies with q scaled."""
+    g = torch.Generator().manual_seed(1)
+    q, k, v, out, dout = (torch.randn(1, 8, 2, 16, generator=g).to(dt)
+                          for _ in range(5))
+    ops = tfa.bwd_operands(q, k, v, out, dout)
+    assert ops.exact is exact
+    assert all(t.dtype == torch.float32 for t in ops[:5])
+    assert torch.equal(ops.qs, q.float() * 16 ** -0.5)
+    assert torch.equal(ops.k, k.float())
+    assert tfa.bwd_operands(q, k, v.float(), out, dout).exact is False

@@ -71,10 +71,10 @@ KNOWN = [
     ("flash_f32", dict(D=64), 135_168),
     ("flash_f32", dict(D=128), 200_704),
     ("flash_f32_stats", dict(D=128), 200_704),
-    ("flash_bwd_dq", dict(D=16), 48_384),
-    ("flash_bwd_dq", dict(D=128), 220_416),
-    ("flash_bwd_dkdv", dict(D=64), 121_856),
-    ("flash_bwd_dkdv", dict(D=128), 220_160),
+    ("flash_bwd_dq", dict(D=16), 65_792),
+    ("flash_bwd_dq", dict(D=128), 229_632),
+    ("flash_bwd_dkdv", dict(D=64), 131_104),
+    ("flash_bwd_dkdv", dict(D=128), 229_408),
     ("b7_ring", dict(M=1000, d=18), 58_368),
     ("b7_ring", dict(M=100_000, d=128), 99_072),
     ("b7_ring", dict(M=1000, d=9000), 0),
