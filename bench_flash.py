@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
-"""Time B9 beside scaled_dot_product_attention on one card.
+"""Time B9 beside scaled_dot_product_attention on one card; or F, the
+training forward.
 
   PYTHONPATH=src python3 bench_flash.py [--dtype float32] [--rounds 5]
+  PYTHONPATH=src python3 bench_flash.py --train [--kv-dtype bfloat16]
 
 At the qwen3-0.6b prefill shape (B=4, Hq=16, Hkv=8, T=S=2048, D=128,
 causal; bf16, or fp32 with TF32 off; inputs from ``--seed``) it prints
@@ -14,6 +16,14 @@ public entry points, so the same file times another checkout's kernel
 with ``PYTHONPATH=<checkout>/src``; alternate two checkouts on one card
 in one run to compare them. ``band`` is ``flash_attn.bf16_band`` where
 the checkout has it (bf16 only).
+
+``--train`` times F (``launch_flash_attention_train``) at the qwen3-0.6b
+training shape (q (B, T, H, D) fp32; k and v fp32, or bf16 with
+``--kv-dtype bfloat16``, which a checkout whose F reads their dtypes
+runs as its exact variant) and prints its median ms and its largest
+error against the plain version on the same values; with ``--profile``
+also each device kernel's ms a call under torch.profiler (F's own
+kernels and the wrapper's casts).
 """
 from __future__ import annotations
 
@@ -50,6 +60,38 @@ def _spills(log: str, kernel: str) -> str:
         f"{m.group(2)}/{m.group(3)} bytes"
 
 
+def _card() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60).stdout.strip().splitlines()[0]
+
+
+def _train_forward(args) -> dict:
+    B, Hq, Hkv, T, D = 4, 16, 8, 2048, 128
+    q = torch.randn(B, T, Hq, D, device="cuda")
+    k, v = (torch.randn(B, T, Hkv, D, device="cuda").to(
+        getattr(torch, args.kv_dtype)) for _ in range(2))
+    kw = dict(causal=True, window=None, q_offset=0)
+    got = fa.launch_flash_attention_train(q, k, v, **kw)[0]
+    want = fa.flash_attention_train_plain(q, k.float(), v.float(), **kw)[0]
+    f = [_ms(lambda: fa.launch_flash_attention_train(q, k, v, **kw),
+             args.reps) for _ in range(args.rounds)]
+    res = {"kv_dtype": args.kv_dtype,
+           "max_abs_err": float((got - want).abs().max()),
+           "f_ms": statistics.median(f), "f_rounds": f}
+    if args.profile:
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(args.reps):
+                fa.launch_flash_attention_train(q, k, v, **kw)
+            torch.cuda.synchronize()
+        res["device_ms"] = {
+            e.key[:72]: e.self_device_time_total / 1e3 / args.reps
+            for e in prof.key_averages() if e.self_device_time_total > 0}
+    return res
+
+
 def main(argv=None) -> dict:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=5)
@@ -57,12 +99,21 @@ def main(argv=None) -> dict:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--dtype", choices=("bfloat16", "float32"),
                     default="bfloat16")
+    ap.add_argument("--train", action="store_true")
+    ap.add_argument("--kv-dtype", choices=("bfloat16", "float32"),
+                    default="float32")
+    ap.add_argument("--profile", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("bench_flash needs a CUDA device")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.manual_seed(args.seed)
+    if args.train:
+        res = {"card": _card(), "build": _build.library_path().parent.name,
+               **_train_forward(args)}
+        print(json.dumps(res))
+        return res
     dtype = getattr(torch, args.dtype)
     B, Hq, Hkv, T, D = 4, 16, 8, 2048, 128
     q = torch.randn(B, Hq, T, D, device="cuda").to(dtype)
@@ -81,10 +132,7 @@ def main(argv=None) -> dict:
         sdpa.append(_ms(
             lambda: torch.nn.functional.scaled_dot_product_attention(
                 q, k, v, is_causal=True, enable_gqa=True), args.reps))
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60).stdout.strip().splitlines()[0]
+    card = _card()
     log = (_build.library_path().parent / "build.log").read_text()
     kernel = "flash_bf16" if dtype == torch.bfloat16 else "flash_f32"
     res = {"card": card, "dtype": args.dtype,

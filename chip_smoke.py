@@ -254,23 +254,27 @@ Phases (any failed check exits nonzero):
 2e. (after phase 2d) The LM training attention's kernels against their
    plain versions (the reference's _blocked_flash_fwd / _bwd step by
    step over 512-key blocks), fp32 arithmetic, TF32 off: F
-   (flash_f32_stats: out, m, l), N1-dq (dq and D) and N1-dkdv (dk, dv),
-   after N1's registers, shared memory and spills from the build log. The
+   (flash_fwd_split then flash_f32_stats: out, m, l), N1-dq (dq and D)
+   and N1-dkdv (dk, dv), after F's and N1's registers, shared memory and
+   spills from the build log. The
    qwen3-0.6b training shape (B=4, Hq=16, Hkv=8, T=S=2048, D=128, causal),
    ragged T=S=1000 and 2049, a window of 256, q_offset 300 with T < S,
    GQA groups 1 and 4 at D=64, D=32 and 16, and bf16 inputs at the qwen3
-   training shape (N1's exact variant, which skips k's, v's and dout's
-   zero small halves: the variant and shape the training step runs, held
-   to the fp32 band and timed); then the
+   training shape (F's and N1's exact variants, which skip k's, v's and
+   dout's zero small halves: the variants and shape the training step
+   runs, held to the fp32 band and timed); then the
    cancelling case (q x 4 for peaked logits, dout = out + 1e-3 noise so
    that dP - D cancels) in fp32 and from bf16 values, N1 against the fp64
    plain version, the fp32 plain version's distance from it printed
    beside. Bands: out, dq, dk, dv within 1e-5 x max(1, max|.|); m and l
-   1e-5 relative; bf16 results within one bf16 ulp plus the fp32 band.
+   1e-5 relative (at the qwen3 shape F's and the fp32 plain version's m
+   against the fp64 plain version printed beside, relative); bf16
+   results within one bf16 ulp plus the fp32 band.
    At the qwen3 shape each kernel's ms beside two bounds, its products at
    the fp32 CUDA-core peak and as a three-term TF32 split at the TF32
    tensor-core peak (the least time for fp32-accurate products, and the
-   bound in the kernels line) (F: two products, fp32 bound only; the
+   bound in the kernels line) (F: two products, and its exact variant's
+   two-term split; the
    backward's five shared out, N1-dq dQ and D, N1-dkdv S, dP, dV and dK,
    so the S and dP that N1-dq recomputes show against the bounds; the
    split's seven as text) and the yardstick: scaled_dot_product_attention
@@ -449,12 +453,13 @@ def bound(nbytes: float, flops: float,
 
 
 def split_bound(nbytes: float, product_flops: float,
-                fp32_flops: float = 0.0) -> tuple[float, str]:
+                fp32_flops: float = 0.0, terms: int = 3) -> tuple[float, str]:
     """The bound of fp32-accurate products on the tensor cores: each as
     three TF32 products (big x big, big x small, small x big) at the TF32
-    peak, the other fp32 work at the CUDA cores' peak."""
+    peak, or two where one operand is exact in TF32 (``terms``), the
+    other fp32 work at the CUDA cores' peak."""
     t_b = nbytes / PEAK_BYTES_PER_S * 1e3
-    t_f = (3 * product_flops / PEAK_TF32_FLOPS
+    t_f = (terms * product_flops / PEAK_TF32_FLOPS
            + fp32_flops / PEAK_FP32_FLOPS) * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
 
@@ -1891,12 +1896,25 @@ def train_kernels_phase(fa_mod, dev, derate, stats) -> None:
         "plain versions on the card")
     log = (_build.library_path().parent / "build.log").read_text()
     lib = _build.library()
+    for name, regs, smem, spills in kernel_resources(log, "flash_fwd.cu"):
+        dim, exact = (int(a) for a in name[name.index("<") + 1:-1].split(","))
+        dyn = (lib.flash_fwd_smem(dim, exact)
+               if name.startswith("flash_f32_stats") else 0)
+        note = (" (at entry; setmaxnreg gives the consumers 240 and the "
+                "producer 24)" if name.startswith("flash_f32_stats") else "")
+        say(f"  {name}: {regs} registers{note}, {smem} bytes static shared "
+            f"+ {dyn} bytes dynamic, spills {spills}")
     for name, regs, smem, spills in kernel_resources(log, "flash_bwd.cu"):
         dim = int(name[name.index("<") + 1:-1].split(",")[0])  # <D, exact>
         dyn = lib.flash_bwd_smem(int(name.startswith("flash_bwd_dkdv")), dim)
         say(f"  {name}: {regs} registers, {smem} bytes static shared + "
             f"{dyn} bytes dynamic, spills {spills}")
     gen = torch.Generator(device=dev).manual_seed(24)
+
+    def stat_errs(m, l, m_p, l_p):
+        """F's m and l against the plain version's, relative."""
+        return tuple(float(((a - b).abs() / b.abs()).max())
+                     for a, b in ((m, m_p), (l, l_p)))
 
     def case(label, B, hq, hkv, T, S, D, dtype=torch.float32, window=None,
              q_offset=0, timed=False):
@@ -1911,6 +1929,12 @@ def train_kernels_phase(fa_mod, dev, derate, stats) -> None:
         out, m, l = fa_mod.launch_flash_attention_train(qf, kf, vf, **kw)
         out_p, m_p, l_p = fa_mod.flash_attention_train_plain(qf, kf, vf,
                                                              **kw)
+        # F on the inputs' own k and v: bf16 ones take its exact variant
+        # (tf32_exact), which skips their zero small halves
+        fwd = {"F": (out, m, l)}
+        if dtype == torch.bfloat16:
+            fwd["F exact"] = fa_mod.launch_flash_attention_train(qf, k, v,
+                                                                 **kw)
         # from the inputs' own dtypes: bf16 k, v and dout are TF32-exact,
         # and bwd_operands picks N1's exact variant for them
         ops = fa_mod.bwd_operands(q, k, v, out, dout)
@@ -1921,15 +1945,16 @@ def train_kernels_phase(fa_mod, dev, derate, stats) -> None:
         dq_p, dk_p, dv_p = fa_mod.flash_attention_bwd_plain(
             qf, kf, vf, out, m, l, df, **kw)
         errs = {}
-        for n, a, b in (("out", out, out_p), ("dq", dq, dq_p),
-                        ("dk", dk, dk_p), ("dv", dv, dv_p)):
+        for n, a, b in (*((f"{f} out", r[0], out_p)
+                          for f, r in fwd.items()),
+                        ("dq", dq, dq_p), ("dk", dk, dk_p), ("dv", dv, dv_p)):
             errs[n] = (float((a - b).abs().max()),
                        max(1.0, float(b.abs().max())))
-        rel = {n: float(((a - b).abs() / b.abs()).max())
-               for n, a, b in (("m", m, m_p), ("l", l, l_p))}
+        fst = {f: stat_errs(r[1], r[2], m_p, l_p) for f, r in fwd.items()}
         ok = all(e <= 1e-5 * s for e, s in errs.values()) and all(
-            r <= 1e-5 for r in rel.values()) and all(
-            bool(torch.isfinite(t).all()) for t in (out, dq, dk, dv))
+            sm <= 1e-5 and sl <= 1e-5 for sm, sl in fst.values()) and all(
+            bool(torch.isfinite(t).all())
+            for t in (*(r[0] for r in fwd.values()), dq, dk, dv))
         text = ", ".join(f"{n} {e:.2e} (max {s:.3g})"
                          for n, (e, s) in errs.items())
         if dtype == torch.bfloat16:
@@ -1945,7 +1970,9 @@ def train_kernels_phase(fa_mod, dev, derate, stats) -> None:
             text += (f"; bf16 results within one bf16 ulp (+ the fp32 "
                      f"band): {in_band}")
             ok = ok and in_band
-        say(f"  {label}: {text}; m {rel['m']:.1e}, l {rel['l']:.1e} relative")
+        text += "".join(f"; {f} m {sm:.1e}, l {sl:.1e} relative"
+                        for f, (sm, sl) in fst.items())
+        say(f"  {label}: {text}")
         if not ok:
             fail(f"F / N1 {label} disagree with their plain versions")
         if not timed:
@@ -1954,12 +1981,30 @@ def train_kernels_phase(fa_mod, dev, derate, stats) -> None:
                         5)
         dkdv_ms = time_ms(lambda: fa_mod.launch_flash_bwd_dkdv(
             ops, m, l, delta, **kw), 5)
+        pairs = B * hq * visible_pairs(T, S, True, window)
+        f_bytes = 4 * (2 * B * S * hkv * D + 2 * B * T * hq * D
+                       + 2 * B * hq * T)
         if ops.exact:
-            # the variant the training step runs: its times, beside the
+            # the variants the training step runs: their times, beside the
             # fp32 case's that the kernels line carries
-            say(f"  exact variant: N1-dq ms={dq_ms:.3f}, N1-dkdv ms="
-                f"{dkdv_ms:.3f}, together {dq_ms + dkdv_ms:.3f} ms")
+            fx_ms = time_ms(lambda: fa_mod.launch_flash_attention_train(
+                qf, k, v, **kw), 5)
+            stats["flash_attention_train"].update(
+                exact_ms=fx_ms, exact_max_abs_err=errs["F exact out"][0])
+            say(f"  exact variant: F ms={fx_ms:.3f} (two terms a product) "
+                + bound_text(*split_bound(f_bytes, 4 * D * pairs, terms=2),
+                             derate)
+                + f"; N1-dq ms={dq_ms:.3f}, N1-dkdv ms={dkdv_ms:.3f}, "
+                f"together {dq_ms + dkdv_ms:.3f} ms")
             return None
+        # m near 0 (the first rows' few keys): the kernel's and the fp32
+        # plain version's distances from the fp64 plain version
+        m64 = fa_mod.flash_attention_train_plain(
+            qf.double(), kf.double(), vf.double(), **kw)[1]
+        far = {n: ((x.double() - m64).abs() / m64.abs()).max()
+               for n, x in (("F", m), ("fp32 plain", m_p))}
+        say("  F's m against the fp64 plain version, relative: "
+            + ", ".join(f"{n} {float(e):.2e}" for n, e in far.items()))
         f_ms = time_ms(lambda: fa_mod.launch_flash_attention_train(
             qf, kf, vf, **kw), 5)
         f_plain = time_ms(lambda: fa_mod.flash_attention_train_plain(
@@ -1989,12 +2034,14 @@ def train_kernels_phase(fa_mod, dev, derate, stats) -> None:
             lib_f, lib_b = yardstick()
             yard = (f"SDPA, PyTorch's own backend choice (the efficient "
                     f"backend refused: {str(e).splitlines()[0][:80]})")
-        pairs = B * hq * visible_pairs(T, S, True, window)
         elt = 4
         qo = B * T * hq * D * elt
         kv = B * S * hkv * D * elt
         st = B * hq * T * elt
-        f_b = bound(2 * kv + 2 * qo + 2 * st, 4 * D * pairs)
+        # F: two products, at the fp32 CUDA-core peak and as the split it
+        # runs (three terms; two in the exact variant, printed above)
+        f_b = bound(f_bytes, 4 * D * pairs)
+        f_s = split_bound(f_bytes, 4 * D * pairs)
         # the backward's bound is its five products; the two kernels share
         # it: N1-dq is charged dQ and D, N1-dkdv S, dP, dV and dK. The S
         # and dP that N1-dq recomputes are the split's own cost, charged to
@@ -2011,7 +2058,8 @@ def train_kernels_phase(fa_mod, dev, derate, stats) -> None:
         bwd_s = split_bound(4 * qo + 4 * kv + 2 * st, 10 * D * pairs,
                             2 * B * hq * T * D)
         say(f"  F ms={f_ms:.3f} plain_ms={f_plain:.3f} library_ms="
-            f"{lib_f:.3f} ({yard}) "
+            f"{lib_f:.3f} ({yard}) split-TF32 "
+            + bound_text(*f_s, derate) + "; fp32 "
             + bound_text(*f_b, derate)
             + f"; {4 * D * pairs / f_ms / 1e9:.1f} TFLOP/s")
         say(f"  N1-dq ms={dq_ms:.3f} fp32 " + bound_text(*dq_b, derate)
@@ -2032,8 +2080,9 @@ def train_kernels_phase(fa_mod, dev, derate, stats) -> None:
         # its time stands beside each of the two kernels
         common = dict(plain_ms=bwd_plain, library_ms=lib_b)
         stats["flash_attention_train"] = dict(
-            max_abs_err=errs["out"][0], ms=f_ms, plain_ms=f_plain,
-            library_ms=lib_f, bound_ms=f_b[0], bound_by=f_b[1])
+            max_abs_err=errs["F out"][0], ms=f_ms, plain_ms=f_plain,
+            library_ms=lib_f, bound_ms=f_s[0], bound_by=f_s[1],
+            fp32_bound_ms=f_b[0])
         stats["flash_bwd_dq"] = dict(max_abs_err=errs["dq"][0], ms=dq_ms,
                                      bound_ms=dq_s[0], bound_by=dq_s[1],
                                      **common)
@@ -3715,7 +3764,7 @@ def main() -> None:
         "flash_attention_f32": ("src/repro_torch/kernels/csrc/flash_attn.cu",
                                 "src/repro/kernels/flash_attn.py:93"),
         "flash_attention_train": (
-            "src/repro_torch/kernels/csrc/flash_attn.cu",
+            "src/repro_torch/kernels/csrc/flash_fwd.cu",
             "no TPU kernel: src/repro/models/attention.py:126 "
             "(_blocked_flash_fwd, plain JAX under a custom VJP)"),
         "flash_bwd_dq": (

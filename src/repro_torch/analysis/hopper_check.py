@@ -23,7 +23,7 @@ local memory, most threads a block) and
 ``cudaOccupancyMaxActiveBlocksPerMultiprocessor`` at the plan's dynamic
 shared memory, and the library's own plan queries (``gram_smem``,
 ``gram_matvec_smem``, ``gram_matvec_scratch``, ``flash_attn_smem``,
-``flash_bwd_smem``,
+``flash_fwd_smem``, ``flash_bwd_smem``,
 ``odm_grad_blocks``, ``odm_grad_smem``, ``odm_svrg_epoch_smem`` and
 ``odm_svrg_epoch_mode``, ``cd_exact_state_in_smem``) give the dynamic
 shared memory, grid and mode of the same shapes. A spill
@@ -51,7 +51,8 @@ __all__ = [
     "variant_report", "cd_sweep_plan", "gram_matvec_plan",
     "dense_matvec_plan", "cd_exact_plan", "svrg_grad_plan",
     "svrg_epoch_plan", "b7_ring_plan", "gram_plan", "flash_bf16_plan",
-    "flash_f32_plan", "flash_f32_stats_plan", "flash_bwd_dq_plan",
+    "flash_f32_plan", "flash_f32_stats_plan", "flash_fwd_split_plan",
+    "flash_bwd_dq_plan",
     "flash_bwd_dkdv_plan",
 ]
 
@@ -484,6 +485,23 @@ def flash_bf16_plan(B: int = 4, Hq: int = 16, T: int = 2048,
               "producer thread")
 
 
+def flash_fwd_split_plan(B: int = 4, Hkv: int = 8, S: int = 2048,
+                         D: int = 128, exact: bool = False) -> KernelPlan:
+    """F's first kernel (``csrc/flash_fwd.cu::flash_fwd_split``): 256
+    threads a (b, kv head, 32-key tile), no shared memory; it writes each
+    tile's K and V halves to the scratch buffer ``flash_f32_stats`` reads
+    (``flash_fwd_scratch`` floats)."""
+    idx = {16: 8, 32: 9, 64: 10, 128: 11}.get(D)
+    return KernelPlan(
+        kernel="flash_fwd_split",
+        symbol=f"flash_fwd_split<{D}, {str(exact).lower()}>",
+        entry="flash_fwd_attributes",
+        variant=-1 if idx is None else idx + 4 * exact, threads=256,
+        grid=(B * Hkv * -(-S // 32),), blocks=(), min_ctas=1,
+        shape=(("B", B), ("Hkv", Hkv), ("S", S), ("D", D),
+               ("exact", exact)))
+
+
 def flash_f32_plan(B: int = 4, Hq: int = 16, T: int = 2048,
                    D: int = 128) -> KernelPlan:
     """B9 fp32 (``csrc/flash_attn.cu::F32Tiles``): 256 threads, 128 query
@@ -509,13 +527,52 @@ def flash_f32_plan(B: int = 4, Hq: int = 16, T: int = 2048,
 
 
 def flash_f32_stats_plan(B: int = 4, Hq: int = 16, T: int = 2048,
-                         D: int = 128) -> KernelPlan:
-    """F, the training forward (``csrc/flash_attn.cu::flash_f32_stats``):
-    B9 fp32's body and plan, which also stores each row's m and l."""
-    plan = flash_f32_plan(B=B, Hq=Hq, T=T, D=D)
-    idx = {16: 8, 32: 9, 64: 10, 128: 11}.get(D, -1)
-    return dataclasses.replace(plan, kernel="flash_f32_stats",
-                               symbol=f"flash_f32_stats<{D}>", variant=idx)
+                         D: int = 128, exact: bool = False) -> KernelPlan:
+    """F, the training forward (``csrc/flash_fwd.cu::flash_f32_stats``):
+    384 threads (two 64-row consumer warpgroups and a producer) a (b, q
+    head, 128-row query block); the consumers' raw Q rows in TMA's
+    128-byte swizzle (boxes of 32 floats a row, one at D = 16), a
+    two-stage ring of 32-key tiles, K split (keys x D) and V split and
+    transposed (D x keys), each a big and a small half (the big one only
+    when ``exact``: k and v TF32-exact), each row's logits of the tile
+    that holds its max and that tile's index (40 floats a row), and each
+    stage's full and empty mbarriers. Its first kernel, ``flash_fwd_split`` (256 threads, no
+    shared memory, a CTA a kv head's 32-key tile), writes those tiles
+    once a call."""
+    raw = (64, 32 * max(1, D // 32))
+    halves = 1 if exact else 2
+    idx = {16: 0, 32: 1, 64: 2, 128: 3}.get(D)
+    return KernelPlan(
+        kernel="flash_f32_stats",
+        symbol=f"flash_f32_stats<{D}, {str(exact).lower()}>",
+        entry="flash_fwd_attributes",
+        variant=-1 if idx is None else idx + 4 * exact, threads=3 * 128,
+        grid=(-(-T // 128) * Hq * B,),
+        blocks=(Block("q", (2,) + raw), Block("k_ring", (2, halves, 32, D)),
+                Block("v_ring", (2, halves, D, 32)),
+                Block("max_tiles", (2, 64, 40)),
+                Block("mbarriers", (4,), "uint64")),
+        min_ctas=1,
+        shape=(("B", B), ("Hq", Hq), ("T", T), ("D", D), ("exact", exact)),
+        notes="setmaxnreg: 240 registers a consumer thread, 24 a "
+              "producer thread")
+
+
+def flash_fwd_split_plan(B: int = 4, Hkv: int = 8, S: int = 2048,
+                         D: int = 128, exact: bool = False) -> KernelPlan:
+    """F's first kernel (``csrc/flash_fwd.cu::flash_fwd_split``): 256
+    threads a (b, kv head, 32-key tile), no shared memory; it writes each
+    tile's K and V halves to the scratch buffer ``flash_f32_stats`` reads
+    (``flash_fwd_scratch`` floats)."""
+    idx = {16: 8, 32: 9, 64: 10, 128: 11}.get(D)
+    return KernelPlan(
+        kernel="flash_fwd_split",
+        symbol=f"flash_fwd_split<{D}, {str(exact).lower()}>",
+        entry="flash_fwd_attributes",
+        variant=-1 if idx is None else idx + 4 * exact, threads=256,
+        grid=(B * Hkv * -(-S // 32),), blocks=(), min_ctas=1,
+        shape=(("B", B), ("Hkv", Hkv), ("S", S), ("D", D),
+               ("exact", exact)))
 
 
 def _bwd_blocks(D: int, kernel: str) -> tuple[Block, ...]:
@@ -590,6 +647,7 @@ PLAN_BUILDERS: dict[str, Callable[..., KernelPlan]] = {
     "flash_bf16": flash_bf16_plan,
     "flash_f32": flash_f32_plan,
     "flash_f32_stats": flash_f32_stats_plan,
+    "flash_fwd_split": flash_fwd_split_plan,
     "flash_bwd_dq": flash_bwd_dq_plan,
     "flash_bwd_dkdv": flash_bwd_dkdv_plan,
 }
@@ -612,7 +670,12 @@ DEFAULT_SHAPES: dict[str, tuple[dict, ...]] = {
     "gram": ({"K": 8, "M": 6250, "D": 22},),
     "flash_bf16": ({"B": 4, "Hq": 16, "T": 2048, "D": 128},),
     "flash_f32": ({"B": 4, "Hq": 16, "T": 2048, "D": 128},),
-    "flash_f32_stats": ({"B": 4, "Hq": 16, "T": 2048, "D": 128},),
+    "flash_f32_stats": ({"B": 4, "Hq": 16, "T": 2048, "D": 128},
+                        {"B": 4, "Hq": 16, "T": 2048, "D": 128,
+                         "exact": True}),
+    "flash_fwd_split": ({"B": 4, "Hkv": 8, "S": 2048, "D": 128},
+                        {"B": 4, "Hkv": 8, "S": 2048, "D": 128,
+                         "exact": True}),
     "flash_bwd_dq": ({"B": 4, "Hq": 16, "T": 2048, "D": 128},
                      {"B": 4, "Hq": 16, "T": 2048, "D": 128, "exact": True}),
     "flash_bwd_dkdv": ({"B": 4, "Hkv": 8, "S": 2048, "D": 128},
@@ -646,7 +709,8 @@ def check_kernels() -> dict[str, str]:
 VARIANTS = {"cd_sweep_attributes": 12, "dense_matvec_attributes": 1,
             "cd_exact_attributes": 1, "gram_attributes": 16,
             "gram_matvec_attributes": 10, "odm_grad_attributes": 10,
-            "flash_attn_attributes": 12, "flash_bwd_attributes": 16}
+            "flash_attn_attributes": 8, "flash_fwd_attributes": 16,
+            "flash_bwd_attributes": 16}
 
 _ATTR_KEYS = ("regs", "smem_static", "local_bytes", "max_threads",
               "ctas_per_sm", "threads")
@@ -685,9 +749,12 @@ def _library_queries(plan: KernelPlan, sms: int, ctas: int) -> list[str]:
         want("gram_matvec_scratch", lib.gram_matvec_scratch(
             s["K"], s["M"], s["N"], s["D"], s["D4"], _kind_code(s["kind"]),
             int(s["sym"])), _k2_scratch(s, sms, ctas))
-    elif plan.kernel in ("flash_bf16", "flash_f32", "flash_f32_stats"):
+    elif plan.kernel in ("flash_bf16", "flash_f32"):
         want("flash_attn_smem", lib.flash_attn_smem(
             int(plan.kernel == "flash_bf16"), s["D"]), plan.smem_dynamic)
+    elif plan.kernel == "flash_f32_stats":
+        want("flash_fwd_smem", lib.flash_fwd_smem(s["D"], int(s["exact"])),
+             plan.smem_dynamic)
     elif plan.kernel in ("flash_bwd_dq", "flash_bwd_dkdv"):
         want("flash_bwd_smem", lib.flash_bwd_smem(
             int(plan.kernel == "flash_bwd_dkdv"), s["D"]), plan.smem_dynamic)

@@ -903,8 +903,12 @@ def _declare_builtins() -> None:
                        _flash_single_launch("bfloat16")),
         "flash_f32": ("one dispatch an attention call",
                       _flash_single_launch("float32")),
-        "flash_f32_stats": ("one dispatch a training attention forward",
+        "flash_f32_stats": ("one dispatch a training attention forward "
+                            "(F's split kernel, then flash_f32_stats)",
                             _flash_train_dispatches("flash_f32_stats")),
+        "flash_fwd_split": ("one dispatch a training attention forward "
+                            "(flash_fwd_split, then F's flash_f32_stats)",
+                            _flash_train_dispatches("flash_fwd_split")),
         "flash_bwd_dq": ("a training attention backward is N1-dq, then "
                          "N1-dkdv", _flash_train_dispatches("flash_bwd_dq")),
         "flash_bwd_dkdv": ("a training attention backward is N1-dq, then "

@@ -40,7 +40,8 @@ LIB_NAME = "librepro_kernels.so"
 ATTRIBUTE_ENTRIES = ("cd_sweep_attributes", "dense_matvec_attributes",
                      "cd_exact_attributes", "gram_attributes",
                      "gram_matvec_attributes", "odm_grad_attributes",
-                     "flash_attn_attributes", "flash_bwd_attributes")
+                     "flash_attn_attributes", "flash_fwd_attributes",
+                     "flash_bwd_attributes")
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas=-v")
@@ -136,8 +137,12 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.flash_attn_fwd.argtypes = [P, P, P, P, I, I, I, I, I, I, I,
                                    ctypes.POINTER(L), F, I, I, P]
     lib.flash_attn_smem.argtypes = [I, I]
-    lib.flash_attn_fwd_stats.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I,
-                                         ctypes.POINTER(L), F, I, I, I, P]
+    lib.flash_attn_fwd_stats.argtypes = [P, P, P, P, P, P, P, I, I, I, I, I,
+                                         I, ctypes.POINTER(L), F, I, I, I, I,
+                                         P]
+    lib.flash_fwd_scratch.argtypes = [I, I, I, I, I]
+    lib.flash_fwd_scratch.restype = L
+    lib.flash_fwd_smem.argtypes = [I, I]
     lib.flash_bwd_dq_f32.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I,
                                      I, I, I, I, I, F, I, P]
     lib.flash_bwd_dkdv_f32.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I,
@@ -159,7 +164,8 @@ def _declare(lib: ctypes.CDLL) -> None:
                lib.cd_exact_f32, lib.cd_exact_state_in_smem,
                lib.flash_attn_fwd, lib.flash_attn_fwd_stats,
                lib.flash_bwd_dq_f32, lib.flash_bwd_dkdv_f32,
-               lib.flash_bwd_smem, lib.flash_attn_smem, lib.gram_matvec_smem,
+               lib.flash_bwd_smem, lib.flash_attn_smem, lib.flash_fwd_smem,
+               lib.gram_matvec_smem,
                lib.odm_grad_smem,
                lib.odm_svrg_epoch_smem,
                *(getattr(lib, n) for n in ATTRIBUTE_ENTRIES)):

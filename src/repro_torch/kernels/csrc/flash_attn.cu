@@ -95,12 +95,8 @@
 //     SM (ptxas -v of the sm_90a build). Measured (H100 80GB HBM3,
 //     700.00 W, bench_flash.py --dtype float32) 1.98 ms at the qwen3 prefill
 //     shape against SDPA's 6.49 ms: 52 % of the fp32 peak.
-// F (flash_f32_stats), the training forward of models/attention.py's
-//   flash_xla: the same fp32 body at the queries' positions t + q_offset
-//   (the prefill's is S - T), which also writes each row's running max m
-//   and max(l, 1e-30), the softmax statistics that N1
-//   (flash_bwd.cu) re-walks the keys from. The prefill's flash_f32 is the
-//   same body without the stores, so its launches and bits are unchanged.
+// (F, the training attention's fp32 forward, is its own kernel on the
+// tensor cores: flash_fwd.cu.)
 // Both kernels loop inside the CTA over the key tiles that causality and
 // the window leave live for the block, in place of the TPU's sequential
 // fourth grid dimension. The bf16 kernel's 128-key tiles are the plain
@@ -128,8 +124,6 @@ struct Params {  // fp32 kernel
   const void* k;
   const void* v;
   void* o;
-  float* m;  // the softmax statistics (flash_f32_stats only): m and
-  float* l;  // max(l, 1e-30), (B, Hq, T) contiguous
   int T, S, group, Hq, B, nblk;
   long long sqb, sqh, sqt, skb, skh, sks, svb, svh, svs, sob, soh, sot;
   float scale;
@@ -558,10 +552,8 @@ __device__ __forceinline__ void load_tile(float* dst, int lds,
   }
 }
 
-// The fp32 kernel's body; STATS also writes each row's m and
-// max(l, 1e-30) (flash_f32_stats, the training forward F).
-template <int D, bool STATS>
-__device__ __forceinline__ void flash_f32_body(const Params& p) {
+template <int D>
+__global__ void __launch_bounds__(F_NT, 1) flash_f32(const Params p) {
   using L = F32Tiles<D>;
   extern __shared__ __align__(16) float fsm[];
   float* Qs = fsm;                       // F_BQ x QS
@@ -726,12 +718,6 @@ __device__ __forceinline__ void flash_f32_body(const Params& p) {
     const int row = r0 + rq + i;
     if (row < p.T) {
       const float ls = fmaxf(l[i], 1e-30f);
-      if (STATS && tx == 0) {
-        const long long at =
-            (static_cast<long long>(b) * p.Hq + h) * p.T + row;
-        p.m[at] = m[i];
-        p.l[at] = ls;
-      }
       float out[L::CPT];
 #pragma unroll
       for (int c = 0; c < L::CPT; ++c) out[c] = o[i][c] / ls;
@@ -741,16 +727,6 @@ __device__ __forceinline__ void flash_f32_body(const Params& p) {
                          out + g * L::VEC);
     }
   }
-}
-
-template <int D>
-__global__ void __launch_bounds__(F_NT, 1) flash_f32(const Params p) {
-  flash_f32_body<D, false>(p);
-}
-
-template <int D>
-__global__ void __launch_bounds__(F_NT, 1) flash_f32_stats(const Params p) {
-  flash_f32_body<D, true>(p);
 }
 
 // A bf16 (D, rows, heads, batch) map with the element strides (batch,
@@ -818,22 +794,11 @@ int launch(const void* const (&ptr)[4], int bf16, int B, int Hq, int Hkv,
   if (e != cudaSuccess) return static_cast<int>(e);
   const int nblk = (T + F_BQ - 1) / F_BQ;
   const Params p{ptr[0], ptr[1], ptr[2], const_cast<void*>(ptr[3]),
-                 nullptr, nullptr, T, S, Hq / Hkv, Hq, B, nblk,
+                 T, S, Hq / Hkv, Hq, B, nblk,
                  s[0], s[1], s[2], s[3], s[4], s[5],
                  s[6], s[7], s[8], s[9], s[10], s[11],
                  scale, causal, window, S - T};
   flash_f32<D><<<nblk * Hq * B, F_NT, L::SMEM, st>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
-template <int D>
-int launch_stats(const Params& p, cudaStream_t st) {
-  using L = F32Tiles<D>;
-  const cudaError_t e = cudaFuncSetAttribute(
-      flash_f32_stats<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      L::SMEM);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  flash_f32_stats<D><<<p.nblk * p.Hq * p.B, F_NT, L::SMEM, st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -871,36 +836,6 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
   }
 }
 
-// F, the training forward: the fp32 kernel at the queries' positions
-// t + q_offset (q_offset >= 0, any T), also writing m and max(l, 1e-30)
-// into m and l, (B, Hq, T) fp32 contiguous. The strides are as for
-// flash_attn_fwd; the training wrapper passes q already scaled and
-// scale = 1 (a multiply by 1 is exact), which is the reference's
-// arithmetic: q is scaled in fp32 before the dot.
-extern "C" int flash_attn_fwd_stats(const void* q, const void* k,
-                                    const void* v, void* out, float* m,
-                                    float* l, int B, int Hq, int Hkv, int T,
-                                    int S, int D, const long long* s,
-                                    float scale, int causal, int window,
-                                    int q_offset, void* stream) {
-  if (B <= 0 || Hq <= 0 || Hkv <= 0 || Hq % Hkv != 0 || T <= 0 || S <= 0 ||
-      q_offset < 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const Params p{q, k, v, out, m, l, T, S, Hq / Hkv, Hq, B,
-                 (T + F_BQ - 1) / F_BQ,
-                 s[0], s[1], s[2], s[3], s[4], s[5],
-                 s[6], s[7], s[8], s[9], s[10], s[11],
-                 scale, causal, window, q_offset};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch_stats<16>(p, st);
-    case 32: return launch_stats<32>(p, st);
-    case 64: return launch_stats<64>(p, st);
-    case 128: return launch_stats<128>(p, st);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
-}
-
 // Dynamic shared memory of the bf16 (bf16 = 1) or fp32 kernel at head dim
 // D (bytes), or -1.
 extern "C" int flash_attn_smem(int bf16, int D) {
@@ -914,8 +849,7 @@ extern "C" int flash_attn_smem(int bf16, int D) {
 }
 
 // Resources of the variant v, head dim D = 16 << (v % 4): v = 0 .. 3
-// flash_bf16<D>, 4 .. 7 flash_f32<D>, 8 .. 11 flash_f32_stats<D> (F; see
-// attributes.cuh).
+// flash_bf16<D>, 4 .. 7 flash_f32<D> (see attributes.cuh).
 extern "C" int flash_attn_attributes(int v, int smem, int* out) {
   const void* fn;
   int threads = 3 * NT;
@@ -928,10 +862,6 @@ extern "C" int flash_attn_attributes(int v, int smem, int* out) {
     case 5: fn = reinterpret_cast<const void*>(flash_f32<32>); break;
     case 6: fn = reinterpret_cast<const void*>(flash_f32<64>); break;
     case 7: fn = reinterpret_cast<const void*>(flash_f32<128>); break;
-    case 8: fn = reinterpret_cast<const void*>(flash_f32_stats<16>); break;
-    case 9: fn = reinterpret_cast<const void*>(flash_f32_stats<32>); break;
-    case 10: fn = reinterpret_cast<const void*>(flash_f32_stats<64>); break;
-    case 11: fn = reinterpret_cast<const void*>(flash_f32_stats<128>); break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -136,6 +136,13 @@ constexpr int WT = 128;   // threads a warpgroup
 constexpr int NT = 256;   // threads a CTA: two warpgroups
 constexpr unsigned FULL = 0xffffffffu;
 
+// the split products' layouts and issue order, shared with F (sm90.cuh)
+using sm90::issue_chunk;
+using sm90::km_at;
+using sm90::km_desc;
+using sm90::raw_at;
+using sm90::split;
+
 struct Bwd {
   const float* q;     // (B, T, Hq, D), already scaled
   const float* k;     // (B, S, Hkv, D)
@@ -168,28 +175,6 @@ struct BTiles {
   static constexpr int DKDV_SMEM = 4 * BARS + 4 * 8;
 };
 
-// A raw tile, as TMA's 128-byte swizzle writes it: NBOX boxes of 64 rows x
-// 32 floats (columns past D unused), each row's 16-byte chunk j at j ^ (r %
-// 8). A warp's reads along rows (8 rows x 4 columns) and down columns (4
-// rows x 8 columns, the rows in the order of dot_cols) fall on 32 banks.
-__device__ __forceinline__ int raw_at(int r, int c) {
-  return (c >> 5) * (BQ * 32) + r * 32 + ((((c >> 2) & 7) ^ (r & 7)) << 2) +
-         (c & 3);
-}
-
-// A K-major wgmma operand of rows x C (C the contraction) without swizzle:
-// 8 x 4 core matrices of 128 bytes, the C / 4 of an 8-row group in a row
-// (LBO 128 bytes), the groups 32 C bytes apart (SBO).
-template <int C>
-__device__ __forceinline__ int km_at(int r, int c) {
-  return (r >> 3) * (8 * C) + (c >> 2) * 32 + (r & 7) * 4 + (c & 3);
-}
-
-template <int C>
-__device__ __forceinline__ uint64_t km_desc(uint32_t addr) {
-  return sm90::desc(addr, 128, 32 * C, 0);
-}
-
 // The column of row r in a P or dS tile (dot_cols' contraction order).
 __device__ __forceinline__ int row_col(int r) {
   return (r & ~7) | ((r & 1) << 2) | ((r & 7) >> 1);
@@ -215,19 +200,6 @@ __device__ __forceinline__ void load_raw(float* dst, const float* src,
     const int r = i / C4, c = 4 * (i % C4);
     const bool ok = r < n;
     sm90::cp_async16(dst + raw_at(r, c), ok ? src + r * ld + c : src, ok);
-  }
-}
-
-// x as big and small TF32 halves; SPLIT false: x is exact in TF32 (an
-// upcast bf16 or fp16 value), its own big half, and small is not used.
-template <bool SPLIT>
-__device__ __forceinline__ void split(float x, uint32_t& big,
-                                      uint32_t& small) {
-  if constexpr (SPLIT) {
-    sm90::split_tf32(x, big, small);
-  } else {
-    big = __float_as_uint(x);
-    small = 0u;
   }
 }
 
@@ -299,44 +271,6 @@ __device__ __forceinline__ void stage_kv(float* kt, float* vt,
     };
     put(kt, ka, kb);
     put(vt, va, vb);
-  }
-}
-
-// c (+)= a b: m64n32k8 or m64n64k8 by c's 16 or 32 registers
-template <int N>
-__device__ __forceinline__ void mma(float (&c)[N], const uint32_t (&a)[4],
-                                    uint64_t b, int acc) {
-  if constexpr (N == 16) sm90::wgmma_tf32_n32(c, a, b, acc);
-  else sm90::wgmma_tf32_n64(c, a, b, acc);
-}
-
-// Issue one chunk of KC split k-steps into the fresh accumulator c (an
-// m64nNk8 wgmma, N twice c's registers) against the B tile of
-// contraction width C at big (its small half at small): every cross term
-// (big x small, small x big) first, while c is still small, then the
-// big x big terms, so that c's truncating tensor-core sums cut the large
-// value once a k-step. AS / BS false: that operand's small half is zero.
-template <int C, int KC, bool AS, bool BS, int N>
-__device__ __forceinline__ void issue_chunk(float (&c)[N],
-                                            const uint32_t (&ab)[KC][4],
-                                            const uint32_t (&as)[KC][4],
-                                            uint32_t big, uint32_t small) {
-  int acc = 0;
-#pragma unroll
-  for (int kk = 0; kk < KC; ++kk) {   // two core matrices a k-step
-    if constexpr (BS) {
-      mma(c, ab[kk], km_desc<C>(small + 256 * kk), acc);
-      acc = 1;
-    }
-    if constexpr (AS) {
-      mma(c, as[kk], km_desc<C>(big + 256 * kk), acc);
-      acc = 1;
-    }
-  }
-#pragma unroll
-  for (int kk = 0; kk < KC; ++kk) {
-    mma(c, ab[kk], km_desc<C>(big + 256 * kk), acc);
-    acc = 1;
   }
 }
 

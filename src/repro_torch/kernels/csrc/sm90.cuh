@@ -1,8 +1,9 @@
 // Hopper (sm_90a) building blocks in inline PTX: mbarriers, TMA tile
 // loads and stores (and the host's tensor-map encoder), wgmma
 // shared-memory descriptors, the bf16 wgmma instructions that B9's bf16
-// kernel (flash_attn.cu) issues, the tf32 ones and the TF32 split of N1
-// (flash_bwd.cu), and the
+// kernel (flash_attn.cu) issues, the tf32 ones, the TF32 split and the
+// operand layouts of F (flash_fwd.cu) and N1 (flash_bwd.cu), 1-D bulk
+// copies, and the
 // cp.async copies that B9's fp32 kernel, B6's epoch kernel and B7
 // (odm_grad.cu) stage their operands with. No CUTLASS: the build stays a
 // plain nvcc -c of each source.
@@ -367,10 +368,36 @@ __device__ __forceinline__ void fence_regs(float (&d)[N]) {
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
 
+// Keep register A operands live (their registers unreused) until here: a
+// wgmma reads them asynchronously, up to the wgmma_wait that completes
+// it. Call after that wait.
+template <int K>
+__device__ __forceinline__ void keep_regs(const uint32_t (&a)[K][4]) {
+#pragma unroll
+  for (int k = 0; k < K; ++k)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) asm volatile("" ::"r"(a[k][i]));
+}
+
 // The tf32 register A operand of m64nNk8: a[0] at row 16 (t / 32) +
 // (t % 32) / 4 and column t % 4, a[1] eight rows down, a[2] and a[3] the
 // same rows at column t % 4 + 4. (An accumulator's columns are 2 (t % 4)
 // and 2 (t % 4) + 1: it is not an A fragment as it stands.)
+
+// D(64 x 16) (+)= A(64 x 8, registers, tf32) B(16 x 8, shared, K-major tf32)
+__device__ __forceinline__ void wgmma_tf32_n16(float (&d)[8],
+                                              const uint32_t (&a)[4],
+                                              uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
 
 // D(64 x 32) (+)= A(64 x 8, registers, tf32) B(32 x 8, shared, K-major tf32)
 __device__ __forceinline__ void wgmma_tf32_n32(float (&d)[16],
@@ -410,6 +437,131 @@ __device__ __forceinline__ void wgmma_tf32_n64(float (&d)[32],
         "+f"(d[30]), "+f"(d[31])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
         "r"(accumulate));
+}
+
+// D(64 x 128) (+)= A(64 x 8, registers, tf32) B(128 x 8, shared, K-major
+// tf32)
+__device__ __forceinline__ void wgmma_tf32_n128(float (&d)[64],
+                                               const uint32_t (&a)[4],
+                                               uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13,"
+      "%14, %15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25,"
+      "%26, %27, %28, %29, %30, %31, %32, %33, %34, %35, %36, %37,"
+      "%38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49,"
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61,"
+      "%62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b),
+        "r"(accumulate));
+}
+
+// --- the split products' operand layouts (F and N1) --------------------------
+
+// A raw 64-row fp32 tile as TMA's 128-byte swizzle writes it: boxes of 64
+// rows x 32 floats (columns past the row's width unused), each row's
+// 16-byte chunk j at j ^ (r % 8). A warp's reads along rows (8 rows x 4
+// columns) and down columns (4 rows x 8 columns, in N1's row order) fall
+// on 32 banks.
+__device__ __forceinline__ int raw_at(int r, int c) {
+  return (c >> 5) * (64 * 32) + r * 32 + ((((c >> 2) & 7) ^ (r & 7)) << 2) +
+         (c & 3);
+}
+
+// A K-major wgmma operand of rows x C (C the contraction) without swizzle:
+// 8 x 4 core matrices of 128 bytes, the C / 4 of an 8-row group in a row
+// (LBO 128 bytes), the groups 32 C bytes apart (SBO).
+template <int C>
+__device__ __forceinline__ int km_at(int r, int c) {
+  return (r >> 3) * (8 * C) + (c >> 2) * 32 + (r & 7) * 4 + (c & 3);
+}
+
+template <int C>
+__device__ __forceinline__ uint64_t km_desc(uint32_t addr) {
+  return desc(addr, 128, 32 * C, 0);
+}
+
+// x as big and small TF32 halves; SPLIT false: x is exact in TF32 (an
+// upcast bf16 or fp16 value), its own big half, and small is not used.
+template <bool SPLIT>
+__device__ __forceinline__ void split(float x, uint32_t& big,
+                                      uint32_t& small) {
+  if constexpr (SPLIT) {
+    split_tf32(x, big, small);
+  } else {
+    big = __float_as_uint(x);
+    small = 0u;
+  }
+}
+
+// c (+)= a b: m64nNk8 with N twice c's registers
+template <int N>
+__device__ __forceinline__ void mma_tf32(float (&c)[N],
+                                         const uint32_t (&a)[4], uint64_t b,
+                                         int acc) {
+  if constexpr (N == 8) wgmma_tf32_n16(c, a, b, acc);
+  else if constexpr (N == 16) wgmma_tf32_n32(c, a, b, acc);
+  else if constexpr (N == 32) wgmma_tf32_n64(c, a, b, acc);
+  else wgmma_tf32_n128(c, a, b, acc);
+}
+
+// Issue one chunk of KC split k-steps into the fresh accumulator c (an
+// m64nNk8 wgmma, N twice c's registers) against the B tile of
+// contraction width C at big (its small half at small): every cross term
+// (big x small, small x big) first, while c is still small, then the
+// big x big terms, so that c's truncating tensor-core sums cut the large
+// value once a k-step. AS / BS false: that operand's small half is zero.
+template <int C, int KC, bool AS, bool BS, int N>
+__device__ __forceinline__ void issue_chunk(float (&c)[N],
+                                            const uint32_t (&ab)[KC][4],
+                                            const uint32_t (&as)[KC][4],
+                                            uint32_t big, uint32_t small) {
+  int acc = 0;
+#pragma unroll
+  for (int kk = 0; kk < KC; ++kk) {   // two core matrices a k-step
+    if constexpr (BS) {
+      mma_tf32(c, ab[kk], km_desc<C>(small + 256 * kk), acc);
+      acc = 1;
+    }
+    if constexpr (AS) {
+      mma_tf32(c, as[kk], km_desc<C>(big + 256 * kk), acc);
+      acc = 1;
+    }
+  }
+#pragma unroll
+  for (int kk = 0; kk < KC; ++kk) {
+    mma_tf32(c, ab[kk], km_desc<C>(big + 256 * kk), acc);
+    acc = 1;
+  }
+}
+
+// --- 1-D bulk copies ---------------------------------------------------------
+
+// Copy `bytes` (a multiple of 16; both addresses 16-byte aligned) from
+// global `src` into shared `dst`; completion is reported to `bar` in
+// bytes.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
 }
 
 }  // namespace sm90

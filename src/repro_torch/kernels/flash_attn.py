@@ -26,7 +26,7 @@ PV product, l clamped at 1e-30, the output cast to q's dtype.
   ``cuTensorMapEncodeTiled``, reached through the CUDA runtime's driver
   entry point (no ``-lcuda``); a map the driver refuses raises, naming
   the tensor and its strides. float32 runs on CUDA cores (no TF32), one
-  CTA per 64-row query block. Head dims 16, 32, 64 and 128. Any strides
+  CTA per 128-row query block. Head dims 16, 32, 64 and 128. Any strides
   with a contiguous last dim, so (B, T, H, D) activations go in without
   a copy.
 * :func:`flash_attention` — dispatch by device: a CPU tensor runs the
@@ -50,9 +50,14 @@ with query t at position t + q_offset:
   — the reference's ``_blocked_flash_fwd`` and ``_blocked_flash_bwd``
   step by step over ``bk``-key blocks (fp32 arithmetic; fp64 inputs
   compute in fp64, for ``gradcheck``);
-* :func:`launch_flash_attention_train` — F, B9's fp32 kernel body as
-  ``flash_f32_stats``, fed q·scale (the reference scales q in fp32
-  before the dot) with scale 1, storing m and max(l, 1e-30) per row;
+* :func:`launch_flash_attention_train` — F (``csrc/flash_fwd.cu``), fed
+  q·scale (the reference scales q in fp32 before the dot) with scale 1,
+  storing m and max(l, 1e-30) per row. Its products run on the tensor
+  cores as N1's three-term TF32 split (fp32-accurate): a first kernel
+  splits each 32-key tile of k and v once (v transposed), then
+  ``flash_f32_stats`` takes a 128-row query block a CTA, two warpgroups
+  of 64 rows fed by a producer's bulk copies. With bf16 or fp16 k and v
+  (:func:`tf32_exact`) it skips their zero small halves;
 * :func:`launch_flash_bwd_dq` / :func:`launch_flash_bwd_dkdv` — N1
   (``csrc/flash_bwd.cu``), its products on the tensor cores as a
   three-term TF32 split (fp32-accurate): N1-dq, a CTA a 64-row query
@@ -382,26 +387,32 @@ def _train_head_dim(dh: int) -> None:
 def launch_flash_attention_train(q: Tensor, k: Tensor, v: Tensor, *,
                                  causal: bool, window: int | None,
                                  q_offset: int):
-    """F on CUDA tensors: q·scale, k and v upcast to fp32 and the fp32
-    kernel (``flash_f32_stats``) launched with scale 1. Returns (out in
-    q's dtype, m, l)."""
+    """F on CUDA tensors: q·scale, k and v upcast to fp32, F's two
+    kernels launched with scale 1 and a scratch buffer for the split K
+    and V tiles; the exact variant when k and v are bf16 or fp16
+    (:func:`tf32_exact` of their dtypes). Returns (out in q's dtype, m,
+    l)."""
     B, T, H, S, KV, dh = train_shape(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset)
     _train_head_dim(dh)
+    exact = tf32_exact(k, v)
     qs = _fp32_aligned("q", (q.float() * dh ** -0.5).contiguous())
     kf = _fp32_aligned("k", k.float().contiguous())
     vf = _fp32_aligned("v", v.float().contiguous())
     out = torch.empty(B, T, H, dh, dtype=torch.float32, device=q.device)
     m = torch.empty(B, H, T, dtype=torch.float32, device=q.device)
     l = torch.empty_like(m)
+    lib = _build.library()
+    tiles = torch.empty(lib.flash_fwd_scratch(B, KV, S, dh, int(exact)),
+                        dtype=torch.float32, device=q.device)
     strides = (ctypes.c_longlong * 12)(
         *(s for t in (qs, kf, vf, out)
           for s in t.transpose(1, 2).stride()[:3]))
     with torch.cuda.device(q.device):
-        code = _build.library().flash_attn_fwd_stats(
-            _build.ptr(qs), _build.ptr(kf), _build.ptr(vf), _build.ptr(out),
-            _build.ptr(m), _build.ptr(l), B, H, KV, T, S, dh, strides, 1.0,
-            int(causal), 0 if window is None else window, q_offset,
+        code = lib.flash_attn_fwd_stats(
+            *(_build.ptr(t) for t in (qs, kf, vf, out, m, l, tiles)),
+            B, H, KV, T, S, dh, strides, 1.0, int(causal),
+            0 if window is None else window, q_offset, int(exact),
             _build.stream_handle(q.device))
     _build.check(code, "flash_attention_train")
     return out.to(q.dtype), m, l
@@ -494,7 +505,7 @@ def flash_attention_train(q: Tensor, k: Tensor, v: Tensor, *, causal: bool,
                           bk: int = 512):
     """The training forward: (out, m, l). CPU tensors run the plain
     version over ``bk``-key blocks; CUDA tensors launch F (counted in
-    ``flash_attention_train.launches``), which walks its own 64-key tiles
+    ``flash_attention_train.launches``), which walks its own 32-key tiles
     (``bk`` moves only the plain version's summation order)."""
     if on_cpu(q, k, v, kernel="flash_attention_train"):
         return flash_attention_train_plain(q, k, v, causal=causal,

@@ -890,17 +890,27 @@ TRAIN_CASES = [_train_case(1, 2048, 2048, 16, 8, 128, None, 0),
                _train_case(1, 1024, 1024, 16, 8, 128, None, 0, cancel=True)]
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def _train_tol(t):
+    """fp32 results within 1e-5 of their scale; bf16 ones within 1e-2 (the
+    fp32 results round to bf16 values an ulp apart)."""
+    return 1e-5 if t.dtype == torch.float32 else 1e-2
+
+
+@pytest.mark.parametrize("dtype,kv_dtype", [
+    pytest.param(torch.float32, torch.float32, id="dtype0"),
+    pytest.param(torch.bfloat16, torch.bfloat16, id="dtype1"),
+    pytest.param(torch.float32, torch.bfloat16, id="dtype2")])
 @pytest.mark.parametrize("B,T,S,Hq,Hkv,D,window,q_offset,cancel",
                          TRAIN_CASES)
-def test_flash_train_kernels_match_plain(dev, dtype, B, T, S, Hq, Hkv, D,
-                                         window, q_offset, cancel):
+def test_flash_train_kernels_match_plain(dev, dtype, kv_dtype, B, T, S, Hq,
+                                         Hkv, D, window, q_offset, cancel):
     """F's out, m, l and N1's dq, dk, dv through the autograd op against
-    the plain versions on the same inputs: fp32 within 1e-5 of each
-    result's scale (m, l 1e-5 relative); bf16 results within 1e-2 of it
-    (the fp32 results round to bf16 values an ulp apart). The cancelling
-    case holds N1 to the fp64 plain version within 1e-5 in both dtypes
-    (bf16 inputs take N1's exact variant)."""
+    the plain versions on the same inputs: each result within the band of
+    its dtype (``_train_tol``), m and l 1e-5 relative. q and dout are in
+    ``dtype``, k and v in ``kv_dtype``: bf16 k and v take F's exact
+    variant, also under fp32 q (dtype2). The cancelling case holds N1 to
+    the fp64 plain version in the same bands (bf16 k, v and dout take
+    N1's exact variant)."""
     from repro_torch.kernels import flash_attn
     from repro_torch.models import attention
     rng = np.random.default_rng(T + S)
@@ -908,7 +918,7 @@ def test_flash_train_kernels_match_plain(dev, dtype, B, T, S, Hq, Hkv, D,
                             dtype=torch.float32).to(dtype).to(dev)
                for _ in range(2))
     k, v = (torch.tensor(rng.standard_normal((B, S, Hkv, D)),
-                         dtype=torch.float32).to(dtype).to(dev)
+                         dtype=torch.float32).to(kv_dtype).to(dev)
             for _ in range(2))
     kw = dict(causal=True, window=window, q_offset=q_offset)
     if cancel:
@@ -922,13 +932,11 @@ def test_flash_train_kernels_match_plain(dev, dtype, B, T, S, Hq, Hkv, D,
             *(t.double() for t in (q, k, v, out, m, l, dout)), **kw)
         for g, w in zip(got, want):
             assert bool(torch.isfinite(g).all())
-            assert _rel(g.float(), w) <= (1e-5 if dtype == torch.float32
-                                          else 1e-2)
+            assert _rel(g.float(), w) <= _train_tol(g)
         return
     out, m, l = flash_attn.flash_attention_train(q, k, v, **kw)
     out_p, m_p, l_p = flash_attn.flash_attention_train_plain(q, k, v, **kw)
-    tol = 1e-5 if dtype == torch.float32 else 1e-2
-    assert _rel(out, out_p) <= tol
+    assert _rel(out, out_p) <= _train_tol(out)
     for a, b in ((m, m_p), (l, l_p)):
         assert float(((a - b).abs() / b.abs()).max()) <= 1e-5
     c = [flash_attn.flash_attention_train.launches,
@@ -944,7 +952,7 @@ def test_flash_train_kernels_match_plain(dev, dtype, B, T, S, Hq, Hkv, D,
                                                 **kw)
     for g, w, t in zip(got, want, (q, k, v)):
         assert g.dtype == t.dtype and bool(torch.isfinite(g).all())
-        assert _rel(g, w) <= tol
+        assert _rel(g, w) <= _train_tol(g)
 
 
 def test_flash_train_backward_is_deterministic(dev):

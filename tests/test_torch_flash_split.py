@@ -1,4 +1,4 @@
-"""The band argument for N1's split-TF32 products, on the CPU.
+"""The band argument for F's and N1's split-TF32 products, on the CPU.
 
 N1 (``csrc/flash_bwd.cu``) runs the training attention backward's
 products on the tensor cores as a three-term TF32 split: each fp32
@@ -15,6 +15,17 @@ residuals): the band the kernels are held to on the card. The same
 emulation with plain TF32 products (one term) falls outside that band,
 so the band tells the two apart. The emulation lives here, not in the
 port: the port's plain version stays the reference's fp32 arithmetic.
+
+F (``csrc/flash_fwd.cu``), the forward, takes the same split for S =
+Qs Kᵀ (chunks of 32 columns of D) and for O += P V (one chunk a 32-key
+tile, added after the online softmax's rescale); with bf16 or fp16 k and
+v (its exact variant) it skips their zero small halves, so that S and O
+take two terms each. Its m is the row max's logit taken again as one
+fp32 fma chain over d, the fp32 product's own order, and l is moved onto
+that m. The emulated forward walks those tiles and is held to the same
+band against the reference's ``_blocked_flash_fwd`` at the reference's
+own block width (512 keys, or S): out within 1e-5 × max(1, max|ref|), m
+and l within 1e-5 relative.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -35,12 +46,15 @@ def tf32(x: torch.Tensor) -> torch.Tensor:
 
 
 def product(eq: str, a: torch.Tensor, b: torch.Tensor, terms: str):
-    """One of the kernel's products: three split terms, or plain TF32."""
+    """One of the kernel's products: three split terms ("split"), two
+    when b is exact in TF32 ("exact": b's small half skipped, as F's
+    exact variant skips K's and V's), or plain TF32 ("tf32")."""
     ab, bb = tf32(a), tf32(b)
     if terms == "tf32":
         return torch.einsum(eq, ab, bb)
-    cross = (torch.einsum(eq, ab, tf32(b - bb))
-             + torch.einsum(eq, tf32(a - ab), bb))
+    cross = torch.einsum(eq, tf32(a - ab), bb)
+    if terms != "exact":
+        cross = torch.einsum(eq, ab, tf32(b - bb)) + cross
     return torch.einsum(eq, ab, bb) + cross
 
 
@@ -143,6 +157,116 @@ def test_split_tf32_within_band(case):
 def test_plain_tf32_outside_band(case):
     """One TF32 term a product misses the band: the test has teeth."""
     errs = _errors(case, "tf32")
+    assert max(errs) > FP32_TOL, errs
+
+
+def emulated_fwd(q, k, v, *, causal, window, q_offset, terms):
+    """F with ``terms`` products: q (B, T, H, D), k, v (B, S, KV, D);
+    returns (out, m, max(l, 1e-30)), the statistics (B, T, H). It walks
+    32-key tiles as the kernel does: S over D in chunks of 32 columns,
+    the online softmax, then O = O·corr + P V, one chunk a tile; m is the
+    first max key's logit again as an fp32 fma chain over d, and l moves
+    onto it."""
+    B, T, H, D = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    qs = q * D ** -0.5
+    kh, vh = (x.repeat_interleave(G, dim=2) for x in (k, v))
+    qpos = torch.arange(T)[:, None] + q_offset
+    m = torch.full((B, H, T), tfa.NEG_INF)
+    l = torch.zeros(B, H, T)
+    acc = torch.zeros(B, H, T, D)
+    arg = torch.zeros(B, H, T, dtype=torch.long)   # the max's key
+    for j in range(0, S, 32):
+        kb, vb = kh[:, j:j + 32], vh[:, j:j + 32]
+        s = torch.zeros(B, H, T, kb.shape[1])
+        for c in range(0, D, 32):
+            s = s + product("bthd,bshd->bhts", qs[..., c:c + 32],
+                            kb[..., c:c + 32], terms)
+        kpos = torch.arange(j, j + kb.shape[1])[None, :]
+        seen = torch.ones(T, kb.shape[1], dtype=torch.bool)
+        if causal:
+            seen &= kpos <= qpos
+        if window is not None:
+            seen &= kpos > qpos - window
+        s = torch.where(seen, s, tfa.NEG_INF)
+        top, at = s.max(-1)
+        arg = torch.where(top > m, at + j, arg)
+        m_new = torch.maximum(m, top)
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l = l * corr + p.sum(-1)
+        acc = acc * corr[..., None] + product("bhts,bshd->bhtd", p, vb,
+                                              terms)
+        m = m_new
+    lsafe = torch.clamp(l, min=1e-30)
+    out = (acc / lsafe[..., None]).permute(0, 2, 1, 3)
+    # the kernel's m: the max's logit again as one fp32 fma chain over d
+    # (a product of two fp32 values is exact in fp64), l moved onto it
+    kmax = torch.gather(kh.permute(0, 2, 1, 3), 2,
+                        arg[..., None].expand(B, H, T, D)).double()
+    qd = qs.permute(0, 2, 1, 3).double()
+    chain = torch.zeros(B, H, T)
+    for d in range(D):
+        chain = (chain.double() + qd[..., d] * kmax[..., d]).float()
+    seen = m > tfa.NEG_INF
+    m_out = torch.where(seen, chain, m)
+    l_out = torch.clamp(torch.where(seen, l * torch.exp(m - m_out), l),
+                        min=1e-30)
+    return out, m_out.permute(0, 2, 1), l_out.permute(0, 2, 1)
+
+
+# the forward's cases: the backward's, and a peaked one (q × 4) with a
+# window, queries past a longer history and a GQA group of 4
+FWD_CASES = CASES + [(1, 100, 164, 8, 2, 64, True, 40, 64, True)]
+
+
+def _fwd_errors(case, terms, bf16_kv):
+    """F's emulation against the reference's ``_blocked_flash_fwd`` (at
+    ``_blocked_flash``'s block width, min(512, S)): out × max(1,
+    max|ref|), m and l relative. An m near 0 holds its relative band only
+    where both sum its logit in one order: XLA's CPU dot sums a 16-key
+    block's in 8 lanes, and these cases' whole-S blocks in d order (or
+    within 5e-6 of it), as the kernel's m and cuBLAS's fp32 product do. ``bf16_kv``: k and v rounded to bf16
+    values first (the exact variant's inputs), on both sides."""
+    B, T, S, H, KV, D, causal, window, q_offset, peaked = case
+    rng = np.random.default_rng(7)
+    q = rng.standard_normal((B, T, H, D)).astype(np.float32)
+    k, v = (rng.standard_normal((B, S, KV, D)).astype(np.float32)
+            for _ in range(2))
+    if peaked:
+        q = q * 4
+    if bf16_kv:
+        k, v = (torch.tensor(a).bfloat16().float().numpy() for a in (k, v))
+    want_out, res = JA._blocked_flash_fwd(jnp.asarray(q), jnp.asarray(k),
+                                          jnp.asarray(v), causal, window,
+                                          q_offset, min(512, S))
+    want = [np.asarray(want_out)] + [np.asarray(a).reshape(B, T, H)
+                                     for a in res[4:]]
+    got = emulated_fwd(*(torch.tensor(a) for a in (q, k, v)), causal=causal,
+                       window=window, q_offset=q_offset, terms=terms)
+    (out, m, l), (w_out, w_m, w_l) = (x.numpy() for x in got), want
+    return [float(np.abs(out - w_out).max())
+            / max(1.0, float(np.abs(w_out).max())),
+            float((np.abs(m - w_m) / np.abs(w_m)).max()),
+            float((np.abs(l - w_l) / np.abs(w_l)).max())]
+
+
+@pytest.mark.parametrize("terms,bf16_kv", [("split", False),
+                                           ("exact", True)])
+@pytest.mark.parametrize("case", FWD_CASES)
+def test_forward_split_tf32_within_band(case, terms, bf16_kv):
+    """F's split (three terms; two with bf16-valued k and v, the exact
+    variant) holds out, m and l within 1e-5 of the reference's forward
+    (scales as ``_fwd_errors`` gives them), peaked logits included."""
+    errs = _fwd_errors(case, terms, bf16_kv)
+    assert max(errs) <= FP32_TOL, errs
+
+
+@pytest.mark.parametrize("case", FWD_CASES)
+def test_forward_plain_tf32_outside_band(case):
+    """One TF32 term a product misses the forward's band too."""
+    errs = _fwd_errors(case, "tf32", False)
     assert max(errs) > FP32_TOL, errs
 
 

@@ -70,7 +70,9 @@ KNOWN = [
     ("flash_f32", dict(D=32), 102_400),
     ("flash_f32", dict(D=64), 135_168),
     ("flash_f32", dict(D=128), 200_704),
-    ("flash_f32_stats", dict(D=128), 200_704),
+    ("flash_f32_stats", dict(D=16), 53_280),
+    ("flash_f32_stats", dict(D=128), 217_120),
+    ("flash_f32_stats", dict(D=128, exact=True), 151_584),
     ("flash_bwd_dq", dict(D=16), 65_792),
     ("flash_bwd_dq", dict(D=128), 229_632),
     ("flash_bwd_dkdv", dict(D=64), 131_104),
@@ -113,6 +115,12 @@ def test_variants_and_register_caps():
     assert hc.gram_plan().reg_cap == 128
     assert hc.gram_plan(kind="laplacian").reg_cap == 255
     assert hc.flash_bf16_plan().reg_cap == 168
+    assert {hc.flash_f32_stats_plan(D=d, exact=e).variant
+            for d in (16, 32, 64, 128) for e in (False, True)} == set(range(8))
+    assert hc.flash_f32_stats_plan().reg_cap == 168
+    assert {hc.flash_fwd_split_plan(D=d, exact=e).variant
+            for d in (16, 32, 64, 128)
+            for e in (False, True)} == set(range(8, 16))
     assert hc.cd_sweep_plan().reg_cap == 255
     for key, plan in hc.default_plans().items():
         assert 0 <= plan.variant < hc.VARIANTS[plan.entry], key
