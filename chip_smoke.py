@@ -304,6 +304,38 @@ Phases (any failed check exits nonzero):
    15c. launch/train.train at 2 layers, full width, T=256: 4 steps
    straight against 2 steps with --ckpt-every 2 and --resume for 2 more:
    the resumed losses and final parameters equal bit for bit.
+2f. (after phase 2e) B9 at head dim 256 (recurrentgemma-9b's local
+   attention) against its plain version, after the D = 256 variants'
+   registers, shared memory and spills from the build log and their
+   plans held to the built library (hopper_check.check_device): the
+   recurrentgemma prefill shape (B=2, Hq=16, Hkv=1, T=S=4096, window
+   2048) and as the (B, T, H, D) views attend passes; causal without the
+   window; ragged T=S=1000 and 4097; T=100 < S=4096; GQA groups 1 and 4
+   at T=S=1024 with a window of 300; each in bf16 and in fp32 (TF32
+   off), held to phase 2d's bands and timed beside the bound and SDPA.
+16. falcon-mamba-7b served at full width and depth (64 layers, d_model
+   4,096, d_inner 8,192, state 16; fp32 weights from a seeded generator,
+   bf16 compute) through launch/serve.serve: B=4 prompts of 2,048 tokens
+   (numpy, seed 0), 32 greedy decode steps. Prefill and per-step decode
+   times, tokens/s, peak memory beside the weights'; no kernel may
+   launch (the selective scan is plain PyTorch, ROADMAP B's N2); all
+   logits finite, the tokens and the per-layer {"h", "conv"} states well
+   formed; one profiled decode step and one profiled prefill (device
+   time, launches, the largest entries, the device time by class:
+   matrix products, B9, elementwise/copy/reduce, and the busy share).
+16b. recurrentgemma-9b the same way (38 layers: (rec, rec, attn) x 12 +
+   (rec, rec); d_model 4,096, 16 heads, one kv head, head dim 256, window
+   2,048, vocab 256,000) at B=2 prompts of 4,096 tokens, twice the
+   window, so B9's window mask and the ring cache both wrap: B9 must
+   launch exactly 12 times (once per local-attention layer of the
+   prefill) and no other kernel; B9's share of the prefill.
+16c. Card against CPU at full width, reduced depth: falcon-mamba-7b at 2
+   layers and recurrentgemma-9b at 3 (one (rec, rec, attn) unit), one
+   numpy draw of the weights in the JAX package's layout
+   (interop.lm_params_from_numpy), B=1, T=64 and 8 teacher-forced decode
+   steps: logits within 1e-3 x max|logits| with fp32 compute, 0.02 x in
+   bf16 (phase 12's bands). The card's recurrentgemma runs with fp32
+   compute are the path of B9's fp32 kernel at head dim 256.
 Each phase prints its wall time.
 
 The kernels line reports, per kernel: its time, its plain version's and
@@ -316,7 +348,10 @@ path runs (B8 among them), on the phishing path for K3 (which runs on
 phishing's dense levels only), on the SUSY path for the epoch kernel, B6
 (0: its arithmetic runs inside the epoch kernel) and B7, on the cascade
 path for K4, on the qwen3-0.6b path for B9 in bf16 and on its fp32 prefill
-for B9 in fp32 (flash_attention_f32), on the qwen3-0.6b training path
+for B9 in fp32 (flash_attention_f32), on recurrentgemma-9b's served path
+(16b) for B9 at head dim 256 in bf16 (flash_attention_d256) and on 16c's
+card run of recurrentgemma-9b with fp32 compute for B9's fp32 kernel at
+head dim 256 (flash_attention_f32_d256), on the qwen3-0.6b training path
 (phase 15's 8 steps, ``qwen3-0.6b train``) for F and N1 (N1-dq's and
 N1-dkdv's plain_ms and library_ms are those of the whole backward, which
 their plain version and the yardstick compute in one call);
@@ -334,6 +369,7 @@ from __future__ import annotations
 # and reads their plan queries from the built library directly.
 
 import dataclasses
+import functools
 import json
 import math
 import os
@@ -475,24 +511,31 @@ def visible_pairs(T: int, S: int, causal: bool, window) -> int:
     return int(np.maximum(0, hi - lo + 1).sum())
 
 
-def profile_window(fn, n: int):
-    """Run ``fn`` n times under torch.profiler after one warm-up. Returns
+def profile_window(fn, n: int, warm: bool = True, host: bool = True):
+    """Run ``fn`` n times under torch.profiler, after one warm-up unless
+    ``warm`` is False (``fn`` already ran); ``host=False`` records the
+    device activity alone (no operator events: a pass of ~75,000 kernels
+    then takes seconds, not minutes, to summarize). Returns
     (device ms per call or None when the profiler saw no device time,
-    kernel launches per call, the five largest device-time entries as
-    "name ms" per call, every device-time entry's ms per call by its
-    name)."""
+    kernel launches per call (without host events: device kernels and
+    copies), the five largest device-time entries as "name ms" per call,
+    every device-time entry's ms per call by its name)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warm:
+        fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * host
+                 + [ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             fn()
         torch.cuda.synchronize()
     events = prof.key_averages()
     launches = sum(e.count for e in events if "LaunchKernel" in e.key) / n
+    if not host:
+        launches = sum(e.count for e in events
+                       if e.device_type == DeviceType.CUDA) / n
     # the kernels' own events (the operators that launched them carry the
     # same time again)
     dev = [(e.self_device_time_total / 1e3 / n, e.key) for e in events
@@ -504,6 +547,73 @@ def profile_window(fn, n: int):
                     for t, k in sorted(dev, reverse=True)[:5])
     return (total if total > 0 else None), launches, top, {
         k: t for t, k in dev}
+
+
+def flash_case_on(fa_mod, cgen, derate, label, B, hq, hkv, T, S, D,
+                  dtype, window=None, reps=20, views=False):
+    """B9 against its plain version (fp32: 1e-5 of the output's
+    scale; bf16: 1e-2 of it and within fa_mod.bf16_band, two bf16
+    ulps of each element plus 2^-8 of its row's largest), timed
+    beside its bound and the SDPA yardstick (TF32 off).
+    views: q, k, v are (B, T, H, D) activations seen as (B, H, T, D),
+    as attend passes them. fa_mod: kernels.flash_attn; cgen: the
+    generator of the inputs, on the card."""
+    import torch
+    dev = cgen.device
+    shapes = ((hq, T), (hkv, S), (hkv, S))
+    if views:
+        q, k, v = (torch.randn(B, n, h, D, generator=cgen, device=dev)
+                   .to(dtype).transpose(1, 2) for h, n in shapes)
+    else:
+        q, k, v = (torch.randn(B, h, n, D, generator=cgen, device=dev)
+                   .to(dtype) for h, n in shapes)
+    kw = dict(causal=True, window=window)
+    got = fa_mod.launch_flash_attention(q, k, v, **kw)
+    want = fa_mod.flash_attention_plain(q, k, v, **kw)
+    err = float((got.float() - want.float()).abs().max())
+    scale = max(1.0, float(want.float().abs().max()))
+    if dtype == torch.float32:
+        band, within = "", err <= 1e-5 * scale
+    else:
+        share = fa_mod.bf16_band(got, want)
+        band = f", {share:.3f} of the bf16 band"
+        within = share <= 1.0 and err <= 1e-2 * scale
+    if not (bool(torch.isfinite(got).all()) and within):
+        fail(f"flash_attention {label} disagrees with its plain version: "
+             f"max_abs_err {err} (max |out| {scale}){band}")
+    ms = time_ms(lambda: fa_mod.launch_flash_attention(q, k, v, **kw),
+                 reps)
+    plain_ms = time_ms(lambda: fa_mod.flash_attention_plain(q, k, v,
+                                                            **kw), 2)
+    # the yardstick: SDPA with is_causal where that is the same mask,
+    # else with the mask written out (queries at the end of the keys)
+    mask = None
+    if not (T == S and window is None):
+        qpos = torch.arange(T, device=dev)[:, None] + (S - T)
+        kpos = torch.arange(S, device=dev)[None, :]
+        mask = kpos <= qpos
+        if window is not None:
+            mask &= kpos > qpos - window
+    lib_ms = time_ms(
+        lambda: torch.nn.functional.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, is_causal=mask is None,
+            enable_gqa=True), reps)
+    peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else \
+        PEAK_FP32_FLOPS
+    flops = 4 * D * B * hq * visible_pairs(T, S, True, window)
+    b_ms, b_by = bound(
+        q.element_size() * (2 * B * hq * T * D + 2 * B * hkv * S * D),
+        flops, peak)
+    say(f"B9 flash_attention {label}: max_abs_err={err:.3e} (max |out| "
+        f"{scale:.3e}{band}) ms={ms:.4f} plain_ms={plain_ms:.3f}"
+        + ("" if lib_ms is None else f" library_ms={lib_ms:.4f}")
+        + " " + bound_text(b_ms, b_by, derate)
+        + f"; {flops / ms / 1e9:.1f} TFLOP/s, "
+        f"{flops / ms / 1e9 / (peak / 1e12):.1%} of the "
+        f"{'bf16' if dtype == torch.bfloat16 else 'fp32'} peak")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+
 
 
 def _demangle(mangled: str) -> str:
@@ -2381,6 +2491,334 @@ def train_phase(lm_cfg, expect, path_launches) -> None:
             fail("the resumed training run differs from the straight one")
 
 
+# ---------------------------------------------------------------------------
+# phase 2f: B9 at head dim 256; phases 16, 16b, 16c: the recurrent families
+# ---------------------------------------------------------------------------
+
+def flash256_phase(flash_case, fa_mod, stats) -> None:
+    """Phase 2f (see the module docs): B9 at head dim 256 against its
+    plain version, at recurrentgemma-9b's prefill shape and its edges;
+    ``flash_case`` is phase 2d's case runner."""
+    import torch
+
+    from repro_torch.analysis import hopper_check as hc
+    from repro_torch.kernels import _build
+    say("== phase 2f: B9 at head dim 256 (recurrentgemma-9b's local "
+        "attention) vs its plain version on the card")
+    lib = _build.library()
+    log = (_build.library_path().parent / "build.log").read_text()
+    for name, regs, smem, spills in kernel_resources(log, "flash_attn.cu"):
+        if name.startswith("flash_") and name.endswith("<256>"):
+            bf16 = name.startswith("flash_bf16")
+            say(f"  {name}: {regs} registers"
+                + (" (at entry; setmaxnreg gives the consumers 240 and the "
+                   "producer 24)" if bf16 else "")
+                + f", {smem} bytes static shared + "
+                f"{lib.flash_attn_smem(int(bf16), 256)} bytes dynamic, "
+                f"spills {spills}")
+    plans = {k: p for k, p in hc.default_plans().items()
+             if p.kernel in ("flash_bf16", "flash_f32")
+             and p.shape_of("D") == 256}
+    for key, a in hc.check_device(plans).items():
+        say(f"  plan checker {key} ({plans[key].symbol}): "
+            f"{plans[key].smem:,d} B of shared memory planned; built: "
+            f"{a['regs']} registers, {a['local_bytes']} B local memory, "
+            f"{a['ctas_per_sm']} CTA an SM")
+    B, Hq, Hkv, T, W, D = 2, 16, 1, 4096, 2048, 256
+    rg = (Hq, Hkv)
+    for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "fp32")):
+        big = 20 if dt == torch.bfloat16 else 5
+        stats["flash_attention_d256" if tag == "bf16" else
+              "flash_attention_f32_d256"] = flash_case(
+            f"recurrentgemma prefill B={B} Hq={Hq} Hkv={Hkv} T=S={T} D={D} "
+            f"window {W} {tag}", B, *rg, T, T, D, dt, window=W, reps=big)
+        flash_case(f"recurrentgemma prefill as (B, T, H, D) views T=S={T} "
+                   f"window {W} {tag}", B, *rg, T, T, D, dt, window=W,
+                   views=True, reps=big)
+        flash_case(f"D={D} causal, no window, T=S={T} {tag}", B, *rg, T, T,
+                   D, dt, reps=big)
+        for n in (1000, T + 1):
+            flash_case(f"D={D} ragged T=S={n} window {W} {tag}", B, *rg, n,
+                       n, D, dt, window=W, reps=big)
+        flash_case(f"D={D} T=100 < S={T} (q_offset {T - 100}) window {W} "
+                   f"{tag}", B, *rg, 100, T, D, dt, window=W, reps=big)
+        for hq, hkv in ((16, 16), (16, 4)):
+            flash_case(f"D={D} group {hq // hkv} Hq={hq} Hkv={hkv} T=S=1024 "
+                       f"window 300 {tag}", 2, hq, hkv, 1024, 1024, D, dt,
+                       window=300, reps=big)
+
+
+def _recurrent_layer(kind: str, cfg, rng, n: int) -> dict:
+    """``n`` stacked layers of one kind (``ssm``, ``rec`` or ``attn``) in
+    the JAX package's pytree layout, drawn with numpy with its init
+    distributions."""
+    import numpy as np
+    d = cfg.d_model
+
+    def normal(*shape, scale):
+        a = rng.standard_normal((n,) + shape, np.float32)
+        a *= np.float32(scale)
+        return a
+
+    def zeros(*shape):
+        return np.zeros((n,) + shape, np.float32)
+
+    def ones(*shape):
+        return np.ones((n,) + shape, np.float32)
+
+    def dense(din, dout):
+        return {"w": normal(din, dout, scale=din ** -0.5)}
+
+    layer = {"ln1": {"scale": ones(d)}}
+    if kind == "ssm":
+        di, N, K = cfg.ssm.expand * d, cfg.ssm.state, cfg.ssm.conv
+        R = cfg.ssm.dt_rank or -(-d // 16)
+        layer["ssm"] = {
+            "in_proj": dense(d, 2 * di),
+            "conv": {"w": normal(K, di, scale=0.1), "b": zeros(di)},
+            "x_proj": dense(di, R + 2 * N),
+            "dt_proj": {"w": normal(R, di, scale=R ** -0.5),
+                        "b": np.full((n, di), np.log(np.expm1(0.01)),
+                                     np.float32)},
+            "A_log": np.broadcast_to(np.log(np.arange(1, N + 1, dtype=
+                                                      np.float32)),
+                                     (n, di, N)).copy(),
+            "D": ones(di),
+            "out_proj": dense(di, d)}
+        return layer
+    if kind == "rec":
+        w, K = cfg.rglru.lru_width or d, cfg.rglru.conv
+        lam = np.log(np.expm1(-np.log(np.linspace(0.9, 0.999, w)) / 8.0))
+        layer["rec"] = {
+            "in_x": dense(d, w), "in_gate": dense(d, w),
+            "conv": {"w": normal(K, w, scale=0.1), "b": zeros(w)},
+            "gate_a": {**dense(w, w), "b": zeros(w)},
+            "gate_x": {**dense(w, w), "b": zeros(w)},
+            "lam": np.broadcast_to(lam.astype(np.float32), (n, w)).copy(),
+            "out": dense(w, d)}
+    else:
+        dh = cfg.dh
+        layer["attn"] = {"wq": dense(d, cfg.n_heads * dh),
+                         "wk": dense(d, cfg.n_kv_heads * dh),
+                         "wv": dense(d, cfg.n_kv_heads * dh),
+                         "wo": dense(cfg.n_heads * dh, d)}
+    layer["ln2"] = {"scale": ones(d)}
+    mlp = {"wi": dense(d, cfg.d_ff), "wo": dense(cfg.d_ff, d)}
+    if cfg.act == "silu":
+        mlp["wg"] = dense(d, cfg.d_ff)
+    layer["mlp"] = mlp
+    return layer
+
+
+def _first(tree):
+    """A stacked tree's first layer."""
+    if isinstance(tree, dict):
+        return {k: _first(v) for k, v in tree.items()}
+    return tree[0]
+
+
+def numpy_recurrent_params(cfg, seed: int) -> dict:
+    """An ssm or hybrid LM's weights in the JAX package's pytree layout
+    (each unit position's layers stacked under stack/scan/u<i>, the tail
+    a list), drawn with numpy with its init distributions."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    unit, reps, tail = cfg.layer_pattern()
+    d = cfg.d_model
+    table = rng.standard_normal((cfg.padded_vocab, d), np.float32)
+    table *= np.float32(d ** -0.5)
+    tree = {"embed": {"table": table},
+            "stack": {"scan": {f"u{i}": _recurrent_layer(kind, cfg, rng,
+                                                         reps)
+                               for i, kind in enumerate(unit)},
+                      "tail": [_first(_recurrent_layer(kind, cfg, rng, 1))
+                               for kind in tail]},
+            "final_norm": {"scale": np.ones(d, np.float32)}}
+    if not cfg.tie_embeddings:
+        tree["unembed"] = {"w": rng.standard_normal(
+            (d, cfg.padded_vocab), np.float32) * np.float32(d ** -0.5)}
+    return tree
+
+
+def device_time_classes(by_name: dict) -> str:
+    """A profile's device time per call grouped as matrix products
+    (cuBLAS), B9, and the rest (elementwise, copies, reductions: the
+    scans' ops), each with its share."""
+    groups = {"matmul": 0.0, "B9": 0.0, "elementwise/copy/reduce": 0.0}
+    for name, ms in by_name.items():
+        low = name.lower()
+        if low.startswith(("flash_bf16", "flash_f32")) or "flash_bf16" in \
+                low or "flash_f32" in low:
+            groups["B9"] += ms
+        elif any(t in low for t in ("gemm", "nvjet", "cutlass", "xmma",
+                                    "splitk")):
+            groups["matmul"] += ms
+        else:
+            groups["elementwise/copy/reduce"] += ms
+    total = sum(groups.values()) or 1.0
+    return "; ".join(f"{k} {v:.1f} ms ({v / total:.1%})"
+                     for k, v in groups.items())
+
+
+def recurrent_serve_phase(label: str, arch: str, B: int, T: int, G: int,
+                          b9_per_prefill: int, path_launches: dict,
+                          stats: dict) -> None:
+    """Phases 16 and 16b (see the module docs): ``arch`` at full width and
+    depth through launch/serve.serve, B prompts of T tokens, G greedy
+    decode steps."""
+    import torch
+
+    from repro_torch import configs as lm_configs
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import model as lm_model
+    cfg = lm_configs.get(arch)
+    dev = torch.device("cuda")
+    say(f"== phase {label}: serve {arch} ({cfg.n_layers} layers, d_model "
+        f"{cfg.d_model}, vocab {cfg.padded_vocab}, fp32 weights, "
+        f"{cfg.compute_dtype} compute): B={B} prompts of T={T}, {G} greedy "
+        f"decode steps")
+    t0 = time.perf_counter()
+    params = lm_model.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(0),
+        device=dev)
+    n_params = sum(t.numel() for t in params.parameters())
+    toks = torch.as_tensor(serve_mod.make_prompts(cfg, B, T, seed=0),
+                           device=dev)
+    max_len = T + G
+    # warm-up: cuBLAS handles and workspaces (the kernels are built)
+    serve_mod.serve(params, cfg, toks[:, :128], gen=2, max_len=130)
+    say(f"  init_params: {n_params} parameters (fp32, "
+        f"{n_params * 4 / 2**30:.2f} GiB), with the warm-up "
+        f"{time.perf_counter() - t0:.1f} s")
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    res = serve_mod.serve(params, cfg, toks, gen=G, max_len=max_len)
+    launches = read_launches()
+    path_launches[arch] = launches
+    peak = torch.cuda.max_memory_allocated()
+    say(f"  prefill {res['prefill_s'] * 1e3:.1f} ms "
+        f"({B * T / res['prefill_s']:.0f} prompt tokens/s); decode "
+        f"{res['decode_s'] / G * 1e3:.2f} ms per step "
+        f"({B * G / res['decode_s']:.1f} tokens/s); "
+        f"max_memory_allocated={peak / 2**30:.2f} GiB (weights "
+        f"{base / 2**30:.2f} GiB, {(peak - base) / 2**30:.2f} GiB above "
+        f"them)")
+    say(f"  launches on the {arch} path: "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    say(f"  sample row 0: {res['tokens'][0].tolist()}")
+    want = {"flash_attention": b9_per_prefill} if b9_per_prefill else {}
+    if {k: v for k, v in launches.items() if v} != want:
+        fail(f"{arch}: kernel launches {launches}, want {want} and no "
+             f"other kernel")
+    if not res["finite"]:
+        fail(f"{arch} logits are not all finite")
+    gen_toks = res["tokens"]
+    if gen_toks.shape != (B, G) or not (
+            0 <= int(gen_toks.min()) and int(gen_toks.max())
+            < cfg.padded_vocab):
+        fail(f"{arch} generated tokens malformed: {tuple(gen_toks.shape)}")
+    kinds = [k for k in (list(cfg.layer_pattern()[0])
+                         * cfg.layer_pattern()[1]
+                         + list(cfg.layer_pattern()[2]))]
+    cache = res["cache"]
+    if len(cache) != cfg.n_layers or any(
+            (set(c) != {"h", "conv"} or c["h"].dtype != torch.float32
+             or c["conv"].dtype != torch.bfloat16)
+            if kind != "attn" else
+            (c["k"].shape != (B, min(cfg.rglru.window, max_len),
+                              cfg.n_kv_heads, cfg.dh)
+             or c["k"].dtype != torch.bfloat16)
+            for c, kind in zip(cache, kinds)):
+        fail(f"{arch} cache malformed")
+    step_ms = res["decode_s"] / G * 1e3
+    tok = res["tokens"][:, -1:]
+    dev_ms, n_launch, top, by_name = profile_window(
+        lambda: lm_model.decode(params, cache, tok, max_len - 1, cfg), 3)
+    say(f"  decode step under the profiler: device "
+        + ("not measured" if dev_ms is None else
+           f"{dev_ms:.2f} ms ({dev_ms / step_ms:.1%} of the host-paced "
+           f"{step_ms:.2f} ms)")
+        + f", {n_launch:.0f} kernel launches a step; by device time: {top}; "
+        + device_time_classes(by_name))
+    prefill_ms = res["prefill_s"] * 1e3
+    del cache, res
+    # one profiled prefill (the served one above was the warm run), device
+    # activity only
+    dev_ms, n_launch, top, by_name = profile_window(lambda: lm_model.prefill(
+        params, {"tokens": toks}, cfg, max_len=max_len), 1, warm=False,
+        host=False)
+    say(f"  prefill under the profiler (device activity): {n_launch:.0f} "
+        f"device kernels and copies, device "
+        + ("not measured" if dev_ms is None else
+           f"{dev_ms:.1f} ms, busy share {dev_ms / prefill_ms:.1%} of the "
+           f"served prefill's {prefill_ms:.1f} ms")
+        + f"; by device time: {top}")
+    say(f"  prefill device time by class: {device_time_classes(by_name)}")
+    if b9_per_prefill:
+        b9 = stats["flash_attention_d256"]["ms"] * b9_per_prefill
+        say(f"  B9 {b9_per_prefill} x {stats['flash_attention_d256']['ms']:.3f}"
+            f" ms (phase 2f) = {b9:.1f} ms, {b9 / prefill_ms:.1%} of the "
+            f"prefill")
+    del params, toks
+    torch.cuda.empty_cache()
+
+
+def recurrent_card_vs_cpu_phase(path_launches: dict) -> None:
+    """Phase 16c (see the module docs): falcon-mamba-7b at 2 layers and
+    recurrentgemma-9b at 3 (one (rec, rec, attn) unit), full width, card
+    against CPU, one numpy draw of the weights."""
+    import torch
+
+    from repro_torch import configs as lm_configs
+    from repro_torch import interop
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import model as lm_model
+    T16, G16 = 64, 8
+    say(f"== phase 16c: card vs CPU: falcon-mamba-7b (2 layers) and "
+        f"recurrentgemma-9b (3 layers) at full width, B=1, T={T16}, {G16} "
+        f"decode steps (teacher-forced), one numpy draw of the weights")
+    for arch, layers in (("falcon-mamba-7b", 2), ("recurrentgemma-9b", 3)):
+        cfg0 = dataclasses.replace(lm_configs.get(arch), n_layers=layers)
+        t0 = time.perf_counter()
+        tree = numpy_recurrent_params(cfg0, seed=0)
+        say(f"  {arch}: numpy draw {time.perf_counter() - t0:.1f} s")
+        toks = serve_mod.make_prompts(cfg0, 1, T16 + G16, seed=1)
+        for cdt, band in (("float32", 1e-3), ("bfloat16", 0.02)):
+            cfg = dataclasses.replace(cfg0, compute_dtype=cdt)
+            out = {}
+            for where in ("cuda", "cpu"):
+                t0 = time.perf_counter()
+                p = interop.lm_params_from_numpy(cfg, tree, device=where)
+                tk = torch.as_tensor(toks, device=where)
+                reset_launches()
+                lg, cache = lm_model.prefill(p, {"tokens": tk[:, :T16]},
+                                             cfg, max_len=T16 + G16)
+                logits = [lg]
+                for t in range(T16, T16 + G16):
+                    lg, cache = lm_model.decode(p, cache, tk[:, t:t + 1], t,
+                                                cfg)
+                    logits.append(lg)
+                out[where] = torch.cat(logits, 1).float().cpu()
+                if where == "cuda":
+                    path_launches[f"{arch} {layers} layers {cdt} (16c)"] = \
+                        read_launches()
+                say(f"  {arch} compute {cdt} {where}: seconds="
+                    f"{time.perf_counter() - t0:.2f}")
+                del p, cache
+            scale = float(out["cpu"].abs().max())
+            err = float((out["cuda"] - out["cpu"]).abs().max())
+            say(f"  {arch} compute {cdt}: max|logits_card - logits_cpu|="
+                f"{err:.4g} (max|logits| {scale:.4g}; band {band} x max)")
+            if not (bool(torch.isfinite(out["cuda"]).all())
+                    and err <= band * scale):
+                fail(f"the card's {arch} logits ({cdt}) disagree with the "
+                     f"CPU's")
+        del tree
+    torch.cuda.empty_cache()
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():  # lint: ignore[D001]
@@ -3454,68 +3892,7 @@ def main() -> None:
     Hq, Hkv, Dh = lm_cfg.n_heads, lm_cfg.n_kv_heads, lm_cfg.dh
     B11, T11, G11 = 4, 2048, 32
     cgen = torch.Generator(device=dev).manual_seed(0)
-
-    def flash_case(label, B, hq, hkv, T, S, D, dtype, window=None, reps=20,
-                   views=False):
-        """B9 against its plain version (fp32: 1e-5 of the output's
-        scale; bf16: 1e-2 of it and within fa_mod.bf16_band, two bf16
-        ulps of each element plus 2^-8 of its row's largest), timed
-        beside its bound and the SDPA yardstick (TF32 off).
-        views: q, k, v are (B, T, H, D) activations seen as (B, H, T, D),
-        as attend passes them."""
-        shapes = ((hq, T), (hkv, S), (hkv, S))
-        if views:
-            q, k, v = (torch.randn(B, n, h, D, generator=cgen, device=dev)
-                       .to(dtype).transpose(1, 2) for h, n in shapes)
-        else:
-            q, k, v = (torch.randn(B, h, n, D, generator=cgen, device=dev)
-                       .to(dtype) for h, n in shapes)
-        kw = dict(causal=True, window=window)
-        got = fa_mod.launch_flash_attention(q, k, v, **kw)
-        want = fa_mod.flash_attention_plain(q, k, v, **kw)
-        err = float((got.float() - want.float()).abs().max())
-        scale = max(1.0, float(want.float().abs().max()))
-        if dtype == torch.float32:
-            band, within = "", err <= 1e-5 * scale
-        else:
-            share = fa_mod.bf16_band(got, want)
-            band = f", {share:.3f} of the bf16 band"
-            within = share <= 1.0 and err <= 1e-2 * scale
-        if not (bool(torch.isfinite(got).all()) and within):
-            fail(f"flash_attention {label} disagrees with its plain version: "
-                 f"max_abs_err {err} (max |out| {scale}){band}")
-        ms = time_ms(lambda: fa_mod.launch_flash_attention(q, k, v, **kw),
-                     reps)
-        plain_ms = time_ms(lambda: fa_mod.flash_attention_plain(q, k, v,
-                                                                **kw), 2)
-        # the yardstick: SDPA with is_causal where that is the same mask,
-        # else with the mask written out (queries at the end of the keys)
-        mask = None
-        if not (T == S and window is None):
-            qpos = torch.arange(T, device=dev)[:, None] + (S - T)
-            kpos = torch.arange(S, device=dev)[None, :]
-            mask = kpos <= qpos
-            if window is not None:
-                mask &= kpos > qpos - window
-        lib_ms = time_ms(
-            lambda: torch.nn.functional.scaled_dot_product_attention(
-                q, k, v, attn_mask=mask, is_causal=mask is None,
-                enable_gqa=True), reps)
-        peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else \
-            PEAK_FP32_FLOPS
-        flops = 4 * D * B * hq * visible_pairs(T, S, True, window)
-        b_ms, b_by = bound(
-            q.element_size() * (2 * B * hq * T * D + 2 * B * hkv * S * D),
-            flops, peak)
-        say(f"B9 flash_attention {label}: max_abs_err={err:.3e} (max |out| "
-            f"{scale:.3e}{band}) ms={ms:.4f} plain_ms={plain_ms:.3f}"
-            + ("" if lib_ms is None else f" library_ms={lib_ms:.4f}")
-            + " " + bound_text(b_ms, b_by, derate)
-            + f"; {flops / ms / 1e9:.1f} TFLOP/s, "
-            f"{flops / ms / 1e9 / (peak / 1e12):.1%} of the "
-            f"{'bf16' if dtype == torch.bfloat16 else 'fp32'} peak")
-        return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                    library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by)
+    flash_case = functools.partial(flash_case_on, fa_mod, cgen, derate)
 
     # the flash kernels' resources, from the compiler's report
     lib = _build.library()
@@ -3562,6 +3939,9 @@ def main() -> None:
 
     # -- 2e. F and N1 against their plain versions ---------------------------
     train_kernels_phase(fa_mod, dev, derate, stats)
+
+    # -- 2f. B9 at head dim 256 -----------------------------------------------
+    flash256_phase(flash_case, fa_mod, stats)
 
     # -- 11. the LM serving path: qwen3-0.6b at full width and depth ---------
     say(f"== phase 11: serve qwen3-0.6b ({lm_cfg.n_layers} layers, d_model "
@@ -3735,6 +4115,13 @@ def main() -> None:
     # -- 15. the LM training path: qwen3-0.6b, card vs CPU, resume ----------
     train_phase(lm_cfg, expect, path_launches)
 
+    # -- 16. the recurrent families served at full size; card vs CPU --------
+    recurrent_serve_phase("16", "falcon-mamba-7b", 4, 2048, 32, 0,
+                          path_launches, stats)
+    recurrent_serve_phase("16b", "recurrentgemma-9b", 2, 4096, 32, 12,
+                          path_launches, stats)
+    recurrent_card_vs_cpu_phase(path_launches)
+
     # -- report ---------------------------------------------------------------
     end_phase()
     meta = {
@@ -3763,6 +4150,11 @@ def main() -> None:
                             "src/repro/kernels/flash_attn.py:93"),
         "flash_attention_f32": ("src/repro_torch/kernels/csrc/flash_attn.cu",
                                 "src/repro/kernels/flash_attn.py:93"),
+        "flash_attention_d256": ("src/repro_torch/kernels/csrc/flash_attn.cu",
+                                 "src/repro/kernels/flash_attn.py:93"),
+        "flash_attention_f32_d256": (
+            "src/repro_torch/kernels/csrc/flash_attn.cu",
+            "src/repro/kernels/flash_attn.py:93"),
         "flash_attention_train": (
             "src/repro_torch/kernels/csrc/flash_fwd.cu",
             "no TPU kernel: src/repro/models/attention.py:126 "
@@ -3782,15 +4174,20 @@ def main() -> None:
     # fp32 prefill
     report_path = {"odm_svrg_grad": "SUSY",
                    "flash_attention_f32": "qwen3-0.6b fp32",
+                   "flash_attention_d256": "recurrentgemma-9b",
+                   "flash_attention_f32_d256":
+                       "recurrentgemma-9b 3 layers float32 (16c)",
                    **{n: "qwen3-0.6b train" for n in train_k}}
+    # B9's rows beside its bf16 row at head dim 128 share its counter
+    b9_rows = ("flash_attention_f32", "flash_attention_d256",
+               "flash_attention_f32_d256")
     kernels = []
     for name, (source, replaces) in meta.items():
         s = stats[name]
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):
             if not math.isfinite(s[key]):
                 fail(f"{name}: {key} is not finite")
-        counter = "flash_attention" if name == "flash_attention_f32" \
-            else name
+        counter = "flash_attention" if name in b9_rows else name
         path = report_path.get(name) or next(
             p for p in ("ijcnn1", "phishing", "SUSY", "cascade",
                         "qwen3-0.6b") if name in expect[p][0])

@@ -449,23 +449,31 @@ def gram_plan(K: int = 8, M: int = 6250, N: int | None = None,
               f"{NS}-stage ring")
 
 
+#: ``flash_attn_attributes``'s variant of each (kernel, head dim)
+_FLASH_VARIANTS = {**{("flash_bf16", 16 << i): i for i in range(4)},
+                   **{("flash_f32", 16 << i): 4 + i for i in range(4)},
+                   ("flash_bf16", 256): 8, ("flash_f32", 256): 9}
+
+
 def _assert_flash_constants() -> None:
     from repro_torch.kernels import flash_attn as fa
-    # the plain version walks the kernels' 128-key tiles; a plan for a
-    # head dim outside fa.HEAD_DIMS is the plan the kernel would need
-    assert fa.BK == 128 and fa.HEAD_DIMS == (16, 32, 64, 128), \
-        (fa.BK, fa.HEAD_DIMS)
+    # the plain version walks the bf16 kernel's tiles (128 keys, 64 at
+    # head dim 256); a plan for a head dim outside fa.HEAD_DIMS is the
+    # plan the kernel would need
+    assert fa.HEAD_DIMS == (16, 32, 64, 128, 256) and [
+        fa.block_keys(d) for d in fa.HEAD_DIMS] == [128] * 4 + [64], \
+        fa.HEAD_DIMS
 
 
 def flash_bf16_plan(B: int = 4, Hq: int = 16, T: int = 2048,
                     D: int = 128) -> KernelPlan:
     """B9 bf16 (``csrc/flash_attn.cu::Tiles``): 384 threads (two 64-row
     wgmma consumer warpgroups and a TMA producer); two consumers' Q (later
-    O) tiles, a two-stage K/V ring of 128-key tiles, 9 mbarriers and
-    1 KB for the 1,024-byte alignment, never under 120 KB (one CTA an
-    SM)."""
+    O) tiles, a two-stage K/V ring of 128-key tiles (64-key at D = 256), 9
+    mbarriers and 1 KB for the 1,024-byte alignment, never under 120 KB
+    (one CTA an SM)."""
     _assert_flash_constants()
-    BQ, BK, NS = 64, 128, 2
+    BQ, BK, NS = 64, (128 if D <= 128 else 64), 2
     used = 2 * BQ * D * 2 + 2 * NS * BK * D * 2 + (1 + 4 * NS) * 8 + 1024
     blocks = [Block("q_o", (2, BQ, D), "bfloat16"),
               Block("k_ring", (NS, BK, D), "bfloat16"),
@@ -475,10 +483,10 @@ def flash_bf16_plan(B: int = 4, Hq: int = 16, T: int = 2048,
     if used < 120 * 1024:
         blocks.append(Block("floor", (120 * 1024 - used,), "uint8"))
     nblk = -(-T // (2 * BQ))
-    idx = {16: 0, 32: 1, 64: 2, 128: 3}.get(D, -1)
     return KernelPlan(
         kernel="flash_bf16", symbol=f"flash_bf16<{D}>",
-        entry="flash_attn_attributes", variant=idx, threads=3 * 128,
+        entry="flash_attn_attributes",
+        variant=_FLASH_VARIANTS.get(("flash_bf16", D), -1), threads=3 * 128,
         grid=(nblk * Hq * B,), blocks=tuple(blocks), min_ctas=1,
         shape=(("B", B), ("Hq", Hq), ("T", T), ("D", D)),
         notes="setmaxnreg: 240 registers a consumer thread, 24 a "
@@ -502,24 +510,32 @@ def flash_fwd_split_plan(B: int = 4, Hkv: int = 8, S: int = 2048,
                ("exact", exact)))
 
 
-def flash_f32_plan(B: int = 4, Hq: int = 16, T: int = 2048,
-                   D: int = 128) -> KernelPlan:
-    """B9 fp32 (``csrc/flash_attn.cu::F32Tiles``): 256 threads, 128 query
-    rows a CTA, Q at row stride D + 4, a two-stage ring of 64-key K
-    tiles (row stride max(D + 4, 132), shared with Pᵀ) and V tiles.
+#: B9 fp32's (query rows a CTA, keys a tile): up to head dim 128, and at
+#: 256 (``csrc/flash_attn.cu::F32Tiles``)
+F32_TILES = {128: (128, 64), 256: (64, 32)}
 
-    Its ceiling: at head dim 256 (gemma-family models use it) the tiles
-    take 397,312 B, past the 232,448 B a block may have, so the kernel
-    takes head dims up to 128 only; :func:`check_plan` rejects the D =
-    256 plan with this report."""
+
+def flash_f32_plan(B: int = 4, Hq: int = 16, T: int = 2048,
+                   D: int = 128, bq: int | None = None,
+                   bk: int | None = None) -> KernelPlan:
+    """B9 fp32 (``csrc/flash_attn.cu::F32Tiles``): 256 threads, ``bq``
+    query rows a CTA (128; 64 at D = 256), Q at row stride D + 4, a
+    two-stage ring of ``bk``-key K tiles (64; 32 at D = 256; row stride
+    max(D + 4, bq + 4), shared with Pᵀ) and V tiles.
+
+    Its ceiling: the D = 128 plan's 128 rows and 64-key tiles at head dim
+    256 take 397,312 B, past the 232,448 B a block may have, which is why
+    D = 256 has its own smaller plan (198,656 B); :func:`check_plan`
+    rejects ``flash_f32_plan(D=256, bq=128, bk=64)`` with this report."""
     _assert_flash_constants()
-    F_BQ, F_BK = 128, 64
+    tiles = F32_TILES[128 if D <= 128 else 256]
+    F_BQ, F_BK = bq or tiles[0], bk or tiles[1]
     QS = D + 4
     KSTAGE = F_BK * max(QS, F_BQ + 4)
-    idx = {16: 4, 32: 5, 64: 6, 128: 7}.get(D, -1)
     return KernelPlan(
         kernel="flash_f32", symbol=f"flash_f32<{D}>",
-        entry="flash_attn_attributes", variant=idx, threads=256,
+        entry="flash_attn_attributes",
+        variant=_FLASH_VARIANTS.get(("flash_f32", D), -1), threads=256,
         grid=(-(-T // F_BQ) * Hq * B,),
         blocks=(Block("q", (F_BQ, QS)), Block("k_pt_ring", (2, KSTAGE)),
                 Block("v_ring", (2, F_BK, D))),
@@ -556,23 +572,6 @@ def flash_f32_stats_plan(B: int = 4, Hq: int = 16, T: int = 2048,
         shape=(("B", B), ("Hq", Hq), ("T", T), ("D", D), ("exact", exact)),
         notes="setmaxnreg: 240 registers a consumer thread, 24 a "
               "producer thread")
-
-
-def flash_fwd_split_plan(B: int = 4, Hkv: int = 8, S: int = 2048,
-                         D: int = 128, exact: bool = False) -> KernelPlan:
-    """F's first kernel (``csrc/flash_fwd.cu::flash_fwd_split``): 256
-    threads a (b, kv head, 32-key tile), no shared memory; it writes each
-    tile's K and V halves to the scratch buffer ``flash_f32_stats`` reads
-    (``flash_fwd_scratch`` floats)."""
-    idx = {16: 8, 32: 9, 64: 10, 128: 11}.get(D)
-    return KernelPlan(
-        kernel="flash_fwd_split",
-        symbol=f"flash_fwd_split<{D}, {str(exact).lower()}>",
-        entry="flash_fwd_attributes",
-        variant=-1 if idx is None else idx + 4 * exact, threads=256,
-        grid=(B * Hkv * -(-S // 32),), blocks=(), min_ctas=1,
-        shape=(("B", B), ("Hkv", Hkv), ("S", S), ("D", D),
-               ("exact", exact)))
 
 
 def _bwd_blocks(D: int, kernel: str) -> tuple[Block, ...]:
@@ -655,8 +654,9 @@ PLAN_BUILDERS: dict[str, Callable[..., KernelPlan]] = {
 #: the main path's shapes (chip_smoke.py's configurations): ijcnn1's
 #: level (D = 22, blocks of 256) for K1/K2/B8, phishing's for K3/K4, the
 #: SUSY stand-in (4M rows, d = 18, minibatches of 64) for B6/B7 and the
-#: epoch kernel, qwen3-0.6b prefill (head dim 128) for B9 and its
-#: training step for F and N1; K2 at both walks
+#: epoch kernel, qwen3-0.6b prefill (head dim 128) and recurrentgemma-9b's
+#: (B = 2, Hq = 16, T = 4,096, head dim 256) for B9, qwen3-0.6b's training
+#: step for F and N1; K2 at both walks
 DEFAULT_SHAPES: dict[str, tuple[dict, ...]] = {
     "cd_sweep": ({"T": 64, "B": 256},),
     "gram_matvec": ({"K": 8, "M": 6250, "D": 22, "sym": True},
@@ -668,8 +668,10 @@ DEFAULT_SHAPES: dict[str, tuple[dict, ...]] = {
     "svrg_epoch": ({"C": 1, "b": 64, "d": 18},),
     "b7_ring": ({"M": 4_000_000, "d": 18},),
     "gram": ({"K": 8, "M": 6250, "D": 22},),
-    "flash_bf16": ({"B": 4, "Hq": 16, "T": 2048, "D": 128},),
-    "flash_f32": ({"B": 4, "Hq": 16, "T": 2048, "D": 128},),
+    "flash_bf16": ({"B": 4, "Hq": 16, "T": 2048, "D": 128},
+                   {"B": 2, "Hq": 16, "T": 4096, "D": 256}),
+    "flash_f32": ({"B": 4, "Hq": 16, "T": 2048, "D": 128},
+                  {"B": 2, "Hq": 16, "T": 4096, "D": 256}),
     "flash_f32_stats": ({"B": 4, "Hq": 16, "T": 2048, "D": 128},
                         {"B": 4, "Hq": 16, "T": 2048, "D": 128,
                          "exact": True}),
@@ -709,7 +711,7 @@ def check_kernels() -> dict[str, str]:
 VARIANTS = {"cd_sweep_attributes": 12, "dense_matvec_attributes": 1,
             "cd_exact_attributes": 1, "gram_attributes": 16,
             "gram_matvec_attributes": 10, "odm_grad_attributes": 10,
-            "flash_attn_attributes": 8, "flash_fwd_attributes": 16,
+            "flash_attn_attributes": 10, "flash_fwd_attributes": 16,
             "flash_bwd_attributes": 16}
 
 _ATTR_KEYS = ("regs", "smem_static", "local_bytes", "max_threads",

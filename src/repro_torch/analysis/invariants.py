@@ -379,20 +379,24 @@ def _smem_plan(kernel: str):
 
 
 def _flash_f32_smem_ceiling(device: str):
-    """B9 fp32 at head dim 256 (the gemma family's) needs 397,312 B of
-    shared memory a CTA: rejected at plan time with a sizing report."""
+    """B9 fp32's D = 128 tiles (128 query rows, 64 keys) at head dim 256
+    (recurrentgemma's) need 397,312 B of shared memory a CTA: rejected at
+    plan time with a sizing report, which is why D = 256 has its own plan
+    (64 rows, 32 keys), which fits."""
     from repro_torch.analysis import hopper_check as hc
+    hc.check_plan(hc.flash_f32_plan(D=256))
+    rows, keys = hc.F32_TILES[128]
     try:
-        hc.check_plan(hc.flash_f32_plan(D=256))
+        hc.check_plan(hc.flash_f32_plan(D=256, bq=rows, bk=keys))
     except hc.HopperBudgetError as e:
         msg = str(e)
         assert "exceeds" in msg and "k_pt_ring" in msg, msg
-        return ("flash_f32 at head dim 256 rejected at plan time (shared "
-                "memory past 232,448 B)")
+        return ("flash_f32's D = 128 tiles at head dim 256 rejected at plan "
+                "time (shared memory past 232,448 B); its D = 256 plan fits")
     raise ll.InvariantViolation(
-        "the head-dim-256 fp32 flash plan fit the card: the ceiling is no "
-        "longer caught; if the kernel's tiles changed, update "
-        "flash_f32_plan")
+        "the head-dim-256 fp32 flash plan at 128 rows and 64-key tiles fit "
+        "the card: the ceiling is no longer caught; if the kernel's tiles "
+        "changed, update flash_f32_plan")
 
 
 # ---------------------------------------------------------------------------
@@ -928,8 +932,8 @@ def _declare_builtins() -> None:
     declare(Invariant(
         name="kernels.flash_f32.smem_ceiling", subject="flash_f32",
         kind="kernel",
-        description="the head-dim-256 plan is REJECTED at plan time with a "
-                    "sizing report", verify=_flash_f32_smem_ceiling))
+        description="the D = 128 tiles at head dim 256 are REJECTED at plan "
+                    "time with a sizing report", verify=_flash_f32_smem_ceiling))
 
     for route in ("sodm", "dsvrg", "cascade", "dip", "dc", "svrg",
                   "csvrg"):

@@ -9,7 +9,8 @@ lowers train_step; ``prefill_32k`` lowers prefill; ``decode_32k`` /
 ``long_500k`` lower serve_step (one new token against a seq_len KV cache).
 
 Copy of ``repro.configs.base`` for the port. The port builds models of
-the dense family only (``repro_torch.models.model.check_supported``).
+the dense, ssm and hybrid families
+(``repro_torch.models.model.check_supported``).
 """
 from __future__ import annotations
 

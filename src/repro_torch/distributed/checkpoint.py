@@ -95,8 +95,12 @@ def _unflatten_into(template, flat: dict[str, Any], prefix: str = ""):
                             requires_grad=v.requires_grad)
             for k, v in template.items()})
     if isinstance(template, nn.ModuleDict):
-        return nn.ModuleDict({k: _unflatten_into(v, flat, sub(k))
-                              for k, v in template.items()})
+        # (a models.model.MixedDict holds parameters beside sub-trees)
+        return type(template)({
+            k: nn.Parameter(_unflatten_into(v, flat, sub(k)),
+                            requires_grad=v.requires_grad)
+            if isinstance(v, nn.Parameter) else
+            _unflatten_into(v, flat, sub(k)) for k, v in template.items()})
     if isinstance(template, nn.ModuleList):
         return nn.ModuleList([_unflatten_into(v, flat, sub(i))
                               for i, v in enumerate(template)])

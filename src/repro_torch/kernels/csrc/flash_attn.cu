@@ -95,13 +95,24 @@
 //     SM (ptxas -v of the sm_90a build). Measured (H100 80GB HBM3,
 //     700.00 W, bench_flash.py --dtype float32) 1.98 ms at the qwen3 prefill
 //     shape against SDPA's 6.49 ms: 52 % of the fp32 peak.
+// Head dim 256 (recurrentgemma's local attention: Hq = 16, Hkv = 1) is a
+// plan of its own in both kernels, because the D = 128 tiles do not fit:
+//   * bf16: the same three warpgroups, with 64-key K/V tiles (S is wgmma
+//     m64n64k16, O += P V m64n256k16 into a 64 x 256 fp32 accumulator,
+//     128 registers a consumer thread under setmaxnreg's 240). Q/O 64 KB
+//     plus two stages of 64-key K and V (128 KB): 197,704 B. 128-key
+//     stages would take 256 KB beside Q.
+//   * fp32: 64 query rows a CTA (4 a thread) and 32-key tiles (2 keys a
+//     thread in S), Q and K at row stride D + 4: 198,656 B, where the
+//     D = 128 plan's 128 rows and 64 keys would take 397,312 B.
 // (F, the training attention's fp32 forward, is its own kernel on the
 // tensor cores: flash_fwd.cu.)
 // Both kernels loop inside the CTA over the key tiles that causality and
 // the window leave live for the block, in place of the TPU's sequential
-// fourth grid dimension. The bf16 kernel's 128-key tiles are the plain
-// version's, so bf16 p rounds alike; in fp32 the tile only moves where
-// the running max is taken, within the 1e-5 band.
+// fourth grid dimension. The bf16 kernel's key tiles (128 keys, 64 at
+// D = 256) are the plain version's (block_keys in flash_attn.py), so bf16
+// p rounds alike; in fp32 the tile only moves where the running max is
+// taken, within the 1e-5 band.
 #include <cstdint>
 
 #include <cuda.h>
@@ -113,9 +124,8 @@
 
 namespace {
 
-constexpr int BK = 128;  // keys per kv tile (both kernels)
-constexpr int BQ = 64;   // query rows per fp32 CTA and per bf16 consumer
-constexpr int NT = 128;  // threads per fp32 CTA, and per warpgroup
+constexpr int BQ = 64;   // query rows per bf16 consumer
+constexpr int NT = 128;  // threads per warpgroup
 constexpr float NEG_INF = -1e30f;
 constexpr unsigned FULL = 0xffffffffu;
 
@@ -137,16 +147,18 @@ struct Shape {  // bf16 kernel: the tensors come as tensor maps
   int causal, window;  // window <= 0: no window
 };
 
-// Kv tiles [lo, hi) that some query position in [q_first, q_last] sees.
+// Kv tiles [lo, hi) of bk keys that some query position in [q_first,
+// q_last] sees.
 template <class P>
 __device__ __forceinline__ void live_tiles(const P& p, int q_first,
-                                           int q_last, int& lo, int& hi) {
-  hi = (p.S + BK - 1) / BK;
-  if (p.causal) hi = min(hi, q_last / BK + 1);
+                                           int q_last, int bk, int& lo,
+                                           int& hi) {
+  hi = (p.S + bk - 1) / bk;
+  if (p.causal) hi = min(hi, q_last / bk + 1);
   lo = 0;
   if (p.window > 0) {
     const int kmin = q_first - p.window + 1;  // first key the block sees
-    if (kmin > 0) lo = kmin / BK;
+    if (kmin > 0) lo = kmin / bk;
   }
 }
 
@@ -172,9 +184,12 @@ constexpr int PRODUCER_REGS = 24;   // 24 x 128 + 240 x 256 <= 65,536
 constexpr int CONSUMER_REGS = 240;
 
 // Shared-memory plan for head dim D. A tile of R rows is stored as D / CW
-// column chunks of R rows x CW elements, each row one swizzle span.
+// column chunks of R rows x CW elements, each row one swizzle span. K and
+// V tiles hold 128 keys up to D = 128 and 64 at D = 256, where two
+// 128-key stages of K and V (256 KB) would not fit beside Q.
 template <int D>
 struct Tiles {
+  static constexpr int BK = D > 128 ? 64 : 128;  // keys per K/V tile
   static constexpr int CW = D < 64 ? D : 64;  // elements per row of a chunk
   static constexpr int ROW = 2 * CW;          // bytes: 128, 64 or 32
   static constexpr uint64_t LAYOUT =
@@ -197,43 +212,43 @@ template <int D>
 __device__ __forceinline__ void wgmma_pv(float (&o)[D / 2],
                                          const uint32_t (&a)[4],
                                          uint64_t b) {
-  if constexpr (D == 128) sm90::wgmma_rs_n128(o, a, b);
+  if constexpr (D == 256) sm90::wgmma_rs_n256(o, a, b);
+  else if constexpr (D == 128) sm90::wgmma_rs_n128(o, a, b);
   else if constexpr (D == 64) sm90::wgmma_rs_n64(o, a, b);
   else if constexpr (D == 32) sm90::wgmma_rs_n32(o, a, b);
   else sm90::wgmma_rs_n16(o, a, b);
 }
 
-// Issue S = Q K^T for one warpgroup (64 rows x 128 keys) and commit it.
+// Issue S = Q K^T for one warpgroup (64 rows x BK keys) and commit it.
 template <int D>
-__device__ __forceinline__ void issue_qk(float (&x)[BK / 2], uint32_t q_addr,
-                                         uint32_t k_addr) {
+__device__ __forceinline__ void issue_qk(float (&x)[Tiles<D>::BK / 2],
+                                         uint32_t q_addr, uint32_t k_addr) {
   using L = Tiles<D>;
   sm90::wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < D / 16; ++kk) {
     const uint32_t col = (kk * 16 % L::CW) * 2, chunk = kk * 16 / L::CW;
-    sm90::wgmma_ss_n128(
-        x,
-        sm90::desc(q_addr + chunk * BQ * L::ROW + col, 16, 8 * L::ROW,
-                   L::LAYOUT),
-        sm90::desc(k_addr + chunk * BK * L::ROW + col, 16, 8 * L::ROW,
-                   L::LAYOUT),
-        kk > 0);
+    const uint64_t a = sm90::desc(q_addr + chunk * BQ * L::ROW + col, 16,
+                                  8 * L::ROW, L::LAYOUT);
+    const uint64_t b = sm90::desc(k_addr + chunk * L::BK * L::ROW + col, 16,
+                                  8 * L::ROW, L::LAYOUT);
+    if constexpr (L::BK == 128) sm90::wgmma_ss_n128(x, a, b, kk > 0);
+    else sm90::wgmma_ss_n64(x, a, b, kk > 0);
   }
   sm90::wgmma_commit();
 }
 
-// Issue O += P V (P: 64 rows x 128 keys in registers) and commit it.
+// Issue O += P V (P: 64 rows x BK keys in registers) and commit it.
 template <int D>
-__device__ __forceinline__ void issue_pv(float (&o)[D / 2],
-                                         const uint32_t (&pf)[BK / 16][4],
-                                         uint32_t v_addr) {
+__device__ __forceinline__ void issue_pv(
+    float (&o)[D / 2], const uint32_t (&pf)[Tiles<D>::BK / 16][4],
+    uint32_t v_addr) {
   using L = Tiles<D>;
   sm90::wgmma_fence();
 #pragma unroll
-  for (int kc = 0; kc < BK / 16; ++kc)
+  for (int kc = 0; kc < L::BK / 16; ++kc)
     wgmma_pv<D>(o, pf[kc],
-                sm90::desc(v_addr + kc * 16 * L::ROW, BK * L::ROW,
+                sm90::desc(v_addr + kc * 16 * L::ROW, L::BK * L::ROW,
                            8 * L::ROW, L::LAYOUT));
   sm90::wgmma_commit();
 }
@@ -243,26 +258,28 @@ struct Rows {
   float m_a, m_b, l_a, l_b;
 };
 
-// One tile's online-softmax step, in place: x holds the tile's dots in the
-// S accumulator layout and leaves holding p (fp32). The dots are scaled,
-// and masked if the tile crosses an edge (key k0 + column); m and l are
-// updated, and corr_a / corr_b get the old accumulator's factors.
-__device__ __forceinline__ void softmax_step(float (&x)[BK / 2], Rows& r,
+// One tile's online-softmax step, in place: x holds the tile's dots (N
+// keys) in the S accumulator layout and leaves holding p (fp32). The dots
+// are scaled, and masked if the tile crosses an edge (key k0 + column); m
+// and l are updated, and corr_a / corr_b get the old accumulator's
+// factors.
+template <int N>
+__device__ __forceinline__ void softmax_step(float (&x)[N / 2], Rows& r,
                                              float& corr_a, float& corr_b,
                                              const Shape& p, bool edge,
                                              int k0, int pa, int pb,
                                              int t4) {
 #pragma unroll
-  for (int i = 0; i < BK / 2; ++i) x[i] = __fmul_rn(x[i], p.scale);
+  for (int i = 0; i < N / 2; ++i) x[i] = __fmul_rn(x[i], p.scale);
   if (edge) {
 #pragma unroll
-    for (int i = 0; i < BK / 2; ++i)
+    for (int i = 0; i < N / 2; ++i)
       if (!visible(p, (i & 2) ? pb : pa, k0 + (i / 4) * 8 + 2 * t4 + i % 2))
         x[i] = NEG_INF;
   }
   float mx_a = NEG_INF, mx_b = NEG_INF;
 #pragma unroll
-  for (int i = 0; i < BK / 2; ++i) {
+  for (int i = 0; i < N / 2; ++i) {
     if (i & 2) mx_b = fmaxf(mx_b, x[i]);
     else mx_a = fmaxf(mx_a, x[i]);
   }
@@ -275,7 +292,7 @@ __device__ __forceinline__ void softmax_step(float (&x)[BK / 2], Rows& r,
   corr_b = expf(r.m_b - mn_b);
   float sum_a = 0.0f, sum_b = 0.0f;
 #pragma unroll
-  for (int i = 0; i < BK / 2; ++i) {
+  for (int i = 0; i < N / 2; ++i) {
     x[i] = expf(x[i] - ((i & 2) ? mn_b : mn_a));
     if (i & 2) sum_b += x[i];
     else sum_a += x[i];
@@ -291,10 +308,11 @@ __device__ __forceinline__ void softmax_step(float (&x)[BK / 2], Rows& r,
 }
 
 // p (fp32, S accumulator layout) rounded to bf16 in the register A layout.
-__device__ __forceinline__ void pack_p(const float (&x)[BK / 2],
-                                       uint32_t (&pf)[BK / 16][4]) {
+template <int N>
+__device__ __forceinline__ void pack_p(const float (&x)[N / 2],
+                                       uint32_t (&pf)[N / 16][4]) {
 #pragma unroll
-  for (int nt = 0; nt < BK / 8; ++nt) {
+  for (int nt = 0; nt < N / 8; ++nt) {
     pf[nt / 2][(nt & 1) * 2] = pack_bf16(x[4 * nt], x[4 * nt + 1]);
     pf[nt / 2][(nt & 1) * 2 + 1] = pack_bf16(x[4 * nt + 2], x[4 * nt + 3]);
   }
@@ -336,8 +354,8 @@ __global__ void __launch_bounds__(3 * NT, 1)
   const int q_offset = p.S - p.T;
   const int row0 = qb * 2 * BQ;
   int lo, hi;  // the CTA's live tiles: the union of its two consumers'
-  live_tiles(p, row0 + q_offset, min(row0 + 2 * BQ, p.T) - 1 + q_offset, lo,
-             hi);
+  live_tiles(p, row0 + q_offset, min(row0 + 2 * BQ, p.T) - 1 + q_offset,
+             L::BK, lo, hi);
 
   const int tid = threadIdx.x, wg = tid / NT;
   if (tid == 0) {
@@ -367,13 +385,13 @@ __global__ void __launch_bounds__(3 * NT, 1)
         sm90::bar_wait(empty_k + s, empty_ph);
         sm90::bar_expect(full_k + s, L::KV);
         for (int c = 0; c < D / L::CW; ++c)
-          sm90::tma_load_4d(smem + L::OFF_K + s * L::KV + c * BK * L::ROW,
-                            &tk, full_k + s, c * L::CW, j * BK, hk, b);
+          sm90::tma_load_4d(smem + L::OFF_K + s * L::KV + c * L::BK * L::ROW,
+                            &tk, full_k + s, c * L::CW, j * L::BK, hk, b);
         sm90::bar_wait(empty_v + s, empty_ph);
         sm90::bar_expect(full_v + s, L::KV);
         for (int c = 0; c < D / L::CW; ++c)
-          sm90::tma_load_4d(smem + L::OFF_V + s * L::KV + c * BK * L::ROW,
-                            &tv, full_v + s, c * L::CW, j * BK, hk, b);
+          sm90::tma_load_4d(smem + L::OFF_V + s * L::KV + c * L::BK * L::ROW,
+                            &tv, full_v + s, c * L::CW, j * L::BK, hk, b);
       }
     }
   } else {
@@ -396,8 +414,8 @@ __global__ void __launch_bounds__(3 * NT, 1)
     };
     auto ready = [](int it) { return static_cast<uint32_t>((it / NS) & 1); };
     auto edge = [&](int it) {  // does tile it cross an edge for my rows?
-      const int k0 = (lo + it) * BK;
-      return k0 + BK > p.S || (p.causal && k0 + BK - 1 > p_first) ||
+      const int k0 = (lo + it) * L::BK;
+      return k0 + L::BK > p.S || (p.causal && k0 + L::BK - 1 > p_first) ||
              (p.window > 0 && k0 <= p_last - p.window);
     };
     // Ping-pong: the two consumers take turns issuing their products
@@ -413,8 +431,8 @@ __global__ void __launch_bounds__(3 * NT, 1)
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) o[i] = 0.0f;
     Rows rs{NEG_INF, NEG_INF, 0.0f, 0.0f};
-    float x[BK / 2], corr_a, corr_b;
-    uint32_t pf[BK / 16][4];
+    float x[L::BK / 2], corr_a, corr_b;
+    uint32_t pf[L::BK / 16][4];
 
     sm90::bar_wait(full_q, 0);
     if (wg == 1) sm90::named_arrive(1, 2 * NT);
@@ -425,8 +443,9 @@ __global__ void __launch_bounds__(3 * NT, 1)
     hand_over(0);
     sm90::wgmma_wait<0>();
     sm90::bar_arrive(empty_k);
-    softmax_step(x, rs, corr_a, corr_b, p, edge(0), lo * BK, pa, pb, t4);
-    pack_p(x, pf);
+    softmax_step<L::BK>(x, rs, corr_a, corr_b, p, edge(0), lo * L::BK, pa,
+                        pb, t4);
+    pack_p<L::BK>(x, pf);
     // tile it: S of tile it runs beside P V of tile it - 1, and the
     // softmax of tile it beside that P V
     for (int it = 1; it < n; ++it) {
@@ -439,11 +458,11 @@ __global__ void __launch_bounds__(3 * NT, 1)
       hand_over(it);
       sm90::wgmma_wait<1>();  // S is done; P V may still run
       sm90::bar_arrive(empty_k + it % NS);
-      softmax_step(x, rs, corr_a, corr_b, p, edge(it), (lo + it) * BK, pa, pb,
-                   t4);
+      softmax_step<L::BK>(x, rs, corr_a, corr_b, p, edge(it),
+                          (lo + it) * L::BK, pa, pb, t4);
       sm90::wgmma_wait<0>();
       sm90::bar_arrive(empty_v + (it - 1) % NS);
-      pack_p(x, pf);
+      pack_p<L::BK>(x, pf);
     }
     // the last tile's P V
     rescale<D>(o, corr_a, corr_b);
@@ -485,24 +504,27 @@ __global__ void __launch_bounds__(3 * NT, 1)
 // fp32: CUDA cores, register micro-tiles fed from shared memory
 // ---------------------------------------------------------------------------
 
-constexpr int F_BQ = 128;       // query rows per fp32 CTA
-constexpr int F_BK = 64;        // keys per fp32 kv tile
-constexpr int F_NT = 256;       // threads per fp32 CTA: a 16 x 16 grid
-constexpr int F_RPT = 8;        // query rows per thread (S and O)
-constexpr int F_KPT = 4;        // keys per thread (S)
-constexpr int F_PS = F_BQ + 4;  // row stride of P^T (one row per key)
+constexpr int F_NT = 256;  // threads per fp32 CTA: a 16 x 16 grid
 
+// The fp32 plan at head dim D: 128 query rows a CTA and 64-key tiles up to
+// D = 128; 64 rows and 32-key tiles at D = 256, where the D = 128 plan's
+// tiles would take 397,312 B (198,656 B here).
 template <int D>
 struct F32Tiles {
+  static constexpr int BQ = D > 128 ? 64 : 128;  // query rows per CTA
+  static constexpr int BK = D > 128 ? 32 : 64;   // keys per kv tile
+  static constexpr int RPT = BQ / 16;  // query rows per thread (S and O)
+  static constexpr int KPT = BK / 16;  // keys per thread (S)
+  static constexpr int PS = BQ + 4;    // row stride of P^T (a row a key)
   static constexpr int QS = D + 4;  // Q and K row strides: the padding
   static constexpr int KS = D + 4;  // puts 8 rows' float4 on 32 banks
-  // a K stage holds P^T (F_BK x F_PS) once S is taken from it
-  static constexpr int KSTAGE = F_BK * (KS > F_PS ? KS : F_PS);
-  static constexpr int VSTAGE = F_BK * D;
+  // a K stage holds P^T (BK x PS) once S is taken from it
+  static constexpr int KSTAGE = BK * (KS > PS ? KS : PS);
+  static constexpr int VSTAGE = BK * D;
   static constexpr int CPT = D / 16;                // O columns per thread
   static constexpr int VEC = CPT < 4 ? CPT : 4;     // ... as vectors of VEC
   static constexpr int NG = CPT / VEC;              // ... 16 VEC apart
-  static constexpr int SMEM = 4 * (F_BQ * QS + 2 * KSTAGE + 2 * VSTAGE);
+  static constexpr int SMEM = 4 * (BQ * QS + 2 * KSTAGE + 2 * VSTAGE);
 };
 
 template <int N>
@@ -556,9 +578,9 @@ template <int D>
 __global__ void __launch_bounds__(F_NT, 1) flash_f32(const Params p) {
   using L = F32Tiles<D>;
   extern __shared__ __align__(16) float fsm[];
-  float* Qs = fsm;                       // F_BQ x QS
-  float* Ks = Qs + F_BQ * L::QS;         // 2 stages of KSTAGE (then P^T)
-  float* Vs = Ks + 2 * L::KSTAGE;        // 2 stages of F_BK x D
+  float* Qs = fsm;                       // BQ x QS
+  float* Ks = Qs + L::BQ * L::QS;        // 2 stages of KSTAGE (then P^T)
+  float* Vs = Ks + 2 * L::KSTAGE;        // 2 stages of BK x D
 
   // heaviest first, as the bf16 kernel
   const int heads = p.Hq * p.B;
@@ -567,15 +589,11 @@ __global__ void __launch_bounds__(F_NT, 1) flash_f32(const Params p) {
   const int h = blockIdx.x % p.Hq, b = (blockIdx.x / p.Hq) % p.B;
   const int hk = h / p.group;
   const int q_offset = p.q_offset;
-  const int r0 = qb * F_BQ;
+  const int r0 = qb * L::BQ;
   const int q_first = r0 + q_offset;
-  const int q_last = min(r0 + F_BQ, p.T) - 1 + q_offset;
-  // live kv tiles [lo, hi) of F_BK keys
-  int hi = (p.S + F_BK - 1) / F_BK;
-  if (p.causal) hi = min(hi, q_last / F_BK + 1);
-  int lo = 0;
-  if (p.window > 0 && q_first - p.window + 1 > 0)
-    lo = (q_first - p.window + 1) / F_BK;
+  const int q_last = min(r0 + L::BQ, p.T) - 1 + q_offset;
+  int lo, hi;  // live kv tiles of BK keys
+  live_tiles(p, q_first, q_last, L::BK, lo, hi);
 
   const float* Q = static_cast<const float*>(p.q) + b * p.sqb + h * p.sqh;
   const float* K = static_cast<const float*>(p.k) + b * p.skb + hk * p.skh;
@@ -583,23 +601,23 @@ __global__ void __launch_bounds__(F_NT, 1) flash_f32(const Params p) {
   float* O = static_cast<float*>(p.o) + b * p.sob + h * p.soh;
 
   auto load_kv = [&](int j, int st) {
-    const int k0 = j * F_BK;
-    load_tile<D>(Ks + st * L::KSTAGE, L::KS, K + k0 * p.sks, p.sks, F_BK,
+    const int k0 = j * L::BK;
+    load_tile<D>(Ks + st * L::KSTAGE, L::KS, K + k0 * p.sks, p.sks, L::BK,
                  p.S - k0);
-    load_tile<D>(Vs + st * L::VSTAGE, D, V + k0 * p.svs, p.svs, F_BK,
+    load_tile<D>(Vs + st * L::VSTAGE, D, V + k0 * p.svs, p.svs, L::BK,
                  p.S - k0);
   };
-  load_tile<D>(Qs, L::QS, Q + r0 * p.sqt, p.sqt, F_BQ, p.T - r0);
+  load_tile<D>(Qs, L::QS, Q + r0 * p.sqt, p.sqt, L::BQ, p.T - r0);
   load_kv(lo, 0);
   sm90::cp_async_commit();
   if (lo + 1 < hi) load_kv(lo + 1, 1);
   sm90::cp_async_commit();
 
   const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int rq = ty * F_RPT;  // the thread's first row in the block
-  float o[F_RPT][L::CPT], m[F_RPT], l[F_RPT];
+  const int rq = ty * L::RPT;  // the thread's first row in the block
+  float o[L::RPT][L::CPT], m[L::RPT], l[L::RPT];
 #pragma unroll
-  for (int i = 0; i < F_RPT; ++i) {
+  for (int i = 0; i < L::RPT; ++i) {
     m[i] = NEG_INF;
     l[i] = 0.0f;  // this thread's share of the row sum (its keys)
 #pragma unroll
@@ -613,24 +631,24 @@ __global__ void __launch_bounds__(F_NT, 1) flash_f32(const Params p) {
     sm90::cp_async_wait<1>();  // all but the newest group: tile j is in
     __syncthreads();
 
-    // S = Q K^T: rows rq .. rq + 7, keys tx + 16 kk
-    float s[F_RPT][F_KPT];
+    // S = Q K^T: rows rq .. rq + RPT - 1, keys tx + 16 kk
+    float s[L::RPT][L::KPT];
 #pragma unroll
-    for (int i = 0; i < F_RPT; ++i)
+    for (int i = 0; i < L::RPT; ++i)
 #pragma unroll
-      for (int kk = 0; kk < F_KPT; ++kk) s[i][kk] = 0.0f;
+      for (int kk = 0; kk < L::KPT; ++kk) s[i][kk] = 0.0f;
 #pragma unroll 2
     for (int c = 0; c < D; c += 4) {
-      float kv[F_KPT][4];
+      float kv[L::KPT][4];
 #pragma unroll
-      for (int kk = 0; kk < F_KPT; ++kk)
+      for (int kk = 0; kk < L::KPT; ++kk)
         Vec<4>::get(Kt + (tx + 16 * kk) * L::KS + c, kv[kk]);
 #pragma unroll
-      for (int i = 0; i < F_RPT; ++i) {
+      for (int i = 0; i < L::RPT; ++i) {
         float qv[4];
         Vec<4>::get(Qs + (rq + i) * L::QS + c, qv);
 #pragma unroll
-        for (int kk = 0; kk < F_KPT; ++kk)
+        for (int kk = 0; kk < L::KPT; ++kk)
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             s[i][kk] = fmaf(qv[e], kv[kk][e], s[i][kk]);
@@ -640,17 +658,17 @@ __global__ void __launch_bounds__(F_NT, 1) flash_f32(const Params p) {
 
     // online softmax: scale after the dot, mask the tiles on an edge, the
     // row max over the 16 threads of the row by shuffles
-    const int k0 = j * F_BK;
-    const bool edge = k0 + F_BK > p.S ||
-                      (p.causal && k0 + F_BK - 1 > q_first) ||
+    const int k0 = j * L::BK;
+    const bool edge = k0 + L::BK > p.S ||
+                      (p.causal && k0 + L::BK - 1 > q_first) ||
                       (p.window > 0 && k0 <= q_last - p.window);
-    float corr[F_RPT];
+    float corr[L::RPT];
 #pragma unroll
-    for (int i = 0; i < F_RPT; ++i) {
+    for (int i = 0; i < L::RPT; ++i) {
       const int qpos = r0 + rq + i + q_offset;
       float mx = NEG_INF;
 #pragma unroll
-      for (int kk = 0; kk < F_KPT; ++kk) {
+      for (int kk = 0; kk < L::KPT; ++kk) {
         float x = __fmul_rn(s[i][kk], p.scale);
         if (edge && !visible(p, qpos, k0 + tx + 16 * kk)) x = NEG_INF;
         s[i][kk] = x;
@@ -664,41 +682,44 @@ __global__ void __launch_bounds__(F_NT, 1) flash_f32(const Params p) {
       m[i] = mn;
       float sum = 0.0f;
 #pragma unroll
-      for (int kk = 0; kk < F_KPT; ++kk) {
+      for (int kk = 0; kk < L::KPT; ++kk) {
         s[i][kk] = expf(s[i][kk] - mn);
         sum += s[i][kk];
       }
       l[i] = __fadd_rn(__fmul_rn(l[i], corr[i]), sum);
     }
-    // P^T into the K stage: key tx + 16 kk, rows rq .. rq + 7
+    // P^T into the K stage: key tx + 16 kk, rows rq .. rq + RPT - 1
 #pragma unroll
-    for (int kk = 0; kk < F_KPT; ++kk) {
-      float* dst = Kt + (tx + 16 * kk) * F_PS + rq;
-      const float lo4[4] = {s[0][kk], s[1][kk], s[2][kk], s[3][kk]};
-      const float hi4[4] = {s[4][kk], s[5][kk], s[6][kk], s[7][kk]};
-      Vec<4>::put(dst, lo4);
-      Vec<4>::put(dst + 4, hi4);
+    for (int kk = 0; kk < L::KPT; ++kk) {
+      float* dst = Kt + (tx + 16 * kk) * L::PS + rq;
+#pragma unroll
+      for (int r4 = 0; r4 < L::RPT; r4 += 4) {
+        const float p4[4] = {s[r4][kk], s[r4 + 1][kk], s[r4 + 2][kk],
+                             s[r4 + 3][kk]};
+        Vec<4>::put(dst + r4, p4);
+      }
     }
 #pragma unroll
-    for (int i = 0; i < F_RPT; ++i)
+    for (int i = 0; i < L::RPT; ++i)
 #pragma unroll
       for (int c = 0; c < L::CPT; ++c) o[i][c] *= corr[i];
     __syncthreads();  // P^T is complete
 
-    // O += P V: rows rq .. rq + 7, columns g 16 VEC + tx VEC + e
-    const int limit = min(F_BK, p.S - k0);  // the keys past S are zeros
+    // O += P V: rows rq .. rq + RPT - 1, columns g 16 VEC + tx VEC + e
+    const int limit = min(L::BK, p.S - k0);  // the keys past S are zeros
 #pragma unroll 2
     for (int k = 0; k < limit; ++k) {
-      float pv[F_RPT];
-      Vec<4>::get(Kt + k * F_PS + rq, pv);
-      Vec<4>::get(Kt + k * F_PS + rq + 4, pv + 4);
+      float pv[L::RPT];
+#pragma unroll
+      for (int r4 = 0; r4 < L::RPT; r4 += 4)
+        Vec<4>::get(Kt + k * L::PS + rq + r4, pv + r4);
       float vv[L::CPT];
 #pragma unroll
       for (int g = 0; g < L::NG; ++g)
         Vec<L::VEC>::get(Vt + k * D + g * 16 * L::VEC + tx * L::VEC,
                          vv + g * L::VEC);
 #pragma unroll
-      for (int i = 0; i < F_RPT; ++i)
+      for (int i = 0; i < L::RPT; ++i)
 #pragma unroll
         for (int c = 0; c < L::CPT; ++c)
           o[i][c] = fmaf(pv[i], vv[c], o[i][c]);
@@ -711,7 +732,7 @@ __global__ void __launch_bounds__(F_NT, 1) flash_f32(const Params p) {
 
   // the row sums over the 16 threads of each row, then O / max(l, 1e-30)
 #pragma unroll
-  for (int i = 0; i < F_RPT; ++i) {
+  for (int i = 0; i < L::RPT; ++i) {
 #pragma unroll
     for (int off = 1; off < 16; off <<= 1)
       l[i] += __shfl_xor_sync(FULL, l[i], off);
@@ -766,7 +787,7 @@ int launch_bf16(const void* const (&ptr)[4], int B, int Hq, int Hkv, int T,
   if (fn == nullptr) return -5;
   CUtensorMap maps[4];
   const int rows[4] = {T, S, S, T}, heads[4] = {Hq, Hkv, Hkv, Hq};
-  const int box[4] = {BQ, BK, BK, BQ};
+  const int box[4] = {BQ, L::BK, L::BK, BQ};
   for (int i = 0; i < 4; ++i)
     if (!encode<D>(fn, &maps[i], ptr[i], rows[i], heads[i], B,
                    strides + 3 * i, box[i]))
@@ -792,7 +813,7 @@ int launch(const void* const (&ptr)[4], int bf16, int B, int Hq, int Hkv,
   const cudaError_t e = cudaFuncSetAttribute(
       flash_f32<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::SMEM);
   if (e != cudaSuccess) return static_cast<int>(e);
-  const int nblk = (T + F_BQ - 1) / F_BQ;
+  const int nblk = (T + L::BQ - 1) / L::BQ;
   const Params p{ptr[0], ptr[1], ptr[2], const_cast<void*>(ptr[3]),
                  T, S, Hq / Hkv, Hq, B, nblk,
                  s[0], s[1], s[2], s[3], s[4], s[5],
@@ -832,6 +853,9 @@ extern "C" int flash_attn_fwd(const void* q, const void* k, const void* v,
     case 128:
       return launch<128>(ptr, bf16, B, Hq, Hkv, T, S, strides, scale, causal,
                          window, st);
+    case 256:
+      return launch<256>(ptr, bf16, B, Hq, Hkv, T, S, strides, scale, causal,
+                         window, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -844,12 +868,14 @@ extern "C" int flash_attn_smem(int bf16, int D) {
     case 32: return bf16 ? Tiles<32>::SMEM : F32Tiles<32>::SMEM;
     case 64: return bf16 ? Tiles<64>::SMEM : F32Tiles<64>::SMEM;
     case 128: return bf16 ? Tiles<128>::SMEM : F32Tiles<128>::SMEM;
+    case 256: return bf16 ? Tiles<256>::SMEM : F32Tiles<256>::SMEM;
     default: return -1;
   }
 }
 
-// Resources of the variant v, head dim D = 16 << (v % 4): v = 0 .. 3
-// flash_bf16<D>, 4 .. 7 flash_f32<D> (see attributes.cuh).
+// Resources of the variant v: v = 0 .. 3 flash_bf16<D>, 4 .. 7
+// flash_f32<D> with D = 16 << (v % 4); 8 flash_bf16<256>, 9 flash_f32<256>
+// (see attributes.cuh).
 extern "C" int flash_attn_attributes(int v, int smem, int* out) {
   const void* fn;
   int threads = 3 * NT;
@@ -862,9 +888,11 @@ extern "C" int flash_attn_attributes(int v, int smem, int* out) {
     case 5: fn = reinterpret_cast<const void*>(flash_f32<32>); break;
     case 6: fn = reinterpret_cast<const void*>(flash_f32<64>); break;
     case 7: fn = reinterpret_cast<const void*>(flash_f32<128>); break;
+    case 8: fn = reinterpret_cast<const void*>(flash_bf16<256>); break;
+    case 9: fn = reinterpret_cast<const void*>(flash_f32<256>); break;
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (v >= 4) threads = F_NT;
+  if (v >= 4 && v != 8) threads = F_NT;
   return repro::kernel_attributes(fn, threads, smem, out);
 }

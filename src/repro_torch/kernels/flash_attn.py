@@ -11,8 +11,8 @@ the next correction factor wipes out), p rounded to v's dtype before the
 PV product, l clamped at 1e-30, the output cast to q's dtype.
 
 * :func:`flash_attention_plain` — the plain version, in PyTorch, over the
-  same 128-key tiles as the kernel (the tile decides where the running
-  max is taken, and so how p rounds in bf16).
+  same key tiles as the bf16 kernel, :func:`block_keys` (the tile decides
+  where the running max is taken, and so how p rounds in bf16).
 * :func:`launch_flash_attention` — B9 (``csrc/flash_attn.cu``, PTX
   helpers in ``csrc/sm90.cuh``). bf16 runs a Hopper kernel: one CTA of
   three warpgroups per (b, q head, 128-row query block), a producer
@@ -21,14 +21,16 @@ PV product, l clamped at 1e-30, the output cast to q's dtype.
   ``wgmma`` for S = Q Kᵀ and for O += P V (P from registers, V read
   transposed by the descriptor), overlap one tile's softmax with the
   products FlashAttention-3's way, mask only the tiles that cross an
-  edge, and store O by TMA; blocks run heaviest first. The
+  edge, and store O by TMA; blocks run heaviest first; 128-key tiles, 64
+  at head dim 256. The
   host encodes the four tensor maps per call with
   ``cuTensorMapEncodeTiled``, reached through the CUDA runtime's driver
   entry point (no ``-lcuda``); a map the driver refuses raises, naming
   the tensor and its strides. float32 runs on CUDA cores (no TF32), one
-  CTA per 128-row query block. Head dims 16, 32, 64 and 128. Any strides
-  with a contiguous last dim, so (B, T, H, D) activations go in without
-  a copy.
+  CTA per 128-row query block (64 rows and 32-key tiles at head dim 256).
+  Head dims 16, 32, 64, 128 and 256 (recurrentgemma's). Any strides with
+  a contiguous last dim, so (B, T, H, D) activations go in without a
+  copy.
 * :func:`flash_attention` — dispatch by device: a CPU tensor runs the
   plain version, a CUDA tensor launches B9 (counted in
   ``flash_attention.launches``).
@@ -84,20 +86,29 @@ from repro_torch.kernels._device import on_cpu
 Tensor = torch.Tensor
 
 NEG_INF = -1e30
-BK = 128                     # keys per kv tile (kernel and plain version)
-HEAD_DIMS = (16, 32, 64, 128)
+BK = 128                     # keys per kv tile up to head dim 128
+HEAD_DIMS = (16, 32, 64, 128, 256)          # B9's
+TRAIN_HEAD_DIMS = (16, 32, 64, 128)         # F's and N1's
 DTYPES = (torch.float32, torch.bfloat16)
 
 
+def block_keys(D: int) -> int:
+    """Keys per kv tile of B9's bf16 kernel and of the plain version at
+    head dim D: 128, and 64 at D = 256 (two 128-key K/V stages would not
+    fit in shared memory beside Q there)."""
+    return BK if D <= 128 else 64
+
+
 def live_tiles(q_first: int, q_last: int, S: int, causal: bool,
-               window: int | None) -> range:
-    """Kv tiles that some query position in [q_first, q_last] sees."""
-    hi = -(-S // BK)
+               window: int | None, bk: int = BK) -> range:
+    """Kv tiles of ``bk`` keys that some query position in [q_first,
+    q_last] sees."""
+    hi = -(-S // bk)
     if causal:
-        hi = min(hi, q_last // BK + 1)
+        hi = min(hi, q_last // bk + 1)
     lo = 0
     if window is not None:
-        lo = max(0, (q_first - window + 1) // BK)
+        lo = max(0, (q_first - window + 1) // bk)
     return range(lo, hi)
 
 
@@ -116,10 +127,12 @@ def _shape(q: Tensor, k: Tensor, v: Tensor):
 def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor, *,
                           causal: bool = True, window: int | None = None,
                           scale: float | None = None) -> Tensor:
-    """Plain version of B9: the reference's online softmax, one 128-key
-    tile at a time, in fp32, GQA by viewing q as (B, Hkv, G·T, D)."""
+    """Plain version of B9: the reference's online softmax, one tile of
+    :func:`block_keys` keys at a time, in fp32, GQA by viewing q as (B,
+    Hkv, G·T, D)."""
     B, Hq, Hkv, T, S, D = _shape(q, k, v)
     G = Hq // Hkv
+    bk = block_keys(D)
     scale = D ** -0.5 if scale is None else scale
     q_offset = S - T
     qf = q.float().reshape(B, Hkv, G * T, D)
@@ -127,11 +140,11 @@ def flash_attention_plain(q: Tensor, k: Tensor, v: Tensor, *,
     m = torch.full((B, Hkv, G * T, 1), NEG_INF, device=q.device)
     l = torch.zeros_like(m)
     acc = torch.zeros(B, Hkv, G * T, D, device=q.device)
-    for j in live_tiles(q_offset, S - 1, S, causal, window):
-        kb = k[:, :, j * BK:(j + 1) * BK].float()
-        vb = v[:, :, j * BK:(j + 1) * BK]
+    for j in live_tiles(q_offset, S - 1, S, causal, window, bk):
+        kb = k[:, :, j * bk:(j + 1) * bk].float()
+        vb = v[:, :, j * bk:(j + 1) * bk]
         logits = (qf @ kb.transpose(-1, -2)) * scale
-        kpos = torch.arange(j * BK, j * BK + kb.shape[2], device=q.device)
+        kpos = torch.arange(j * bk, j * bk + kb.shape[2], device=q.device)
         mask = torch.ones(G * T, kb.shape[2], dtype=torch.bool,
                           device=q.device)
         if causal:
@@ -379,9 +392,9 @@ def _fp32_aligned(name: str, t: Tensor) -> Tensor:
 
 
 def _train_head_dim(dh: int) -> None:
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"the training kernels take head dims {HEAD_DIMS}, "
-                         f"got {dh}")
+    if dh not in TRAIN_HEAD_DIMS:
+        raise ValueError(f"the training kernels take head dims "
+                         f"{TRAIN_HEAD_DIMS}, got {dh}")
 
 
 def launch_flash_attention_train(q: Tensor, k: Tensor, v: Tensor, *,

@@ -1,3 +1,3 @@
-"""Launchers. Port of ``repro.launch`` (``serve`` and ``mesh``; ``train``
-waits for ROADMAP A17's second part, ``dryrun`` and ``hlo_analysis`` for
-A19)."""
+"""Launchers. Port of ``repro.launch`` (``serve``, ``train`` and
+``mesh``; ``dryrun`` and ``hlo_analysis``, the TPU launch tools, wait for
+ROADMAP A19)."""

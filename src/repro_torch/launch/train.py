@@ -10,7 +10,9 @@ Runs on the card unless ``--device cpu`` (the kernels' plain versions);
 ``--full-config`` builds the published architecture, else the smoke
 config. Weights are random, drawn from ``--seed`` with a
 ``torch.Generator``. ``--mesh`` (the reference's sharded step) is the
-LM's mesh path, ROADMAP A17 (third part), and raises.
+LM's mesh path, ROADMAP A17 (third part), and raises; so do the ssm and
+hybrid families (falcon-mamba-7b, recurrentgemma-9b: ROADMAP A18,
+training of the ssm and hybrid families), before any weight is drawn.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
       --full-config --seq-len 2048 --global-batch 4 --steps 8
@@ -80,11 +82,13 @@ def train(args: argparse.Namespace, cfg=None) -> tuple[dict, list[float]]:
                                     total_steps=args.steps),
         compression=compress.CompressConfig(codec=args.compress),
         grad_accum=args.grad_accum)
+    # built first: it raises for a family whose training waits, before
+    # the weights are drawn
+    step_fn = steps_mod.make_train_step(cfg, tc)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = M.init_params(cfg, generator=gen, device=dev, trainable=True)
     state = steps_mod.TrainState.create(params,
                                         use_ef=args.compress != "none")
-    step_fn = steps_mod.make_train_step(cfg, tc)
 
     start_step = 0
     mgr = None

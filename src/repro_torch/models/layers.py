@@ -1,4 +1,5 @@
-"""Primitive layers: norms, projections, embeddings, RoPE, MLPs.
+"""Primitive layers: norms, projections, embeddings, RoPE, MLPs, and the
+recurrent blocks' causal conv and log-depth scan.
 
 Port of ``repro.models.layers``. Parameters are ``nn.ParameterDict``s
 keyed as the reference's dict pytrees are (``{"w", "b"}``,
@@ -145,6 +146,53 @@ def apply_rope(x: Tensor, pos: Tensor, theta: float) -> Tensor:
 def apply_mrope(x: Tensor, pos3: Tensor, theta: float, sections: tuple):
     raise NotImplementedError(
         "M-RoPE (the vlm family, qwen2-vl) is not ported yet: ROADMAP A18")
+
+
+# ---------------------------------------------------------------------------
+# the recurrent blocks' shared pieces (mamba, rglru)
+# ---------------------------------------------------------------------------
+
+def causal_conv(xb: Tensor, pc, compute_dtype) -> Tensor:
+    """Depthwise causal conv1d of width K over (B, T, d): y_t = sum_k w_k
+    x_{t-K+1+k} + b (the reference's ``mamba._causal_conv`` and
+    ``rglru._causal_conv``, one function here)."""
+    K, T = pc["w"].shape[0], xb.shape[1]
+    w = pc["w"].to(compute_dtype)                        # (K, d)
+    pads = F.pad(xb, (0, 0, K - 1, 0))
+    y = sum(pads[:, k:k + T, :] * w[k] for k in range(K))
+    return y + pc["b"].to(compute_dtype)
+
+
+def affine_scan(a: Tensor, b: Tensor) -> Tensor:
+    """The states h_t = a_t h_{t-1} + b_t from h = 0, along the leading
+    (time) axis: the b half of every prefix of the affine maps h -> a h +
+    b under the composition (a2, b2) ∘ (a1, b1) = (a2 a1, a2 b1 + b2)
+    that the reference hands to ``jax.lax.associative_scan``
+    (``mamba.py:101``, ``rglru.py:98``).
+
+    Log-depth (Hillis–Steele): ⌈log₂ T⌉ rounds, each three whole-tensor
+    elementwise kernels written into fresh buffers, so a 4,096-step
+    sequence is 12 rounds and never a Python loop over steps. Time-major,
+    so every slice is contiguous and PyTorch's vectorized kernels run. No
+    division by prefix products, so a product of decays that underflows
+    to 0 stays exact. The rounding differs from the reference's tree by
+    fp32 ordering only."""
+    n = a.shape[0]
+    a, b = a.contiguous(), b.contiguous()
+    step = 1
+    while step < n:
+        nb = torch.empty_like(b)
+        nb[:step] = b[:step]
+        torch.mul(a[step:], b[:-step], out=nb[step:])
+        nb[step:] += b[step:]
+        if 2 * step < n:                  # a's prefixes feed later rounds
+            na = torch.empty_like(a)
+            na[:step] = a[:step]
+            torch.mul(a[:-step], a[step:], out=na[step:])
+            a = na
+        b = nb
+        step *= 2
+    return b
 
 
 # ---------------------------------------------------------------------------

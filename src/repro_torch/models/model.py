@@ -1,4 +1,5 @@
-"""Top-level model: embeddings + stack + head, for the dense families.
+"""Top-level model: embeddings + stack + head, for the dense, ssm and
+hybrid families.
 
 Port of ``repro.models.model``. Public functions keep the reference's
 names and argument order, with the parameter tree ``p`` an ``nn.Module``
@@ -13,10 +14,12 @@ reference's pytree, the stack's layers un-stacked):
   cache_shapes(cfg, batch, max_len)       -> per-layer meta tensors
 
 ``impl`` defaults to ``"flash_pallas"`` (B9 on the card) for serving;
-training passes ``"flash_xla"`` (``TrainConfig.attn_impl``). The moe,
-ssm, hybrid (RG-LRU), encdec and vlm families, and llama4's iRoPE
-window/global layers, wait for A18 and raise when a model is built from
-them (``check_supported``). ``param_shapes``, ``input_specs`` and
+training passes ``"flash_xla"`` (``TrainConfig.attn_impl``). The dense,
+ssm (falcon-mamba) and hybrid (recurrentgemma: RG-LRU and local
+attention) families are built; training the ssm and hybrid families
+waits (``train.steps.make_train_step`` raises). The moe, encdec and vlm
+families, M-RoPE and llama4's iRoPE window/global layers wait for A18
+and raise when a model is built from them (``check_supported``). ``param_shapes``, ``input_specs`` and
 ``batch_axes`` serve the TPU dry-run (A19) and the LM's mesh path
 (A17, third part).
 """
@@ -37,7 +40,8 @@ Tensor = torch.Tensor
 def check_supported(cfg: ArchConfig) -> None:
     """Raise for what this slice does not run, naming its ROADMAP item."""
     for what, unported in (
-            (f"the {cfg.family} family", cfg.family not in ("dense",)),
+            (f"the {cfg.family} family",
+             cfg.family not in ("dense", "ssm", "hybrid")),
             ("mixture-of-experts MLPs", cfg.moe is not None),
             ("M-RoPE", cfg.rope_kind == "mrope"),
             ("the encoder stack", cfg.encoder is not None),
@@ -46,7 +50,7 @@ def check_supported(cfg: ArchConfig) -> None:
         if unported:
             raise NotImplementedError(
                 f"{cfg.name}: {what} is not ported yet: ROADMAP A18 (the "
-                f"port builds dense models only)")
+                f"port builds the dense, ssm and hybrid families only)")
     T.layer_kinds(cfg)
 
 
@@ -54,15 +58,58 @@ def check_supported(cfg: ArchConfig) -> None:
 # params
 # ---------------------------------------------------------------------------
 
+class MixedDict(nn.ModuleDict):
+    """A tree node that holds parameters beside sub-trees (mamba's
+    ``A_log`` and ``D`` beside its projections): a ``ModuleDict`` whose
+    items, keys and ``[]`` cover both, in the reference's key order."""
+
+    def __init__(self, children: dict):
+        super().__init__()
+        self._order = list(children)
+        for k, v in children.items():
+            if isinstance(v, nn.Parameter):
+                self.register_parameter(k, v)
+            else:
+                self.add_module(k, v)
+
+    def __getitem__(self, key):
+        if key in self._parameters:
+            return self._parameters[key]
+        return super().__getitem__(key)
+
+    def __contains__(self, key) -> bool:
+        return key in self._order
+
+    def __iter__(self):
+        return iter(self._order)
+
+    def __len__(self) -> int:
+        return len(self._order)
+
+    def keys(self):
+        return list(self._order)
+
+    def items(self):
+        return [(k, self[k]) for k in self._order]
+
+    def values(self):
+        return [self[k] for k in self._order]
+
+
 def from_tree(tree, trainable: bool = False) -> nn.Module:
     """A nested dict/list of tensors (the reference's pytree layout) as an
     ``nn.Module``; its parameters require grad only if ``trainable``
     (serving keeps them frozen)."""
     if isinstance(tree, list):
         return nn.ModuleList([from_tree(t, trainable) for t in tree])
-    if all(isinstance(v, Tensor) for v in tree.values()):
+    leaf = {k: isinstance(v, Tensor) for k, v in tree.items()}
+    if all(leaf.values()):
         return nn.ParameterDict({k: nn.Parameter(v, requires_grad=trainable)
                                  for k, v in tree.items()})
+    if any(leaf.values()):
+        return MixedDict({k: nn.Parameter(v, requires_grad=trainable)
+                          if leaf[k] else from_tree(v, trainable)
+                          for k, v in tree.items()})
     return nn.ModuleDict({k: from_tree(v, trainable)
                           for k, v in tree.items()})
 

@@ -1,17 +1,21 @@
-"""Layer stacks of the attention-layer kinds: prefill, decode, forward.
+"""Layer stacks: prefill, decode, forward for the dense, ssm and hybrid
+families.
 
-Port of ``repro.models.transformer`` for the dense families. The
-reference stacks each position of the layer pattern's repeating unit on a
-leading "repeats" axis and runs one ``lax.scan`` over it; here the stack
-is an ``nn.ModuleList`` of per-layer parameter trees, walked by a Python
-loop in the order ``ArchConfig.layer_pattern()`` gives (unit × reps, then
-the tail). The cache is one ``{"k", "v"}`` pair of bf16 tensors
-(B, max_len, KV, dh) per layer, in a list.
+Port of ``repro.models.transformer``. The reference stacks each position
+of the layer pattern's repeating unit on a leading "repeats" axis and
+runs one ``lax.scan`` over it; here the stack is an ``nn.ModuleList`` of
+per-layer parameter trees, walked by a Python loop in the order
+``ArchConfig.layer_pattern()`` gives (unit × reps, then the tail:
+recurrentgemma's (rec, rec, attn) × 12 + (rec, rec), falcon-mamba's
+(ssm,) × 64). The cache is a list with one entry a layer: a ``{"k",
+"v"}`` pair of bf16 tensors (B, max_len or the window, KV, dh) for an
+attention layer, the recurrent state ``{"h", "conv"}`` (h fp32, the conv
+history bf16) for an ``ssm`` (mamba) or ``rec`` (RG-LRU) layer.
 
-Layer kinds: ``"attn"`` runs; the llama4 iRoPE kinds (``attn_window``,
-``attn_global``), ``ssm`` (mamba), ``rec`` (RG-LRU), mixture-of-experts
-MLPs and cross-attention raise ``NotImplementedError`` naming ROADMAP
-A18.
+Layer kinds: ``"attn"``, ``"ssm"`` (no MLP after it) and ``"rec"``
+(followed by the MLP) run; the llama4 iRoPE kinds (``attn_window``,
+``attn_global``), mixture-of-experts MLPs and cross-attention raise
+``NotImplementedError`` naming ROADMAP A18.
 
 The train-mode :func:`apply_stack` wraps each layer in the reference's
 remat policy (``_remat``, ``cfg.remat``): ``none``; ``full`` (every
@@ -29,14 +33,15 @@ import functools
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ArchConfig
-from repro_torch.models import attention, layers as L
+from repro_torch.models import attention, layers as L, mamba, rglru
 
 Tensor = torch.Tensor
 
-KINDS = ("attn",)
+KINDS = ("attn", "ssm", "rec")
 
 
 def _unported(what: str) -> NotImplementedError:
@@ -66,10 +71,17 @@ def init_layer(gen: torch.Generator, kind: str, cfg: ArchConfig, dtype,
         raise _unported("cross-attention (the encdec family)")
     if cfg.moe is not None:
         raise _unported("the mixture-of-experts MLP (the moe family)")
-    return {"ln1": L.norm_init(cfg.d_model, cfg.norm_kind, dtype, gen.device),
-            "attn": attention.init(gen, cfg, dtype),
-            "ln2": L.norm_init(cfg.d_model, cfg.norm_kind, dtype, gen.device),
-            "mlp": L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.act, dtype)}
+    p = {"ln1": L.norm_init(cfg.d_model, cfg.norm_kind, dtype, gen.device)}
+    if kind == "ssm":
+        p["ssm"] = mamba.init(gen, cfg, dtype)
+        return p                        # mamba block: no separate MLP
+    if kind == "rec":
+        p["rec"] = rglru.init(gen, cfg, dtype)
+    else:
+        p["attn"] = attention.init(gen, cfg, dtype)
+    p["ln2"] = L.norm_init(cfg.d_model, cfg.norm_kind, dtype, gen.device)
+    p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, cfg.act, dtype)
+    return p
 
 
 def _kind_attn_opts(kind: str, cfg: ArchConfig):
@@ -88,15 +100,21 @@ def apply_layer(p, x: Tensor, kind: str, cfg: ArchConfig, *, pos: Tensor,
                 memory: Optional[Tensor] = None, causal: bool = True,
                 impl: str = "flash_pallas", compute_dtype=torch.bfloat16):
     """Full-sequence layer. Returns (x, aux_loss); aux is 0 (no MoE)."""
-    window, use_rope = _kind_attn_opts(kind, cfg)
+    aux = torch.zeros((), device=x.device)
     h = L.apply_norm(p["ln1"], x, cfg.norm_kind)
-    x = x + attention.forward(p["attn"], h, cfg, pos=pos, causal=causal,
-                              window=window, use_rope=use_rope, pos3=pos3,
-                              memory=memory, impl=impl,
-                              compute_dtype=compute_dtype)
+    if kind == "ssm":
+        return x + mamba.forward(p["ssm"], h, cfg, compute_dtype), aux
+    if kind == "rec":
+        x = x + rglru.forward(p["rec"], h, cfg, compute_dtype)
+    else:
+        window, use_rope = _kind_attn_opts(kind, cfg)
+        x = x + attention.forward(p["attn"], h, cfg, pos=pos, causal=causal,
+                                  window=window, use_rope=use_rope,
+                                  pos3=pos3, memory=memory, impl=impl,
+                                  compute_dtype=compute_dtype)
     h2 = L.apply_norm(p["ln2"], x, cfg.norm_kind)
     x = x + L.apply_mlp(p["mlp"], h2, cfg.act, compute_dtype)
-    return x, torch.zeros((), device=x.device)
+    return x, aux
 
 
 # ---------------------------------------------------------------------------
@@ -105,11 +123,16 @@ def apply_layer(p, x: Tensor, kind: str, cfg: ArchConfig, *, pos: Tensor,
 
 def layer_cache_shape(kind: str, cfg: ArchConfig, batch: int, max_len: int,
                       dtype=torch.bfloat16, cross_len: int = 0) -> dict:
-    """One layer's cache as meta tensors."""
+    """One layer's cache as meta tensors: the kv pair of an attention
+    layer, the ``{"h", "conv"}`` state of an ssm or rec layer."""
     if kind not in KINDS:
         raise _unported(f"the cache of layer kind {kind!r}")
     if cross_len:
         raise _unported("the cross-attention cache (the encdec family)")
+    if kind == "ssm":
+        return mamba.state_shape(cfg, batch, dtype)
+    if kind == "rec":
+        return rglru.state_shape(cfg, batch, dtype)
     window, _ = _kind_attn_opts(kind, cfg)
     return attention.cache_shape(cfg, batch, max_len, window, dtype)
 
@@ -117,12 +140,20 @@ def layer_cache_shape(kind: str, cfg: ArchConfig, batch: int, max_len: int,
 def apply_layer_decode(p, cache, x: Tensor, kind: str, cfg: ArchConfig, *,
                        pos, pos3: Optional[Tensor] = None,
                        compute_dtype=torch.bfloat16):
-    """One-token decode through a layer. Returns (x, cache)."""
-    window, use_rope = _kind_attn_opts(kind, cfg)
+    """One-token decode through a layer. Returns (x, cache): an attention
+    layer's kv cache updated in place, a recurrent layer's new state."""
     h = L.apply_norm(p["ln1"], x, cfg.norm_kind)
-    y, cache = attention.decode_step(p["attn"], cache, h, cfg, pos=pos,
-                                     window=window, use_rope=use_rope,
-                                     pos3=pos3, compute_dtype=compute_dtype)
+    if kind == "ssm":
+        y, cache = mamba.decode_step(p["ssm"], cache, h, cfg, compute_dtype)
+        return x + y, cache
+    if kind == "rec":
+        y, cache = rglru.decode_step(p["rec"], cache, h, cfg, compute_dtype)
+    else:
+        window, use_rope = _kind_attn_opts(kind, cfg)
+        y, cache = attention.decode_step(p["attn"], cache, h, cfg, pos=pos,
+                                         window=window, use_rope=use_rope,
+                                         pos3=pos3,
+                                         compute_dtype=compute_dtype)
     x = x + y
     h2 = L.apply_norm(p["ln2"], x, cfg.norm_kind)
     return x + L.apply_mlp(p["mlp"], h2, cfg.act, compute_dtype), cache
@@ -138,18 +169,49 @@ def apply_layer_prefill(p, x: Tensor, kind: str, cfg: ArchConfig, *,
     if memory is not None:
         raise _unported("cross-attention (the encdec family)")
     B, T, _ = x.shape
-    window, use_rope = _kind_attn_opts(kind, cfg)
     h = L.apply_norm(p["ln1"], x, cfg.norm_kind)
-    q, k, v = attention.qkv(p["attn"], h, cfg, compute_dtype)
-    if use_rope:
-        q, k = attention.rope_qk(q, k, cfg, pos, pos3)
-    o = attention.attend(q, k, v, causal=True, window=window, impl=impl)
-    o = o.reshape(B, T, cfg.n_heads * cfg.dh)
-    x = x + L.apply_dense(p["attn"]["wo"], o, compute_dtype)
-    cache = _fill_kv_cache(k, v, window, max_len)
+    if kind == "ssm":
+        ps = p["ssm"]
+        xb, xc, z = mamba.in_branches(ps, h, compute_dtype)
+        h0 = torch.zeros(B, mamba.d_inner(cfg), cfg.ssm.state,
+                         device=x.device)
+        y, h_fin = mamba.scan_sequence(ps, xc, cfg, h0)
+        out = L.apply_dense(ps["out_proj"], y * F.silu(z),
+                            compute_dtype)
+        cache = {"h": h_fin, "conv": _tail_pad(xb, cfg.ssm.conv - 1).to(
+            torch.bfloat16, copy=True)}
+        return x + out, cache
+    if kind == "rec":
+        pr = p["rec"]
+        xb, xc, g = rglru.in_branches(pr, h, compute_dtype)
+        hs = rglru.scan(pr, xc)
+        out = L.apply_dense(pr["out"], hs.to(compute_dtype) * g,
+                            compute_dtype)
+        # copies: a view would keep the whole (B, T, .) activation alive
+        # in the cache
+        cache = {"h": hs[:, -1].clone(), "conv": _tail_pad(
+            xb, cfg.rglru.conv - 1).to(torch.bfloat16, copy=True)}
+        x = x + out
+    else:
+        window, use_rope = _kind_attn_opts(kind, cfg)
+        q, k, v = attention.qkv(p["attn"], h, cfg, compute_dtype)
+        if use_rope:
+            q, k = attention.rope_qk(q, k, cfg, pos, pos3)
+        o = attention.attend(q, k, v, causal=True, window=window, impl=impl)
+        o = o.reshape(B, T, cfg.n_heads * cfg.dh)
+        x = x + L.apply_dense(p["attn"]["wo"], o, compute_dtype)
+        cache = _fill_kv_cache(k, v, window, max_len)
     h2 = L.apply_norm(p["ln2"], x, cfg.norm_kind)
     x = x + L.apply_mlp(p["mlp"], h2, cfg.act, compute_dtype)
     return x, cache
+
+
+def _tail_pad(x: Tensor, n: int) -> Tensor:
+    """Last n positions of (B, T, d), left-padded with zeros if T < n."""
+    T = x.shape[1]
+    if T >= n:
+        return x[:, T - n:]
+    return F.pad(x, (0, 0, n - T, 0))
 
 
 def _fill_kv_cache(k: Tensor, v: Tensor, window: Optional[int],

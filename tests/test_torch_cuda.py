@@ -767,7 +767,13 @@ FLASH_CASES = [(2, 16, 8, 200, 200, 128, True, None),
                (1, 8, 8, 300, 300, 64, True, None),
                (1, 16, 4, 300, 300, 128, True, None),
                (2, 4, 2, 333, 333, 16, True, 100),
-               (2, 4, 2, 100, 333, 32, True, None)]
+               (2, 4, 2, 100, 333, 32, True, None),
+               # head dim 256 (recurrentgemma's): GQA 16:1, a window
+               # across the 64-key tiles, T < S, no mask, ragged
+               (1, 16, 1, 300, 300, 256, True, 100),
+               (2, 16, 1, 100, 333, 256, True, None),
+               (1, 8, 2, 257, 257, 256, False, None),
+               (1, 4, 4, 129, 129, 256, True, None)]
 
 
 def _flash_inputs(B, Hq, Hkv, T, S, D, dtype, dev, seed=0):

@@ -5,9 +5,9 @@ Inputs are drawn with numpy from a seed and handed to both packages.
 fp32 holds the reference's own band (2e-6 absolute at 0.3-scaled inputs,
 ``tests/test_kernels.py``); bf16 holds 1e-2 of the output's scale (the
 two frameworks round bf16 matmuls and exps at different places). The
-interpret-mode kernel runs with the port's 128-key tile (``_bk``) where
-the tile decides the rounding of p (bf16) and S allows it, and with
-32-wide tiles elsewhere.
+interpret-mode kernel runs with the port's key tile (``_bk``: 128 keys,
+64 at head dim 256) where the tile decides the rounding of p (bf16) and
+S allows it, and with 32-wide tiles elsewhere.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -39,11 +39,12 @@ def _jax(arrs, dtype=jnp.float32):
     return tuple(jnp.asarray(a).astype(dtype) for a in arrs)
 
 
-def _bk(S):
-    """The Pallas kv tile that walks the port's tiles: BK, or S itself
-    when S < BK; 64 where S is not a multiple of BK (the Pallas kernel
-    needs equal tiles)."""
-    return tfa.BK if S < tfa.BK or S % tfa.BK == 0 else 64
+def _bk(S, D):
+    """The Pallas kv tile that walks the port's tiles (block_keys(D)), or
+    S itself when S is shorter; 64 where S is not a multiple of the tile
+    (the Pallas kernel needs equal tiles)."""
+    bk = tfa.block_keys(D)
+    return bk if S < bk or S % bk == 0 else 64
 
 
 def _err(got, want):
@@ -60,7 +61,11 @@ CASES = [(2, 4, 2, 128, 128, 64, True, None),
          (1, 2, 2, 64, 64, 16, True, None),
          (1, 8, 2, 64, 128, 128, True, 100),
          (1, 4, 2, 128, 256, 64, True, 100),    # window narrower than a tile
-         (1, 4, 4, 256, 256, 32, True, 200)]    # window across two tiles
+         (1, 4, 4, 256, 256, 32, True, 200),    # window across two tiles
+         # head dim 256 (recurrentgemma's): GQA 16:1 with a window across
+         # the 64-key tiles; T < S
+         (1, 16, 1, 128, 128, 256, True, 48),
+         (1, 4, 2, 64, 128, 256, True, None)]
 
 
 @pytest.mark.parametrize("B,Hq,Hkv,T,S,D,causal,window", CASES)
@@ -83,7 +88,7 @@ def test_plain_matches_interpret_kernel_bf16(B, Hq, Hkv, T, S, D, causal,
                                              window):
     arrs = _qkv(B, Hq, Hkv, T, S, D, seed=1)
     want = jfa.flash_attention(*_jax(arrs, jnp.bfloat16), causal=causal,
-                               window=window, bq=64, bk=_bk(S),
+                               window=window, bq=64, bk=_bk(S, D),
                                interpret=True)
     got = tfa.flash_attention(*_port(arrs, torch.bfloat16), causal=causal,
                               window=window)

@@ -1,7 +1,7 @@
 """repro_torch.analysis.hopper_check (port of repro.analysis.pallas_check):
 the main path's plans fit the H100; an oversized tile plan and the
-ceiling case (B9 fp32 at head dim 256) fail at plan time with a sizing
-report; the mirrors give the shared-memory bytes PERF.md's kernel table
+ceiling case (B9 fp32's D = 128 tiles at head dim 256) fail at plan time
+with a sizing report; the mirrors give the shared-memory bytes PERF.md's kernel table
 records at its shapes and the library's plan queries returned on the
 H100 (tests/test_torch_cuda.py holds them against the built library on
 the card)."""
@@ -43,10 +43,14 @@ def test_oversized_tile_plan_fails_with_sizing_report():
 
 
 def test_flash_f32_ceiling_at_head_dim_256():
+    """The D = 128 plan's 128 query rows and 64-key tiles do not fit at
+    head dim 256; the kernel's own D = 256 plan (64 rows, 32 keys) does."""
     with pytest.raises(hc.HopperBudgetError) as e:
-        hc.check_plan(hc.flash_f32_plan(D=256))
+        hc.check_plan(hc.flash_f32_plan(D=256, bq=128, bk=64))
     assert "397,312 B" in str(e.value) and "k_pt_ring" in str(e.value)
     hc.check_plan(hc.flash_f32_plan(D=128))
+    hc.check_plan(hc.flash_f32_plan(D=256))
+    hc.check_plan(hc.flash_bf16_plan(B=2, T=4096, D=256))
 
 
 # PERF.md's kernel table and the library's plan queries on the H100
@@ -66,10 +70,12 @@ KNOWN = [
     ("flash_bf16", dict(D=16), 122_880),
     ("flash_bf16", dict(D=64), 122_880),
     ("flash_bf16", dict(D=128), 164_936),
+    ("flash_bf16", dict(D=256), 197_704),
     ("flash_f32", dict(D=16), 86_016),
     ("flash_f32", dict(D=32), 102_400),
     ("flash_f32", dict(D=64), 135_168),
     ("flash_f32", dict(D=128), 200_704),
+    ("flash_f32", dict(D=256), 198_656),
     ("flash_f32_stats", dict(D=16), 53_280),
     ("flash_f32_stats", dict(D=128), 217_120),
     ("flash_f32_stats", dict(D=128, exact=True), 151_584),
@@ -115,6 +121,9 @@ def test_variants_and_register_caps():
     assert hc.gram_plan().reg_cap == 128
     assert hc.gram_plan(kind="laplacian").reg_cap == 255
     assert hc.flash_bf16_plan().reg_cap == 168
+    assert sorted(hc.PLAN_BUILDERS[k](D=d).variant
+                  for k in ("flash_bf16", "flash_f32")
+                  for d in (16, 32, 64, 128, 256)) == list(range(10))
     assert {hc.flash_f32_stats_plan(D=d, exact=e).variant
             for d in (16, 32, 64, 128) for e in (False, True)} == set(range(8))
     assert hc.flash_f32_stats_plan().reg_cap == 168

@@ -1,4 +1,6 @@
-"""The LM scaffold's serving path in repro_torch against the JAX reference.
+"""The LM scaffold's serving path in repro_torch against the JAX reference:
+the dense families, and the ssm (falcon-mamba) and hybrid
+(recurrentgemma: RG-LRU and local attention) families.
 
 Weights come from one draw of the reference's ``init_params`` and cross
 with ``interop.lm_params_from_numpy``; inputs are drawn with numpy from a
@@ -33,8 +35,9 @@ from repro_torch.train import steps as tsteps
 
 KEY = jax.random.PRNGKey(0)
 DENSE = ["qwen3-0.6b", "smollm-135m", "granite-8b", "qwen2.5-14b"]
-UNPORTED = ["dbrx-132b", "llama4-scout-17b-a16e", "falcon-mamba-7b",
-            "recurrentgemma-9b", "seamless-m4t-medium", "qwen2-vl-72b"]
+RECURRENT = ["falcon-mamba-7b", "recurrentgemma-9b"]
+UNPORTED = ["dbrx-132b", "llama4-scout-17b-a16e", "seamless-m4t-medium",
+            "qwen2-vl-72b"]
 
 
 def _np(x):
@@ -263,7 +266,7 @@ def test_prefill_and_decode_match_reference(arch, compute_dtype):
                                             cj["scan"]["u0"][n][layer])
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + RECURRENT)
 def test_decode_consistency(arch):
     """prefill(T0) + decode(T0..S) logits match the port's own full
     forward (the counterpart of the reference's test_decode_consistency,
@@ -394,3 +397,176 @@ def test_entry_points_default_to_the_card():
         tM.init_params(cfg, generator=torch.Generator())
     with pytest.raises(RuntimeError, match="device='cpu'"):
         tserve.main(["--arch", "qwen3-0.6b"])
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families: falcon-mamba (ssm) and recurrentgemma (hybrid)
+# ---------------------------------------------------------------------------
+
+def _stacked_layers(cfg, tree):
+    """The reference's stacked layer trees taken apart in stack order:
+    for each repeat the unit's positions, then the tail."""
+    unit, reps, tail = cfg.layer_pattern()
+    return [jax.tree.map(lambda a, r=r: a[r], tree["stack"]["scan"][f"u{i}"])
+            for r in range(reps) for i in range(len(unit))] + \
+        list(tree["stack"]["tail"])
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("arch,T", [("falcon-mamba-7b", 70),
+                                    ("recurrentgemma-9b", 40)])
+def test_recurrent_prefill_and_decode_match_reference(arch, T,
+                                                      compute_dtype):
+    """prefill + 4 decode steps against the reference. falcon-mamba at
+    T = 70 runs two scan chunks and the pad; recurrentgemma at T = 40,
+    past its window of 16, wraps the ring cache and B9's window. fp32
+    logits, and each layer's carried state h, within the whole model's
+    1e-4 of their largest magnitude (a deep layer's state carries the
+    layers' rounding above it), the bf16 conv history within one bf16 ulp
+    of its largest entry (a near-zero entry of a deep layer may round to
+    another bf16 value); bf16 within the reference's 0.02."""
+    cfg_j, cfg_t = _cfgs(arch, compute_dtype)
+    pj, pt = _params(cfg_j, cfg_t)
+    B, n_dec = 2, 4
+    max_len = T + n_dec
+    toks = np.random.default_rng(6).integers(0, cfg_j.vocab, (B, T + n_dec))
+    lj, cj = jM.prefill(pj, {"tokens": jnp.asarray(toks[:, :T])}, cfg_j,
+                        max_len=max_len, impl="flash_pallas")
+    lt, ct = tM.prefill(pt, {"tokens": torch.tensor(toks[:, :T])}, cfg_t,
+                        max_len=max_len)
+    pairs = [(lt, lj)]
+    for t in range(T, T + n_dec):
+        lj, cj = jM.decode(pj, cj, jnp.asarray(toks[:, t:t + 1]),
+                           jnp.int32(t), cfg_j)
+        lt, ct = tM.decode(pt, ct, torch.tensor(toks[:, t:t + 1]), t, cfg_t)
+        pairs.append((lt, lj))
+    scale = max(float(np.abs(_np(w)).max()) for _, w in pairs)
+    err = max(float(np.abs(g.float().numpy() - _np(w)).max())
+              for g, w in pairs)
+    assert lt.shape == (B, 1, cfg_t.padded_vocab)
+    assert err <= (1e-4 if compute_dtype == "float32" else 0.02) * scale
+    kinds = tT.layer_kinds(cfg_t)
+    assert len(ct) == len(kinds) == cfg_t.n_layers
+    for c, want, kind in zip(ct, _stacked_layers(cfg_j, {"stack": cj}),
+                             kinds):
+        if kind == "attn":
+            assert set(c) == {"k", "v"}
+            assert c["k"].shape == (B, cfg_t.rglru.window, cfg_t.n_kv_heads,
+                                    cfg_t.dh)
+            continue
+        assert set(c) == {"h", "conv"}
+        assert c["h"].dtype == torch.float32
+        assert c["conv"].dtype == torch.bfloat16
+        assert c["h"].shape == want["h"].shape
+        if compute_dtype == "float32":
+            h = _np(want["h"])
+            assert float(np.abs(c["h"].numpy() - h).max()) <= \
+                1e-4 * float(np.abs(h).max())
+            conv = _np(want["conv"])
+            top = float(np.abs(conv).max())
+            assert float(np.abs(c["conv"].float().numpy() - conv).max()) \
+                <= 2.0 ** (np.floor(np.log2(top)) - 7)
+
+
+@pytest.mark.parametrize("kind,T", [("ssm", 2), ("ssm", 9), ("rec", 2),
+                                    ("rec", 9)])
+def test_recurrent_layer_prefill_caches_match_reference(kind, T):
+    """apply_layer_prefill's output and its {"h", "conv"} cache for one
+    ssm or rec layer; T = 2 < conv - 1 takes _tail_pad's left pad."""
+    arch = "falcon-mamba-7b" if kind == "ssm" else "recurrentgemma-9b"
+    cfg_j, cfg_t = _cfgs(arch, "float32")
+    pj, _ = jT.init_layer(KEY, kind, cfg_j, jnp.float32)
+    pt = jax.tree.map(lambda a: _t(a), pj)
+    x = np.random.default_rng(8).standard_normal(
+        (2, T, cfg_j.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(T), (2, T))
+    yj, cj = jT.apply_layer_prefill(pj, jnp.asarray(x), kind, cfg_j,
+                                    pos=jnp.asarray(pos), max_len=T + 4,
+                                    compute_dtype=jnp.float32)
+    yt, ct = tT.apply_layer_prefill(pt, _t(x), kind, cfg_t,
+                                    pos=torch.tensor(pos), max_len=T + 4,
+                                    compute_dtype=torch.float32)
+    _close(yt, yj, 1e-5)
+    _close(ct["h"], cj["h"], 1e-5)
+    assert ct["conv"].shape == cj["conv"].shape == (
+        2, 3, cj["conv"].shape[-1])
+    assert _within_one_bf16_ulp(ct["conv"], cj["conv"])
+    if T < 3:                       # left-padded with zeros
+        assert not ct["conv"][:, :3 - T].any()
+    # the cache owns its storage: no view of the layer's activations
+    assert ct["conv"].untyped_storage().nbytes() == \
+        ct["conv"].numel() * ct["conv"].element_size()
+    yd, _ = tT.apply_layer(pt, _t(x), kind, cfg_t, pos=torch.tensor(pos),
+                           compute_dtype=torch.float32)
+    assert torch.allclose(yd, yt, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_params_from_numpy_on_the_unit_shapes(arch):
+    """lm_params_from_numpy un-stacks the full configs' unit shapes:
+    recurrentgemma's (rec, rec, attn) x 12 with the (rec, rec) tail, and
+    falcon-mamba's (ssm,) x 64 (at narrow widths): each port layer holds
+    the reference's layer of the same index, bit for bit, and the port's
+    own init_params gives the same names and shapes."""
+    full = jconfigs.get(arch)
+    narrow = dict(d_model=32, vocab=300, d_ff=48)
+    if arch == "recurrentgemma-9b":
+        narrow.update(n_heads=2, n_kv_heads=1)
+    cfg_j = dataclasses.replace(full, **narrow)
+    cfg_t = dataclasses.replace(tconfigs.get(arch), **narrow)
+    unit, reps, tail = cfg_t.layer_pattern()
+    assert (unit, reps, tail) == ((("ssm",), 64, ()) if arch.startswith(
+        "falcon") else (("rec", "rec", "attn"), 12, ("rec", "rec")))
+    pj, _ = jM.init_params(KEY, cfg_j)
+    tree = jax.tree.map(np.asarray, pj)
+    pt = interop.lm_params_from_numpy(cfg_t, tree, device="cpu")
+    want = _stacked_layers(cfg_j, tree)
+    assert len(pt["stack"]["layers"]) == len(want) == cfg_t.n_layers
+    for layer, w in zip(pt["stack"]["layers"], want):
+        got = {n: t.detach().numpy() for n, t in layer.named_parameters()}
+        flat = {".".join(str(getattr(k, "key", k)) for k in path): a
+                for path, a in jax.tree_util.tree_flatten_with_path(w)[0]}
+        assert got.keys() == flat.keys()
+        assert all(np.array_equal(got[n], flat[n]) for n in flat)
+    mine = tM.init_params(cfg_t, generator=torch.Generator().manual_seed(0),
+                          device="cpu")
+    assert {n: tuple(t.shape) for n, t in mine.named_parameters()} == \
+        {n: tuple(t.shape) for n, t in pt.named_parameters()}
+    assert not any(t.requires_grad for t in mine.parameters())
+    cache = tM.cache_shapes(cfg_t, 3, 20)
+    jc, _ = jM.cache_shapes(cfg_j, 3, 20)
+    for c, w in zip(cache, _stacked_layers(
+            cfg_j, {"stack": jax.tree.map(lambda s: np.zeros(s.shape),
+                                          jc["stack"] if "stack" in jc
+                                          else jc)})):
+        assert {n: tuple(t.shape) for n, t in c.items()} == \
+            {n: tuple(a.shape) for n, a in w.items()}
+
+
+def test_recurrent_training_raises_with_roadmap_item():
+    """Serving runs; the train step and launch/train raise for the ssm and
+    hybrid families, naming the A18 item."""
+    from repro_torch.launch import train as ttrain
+    for arch in RECURRENT:
+        cfg = tconfigs.get_smoke(arch)
+        with pytest.raises(NotImplementedError,
+                           match=r"A18 \(training of the ssm and hybrid"):
+            tsteps.make_train_step(cfg, tsteps.TrainConfig())
+        with pytest.raises(NotImplementedError, match="A18"):
+            ttrain.main(["--arch", arch, "--steps", "1", "--device", "cpu"])
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_serve_entry_point_on_the_cpu(arch, capsys):
+    assert tserve.main(["--arch", arch, "--prompt-len", "20", "--gen", "3",
+                        "--batch", "2", "--device", "cpu"]) == 0
+    assert capsys.readouterr().out.count("[serve]") == 3
+    cfg = tconfigs.get_smoke(arch)
+    p = tM.init_params(cfg, generator=torch.Generator().manual_seed(2),
+                       device="cpu")
+    toks = torch.as_tensor(tserve.make_prompts(cfg, 2, 20, seed=7))
+    res = tserve.serve(p, cfg, toks, gen=4, max_len=24)
+    assert res["tokens"].shape == (2, 4) and res["finite"]
+    full, _ = tM.logits_fn(p, {"tokens": toks}, cfg)
+    assert torch.equal(tsteps.greedy_sample(full),
+                       tsteps.greedy_sample(res["prefill_logits"]))
