@@ -336,6 +336,41 @@ Phases (any failed check exits nonzero):
    steps: logits within 1e-3 x max|logits| with fp32 compute, 0.02 x in
    bf16 (phase 12's bands). The card's recurrentgemma runs with fp32
    compute are the path of B9's fp32 kernel at head dim 256.
+2g. (after phase 2f) F, N1-dq and N1-dkdv at head dim 256 (their
+   CUDA-core plans: flash_fwd_d256, flash_bwd_dq_d256,
+   flash_bwd_dkdv_d256) against their plain versions in phase 2e's bands,
+   after their registers, shared memory and spills from the build log and
+   their plans held to the built library: recurrentgemma-9b's training
+   shape (B=1, Hq=16, Hkv=1, T=S=4096, window 2048) in fp32 (TF32 off)
+   and with bf16 q, k, v and dout (the exact variant the step runs, and
+   the bf16 dispatch path within one bf16 ulp), causal without a window,
+   ragged T=S=300, q_offset 300 with T=700 < S=1000, GQA group 4. At the
+   training shape each kernel's ms by CUDA events beside its bound at the
+   fp32 CUDA-core peak and as a TF32 split (phase 2e's charging), the
+   plain versions' ms, and SDPA with the window mask written out (TF32
+   off) forward and torch.autograd.grad through it.
+17. falcon-mamba-7b trained at full width, 16 of its 64 layers (AdamW's
+   16 B a parameter: 2.22 B parameters, ~35 GB; all 64 would be ~116 GB),
+   B=2 x T=2,048, remat="full", 4 make_train_step steps of the
+   reference's test_overfit_tiny_batch recipe (one batch from data/lm,
+   AdamWConfig(lr=1e-3, warmup_steps=1)): every loss and grad norm
+   finite, the last loss below the first, no kernel launched (the scan
+   is plain PyTorch); step seconds, tokens/s, peak memory; one profiled
+   step (device activity: kernels, device time by class); one layer's
+   selective scan forward and backward by CUDA events; the bytes the
+   chunked scan saves for its backward (its inputs plus the chunk states,
+   33.5 MB a layer).
+17b. recurrentgemma-9b the same way at 6 layers ((rec, rec, attn) x 2),
+   B=1 x T=4,096 (twice the window): F launched twice a local-attention
+   layer a step and N1-dq and N1-dkdv once (remat="full"), no other
+   kernel; the RG-LRU's scan by CUDA events.
+17c. Card against CPU: falcon-mamba-7b at 2 layers and recurrentgemma-9b
+   at 3 from phase 16c's numpy draw, B=1, T=64 (recurrentgemma's
+   attention runs F and N1 at head dim 256 on the card): loss_fn's loss
+   within 1e-5 relative with fp32 compute and every gradient leaf within
+   1e-4 of its max (0.05 in bf16; phase 15b's bands); one fp32 train step
+   on the card, its loss within 1e-5 of the CPU's and its launches
+   counted.
 Each phase prints its wall time.
 
 The kernels line reports, per kernel: its time, its plain version's and
@@ -354,7 +389,10 @@ card run of recurrentgemma-9b with fp32 compute for B9's fp32 kernel at
 head dim 256 (flash_attention_f32_d256), on the qwen3-0.6b training path
 (phase 15's 8 steps, ``qwen3-0.6b train``) for F and N1 (N1-dq's and
 N1-dkdv's plain_ms and library_ms are those of the whole backward, which
-their plain version and the yardstick compute in one call);
+their plain version and the yardstick compute in one call), and on the
+recurrentgemma-9b training path (17b's 4 steps, ``recurrentgemma-9b
+train``) for their head-dim-256 rows (``..._d256``, sharing F's and N1's
+counters);
 ``launches_by_path`` gives every
 path, among them ``dsvrg_stream`` (6c), ``cascade_stream`` (8b),
 ``serve`` (phase 4b), where score_tiles' entry counts the bucket graphs'
@@ -2007,6 +2045,8 @@ def train_kernels_phase(fa_mod, dev, derate, stats) -> None:
     log = (_build.library_path().parent / "build.log").read_text()
     lib = _build.library()
     for name, regs, smem, spills in kernel_resources(log, "flash_fwd.cu"):
+        if name.endswith("_d256"):
+            continue                      # head dim 256's plan: phase 2g
         dim, exact = (int(a) for a in name[name.index("<") + 1:-1].split(","))
         dyn = (lib.flash_fwd_smem(dim, exact)
                if name.startswith("flash_f32_stats") else 0)
@@ -2015,6 +2055,8 @@ def train_kernels_phase(fa_mod, dev, derate, stats) -> None:
         say(f"  {name}: {regs} registers{note}, {smem} bytes static shared "
             f"+ {dyn} bytes dynamic, spills {spills}")
     for name, regs, smem, spills in kernel_resources(log, "flash_bwd.cu"):
+        if name.endswith("_d256"):
+            continue                      # head dim 256's plans: phase 2g
         dim = int(name[name.index("<") + 1:-1].split(",")[0])  # <D, exact>
         dyn = lib.flash_bwd_smem(int(name.startswith("flash_bwd_dkdv")), dim)
         say(f"  {name}: {regs} registers, {smem} bytes static shared + "
@@ -2548,6 +2590,191 @@ def flash256_phase(flash_case, fa_mod, stats) -> None:
                        window=300, reps=big)
 
 
+def train256_phase(fa_mod, dev, derate, stats) -> None:
+    """Phase 2g (see the module docs): F, N1-dq and N1-dkdv at head dim
+    256 (their CUDA-core plans) against their plain versions, at
+    recurrentgemma-9b's training shape and its edges, in phase 2e's
+    bands, timed beside their bounds and the SDPA yardstick."""
+    import torch
+
+    from repro_torch.analysis import hopper_check as hc
+    from repro_torch.kernels import _build
+    say("== phase 2g: F and N1 at head dim 256 (recurrentgemma-9b's local "
+        "attention) vs their plain versions on the card")
+    lib = _build.library()
+    log = (_build.library_path().parent / "build.log").read_text()
+    for src in ("flash_fwd.cu", "flash_bwd.cu"):
+        for name, regs, smem, spills in kernel_resources(log, src):
+            if not name.endswith("_d256"):
+                continue
+            dyn = (lib.flash_fwd_smem(256, 0) if src == "flash_fwd.cu" else
+                   lib.flash_bwd_smem(int("dkdv" in name), 256))
+            say(f"  {name}: {regs} registers, {smem} bytes static shared + "
+                f"{dyn} bytes dynamic, spills {spills}")
+            if spills != "0/0 bytes":
+                fail(f"{name} spills: {spills}")
+    plans = {k: p for k, p in hc.default_plans().items()
+             if p.kernel in ("flash_f32_stats", "flash_bwd_dq",
+                             "flash_bwd_dkdv") and p.shape_of("D") == 256}
+    for key, a in hc.check_device(plans).items():
+        say(f"  plan checker {key} ({plans[key].symbol}): "
+            f"{plans[key].smem:,d} B of shared memory planned; built: "
+            f"{a['regs']} registers, {a['local_bytes']} B local memory, "
+            f"{a['ctas_per_sm']} CTA an SM")
+    gen = torch.Generator(device=dev).manual_seed(29)
+    D = 256
+
+    def case(label, B, hq, hkv, T, S, window, q_offset=0, bf16=False,
+             timed=False):
+        dt = torch.bfloat16 if bf16 else torch.float32
+        q, dout = (torch.randn(B, T, hq, D, generator=gen, device=dev)
+                   .to(dt) for _ in range(2))
+        k, v = (torch.randn(B, S, hkv, D, generator=gen, device=dev)
+                .to(dt) for _ in range(2))
+        kw = dict(causal=True, window=window, q_offset=q_offset)
+        qf, kf, vf, df = (t.float() for t in (q, k, v, dout))
+        # the kernels on the inputs' own k and v (bf16 ones: the exact
+        # variant the training step runs), the plain versions in fp32
+        out, m, l = fa_mod.launch_flash_attention_train(qf, k, v, **kw)
+        out_p, m_p, l_p = fa_mod.flash_attention_train_plain(qf, kf, vf,
+                                                             **kw)
+        ops = fa_mod.bwd_operands(q, k, v, out, dout)
+        if ops.exact != bf16:
+            fail(f"bwd_operands gave exact={ops.exact} for {dt} inputs")
+        dq, delta = fa_mod.launch_flash_bwd_dq(ops, m, l, **kw)
+        dk, dv = fa_mod.launch_flash_bwd_dkdv(ops, m, l, delta, **kw)
+        grads_p = fa_mod.flash_attention_bwd_plain(qf, kf, vf, out, m, l,
+                                                   df, **kw)
+        errs = {n: (float((a - b).abs().max()),
+                    max(1.0, float(b.abs().max())))
+                for n, a, b in (("out", out, out_p),
+                                *zip(("dq", "dk", "dv"), (dq, dk, dv),
+                                     grads_p))}
+        sm, sl = (float(((a - b).abs() / b.abs()).max())
+                  for a, b in ((m, m_p), (l, l_p)))
+        ok = all(e <= 1e-5 * s for e, s in errs.values()) and \
+            sm <= 1e-5 and sl <= 1e-5 and all(
+                bool(torch.isfinite(t).all()) for t in (out, dq, dk, dv))
+        text = ", ".join(f"{n} {e:.2e} (max {s:.3g})"
+                         for n, (e, s) in errs.items())
+        text += f"; m {sm:.1e}, l {sl:.1e} relative"
+        if bf16:
+            # the dispatch path as training runs it: bf16 in, bf16 out
+            got = fa_mod.flash_attention_train(q, k, v, **kw)
+            want = fa_mod.flash_attention_train_plain(q, k, v, **kw)
+            g = fa_mod.flash_attention_bwd(q, k, v, *got, dout, **kw)
+            g_p = fa_mod.flash_attention_bwd_plain(q, k, v, *got, dout, **kw)
+            in_band = bf16_rounding_band(got[0], want[0]) and all(
+                bf16_rounding_band(a, b) for a, b in zip(g, g_p))
+            text += (f"; bf16 results within one bf16 ulp (+ the fp32 "
+                     f"band): {in_band}")
+            ok = ok and in_band
+        say(f"  {label}: {text}")
+        if not ok:
+            fail(f"F / N1 at head dim 256 {label} disagree with their plain "
+                 f"versions")
+        if not timed:
+            return
+        reps = 3
+        f_ms = time_ms(lambda: fa_mod.launch_flash_attention_train(
+            qf, k, v, **kw), reps)
+        dq_ms = time_ms(lambda: fa_mod.launch_flash_bwd_dq(ops, m, l, **kw),
+                        reps)
+        dkdv_ms = time_ms(lambda: fa_mod.launch_flash_bwd_dkdv(
+            ops, m, l, delta, **kw), reps)
+        pairs = B * hq * visible_pairs(T, S, True, window)
+        elt = 4
+        qo, kv, st = (B * T * hq * D * elt, B * S * hkv * D * elt,
+                      B * hq * T * elt)
+        f_bytes = 2 * qo + 2 * kv + 2 * st
+        dq_bytes = 4 * qo + 2 * kv + 3 * st
+        dkdv_bytes = 2 * qo + 4 * kv + 3 * st
+        # the forward's two products; the backward's five shared out as in
+        # phase 2e (N1-dq dQ and D, N1-dkdv S, dP, dV and dK), each at the
+        # fp32 CUDA-core peak these kernels run at and as the three-term
+        # TF32 split a tensor-core plan would be held to (two terms where
+        # k, v and dout are exact, the kernels line's bound)
+        terms = 2 if bf16 else 3
+        f_b = bound(f_bytes, 4 * D * pairs)
+        f_s = split_bound(f_bytes, 4 * D * pairs, terms=terms)
+        dq_b = bound(dq_bytes, 2 * D * pairs + 2 * B * hq * T * D)
+        dq_s = split_bound(dq_bytes, 2 * D * pairs, 2 * B * hq * T * D,
+                           terms=terms)
+        dkdv_b = bound(dkdv_bytes, 8 * D * pairs)
+        dkdv_s = split_bound(dkdv_bytes, 8 * D * pairs, terms=terms)
+        tag = "bf16" if bf16 else "fp32"
+        if bf16:
+            stats["flash_attention_train_d256"].update(exact_ms=f_ms)
+            stats["flash_bwd_dq_d256"].update(exact_ms=dq_ms)
+            stats["flash_bwd_dkdv_d256"].update(exact_ms=dkdv_ms)
+            say(f"  {tag} (the step's variant): F ms={f_ms:.3f}, N1-dq "
+                f"ms={dq_ms:.3f}, N1-dkdv ms={dkdv_ms:.3f}; two-term split "
+                f"bounds F {f_s[0]:.3f}, N1-dq {dq_s[0]:.3f}, N1-dkdv "
+                f"{dkdv_s[0]:.3f} ms")
+            return
+        f_plain = time_ms(lambda: fa_mod.flash_attention_train_plain(
+            qf, kf, vf, **kw), 2)
+        bwd_plain = time_ms(lambda: fa_mod.flash_attention_bwd_plain(
+            qf, kf, vf, out, m, l, df, **kw), 2)
+        # the yardstick: SDPA with the window mask written out (queries
+        # at t + q_offset), TF32 off, forward and autograd's backward
+        qpos = torch.arange(T, device=dev)[:, None] + q_offset
+        kpos = torch.arange(S, device=dev)[None, :]
+        mask = (kpos <= qpos) & (kpos > qpos - window)
+        leaves = [t.transpose(1, 2).detach().requires_grad_()
+                  for t in (qf, kf, vf)]
+        do_t = df.transpose(1, 2)
+
+        def sdpa():
+            return torch.nn.functional.scaled_dot_product_attention(
+                *leaves, attn_mask=mask, enable_gqa=True)
+        lib_f = time_ms(sdpa, reps)
+        o = sdpa()
+        lib_b = time_ms(lambda: torch.autograd.grad(
+            o, leaves, do_t, retain_graph=True), reps)
+        del o
+        say(f"  F ms={f_ms:.3f} plain_ms={f_plain:.3f} library_ms="
+            f"{lib_f:.3f} (SDPA, the window mask written out) fp32 "
+            + bound_text(*f_b, derate) + "; split-TF32 "
+            + bound_text(*f_s, derate)
+            + f"; {4 * D * pairs / f_ms / 1e9:.1f} TFLOP/s, "
+            f"{4 * D * pairs / f_ms / 1e9 / 67:.1%} of the fp32 peak")
+        say(f"  N1-dq ms={dq_ms:.3f} fp32 " + bound_text(*dq_b, derate)
+            + "; split-TF32 " + bound_text(*dq_s, derate)
+            + f"; N1-dkdv ms={dkdv_ms:.3f} fp32 "
+            + bound_text(*dkdv_b, derate) + "; split-TF32 "
+            + bound_text(*dkdv_s, derate))
+        say(f"  backward: N1-dq + N1-dkdv {dq_ms + dkdv_ms:.3f} ms, plain "
+            f"{bwd_plain:.3f} ms, library_ms={lib_b:.3f} "
+            f"(torch.autograd.grad through SDPA); the kernels compute 14 D "
+            f"flops a visible pair (S and dP twice), "
+            f"{14 * D * pairs / (dq_ms + dkdv_ms) / 1e9:.1f} TFLOP/s")
+        common = dict(plain_ms=bwd_plain, library_ms=lib_b)
+        stats["flash_attention_train_d256"] = dict(
+            max_abs_err=errs["out"][0], ms=f_ms, plain_ms=f_plain,
+            library_ms=lib_f, bound_ms=f_s[0], bound_by=f_s[1],
+            fp32_bound_ms=f_b[0])
+        stats["flash_bwd_dq_d256"] = dict(
+            max_abs_err=errs["dq"][0], ms=dq_ms, bound_ms=dq_s[0],
+            bound_by=dq_s[1], fp32_bound_ms=dq_b[0], **common)
+        stats["flash_bwd_dkdv_d256"] = dict(
+            max_abs_err=max(errs["dk"][0], errs["dv"][0]), ms=dkdv_ms,
+            bound_ms=dkdv_s[0], bound_by=dkdv_s[1],
+            fp32_bound_ms=dkdv_b[0], **common)
+
+    rg = dict(B=1, hq=16, hkv=1)
+    case("recurrentgemma-9b training B=1 Hq=16 Hkv=1 T=S=4096 D=256 "
+         "window 2048 fp32", **rg, T=4096, S=4096, window=2048, timed=True)
+    case("the same, bf16 q, k, v and dout (the exact variant)", **rg,
+         T=4096, S=4096, window=2048, bf16=True, timed=True)
+    case("causal, no window, T=S=2048", **rg, T=2048, S=2048, window=None)
+    case("ragged T=S=300, window 100", **rg, T=300, S=300, window=100)
+    case("q_offset 300, T=700 < S=1000, window 256", **rg, T=700, S=1000,
+         window=256, q_offset=300)
+    case("group 4 Hq=16 Hkv=4 B=2 T=S=1024 window 300", B=2, hq=16, hkv=4,
+         T=1024, S=1024, window=300)
+
+
 def _recurrent_layer(kind: str, cfg, rng, n: int) -> dict:
     """``n`` stacked layers of one kind (``ssm``, ``rec`` or ``attn``) in
     the JAX package's pytree layout, drawn with numpy with its init
@@ -2617,10 +2844,12 @@ def _first(tree):
     return tree[0]
 
 
+@functools.lru_cache(maxsize=2)
 def numpy_recurrent_params(cfg, seed: int) -> dict:
     """An ssm or hybrid LM's weights in the JAX package's pytree layout
     (each unit position's layers stacked under stack/scan/u<i>, the tail
-    a list), drawn with numpy with its init distributions."""
+    a list), drawn with numpy with its init distributions; kept from
+    phase 16c for 17c (``cache_clear`` there)."""
     import numpy as np
     rng = np.random.default_rng(seed)
     unit, reps, tail = cfg.layer_pattern()
@@ -2642,13 +2871,17 @@ def numpy_recurrent_params(cfg, seed: int) -> dict:
 
 def device_time_classes(by_name: dict) -> str:
     """A profile's device time per call grouped as matrix products
-    (cuBLAS), B9, and the rest (elementwise, copies, reductions: the
-    scans' ops), each with its share."""
-    groups = {"matmul": 0.0, "B9": 0.0, "elementwise/copy/reduce": 0.0}
+    (cuBLAS), B9, F and N1, and the rest (elementwise, copies, reductions:
+    the scans' forward and backward, the gates, AdamW), each with its
+    share."""
+    groups = {"matmul": 0.0, "B9": 0.0, "F and N1": 0.0,
+              "elementwise/copy/reduce": 0.0}
     for name, ms in by_name.items():
         low = name.lower()
-        if low.startswith(("flash_bf16", "flash_f32")) or "flash_bf16" in \
-                low or "flash_f32" in low:
+        if any(t in low for t in ("flash_fwd", "flash_bwd",
+                                  "flash_f32_stats")):
+            groups["F and N1"] += ms
+        elif "flash_bf16" in low or "flash_f32" in low:
             groups["B9"] += ms
         elif any(t in low for t in ("gemm", "nvjet", "cutlass", "xmma",
                                     "splitk")):
@@ -2816,6 +3049,254 @@ def recurrent_card_vs_cpu_phase(path_launches: dict) -> None:
                 fail(f"the card's {arch} logits ({cdt}) disagree with the "
                      f"CPU's")
         del tree
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# phases 17, 17b, 17c: the recurrent families trained
+# ---------------------------------------------------------------------------
+
+def recurrent_train_phase(label: str, arch: str, layers: int, B: int,
+                          T: int, n_steps: int, path_launches: dict) -> None:
+    """Phases 17 and 17b (see the module docs): ``arch`` at full width,
+    cut to ``layers`` layers, trained ``n_steps`` steps on one batch of
+    B x T with the reference's test_overfit_tiny_batch recipe."""
+    import torch
+
+    from repro_torch import configs as lm_configs
+    from repro_torch.data import lm as lm_data
+    from repro_torch.models import mamba, rglru
+    from repro_torch.models import model as lm_model
+    from repro_torch.models import transformer
+    from repro_torch.optim import adamw
+    from repro_torch.train import steps as steps_mod
+    dev = torch.device("cuda")
+    full = lm_configs.get(arch)
+    cfg = dataclasses.replace(full, n_layers=layers)
+    kinds = transformer.layer_kinds(cfg)
+    say(f"== phase {label}: train {arch} at full width (d_model "
+        f"{cfg.d_model}, vocab {cfg.padded_vocab}), {layers} of its "
+        f"{full.n_layers} layers ({', '.join(kinds)}), fp32 weights, "
+        f"{cfg.compute_dtype} compute, remat={cfg.remat}: {n_steps} steps "
+        f"on one batch of B={B} x T={T}")
+    t0 = time.perf_counter()
+    params = lm_model.init_params(
+        cfg, generator=torch.Generator(device=dev).manual_seed(0),
+        device=dev, trainable=True)
+    n_params = sum(p.numel() for p in params.parameters())
+    per_kind = {k: sum(p.numel() for p in lp.parameters())
+                for k, lp in zip(kinds, params["stack"]["layers"])}
+    outside = n_params - sum(per_kind[k] for k in kinds)
+    n_full = outside + sum(per_kind[k]
+                           for k in transformer.layer_kinds(full))
+    say(f"  {n_params:,d} parameters, {n_params * 16 / 1e9:.1f} GB at 16 B "
+        f"a parameter (fp32 weights, gradients, AdamW's m and v); all "
+        f"{full.n_layers} layers would be {n_full:,d}, "
+        f"{n_full * 16 / 1e9:.0f} GB, past the card's 80 GB: cut to "
+        f"{layers} layers")
+    state = steps_mod.TrainState.create(params, use_ef=False)
+    step = steps_mod.make_train_step(cfg, steps_mod.TrainConfig(
+        optimizer=adamw.AdamWConfig(lr=1e-3, warmup_steps=1)))
+    batch = lm_data.batch_at(lm_data.LMDataConfig(
+        vocab=cfg.vocab, seq_len=T, global_batch=B, seed=0), 0, device=dev)
+    torch.cuda.synchronize()
+    say(f"  init_params + state + batch: {time.perf_counter() - t0:.1f} s")
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    losses, gnorms, secs = [], [], []
+    for _ in range(n_steps):
+        t0 = time.perf_counter()
+        state, mets = step(state, batch)
+        torch.cuda.synchronize()
+        secs.append(time.perf_counter() - t0)
+        losses.append(mets["loss"])
+        gnorms.append(mets["grad_norm"])
+    launches = read_launches()
+    path_launches[f"{arch} train"] = launches
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    losses = [float(x) for x in losses]
+    gnorms = [float(x) for x in gnorms]
+    steady = sorted(secs[1:])[len(secs[1:]) // 2]
+    say(f"  losses {[round(x, 4) for x in losses]}")
+    say(f"  grad norms {[round(x, 4) for x in gnorms]}")
+    say(f"  step seconds {[round(x, 3) for x in secs]} (the first with "
+        f"cuBLAS's warm-up); median after it {steady:.3f} s, "
+        f"{B * T / steady:.0f} tokens/s; max_memory_allocated="
+        f"{peak_gib:.2f} GiB")
+    n_attn = kinds.count("attn")
+    want = {"flash_attention_train": 2 * n_attn * n_steps,
+            "flash_bwd_dq": n_attn * n_steps,
+            "flash_bwd_dkdv": n_attn * n_steps}
+    got = {k: v for k, v in launches.items() if v}
+    say(f"  launches over the {n_steps} steps: {got} (want "
+        f"{ {k: v for k, v in want.items() if v} }: F twice a local-"
+        f"attention layer under remat='full', N1-dq and N1-dkdv once)")
+    if got != {k: v for k, v in want.items() if v}:
+        fail(f"{arch} training launched {got}, not {want}")
+    if not (all(math.isfinite(x) for x in losses + gnorms)
+            and losses[-1] < losses[0]):
+        fail(f"{arch} training: losses {losses}, grad norms {gnorms}")
+    dev_ms, n_launch, top, by_name = profile_window(
+        lambda: step(state, batch), 1, warm=False, host=False)
+    say("  one more step under the profiler (device activity): "
+        f"{n_launch:.0f} device kernels and copies, device "
+        + ("not measured" if dev_ms is None else
+           f"{dev_ms:.1f} ms ({dev_ms / 1e3 / steady:.1%} of the median "
+           f"step)") + f"; by device time: {top}")
+    say(f"  the step's device time by class: "
+        f"{device_time_classes(by_name)}")
+
+    # the recurrent scan of one layer at the step's shapes, forward and
+    # backward by CUDA events (plain PyTorch: ROADMAP B's N2 and N3)
+    rec = "ssm" if arch == "falcon-mamba-7b" else "rec"
+    lp = params["stack"]["layers"][kinds.index(rec)][rec]
+    cdt = torch.bfloat16 if cfg.compute_dtype == "bfloat16" else \
+        torch.float32
+    g = torch.Generator(device=dev).manual_seed(17)
+    if rec == "ssm":
+        di, N = mamba.d_inner(cfg), cfg.ssm.state
+        x = (0.5 * torch.randn(B, T, di, generator=g, device=dev)).to(cdt)
+        h0 = torch.zeros(B, di, N, device=dev)
+
+        def fwd():
+            return mamba.scan_sequence(lp, x, cfg, h0)[0]
+        what = "the selective scan (scan_sequence: x_proj, dt_proj, the "\
+               "chunked scan)"
+    else:
+        x = (0.5 * torch.randn(B, T, rglru.width(cfg), generator=g,
+                               device=dev)).to(cdt)
+
+        def fwd():
+            return rglru.scan(lp, x)
+        what = "the RG-LRU (scan: the gates and affine_scan)"
+    x.requires_grad_()
+    wrt = [x, *lp.parameters()]
+    dy = torch.randn(fwd().shape, generator=g, device=dev).to(cdt)
+    f_ms = time_ms(fwd, 3)
+    fb_ms = time_ms(lambda: torch.autograd.grad(fwd(), wrt, dy,
+                                                allow_unused=True), 3)
+    n_rec = kinds.count(rec)
+    per_step = n_rec * (2 * f_ms + (fb_ms - f_ms))
+    say(f"  {what}, one layer at B={B} x T={T}: forward {f_ms:.2f} ms, "
+        f"backward {fb_ms - f_ms:.2f} ms (CUDA events); a step runs "
+        f"{n_rec} layers' forward twice (remat) and backward once: "
+        f"{per_step:.0f} ms, {per_step / 1e3 / steady:.1%} of the median "
+        f"step")
+    if rec == "ssm":
+        # what the chunked scan keeps for its backward, a layer: its inputs
+        # and the chunk states, counted by saved_tensors_hooks
+        di, N = mamba.d_inner(cfg), cfg.ssm.state
+        ins = [(0.01 * torch.rand(B, T, di, generator=g, device=dev))
+               .to(cdt), *(torch.randn(B, T, n, generator=g, device=dev)
+                           .to(cdt) for n in (N, N, di)),
+               -(0.5 + torch.rand(di, N, generator=g, device=dev)),
+               torch.zeros(B, di, N, device=dev)]
+        for t in ins:
+            t.requires_grad_()
+        seen = []
+
+        def pack(t):
+            seen.append(t.numel() * t.element_size())
+            return t
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            y, _ = mamba._chunked_ssm(*ins)
+        inputs = sum(t.numel() * t.element_size() for t in ins[:5])
+        states = sum(seen) - inputs
+        est = -(-T // 64) * B * di * N * 4
+        say(f"  saved for the chunked scan's backward, a layer: "
+            f"{sum(seen) / 1e6:.1f} MB = its inputs {inputs / 1e6:.1f} MB "
+            f"+ chunk states {states / 1e6:.1f} MB (estimate "
+            f"{est / 1e6:.1f} MB: {T // 64} chunks x ({B}, {di}, {N}) "
+            f"fp32); autograd through the scan would keep about 16 "
+            f"(64, {B}, {di}, {N}) fp32 tensors a chunk, "
+            f"{16 * T * B * di * N * 4 / 1e9:.0f} GB")
+        if states != est:
+            fail(f"the chunked scan saved {states} bytes beside its inputs, "
+                 f"not its {est} bytes of chunk states")
+        del y, ins
+    del params, state, batch, x, dy, wrt
+    torch.cuda.empty_cache()
+
+
+def recurrent_train_card_vs_cpu_phase(path_launches: dict) -> None:
+    """Phase 17c (see the module docs): falcon-mamba-7b at 2 layers and
+    recurrentgemma-9b at 3, full width, card against CPU from phase 16c's
+    numpy draw of the weights: loss_fn's value and gradients in fp32 and
+    bf16 compute, and one fp32 train step on the card whose loss is the
+    CPU's."""
+    import torch
+
+    from repro_torch import configs as lm_configs
+    from repro_torch import interop
+    from repro_torch.launch import serve as serve_mod
+    from repro_torch.models import model as lm_model
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.train import steps as steps_mod
+    say("== phase 17c: card vs CPU: falcon-mamba-7b (2 layers) and "
+        "recurrentgemma-9b (3 layers) at full width, B=1, T=64, phase 16c's "
+        "numpy draw of the weights: loss and gradients, one train step")
+    for arch, layers in (("falcon-mamba-7b", 2), ("recurrentgemma-9b", 3)):
+        cfg0 = dataclasses.replace(lm_configs.get(arch), n_layers=layers)
+        tree = numpy_recurrent_params(cfg0, seed=0)
+        toks = serve_mod.make_prompts(cfg0, 1, 65, seed=3)
+        n_attn = 1 if arch == "recurrentgemma-9b" else 0
+        res = {}
+        for where in ("cuda", "cpu"):
+            t0 = time.perf_counter()
+            tk = torch.as_tensor(toks, device=where)
+            b1 = {"tokens": tk[:, :64], "labels": tk[:, 1:65]}
+            p = interop.lm_params_from_numpy(cfg0, tree, device=where,
+                                             trainable=True)
+            for cdt in ("float32", "bfloat16"):
+                c = dataclasses.replace(cfg0, compute_dtype=cdt)
+                loss, _ = lm_model.loss_fn(p, b1, c)
+                g = torch.autograd.grad(loss, leaves(p))
+                res[cdt, where] = (float(loss.detach()),
+                                   [x.detach().cpu() for x in g])
+                del loss, g
+            if where == "cuda":
+                # one train step (fp32 compute) on the card, its launches
+                # counted: F twice a local-attention layer (remat), N1
+                # once
+                c = dataclasses.replace(cfg0, compute_dtype="float32")
+                reset_launches()
+                st, mets = steps_mod.make_train_step(
+                    c, steps_mod.TrainConfig())(
+                    steps_mod.TrainState.create(p, use_ef=False), b1)
+                launches = read_launches()
+                path_launches[f"{arch} {layers} layers train (17c)"] = \
+                    launches
+                want = {"flash_attention_train": 2 * n_attn,
+                        "flash_bwd_dq": n_attn, "flash_bwd_dkdv": n_attn}
+                if {k: v for k, v in launches.items() if v} != {
+                        k: v for k, v in want.items() if v}:
+                    fail(f"{arch} 17c launched {launches}, not {want}")
+                res["step"] = float(mets["loss"])
+                del st
+            say(f"  {arch} {where}: loss and gradients in fp32 and bf16"
+                + (", one fp32 train step" if where == "cuda" else "")
+                + f": {time.perf_counter() - t0:.1f} s")
+            del p
+        for cdt, band in (("float32", 1e-4), ("bfloat16", 0.05)):
+            (lc, gc), (lp, gp) = res[cdt, "cuda"], res[cdt, "cpu"]
+            worst = max(float((a - b).abs().max())
+                        / max(float(b.abs().max()), 1e-30)
+                        for a, b in zip(gc, gp))
+            say(f"  {arch} compute {cdt}: loss card {lc:.6f} cpu {lp:.6f} "
+                f"(relative {abs(lc - lp) / abs(lp):.2e}); worst gradient "
+                f"leaf {worst:.2e} of its max (band {band})")
+            if cdt == "float32" and abs(lc - lp) > 1e-5 * abs(lp):
+                fail(f"the card's fp32 {arch} loss disagrees with the CPU's")
+            if not (math.isfinite(lc) and worst <= band):
+                fail(f"the card's {cdt} {arch} gradients disagree with the "
+                     f"CPU's")
+        ls, lp = res["step"], res["float32", "cpu"][0]
+        say(f"  {arch} one train step on the card (fp32): loss {ls:.6f}, "
+            f"the CPU's loss_fn {lp:.6f} (relative {abs(ls - lp) / abs(lp):.2e})")
+        if abs(ls - lp) > 1e-5 * abs(lp):
+            fail(f"the card's {arch} train step loss disagrees with the CPU's")
+        del res
+    numpy_recurrent_params.cache_clear()
     torch.cuda.empty_cache()
 
 
@@ -3943,6 +4424,9 @@ def main() -> None:
     # -- 2f. B9 at head dim 256 -----------------------------------------------
     flash256_phase(flash_case, fa_mod, stats)
 
+    # -- 2g. F and N1 at head dim 256 -----------------------------------------
+    train256_phase(fa_mod, dev, derate, stats)
+
     # -- 11. the LM serving path: qwen3-0.6b at full width and depth ---------
     say(f"== phase 11: serve qwen3-0.6b ({lm_cfg.n_layers} layers, d_model "
         f"{lm_cfg.d_model}, vocab {lm_cfg.padded_vocab}): B={B11} prompts "
@@ -4122,6 +4606,13 @@ def main() -> None:
                           path_launches, stats)
     recurrent_card_vs_cpu_phase(path_launches)
 
+    # -- 17. the recurrent families trained at full width; card vs CPU ------
+    recurrent_train_phase("17", "falcon-mamba-7b", 16, 2, 2048, 4,
+                          path_launches)
+    recurrent_train_phase("17b", "recurrentgemma-9b", 6, 1, 4096, 4,
+                          path_launches)
+    recurrent_train_card_vs_cpu_phase(path_launches)
+
     # -- report ---------------------------------------------------------------
     end_phase()
     meta = {
@@ -4167,6 +4658,19 @@ def main() -> None:
             "src/repro_torch/kernels/csrc/flash_bwd.cu",
             "no TPU kernel: src/repro/models/attention.py:153 "
             "(_blocked_flash_bwd, plain JAX: dk, dv)"),
+        "flash_attention_train_d256": (
+            "src/repro_torch/kernels/csrc/flash_fwd.cu",
+            "no TPU kernel: src/repro/models/attention.py:126 "
+            "(_blocked_flash_fwd, plain JAX under a custom VJP), head dim "
+            "256"),
+        "flash_bwd_dq_d256": (
+            "src/repro_torch/kernels/csrc/flash_bwd.cu",
+            "no TPU kernel: src/repro/models/attention.py:153 "
+            "(_blocked_flash_bwd, plain JAX: dq), head dim 256"),
+        "flash_bwd_dkdv_d256": (
+            "src/repro_torch/kernels/csrc/flash_bwd.cu",
+            "no TPU kernel: src/repro/models/attention.py:153 "
+            "(_blocked_flash_bwd, plain JAX: dk, dv), head dim 256"),
     }
     # the path whose launches each kernel reports: the first path that
     # runs it; B6's per-step kernel runs on no path (the epoch kernel
@@ -4177,17 +4681,21 @@ def main() -> None:
                    "flash_attention_d256": "recurrentgemma-9b",
                    "flash_attention_f32_d256":
                        "recurrentgemma-9b 3 layers float32 (16c)",
-                   **{n: "qwen3-0.6b train" for n in train_k}}
-    # B9's rows beside its bf16 row at head dim 128 share its counter
-    b9_rows = ("flash_attention_f32", "flash_attention_d256",
-               "flash_attention_f32_d256")
+                   **{n: "qwen3-0.6b train" for n in train_k},
+                   **{f"{n}_d256": "recurrentgemma-9b train"
+                      for n in train_k}}
+    # B9's rows beside its bf16 row at head dim 128 share its counter, F's
+    # and N1's head-dim-256 rows theirs
+    counter_of = {**{n: "flash_attention" for n in (
+        "flash_attention_f32", "flash_attention_d256",
+        "flash_attention_f32_d256")}, **{f"{n}_d256": n for n in train_k}}
     kernels = []
     for name, (source, replaces) in meta.items():
         s = stats[name]
         for key in ("ms", "plain_ms", "bound_ms", "max_abs_err"):
             if not math.isfinite(s[key]):
                 fail(f"{name}: {key} is not finite")
-        counter = "flash_attention" if name in b9_rows else name
+        counter = counter_of.get(name, name)
         path = report_path.get(name) or next(
             p for p in ("ijcnn1", "phishing", "SUSY", "cascade",
                         "qwen3-0.6b") if name in expect[p][0])

@@ -554,7 +554,10 @@ def flash_f32_stats_plan(B: int = 4, Hq: int = 16, T: int = 2048,
     that holds its max and that tile's index (40 floats a row), and each
     stage's full and empty mbarriers. Its first kernel, ``flash_fwd_split`` (256 threads, no
     shared memory, a CTA a kv head's 32-key tile), writes those tiles
-    once a call."""
+    once a call. Head dim 256 has a plan of its own
+    (:func:`_flash_fwd_d256_plan`)."""
+    if D == 256:
+        return _flash_fwd_d256_plan(B, Hq, T, exact)
     raw = (64, 32 * max(1, D // 32))
     halves = 1 if exact else 2
     idx = {16: 0, 32: 1, 64: 2, 128: 3}.get(D)
@@ -574,13 +577,49 @@ def flash_f32_stats_plan(B: int = 4, Hq: int = 16, T: int = 2048,
               "producer thread")
 
 
+#: the head-dim-256 plans of F and N1 (``csrc/flash_fwd.cu`` and
+#: ``csrc/flash_bwd.cu``, ``W_*``): fp32 FMAs on the CUDA cores, 256
+#: threads, tiles at row stride D + 4; ``flash_fwd_attributes`` variant
+#: 16, ``flash_bwd_attributes`` 16 (N1-dq) and 17 (N1-dkdv), for either
+#: variant (no split to skip)
+D256_LD = 256 + 4
+
+
+def _flash_fwd_d256_plan(B: int, Hq: int, T: int,
+                         exact: bool) -> KernelPlan:
+    """F at head dim 256 (``csrc/flash_fwd.cu::flash_fwd_d256``): B9
+    fp32's D = 256 plan with F's outputs, a CTA a (b, q head, 64-row
+    query block): Q at row stride D + 4, a two-stage ring of 32-key K
+    tiles (P^T once S is taken) and V tiles; no split kernel first."""
+    return KernelPlan(
+        kernel="flash_f32_stats", symbol="flash_fwd_d256",
+        entry="flash_fwd_attributes", variant=16, threads=256,
+        grid=(-(-T // 64) * Hq * B,),
+        blocks=(Block("q", (64, D256_LD)),
+                Block("k_pt_ring", (2, 32, D256_LD)),
+                Block("v_ring", (2, 32, 256))),
+        min_ctas=1,
+        shape=(("B", B), ("Hq", Hq), ("T", T), ("D", 256), ("exact", exact)),
+        notes="CUDA cores; exact runs the same kernel")
+
+
 def _bwd_blocks(D: int, kernel: str) -> tuple[Block, ...]:
     """N1's shared memory (``csrc/flash_bwd.cu::BTiles``): raw 64-row
     tiles of Q and dO in TMA's 128-byte swizzle (boxes of 32 floats a
     row, one at D = 16), split 32-key K and V tiles (a TF32 big and a
     small half of 32 x D each), split dS or P tiles (two halves of
     64 x 32), and N1-dkdv's four mbarriers (each warpgroup's Q and dO
-    copies)."""
+    copies). At head dim 256 (the CUDA-core plans): Q, dO, K and V at row
+    stride D + 4, N1-dq's dS^T, N1-dkdv's P and dS, the rows' D, m and
+    l."""
+    if D == 256:   # flash_bwd_dq_d256 / flash_bwd_dkdv_d256
+        rows = (Block("q", (64, D256_LD)), Block("dout", (64, D256_LD)),
+                Block("k", (32, D256_LD)), Block("v", (32, D256_LD)))
+        if kernel == "flash_bwd_dq":
+            return rows + (Block("ds_t", (32, 64 + 4)),
+                           Block("rows_d_m_l", (3, 64)))
+        return rows + (Block("p_ds", (2, 64, 32)),
+                       Block("rows_d_m_l", (3, 64)))
     raw = (64, 32 * max(1, D // 32))
     if kernel == "flash_bwd_dq":   # Q and dO shared; each warpgroup's own
         return (Block("q", raw), Block("dout", raw),
@@ -595,7 +634,10 @@ def _bwd_blocks(D: int, kernel: str) -> tuple[Block, ...]:
 
 def _bwd_variant(D: int, kernel: str, exact: bool) -> int:
     """``flash_bwd_attributes``'s variant: D = 16 << (v % 4), N1-dkdv at
-    4 .. 7, the exact variant (k, v and dout TF32-exact) 8 on."""
+    4 .. 7, the exact variant (k, v and dout TF32-exact) 8 on; head dim
+    256 16 (N1-dq) and 17 (N1-dkdv) for either variant."""
+    if D == 256:
+        return 16 + (kernel == "flash_bwd_dkdv")
     idx = {16: 0, 32: 1, 64: 2, 128: 3}.get(D)
     if idx is None:
         return -1
@@ -608,10 +650,12 @@ def flash_bwd_dq_plan(B: int = 4, Hq: int = 16, T: int = 2048,
     warpgroups) a (b, q head, 64-row query block); raw Q and dO shared,
     each warpgroup's own split K, V (32 keys) and dS tiles, the block's D.
     ``exact``: the variant that skips k's, v's and dout's small halves
-    (same plan)."""
+    (same plan). Head dim 256: ``flash_bwd_dq_d256`` (CUDA cores, the
+    same grid)."""
     return KernelPlan(
-        kernel="flash_bwd_dq", symbol=f"flash_bwd_dq<{D}, "
-        f"{str(exact).lower()}>", entry="flash_bwd_attributes",
+        kernel="flash_bwd_dq", symbol="flash_bwd_dq_d256" if D == 256 else
+        f"flash_bwd_dq<{D}, {str(exact).lower()}>",
+        entry="flash_bwd_attributes",
         variant=_bwd_variant(D, "flash_bwd_dq", exact), threads=256,
         grid=(-(-T // 64) * Hq * B,), blocks=_bwd_blocks(D, "flash_bwd_dq"),
         min_ctas=1,
@@ -623,10 +667,12 @@ def flash_bwd_dkdv_plan(B: int = 4, Hkv: int = 8, S: int = 2048,
     """N1-dkdv (``csrc/flash_bwd.cu::flash_bwd_dkdv``): 256 threads (two
     warpgroups) a (b, kv head, 32-key block); split K and V shared, each
     warpgroup's own raw Q and dO tiles (copied by TMA) and a split tile
-    for P, then dS."""
+    for P, then dS. Head dim 256: ``flash_bwd_dkdv_d256`` (CUDA cores,
+    the same grid)."""
     return KernelPlan(
-        kernel="flash_bwd_dkdv", symbol=f"flash_bwd_dkdv<{D}, "
-        f"{str(exact).lower()}>", entry="flash_bwd_attributes",
+        kernel="flash_bwd_dkdv", symbol="flash_bwd_dkdv_d256" if D == 256
+        else f"flash_bwd_dkdv<{D}, {str(exact).lower()}>",
+        entry="flash_bwd_attributes",
         variant=_bwd_variant(D, "flash_bwd_dkdv", exact), threads=256,
         grid=(-(-S // 32) * Hkv * B,),
         blocks=_bwd_blocks(D, "flash_bwd_dkdv"), min_ctas=1,
@@ -656,7 +702,8 @@ PLAN_BUILDERS: dict[str, Callable[..., KernelPlan]] = {
 #: SUSY stand-in (4M rows, d = 18, minibatches of 64) for B6/B7 and the
 #: epoch kernel, qwen3-0.6b prefill (head dim 128) and recurrentgemma-9b's
 #: (B = 2, Hq = 16, T = 4,096, head dim 256) for B9, qwen3-0.6b's training
-#: step for F and N1; K2 at both walks
+#: step and recurrentgemma-9b's (B = 1, Hq = 16, Hkv = 1, T = 4,096, head
+#: dim 256) for F and N1; K2 at both walks
 DEFAULT_SHAPES: dict[str, tuple[dict, ...]] = {
     "cd_sweep": ({"T": 64, "B": 256},),
     "gram_matvec": ({"K": 8, "M": 6250, "D": 22, "sym": True},
@@ -674,15 +721,18 @@ DEFAULT_SHAPES: dict[str, tuple[dict, ...]] = {
                   {"B": 2, "Hq": 16, "T": 4096, "D": 256}),
     "flash_f32_stats": ({"B": 4, "Hq": 16, "T": 2048, "D": 128},
                         {"B": 4, "Hq": 16, "T": 2048, "D": 128,
-                         "exact": True}),
+                         "exact": True},
+                        {"B": 1, "Hq": 16, "T": 4096, "D": 256}),
     "flash_fwd_split": ({"B": 4, "Hkv": 8, "S": 2048, "D": 128},
                         {"B": 4, "Hkv": 8, "S": 2048, "D": 128,
                          "exact": True}),
     "flash_bwd_dq": ({"B": 4, "Hq": 16, "T": 2048, "D": 128},
-                     {"B": 4, "Hq": 16, "T": 2048, "D": 128, "exact": True}),
+                     {"B": 4, "Hq": 16, "T": 2048, "D": 128, "exact": True},
+                     {"B": 1, "Hq": 16, "T": 4096, "D": 256}),
     "flash_bwd_dkdv": ({"B": 4, "Hkv": 8, "S": 2048, "D": 128},
                        {"B": 4, "Hkv": 8, "S": 2048, "D": 128,
-                        "exact": True}),
+                        "exact": True},
+                       {"B": 1, "Hkv": 1, "S": 4096, "D": 256}),
 }
 
 
@@ -711,8 +761,8 @@ def check_kernels() -> dict[str, str]:
 VARIANTS = {"cd_sweep_attributes": 12, "dense_matvec_attributes": 1,
             "cd_exact_attributes": 1, "gram_attributes": 16,
             "gram_matvec_attributes": 10, "odm_grad_attributes": 10,
-            "flash_attn_attributes": 10, "flash_fwd_attributes": 16,
-            "flash_bwd_attributes": 16}
+            "flash_attn_attributes": 10, "flash_fwd_attributes": 17,
+            "flash_bwd_attributes": 18}
 
 _ATTR_KEYS = ("regs", "smem_static", "local_bytes", "max_threads",
               "ctas_per_sm", "threads")

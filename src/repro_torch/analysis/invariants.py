@@ -340,22 +340,25 @@ def _flash_single_launch(dtype: str):
     return run
 
 
-def _flash_train_dispatches(kernel: str):
+def _flash_train_dispatches(kernel: str, dh: int = 16, kv: int = 2,
+                            window: int | None = None):
     """The training attention: a forward is one dispatch (F), a backward
     two in order (N1-dq, whose D N1-dkdv reads, then N1-dkdv); each
-    declaration holds its kernel's place in that plan."""
+    declaration holds its kernel's place in that plan (at head dim 256,
+    recurrentgemma's, with its one kv head and a window, the CUDA-core
+    plans)."""
     def run(device: str):
         import torch
         from repro_torch.models import attention as A
         g = torch.Generator().manual_seed(0)
-        q = torch.randn(1, 24, 4, 16, generator=g).to(device)
-        k, v = (torch.randn(1, 24, 2, 16, generator=g).to(device)
+        q = torch.randn(1, 24, 4, dh, generator=g).to(device)
+        k, v = (torch.randn(1, 24, kv, dh, generator=g).to(device)
                 for _ in range(2))
         q.requires_grad_()
         fwd = _expect_dispatches(
-            lambda: A.attend(q, k, v, impl="flash_xla"),
+            lambda: A.attend(q, k, v, window=window, impl="flash_xla"),
             ["flash_attention_train"], "flash_xla forward", device)
-        out = A.attend(q, k, v, impl="flash_xla")
+        out = A.attend(q, k, v, window=window, impl="flash_xla")
         bwd = _expect_dispatches(
             lambda: torch.autograd.grad(out.sum(), q),
             ["flash_bwd_dq", "flash_bwd_dkdv"], "flash_xla backward",
@@ -929,6 +932,14 @@ def _declare_builtins() -> None:
             description="the main path's launch plans fit the H100 (on the "
                         "card: the built kernel matches its plan, no "
                         "spill)", verify=_smem_plan(kernel)))
+    declare(Invariant(
+        name="kernels.flash_f32_stats.d256_dispatches",
+        subject="flash_f32_stats", kind="kernel",
+        description="at head dim 256 (GQA 4:1, a window) a training "
+                    "attention forward is one F dispatch and its backward "
+                    "N1-dq, then N1-dkdv",
+        verify=_flash_train_dispatches("flash_f32_stats", dh=256, kv=1,
+                                       window=8)))
     declare(Invariant(
         name="kernels.flash_f32.smem_ceiling", subject="flash_f32",
         kind="kernel",

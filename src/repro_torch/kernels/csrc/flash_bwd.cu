@@ -772,6 +772,397 @@ int launch_dkdv(const Bwd& p, cudaStream_t st) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// head dim 256 (recurrentgemma-9b's local attention): fp32 FMAs on the
+// CUDA cores
+// ---------------------------------------------------------------------------
+// The split plans do not fit at D = 256 (a split K or V tile alone is 64
+// KB, a raw 64-row tile another 64 KB). These two kernels compute what
+// N1-dq and N1-dkdv compute at D <= 128, in the same fixed orders (no
+// atomics), with fp32 FMAs on the CUDA cores: 256 threads (a 16 x 16
+// grid), every operand tile in shared memory at row stride D + 4 (a
+// quarter-warp's float4 on all 32 banks), cp.async copies. S = Qs K^T and
+// dP = dO V^T over a 64-row x 32-key tile take 4 rows x 2 keys a thread,
+// each entry one fp32 fma chain over d in order (F's D = 256 arithmetic,
+// so p = exp(s - m) / l is the forward's).
+//   * flash_bwd_dq_d256: a CTA a (b, q head, 64-row block), heaviest
+//     first. Q and dO once, D = sum dout.out for its rows (a warp a row,
+//     written for N1-dkdv), then each live 32-key tile: K and V, S and
+//     dP, p and dS = p (dP - D), dS^T to shared memory, dq += dS K (4
+//     rows x 16 columns a thread), scaled once at the end. Shared memory
+//     209,152 B.
+//   * flash_bwd_dkdv_d256: a CTA a (b, kv head, 32-key block). K and V
+//     once, then for each query head of the group in order and each live
+//     64-row tile in order: Q and dO, S and dP, P and dS to shared memory
+//     (rows x keys), dv += P^T dO and dk += dS^T Qs (2 keys x 16 columns
+//     a thread, in registers over the head's rows). Each head's sums go
+//     to dk and dv in order, written by the first head and added to by
+//     the others (each thread owns its elements): one fp32 chain over all
+//     16 heads' rows of recurrentgemma's training shape (~33,000 terms)
+//     lay within 56 % (fp32) and 81 % (bf16 inputs) of the 1e-5 band of
+//     the plain version. Shared memory 216,832 B.
+// One stage each: a second K/V (N1-dq) or Q/dO (N1-dkdv) stage does not
+// fit beside the other tiles, so each tile's copy waits on the CTA.
+// Bound: operations, at the CUDA cores' 67 TFLOP/s: N1-dq 6 D flops a
+// visible pair (S, dP, dQ), N1-dkdv 8 D (S, dP, dV, dK).
+constexpr int W_D = 256;
+constexpr int W_LD = W_D + 4;   // row stride of the Q, dO, K and V tiles
+constexpr int W_RPT = BQ / 16;  // query rows a thread in S and dP: 4
+constexpr int W_KPT = BK / 16;  // keys a thread in S and dP: 2
+constexpr int W_TS = BQ + 4;    // dS^T row stride (N1-dq): a row a key
+constexpr int W_DQ_SMEM =
+    4 * (2 * BQ * W_LD + 2 * BK * W_LD + BK * W_TS + 3 * BQ);
+constexpr int W_DKDV_SMEM =
+    4 * (2 * BK * W_LD + 2 * BQ * W_LD + 2 * BQ * BK + 3 * BQ);
+
+// rows [0, n) of a (rows x 256) tile at src (row stride ld) into shared
+// memory at row stride W_LD, zeros for rows [n, rows).
+__device__ __forceinline__ void w_load(float* dst, const float* src,
+                                       long long ld, int rows, int n) {
+  constexpr int C4 = W_D / 4;
+  for (int i = threadIdx.x; i < rows * C4; i += NT) {
+    const int r = i / C4, c = 4 * (i % C4);
+    const bool ok = r < n;
+    sm90::cp_async16(dst + r * W_LD + c, ok ? src + r * ld + c : src, ok);
+  }
+}
+
+// s = X Y^T and t = Z W^T over D: rows rq .. rq + 3 of the 64-row tiles X
+// and Z, keys tx + 16 kk of the 32-key tiles Y and W; each entry one fma
+// chain over d in order.
+__device__ __forceinline__ void w_dots(float (&s)[W_RPT][W_KPT],
+                                       float (&t)[W_RPT][W_KPT],
+                                       const float* X, const float* Y,
+                                       const float* Z, const float* W,
+                                       int rq, int tx) {
+#pragma unroll
+  for (int i = 0; i < W_RPT; ++i)
+#pragma unroll
+    for (int kk = 0; kk < W_KPT; ++kk) s[i][kk] = t[i][kk] = 0.0f;
+#pragma unroll 2
+  for (int c = 0; c < W_D; c += 4) {
+    float4 y[W_KPT], w[W_KPT];
+#pragma unroll
+    for (int kk = 0; kk < W_KPT; ++kk) {
+      y[kk] = *reinterpret_cast<const float4*>(Y + (tx + 16 * kk) * W_LD + c);
+      w[kk] = *reinterpret_cast<const float4*>(W + (tx + 16 * kk) * W_LD + c);
+    }
+#pragma unroll
+    for (int i = 0; i < W_RPT; ++i) {
+      const float4 x =
+          *reinterpret_cast<const float4*>(X + (rq + i) * W_LD + c);
+      const float4 z =
+          *reinterpret_cast<const float4*>(Z + (rq + i) * W_LD + c);
+#pragma unroll
+      for (int kk = 0; kk < W_KPT; ++kk) {
+        s[i][kk] = fmaf(x.x, y[kk].x, s[i][kk]);
+        s[i][kk] = fmaf(x.y, y[kk].y, s[i][kk]);
+        s[i][kk] = fmaf(x.z, y[kk].z, s[i][kk]);
+        s[i][kk] = fmaf(x.w, y[kk].w, s[i][kk]);
+        t[i][kk] = fmaf(z.x, w[kk].x, t[i][kk]);
+        t[i][kk] = fmaf(z.y, w[kk].y, t[i][kk]);
+        t[i][kk] = fmaf(z.z, w[kk].z, t[i][kk]);
+        t[i][kk] = fmaf(z.w, w[kk].w, t[i][kk]);
+      }
+    }
+  }
+}
+
+// m, l and D of rows r0 .. r0 + 63 of (b, h) into shared memory (0, 1, 0
+// past T), by threads 0 .. 63.
+__device__ __forceinline__ void w_rows(const Bwd& p, int b, int h, int r0,
+                                       float* rowD, float* rowM,
+                                       float* rowL) {
+  const int rr = threadIdx.x;
+  if (rr >= BQ) return;
+  const int row = r0 + rr;
+  const bool in = row < p.T;
+  const long long at = (static_cast<long long>(b) * p.Hq + h) * p.T + row;
+  rowD[rr] = in ? p.delta[at] : 0.0f;
+  rowM[rr] = in ? p.m[at] : 0.0f;
+  rowL[rr] = in ? p.l[at] : 1.0f;
+}
+
+__global__ void __launch_bounds__(NT, 1) flash_bwd_dq_d256(const Bwd p) {
+  extern __shared__ __align__(16) float wsm[];
+  float* Qs = wsm;                   // BQ x W_LD: q * scale
+  float* Os = Qs + BQ * W_LD;        // BQ x W_LD: dout
+  float* Ks = Os + BQ * W_LD;        // BK x W_LD
+  float* Vs = Ks + BK * W_LD;        // BK x W_LD
+  float* dsT = Vs + BK * W_LD;       // BK x W_TS: dS^T
+  float* rowD = dsT + BK * W_TS;
+  float* rowM = rowD + BQ;
+  float* rowL = rowM + BQ;
+
+  const int nblk = (p.T + BQ - 1) / BQ;
+  int qb = blockIdx.x / (p.Hq * p.B);
+  if (p.causal) qb = nblk - 1 - qb;  // heaviest first
+  const int h = blockIdx.x % p.Hq, b = (blockIdx.x / p.Hq) % p.B;
+  const int hk = h / p.group;
+  const int r0 = qb * BQ;
+  const long long qrs = static_cast<long long>(p.Hq) * W_D;   // row strides
+  const long long krs = static_cast<long long>(p.Hkv) * W_D;
+  const long long qoff = (static_cast<long long>(b) * p.T * p.Hq + h) * W_D;
+  const long long koff = (static_cast<long long>(b) * p.S * p.Hkv + hk) * W_D;
+  const int q_first = r0 + p.q_offset;
+  const int q_last = min(r0 + BQ, p.T) - 1 + p.q_offset;
+  int hi = (p.S + BK - 1) / BK;
+  if (p.causal) hi = min(hi, q_last / BK + 1);
+  int lo = 0;
+  if (p.window > 0 && q_first - p.window + 1 > 0)
+    lo = (q_first - p.window + 1) / BK;
+
+  w_load(Qs, p.q + qoff + r0 * qrs, qrs, BQ, p.T - r0);
+  w_load(Os, p.dout + qoff + r0 * qrs, qrs, BQ, p.T - r0);
+  sm90::cp_async_commit();
+
+  // D = sum_d dout out for the block's rows: a warp a row, from global
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  for (int rr = warp; rr < BQ; rr += NT / 32) {
+    const int row = r0 + rr;
+    float acc = 0.0f;
+    if (row < p.T) {
+      const float* orow = p.o + qoff + row * qrs;
+      const float* drow = p.dout + qoff + row * qrs;
+#pragma unroll
+      for (int c = 4 * lane; c < W_D; c += 128) {
+        const float4 a = __ldg(reinterpret_cast<const float4*>(orow + c));
+        const float4 d = __ldg(reinterpret_cast<const float4*>(drow + c));
+        acc = fmaf(a.x, d.x, acc);
+        acc = fmaf(a.y, d.y, acc);
+        acc = fmaf(a.z, d.z, acc);
+        acc = fmaf(a.w, d.w, acc);
+      }
+    }
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1)
+      acc += __shfl_xor_sync(FULL, acc, off);
+    if (lane == 0) {
+      rowD[rr] = acc;
+      const long long at = (static_cast<long long>(b) * p.Hq + h) * p.T + row;
+      rowM[rr] = row < p.T ? p.m[at] : 0.0f;
+      rowL[rr] = row < p.T ? p.l[at] : 1.0f;
+      if (row < p.T) p.delta[at] = acc;
+    }
+  }
+
+  const int ty = tid / 16, tx = tid % 16;
+  const int rq = ty * W_RPT;   // the thread's first row in the block
+  float dq[W_RPT][16];
+#pragma unroll
+  for (int i = 0; i < W_RPT; ++i)
+#pragma unroll
+    for (int c = 0; c < 16; ++c) dq[i][c] = 0.0f;
+
+  for (int j = lo; j < hi; ++j) {
+    const int k0 = j * BK;
+    w_load(Ks, p.k + koff + k0 * krs, krs, BK, p.S - k0);
+    w_load(Vs, p.v + koff + k0 * krs, krs, BK, p.S - k0);
+    sm90::cp_async_commit();
+    sm90::cp_async_wait<0>();
+    __syncthreads();
+
+    float s[W_RPT][W_KPT], t[W_RPT][W_KPT];
+    w_dots(s, t, Qs, Ks, Os, Vs, rq, tx);
+    // p = exp(s - m) / l where the key is visible, dS = p (dP - D); dS^T
+    // to shared memory: key tx + 16 kk, rows rq .. rq + 3
+#pragma unroll
+    for (int kk = 0; kk < W_KPT; ++kk) {
+      float ds[W_RPT];
+#pragma unroll
+      for (int i = 0; i < W_RPT; ++i) {
+        const int r = rq + i;
+        const float pr = visible(p, r0 + r, k0 + tx + 16 * kk)
+                             ? expf(s[i][kk] - rowM[r]) / rowL[r]
+                             : 0.0f;
+        ds[i] = pr * (t[i][kk] - rowD[r]);
+      }
+      *reinterpret_cast<float4*>(dsT + (tx + 16 * kk) * W_TS + rq) =
+          make_float4(ds[0], ds[1], ds[2], ds[3]);
+    }
+    __syncthreads();   // dS^T is complete
+
+    // dq += dS K: rows rq .. rq + 3, columns 64 g + 4 tx + e
+    const int limit = min(BK, p.S - k0);   // the keys past S are zeros
+#pragma unroll 2
+    for (int k = 0; k < limit; ++k) {
+      const float4 d4 = *reinterpret_cast<const float4*>(dsT + k * W_TS + rq);
+      const float dr[W_RPT] = {d4.x, d4.y, d4.z, d4.w};
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        const float4 kv =
+            *reinterpret_cast<const float4*>(Ks + k * W_LD + 64 * g + 4 * tx);
+#pragma unroll
+        for (int i = 0; i < W_RPT; ++i) {
+          dq[i][4 * g] = fmaf(dr[i], kv.x, dq[i][4 * g]);
+          dq[i][4 * g + 1] = fmaf(dr[i], kv.y, dq[i][4 * g + 1]);
+          dq[i][4 * g + 2] = fmaf(dr[i], kv.z, dq[i][4 * g + 2]);
+          dq[i][4 * g + 3] = fmaf(dr[i], kv.w, dq[i][4 * g + 3]);
+        }
+      }
+    }
+    __syncthreads();   // K, V and dS^T are free
+  }
+  sm90::cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < W_RPT; ++i) {
+    const int row = r0 + rq + i;
+    if (row >= p.T) continue;
+    float* out = p.dq + qoff + row * qrs;
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+      *reinterpret_cast<float4*>(out + 64 * g + 4 * tx) = make_float4(
+          dq[i][4 * g] * p.scale, dq[i][4 * g + 1] * p.scale,
+          dq[i][4 * g + 2] * p.scale, dq[i][4 * g + 3] * p.scale);
+  }
+}
+
+__global__ void __launch_bounds__(NT, 1) flash_bwd_dkdv_d256(const Bwd p) {
+  extern __shared__ __align__(16) float wsm[];
+  float* Ks = wsm;                   // BK x W_LD
+  float* Vs = Ks + BK * W_LD;        // BK x W_LD
+  float* Qs = Vs + BK * W_LD;        // BQ x W_LD: q * scale
+  float* Os = Qs + BQ * W_LD;        // BQ x W_LD: dout
+  float* Ps = Os + BQ * W_LD;        // BQ x BK: P (rows x keys)
+  float* Ss = Ps + BQ * BK;          // BQ x BK: dS
+  float* rowD = Ss + BQ * BK;
+  float* rowM = rowD + BQ;
+  float* rowL = rowM + BQ;
+
+  const int nkb = (p.S + BK - 1) / BK;
+  const int kb = blockIdx.x % nkb;
+  const int hk = (blockIdx.x / nkb) % p.Hkv, b = blockIdx.x / (nkb * p.Hkv);
+  const int k0 = kb * BK;
+  const int k_last = min(k0 + BK, p.S) - 1;
+  const long long qrs = static_cast<long long>(p.Hq) * W_D;   // row strides
+  const long long krs = static_cast<long long>(p.Hkv) * W_D;
+  const long long koff = (static_cast<long long>(b) * p.S * p.Hkv + hk) * W_D;
+  w_load(Ks, p.k + koff + k0 * krs, krs, BK, p.S - k0);
+  w_load(Vs, p.v + koff + k0 * krs, krs, BK, p.S - k0);
+  sm90::cp_async_commit();
+
+  // the query rows that see some key of the block: [r_lo, r_hi)
+  int r_lo = 0, r_hi = p.T;
+  if (p.causal) r_lo = max(0, k0 - p.q_offset);
+  if (p.window > 0) r_hi = min(r_hi, k_last + p.window - p.q_offset);
+  const int t_lo = r_lo / BQ;
+  const int t_hi = r_hi > r_lo ? (r_hi + BQ - 1) / BQ : t_lo;
+
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int rq = ty * W_RPT;   // S and dP: rows rq .. rq + 3, keys tx + 16 kk
+  const int kq = 2 * ty;       // dk and dv: keys kq, kq + 1
+  float dk[2][16], dv[2][16];
+#pragma unroll
+  for (int e = 0; e < 2; ++e)
+#pragma unroll
+    for (int c = 0; c < 16; ++c) dk[e][c] = dv[e][c] = 0.0f;
+
+  for (int gi = 0; gi < p.group; ++gi) {
+    const int h = hk * p.group + gi;
+    const long long qoff = (static_cast<long long>(b) * p.T * p.Hq + h) * W_D;
+    for (int tq = t_lo; tq < t_hi; ++tq) {
+      const int r0 = tq * BQ;
+      __syncthreads();   // the last step's tiles are read
+      w_load(Qs, p.q + qoff + r0 * qrs, qrs, BQ, p.T - r0);
+      w_load(Os, p.dout + qoff + r0 * qrs, qrs, BQ, p.T - r0);
+      sm90::cp_async_commit();
+      w_rows(p, b, h, r0, rowD, rowM, rowL);
+      sm90::cp_async_wait<0>();
+      __syncthreads();
+
+      float s[W_RPT][W_KPT], t[W_RPT][W_KPT];
+      w_dots(s, t, Qs, Ks, Os, Vs, rq, tx);
+#pragma unroll
+      for (int i = 0; i < W_RPT; ++i) {
+        const int r = rq + i;
+#pragma unroll
+        for (int kk = 0; kk < W_KPT; ++kk) {
+          const int key = tx + 16 * kk;
+          const float pr = visible(p, r0 + r, k0 + key)
+                               ? expf(s[i][kk] - rowM[r]) / rowL[r]
+                               : 0.0f;
+          Ps[r * BK + key] = pr;
+          Ss[r * BK + key] = pr * (t[i][kk] - rowD[r]);
+        }
+      }
+      __syncthreads();   // P and dS are complete
+
+      // dv += P^T dO, dk += dS^T Qs: keys kq, kq + 1, columns 64 g + 4 tx
+      const int rows = min(BQ, p.T - r0);   // rows past T are zeros
+#pragma unroll 2
+      for (int r = 0; r < rows; ++r) {
+        const float2 pp = *reinterpret_cast<const float2*>(Ps + r * BK + kq);
+        const float2 ss = *reinterpret_cast<const float2*>(Ss + r * BK + kq);
+#pragma unroll
+        for (int g = 0; g < 4; ++g) {
+          const float4 dov = *reinterpret_cast<const float4*>(
+              Os + r * W_LD + 64 * g + 4 * tx);
+          const float4 qv = *reinterpret_cast<const float4*>(
+              Qs + r * W_LD + 64 * g + 4 * tx);
+          const float dvo[4] = {dov.x, dov.y, dov.z, dov.w};
+          const float qo[4] = {qv.x, qv.y, qv.z, qv.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            dv[0][4 * g + e] = fmaf(pp.x, dvo[e], dv[0][4 * g + e]);
+            dv[1][4 * g + e] = fmaf(pp.y, dvo[e], dv[1][4 * g + e]);
+            dk[0][4 * g + e] = fmaf(ss.x, qo[e], dk[0][4 * g + e]);
+            dk[1][4 * g + e] = fmaf(ss.y, qo[e], dk[1][4 * g + e]);
+          }
+        }
+      }
+    }
+    // the head's sums into dk and dv: written by the first head, added
+    // to by the others in order (each thread owns its elements), so that
+    // no fp32 chain runs over the whole group's rows
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int key = k0 + kq + e;
+      if (key >= p.S) continue;
+      const long long at = koff + key * krs;
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        float4* kp = reinterpret_cast<float4*>(p.dk + at + 64 * g + 4 * tx);
+        float4* vp = reinterpret_cast<float4*>(p.dv + at + 64 * g + 4 * tx);
+        float4 a = make_float4(dk[e][4 * g], dk[e][4 * g + 1],
+                               dk[e][4 * g + 2], dk[e][4 * g + 3]);
+        float4 c = make_float4(dv[e][4 * g], dv[e][4 * g + 1],
+                               dv[e][4 * g + 2], dv[e][4 * g + 3]);
+        if (gi > 0) {
+          const float4 ka = *kp, vc = *vp;
+          a = make_float4(ka.x + a.x, ka.y + a.y, ka.z + a.z, ka.w + a.w);
+          c = make_float4(vc.x + c.x, vc.y + c.y, vc.z + c.z, vc.w + c.w);
+        }
+        *kp = a;
+        *vp = c;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) dk[e][4 * g + i] = dv[e][4 * g + i] = 0.0f;
+      }
+    }
+  }
+  sm90::cp_async_wait<0>();
+}
+
+int launch_dq_d256(const Bwd& p, cudaStream_t st) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dq_d256, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      W_DQ_SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  flash_bwd_dq_d256<<<(p.T + BQ - 1) / BQ * p.Hq * p.B, NT, W_DQ_SMEM, st>>>(
+      p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int launch_dkdv_d256(const Bwd& p, cudaStream_t st) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_bwd_dkdv_d256, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      W_DKDV_SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  flash_bwd_dkdv_d256<<<(p.S + BK - 1) / BK * p.Hkv * p.B, NT, W_DKDV_SMEM,
+                        st>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 bool valid(int B, int T, int S, int Hq, int Hkv, int q_offset) {
   return B > 0 && T > 0 && S > 0 && Hq > 0 && Hkv > 0 && Hq % Hkv == 0 &&
          q_offset >= 0;
@@ -784,6 +1175,7 @@ int dq_by_dim(const Bwd& p, int D, cudaStream_t st) {
     case 32: return launch_dq<32, EXACT>(p, st);
     case 64: return launch_dq<64, EXACT>(p, st);
     case 128: return launch_dq<128, EXACT>(p, st);
+    case 256: return launch_dq_d256(p, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -795,6 +1187,7 @@ int dkdv_by_dim(const Bwd& p, int D, cudaStream_t st) {
     case 32: return launch_dkdv<32, EXACT>(p, st);
     case 64: return launch_dkdv<64, EXACT>(p, st);
     case 128: return launch_dkdv<128, EXACT>(p, st);
+    case 256: return launch_dkdv_d256(p, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -850,16 +1243,19 @@ extern "C" int flash_bwd_smem(int kernel, int D) {
     case 32: return kernel ? BTiles<32>::DKDV_SMEM : BTiles<32>::DQ_SMEM;
     case 64: return kernel ? BTiles<64>::DKDV_SMEM : BTiles<64>::DQ_SMEM;
     case 128: return kernel ? BTiles<128>::DKDV_SMEM : BTiles<128>::DQ_SMEM;
+    case 256: return kernel ? W_DKDV_SMEM : W_DQ_SMEM;
     default: return -1;
   }
 }
 
 // Resources of the variant v, head dim D = 16 << (v % 4): v = 0 .. 3
 // flash_bwd_dq<D>, 4 .. 7 flash_bwd_dkdv<D>, both with split k, v and
-// dout; v + 8 the same kernels with exact ones (see attributes.cuh).
+// dout; v + 8 the same kernels with exact ones; 16 flash_bwd_dq_d256 and
+// 17 flash_bwd_dkdv_d256, head dim 256's plans, for either variant (see
+// attributes.cuh).
 extern "C" int flash_bwd_attributes(int v, int smem, int* out) {
   using F = const void*;
-  const F fns[16] = {
+  const F fns[18] = {
       reinterpret_cast<F>(flash_bwd_dq<16, false>),
       reinterpret_cast<F>(flash_bwd_dq<32, false>),
       reinterpret_cast<F>(flash_bwd_dq<64, false>),
@@ -875,7 +1271,9 @@ extern "C" int flash_bwd_attributes(int v, int smem, int* out) {
       reinterpret_cast<F>(flash_bwd_dkdv<16, true>),
       reinterpret_cast<F>(flash_bwd_dkdv<32, true>),
       reinterpret_cast<F>(flash_bwd_dkdv<64, true>),
-      reinterpret_cast<F>(flash_bwd_dkdv<128, true>)};
-  if (v < 0 || v >= 16) return static_cast<int>(cudaErrorInvalidValue);
+      reinterpret_cast<F>(flash_bwd_dkdv<128, true>),
+      reinterpret_cast<F>(flash_bwd_dq_d256),
+      reinterpret_cast<F>(flash_bwd_dkdv_d256)};
+  if (v < 0 || v >= 18) return static_cast<int>(cudaErrorInvalidValue);
   return repro::kernel_attributes(fns[v], NT, smem, out);
 }

@@ -506,6 +506,231 @@ __global__ void __launch_bounds__(NT, 1) flash_f32_stats(const Fwd p) {
   }
 }
 
+// ---------------------------------------------------------------------------
+// head dim 256 (recurrentgemma-9b's local attention): fp32 FMAs on the
+// CUDA cores
+// ---------------------------------------------------------------------------
+// The split plan does not fit at D = 256: a split K/V stage is 128 KB and
+// raw Q another 64 KB a warpgroup. This plan is B9's fp32 D = 256 plan
+// (flash_attn.cu::flash_f32<256>) with F's outputs: one CTA of 256
+// threads (a 16 x 16 grid) a (b, q head, 64-row query block), heaviest
+// first; cp.async brings the Q tile once and the 32-key K and V tiles
+// through a two-stage ring; S = Qs K^T as 4 rows x 2 keys a thread, each
+// logit one fp32 fma chain over d in order (the fp32 plain version's
+// arithmetic, so m, the row's largest, is its logit as the plain version
+// takes it); the online softmax in registers; P^T into the K stage S was
+// taken from; O += P V as 4 rows x 16 columns a thread. Q and K rows at
+// stride D + 4 put a quarter-warp's float4 on all 32 banks. Shared
+// memory: Q 66,560 B + 2 x K / P^T 33,280 B + 2 x V 32,768 B = 198,656
+// B, one CTA an SM. exact is moot here (no split to skip): both
+// variants run this kernel. Bound: operations, 4 D flops a visible pair
+// at the CUDA cores' 67 TFLOP/s (chip_smoke phase 2g prints it beside
+// the split-TF32 bound that a tensor-core plan would be held to).
+constexpr int W_D = 256;
+constexpr int W_NT = 256;              // threads: a 16 x 16 grid
+constexpr int W_LD = W_D + 4;          // Q and K row stride (floats)
+constexpr int W_PS = BQ + 4;           // P^T row stride: a row a key
+constexpr int W_RPT = BQ / 16;         // query rows a thread (S and O)
+constexpr int W_KPT = BK / 16;         // keys a thread (S)
+constexpr int W_CPT = W_D / 16;        // O columns a thread, as float4s
+constexpr int W_KSTAGE = BK * W_LD;    // a K stage, P^T once S is taken
+constexpr int W_VSTAGE = BK * W_D;
+constexpr int W_SMEM = 4 * (BQ * W_LD + 2 * W_KSTAGE + 2 * W_VSTAGE);
+
+// rows [0, n) of a (rows x 256) fp32 tile at src (row stride ld) into
+// shared memory at row stride lds, zeros for rows [n, rows).
+__device__ __forceinline__ void w_load(float* dst, int lds, const float* src,
+                                       long long ld, int rows, int n) {
+  constexpr int C4 = W_D / 4;
+  for (int i = threadIdx.x; i < rows * C4; i += W_NT) {
+    const int r = i / C4, c = 4 * (i % C4);
+    const bool ok = r < n;
+    sm90::cp_async16(dst + r * lds + c, ok ? src + r * ld + c : src, ok);
+  }
+}
+
+__global__ void __launch_bounds__(W_NT, 1) flash_fwd_d256(const Fwd p) {
+  extern __shared__ __align__(16) float wsm[];
+  float* Qs = wsm;                      // BQ x W_LD
+  float* Ks = Qs + BQ * W_LD;           // 2 stages of W_KSTAGE (then P^T)
+  float* Vs = Ks + 2 * W_KSTAGE;        // 2 stages of BK x D
+
+  const int nblk = (p.T + BQ - 1) / BQ;
+  int qb = blockIdx.x / (p.Hq * p.B);
+  if (p.causal) qb = nblk - 1 - qb;     // heaviest first
+  const int h = blockIdx.x % p.Hq, b = (blockIdx.x / p.Hq) % p.B;
+  const int hk = h / p.group;
+  const int r0 = qb * BQ;
+  const int q_first = r0 + p.q_offset;
+  const int q_last = min(r0 + BQ, p.T) - 1 + p.q_offset;
+  int hi = (p.S + BK - 1) / BK;
+  if (p.causal) hi = min(hi, q_last / BK + 1);
+  int lo = 0;
+  if (p.window > 0 && q_first - p.window + 1 > 0)
+    lo = (q_first - p.window + 1) / BK;
+
+  const float* Q = p.q + b * p.sqb + h * p.sqh;
+  const float* K = p.k + b * p.skb + hk * p.skh;
+  const float* V = p.v + b * p.svb + hk * p.svh;
+  float* O = p.o + b * p.sob + h * p.soh;
+
+  auto load_kv = [&](int j, int st) {
+    const int k0 = j * BK;
+    w_load(Ks + st * W_KSTAGE, W_LD, K + k0 * p.sks, p.sks, BK, p.S - k0);
+    w_load(Vs + st * W_VSTAGE, W_D, V + k0 * p.svs, p.svs, BK, p.S - k0);
+  };
+  w_load(Qs, W_LD, Q + r0 * p.sqt, p.sqt, BQ, p.T - r0);
+  if (lo < hi) load_kv(lo, 0);
+  sm90::cp_async_commit();
+  if (lo + 1 < hi) load_kv(lo + 1, 1);
+  sm90::cp_async_commit();
+
+  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
+  const int rq = ty * W_RPT;   // the thread's first row in the block
+  float o[W_RPT][W_CPT], m[W_RPT], l[W_RPT];
+#pragma unroll
+  for (int i = 0; i < W_RPT; ++i) {
+    m[i] = NEG_INF;
+    l[i] = 0.0f;   // this thread's share of the row sum (its keys)
+#pragma unroll
+    for (int c = 0; c < W_CPT; ++c) o[i][c] = 0.0f;
+  }
+
+  for (int j = lo; j < hi; ++j) {
+    const int st = (j - lo) & 1;
+    float* Kt = Ks + st * W_KSTAGE;
+    const float* Vt = Vs + st * W_VSTAGE;
+    sm90::cp_async_wait<1>();   // all but the newest group: tile j is in
+    __syncthreads();
+
+    // S = Qs K^T: rows rq .. rq + 3, keys tx + 16 kk; each logit one fma
+    // chain over d in order
+    float s[W_RPT][W_KPT];
+#pragma unroll
+    for (int i = 0; i < W_RPT; ++i)
+#pragma unroll
+      for (int kk = 0; kk < W_KPT; ++kk) s[i][kk] = 0.0f;
+#pragma unroll 2
+    for (int c = 0; c < W_D; c += 4) {
+      float4 kv[W_KPT];
+#pragma unroll
+      for (int kk = 0; kk < W_KPT; ++kk)
+        kv[kk] = *reinterpret_cast<const float4*>(Kt + (tx + 16 * kk) * W_LD +
+                                                  c);
+#pragma unroll
+      for (int i = 0; i < W_RPT; ++i) {
+        const float4 qv =
+            *reinterpret_cast<const float4*>(Qs + (rq + i) * W_LD + c);
+#pragma unroll
+        for (int kk = 0; kk < W_KPT; ++kk) {
+          s[i][kk] = fmaf(qv.x, kv[kk].x, s[i][kk]);
+          s[i][kk] = fmaf(qv.y, kv[kk].y, s[i][kk]);
+          s[i][kk] = fmaf(qv.z, kv[kk].z, s[i][kk]);
+          s[i][kk] = fmaf(qv.w, kv[kk].w, s[i][kk]);
+        }
+      }
+    }
+    __syncthreads();   // every thread is done with K_j: its stage takes P^T
+
+    // the online softmax: the scale after the dot, -1e30 where the mask
+    // hides the key (tiles on an edge), the row max over the row's 16
+    // threads by shuffles
+    const int k0 = j * BK;
+    const bool edge = k0 + BK > p.S || (p.causal && k0 + BK - 1 > q_first) ||
+                      (p.window > 0 && k0 <= q_last - p.window);
+    float corr[W_RPT];
+#pragma unroll
+    for (int i = 0; i < W_RPT; ++i) {
+      const int qpos = r0 + rq + i + p.q_offset;
+      float mx = NEG_INF;
+#pragma unroll
+      for (int kk = 0; kk < W_KPT; ++kk) {
+        float x = __fmul_rn(s[i][kk], p.scale);
+        if (edge && !visible(p, qpos, k0 + tx + 16 * kk)) x = NEG_INF;
+        s[i][kk] = x;
+        mx = fmaxf(mx, x);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
+      const float mn = fmaxf(m[i], mx);
+      corr[i] = expf(m[i] - mn);
+      m[i] = mn;
+      float sum = 0.0f;
+#pragma unroll
+      for (int kk = 0; kk < W_KPT; ++kk) {
+        s[i][kk] = expf(s[i][kk] - mn);
+        sum += s[i][kk];
+      }
+      l[i] = __fadd_rn(__fmul_rn(l[i], corr[i]), sum);
+    }
+    // P^T into the K stage: key tx + 16 kk, rows rq .. rq + 3
+#pragma unroll
+    for (int kk = 0; kk < W_KPT; ++kk)
+      *reinterpret_cast<float4*>(Kt + (tx + 16 * kk) * W_PS + rq) =
+          make_float4(s[0][kk], s[1][kk], s[2][kk], s[3][kk]);
+#pragma unroll
+    for (int i = 0; i < W_RPT; ++i)
+#pragma unroll
+      for (int c = 0; c < W_CPT; ++c) o[i][c] *= corr[i];
+    __syncthreads();   // P^T is complete
+
+    // O += P V: rows rq .. rq + 3, columns 64 g + 4 tx + e
+    const int limit = min(BK, p.S - k0);   // the keys past S are zeros
+#pragma unroll 2
+    for (int k = 0; k < limit; ++k) {
+      const float4 pv = *reinterpret_cast<const float4*>(Kt + k * W_PS + rq);
+      const float pr[W_RPT] = {pv.x, pv.y, pv.z, pv.w};
+#pragma unroll
+      for (int g = 0; g < 4; ++g) {
+        const float4 vv =
+            *reinterpret_cast<const float4*>(Vt + k * W_D + 64 * g + 4 * tx);
+#pragma unroll
+        for (int i = 0; i < W_RPT; ++i) {
+          o[i][4 * g] = fmaf(pr[i], vv.x, o[i][4 * g]);
+          o[i][4 * g + 1] = fmaf(pr[i], vv.y, o[i][4 * g + 1]);
+          o[i][4 * g + 2] = fmaf(pr[i], vv.z, o[i][4 * g + 2]);
+          o[i][4 * g + 3] = fmaf(pr[i], vv.w, o[i][4 * g + 3]);
+        }
+      }
+    }
+    __syncthreads();   // stage st is free
+    if (j + 2 < hi) load_kv(j + 2, st);
+    sm90::cp_async_commit();
+  }
+  sm90::cp_async_wait<0>();
+
+  // the row sums over the row's 16 threads; out = O / max(l, 1e-30); m
+  // and max(l, 1e-30) by the row's first thread
+#pragma unroll
+  for (int i = 0; i < W_RPT; ++i) {
+#pragma unroll
+    for (int off = 1; off < 16; off <<= 1)
+      l[i] += __shfl_xor_sync(FULL, l[i], off);
+    const int row = r0 + rq + i;
+    if (row >= p.T) continue;
+    const float ls = fmaxf(l[i], 1e-30f);
+#pragma unroll
+    for (int g = 0; g < 4; ++g)
+      *reinterpret_cast<float4*>(O + row * p.sot + 64 * g + 4 * tx) =
+          make_float4(o[i][4 * g] / ls, o[i][4 * g + 1] / ls,
+                      o[i][4 * g + 2] / ls, o[i][4 * g + 3] / ls);
+    if (tx == 0) {
+      const long long at = (static_cast<long long>(b) * p.Hq + h) * p.T + row;
+      p.m[at] = m[i];
+      p.l[at] = ls;
+    }
+  }
+}
+
+int launch_d256(const Fwd& p, cudaStream_t st) {
+  const cudaError_t e = cudaFuncSetAttribute(
+      flash_fwd_d256, cudaFuncAttributeMaxDynamicSharedMemorySize, W_SMEM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  flash_fwd_d256<<<(p.T + BQ - 1) / BQ * p.Hq * p.B, W_NT, W_SMEM, st>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <int D, bool EXACT>
 int launch(const Fwd& p, cudaStream_t st) {
   using L = FTiles<D, EXACT>;
@@ -527,6 +752,7 @@ int by_dim(const Fwd& p, int D, cudaStream_t st) {
     case 32: return launch<32, EXACT>(p, st);
     case 64: return launch<64, EXACT>(p, st);
     case 128: return launch<128, EXACT>(p, st);
+    case 256: return launch_d256(p, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -538,6 +764,7 @@ long long tile_floats(int D) {
     case 32: return FTiles<32, EXACT>::TILE;
     case 64: return FTiles<64, EXACT>::TILE;
     case 128: return FTiles<128, EXACT>::TILE;
+    case 256: return 0;   // flash_fwd_d256 reads k and v as they are
     default: return -1;
   }
 }
@@ -545,7 +772,8 @@ long long tile_floats(int D) {
 }  // namespace
 
 // Floats of the scratch buffer that F's K and V tiles take (pass it as
-// `tiles`): B x Hkv x ceil(S / 32) tiles; -1 for a head dim F lacks.
+// `tiles`): B x Hkv x ceil(S / 32) tiles; 0 at head dim 256, whose plan
+// reads k and v as they are; -1 for a head dim F lacks.
 extern "C" long long flash_fwd_scratch(int B, int Hkv, int S, int D,
                                        int exact) {
   const long long t = exact ? tile_floats<true>(D) : tile_floats<false>(D);
@@ -593,16 +821,18 @@ extern "C" int flash_fwd_smem(int D, int exact) {
     case 64: return exact ? FTiles<64, true>::SMEM : FTiles<64, false>::SMEM;
     case 128:
       return exact ? FTiles<128, true>::SMEM : FTiles<128, false>::SMEM;
+    case 256: return W_SMEM;   // both variants: flash_fwd_d256
     default: return -1;
   }
 }
 
 // Resources of the variant v, head dim D = 16 << (v % 4): v = 0 .. 3
 // flash_f32_stats<D> with split k and v, 4 .. 7 with exact ones; 8 .. 15
-// flash_fwd_split in the same order (see attributes.cuh).
+// flash_fwd_split in the same order; 16 flash_fwd_d256, head dim 256's
+// plan (see attributes.cuh).
 extern "C" int flash_fwd_attributes(int v, int smem, int* out) {
   using F = const void*;
-  const F fns[16] = {
+  const F fns[17] = {
       reinterpret_cast<F>(flash_f32_stats<16, false>),
       reinterpret_cast<F>(flash_f32_stats<32, false>),
       reinterpret_cast<F>(flash_f32_stats<64, false>),
@@ -618,7 +848,9 @@ extern "C" int flash_fwd_attributes(int v, int smem, int* out) {
       reinterpret_cast<F>(flash_fwd_split<16, true>),
       reinterpret_cast<F>(flash_fwd_split<32, true>),
       reinterpret_cast<F>(flash_fwd_split<64, true>),
-      reinterpret_cast<F>(flash_fwd_split<128, true>)};
-  if (v < 0 || v >= 16) return static_cast<int>(cudaErrorInvalidValue);
-  return repro::kernel_attributes(fns[v], v < 8 ? NT : ST, smem, out);
+      reinterpret_cast<F>(flash_fwd_split<128, true>),
+      reinterpret_cast<F>(flash_fwd_d256)};
+  if (v < 0 || v >= 17) return static_cast<int>(cudaErrorInvalidValue);
+  return repro::kernel_attributes(fns[v], v < 8 ? NT : v < 16 ? ST : W_NT,
+                                  smem, out);
 }

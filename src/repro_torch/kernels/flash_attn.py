@@ -68,6 +68,14 @@ with query t at position t + q_offset:
   a fixed order. Both take :func:`bwd_operands`, which also says whether
   k, v and dout were bf16 or fp16 (:func:`tf32_exact`): then N1 skips
   their zero small halves;
+* head dim 256 (recurrentgemma-9b's local attention), where the split
+  plans do not fit in shared memory: F, N1-dq and N1-dkdv each run a
+  plan of their own with fp32 FMAs on the CUDA cores (B9 fp32's D = 256
+  shape: 64-row query blocks, 32-key tiles, operand tiles at row stride
+  D + 4): ``flash_fwd_d256`` (m the max key's logit as one fp32 fma
+  chain over d, the plain version's order), ``flash_bwd_dq_d256`` and
+  ``flash_bwd_dkdv_d256`` (dk and dv summed over the group's query heads
+  in order, no atomics). The exact variant is the same kernel there;
 * :func:`flash_attention_train` / :func:`flash_attention_bwd` — dispatch
   by device, counted in ``launch.flash_attention_train``,
   ``launch.flash_bwd_dq`` and ``launch.flash_bwd_dkdv``.
@@ -88,7 +96,7 @@ Tensor = torch.Tensor
 NEG_INF = -1e30
 BK = 128                     # keys per kv tile up to head dim 128
 HEAD_DIMS = (16, 32, 64, 128, 256)          # B9's
-TRAIN_HEAD_DIMS = (16, 32, 64, 128)         # F's and N1's
+TRAIN_HEAD_DIMS = (16, 32, 64, 128, 256)    # F's and N1's
 DTYPES = (torch.float32, torch.bfloat16)
 
 

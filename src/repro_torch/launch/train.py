@@ -10,9 +10,10 @@ Runs on the card unless ``--device cpu`` (the kernels' plain versions);
 ``--full-config`` builds the published architecture, else the smoke
 config. Weights are random, drawn from ``--seed`` with a
 ``torch.Generator``. ``--mesh`` (the reference's sharded step) is the
-LM's mesh path, ROADMAP A17 (third part), and raises; so do the ssm and
-hybrid families (falcon-mamba-7b, recurrentgemma-9b: ROADMAP A18,
-training of the ssm and hybrid families), before any weight is drawn.
+LM's mesh path, ROADMAP A17 (third part), and raises; so do the
+families the port does not build (moe, encdec, vlm: ROADMAP A18), before
+any weight is drawn. The dense, ssm (falcon-mamba-7b) and hybrid
+(recurrentgemma-9b) families train.
 
   PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-0.6b \\
       --full-config --seq-len 2048 --global-batch 4 --steps 8
@@ -82,7 +83,7 @@ def train(args: argparse.Namespace, cfg=None) -> tuple[dict, list[float]]:
                                     total_steps=args.steps),
         compression=compress.CompressConfig(codec=args.compress),
         grad_accum=args.grad_accum)
-    # built first: it raises for a family whose training waits, before
+    # built first: it raises for a family the port does not build, before
     # the weights are drawn
     step_fn = steps_mod.make_train_step(cfg, tc)
     gen = torch.Generator(device=dev).manual_seed(args.seed)

@@ -24,7 +24,10 @@ each leaf's largest from the reference's (its worst leaf over five
 seeds: qwen3-0.6b 0.023, smollm-135m 0.037, granite-8b 0.025,
 qwen2.5-14b 0.039 of the smoke configs, on the CPU): the frameworks
 round bf16 matmuls and their gradients at other places. ``apply_mrope``
-raises (Qwen2-VL's M-RoPE waits for ROADMAP A18).
+raises (Qwen2-VL's M-RoPE waits for ROADMAP A18). The recurrent blocks'
+log-depth scan :func:`affine_scan` is differentiable (its backward the
+reverse scan, :func:`affine_scan_adjoint`); mamba's chunked scan has its
+own backward (``mamba._ChunkedSSM``).
 """
 from __future__ import annotations
 
@@ -163,20 +166,14 @@ def causal_conv(xb: Tensor, pc, compute_dtype) -> Tensor:
     return y + pc["b"].to(compute_dtype)
 
 
-def affine_scan(a: Tensor, b: Tensor) -> Tensor:
-    """The states h_t = a_t h_{t-1} + b_t from h = 0, along the leading
-    (time) axis: the b half of every prefix of the affine maps h -> a h +
-    b under the composition (a2, b2) ∘ (a1, b1) = (a2 a1, a2 b1 + b2)
-    that the reference hands to ``jax.lax.associative_scan``
-    (``mamba.py:101``, ``rglru.py:98``).
-
-    Log-depth (Hillis–Steele): ⌈log₂ T⌉ rounds, each three whole-tensor
-    elementwise kernels written into fresh buffers, so a 4,096-step
-    sequence is 12 rounds and never a Python loop over steps. Time-major,
-    so every slice is contiguous and PyTorch's vectorized kernels run. No
-    division by prefix products, so a product of decays that underflows
-    to 0 stays exact. The rounding differs from the reference's tree by
-    fp32 ordering only."""
+def _scan(a: Tensor, b: Tensor) -> Tensor:
+    """The states h_t = a_t h_{t-1} + b_t from h = 0 along the leading
+    (time) axis, log depth (Hillis–Steele): ⌈log₂ T⌉ rounds, each three
+    whole-tensor elementwise kernels written into fresh buffers, so a
+    4,096-step sequence is 12 rounds and never a Python loop over steps.
+    Time-major, so every slice is contiguous and PyTorch's vectorized
+    kernels run. No division by prefix products, so a product of decays
+    that underflows to 0 stays exact."""
     n = a.shape[0]
     a, b = a.contiguous(), b.contiguous()
     step = 1
@@ -193,6 +190,55 @@ def affine_scan(a: Tensor, b: Tensor) -> Tensor:
         b = nb
         step *= 2
     return b
+
+
+def affine_scan_adjoint(a: Tensor, g: Tensor) -> Tensor:
+    """The adjoint of h_t = a_t h_{t-1} + b_t: r_t = g_t + a_{t+1}
+    r_{t+1} (r_{T-1} = g_{T-1}), the cotangent of every h_t given the
+    cotangents g_t of the states, so that db_t = r_t and da_t = r_t
+    h_{t-1}. The same forward scan on flipped arrays, a shifted by one
+    (its first decay multiplies the zero state, so it is never read)."""
+    af = torch.cat([torch.ones_like(a[:1]), a[1:].flip(0)])
+    return _scan(af, g.flip(0)).flip(0)
+
+
+class _AffineScan(torch.autograd.Function):
+    """:func:`affine_scan` with its backward: the reverse scan of
+    :func:`affine_scan_adjoint`, from the saved decays and states (a and
+    h, nothing else). No division by prefix products either way, so
+    decays that underflow stay exact in the backward too."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        h = _scan(a, b)
+        ctx.save_for_backward(a, h)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        a, h = ctx.saved_tensors
+        r = affine_scan_adjoint(a, g)
+        da = None
+        if ctx.needs_input_grad[0]:
+            da = torch.empty_like(r)
+            da[0] = 0.0                   # h_{-1} = 0
+            torch.mul(r[1:], h[:-1], out=da[1:])
+        return da, r
+
+
+def affine_scan(a: Tensor, b: Tensor) -> Tensor:
+    """The states h_t = a_t h_{t-1} + b_t from h = 0, along the leading
+    (time) axis: the b half of every prefix of the affine maps h -> a h +
+    b under the composition (a2, b2) ∘ (a1, b1) = (a2 a1, a2 b1 + b2)
+    that the reference hands to ``jax.lax.associative_scan``
+    (``mamba.py:101``, ``rglru.py:98``).
+
+    Log-depth (:func:`_scan`); the rounding differs from the reference's
+    tree by fp32 ordering only. Differentiable: the backward is the
+    reverse scan of :func:`affine_scan_adjoint` (``jax.grad`` of the
+    reference's ``associative_scan``, ``tests/test_torch_mamba.py``),
+    saving a and h only."""
+    return _AffineScan.apply(a, b)
 
 
 # ---------------------------------------------------------------------------

@@ -1,7 +1,8 @@
 """Mamba-1 block (falcon-mamba-7b): selective SSM, attention-free.
 
-Port of ``repro.models.mamba`` for serving: the chunked forward (prefill)
-and the one-token decode step. Structure per layer (Gu & Dao 2023):
+Port of ``repro.models.mamba``: the chunked forward (training and
+prefill), its hand-written backward, and the one-token decode step.
+Structure per layer (Gu & Dao 2023):
 
   x -> in_proj -> (x_branch, z_gate)           d -> 2 * d_inner
   x_branch -> causal depthwise conv1d (width 4) -> silu
@@ -9,17 +10,19 @@ and the one-token decode step. Structure per layer (Gu & Dao 2023):
      with Ā_t = exp(Δ_t A), B̄_t = Δ_t B_t (ZOH), A diagonal (d_inner, N)
   y * silu(z_gate) -> out_proj                 d_inner -> d
 
-Prefill runs the reference's chunked scan: 64-step chunks, within a chunk
-the diagonal recurrence as a log-depth scan of affine maps
+The scan runs the reference's chunks: 64-step chunks, within a chunk the
+diagonal recurrence as a log-depth scan of affine maps
 (``layers.affine_scan``), across chunks a carried (B, d_inner, N) fp32
 state, so peak memory stays O(B · 64 · d_inner · N) whatever T is. The
 scan is plain PyTorch, as the reference's is plain JAX (no TPU kernel).
 
-The reference's hand-written VJP (``_chunked_ssm_bwd``) belongs to
-training, which waits (ROADMAP A18, training of the ssm and hybrid
-families; ``train.steps.make_train_step`` raises for this family):
-without it autograd would keep every chunk's (B, 64, d_inner, N)
-intermediates.
+Training goes through the reference's hand-written VJP
+(``_chunked_ssm_bwd``), here :class:`_ChunkedSSM`: the forward saves its
+inputs and each chunk's incoming state (33.5 MB a layer at B = 2 × 2,048
+for falcon-mamba-7b), and the backward re-expands one chunk at a time and
+runs the adjoint recurrence as a reverse scan. Autograd through the
+chunk loop would keep every round of every chunk's (64, B, d_inner, N)
+scan instead (tens of GB a layer at that batch).
 
 Decode is the exact single-step recurrence on the carried state. Like
 the reference, the state is a new ``{"h", "conv"}`` dict each step.
@@ -94,14 +97,17 @@ def _chunk_scan(a: Tensor, bx: Tensor, h0: Tensor):
     return h, h[-1].clone()
 
 
+def _tm(t: Tensor) -> Tensor:
+    """(B, Lc, ...) -> time-major (Lc, B, ...) fp32, contiguous."""
+    return t.float().transpose(0, 1).contiguous()
+
+
 def _chunk_fwd(A: Tensor, h: Tensor, d_c: Tensor, B_c: Tensor, C_c: Tensor,
                x_c: Tensor):
     """One chunk forward, time-major inside (the scan's slices are then
     contiguous): (y (B, Lc, di), h_all (Lc, B, di, N), h_last, a (Lc, B,
     di, N))."""
-    def tm(t):                                            # (Lc, B, ...)
-        return t.float().transpose(0, 1).contiguous()
-    d_f, x_f, B_f, C_f = tm(d_c), tm(x_c), tm(B_c), tm(C_c)
+    d_f, x_f, B_f, C_f = _tm(d_c), _tm(x_c), _tm(B_c), _tm(C_c)
     a = torch.exp(d_f[..., None] * A)                     # (Lc,B,di,N)
     bx = (d_f * x_f)[..., None] * B_f[:, :, None, :]
     hs, h_last = _chunk_scan(a, bx, h)
@@ -109,22 +115,96 @@ def _chunk_fwd(A: Tensor, h: Tensor, d_c: Tensor, B_c: Tensor, C_c: Tensor,
     return y, hs, h_last, a
 
 
-def _chunked_ssm(delta: Tensor, Bm: Tensor, Cm: Tensor, xb: Tensor,
-                 A: Tensor, h0: Tensor):
-    """y_t = C_t · h_t with h_t = exp(δ_t A) h_{t-1} + δ_t x_t B_t, chunk
-    by chunk (the forward of the reference's ``_chunked_ssm``; T a
-    multiple of the chunk, or shorter than one). Returns (y (B, T, di)
-    fp32, h_last (B, di, N) fp32)."""
+def _ssm_forward(delta: Tensor, Bm: Tensor, Cm: Tensor, xb: Tensor,
+                 A: Tensor, h0: Tensor, bounds: list | None = None):
+    """The chunk loop of the forward: (y (B, T, di) fp32, h_last (B, di,
+    N) fp32); each chunk's incoming state appended to ``bounds`` if one
+    is given."""
     T = xb.shape[1]
     Lc = min(_CHUNK, T)
     h = h0.float()
     ys = []
     for c0 in range(0, T, Lc):
         sl = slice(c0, c0 + Lc)
+        if bounds is not None:
+            bounds.append(h)
         y, _, h, _ = _chunk_fwd(A, h, delta[:, sl], Bm[:, sl], Cm[:, sl],
                                 xb[:, sl])
         ys.append(y)
     return torch.cat(ys, dim=1), h
+
+
+class _ChunkedSSM(torch.autograd.Function):
+    """The reference's ``_chunked_ssm`` with its hand-written VJP
+    (``mamba.py:117-222``): the forward keeps only the inputs and each
+    chunk's incoming state ``h_bounds`` (n_chunks, B, d_inner, N) fp32;
+    the backward walks the chunks in reverse, re-expands each with
+    :func:`_chunk_fwd`, and runs the adjoint recurrence r_t = h̄_t +
+    a_{t+1} r_{t+1} inside it as the same log-depth scan on flipped
+    arrays (``layers.affine_scan_adjoint``), where h̄_t = dy_t C_t plus,
+    at the chunk's last step, the cotangent carried from the next chunk
+    (the last chunk's: the cotangent into h_last). Autograd through the
+    forward would keep every round of every chunk's (Lc, B, d_inner, N)
+    scan instead (``tests/test_torch_mamba.py`` counts the bytes)."""
+
+    @staticmethod
+    def forward(ctx, delta, Bm, Cm, xb, A, h0):
+        bounds = []
+        y, h = _ssm_forward(delta, Bm, Cm, xb, A, h0, bounds)
+        ctx.save_for_backward(delta, Bm, Cm, xb, A, torch.stack(bounds))
+        return y, h
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        delta, Bm, Cm, xb, A, h_bounds = ctx.saved_tensors
+        T = xb.shape[1]
+        Lc = min(_CHUNK, T)
+        rc = dh_last.float()             # the cotangent into h_last
+        dA = torch.zeros(A.shape, dtype=torch.float32, device=A.device)
+        Af = A.float()
+        outs = []
+        for c in reversed(range(T // Lc)):
+            sl = slice(c * Lc, (c + 1) * Lc)
+            h_in = h_bounds[c]
+            _, hs, _, a = _chunk_fwd(A, h_in, delta[:, sl], Bm[:, sl],
+                                     Cm[:, sl], xb[:, sl])
+            d_f, x_f, B_f, C_f, dy_f = (_tm(t[:, sl]) for t in
+                                        (delta, xb, Bm, Cm, dy))
+            # the cotangent of each h_t from y_t = C_t . h_t, plus the
+            # carry into the chunk's last state
+            hbar = dy_f[..., None] * C_f[:, :, None, :]    # (Lc,B,di,N)
+            hbar[-1] += rc
+            r = L.affine_scan_adjoint(a, hbar)
+            h_prev = torch.cat([h_in[None], hs[:-1]])
+            dada = r * h_prev * a             # da · a: da/d(delta A) = a
+            # a = exp(delta A): ddelta = sum_n da a A, dA += sum da a delta
+            ddelta = (dada * Af).sum(-1)                   # (Lc,B,di)
+            dA += torch.einsum("lbds,lbd->ds", dada, d_f)
+            # bx = (delta x)[..., None] B[:, :, None, :], dbx = r
+            dB = torch.einsum("lbds,lbd->lbs", r, d_f * x_f)
+            ddx = (r * B_f[:, :, None, :]).sum(-1)        # (Lc,B,di)
+            ddelta += ddx * x_f
+            dC = torch.einsum("lbd,lbds->lbs", dy_f, hs)
+            outs.append((ddelta, dB, dC, ddx * d_f))
+            rc = a[0] * r[0]                  # into the previous chunk
+        dd, dB, dC, dx = (torch.cat([o[i] for o in reversed(outs)])
+                          .transpose(0, 1) for i in range(4))
+        return (dd.to(delta.dtype), dB.to(Bm.dtype), dC.to(Cm.dtype),
+                dx.to(xb.dtype), dA.to(A.dtype), rc)
+
+
+def _chunked_ssm(delta: Tensor, Bm: Tensor, Cm: Tensor, xb: Tensor,
+                 A: Tensor, h0: Tensor):
+    """y_t = C_t · h_t with h_t = exp(δ_t A) h_{t-1} + δ_t x_t B_t, chunk
+    by chunk (the reference's ``_chunked_ssm``; T a multiple of the
+    chunk, or shorter than one). Returns (y (B, T, di) fp32, h_last (B,
+    di, N) fp32). Differentiable through :class:`_ChunkedSSM`'s
+    hand-written backward; without autograd the same forward runs
+    alone."""
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (delta, Bm, Cm, xb, A, h0)):
+        return _ChunkedSSM.apply(delta, Bm, Cm, xb, A, h0)
+    return _ssm_forward(delta, Bm, Cm, xb, A, h0)
 
 
 def scan_sequence(p, xb: Tensor, cfg: ArchConfig, h0: Tensor,

@@ -16,8 +16,7 @@ reference's pytree, the stack's layers un-stacked):
 ``impl`` defaults to ``"flash_pallas"`` (B9 on the card) for serving;
 training passes ``"flash_xla"`` (``TrainConfig.attn_impl``). The dense,
 ssm (falcon-mamba) and hybrid (recurrentgemma: RG-LRU and local
-attention) families are built; training the ssm and hybrid families
-waits (``train.steps.make_train_step`` raises). The moe, encdec and vlm
+attention) families are built, served and trained. The moe, encdec and vlm
 families, M-RoPE and llama4's iRoPE window/global layers wait for A18
 and raise when a model is built from them (``check_supported``). ``param_shapes``, ``input_specs`` and
 ``batch_axes`` serve the TPU dry-run (A19) and the LM's mesh path

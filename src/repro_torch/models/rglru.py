@@ -1,6 +1,7 @@
 """RG-LRU recurrent block (recurrentgemma-9b / Griffin, arXiv:2402.19427).
 
-Port of ``repro.models.rglru`` for serving. The recurrent block (the
+Port of ``repro.models.rglru`` (training, prefill, decode). The
+recurrent block (the
 "rec" element of the (rec, rec, attn) pattern):
 
   x -> [branch 1] linear (d -> w) -> causal conv1d (width 4) -> RG-LRU
@@ -14,10 +15,13 @@ RG-LRU cell (diagonal gated linear recurrence):
   a_t = exp(c * softplus(Λ) * (-r_t))   per-channel decay, Λ learned, c=8
   h_t = a_t h_{t-1} + sqrt(1 - a_t²) · (i_t ⊙ x_t)
 
-Prefill scans the whole sequence at once with the log-depth scan of
-affine maps (``layers.affine_scan``; the state is (B, w) a step, so no
-chunking), in plain PyTorch, as the reference's ``associative_scan`` is
-plain JAX (no TPU kernel). Decode is the exact one-step recurrence.
+Training and prefill scan the whole sequence at once with the log-depth
+scan of affine maps (``layers.affine_scan``; the state is (B, w) a step,
+so no chunking), in plain PyTorch, as the reference's
+``associative_scan`` is plain JAX (no TPU kernel). The scan's backward
+is ``affine_scan``'s own, the reverse scan (saving the decays and the
+states); the gates' is autograd's. Decode is the exact one-step
+recurrence.
 """
 from __future__ import annotations
 

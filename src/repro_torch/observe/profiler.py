@@ -42,9 +42,10 @@ KERNEL_SYMBOLS = {
     "odm_grad": ("b7_ring_kernel", "odm_grad_wide_kernel",
                  "odm_grad_reduce_kernel"),
     "flash_attention": ("flash_bf16", "flash_f32"),
-    "flash_attention_train": ("flash_fwd_split", "flash_f32_stats"),
-    "flash_bwd_dq": ("flash_bwd_dq",),
-    "flash_bwd_dkdv": ("flash_bwd_dkdv",),
+    "flash_attention_train": ("flash_fwd_split", "flash_f32_stats",
+                              "flash_fwd_d256"),
+    "flash_bwd_dq": ("flash_bwd_dq", "flash_bwd_dq_d256"),
+    "flash_bwd_dkdv": ("flash_bwd_dkdv", "flash_bwd_dkdv_d256"),
 }
 
 

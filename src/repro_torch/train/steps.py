@@ -8,12 +8,12 @@ the plain function (the reference's launchers jit it).
 optional gradient accumulation (microbatches summed into fp32 zeros in
 order, then divided), gradient compression (the error-feedback codec
 before the update, standing in for a compressed DP all-reduce), and
-remat governed by the ArchConfig (``transformer._remat``). The ssm and
-hybrid families (falcon-mamba, recurrentgemma) are served but not yet
-trained: :func:`make_train_step` raises for them (ROADMAP A18, training
-of the ssm and hybrid families), since without the reference's custom
-backward of the chunked scan (``mamba._chunked_ssm_bwd``) autograd would
-keep every chunk's (B, 64, d_inner, N) intermediates.
+remat governed by the ArchConfig (``transformer._remat``). It trains the
+families the port builds: dense, ssm (falcon-mamba: the chunked
+selective scan's hand-written backward, ``mamba._ChunkedSSM``) and hybrid
+(recurrentgemma: the RG-LRU through ``layers.affine_scan``'s reverse
+scan, the local attention through F and N1 at head dim 256). The moe,
+encdec and vlm families raise (``model.check_supported``, ROADMAP A18).
 
 ``make_serve_step`` / ``make_prefill``: the decode / prefill entry points
 of the serving launcher.
@@ -77,20 +77,11 @@ class TrainState:
         return st
 
 
-def check_trainable(cfg: ArchConfig) -> None:
-    """Raise for a family whose training is not ported yet."""
-    if cfg.family in ("ssm", "hybrid"):
-        raise NotImplementedError(
-            f"{cfg.name}: training the {cfg.family} family is not ported "
-            f"yet: ROADMAP A18 (training of the ssm and hybrid families); "
-            f"serving runs (launch/serve)")
-
-
 def make_train_step(cfg: ArchConfig, tc: TrainConfig):
     """(state, batch) -> (state, metrics {nll, aux, ppl_proxy, grad_norm,
-    lr, loss}). Raises for the ssm and hybrid families
-    (:func:`check_trainable`)."""
-    check_trainable(cfg)
+    lr, loss}). Raises for a family the port does not build
+    (``model.check_supported``)."""
+    M.check_supported(cfg)
     use_ef = tc.compression.codec != "none"
 
     def grads_of(params, batch):

@@ -893,7 +893,15 @@ TRAIN_CASES = [_train_case(1, 2048, 2048, 16, 8, 128, None, 0),
                _train_case(1, 300, 300, 8, 2, 128, 64, 0),
                _train_case(1, 70, 333, 4, 4, 32, 50, 200),
                _train_case(2, 65, 65, 4, 2, 16, None, 0),
-               _train_case(1, 1024, 1024, 16, 8, 128, None, 0, cancel=True)]
+               _train_case(1, 1024, 1024, 16, 8, 128, None, 0, cancel=True),
+               # head dim 256 (recurrentgemma's local attention, the
+               # CUDA-core plans): GQA 16:1 with a window across the
+               # 32-key tiles, queries past a longer history, ragged T
+               # with group 4, and the cancelling case
+               _train_case(1, 300, 300, 16, 1, 256, 100, 0),
+               _train_case(1, 129, 333, 4, 1, 256, None, 200),
+               _train_case(1, 257, 257, 8, 2, 256, None, 0),
+               _train_case(1, 512, 512, 16, 1, 256, 128, 0, cancel=True)]
 
 
 def _train_tol(t):
@@ -964,11 +972,14 @@ def test_flash_train_kernels_match_plain(dev, dtype, kv_dtype, B, T, S, Hq,
 def test_flash_train_backward_is_deterministic(dev):
     """N1 sums in a fixed order (no atomics): two backward passes give the
     same bits, in fp32 and at the qwen3-0.6b training shape in bf16 (N1's
-    exact variant)."""
+    exact variant), and at head dim 256 with recurrentgemma's one kv head
+    (the CUDA-core plans, dk and dv summed over 16 query heads)."""
     from repro_torch.models import attention
     g = torch.Generator(device=dev).manual_seed(5)
     for (B, T, Hq, Hkv, D), dtype in (((2, 256, 8, 2, 64), torch.float32),
                                       ((4, 2048, 16, 8, 128),
+                                       torch.bfloat16),
+                                      ((1, 1024, 16, 1, 256),
                                        torch.bfloat16)):
         q = torch.randn(B, T, Hq, D, device=dev, generator=g).to(dtype)
         k, v = (torch.randn(B, T, Hkv, D, device=dev, generator=g)

@@ -4,7 +4,8 @@ ceiling case (B9 fp32's D = 128 tiles at head dim 256) fail at plan time
 with a sizing report; the mirrors give the shared-memory bytes PERF.md's kernel table
 records at its shapes and the library's plan queries returned on the
 H100 (tests/test_torch_cuda.py holds them against the built library on
-the card)."""
+the card); F's and N1's head-dim-256 plans (the CUDA-core kernels) have
+their own variants and shared memory."""
 import dataclasses
 
 import pytest
@@ -83,6 +84,10 @@ KNOWN = [
     ("flash_bwd_dq", dict(D=128), 229_632),
     ("flash_bwd_dkdv", dict(D=64), 131_104),
     ("flash_bwd_dkdv", dict(D=128), 229_408),
+    ("flash_f32_stats", dict(D=256), 198_656),
+    ("flash_f32_stats", dict(D=256, exact=True), 198_656),
+    ("flash_bwd_dq", dict(D=256), 209_152),
+    ("flash_bwd_dkdv", dict(D=256), 216_832),
     ("b7_ring", dict(M=1000, d=18), 58_368),
     ("b7_ring", dict(M=100_000, d=128), 99_072),
     ("b7_ring", dict(M=1000, d=9000), 0),
@@ -130,6 +135,16 @@ def test_variants_and_register_caps():
     assert {hc.flash_fwd_split_plan(D=d, exact=e).variant
             for d in (16, 32, 64, 128)
             for e in (False, True)} == set(range(8, 16))
+    # head dim 256: F's and N1's CUDA-core plans, one kernel for either
+    # variant (no split to skip)
+    assert {hc.flash_f32_stats_plan(D=256, exact=e).symbol
+            for e in (False, True)} == {"flash_fwd_d256"}
+    assert {hc.flash_f32_stats_plan(D=256, exact=e).variant
+            for e in (False, True)} == {16}
+    assert [hc.PLAN_BUILDERS[k](D=256, exact=e).variant
+            for k in ("flash_bwd_dq", "flash_bwd_dkdv")
+            for e in (False, True)] == [16, 16, 17, 17]
+    assert hc.flash_bwd_dkdv_plan(D=256).reg_cap == 255
     assert hc.cd_sweep_plan().reg_cap == 255
     for key, plan in hc.default_plans().items():
         assert 0 <= plan.variant < hc.VARIANTS[plan.entry], key

@@ -1,5 +1,8 @@
 """repro_torch.models.mamba (falcon-mamba's selective scan) and the shared
-log-depth scan (layers.affine_scan) against the JAX reference.
+log-depth scan (layers.affine_scan) against the JAX reference: forwards,
+and the backwards (affine_scan's reverse scan against ``jax.grad`` of
+``associative_scan``; the chunked scan's hand-written backward against
+``jax.vjp`` of the reference's custom VJP, and the bytes it saves).
 
 Weights come from the reference's ``mamba.init`` on the smoke config
 (d_model 64, d_inner 128, state 4); inputs are drawn with numpy from a
@@ -100,6 +103,117 @@ def test_affine_scan_underflow_stays_exact():
     h = tL.affine_scan(torch.full((200, 2), 0.5), torch.ones(200, 2))
     assert bool(torch.isfinite(h).all())
     assert torch.equal(h[-1], torch.full((2,), 2.0))
+
+
+def _gerr(got, want) -> float:
+    """max|got - want| / max|want|, 0 where both are 0 (T = 1's da)."""
+    want = np.asarray(want, np.float32)
+    d = float(np.abs(got.detach().numpy() - want).max())
+    return d / max(float(np.abs(want).max()), 1e-30) if d else 0.0
+
+
+@pytest.mark.parametrize("T", [1, 7, 64, 100])
+def test_affine_scan_grads_match_jax_grad(T):
+    """affine_scan's backward (the reverse scan from the saved a and h)
+    against jax.grad of associative_scan with the reference's combine,
+    for a cotangent on every state."""
+    rng = np.random.default_rng(T + 50)
+    a = rng.uniform(0.05, 1.0, (T, 3, 4)).astype(np.float32)
+    b, g = (rng.standard_normal((T, 3, 4)).astype(np.float32)
+            for _ in range(2))
+
+    def f(a, b):
+        _, h = jax.lax.associative_scan(_op, (a, b), axis=0)
+        return jnp.sum(h * jnp.asarray(g))
+    wa, wb = jax.grad(f, (0, 1))(jnp.asarray(a), jnp.asarray(b))
+    at, bt = (_t(v).requires_grad_() for v in (a, b))
+    ga, gb = torch.autograd.grad((tL.affine_scan(at, bt) * _t(g)).sum(),
+                                 (at, bt))
+    assert _gerr(ga, wa) <= TOL and _gerr(gb, wb) <= TOL
+    if T == 1:
+        assert not bool(ga.any())          # h_{-1} = 0
+
+
+def test_affine_scan_gradcheck_fp64():
+    rng = np.random.default_rng(4)
+    a = torch.tensor(rng.uniform(0.05, 1.0, (13, 2, 3)),
+                     requires_grad=True)
+    b = torch.tensor(rng.standard_normal((13, 2, 3)), requires_grad=True)
+    assert torch.autograd.gradcheck(tL.affine_scan, (a, b))
+
+
+def test_affine_scan_grads_underflow_stay_exact():
+    """Decays whose products underflow: the reverse scan divides by
+    nothing either, so the backward stays finite and exact: with a = 0.5
+    and a cotangent of 1 on every state, r_t = 1 + 0.5 r_{t+1} reaches
+    2 exactly; with a = 1e-30 every product past two steps is 0."""
+    a = torch.full((200, 2), 0.5, requires_grad=True)
+    b = torch.ones(200, 2, requires_grad=True)
+    ga, gb = torch.autograd.grad(tL.affine_scan(a, b).sum(), (a, b))
+    assert torch.equal(gb[0], torch.full((2,), 2.0))
+    assert torch.equal(ga[-1], torch.full((2,), 2.0))   # r h_{-2} = 1 x 2
+    tiny = torch.full((200, 2), 1e-30, requires_grad=True)
+    ga, gb = torch.autograd.grad(tL.affine_scan(tiny, b).sum(), (tiny, b))
+    assert bool(torch.isfinite(ga).all()) and bool(torch.isfinite(gb).all())
+    assert torch.equal(gb, torch.ones_like(gb)) and torch.equal(
+        ga[1:], torch.ones_like(ga[1:]))
+
+
+def _ssm_inputs(T, B=2, di=8, N=4):
+    rng = np.random.default_rng(T)
+    d = rng.uniform(0.001, 0.2, (B, T, di)).astype(np.float32)
+    Bm, Cm = (rng.standard_normal((B, T, N)).astype(np.float32)
+              for _ in range(2))
+    x = rng.standard_normal((B, T, di)).astype(np.float32)
+    A = -np.exp(rng.standard_normal((di, N))).astype(np.float32)
+    h0 = rng.standard_normal((B, di, N)).astype(np.float32)
+    dy = rng.standard_normal((B, T, di)).astype(np.float32)
+    dh = rng.standard_normal((B, di, N)).astype(np.float32)
+    return (d, Bm, Cm, x, A, h0), (dy, dh)
+
+
+@pytest.mark.parametrize("T", [40, 64, 128])
+def test_chunked_ssm_vjp_matches_reference(T):
+    """The hand-written backward against jax.vjp of the reference's
+    custom VJP, with cotangents on y and on h_last and a nonzero h0: T =
+    40 one short chunk, 64 one chunk, 128 two (the carry between them)."""
+    ins, (dy, dh) = _ssm_inputs(T)
+    (wy, wh), vjp = jax.vjp(jmamba._chunked_ssm,
+                            *(jnp.asarray(v) for v in ins))
+    want = vjp((jnp.asarray(dy), jnp.asarray(dh)))
+    ts = [_t(v).requires_grad_() for v in ins]
+    y, h = tmamba._chunked_ssm(*ts)
+    assert _err(y, wy) <= TOL and _err(h, wh) <= TOL
+    got = torch.autograd.grad((y, h), ts, (_t(dy), _t(dh)))
+    for name, g, w in zip(("delta", "B", "C", "x", "A", "h0"), got, want):
+        assert g.dtype == torch.float32
+        assert _gerr(g, w) <= TOL, name
+
+
+def test_chunked_ssm_saves_only_inputs_and_chunk_states():
+    """What autograd keeps for the backward, counted by
+    saved_tensors_hooks: the inputs plus each chunk's incoming state
+    (n_chunks, B, di, N) fp32, nothing else. Autograd through the same
+    forward (the chunk loop with the differentiable affine_scan) keeps
+    every round of every chunk, several times that."""
+    T, B, di, N = 256, 2, 8, 4
+    ins, (dy, dh) = _ssm_inputs(T, B, di, N)
+
+    def saved_bytes(fn):
+        seen = []
+
+        def pack(t):
+            seen.append(t.numel() * t.element_size())
+            return t
+        ts = [_t(v).requires_grad_() for v in ins]
+        with torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t):
+            y, h = fn(*ts)
+        torch.autograd.grad((y, h), ts, (_t(dy), _t(dh)))
+        return sum(seen)
+    inputs = sum(v.nbytes for v in ins)
+    states = (T // 64) * B * di * N * 4
+    assert saved_bytes(tmamba._chunked_ssm) <= inputs + states
+    assert saved_bytes(tmamba._ssm_forward) > 4 * (inputs + states)
 
 
 @pytest.mark.parametrize("Lc", [1, 5, 64])

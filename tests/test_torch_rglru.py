@@ -123,3 +123,25 @@ def test_state_bounded_under_zero_input():
     for _ in range(5):
         _, st = trglru.decode_step(pt, st, x, cfg_t, torch.float32)
     assert float(st["h"].abs().max()) <= 10.0
+
+
+def test_forward_grads_match_reference():
+    """rglru.forward's gradients (the gates' through autograd, the scan's
+    through affine_scan's reverse scan) against jax.vjp of the
+    reference's forward, for the input and every parameter: 1e-5 of each
+    gradient's largest."""
+    cfg_j, cfg_t, pj, pt = _setup()
+    rng = np.random.default_rng(5)
+    x = rng.standard_normal((2, 37, cfg_j.d_model)).astype(np.float32)
+    ct = rng.standard_normal((2, 37, cfg_j.d_model)).astype(np.float32)
+    _, vjp = jax.vjp(lambda p, x: jrglru.forward(p, x, cfg_j, jnp.float32),
+                     pj, jnp.asarray(x))
+    wp, wx = vjp(jnp.asarray(ct))
+    ps = jax.tree.map(lambda t: t.requires_grad_(), pt)
+    xt = _t(x).requires_grad_()
+    out = trglru.forward(ps, xt, cfg_t, torch.float32)
+    flat_p, tree = jax.tree.flatten(ps)
+    got = torch.autograd.grad(out, [xt, *flat_p], _t(ct))
+    assert _err(got[0], wx) <= TOL
+    for g, w in zip(got[1:], jax.tree.leaves(wp), strict=True):
+        assert _err(g, w) <= TOL

@@ -1,7 +1,10 @@
 """LM training in repro_torch against the JAX reference: the optimizers,
 ``loss_fn`` and its gradients, one ``make_train_step``, grad
 accumulation, the remat modes, the training launcher with resume, train
-state checkpoints, stratified sharding.
+state checkpoints, stratified sharding; the dense smoke configs and the
+recurrent families' (falcon-mamba-7b: the chunked selective scan's
+hand-written backward; recurrentgemma-9b: the RG-LRU's reverse scan and
+the local attention's F and N1).
 
 Weights come from one draw of the reference's ``init_params`` and cross
 with ``interop``; batches are drawn with numpy from a seed. Bands:
@@ -12,7 +15,8 @@ with ``interop``; batches are drawn with numpy from a seed. Bands:
   every gradient leaf 1e-4 × max|leaf|; bf16 compute: the worst of five
   seeds at most 0.05 × max|leaf| (the frameworks round bf16 matmuls and
   their gradients at other places; measured worst in the module
-  docstring of ``repro_torch.models.layers``);
+  docstring of ``repro_torch.models.layers``; falcon-mamba-7b 0.035,
+  recurrentgemma-9b 0.0496, spread over the recurrent gates' leaves);
 * one train step (fp32 compute): the metrics 1e-5 relative; m and v 1e-4
   × max|leaf|. Adam's first step is about lr · sign(g), so a parameter
   whose gradient is near 0 may move by up to 2 lr on one side and not
@@ -49,6 +53,7 @@ from repro_torch.distributed.checkpoint import CheckpointManager
 from repro_torch.launch import train as ttrain
 from repro_torch.models import layers as tL
 from repro_torch.models import model as tM
+from repro_torch.models import transformer as tT
 from repro_torch.optim import adamw as tadamw
 from repro_torch.optim import compress as tcomp
 from repro_torch.optim import svrg as tsvrg
@@ -56,6 +61,7 @@ from repro_torch.optim.adamw import leaves
 from repro_torch.train import steps as tsteps
 
 DENSE = ["qwen3-0.6b", "smollm-135m", "granite-8b", "qwen2.5-14b"]
+RECURRENT = ["falcon-mamba-7b", "recurrentgemma-9b"]
 
 
 def _np(x):
@@ -214,7 +220,7 @@ def _loss_and_grads(cfg_j, cfg_t, seeds, impl_t="flash_xla"):
     return out
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + RECURRENT)
 def test_loss_and_grads_match_reference_fp32(arch):
     cfg_j, cfg_t = _cfgs(arch, "float32")
     [((lt, mt, gt), (lj, mj, gj))] = _loss_and_grads(cfg_j, cfg_t, [0])
@@ -227,7 +233,7 @@ def test_loss_and_grads_match_reference_fp32(arch):
     assert all(g.dtype == torch.float32 for g in gt)
 
 
-@pytest.mark.parametrize("arch", DENSE)
+@pytest.mark.parametrize("arch", DENSE + RECURRENT)
 def test_loss_and_grads_bf16_worst_of_five_seeds(arch):
     cfg_j, cfg_t = _cfgs(arch, "bfloat16")
     worst = max(_leaf_err(t[2], r[2])
@@ -272,12 +278,12 @@ def _carry(cfg_t, state_j):
         cfg_t, jax.tree.map(np.asarray, state_j), device="cpu")
 
 
-def test_train_step_matches_reference():
-    cfg_j, cfg_t = _cfgs("granite-8b", "float32")
-    pj = _ref_params(cfg_j, 1)
+def _train_step_matches_reference(arch, seed, batch_seed, m_floor=0.0):
+    cfg_j, cfg_t = _cfgs(arch, "float32")
+    pj = _ref_params(cfg_j, seed)
     sj = jsteps.TrainState.create(pj, use_ef=False)
     st = _carry(cfg_t, sj)
-    jb, tb = _batch(cfg_t, 2, 16, 5)
+    jb, tb = _batch(cfg_t, 2, 16, batch_seed)
     sj, mj = jax.jit(jsteps.make_train_step(cfg_j, jsteps.TrainConfig()))(
         sj, jb)
     st, mt = tsteps.make_train_step(cfg_t, tsteps.TrainConfig())(st, tb)
@@ -296,11 +302,28 @@ def test_train_step_matches_reference():
                           _port_tree(cfg_t, sj["params"]), m_ref):
         d = (p.detach() - want).abs()
         assert bool((d <= 2 * lr + 1e-6 * want.abs()).all())
-        firm = m.abs() >= 1e-3 * m.abs().max()
+        firm = m.abs() >= max(1e-3 * float(m.abs().max()), m_floor)
         assert bool((d <= 1e-6 * (want.abs() + lr))[firm].all())
         flipped += int((d > 1e-6 * (want.abs() + lr)).sum())
     assert int(st["opt"].step) == 1
     assert flipped < 0.01 * sum(p.numel() for p in leaves(st["params"]))
+
+
+def test_train_step_matches_reference():
+    _train_step_matches_reference("granite-8b", 1, 5)
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_train_step_matches_reference(arch):
+    """``test_train_step_matches_reference`` on the ssm and hybrid smoke
+    configs: mamba's A_log and D, the RG-LRU's gates and Λ, the local
+    attention, all through one AdamW step. A parameter is held within
+    1e-6 where Adam's step is about lr · sign(g), so its gradient must
+    also clear 10 eps (m = 0.1 g >= 1e-8): mamba's A_log has gradients of
+    1e-10 to 1e-7 at init, where the step is lr · g / (|g| + eps) and
+    shows g's own last digits (1e-5 of it; the leaf is held by m within
+    1e-4 of its max like every other)."""
+    _train_step_matches_reference(arch, 1, 5, m_floor=1e-8)
 
 
 @pytest.mark.parametrize("accum", [2, 4])
@@ -356,8 +379,9 @@ def test_grad_accum_step_matches_reference():
         <= 1e-4
 
 
-def test_remat_modes_are_bit_identical_and_attn_skips_the_flash_recompute():
-    cfg = tconfigs.get_smoke("qwen3-0.6b")
+def _remat_runs(arch):
+    """Each remat mode's loss and gradients on one batch, and F's calls."""
+    cfg = tconfigs.get_smoke(arch)
     _, tb = _batch(cfg, 2, 16, 9)
     got, calls = {}, {}
     for mode in ("none", "full", "dots", "attn"):
@@ -374,7 +398,24 @@ def test_remat_modes_are_bit_identical_and_attn_skips_the_flash_recompute():
         assert torch.equal(got[mode][0], got["none"][0]), mode
         assert all(torch.equal(a, b) for a, b in zip(got[mode][1],
                                                      got["none"][1])), mode
+    return cfg, calls
+
+
+def test_remat_modes_are_bit_identical_and_attn_skips_the_flash_recompute():
+    cfg, calls = _remat_runs("qwen3-0.6b")
     n = cfg.n_layers
+    assert calls == {"none": n, "full": 2 * n, "dots": 2 * n, "attn": n}
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_remat_modes_are_bit_identical(arch):
+    """The four remat modes on the ssm and hybrid smoke configs, bit for
+    bit: the custom backwards (mamba's chunked scan, affine_scan's
+    reverse scan) recompute under checkpointing as they ran. F runs once
+    a local-attention layer, twice where the mode recomputes it."""
+    cfg, calls = _remat_runs(arch)
+    n = tT.layer_kinds(cfg).count("attn")
+    assert n == (1 if arch == "recurrentgemma-9b" else 0)
     assert calls == {"none": n, "full": 2 * n, "dots": 2 * n, "attn": n}
 
 
@@ -423,8 +464,8 @@ def test_train_state_checkpoint_roundtrip(tmp_path):
         assert torch.equal(a.detach(), b.detach())
 
 
-def test_launcher_resume_is_bit_identical(tmp_path, capsys):
-    base = ["--arch", "smollm-135m", "--seq-len", "16", "--global-batch",
+def _launcher_resume(tmp_path, capsys, arch):
+    base = ["--arch", arch, "--seq-len", "16", "--global-batch",
             "2", "--device", "cpu"]
     straight, l_all = ttrain.train(ttrain.parse(
         base + ["--steps", "4", "--ckpt-dir", str(tmp_path / "a")]))
@@ -437,7 +478,88 @@ def test_launcher_resume_is_bit_identical(tmp_path, capsys):
     assert l_b == l_all[2:]
     for a, b in zip(leaves(straight["params"]), leaves(resumed["params"])):
         assert torch.equal(a.detach(), b.detach())
+    for a, b in zip(leaves(straight["opt"].m) + leaves(straight["opt"].v),
+                    leaves(resumed["opt"].m) + leaves(resumed["opt"].v)):
+        assert torch.equal(a, b)
     assert ttrain.main(base + ["--steps", "1"]) == 0
+
+
+def test_launcher_resume_is_bit_identical(tmp_path, capsys):
+    _launcher_resume(tmp_path, capsys, "smollm-135m")
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_launcher_resume_is_bit_identical(tmp_path, capsys, arch):
+    """launch/train on the ssm and hybrid smoke configs: 4 steps straight
+    against 2, a checkpoint, and --resume for 2 more, bit for bit
+    (parameters and AdamW's m and v, mamba's A_log and D among them)."""
+    _launcher_resume(tmp_path, capsys, arch)
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_overfit_tiny_batch(arch):
+    """The reference's test_overfit_tiny_batch recipe on the port: 8
+    steps of AdamW (lr 1e-3, one warm-up step) on one batch lower the
+    loss."""
+    cfg = tconfigs.get_smoke(arch)
+    _, tb = _batch(cfg, 2, 16, 7)
+    p = tM.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                       device="cpu", trainable=True)
+    state = tsteps.TrainState.create(p, use_ef=False)
+    step = tsteps.make_train_step(cfg, tsteps.TrainConfig(
+        optimizer=tadamw.AdamWConfig(lr=1e-3, warmup_steps=1)))
+    losses = []
+    for _ in range(8):
+        state, mets = step(state, tb)
+        losses.append(float(mets["loss"]))
+    assert all(math.isfinite(x) for x in losses)
+    assert losses[-1] < losses[0], losses
+
+
+@pytest.mark.parametrize("arch", RECURRENT)
+def test_recurrent_accum_codec_and_checkpoint(tmp_path, arch):
+    """grad_accum=2 against the full batch of 2 (m within 1e-5 of each
+    leaf's max, as test_grad_accum_matches_full_batch), a step through the
+    int8 EF codec, and the train state's checkpoint round trip (mamba's
+    MixedDict parameters and their opt/m, opt/v leaves) bit for bit."""
+    cfg = dataclasses.replace(tconfigs.get_smoke(arch),
+                              compute_dtype="float32")
+    _, tb = _batch(cfg, 2, 16, 8)
+    out = []
+    for n in (1, 2):
+        p = tM.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                           device="cpu", trainable=True)
+        st = tsteps.TrainState.create(p, use_ef=False)
+        out.append(tsteps.make_train_step(
+            cfg, tsteps.TrainConfig(grad_accum=n))(st, tb))
+    (full, mf), (micro, mm) = out
+    assert _rel(mm["loss"], mf["loss"]) <= 1e-5
+    assert _leaf_err(leaves(micro["opt"].m), leaves(full["opt"].m)) <= 1e-5
+    p = tM.init_params(cfg, generator=torch.Generator().manual_seed(0),
+                       device="cpu", trainable=True)
+    state = tsteps.TrainState.create(p, use_ef=True)
+    tc = tsteps.TrainConfig(compression=tcomp.CompressConfig(codec="int8"))
+    state, mets = tsteps.make_train_step(cfg, tc)(state, tb)
+    assert math.isfinite(float(mets["loss"]))
+    assert any(bool(r.abs().max() > 0) for r in leaves(state["ef"].residual))
+    mgr = CheckpointManager(str(tmp_path), keep=1)
+    mgr.save(1, state, {"data_step": 1, "arch": cfg.name})
+    keys = set(mgr.metadata()["leaves"])
+    if arch == "falcon-mamba-7b":
+        assert {"opt/m/stack/layers/0/ssm/A_log",
+                "opt/v/stack/layers/0/ssm/D"} <= keys
+    fresh = tsteps.TrainState.create(
+        tM.init_params(cfg, generator=torch.Generator().manual_seed(1),
+                       device="cpu", trainable=True), use_ef=True)
+    back = mgr.restore(fresh)
+    assert all(q.requires_grad for q in back["params"].parameters())
+
+    def flat(st):
+        return (leaves(st["params"]) + leaves(st["opt"].m)
+                + leaves(st["opt"].v) + leaves(st["ef"].residual)
+                + [st["opt"].step])
+    for a, b in zip(flat(back), flat(state), strict=True):
+        assert torch.equal(a.detach(), b.detach())
 
 
 # ---------------------------------------------------------------------------
