@@ -336,15 +336,19 @@ Phases (any failed check exits nonzero):
    steps: logits within 1e-3 x max|logits| with fp32 compute, 0.02 x in
    bf16 (phase 12's bands). The card's recurrentgemma runs with fp32
    compute are the path of B9's fp32 kernel at head dim 256.
-2g. (after phase 2f) F, N1-dq and N1-dkdv at head dim 256 (their
-   CUDA-core plans: flash_fwd_d256, flash_bwd_dq_d256,
-   flash_bwd_dkdv_d256) against their plain versions in phase 2e's bands,
-   after their registers, shared memory and spills from the build log and
-   their plans held to the built library: recurrentgemma-9b's training
-   shape (B=1, Hq=16, Hkv=1, T=S=4096, window 2048) in fp32 (TF32 off)
-   and with bf16 q, k, v and dout (the exact variant the step runs, and
-   the bf16 dispatch path within one bf16 ulp), causal without a window,
-   ragged T=S=300, q_offset 300 with T=700 < S=1000, GQA group 4. At the
+2g. (after phase 2f) F, N1-dq and N1-dkdv at head dim 256 (F's
+   CUDA-core plan flash_fwd_d256; N1's split-TF32 plans flash_bwd_dq_d256
+   and flash_bwd_dkdv_d256, with its head groups' sum
+   flash_bwd_dkdv_d256_sum) against their plain versions in phase 2e's
+   bands, after their registers, shared memory and spills from the build
+   log and their plans held to the built library: recurrentgemma-9b's
+   training shape (B=1, Hq=16, Hkv=1, T=S=4096, window 2048), causal
+   without a window, ragged T=S=300, q_offset 300 with T=700 < S=1000,
+   GQA groups 4 and 6 (head groups of 1, 2, 1, 2), each in fp32 (TF32
+   off) and with bf16 q, k, v and dout (the exact variant the step runs,
+   and the bf16 dispatch path within one bf16 ulp), each called twice
+   and equal bit for bit; the cancelling case (q x 4, dout = out + 1e-3
+   noise) against the fp64 plain version in both variants. At the
    training shape each kernel's ms by CUDA events beside its bound at the
    fp32 CUDA-core peak and as a TF32 split (phase 2e's charging), the
    plain versions' ms, and SDPA with the window mask written out (TF32
@@ -2055,10 +2059,11 @@ def train_kernels_phase(fa_mod, dev, derate, stats) -> None:
         say(f"  {name}: {regs} registers{note}, {smem} bytes static shared "
             f"+ {dyn} bytes dynamic, spills {spills}")
     for name, regs, smem, spills in kernel_resources(log, "flash_bwd.cu"):
-        if name.endswith("_d256"):
+        if "_d256" in name:
             continue                      # head dim 256's plans: phase 2g
-        dim = int(name[name.index("<") + 1:-1].split(",")[0])  # <D, exact>
-        dyn = lib.flash_bwd_smem(int(name.startswith("flash_bwd_dkdv")), dim)
+        dim, exact = (int(a) for a in name[name.index("<") + 1:-1].split(","))
+        dyn = lib.flash_bwd_smem(int(name.startswith("flash_bwd_dkdv")), dim,
+                                 exact)
         say(f"  {name}: {regs} registers, {smem} bytes static shared + "
             f"{dyn} bytes dynamic, spills {spills}")
     gen = torch.Generator(device=dev).manual_seed(24)
@@ -2592,9 +2597,10 @@ def flash256_phase(flash_case, fa_mod, stats) -> None:
 
 def train256_phase(fa_mod, dev, derate, stats) -> None:
     """Phase 2g (see the module docs): F, N1-dq and N1-dkdv at head dim
-    256 (their CUDA-core plans) against their plain versions, at
-    recurrentgemma-9b's training shape and its edges, in phase 2e's
-    bands, timed beside their bounds and the SDPA yardstick."""
+    256 against their plain versions, at recurrentgemma-9b's training
+    shape and its edges, each case in both variants and repeated bit for
+    bit, in phase 2e's bands, timed beside their bounds and the SDPA
+    yardstick."""
     import torch
 
     from repro_torch.analysis import hopper_check as hc
@@ -2605,22 +2611,28 @@ def train256_phase(fa_mod, dev, derate, stats) -> None:
     log = (_build.library_path().parent / "build.log").read_text()
     for src in ("flash_fwd.cu", "flash_bwd.cu"):
         for name, regs, smem, spills in kernel_resources(log, src):
-            if not name.endswith("_d256"):
+            if "_d256" not in name:
                 continue
-            dyn = (lib.flash_fwd_smem(256, 0) if src == "flash_fwd.cu" else
-                   lib.flash_bwd_smem(int("dkdv" in name), 256))
+            if src == "flash_fwd.cu":
+                dyn = lib.flash_fwd_smem(256, 0)
+            elif name.endswith("_sum"):
+                dyn = 0
+            else:   # flash_bwd_{dq,dkdv}_d256<exact>
+                dyn = lib.flash_bwd_smem(int("dkdv" in name), 256,
+                                         int(name.endswith("<1>")))
             say(f"  {name}: {regs} registers, {smem} bytes static shared + "
                 f"{dyn} bytes dynamic, spills {spills}")
             if spills != "0/0 bytes":
                 fail(f"{name} spills: {spills}")
     plans = {k: p for k, p in hc.default_plans().items()
              if p.kernel in ("flash_f32_stats", "flash_bwd_dq",
-                             "flash_bwd_dkdv") and p.shape_of("D") == 256}
+                             "flash_bwd_dkdv", "flash_bwd_dkdv_sum")
+             and p.shape_of("D") == 256}
     for key, a in hc.check_device(plans).items():
-        say(f"  plan checker {key} ({plans[key].symbol}): "
-            f"{plans[key].smem:,d} B of shared memory planned; built: "
-            f"{a['regs']} registers, {a['local_bytes']} B local memory, "
-            f"{a['ctas_per_sm']} CTA an SM")
+        say(f"  plan checker {key} ({plans[key].symbol}): grid "
+            f"{plans[key].grid[0]}, {plans[key].smem:,d} B of shared memory "
+            f"planned; built: {a['regs']} registers, {a['local_bytes']} B "
+            f"local memory, {a['ctas_per_sm']} CTA an SM")
     gen = torch.Generator(device=dev).manual_seed(29)
     D = 256
 
@@ -2643,6 +2655,12 @@ def train256_phase(fa_mod, dev, derate, stats) -> None:
             fail(f"bwd_operands gave exact={ops.exact} for {dt} inputs")
         dq, delta = fa_mod.launch_flash_bwd_dq(ops, m, l, **kw)
         dk, dv = fa_mod.launch_flash_bwd_dkdv(ops, m, l, delta, **kw)
+        # a second call gives the same bits (no atomics; N1-dkdv's head
+        # groups are added in order)
+        dq2, delta2 = fa_mod.launch_flash_bwd_dq(ops, m, l, **kw)
+        dk2, dv2 = fa_mod.launch_flash_bwd_dkdv(ops, m, l, delta2, **kw)
+        same = all(torch.equal(a, b) for a, b in (
+            (dq, dq2), (delta, delta2), (dk, dk2), (dv, dv2)))
         grads_p = fa_mod.flash_attention_bwd_plain(qf, kf, vf, out, m, l,
                                                    df, **kw)
         errs = {n: (float((a - b).abs().max()),
@@ -2653,11 +2671,11 @@ def train256_phase(fa_mod, dev, derate, stats) -> None:
         sm, sl = (float(((a - b).abs() / b.abs()).max())
                   for a, b in ((m, m_p), (l, l_p)))
         ok = all(e <= 1e-5 * s for e, s in errs.values()) and \
-            sm <= 1e-5 and sl <= 1e-5 and all(
+            sm <= 1e-5 and sl <= 1e-5 and same and all(
                 bool(torch.isfinite(t).all()) for t in (out, dq, dk, dv))
         text = ", ".join(f"{n} {e:.2e} (max {s:.3g})"
                          for n, (e, s) in errs.items())
-        text += f"; m {sm:.1e}, l {sl:.1e} relative"
+        text += f"; m {sm:.1e}, l {sl:.1e} relative; repeat equal {same}"
         if bf16:
             # the dispatch path as training runs it: bf16 in, bf16 out
             got = fa_mod.flash_attention_train(q, k, v, **kw)
@@ -2669,7 +2687,8 @@ def train256_phase(fa_mod, dev, derate, stats) -> None:
             text += (f"; bf16 results within one bf16 ulp (+ the fp32 "
                      f"band): {in_band}")
             ok = ok and in_band
-        say(f"  {label}: {text}")
+        say(f"  {label} {'bf16 (exact variant)' if bf16 else 'fp32'}: "
+            f"{text}")
         if not ok:
             fail(f"F / N1 at head dim 256 {label} disagree with their plain "
                  f"versions")
@@ -2691,9 +2710,9 @@ def train256_phase(fa_mod, dev, derate, stats) -> None:
         dkdv_bytes = 2 * qo + 4 * kv + 3 * st
         # the forward's two products; the backward's five shared out as in
         # phase 2e (N1-dq dQ and D, N1-dkdv S, dP, dV and dK), each at the
-        # fp32 CUDA-core peak these kernels run at and as the three-term
-        # TF32 split a tensor-core plan would be held to (two terms where
-        # k, v and dout are exact, the kernels line's bound)
+        # fp32 CUDA-core peak (F runs there) and as the three-term TF32
+        # split N1 runs on the tensor cores (two terms where k, v and dout
+        # are exact; the kernels line's bound)
         terms = 2 if bf16 else 3
         f_b = bound(f_bytes, 4 * D * pairs)
         f_s = split_bound(f_bytes, 4 * D * pairs, terms=terms)
@@ -2746,8 +2765,9 @@ def train256_phase(fa_mod, dev, derate, stats) -> None:
             + bound_text(*dkdv_s, derate))
         say(f"  backward: N1-dq + N1-dkdv {dq_ms + dkdv_ms:.3f} ms, plain "
             f"{bwd_plain:.3f} ms, library_ms={lib_b:.3f} "
-            f"(torch.autograd.grad through SDPA); the kernels compute 14 D "
-            f"flops a visible pair (S and dP twice), "
+            f"(torch.autograd.grad through SDPA; the kernels take "
+            f"{(dq_ms + dkdv_ms) / lib_b:.2f}x its time); the kernels "
+            f"compute 14 D flops a visible pair (S and dP twice), "
             f"{14 * D * pairs / (dq_ms + dkdv_ms) / 1e9:.1f} TFLOP/s")
         common = dict(plain_ms=bwd_plain, library_ms=lib_b)
         stats["flash_attention_train_d256"] = dict(
@@ -2762,17 +2782,65 @@ def train256_phase(fa_mod, dev, derate, stats) -> None:
             bound_ms=dkdv_s[0], bound_by=dkdv_s[1],
             fp32_bound_ms=dkdv_b[0], **common)
 
+    def cancelling(label, B, hq, hkv, T, window, bf16):
+        """N1 on peaked logits (q x 4) and dout = out + 1e-3 noise, so that
+        dP - D cancels, against the fp64 plain version (phase 2e's
+        case)."""
+        q = torch.randn(B, T, hq, D, generator=gen, device=dev) * 4
+        k, v = (torch.randn(B, T, hkv, D, generator=gen, device=dev)
+                for _ in range(2))
+        if bf16:
+            q, k, v = (t.bfloat16().float() for t in (q, k, v))
+        kw = dict(causal=True, window=window, q_offset=0)
+        out, m, l = fa_mod.launch_flash_attention_train(q, k, v, **kw)
+        dout = out + 1e-3 * torch.randn(out.shape, generator=gen,
+                                        device=dev)
+        if bf16:
+            dout = dout.bfloat16().float()
+        as_in = (lambda t: t.bfloat16()) if bf16 else (lambda t: t)
+        ops = fa_mod.bwd_operands(q, as_in(k), as_in(v), out, as_in(dout))
+        if ops.exact != bf16:
+            fail(f"bwd_operands gave exact={ops.exact} for the {label}")
+        dq, delta = fa_mod.launch_flash_bwd_dq(ops, m, l, **kw)
+        dk, dv = fa_mod.launch_flash_bwd_dkdv(ops, m, l, delta, **kw)
+        want = fa_mod.flash_attention_bwd_plain(
+            *(t.double() for t in (q, k, v, out, m, l, dout)), **kw)
+        plain = fa_mod.flash_attention_bwd_plain(q, k, v, out, m, l, dout,
+                                                 **kw)
+        text, ok = [], True
+        for n, a, p32, w in zip(("dq", "dk", "dv"), (dq, dk, dv), plain,
+                                want):
+            scale = max(1.0, float(w.abs().max()))
+            e = float((a.double() - w).abs().max()) / scale
+            e32 = float((p32.double() - w).abs().max()) / scale
+            ok = ok and e <= 1e-5 and bool(torch.isfinite(a).all())
+            text.append(f"{n} {e:.2e} (fp32 plain {e32:.2e})")
+        say(f"  {label} {'bf16 values, exact variant' if bf16 else 'fp32'}"
+            ": vs fp64, x max(1, max|.|): " + ", ".join(text))
+        if not ok:
+            fail(f"N1 at head dim 256 {label} outside the 1e-5 band of the "
+                 "fp64 plain version")
+
     rg = dict(B=1, hq=16, hkv=1)
-    case("recurrentgemma-9b training B=1 Hq=16 Hkv=1 T=S=4096 D=256 "
-         "window 2048 fp32", **rg, T=4096, S=4096, window=2048, timed=True)
-    case("the same, bf16 q, k, v and dout (the exact variant)", **rg,
-         T=4096, S=4096, window=2048, bf16=True, timed=True)
-    case("causal, no window, T=S=2048", **rg, T=2048, S=2048, window=None)
-    case("ragged T=S=300, window 100", **rg, T=300, S=300, window=100)
-    case("q_offset 300, T=700 < S=1000, window 256", **rg, T=700, S=1000,
-         window=256, q_offset=300)
-    case("group 4 Hq=16 Hkv=4 B=2 T=S=1024 window 300", B=2, hq=16, hkv=4,
-         T=1024, S=1024, window=300)
+    for bf16 in (False, True):
+        case("recurrentgemma-9b training B=1 Hq=16 Hkv=1 T=S=4096 D=256 "
+             "window 2048", **rg, T=4096, S=4096, window=2048, bf16=bf16,
+             timed=True)
+    for bf16 in (False, True):
+        case("causal, no window, T=S=2048", **rg, T=2048, S=2048,
+             window=None, bf16=bf16)
+        case("ragged T=S=300, window 100", **rg, T=300, S=300, window=100,
+             bf16=bf16)
+        case("q_offset 300, T=700 < S=1000, window 256", **rg, T=700,
+             S=1000, window=256, q_offset=300, bf16=bf16)
+        case("group 4 Hq=16 Hkv=4 B=2 T=S=1024 window 300", B=2, hq=16,
+             hkv=4, T=1024, S=1024, window=300, bf16=bf16)
+        # six query heads a kv head: head groups of 1, 2, 1, 2
+        case("group 6 Hq=6 Hkv=1 T=S=333 window 64", B=1, hq=6, hkv=1,
+             T=333, S=333, window=64, bf16=bf16)
+        cancelling("cancelling case (q x 4, dout = out + 1e-3 noise) "
+                   "Hq=16 Hkv=1 T=S=2048 window 1024", 1, 16, 1, 2048, 1024,
+                   bf16)
 
 
 def _recurrent_layer(kind: str, cfg, rng, n: int) -> dict:

@@ -53,7 +53,7 @@ __all__ = [
     "svrg_epoch_plan", "b7_ring_plan", "gram_plan", "flash_bf16_plan",
     "flash_f32_plan", "flash_f32_stats_plan", "flash_fwd_split_plan",
     "flash_bwd_dq_plan",
-    "flash_bwd_dkdv_plan",
+    "flash_bwd_dkdv_plan", "flash_bwd_dkdv_sum_plan",
 ]
 
 #: the H100's per-block and per-SM limits (compute capability 9.0)
@@ -577,12 +577,32 @@ def flash_f32_stats_plan(B: int = 4, Hq: int = 16, T: int = 2048,
               "producer thread")
 
 
-#: the head-dim-256 plans of F and N1 (``csrc/flash_fwd.cu`` and
-#: ``csrc/flash_bwd.cu``, ``W_*``): fp32 FMAs on the CUDA cores, 256
-#: threads, tiles at row stride D + 4; ``flash_fwd_attributes`` variant
-#: 16, ``flash_bwd_attributes`` 16 (N1-dq) and 17 (N1-dkdv), for either
-#: variant (no split to skip)
+#: F's head-dim-256 plan (``csrc/flash_fwd.cu``, ``W_*``): fp32 FMAs on
+#: the CUDA cores, 256 threads, tiles at row stride D + 4;
+#: ``flash_fwd_attributes`` variant 16, for either variant (no split to
+#: skip)
 D256_LD = 256 + 4
+
+#: N1 at head dim 256 (``csrc/flash_bwd.cu``, ``HTiles``): N1-dq's key tile
+#: (both variants), N1-dkdv's key block (split, exact: no small halves of
+#: K and V to stage), and the head groups a kv head's query heads are cut
+#: into for N1-dkdv, at most (``MAX_GROUPS``)
+D256_DQ_KEYS = 16
+D256_DKDV_KEYS = {False: 16, True: 32}
+D256_MAX_GROUPS = 4
+
+
+def d256_head_groups(group: int) -> int:
+    """N1-dkdv's head groups (CTAs) a kv head at head dim 256."""
+    return min(group, D256_MAX_GROUPS)
+
+
+def d256_scratch(B: int, S: int, Hq: int, Hkv: int) -> int:
+    """Floats of N1-dkdv's scratch at head dim 256
+    (``flash_bwd_scratch``): each head group's partial dk and dv, none
+    with one group."""
+    ng = d256_head_groups(Hq // Hkv)
+    return 2 * ng * B * S * Hkv * 256 if ng > 1 else 0
 
 
 def _flash_fwd_d256_plan(B: int, Hq: int, T: int,
@@ -603,23 +623,35 @@ def _flash_fwd_d256_plan(B: int, Hq: int, T: int,
         notes="CUDA cores; exact runs the same kernel")
 
 
-def _bwd_blocks(D: int, kernel: str) -> tuple[Block, ...]:
+def _bwd_blocks(D: int, kernel: str, exact: bool) -> tuple[Block, ...]:
     """N1's shared memory (``csrc/flash_bwd.cu::BTiles``): raw 64-row
     tiles of Q and dO in TMA's 128-byte swizzle (boxes of 32 floats a
     row, one at D = 16), split 32-key K and V tiles (a TF32 big and a
     small half of 32 x D each), split dS or P tiles (two halves of
     64 x 32), and N1-dkdv's four mbarriers (each warpgroup's Q and dO
-    copies). At head dim 256 (the CUDA-core plans): Q, dO, K and V at row
-    stride D + 4, N1-dq's dS^T, N1-dkdv's P and dS, the rows' D, m and
-    l."""
+    copies). At head dim 256 (``HTiles``) one raw Q and dO tile that both
+    warpgroups share, K and V split at 16 keys (N1-dq's exact variant a
+    two-stage ring of the exact tiles; N1-dkdv's 32 keys, big halves
+    only), N1-dq's split dS and the
+    warpgroups' swapped partial S and dP, N1-dkdv's split P and dS (the
+    partials swap through them) and its 16 mbarriers (one a box of each
+    warpgroup's D-half of Q and of dO)."""
     if D == 256:   # flash_bwd_dq_d256 / flash_bwd_dkdv_d256
-        rows = (Block("q", (64, D256_LD)), Block("dout", (64, D256_LD)),
-                Block("k", (32, D256_LD)), Block("v", (32, D256_LD)))
-        if kernel == "flash_bwd_dq":
-            return rows + (Block("ds_t", (32, 64 + 4)),
-                           Block("rows_d_m_l", (3, 64)))
-        return rows + (Block("p_ds", (2, 64, 32)),
-                       Block("rows_d_m_l", (3, 64)))
+        halves = 1 if exact else 2
+        raw = (Block("q", (64, 256)), Block("dout", (64, 256)))
+        if kernel == "flash_bwd_dq":   # one split stage, or two exact
+            nk = D256_DQ_KEYS
+            kv = ((Block("kv_ring", (2, 2, nk, 256)),) if exact else
+                  (Block("k_split", (2, nk, 256)),
+                   Block("v_split", (2, nk, 256))))
+            return raw + kv + (Block("ds_split", (2, 64, nk)),
+                          Block("partials", (2, nk // 2, 128)),
+                          Block("delta", (64,)))
+        nk = D256_DKDV_KEYS[exact]
+        return raw + (Block("k_split", (halves, nk, 256)),
+                      Block("v_split", (halves, nk, 256)),
+                      Block("p_ds_split", (2, 2, nk, 64)),
+                      Block("bars", (16,), "uint64"))
     raw = (64, 32 * max(1, D // 32))
     if kernel == "flash_bwd_dq":   # Q and dO shared; each warpgroup's own
         return (Block("q", raw), Block("dout", raw),
@@ -635,9 +667,10 @@ def _bwd_blocks(D: int, kernel: str) -> tuple[Block, ...]:
 def _bwd_variant(D: int, kernel: str, exact: bool) -> int:
     """``flash_bwd_attributes``'s variant: D = 16 << (v % 4), N1-dkdv at
     4 .. 7, the exact variant (k, v and dout TF32-exact) 8 on; head dim
-    256 16 (N1-dq) and 17 (N1-dkdv) for either variant."""
+    256 16 (N1-dq) and 17 (N1-dkdv), 18 and 19 their exact variants (20
+    is the head groups' sum, :func:`flash_bwd_dkdv_sum_plan`)."""
     if D == 256:
-        return 16 + (kernel == "flash_bwd_dkdv")
+        return 16 + (kernel == "flash_bwd_dkdv") + 2 * exact
     idx = {16: 0, 32: 1, 64: 2, 128: 3}.get(D)
     if idx is None:
         return -1
@@ -650,33 +683,67 @@ def flash_bwd_dq_plan(B: int = 4, Hq: int = 16, T: int = 2048,
     warpgroups) a (b, q head, 64-row query block); raw Q and dO shared,
     each warpgroup's own split K, V (32 keys) and dS tiles, the block's D.
     ``exact``: the variant that skips k's, v's and dout's small halves
-    (same plan). Head dim 256: ``flash_bwd_dq_d256`` (CUDA cores, the
-    same grid)."""
+    (same plan). Head dim 256: ``flash_bwd_dq_d256`` (the same grid; 16-key
+    tiles that both warpgroups share, each owning a D-half of dQ^T; its
+    exact variant copies the tiles as they are into a two-stage ring)."""
+    ex = str(exact).lower()
     return KernelPlan(
-        kernel="flash_bwd_dq", symbol="flash_bwd_dq_d256" if D == 256 else
-        f"flash_bwd_dq<{D}, {str(exact).lower()}>",
+        kernel="flash_bwd_dq", symbol=f"flash_bwd_dq_d256<{ex}>" if D == 256
+        else f"flash_bwd_dq<{D}, {ex}>",
         entry="flash_bwd_attributes",
         variant=_bwd_variant(D, "flash_bwd_dq", exact), threads=256,
-        grid=(-(-T // 64) * Hq * B,), blocks=_bwd_blocks(D, "flash_bwd_dq"),
-        min_ctas=1,
+        grid=(-(-T // 64) * Hq * B,),
+        blocks=_bwd_blocks(D, "flash_bwd_dq", exact), min_ctas=1,
         shape=(("B", B), ("Hq", Hq), ("T", T), ("D", D), ("exact", exact)))
 
 
 def flash_bwd_dkdv_plan(B: int = 4, Hkv: int = 8, S: int = 2048,
-                        D: int = 128, exact: bool = False) -> KernelPlan:
+                        D: int = 128, exact: bool = False,
+                        Hq: int = 16) -> KernelPlan:
     """N1-dkdv (``csrc/flash_bwd.cu::flash_bwd_dkdv``): 256 threads (two
     warpgroups) a (b, kv head, 32-key block); split K and V shared, each
     warpgroup's own raw Q and dO tiles (copied by TMA) and a split tile
-    for P, then dS. Head dim 256: ``flash_bwd_dkdv_d256`` (CUDA cores,
-    the same grid)."""
+    for P, then dS. Head dim 256: ``flash_bwd_dkdv_d256``, a CTA a (b, kv
+    head, head group, 16-key block; 32 keys exact), the kv head's ``Hq /
+    Hkv`` query heads cut into :func:`d256_head_groups`; with more than
+    one, the partial sums go to :func:`d256_scratch` floats that
+    :func:`flash_bwd_dkdv_sum_plan`'s kernel adds."""
+    ex = str(exact).lower()
+    if D == 256:
+        ng = d256_head_groups(Hq // Hkv)
+        return KernelPlan(
+            kernel="flash_bwd_dkdv", symbol=f"flash_bwd_dkdv_d256<{ex}>",
+            entry="flash_bwd_attributes",
+            variant=_bwd_variant(D, "flash_bwd_dkdv", exact), threads=256,
+            grid=(-(-S // D256_DKDV_KEYS[exact]) * ng * Hkv * B,),
+            blocks=_bwd_blocks(D, "flash_bwd_dkdv", exact), min_ctas=1,
+            shape=(("B", B), ("Hkv", Hkv), ("S", S), ("D", D),
+                   ("exact", exact), ("Hq", Hq),
+                   ("scratch", d256_scratch(B, S, Hq, Hkv))),
+            notes=f"{ng} head group(s) a kv head")
     return KernelPlan(
-        kernel="flash_bwd_dkdv", symbol="flash_bwd_dkdv_d256" if D == 256
-        else f"flash_bwd_dkdv<{D}, {str(exact).lower()}>",
+        kernel="flash_bwd_dkdv", symbol=f"flash_bwd_dkdv<{D}, {ex}>",
         entry="flash_bwd_attributes",
         variant=_bwd_variant(D, "flash_bwd_dkdv", exact), threads=256,
         grid=(-(-S // 32) * Hkv * B,),
-        blocks=_bwd_blocks(D, "flash_bwd_dkdv"), min_ctas=1,
-        shape=(("B", B), ("Hkv", Hkv), ("S", S), ("D", D), ("exact", exact)))
+        blocks=_bwd_blocks(D, "flash_bwd_dkdv", exact), min_ctas=1,
+        shape=(("B", B), ("Hkv", Hkv), ("S", S), ("D", D), ("exact", exact),
+               ("Hq", Hq)))
+
+
+def flash_bwd_dkdv_sum_plan(B: int = 1, Hq: int = 16, Hkv: int = 1,
+                            S: int = 4096) -> KernelPlan:
+    """N1-dkdv's second kernel at head dim 256
+    (``csrc/flash_bwd.cu::flash_bwd_dkdv_d256_sum``): 256 threads, no
+    shared memory, a grid of at most 4,096 CTAs striding over dk and dv
+    as float4s, each the head groups' partials added in group order."""
+    n4 = B * S * Hkv * 256 // 4
+    return KernelPlan(
+        kernel="flash_bwd_dkdv_sum", symbol="flash_bwd_dkdv_d256_sum",
+        entry="flash_bwd_attributes", variant=20, threads=256,
+        grid=(min(-(-2 * n4 // 256), 4096),), blocks=(), min_ctas=1,
+        shape=(("B", B), ("Hq", Hq), ("Hkv", Hkv), ("S", S), ("D", 256),
+               ("groups", d256_head_groups(Hq // Hkv))))
 
 
 #: kernel name -> plan builder (kwargs: the call's shape)
@@ -695,6 +762,7 @@ PLAN_BUILDERS: dict[str, Callable[..., KernelPlan]] = {
     "flash_fwd_split": flash_fwd_split_plan,
     "flash_bwd_dq": flash_bwd_dq_plan,
     "flash_bwd_dkdv": flash_bwd_dkdv_plan,
+    "flash_bwd_dkdv_sum": flash_bwd_dkdv_sum_plan,
 }
 
 #: the main path's shapes (chip_smoke.py's configurations): ijcnn1's
@@ -703,7 +771,8 @@ PLAN_BUILDERS: dict[str, Callable[..., KernelPlan]] = {
 #: epoch kernel, qwen3-0.6b prefill (head dim 128) and recurrentgemma-9b's
 #: (B = 2, Hq = 16, T = 4,096, head dim 256) for B9, qwen3-0.6b's training
 #: step and recurrentgemma-9b's (B = 1, Hq = 16, Hkv = 1, T = 4,096, head
-#: dim 256) for F and N1; K2 at both walks
+#: dim 256) for F and N1 (N1 at head dim 256 in both variants, with
+#: N1-dkdv's head-group sum); K2 at both walks
 DEFAULT_SHAPES: dict[str, tuple[dict, ...]] = {
     "cd_sweep": ({"T": 64, "B": 256},),
     "gram_matvec": ({"K": 8, "M": 6250, "D": 22, "sym": True},
@@ -728,11 +797,15 @@ DEFAULT_SHAPES: dict[str, tuple[dict, ...]] = {
                          "exact": True}),
     "flash_bwd_dq": ({"B": 4, "Hq": 16, "T": 2048, "D": 128},
                      {"B": 4, "Hq": 16, "T": 2048, "D": 128, "exact": True},
-                     {"B": 1, "Hq": 16, "T": 4096, "D": 256}),
+                     {"B": 1, "Hq": 16, "T": 4096, "D": 256},
+                     {"B": 1, "Hq": 16, "T": 4096, "D": 256, "exact": True}),
     "flash_bwd_dkdv": ({"B": 4, "Hkv": 8, "S": 2048, "D": 128},
                        {"B": 4, "Hkv": 8, "S": 2048, "D": 128,
                         "exact": True},
-                       {"B": 1, "Hkv": 1, "S": 4096, "D": 256}),
+                       {"B": 1, "Hkv": 1, "S": 4096, "D": 256, "Hq": 16},
+                       {"B": 1, "Hkv": 1, "S": 4096, "D": 256, "Hq": 16,
+                        "exact": True}),
+    "flash_bwd_dkdv_sum": ({"B": 1, "Hq": 16, "Hkv": 1, "S": 4096},),
 }
 
 
@@ -762,7 +835,7 @@ VARIANTS = {"cd_sweep_attributes": 12, "dense_matvec_attributes": 1,
             "cd_exact_attributes": 1, "gram_attributes": 16,
             "gram_matvec_attributes": 10, "odm_grad_attributes": 10,
             "flash_attn_attributes": 10, "flash_fwd_attributes": 17,
-            "flash_bwd_attributes": 18}
+            "flash_bwd_attributes": 21}
 
 _ATTR_KEYS = ("regs", "smem_static", "local_bytes", "max_threads",
               "ctas_per_sm", "threads")
@@ -809,7 +882,11 @@ def _library_queries(plan: KernelPlan, sms: int, ctas: int) -> list[str]:
              plan.smem_dynamic)
     elif plan.kernel in ("flash_bwd_dq", "flash_bwd_dkdv"):
         want("flash_bwd_smem", lib.flash_bwd_smem(
-            int(plan.kernel == "flash_bwd_dkdv"), s["D"]), plan.smem_dynamic)
+            int(plan.kernel == "flash_bwd_dkdv"), s["D"], int(s["exact"])),
+             plan.smem_dynamic)
+        if "scratch" in s:
+            want("flash_bwd_scratch", lib.flash_bwd_scratch(
+                s["B"], s["S"], s["Hq"], s["Hkv"], s["D"]), s["scratch"])
     elif plan.kernel == "b7_ring":
         want("odm_grad_smem", lib.odm_grad_smem(s["M"], s["d"]),
              plan.smem_dynamic)

@@ -345,8 +345,8 @@ def _flash_train_dispatches(kernel: str, dh: int = 16, kv: int = 2,
     """The training attention: a forward is one dispatch (F), a backward
     two in order (N1-dq, whose D N1-dkdv reads, then N1-dkdv); each
     declaration holds its kernel's place in that plan (at head dim 256,
-    recurrentgemma's, with its one kv head and a window, the CUDA-core
-    plans)."""
+    recurrentgemma's, with its one kv head and a window: F's CUDA-core
+    plan, N1's split plans and N1-dkdv's head-group sum)."""
     def run(device: str):
         import torch
         from repro_torch.models import attention as A
@@ -921,6 +921,13 @@ def _declare_builtins() -> None:
         "flash_bwd_dkdv": ("a training attention backward is N1-dq, then "
                            "N1-dkdv",
                            _flash_train_dispatches("flash_bwd_dkdv")),
+        "flash_bwd_dkdv_sum": ("at head dim 256 (four query heads a kv "
+                               "head) a training attention backward is "
+                               "still N1-dq, then N1-dkdv: the head "
+                               "groups' sum runs inside N1-dkdv's call",
+                               _flash_train_dispatches(
+                                   "flash_bwd_dkdv_sum", dh=256, kv=1,
+                                   window=8)),
     }
     for kernel, (desc, fn) in single.items():
         declare(Invariant(name=f"kernels.{kernel}.single_launch",

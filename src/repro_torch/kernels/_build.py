@@ -145,9 +145,11 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.flash_fwd_smem.argtypes = [I, I]
     lib.flash_bwd_dq_f32.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I, I,
                                      I, I, I, I, I, F, I, P]
-    lib.flash_bwd_dkdv_f32.argtypes = [P, P, P, P, P, P, P, P, P, I, I, I,
-                                       I, I, I, I, I, I, I, P]
-    lib.flash_bwd_smem.argtypes = [I, I]
+    lib.flash_bwd_dkdv_f32.argtypes = [P, P, P, P, P, P, P, P, P, P, I, I,
+                                       I, I, I, I, I, I, I, I, P]
+    lib.flash_bwd_scratch.argtypes = [I, I, I, I, I]
+    lib.flash_bwd_scratch.restype = L
+    lib.flash_bwd_smem.argtypes = [I, I, I]
     # the plan checker's queries (analysis/hopper_check.py): each source's
     # <kernel>_attributes(variant, smem, int out[6]) and the dynamic
     # shared memory of the plans that had no query of their own

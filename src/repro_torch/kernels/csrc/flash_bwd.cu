@@ -773,393 +773,841 @@ int launch_dkdv(const Bwd& p, cudaStream_t st) {
 }
 
 // ---------------------------------------------------------------------------
-// head dim 256 (recurrentgemma-9b's local attention): fp32 FMAs on the
-// CUDA cores
+// head dim 256 (recurrentgemma-9b's local attention): the split products
+// with the D-halves of the running sums shared out between the warpgroups
 // ---------------------------------------------------------------------------
-// The split plans do not fit at D = 256 (a split K or V tile alone is 64
-// KB, a raw 64-row tile another 64 KB). These two kernels compute what
-// N1-dq and N1-dkdv compute at D <= 128, in the same fixed orders (no
-// atomics), with fp32 FMAs on the CUDA cores: 256 threads (a 16 x 16
-// grid), every operand tile in shared memory at row stride D + 4 (a
-// quarter-warp's float4 on all 32 banks), cp.async copies. S = Qs K^T and
-// dP = dO V^T over a 64-row x 32-key tile take 4 rows x 2 keys a thread,
-// each entry one fp32 fma chain over d in order (F's D = 256 arithmetic,
-// so p = exp(s - m) / l is the forward's).
+// The plans above do not fit at D = 256: a raw 64-row Q or dO tile is 64
+// KB, a split 32-key K or V tile another 64 KB, and each warpgroup would
+// need its own. These two kernels run the same split products (wgmma
+// m64nNk8 tf32, cross terms first, each chunk of 4 k-steps into a fresh
+// accumulator added to the running sum on the CUDA cores, rounded to
+// nearest; the band argument above holds as it stands) on tiles that
+// both warpgroups share, and each warpgroup owns one D-half: the columns
+// 128 g .. 128 g + 127 of Q, dO, K and V that it reads, and the rows
+// 128 g .. of the running dQ^T (N1-dq) or dK^T and dV^T (N1-dkdv) that it
+// adds to, 64 registers a thread as at D = 128. S = Qs K^T and dP = dO
+// V^T over D are two partial sums, one a D-half (16 k-steps, 4 chunks,
+// one a 32-column box); the warpgroups swap the halves of their partials
+// that the other needs through shared memory, add them, and each
+// finishes p and dS for half of the tile's keys.
 //   * flash_bwd_dq_d256: a CTA a (b, q head, 64-row block), heaviest
-//     first. Q and dO once, D = sum dout.out for its rows (a warp a row,
-//     written for N1-dkdv), then each live 32-key tile: K and V, S and
-//     dP, p and dS = p (dP - D), dS^T to shared memory, dq += dS K (4
-//     rows x 16 columns a thread), scaled once at the end. Shared memory
-//     209,152 B.
-//   * flash_bwd_dkdv_d256: a CTA a (b, kv head, 32-key block). K and V
-//     once, then for each query head of the group in order and each live
-//     64-row tile in order: Q and dO, S and dP, P and dS to shared memory
-//     (rows x keys), dv += P^T dO and dk += dS^T Qs (2 keys x 16 columns
-//     a thread, in registers over the head's rows). Each head's sums go
-//     to dk and dv in order, written by the first head and added to by
-//     the others (each thread owns its elements): one fp32 chain over all
-//     16 heads' rows of recurrentgemma's training shape (~33,000 terms)
-//     lay within 56 % (fp32) and 81 % (bf16 inputs) of the 1e-5 band of
-//     the plain version. Shared memory 216,832 B.
-// One stage each: a second K/V (N1-dq) or Q/dO (N1-dkdv) stage does not
-// fit beside the other tiles, so each tile's copy waits on the CTA.
-// Bound: operations, at the CUDA cores' 67 TFLOP/s: N1-dq 6 D flops a
-// visible pair (S, dP, dQ), N1-dkdv 8 D (S, dP, dV, dK).
-constexpr int W_D = 256;
-constexpr int W_LD = W_D + 4;   // row stride of the Q, dO, K and V tiles
-constexpr int W_RPT = BQ / 16;  // query rows a thread in S and dP: 4
-constexpr int W_KPT = BK / 16;  // keys a thread in S and dP: 2
-constexpr int W_TS = BQ + 4;    // dS^T row stride (N1-dq): a row a key
-constexpr int W_DQ_SMEM =
-    4 * (2 * BQ * W_LD + 2 * BK * W_LD + BK * W_TS + 3 * BQ);
-constexpr int W_DKDV_SMEM =
-    4 * (2 * BK * W_LD + 2 * BQ * W_LD + 2 * BQ * BK + 3 * BQ);
+//     first. Raw Q and dO once (cp.async), D for the rows (written for
+//     N1-dkdv), then per 16-key tile: S and dP, dS split (rows x keys),
+//     dQ^T[D-half] += K^T dS^T (A = K read down its tile's columns, one
+//     chunk of two k-steps an m-tile). K and V: split into one stage
+//     from registers, each thread's share of the next tile loaded under
+//     this one's products; in the exact variant (nothing to split) a
+//     two-stage cp.async ring, and S's and dP's chunks interleaved (two
+//     in flight; the split variant's would spill beside the next tile's
+//     registers). Shared memory: Q and dO 128 KB, K and V 64 KB (one
+//     split stage or two exact ones), dS split 8 KB, the partials 8 KB:
+//     213,248 B; 226 registers (228 exact), no spills.
+//   * flash_bwd_dkdv_d256: a CTA a (b, kv head, head group, block of 16
+//     keys; 32 in the exact variant, whose K and V have no small half),
+//     lowest keys first. The group's query heads are cut into min(group,
+//     4) head groups, each a CTA of its own: 1,024 CTAs (512 exact) at
+//     recurrentgemma's shape, where one a key block gave 128 on 132 SMs,
+//     each walking all 16 heads. K and V staged split once; per (query
+//     head, 64-row tile) step, heads in order: Q and dO by TMA (each
+//     warpgroup copies its own D-half, a box an mbarrier: dO of the next
+//     step under dK, its Q after, and the next step's first chunks start
+//     on the first box), dP and S with their chunks interleaved, P and dS
+//     split (keys x rows; the partials swap through the same tiles),
+//     dV^T[D-half] += dO^T P, dK^T[D-half] += Qs^T dS, each chunk's
+//     fragments loaded under the last one's. Shared memory: Q and dO 128
+//     KB, K and V 64 KB, P and dS 16 KB (32 KB exact), 16 mbarriers:
+//     213,120 B (229,504 exact); 194 registers (240 exact), no spills.
+//     With one head group the CTA writes dk and dv; with more, each
+//     writes its partial sums to a scratch buffer (2 x groups x the size
+//     of dk: 32 MiB at recurrentgemma's shape), and
+//     flash_bwd_dkdv_d256_sum adds them in head-group order (no atomics:
+//     the same bits every run; no fp32 chain runs over more than a
+//     quarter of the heads' rows: one over all 16 heads' lay at 56 % of
+//     the 1e-5 band).
+// What bounds them: operations, the split's three terms at 495 TFLOP/s
+// (two for S, dQ and dV, one for dP, where k, v and dout are exact): at
+// recurrentgemma's training shape (B = 1, Hq = 16, Hkv = 1, T = S =
+// 4,096, window 2,048) N1-dq 0.313 ms (its dQ and D) and N1-dkdv 1.250
+// (S, dP, dV, dK). Measured on an H100 80GB HBM3 at 700 W (chip_smoke
+// phase 2g): N1-dq 4.60 ms and N1-dkdv 5.35 in fp32, 9.95 together
+// against 13.31 for torch.autograd.grad through SDPA; 2.90 and 2.43 with
+// bf16 inputs; 5.75 and 11.73 on the CUDA cores before. What holds them
+// there is the step's latency, not the tensor cores or the copies: the
+// two warpgroups meet at four barriers a step, and with the copies
+// skipped they ran 3-12 % (N1-dkdv) and 16-30 % (N1-dq) faster. N1-dkdv's
+// 16-key blocks read each Q and dO tile once for every 16 keys of the
+// window (about 17 GB from L2 there); a cluster's multicast would share
+// them, for the few per cent the copies cost.
+constexpr int HD = 256;
+constexpr int HRAW = BQ * HD;   // floats of a raw 64-row tile: 8 boxes
+constexpr int HBOX = BQ * 32;   // floats of one 32-column box
+constexpr int HKS = HD / 16;    // k-steps over a D-half: 16
+constexpr int DQ_NK = 16;       // N1-dq's key tile, both variants
+constexpr int MAX_GROUPS = 4;   // N1-dkdv's head groups a kv head, at most
 
-// rows [0, n) of a (rows x 256) tile at src (row stride ld) into shared
-// memory at row stride W_LD, zeros for rows [n, rows).
-__device__ __forceinline__ void w_load(float* dst, const float* src,
-                                       long long ld, int rows, int n) {
-  constexpr int C4 = W_D / 4;
-  for (int i = threadIdx.x; i < rows * C4; i += NT) {
-    const int r = i / C4, c = 4 * (i % C4);
-    const bool ok = r < n;
-    sm90::cp_async16(dst + r * W_LD + c, ok ? src + r * ld + c : src, ok);
+// N1-dkdv's key block: 16 keys, 32 in the exact variant
+template <bool EXACT>
+__host__ __device__ constexpr int dkdv_nk() {
+  return EXACT ? 32 : 16;
+}
+
+template <int NK, bool EXACT>
+struct HTiles {
+  static constexpr int HALVES = EXACT ? 1 : 2;  // of a staged K or V tile
+  static constexpr int KV = NK * HD;   // floats of a half of a K or V tile
+  static constexpr int PS = BQ * NK;   // ... of a half of a P or dS tile
+  static constexpr int NA = NK / 2;    // accumulator floats a thread (64 x NK)
+  static constexpr int XS = NK * WT;   // the swapped partials: 2 x NA x WT
+  // N1-dq: raw Q and dO, K and V (one stage split, or two stages of
+  // exact tiles), split dS, the partials, D of the rows
+  static constexpr int DQ_SMEM = 4 * (2 * HRAW + 4 * KV + 2 * PS + XS + BQ);
+  // N1-dkdv: raw Q and dO, split K, V, P and dS, 16 mbarriers (a box of
+  // Q or dO a warpgroup)
+  static constexpr int BARS = 2 * HRAW + 2 * HALVES * KV + 4 * PS;
+  static constexpr int DKDV_SMEM = 4 * BARS + 16 * 8;
+};
+
+// The head groups of N1-dkdv a kv head of `group` query heads.
+__host__ __device__ __forceinline__ int dkdv_groups(int group) {
+  return group < MAX_GROUPS ? group : MAX_GROUPS;
+}
+
+// The 8-float units of an NK x 256 K or V tile, unit u at key r, columns
+// c .. c + 7: a warp's 32 units are 8 keys x 4 consecutive units of each
+// (a 128-byte line a key a load; each 8-lane phase of the 16-byte stores
+// fills one row of core matrices).
+template <int NK>
+__device__ __forceinline__ void kv_unit(int u, int& r, int& c) {
+  const int lane = u % 32, w = u / 32;
+  r = lane % 8 + 8 * (w % (NK / 8));
+  c = 8 * (lane / 8 + 4 * (w / (NK / 8)));
+}
+
+// Units tid + NT j (j < U) of the NK-key K and V tiles at k and v (row
+// stride ld; zeros for keys >= n) into registers.
+template <int NK, int U>
+__device__ __forceinline__ void kv_load(float4 (&x)[U][4], const float* k,
+                                        const float* v, long long ld, int n,
+                                        int u0) {
+#pragma unroll
+  for (int j = 0; j < U; ++j) {
+    int r, c;
+    kv_unit<NK>(u0 + j * NT, r, c);
+    const bool in = r < n;
+    const float4 z = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+    const float4* kp = reinterpret_cast<const float4*>(k + r * ld + c);
+    const float4* vp = reinterpret_cast<const float4*>(v + r * ld + c);
+    x[j][0] = in ? __ldg(kp) : z;
+    x[j][1] = in ? __ldg(kp + 1) : z;
+    x[j][2] = in ? __ldg(vp) : z;
+    x[j][3] = in ? __ldg(vp + 1) : z;
   }
 }
 
-// s = X Y^T and t = Z W^T over D: rows rq .. rq + 3 of the 64-row tiles X
-// and Z, keys tx + 16 kk of the 32-key tiles Y and W; each entry one fma
-// chain over d in order.
-__device__ __forceinline__ void w_dots(float (&s)[W_RPT][W_KPT],
-                                       float (&t)[W_RPT][W_KPT],
-                                       const float* X, const float* Y,
-                                       const float* Z, const float* W,
-                                       int rq, int tx) {
+// ... and from registers, split, into the K-major tiles kt and vt (big,
+// then the small half KV floats on; SPLIT false: exact inputs, no small
+// half).
+template <int NK, bool SPLIT, int U>
+__device__ __forceinline__ void kv_store(float* kt, float* vt,
+                                         const float4 (&x)[U][4], int u0) {
+  constexpr int KV = NK * HD;
 #pragma unroll
-  for (int i = 0; i < W_RPT; ++i)
+  for (int j = 0; j < U; ++j) {
+    int r, c;
+    kv_unit<NK>(u0 + j * NT, r, c);
+    const int lo = km_at<HD>(r, c), hi = km_at<HD>(r, c + 4);
+    auto put = [&](float* t, float4 a, float4 b) {
+      const float e[8] = {a.x, a.y, a.z, a.w, b.x, b.y, b.z, b.w};
+      uint32_t big[8], small[8];
 #pragma unroll
-    for (int kk = 0; kk < W_KPT; ++kk) s[i][kk] = t[i][kk] = 0.0f;
-#pragma unroll 2
-  for (int c = 0; c < W_D; c += 4) {
-    float4 y[W_KPT], w[W_KPT];
+      for (int i = 0; i < 8; ++i) split<SPLIT>(e[i], big[i], small[i]);
+      put4(t + lo, {big[0], big[1], big[2], big[3]});
+      put4(t + hi, {big[4], big[5], big[6], big[7]});
+      if constexpr (SPLIT) {
+        put4(t + KV + lo, {small[0], small[1], small[2], small[3]});
+        put4(t + KV + hi, {small[4], small[5], small[6], small[7]});
+      }
+    };
+    put(kt, x[j][0], x[j][1]);
+    put(vt, x[j][2], x[j][3]);
+  }
+}
+
+// The A fragments of the 4 k-steps from column 8 c0 on of the raw tile
+// (xr: its rows row, row + 8 at lane t, raw_at), split: columns 8 k + t
+// and 8 k + t + 4 are the 16-byte chunks 2 kk and 2 kk + 1 of the chunk's
+// 32-column box (c0 a multiple of 4).
+template <bool XS>
+__device__ __forceinline__ void row_frags(uint32_t (&ab)[4][4],
+                                          uint32_t (&as)[4][4],
+                                          const float* xr, int c0, int sw) {
+  const float* xb = xr + (c0 >> 2) * HBOX;
 #pragma unroll
-    for (int kk = 0; kk < W_KPT; ++kk) {
-      y[kk] = *reinterpret_cast<const float4*>(Y + (tx + 16 * kk) * W_LD + c);
-      w[kk] = *reinterpret_cast<const float4*>(W + (tx + 16 * kk) * W_LD + c);
+  for (int kk = 0; kk < 4; ++kk) {
+    const int lo = ((2 * kk) ^ sw) << 2, hi = ((2 * kk + 1) ^ sw) << 2;
+    split<XS>(xb[lo], ab[kk][0], as[kk][0]);
+    split<XS>(xb[lo + 8 * 32], ab[kk][1], as[kk][1]);
+    split<XS>(xb[hi], ab[kk][2], as[kk][2]);
+    split<XS>(xb[hi + 8 * 32], ab[kk][3], as[kk][3]);
+  }
+}
+
+// acc (64 rows x NK keys) = X Y^T over the D-half g: X the raw tile (A
+// from registers, split there), Y the K-major NK x 256 tile, its big half
+// at y and its small half at ys. Four chunks of 4 k-steps (one 32-column
+// box each), each into a fresh accumulator added to acc in fp32. XS / YS
+// false: that operand is exact and its small half is skipped.
+template <int NK, bool XS, bool YS>
+__device__ __forceinline__ void half_rows(float (&acc)[NK / 2], const float* x,
+                                          uint32_t y, uint32_t ys, int g,
+                                          int row, int t) {
+#pragma unroll
+  for (int i = 0; i < NK / 2; ++i) acc[i] = 0.0f;
+  const float* xr = x + row * 32 + t;  // rows row, row + 8 (raw_at)
+#pragma unroll 1
+  for (int c0 = HKS * g; c0 < HKS * (g + 1); c0 += 4) {
+    int sw = row & 7;  // opaque: offsets computed in the loop
+    asm volatile("" : "+r"(sw));
+    uint32_t ab[4][4], as[4][4];
+    row_frags<XS>(ab, as, xr, c0, sw);
+    float c[NK / 2];
+    sm90::wgmma_fence();
+    issue_chunk<HD, 4, XS, YS>(c, ab, as, y + 256 * c0, ys + 256 * c0);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(c);
+#pragma unroll
+    for (int i = 0; i < NK / 2; ++i) acc[i] += c[i];
+  }
+}
+
+// sc = Qs K^T and dp = dO V^T over the D-half g, as two half_rows with
+// their chunks interleaved: dP's chunk i, then S's, each issued before
+// the wait for the other product's last chunk, so that one chunk's
+// fragments load while the other's runs (two chunks in flight, each in
+// a fresh accumulator as in half_rows). box(i) is called before chunk i
+// of either product reads its box (4 g + i) of Q or dO: wait_o, wait_q.
+template <int NK, bool QS, bool KS, bool OS, bool VS, class WO, class WQ>
+__device__ __forceinline__ void half_rows2(float (&sc)[NK / 2],
+                                           float (&dp)[NK / 2],
+                                           const float* q, const float* o,
+                                           uint32_t k, uint32_t ks,
+                                           uint32_t v, uint32_t vs, int g,
+                                           int row, int t, WO wait_o,
+                                           WQ wait_q) {
+  constexpr int NA = NK / 2;
+  const float* qr = q + row * 32 + t;
+  const float* orr = o + row * 32 + t;
+  const int sw = row & 7;
+  const int c1 = HKS * g;   // the D-half's first k-step
+  uint32_t qa[4][4], qs[4][4], oa[4][4], os[4][4];
+  float cs[NA], cp[NA];
+  wait_o(0);
+  row_frags<OS>(oa, os, orr, c1, sw);
+  sm90::wgmma_fence();
+  issue_chunk<HD, 4, OS, VS>(cp, oa, os, v + 256 * c1, vs + 256 * c1);
+  sm90::wgmma_commit();
+  wait_q(0);
+  row_frags<QS>(qa, qs, qr, c1, sw);
+  sm90::wgmma_fence();
+  issue_chunk<HD, 4, QS, KS>(cs, qa, qs, k + 256 * c1, ks + 256 * c1);
+  sm90::wgmma_commit();
+#pragma unroll
+  for (int i = 1; i < 4; ++i) {
+    const int c0 = c1 + 4 * i;
+    sm90::wgmma_wait<1>();   // dP's chunk i - 1
+    sm90::fence_regs(cp);
+    sm90::keep_regs(oa);
+    sm90::keep_regs(os);
+#pragma unroll
+    for (int e = 0; e < NA; ++e) dp[e] = i == 1 ? cp[e] : dp[e] + cp[e];
+    wait_o(i);
+    row_frags<OS>(oa, os, orr, c0, sw);
+    sm90::wgmma_fence();
+    issue_chunk<HD, 4, OS, VS>(cp, oa, os, v + 256 * c0, vs + 256 * c0);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<1>();   // S's chunk i - 1
+    sm90::fence_regs(cs);
+    sm90::keep_regs(qa);
+    sm90::keep_regs(qs);
+#pragma unroll
+    for (int e = 0; e < NA; ++e) sc[e] = i == 1 ? cs[e] : sc[e] + cs[e];
+    wait_q(i);
+    row_frags<QS>(qa, qs, qr, c0, sw);
+    sm90::wgmma_fence();
+    issue_chunk<HD, 4, QS, KS>(cs, qa, qs, k + 256 * c0, ks + 256 * c0);
+    sm90::wgmma_commit();
+  }
+  sm90::wgmma_wait<1>();
+  sm90::fence_regs(cp);
+  sm90::keep_regs(oa);
+  sm90::keep_regs(os);
+#pragma unroll
+  for (int e = 0; e < NA; ++e) dp[e] += cp[e];
+  sm90::wgmma_wait<0>();
+  sm90::fence_regs(cs);
+  sm90::keep_regs(qa);
+  sm90::keep_regs(qs);
+#pragma unroll
+  for (int e = 0; e < NA; ++e) sc[e] += cs[e];
+}
+
+// acc[mt] (rows 128 g + 64 mt .. of D x NK keys) += X^T W over the 64
+// rows: X the raw tile read down its columns of the D-half g (A from
+// registers, split there), W the split NK x 64 K-major P or dS tile (big
+// at w, small at ws), rows in row_col order. Four chunks of 4 k-steps
+// (two an m-tile), each chunk's fragments loaded while the last one runs
+// (F's order, flash_fwd.cu).
+template <int NK, bool XS>
+__device__ __forceinline__ void half_cols(float (&acc)[2][NK / 2],
+                                          const float* x, uint32_t w,
+                                          uint32_t ws, int g, int d0, int t) {
+  auto frags = [&](uint32_t (&ab)[4][4], uint32_t (&as)[4][4], int ch) {
+    const int d = 128 * g + 64 * (ch >> 1) + d0, c0 = 4 * (ch & 1);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) {
+      const int r = 8 * (c0 + kk) + 2 * t;
+      const float e[4] = {x[raw_at(r, d)], x[raw_at(r, d + 8)],
+                          x[raw_at(r + 1, d)], x[raw_at(r + 1, d + 8)]};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) split<XS>(e[i], ab[kk][i], as[kk][i]);
     }
+  };
+  uint32_t ab[2][4][4], as[2][4][4];
+  frags(ab[0], as[0], 0);
 #pragma unroll
-    for (int i = 0; i < W_RPT; ++i) {
-      const float4 x =
-          *reinterpret_cast<const float4*>(X + (rq + i) * W_LD + c);
-      const float4 z =
-          *reinterpret_cast<const float4*>(Z + (rq + i) * W_LD + c);
+  for (int ch = 0; ch < 4; ++ch) {
+    const uint32_t off = 256 * 4 * (ch & 1);
+    float c[NK / 2];
+    sm90::wgmma_fence();
+    issue_chunk<BQ, 4, XS, true>(c, ab[ch & 1], as[ch & 1], w + off,
+                                 ws + off);
+    sm90::wgmma_commit();
+    if (ch + 1 < 4) frags(ab[(ch + 1) & 1], as[(ch + 1) & 1], ch + 1);
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(c);
+    sm90::keep_regs(ab[ch & 1]);
+    sm90::keep_regs(as[ch & 1]);
 #pragma unroll
-      for (int kk = 0; kk < W_KPT; ++kk) {
-        s[i][kk] = fmaf(x.x, y[kk].x, s[i][kk]);
-        s[i][kk] = fmaf(x.y, y[kk].y, s[i][kk]);
-        s[i][kk] = fmaf(x.z, y[kk].z, s[i][kk]);
-        s[i][kk] = fmaf(x.w, y[kk].w, s[i][kk]);
-        t[i][kk] = fmaf(z.x, w[kk].x, t[i][kk]);
-        t[i][kk] = fmaf(z.y, w[kk].y, t[i][kk]);
-        t[i][kk] = fmaf(z.z, w[kk].z, t[i][kk]);
-        t[i][kk] = fmaf(z.w, w[kk].w, t[i][kk]);
+    for (int i = 0; i < NK / 2; ++i) acc[ch >> 1][i] += c[i];
+  }
+}
+
+// acc[mt] (rows 128 g + 64 mt .. of D x 64 query rows) += K^T dS^T over
+// the NK keys: K read down the columns of the D-half g of its split tile
+// kt (small half KV floats on), dS the split 64 x NK K-major tile (big at
+// ds, small at dss). One chunk of NK / 8 k-steps.
+template <int NK, bool KSPLIT>
+__device__ __forceinline__ void half_kt(float (&acc)[2][32], const float* kt,
+                                        uint32_t ds, uint32_t dss, int g,
+                                        int d0, int t) {
+  constexpr int KV = NK * HD;
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt) {
+    const int d = 128 * g + 64 * mt + d0;
+    uint32_t ab[NK / 8][4], as[NK / 8][4];
+#pragma unroll
+    for (int kk = 0; kk < NK / 8; ++kk) {
+      const int r = 8 * kk + t;
+      const int at[4] = {km_at<HD>(r, d), km_at<HD>(r, d + 8),
+                         km_at<HD>(r + 4, d), km_at<HD>(r + 4, d + 8)};
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        ab[kk][i] = __float_as_uint(kt[at[i]]);
+        as[kk][i] = KSPLIT ? __float_as_uint(kt[KV + at[i]]) : 0u;
       }
     }
+    float c[32];
+    sm90::wgmma_fence();
+    issue_chunk<NK, NK / 8, KSPLIT, true>(c, ab, as, ds, dss);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(c);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) acc[mt][i] += c[i];
   }
 }
 
-// m, l and D of rows r0 .. r0 + 63 of (b, h) into shared memory (0, 1, 0
-// past T), by threads 0 .. 63.
-__device__ __forceinline__ void w_rows(const Bwd& p, int b, int h, int r0,
-                                       float* rowD, float* rowM,
-                                       float* rowL) {
-  const int rr = threadIdx.x;
-  if (rr >= BQ) return;
-  const int row = r0 + rr;
-  const bool in = row < p.T;
-  const long long at = (static_cast<long long>(b) * p.Hq + h) * p.T + row;
-  rowD[rr] = in ? p.delta[at] : 0.0f;
-  rowM[rr] = in ? p.m[at] : 0.0f;
-  rowL[rr] = in ? p.l[at] : 1.0f;
+// The swap of the warpgroups' partial S and dP: warpgroup g finishes the
+// keys of its accumulators' entries [g NA / 2, (g + 1) NA / 2) (the 8-key
+// column blocks of its half of the tile). Each thread puts the other
+// half of its partials at x (2 x NA x WT floats; thread wtid of the other
+// warpgroup holds the same entries), and then takes the other's for its
+// own half and adds them: s and dp are its half's sums over D.
+template <int NA>
+__device__ __forceinline__ void put_partials(float* x, const float (&sc)[NA],
+                                             const float (&dp)[NA], int wg,
+                                             int wtid) {
+  float* xo = x + wg * NA * WT + wtid;
+#pragma unroll
+  for (int e = 0; e < NA / 2; ++e) {
+    xo[e * WT] = wg ? sc[e] : sc[NA / 2 + e];
+    xo[(NA / 2 + e) * WT] = wg ? dp[e] : dp[NA / 2 + e];
+  }
 }
 
-__global__ void __launch_bounds__(NT, 1) flash_bwd_dq_d256(const Bwd p) {
-  extern __shared__ __align__(16) float wsm[];
-  float* Qs = wsm;                   // BQ x W_LD: q * scale
-  float* Os = Qs + BQ * W_LD;        // BQ x W_LD: dout
-  float* Ks = Os + BQ * W_LD;        // BK x W_LD
-  float* Vs = Ks + BK * W_LD;        // BK x W_LD
-  float* dsT = Vs + BK * W_LD;       // BK x W_TS: dS^T
-  float* rowD = dsT + BK * W_TS;
-  float* rowM = rowD + BQ;
-  float* rowL = rowM + BQ;
+template <int NA>
+__device__ __forceinline__ void take_partials(float (&s)[NA / 2],
+                                              float (&dp2)[NA / 2],
+                                              const float* x,
+                                              const float (&sc)[NA],
+                                              const float (&dp)[NA], int wg,
+                                              int wtid) {
+  const float* xi = x + (1 - wg) * NA * WT + wtid;
+#pragma unroll
+  for (int e = 0; e < NA / 2; ++e) {
+    s[e] = (wg ? sc[NA / 2 + e] : sc[e]) + xi[e * WT];
+    dp2[e] = (wg ? dp[NA / 2 + e] : dp[e]) + xi[(NA / 2 + e) * WT];
+  }
+}
 
-  const int nblk = (p.T + BQ - 1) / BQ;
-  int qb = blockIdx.x / (p.Hq * p.B);
-  if (p.causal) qb = nblk - 1 - qb;  // heaviest first
+// p and ds of a thread's entries e of its half (rows r0 + row + 8 ((e >>
+// 1) & 1), keys k0 + kb + 8 (e >> 2) + 2 t + (e & 1)), masked element by
+// element on an edge: s becomes p, dp becomes ds.
+template <int N>
+__device__ __forceinline__ void half_softmax(const Bwd& p, float (&s)[N],
+                                             float (&dp)[N],
+                                             const RowStats& rs, bool edge,
+                                             int r0, int row, int k0, int kb,
+                                             int t) {
+  const float rl[2] = {__frcp_rn(rs.l[0]), __frcp_rn(rs.l[1])};
+#pragma unroll
+  for (int e = 0; e < N; ++e) {
+    const int h = (e >> 1) & 1;
+    const int key = k0 + kb + 8 * (e >> 2) + 2 * t + (e & 1);
+    const bool hid = edge && !visible(p, r0 + row + 8 * h, key);
+    const float pr = hid ? 0.0f : __expf(s[e] - rs.m[h]) * rl[h];
+    s[e] = pr;
+    dp[e] = pr * (dp[e] - rs.d[h]);
+  }
+}
+
+// Units tid + NT j (j < U) of the NK-key K and V tiles at k and v (row
+// stride ld; zeros for keys >= n), exact in TF32, copied by cp.async into
+// the K-major tiles kt and vt as they are (no split).
+template <int NK, int U>
+__device__ __forceinline__ void kv_copy(float* kt, float* vt, const float* k,
+                                        const float* v, long long ld, int n,
+                                        int u0) {
+#pragma unroll
+  for (int j = 0; j < U; ++j) {
+    int r, c;
+    kv_unit<NK>(u0 + j * NT, r, c);
+    const bool in = r < n;
+    const long long at = in ? r * ld + c : 0;
+    const int lo = km_at<HD>(r, c), hi = km_at<HD>(r, c + 4);
+    sm90::cp_async16(kt + lo, k + at, in);
+    sm90::cp_async16(kt + hi, k + at + 4, in);
+    sm90::cp_async16(vt + lo, v + at, in);
+    sm90::cp_async16(vt + hi, v + at + 4, in);
+  }
+}
+
+template <bool EXACT>
+__global__ void __launch_bounds__(NT, 1) flash_bwd_dq_d256(const Bwd p) {
+  constexpr int NK = DQ_NK;
+  using L = HTiles<NK, EXACT>;
+  constexpr int NA = L::NA;
+  constexpr int U = NK * HD / 8 / NT;   // K/V units a thread: 2
+  extern __shared__ __align__(1024) float bsm[];
+  const int tid = threadIdx.x, wg = tid / WT, wtid = tid % WT;
+  const int warp = wtid / 32, lane = tid % 32, t = lane % 4;
+  float* Qs = bsm;                               // raw, 64 x 256
+  float* dOs = Qs + HRAW;                        // raw, 64 x 256
+  // K and V: one stage split (big, then small), or (exact) a two-stage
+  // ring of the tiles as they are
+  float* KV0 = dOs + HRAW;
+  float* dSt = KV0 + 4 * L::KV;                  // split, 64 x NK
+  float* X = dSt + 2 * L::PS;                    // the swapped partials
+  float* Dsm = X + L::XS;                        // D, 64
+
+  const int heads = p.Hq * p.B;
+  const int nqb = (p.T + BQ - 1) / BQ;
+  int qb = blockIdx.x / heads;
+  if (p.causal) qb = nqb - 1 - qb;    // heaviest first
   const int h = blockIdx.x % p.Hq, b = (blockIdx.x / p.Hq) % p.B;
   const int hk = h / p.group;
   const int r0 = qb * BQ;
-  const long long qrs = static_cast<long long>(p.Hq) * W_D;   // row strides
-  const long long krs = static_cast<long long>(p.Hkv) * W_D;
-  const long long qoff = (static_cast<long long>(b) * p.T * p.Hq + h) * W_D;
-  const long long koff = (static_cast<long long>(b) * p.S * p.Hkv + hk) * W_D;
+  const long long qrs = static_cast<long long>(p.Hq) * HD;   // row strides
+  const long long krs = static_cast<long long>(p.Hkv) * HD;
+  const long long qoff = (static_cast<long long>(b) * p.T + r0) * qrs + h * HD;
+  const long long koff = static_cast<long long>(b) * p.S * krs + hk * HD;
+  const long long soff = (static_cast<long long>(b) * p.Hq + h) * p.T + r0;
   const int q_first = r0 + p.q_offset;
   const int q_last = min(r0 + BQ, p.T) - 1 + p.q_offset;
-  int hi = (p.S + BK - 1) / BK;
-  if (p.causal) hi = min(hi, q_last / BK + 1);
+  int hi = (p.S + NK - 1) / NK;
+  if (p.causal) hi = min(hi, q_last / NK + 1);
   int lo = 0;
   if (p.window > 0 && q_first - p.window + 1 > 0)
-    lo = (q_first - p.window + 1) / BK;
+    lo = (q_first - p.window + 1) / NK;
+  auto k_at = [&](int j) { return p.k + koff + j * NK * krs; };
+  auto v_at = [&](int j) { return p.v + koff + j * NK * krs; };
 
-  w_load(Qs, p.q + qoff + r0 * qrs, qrs, BQ, p.T - r0);
-  w_load(Os, p.dout + qoff + r0 * qrs, qrs, BQ, p.T - r0);
+  load_raw<HD>(Qs, p.q + qoff, qrs, p.T - r0, tid);
+  load_raw<HD>(dOs, p.dout + qoff, qrs, p.T - r0, tid);
+  float4 nxt[EXACT ? 1 : U][4];   // (split) the next K and V tile's units
+  if (lo < hi) {
+    if constexpr (EXACT)
+      kv_copy<NK, U>(KV0, KV0 + L::KV, k_at(lo), v_at(lo), krs,
+                     p.S - lo * NK, tid);
+    else
+      kv_load<NK, U>(nxt, k_at(lo), v_at(lo), krs, p.S - lo * NK, tid);
+  }
   sm90::cp_async_commit();
-
-  // D = sum_d dout out for the block's rows: a warp a row, from global
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
-  for (int rr = warp; rr < BQ; rr += NT / 32) {
-    const int row = r0 + rr;
-    float acc = 0.0f;
-    if (row < p.T) {
-      const float* orow = p.o + qoff + row * qrs;
-      const float* drow = p.dout + qoff + row * qrs;
-#pragma unroll
-      for (int c = 4 * lane; c < W_D; c += 128) {
-        const float4 a = __ldg(reinterpret_cast<const float4*>(orow + c));
-        const float4 d = __ldg(reinterpret_cast<const float4*>(drow + c));
-        acc = fmaf(a.x, d.x, acc);
-        acc = fmaf(a.y, d.y, acc);
-        acc = fmaf(a.z, d.z, acc);
-        acc = fmaf(a.w, d.w, acc);
-      }
+  sm90::cp_async_wait<0>();
+  __syncthreads();
+  // D = sum_d dout out: 4 threads a row, every 4th column each, in order
+  {
+    const int rr = tid / 4, part = tid % 4;
+    float d = 0.0f;
+    if (r0 + rr < p.T) {
+      const float* orow = p.o + qoff + rr * qrs;
+#pragma unroll 8
+      for (int c = part; c < HD; c += 4)
+        d = fmaf(dOs[raw_at(rr, c)], orow[c], d);
     }
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc += __shfl_xor_sync(FULL, acc, off);
-    if (lane == 0) {
-      rowD[rr] = acc;
-      const long long at = (static_cast<long long>(b) * p.Hq + h) * p.T + row;
-      rowM[rr] = row < p.T ? p.m[at] : 0.0f;
-      rowL[rr] = row < p.T ? p.l[at] : 1.0f;
-      if (row < p.T) p.delta[at] = acc;
+    d += __shfl_xor_sync(FULL, d, 1);
+    d += __shfl_xor_sync(FULL, d, 2);
+    if (part == 0) {
+      Dsm[rr] = d;
+      if (r0 + rr < p.T) p.delta[soff + rr] = d;
     }
   }
+  __syncthreads();
+  const int row = 16 * warp + lane / 4;  // accumulator rows: + 0, 8
+  RowStats rs;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int r = row + 8 * e;
+    const bool in = r0 + r < p.T;
+    rs.m[e] = in ? p.m[soff + r] : 0.0f;
+    rs.l[e] = in ? p.l[soff + r] : 1.0f;
+    rs.d[e] = Dsm[r];
+  }
 
-  const int ty = tid / 16, tx = tid % 16;
-  const int rq = ty * W_RPT;   // the thread's first row in the block
-  float dq[W_RPT][16];
+  float dq[2][32];
 #pragma unroll
-  for (int i = 0; i < W_RPT; ++i)
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int c = 0; c < 16; ++c) dq[i][c] = 0.0f;
+    for (int i = 0; i < 32; ++i) dq[mt][i] = 0.0f;
+  const uint32_t ds_addr = sm90::smem_addr(dSt);
+  const int kb = wg * (NK / 2);   // the first key of the warpgroup's half
+  auto no_wait = [](int) {};
 
   for (int j = lo; j < hi; ++j) {
-    const int k0 = j * BK;
-    w_load(Ks, p.k + koff + k0 * krs, krs, BK, p.S - k0);
-    w_load(Vs, p.v + koff + k0 * krs, krs, BK, p.S - k0);
-    sm90::cp_async_commit();
-    sm90::cp_async_wait<0>();
+    const int k0 = j * NK;
+    float* Kt = KV0;
+    if constexpr (EXACT) {
+      // tile j has landed, and every thread is done with tile j - 1:
+      // tile j + 1 loads into its stage under this one's products
+      Kt += 2 * L::KV * ((j - lo) & 1);
+      sm90::cp_async_wait<0>();
+      sm90::fence_proxy_async();
+      __syncthreads();
+      if (j + 1 < hi) {
+        float* nk = KV0 + 2 * L::KV * ((j + 1 - lo) & 1);
+        kv_copy<NK, U>(nk, nk + L::KV, k_at(j + 1), v_at(j + 1), krs,
+                       p.S - k0 - NK, tid);
+      }
+      sm90::cp_async_commit();
+    } else {
+      if (j > lo) __syncthreads();   // the last tile's K, V and dS are read
+      kv_store<NK, true, U>(Kt, Kt + 2 * L::KV, nxt, tid);
+      sm90::fence_proxy_async();
+      __syncthreads();
+      // the next tile's loads run under this one's products
+      if (j + 1 < hi)
+        kv_load<NK, U>(nxt, k_at(j + 1), v_at(j + 1), krs, p.S - k0 - NK,
+                       tid);
+    }
+    const float* Vt = Kt + (EXACT ? 1 : 2) * L::KV;
+    const uint32_t k_addr = sm90::smem_addr(Kt), v_addr = sm90::smem_addr(Vt);
+    float sc[NA], dp[NA];
+    if constexpr (EXACT) {
+      half_rows2<NK, true, false, false, false>(
+          sc, dp, Qs, dOs, k_addr, k_addr, v_addr, v_addr, wg, row, t,
+          no_wait, no_wait);
+    } else {
+      // one product at a time: the next tile's units hold 32 registers,
+      // and two products' fragments in flight would spill beside them
+      half_rows<NK, true, true>(sc, Qs, k_addr, k_addr + 4 * L::KV, wg, row,
+                                t);
+      half_rows<NK, true, true>(dp, dOs, v_addr, v_addr + 4 * L::KV, wg, row,
+                                t);
+    }
+    put_partials<NA>(X, sc, dp, wg, wtid);
     __syncthreads();
-
-    float s[W_RPT][W_KPT], t[W_RPT][W_KPT];
-    w_dots(s, t, Qs, Ks, Os, Vs, rq, tx);
-    // p = exp(s - m) / l where the key is visible, dS = p (dP - D); dS^T
-    // to shared memory: key tx + 16 kk, rows rq .. rq + 3
+    float s2[NA / 2], d2[NA / 2];
+    take_partials<NA>(s2, d2, X, sc, dp, wg, wtid);
+    const bool edge = k0 + NK > p.S ||
+                      (p.causal && k0 + NK - 1 > q_first) ||
+                      (p.window > 0 && k0 <= q_last - p.window);
+    half_softmax(p, s2, d2, rs, edge, r0, row, k0, kb, t);
+    // dS as the B operand of dQ^T: rows x keys, keys the contraction
 #pragma unroll
-    for (int kk = 0; kk < W_KPT; ++kk) {
-      float ds[W_RPT];
-#pragma unroll
-      for (int i = 0; i < W_RPT; ++i) {
-        const int r = rq + i;
-        const float pr = visible(p, r0 + r, k0 + tx + 16 * kk)
-                             ? expf(s[i][kk] - rowM[r]) / rowL[r]
-                             : 0.0f;
-        ds[i] = pr * (t[i][kk] - rowD[r]);
-      }
-      *reinterpret_cast<float4*>(dsT + (tx + 16 * kk) * W_TS + rq) =
-          make_float4(ds[0], ds[1], ds[2], ds[3]);
+    for (int e = 0; e < NA / 2; e += 2) {
+      const int r = row + 8 * ((e >> 1) & 1);
+      const int key = kb + 8 * (e >> 2) + 2 * t;
+      uint32_t b0, s0, b1, s1;
+      sm90::split_tf32(d2[e], b0, s0);
+      sm90::split_tf32(d2[e + 1], b1, s1);
+      const int at = km_at<NK>(r, key);
+      *reinterpret_cast<float2*>(dSt + at) =
+          make_float2(__uint_as_float(b0), __uint_as_float(b1));
+      *reinterpret_cast<float2*>(dSt + L::PS + at) =
+          make_float2(__uint_as_float(s0), __uint_as_float(s1));
     }
-    __syncthreads();   // dS^T is complete
-
-    // dq += dS K: rows rq .. rq + 3, columns 64 g + 4 tx + e
-    const int limit = min(BK, p.S - k0);   // the keys past S are zeros
-#pragma unroll 2
-    for (int k = 0; k < limit; ++k) {
-      const float4 d4 = *reinterpret_cast<const float4*>(dsT + k * W_TS + rq);
-      const float dr[W_RPT] = {d4.x, d4.y, d4.z, d4.w};
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        const float4 kv =
-            *reinterpret_cast<const float4*>(Ks + k * W_LD + 64 * g + 4 * tx);
-#pragma unroll
-        for (int i = 0; i < W_RPT; ++i) {
-          dq[i][4 * g] = fmaf(dr[i], kv.x, dq[i][4 * g]);
-          dq[i][4 * g + 1] = fmaf(dr[i], kv.y, dq[i][4 * g + 1]);
-          dq[i][4 * g + 2] = fmaf(dr[i], kv.z, dq[i][4 * g + 2]);
-          dq[i][4 * g + 3] = fmaf(dr[i], kv.w, dq[i][4 * g + 3]);
-        }
-      }
-    }
-    __syncthreads();   // K, V and dS^T are free
+    sm90::fence_proxy_async();
+    __syncthreads();
+    half_kt<NK, !EXACT>(dq, Kt, ds_addr, ds_addr + 4 * L::PS, wg, row, t);
   }
   sm90::cp_async_wait<0>();
 
+  // each warpgroup's D-half of dq, scaled
 #pragma unroll
-  for (int i = 0; i < W_RPT; ++i) {
-    const int row = r0 + rq + i;
-    if (row >= p.T) continue;
-    float* out = p.dq + qoff + row * qrs;
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int g = 0; g < 4; ++g)
-      *reinterpret_cast<float4*>(out + 64 * g + 4 * tx) = make_float4(
-          dq[i][4 * g] * p.scale, dq[i][4 * g + 1] * p.scale,
-          dq[i][4 * g + 2] * p.scale, dq[i][4 * g + 3] * p.scale);
-  }
+    for (int i = 0; i < 32; ++i) {
+      const int d = 128 * wg + 64 * mt + row + 8 * ((i >> 1) & 1);
+      const int r = 8 * (i >> 2) + 2 * t + (i & 1);
+      if (r0 + r < p.T) p.dq[qoff + r * qrs + d] = dq[mt][i] * p.scale;
+    }
 }
 
-__global__ void __launch_bounds__(NT, 1) flash_bwd_dkdv_d256(const Bwd p) {
-  extern __shared__ __align__(16) float wsm[];
-  float* Ks = wsm;                   // BK x W_LD
-  float* Vs = Ks + BK * W_LD;        // BK x W_LD
-  float* Qs = Vs + BK * W_LD;        // BQ x W_LD: q * scale
-  float* Os = Qs + BQ * W_LD;        // BQ x W_LD: dout
-  float* Ps = Os + BQ * W_LD;        // BQ x BK: P (rows x keys)
-  float* Ss = Ps + BQ * BK;          // BQ x BK: dS
-  float* rowD = Ss + BQ * BK;
-  float* rowM = rowD + BQ;
-  float* rowL = rowM + BQ;
+// q and dout as TMA reads them (encode_rows' maps tq and tdo); part:
+// the head groups' partial dk and dv (2 x ng x B S Hkv 256 floats) when
+// ng > 1, else null (the CTA writes dk and dv).
+template <bool EXACT>
+__global__ void __launch_bounds__(NT, 1)
+    flash_bwd_dkdv_d256(const __grid_constant__ CUtensorMap tq,
+                        const __grid_constant__ CUtensorMap tdo, const Bwd p,
+                        float* part, int ng) {
+  constexpr int NK = dkdv_nk<EXACT>();
+  using L = HTiles<NK, EXACT>;
+  constexpr int NA = L::NA;
+  constexpr int U = 2;   // K/V units a thread a round
+  extern __shared__ __align__(1024) float bsm[];
+  const int tid = threadIdx.x, wg = tid / WT, wtid = tid % WT;
+  const int warp = wtid / 32, lane = tid % 32, t = lane % 4;
+  float* Qs = bsm;                               // raw, 64 x 256
+  float* dOs = Qs + HRAW;                        // raw, 64 x 256
+  float* Kt = dOs + HRAW;                        // split, NK x 256
+  float* Vt = Kt + L::HALVES * L::KV;            // split, NK x 256
+  float* Pt = Vt + L::HALVES * L::KV;            // split, NK x 64: P
+  float* dSt = Pt + 2 * L::PS;                   // split, NK x 64: dS
+  float* X = Pt;   // the swapped partials, before P and dS are written
+  // the warpgroup's mbarriers: its Q half's four boxes, its dO half's
+  uint64_t* bq = reinterpret_cast<uint64_t*>(bsm + L::BARS) + 8 * wg;
+  uint64_t* bdo = bq + 4;
 
-  const int nkb = (p.S + BK - 1) / BK;
-  const int kb = blockIdx.x % nkb;
-  const int hk = (blockIdx.x / nkb) % p.Hkv, b = blockIdx.x / (nkb * p.Hkv);
-  const int k0 = kb * BK;
-  const int k_last = min(k0 + BK, p.S) - 1;
-  const long long qrs = static_cast<long long>(p.Hq) * W_D;   // row strides
-  const long long krs = static_cast<long long>(p.Hkv) * W_D;
-  const long long koff = (static_cast<long long>(b) * p.S * p.Hkv + hk) * W_D;
-  w_load(Ks, p.k + koff + k0 * krs, krs, BK, p.S - k0);
-  w_load(Vs, p.v + koff + k0 * krs, krs, BK, p.S - k0);
-  sm90::cp_async_commit();
+  const int per = p.Hkv * p.B * ng;   // CTAs a key block
+  const int kblk = blockIdx.x / per;  // the lowest keys are the heaviest
+  const int hg = blockIdx.x % ng, hk = (blockIdx.x / ng) % p.Hkv;
+  const int b = (blockIdx.x / (ng * p.Hkv)) % p.B;
+  const int h_lo = hk * p.group + p.group * hg / ng;
+  const int nh = hk * p.group + p.group * (hg + 1) / ng - h_lo;
+  const int k0 = kblk * NK;
+  const int k_last = min(k0 + NK, p.S) - 1;
+  const long long krs = static_cast<long long>(p.Hkv) * HD;
+  const long long koff = (static_cast<long long>(b) * p.S + k0) * krs + hk * HD;
+  // query tiles [qlo, qhi) whose rows see some key of the block
+  const int nqt = (p.T + BQ - 1) / BQ;
+  int qlo = 0, qhi = nqt;
+  if (p.causal && k0 - p.q_offset > 0) qlo = min(nqt, (k0 - p.q_offset) / BQ);
+  if (p.window > 0) {
+    const int last = k_last + p.window - 1 - p.q_offset;  // last row
+    qhi = last < 0 ? 0 : min(nqt, last / BQ + 1);
+  }
+  const int nq = max(0, qhi - qlo);
+  const int steps = nh * nq;
 
-  // the query rows that see some key of the block: [r_lo, r_hi)
-  int r_lo = 0, r_hi = p.T;
-  if (p.causal) r_lo = max(0, k0 - p.q_offset);
-  if (p.window > 0) r_hi = min(r_hi, k_last + p.window - p.q_offset);
-  const int t_lo = r_lo / BQ;
-  const int t_hi = r_hi > r_lo ? (r_hi + BQ - 1) / BQ : t_lo;
+  if (tid == 0) {
+    for (int i = 0; i < 16; ++i)
+      sm90::bar_init(reinterpret_cast<uint64_t*>(bsm + L::BARS) + i, 1);
+    sm90::bar_init_fence();
+  }
+#pragma unroll 1
+  for (int u0 = tid; u0 < NK * HD / 8; u0 += U * NT) {
+    float4 x[U][4];
+    kv_load<NK, U>(x, p.k + koff, p.v + koff, krs, p.S - k0, u0);
+    kv_store<NK, !EXACT, U>(Kt, Vt, x, u0);
+  }
+  sm90::fence_proxy_async();
+  __syncthreads();
 
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int rq = ty * W_RPT;   // S and dP: rows rq .. rq + 3, keys tx + 16 kk
-  const int kq = 2 * ty;       // dk and dv: keys kq, kq + 1
-  float dk[2][16], dv[2][16];
+  const int row = 16 * warp + lane / 4;  // accumulator rows (+ 0, 8)
+  const int kb = wg * (NK / 2);          // the warpgroup's half's first key
+  float dk[2][NA], dv[2][NA];
 #pragma unroll
-  for (int e = 0; e < 2; ++e)
+  for (int mt = 0; mt < 2; ++mt)
 #pragma unroll
-    for (int c = 0; c < 16; ++c) dk[e][c] = dv[e][c] = 0.0f;
+    for (int i = 0; i < NA; ++i) dk[mt][i] = dv[mt][i] = 0.0f;
+  const uint32_t k_addr = sm90::smem_addr(Kt), v_addr = sm90::smem_addr(Vt);
+  const uint32_t p_addr = sm90::smem_addr(Pt), ds_addr = sm90::smem_addr(dSt);
+  const int bar = 2 + wg;
 
-  for (int gi = 0; gi < p.group; ++gi) {
-    const int h = hk * p.group + gi;
-    const long long qoff = (static_cast<long long>(b) * p.T * p.Hq + h) * W_D;
-    for (int tq = t_lo; tq < t_hi; ++tq) {
-      const int r0 = tq * BQ;
-      __syncthreads();   // the last step's tiles are read
-      w_load(Qs, p.q + qoff + r0 * qrs, qrs, BQ, p.T - r0);
-      w_load(Os, p.dout + qoff + r0 * qrs, qrs, BQ, p.T - r0);
-      sm90::cp_async_commit();
-      w_rows(p, b, h, r0, rowD, rowM, rowL);
-      sm90::cp_async_wait<0>();
-      __syncthreads();
-
-      float s[W_RPT][W_KPT], t[W_RPT][W_KPT];
-      w_dots(s, t, Qs, Ks, Os, Vs, rq, tx);
+  // one thread of each warpgroup copies the warpgroup's D-half of a
+  // step's Q or dO tile by TMA once the warpgroup has read the last one,
+  // a box (32 columns) an mbarrier, so that S's and dP's first chunks
+  // start on the first box
+  const bool lead = wtid == 0;
+  auto copy_half = [&](const CUtensorMap* map, float* dst, uint64_t* mbar,
+                       int s) {
+    const int h = h_lo + s / nq, r0 = (qlo + s % nq) * BQ;
+    sm90::fence_proxy_async();  // after the warpgroup's reads of dst
 #pragma unroll
-      for (int i = 0; i < W_RPT; ++i) {
-        const int r = rq + i;
-#pragma unroll
-        for (int kk = 0; kk < W_KPT; ++kk) {
-          const int key = tx + 16 * kk;
-          const float pr = visible(p, r0 + r, k0 + key)
-                               ? expf(s[i][kk] - rowM[r]) / rowL[r]
-                               : 0.0f;
-          Ps[r * BK + key] = pr;
-          Ss[r * BK + key] = pr * (t[i][kk] - rowD[r]);
-        }
-      }
-      __syncthreads();   // P and dS are complete
-
-      // dv += P^T dO, dk += dS^T Qs: keys kq, kq + 1, columns 64 g + 4 tx
-      const int rows = min(BQ, p.T - r0);   // rows past T are zeros
-#pragma unroll 2
-      for (int r = 0; r < rows; ++r) {
-        const float2 pp = *reinterpret_cast<const float2*>(Ps + r * BK + kq);
-        const float2 ss = *reinterpret_cast<const float2*>(Ss + r * BK + kq);
-#pragma unroll
-        for (int g = 0; g < 4; ++g) {
-          const float4 dov = *reinterpret_cast<const float4*>(
-              Os + r * W_LD + 64 * g + 4 * tx);
-          const float4 qv = *reinterpret_cast<const float4*>(
-              Qs + r * W_LD + 64 * g + 4 * tx);
-          const float dvo[4] = {dov.x, dov.y, dov.z, dov.w};
-          const float qo[4] = {qv.x, qv.y, qv.z, qv.w};
-#pragma unroll
-          for (int e = 0; e < 4; ++e) {
-            dv[0][4 * g + e] = fmaf(pp.x, dvo[e], dv[0][4 * g + e]);
-            dv[1][4 * g + e] = fmaf(pp.y, dvo[e], dv[1][4 * g + e]);
-            dk[0][4 * g + e] = fmaf(ss.x, qo[e], dk[0][4 * g + e]);
-            dk[1][4 * g + e] = fmaf(ss.y, qo[e], dk[1][4 * g + e]);
-          }
-        }
-      }
+    for (int i = 0; i < 4; ++i) {
+      const int bx = 4 * wg + i;
+      sm90::bar_expect(mbar + i, 4 * HBOX);
+      sm90::tma_load_4d(dst + bx * HBOX, map, mbar + i, 32 * bx, h, r0, b);
     }
-    // the head's sums into dk and dv: written by the first head, added
-    // to by the others in order (each thread owns its elements), so that
-    // no fp32 chain runs over the whole group's rows
+  };
+  if (lead && steps > 0) {
+    copy_half(&tdo, dOs, bdo, 0);
+    copy_half(&tq, Qs, bq, 0);
+  }
+  for (int s = 0; s < steps; ++s) {
+    const int h = h_lo + s / nq, r0 = (qlo + s % nq) * BQ;
+    const long long soff = (static_cast<long long>(b) * p.Hq + h) * p.T + r0;
+    RowStats rs;
 #pragma unroll
     for (int e = 0; e < 2; ++e) {
-      const int key = k0 + kq + e;
-      if (key >= p.S) continue;
-      const long long at = koff + key * krs;
+      const int r = row + 8 * e;
+      const bool in = r0 + r < p.T;
+      rs.m[e] = in ? p.m[soff + r] : 0.0f;
+      rs.l[e] = in ? p.l[soff + r] : 1.0f;
+      rs.d[e] = in ? p.delta[soff + r] : 0.0f;
+    }
+    float sc[NA], dp[NA];
+    half_rows2<NK, true, !EXACT, !EXACT, !EXACT>(
+        sc, dp, Qs, dOs, k_addr, k_addr + 4 * L::KV, v_addr,
+        v_addr + 4 * L::KV, wg, row, t,
+        [&](int i) { sm90::bar_wait(bdo + i, s & 1); },
+        [&](int i) { sm90::bar_wait(bq + i, s & 1); });
+    // swap the partials through the P and dS tiles, free once both
+    // warpgroups have taken the last step's products
+    sm90::named_sync(1, NT);
+    put_partials<NA>(X, sc, dp, wg, wtid);
+    sm90::named_sync(1, NT);
+    float s2[NA / 2], d2[NA / 2];
+    take_partials<NA>(s2, d2, X, sc, dp, wg, wtid);
+    sm90::named_sync(1, NT);
+    const int q_first = r0 + p.q_offset;
+    const int q_last = r0 + BQ - 1 + p.q_offset;
+    const bool edge = k0 + NK > p.S || r0 + BQ > p.T ||
+                      (p.causal && q_first < k0 + NK - 1) ||
+                      (p.window > 0 && k0 <= q_last - p.window);
+    half_softmax(p, s2, d2, rs, edge, r0, row, k0, kb, t);
+    // P and dS as the B operands of dV^T and dK^T: keys x rows, rows the
+    // contraction in half_cols' order
 #pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        float4* kp = reinterpret_cast<float4*>(p.dk + at + 64 * g + 4 * tx);
-        float4* vp = reinterpret_cast<float4*>(p.dv + at + 64 * g + 4 * tx);
-        float4 a = make_float4(dk[e][4 * g], dk[e][4 * g + 1],
-                               dk[e][4 * g + 2], dk[e][4 * g + 3]);
-        float4 c = make_float4(dv[e][4 * g], dv[e][4 * g + 1],
-                               dv[e][4 * g + 2], dv[e][4 * g + 3]);
-        if (gi > 0) {
-          const float4 ka = *kp, vc = *vp;
-          a = make_float4(ka.x + a.x, ka.y + a.y, ka.z + a.z, ka.w + a.w);
-          c = make_float4(vc.x + c.x, vc.y + c.y, vc.z + c.z, vc.w + c.w);
-        }
-        *kp = a;
-        *vp = c;
+    for (int e = 0; e < NA / 2; ++e) {
+      const int r = row + 8 * ((e >> 1) & 1);
+      const int key = kb + 8 * (e >> 2) + 2 * t + (e & 1);
+      const int at = km_at<BQ>(key, row_col(r));
+      uint32_t bg, sm;
+      sm90::split_tf32(s2[e], bg, sm);
+      Pt[at] = __uint_as_float(bg);
+      Pt[L::PS + at] = __uint_as_float(sm);
+      sm90::split_tf32(d2[e], bg, sm);
+      dSt[at] = __uint_as_float(bg);
+      dSt[L::PS + at] = __uint_as_float(sm);
+    }
+    sm90::fence_proxy_async();
+    sm90::named_sync(1, NT);
+    half_cols<NK, !EXACT>(dv, dOs, p_addr, p_addr + 4 * L::PS, wg, row, t);
+    sm90::named_sync(bar, WT);   // the warpgroup's dO half is read
+    if (lead && s + 1 < steps) copy_half(&tdo, dOs, bdo, s + 1);
+    half_cols<NK, true>(dk, Qs, ds_addr, ds_addr + 4 * L::PS, wg, row, t);
+    sm90::named_sync(bar, WT);   // ... and its Q half
+    if (lead && s + 1 < steps) copy_half(&tq, Qs, bq, s + 1);
+  }
+
+  // the warpgroup's D-half of dk and dv: the outputs, or the head group's
+  // partial sums
+  const long long n = static_cast<long long>(p.B) * p.S * krs;
+  float* ok = part ? part + hg * n : p.dk;
+  float* ov = part ? part + (ng + hg) * n : p.dv;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) dk[e][4 * g + i] = dv[e][4 * g + i] = 0.0f;
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      const int d = 128 * wg + 64 * mt + row + 8 * ((i >> 1) & 1);
+      const int key = 8 * (i >> 2) + 2 * t + (i & 1);
+      if (k0 + key < p.S) {
+        const long long at = koff + key * krs + d;
+        ok[at] = dk[mt][i];
+        ov[at] = dv[mt][i];
       }
     }
-  }
-  sm90::cp_async_wait<0>();
 }
 
+// dk and dv (n4 float4s each) = the ng head groups' partial sums in
+// part, added in head-group order.
+__global__ void __launch_bounds__(NT)
+    flash_bwd_dkdv_d256_sum(const float4* part, float4* dk, float4* dv,
+                            long long n4, int ng) {
+  for (long long i = blockIdx.x * static_cast<long long>(NT) + threadIdx.x;
+       i < 2 * n4; i += static_cast<long long>(gridDim.x) * NT) {
+    const bool second = i >= n4;
+    const long long j = second ? i - n4 : i;
+    const float4* src = part + (second ? ng * n4 : 0) + j;
+    float4 a = src[0];
+    for (int g = 1; g < ng; ++g) {
+      const float4 c = src[g * n4];
+      a = make_float4(a.x + c.x, a.y + c.y, a.z + c.z, a.w + c.w);
+    }
+    (second ? dv : dk)[j] = a;
+  }
+}
+
+template <bool EXACT>
 int launch_dq_d256(const Bwd& p, cudaStream_t st) {
+  constexpr int smem = HTiles<DQ_NK, EXACT>::DQ_SMEM;
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dq_d256, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      W_DQ_SMEM);
+      flash_bwd_dq_d256<EXACT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  flash_bwd_dq_d256<<<(p.T + BQ - 1) / BQ * p.Hq * p.B, NT, W_DQ_SMEM, st>>>(
-      p);
+  flash_bwd_dq_d256<EXACT><<<(p.T + BQ - 1) / BQ * p.Hq * p.B, NT, smem,
+                             st>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_dkdv_d256(const Bwd& p, cudaStream_t st) {
+// Floats of N1-dkdv's scratch at head dim 256: the head groups' partial
+// dk and dv, none with one group.
+long long dkdv_scratch(int B, int S, int Hq, int Hkv) {
+  const int ng = dkdv_groups(Hq / Hkv);
+  return ng > 1 ? 2LL * ng * B * S * Hkv * HD : 0;
+}
+
+template <bool EXACT>
+int launch_dkdv_d256(const Bwd& p, float* scratch, cudaStream_t st) {
+  constexpr int NK = dkdv_nk<EXACT>();
+  constexpr int smem = HTiles<NK, EXACT>::DKDV_SMEM;
+  const int ng = dkdv_groups(p.group);
+  if (ng > 1 && scratch == nullptr)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const sm90::EncodeTiled fn = sm90::encode_tiled();
+  if (fn == nullptr) return -5;
+  CUtensorMap maps[2];
+  if (!encode_rows(fn, &maps[0], p.q, p, HD)) return -1;
+  if (!encode_rows(fn, &maps[1], p.dout, p, HD)) return -2;
   const cudaError_t e = cudaFuncSetAttribute(
-      flash_bwd_dkdv_d256, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      W_DKDV_SMEM);
+      flash_bwd_dkdv_d256<EXACT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  flash_bwd_dkdv_d256<<<(p.S + BK - 1) / BK * p.Hkv * p.B, NT, W_DKDV_SMEM,
-                        st>>>(p);
+  flash_bwd_dkdv_d256<EXACT><<<(p.S + NK - 1) / NK * p.Hkv * p.B * ng, NT,
+                               smem, st>>>(maps[0], maps[1], p,
+                                           ng > 1 ? scratch : nullptr, ng);
+  const cudaError_t le = cudaGetLastError();
+  if (le != cudaSuccess || ng == 1) return static_cast<int>(le);
+  const long long n4 = static_cast<long long>(p.B) * p.S * p.Hkv * HD / 4;
+  const long long blocks = (2 * n4 + NT - 1) / NT;
+  flash_bwd_dkdv_d256_sum<<<static_cast<int>(blocks < 4096 ? blocks : 4096),
+                            NT, 0, st>>>(
+      reinterpret_cast<const float4*>(scratch),
+      reinterpret_cast<float4*>(p.dk), reinterpret_cast<float4*>(p.dv), n4,
+      ng);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1175,19 +1623,19 @@ int dq_by_dim(const Bwd& p, int D, cudaStream_t st) {
     case 32: return launch_dq<32, EXACT>(p, st);
     case 64: return launch_dq<64, EXACT>(p, st);
     case 128: return launch_dq<128, EXACT>(p, st);
-    case 256: return launch_dq_d256(p, st);
+    case 256: return launch_dq_d256<EXACT>(p, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
 template <bool EXACT>
-int dkdv_by_dim(const Bwd& p, int D, cudaStream_t st) {
+int dkdv_by_dim(const Bwd& p, int D, float* scratch, cudaStream_t st) {
   switch (D) {
     case 16: return launch_dkdv<16, EXACT>(p, st);
     case 32: return launch_dkdv<32, EXACT>(p, st);
     case 64: return launch_dkdv<64, EXACT>(p, st);
     case 128: return launch_dkdv<128, EXACT>(p, st);
-    case 256: return launch_dkdv_d256(p, st);
+    case 256: return launch_dkdv_d256<EXACT>(p, scratch, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -1216,46 +1664,63 @@ extern "C" int flash_bwd_dq_f32(const float* q, const float* k,
 }
 
 // N1-dkdv: dk and dv (B, S, Hkv, D) from the same inputs and the delta
-// that flash_bwd_dq_f32 wrote (launch it first, on the same stream).
-// Returns -1 or -2 when cuTensorMapEncodeTiled refused q's or dout's map,
-// -5 when the driver has none.
+// that flash_bwd_dq_f32 wrote (launch it first, on the same stream);
+// scratch: flash_bwd_scratch floats (head dim 256's head-group partials;
+// may be null when that is 0). Returns -1 or -2 when
+// cuTensorMapEncodeTiled refused q's or dout's map, -5 when the driver
+// has none.
 extern "C" int flash_bwd_dkdv_f32(const float* q, const float* k,
                                   const float* v, const float* dout,
                                   const float* m, const float* l,
                                   const float* delta, float* dk, float* dv,
-                                  int B, int T, int S, int Hq, int Hkv,
-                                  int D, int q_offset, int causal,
-                                  int window, int exact, void* stream) {
+                                  float* scratch, int B, int T, int S,
+                                  int Hq, int Hkv, int D, int q_offset,
+                                  int causal, int window, int exact,
+                                  void* stream) {
   if (!valid(B, T, S, Hq, Hkv, q_offset))
     return static_cast<int>(cudaErrorInvalidValue);
   const Bwd p{q,  k,  v,  nullptr, dout, m, l, nullptr, dk, dv,
               const_cast<float*>(delta), B, T, S, Hq, Hkv, Hq / Hkv,
               q_offset, causal, window, 1.0f};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return exact ? dkdv_by_dim<true>(p, D, st) : dkdv_by_dim<false>(p, D, st);
+  return exact ? dkdv_by_dim<true>(p, D, scratch, st)
+               : dkdv_by_dim<false>(p, D, scratch, st);
+}
+
+// Floats of the scratch buffer flash_bwd_dkdv_f32 takes at these shapes.
+extern "C" long long flash_bwd_scratch(int B, int S, int Hq, int Hkv,
+                                       int D) {
+  if (D != HD || Hkv <= 0 || Hq % Hkv) return 0;
+  return dkdv_scratch(B, S, Hq, Hkv);
 }
 
 // Dynamic shared memory of flash_bwd_dq (kernel 0) or flash_bwd_dkdv
-// (kernel 1) at head dim D (bytes), or -1.
-extern "C" int flash_bwd_smem(int kernel, int D) {
+// (kernel 1) at head dim D (bytes), in the exact variant when exact != 0
+// (head dim 256's plans differ), or -1.
+extern "C" int flash_bwd_smem(int kernel, int D, int exact) {
   switch (D) {
     case 16: return kernel ? BTiles<16>::DKDV_SMEM : BTiles<16>::DQ_SMEM;
     case 32: return kernel ? BTiles<32>::DKDV_SMEM : BTiles<32>::DQ_SMEM;
     case 64: return kernel ? BTiles<64>::DKDV_SMEM : BTiles<64>::DQ_SMEM;
     case 128: return kernel ? BTiles<128>::DKDV_SMEM : BTiles<128>::DQ_SMEM;
-    case 256: return kernel ? W_DKDV_SMEM : W_DQ_SMEM;
+    case 256:
+      if (exact)
+        return kernel ? HTiles<dkdv_nk<true>(), true>::DKDV_SMEM
+                      : HTiles<DQ_NK, true>::DQ_SMEM;
+      return kernel ? HTiles<dkdv_nk<false>(), false>::DKDV_SMEM
+                    : HTiles<DQ_NK, false>::DQ_SMEM;
     default: return -1;
   }
 }
 
 // Resources of the variant v, head dim D = 16 << (v % 4): v = 0 .. 3
 // flash_bwd_dq<D>, 4 .. 7 flash_bwd_dkdv<D>, both with split k, v and
-// dout; v + 8 the same kernels with exact ones; 16 flash_bwd_dq_d256 and
-// 17 flash_bwd_dkdv_d256, head dim 256's plans, for either variant (see
-// attributes.cuh).
+// dout; v + 8 the same kernels with exact ones; head dim 256: 16
+// flash_bwd_dq_d256, 17 flash_bwd_dkdv_d256, 18 and 19 their exact
+// variants, 20 flash_bwd_dkdv_d256_sum (see attributes.cuh).
 extern "C" int flash_bwd_attributes(int v, int smem, int* out) {
   using F = const void*;
-  const F fns[18] = {
+  const F fns[21] = {
       reinterpret_cast<F>(flash_bwd_dq<16, false>),
       reinterpret_cast<F>(flash_bwd_dq<32, false>),
       reinterpret_cast<F>(flash_bwd_dq<64, false>),
@@ -1272,8 +1737,11 @@ extern "C" int flash_bwd_attributes(int v, int smem, int* out) {
       reinterpret_cast<F>(flash_bwd_dkdv<32, true>),
       reinterpret_cast<F>(flash_bwd_dkdv<64, true>),
       reinterpret_cast<F>(flash_bwd_dkdv<128, true>),
-      reinterpret_cast<F>(flash_bwd_dq_d256),
-      reinterpret_cast<F>(flash_bwd_dkdv_d256)};
-  if (v < 0 || v >= 18) return static_cast<int>(cudaErrorInvalidValue);
+      reinterpret_cast<F>(flash_bwd_dq_d256<false>),
+      reinterpret_cast<F>(flash_bwd_dkdv_d256<false>),
+      reinterpret_cast<F>(flash_bwd_dq_d256<true>),
+      reinterpret_cast<F>(flash_bwd_dkdv_d256<true>),
+      reinterpret_cast<F>(flash_bwd_dkdv_d256_sum)};
+  if (v < 0 || v >= 21) return static_cast<int>(cudaErrorInvalidValue);
   return repro::kernel_attributes(fns[v], NT, smem, out);
 }

@@ -68,14 +68,29 @@ with query t at position t + q_offset:
   a fixed order. Both take :func:`bwd_operands`, which also says whether
   k, v and dout were bf16 or fp16 (:func:`tf32_exact`): then N1 skips
   their zero small halves;
-* head dim 256 (recurrentgemma-9b's local attention), where the split
-  plans do not fit in shared memory: F, N1-dq and N1-dkdv each run a
-  plan of their own with fp32 FMAs on the CUDA cores (B9 fp32's D = 256
-  shape: 64-row query blocks, 32-key tiles, operand tiles at row stride
-  D + 4): ``flash_fwd_d256`` (m the max key's logit as one fp32 fma
-  chain over d, the plain version's order), ``flash_bwd_dq_d256`` and
-  ``flash_bwd_dkdv_d256`` (dk and dv summed over the group's query heads
-  in order, no atomics). The exact variant is the same kernel there;
+* head dim 256 (recurrentgemma-9b's local attention): F runs a plan of
+  its own with fp32 FMAs on the CUDA cores (``flash_fwd_d256``, B9
+  fp32's D = 256 shape; m the max key's logit as one fp32 fma chain over
+  d, the plain version's order). N1 runs the split products there too
+  (``flash_bwd_dq_d256``, ``flash_bwd_dkdv_d256``), on tiles both
+  warpgroups share, each owning one D-half of the running dQᵀ or dKᵀ
+  and dVᵀ (64 registers a thread): raw 64-row Q and dO tiles (128 KB),
+  K and V at 16 keys a tile (64 KB: one split stage, or in N1-dq's exact
+  variant a two-stage ``cp.async`` ring of the exact tiles; N1-dkdv's
+  exact variant takes 32-key blocks, big halves only), 213,248 B
+  (N1-dq) and 213,120 B (N1-dkdv; 229,504 exact) of the 232,448 a block
+  may take. Each product's sums run in chunks of 4 k-steps, the two
+  D-halves' partial S and dP swapped through shared memory. N1-dkdv
+  cuts a kv head's group of query heads into min(group, 4) head groups,
+  a CTA each (1,024 CTAs at recurrentgemma's training shape, 512 in the
+  exact variant, where one a key block gave 128 on 132 SMs); their
+  partial dk and dv go to a scratch buffer (32 MiB there) that
+  ``flash_bwd_dkdv_d256_sum`` adds in head-group order, so the bits are
+  the same every run. Bounded by the split products on the tensor cores
+  (495 TFLOP/s on an H100 SXM at 700 W), held by each step's latency:
+  on an H100 80GB HBM3 at 700 W N1-dq and N1-dkdv take 4.60 and 5.35 ms
+  in fp32 at that shape (2.90 and 2.43 with bf16 inputs), together 0.75×
+  ``torch.autograd.grad`` through SDPA;
 * :func:`flash_attention_train` / :func:`flash_attention_bwd` — dispatch
   by device, counted in ``launch.flash_attention_train``,
   ``launch.flash_bwd_dq`` and ``launch.flash_bwd_dkdv``.
@@ -495,7 +510,10 @@ def launch_flash_bwd_dkdv(ops: BwdOperands, m: Tensor, l: Tensor,
                           delta: Tensor, *, causal: bool,
                           window: int | None, q_offset: int):
     """N1-dkdv on :func:`bwd_operands` and N1-dq's D: (dk, dv) fp32; the
-    exact variant when ``ops.exact``."""
+    exact variant when ``ops.exact``. At head dim 256 a kv head's query
+    heads are cut into head groups, each a CTA's: their partial sums go to
+    a scratch buffer (``flash_bwd_scratch`` floats), which a second kernel
+    adds in head-group order."""
     qs, kf, vf, df = ops.qs, ops.k, ops.v, ops.dout
     B, T, H, S, KV, dh = train_shape(qs, kf, vf, causal=causal,
                                      window=window, q_offset=q_offset)
@@ -504,9 +522,13 @@ def launch_flash_bwd_dkdv(ops: BwdOperands, m: Tensor, l: Tensor,
         _fp32_aligned(name, t)
     dk = torch.empty_like(kf)
     dv = torch.empty_like(vf)
+    lib = _build.library()
+    scratch = torch.empty(lib.flash_bwd_scratch(B, S, H, KV, dh),
+                          dtype=torch.float32, device=qs.device)
     with torch.cuda.device(qs.device):
-        code = _build.library().flash_bwd_dkdv_f32(
-            *(_build.ptr(t) for t in (qs, kf, vf, df, m, l, delta, dk, dv)),
+        code = lib.flash_bwd_dkdv_f32(
+            *(_build.ptr(t) for t in (qs, kf, vf, df, m, l, delta, dk, dv,
+                                      scratch)),
             B, T, S, H, KV, dh, q_offset, int(causal),
             0 if window is None else window, int(ops.exact),
             _build.stream_handle(qs.device))

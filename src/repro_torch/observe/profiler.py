@@ -45,7 +45,8 @@ KERNEL_SYMBOLS = {
     "flash_attention_train": ("flash_fwd_split", "flash_f32_stats",
                               "flash_fwd_d256"),
     "flash_bwd_dq": ("flash_bwd_dq", "flash_bwd_dq_d256"),
-    "flash_bwd_dkdv": ("flash_bwd_dkdv", "flash_bwd_dkdv_d256"),
+    "flash_bwd_dkdv": ("flash_bwd_dkdv", "flash_bwd_dkdv_d256",
+                       "flash_bwd_dkdv_d256_sum"),
 }
 
 

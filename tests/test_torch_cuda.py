@@ -894,8 +894,9 @@ TRAIN_CASES = [_train_case(1, 2048, 2048, 16, 8, 128, None, 0),
                _train_case(1, 70, 333, 4, 4, 32, 50, 200),
                _train_case(2, 65, 65, 4, 2, 16, None, 0),
                _train_case(1, 1024, 1024, 16, 8, 128, None, 0, cancel=True),
-               # head dim 256 (recurrentgemma's local attention, the
-               # CUDA-core plans): GQA 16:1 with a window across the
+               # head dim 256 (recurrentgemma's local attention; F's
+               # CUDA-core plan, N1's split plans with N1-dkdv's head
+               # groups): GQA 16:1 with a window across the 16- and
                # 32-key tiles, queries past a longer history, ragged T
                # with group 4, and the cancelling case
                _train_case(1, 300, 300, 16, 1, 256, 100, 0),
@@ -969,18 +970,63 @@ def test_flash_train_kernels_match_plain(dev, dtype, kv_dtype, B, T, S, Hq,
         assert _rel(g, w) <= _train_tol(g)
 
 
+@pytest.mark.parametrize("exact", [False, True], ids=["fp32", "bf16"])
+@pytest.mark.parametrize("B,T,S,Hq,Hkv,window,q_offset", [
+    (1, 200, 200, 6, 1, 64, 0),
+    (2, 129, 300, 6, 2, None, 171),
+    (1, 333, 333, 3, 1, 100, 0)])
+def test_n1_head_dim_256_uneven_head_groups(dev, exact, B, T, S, Hq, Hkv,
+                                            window, q_offset):
+    """N1 at head dim 256 where a kv head's query heads do not divide into
+    N1-dkdv's head groups (six: 1, 2, 1, 2; three: one each): dq, dk and
+    dv on F's own residuals within 1e-5 of their scale of the plain
+    version in fp32 and with bf16 k, v and dout (the exact variant), and
+    equal bit for bit on a second call."""
+    from repro_torch.kernels import flash_attn
+    rng = np.random.default_rng(T + S + Hq)
+    dt = torch.bfloat16 if exact else torch.float32
+    q, dout = (torch.tensor(rng.standard_normal((B, T, Hq, 256)),
+                            dtype=torch.float32).to(dev) for _ in range(2))
+    k, v = (torch.tensor(rng.standard_normal((B, S, Hkv, 256)),
+                         dtype=torch.float32).to(dt).to(dev)
+            for _ in range(2))
+    dout = dout.to(dt)
+    kw = dict(causal=True, window=window, q_offset=q_offset)
+    out, m, l = flash_attn.launch_flash_attention_train(q, k, v, **kw)
+    ops = flash_attn.bwd_operands(q, k, v, out, dout)
+    assert ops.exact is exact
+    got = []
+    for _ in range(2):
+        dq, delta = flash_attn.launch_flash_bwd_dq(ops, m, l, **kw)
+        got.append((dq, *flash_attn.launch_flash_bwd_dkdv(ops, m, l, delta,
+                                                          **kw)))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(*got))
+    want = flash_attn.flash_attention_bwd_plain(
+        q, k.float(), v.float(), out, m, l, dout.float(), **kw)
+    for g, w in zip(got[0], want):
+        assert bool(torch.isfinite(g).all())
+        assert _rel(g, w) <= 1e-5
+
+
 def test_flash_train_backward_is_deterministic(dev):
     """N1 sums in a fixed order (no atomics): two backward passes give the
-    same bits, in fp32 and at the qwen3-0.6b training shape in bf16 (N1's
-    exact variant), and at head dim 256 with recurrentgemma's one kv head
-    (the CUDA-core plans, dk and dv summed over 16 query heads)."""
+    same dq, dk and dv bits, in fp32 and at the qwen3-0.6b training shape
+    in bf16 (N1's exact variant), and at head dim 256 with
+    recurrentgemma's one kv head in both variants (dk and dv the four
+    head groups' partial sums added in order) and with six query heads a
+    kv head (head groups of 1, 2, 1, 2)."""
     from repro_torch.models import attention
     g = torch.Generator(device=dev).manual_seed(5)
     for (B, T, Hq, Hkv, D), dtype in (((2, 256, 8, 2, 64), torch.float32),
                                       ((4, 2048, 16, 8, 128),
                                        torch.bfloat16),
                                       ((1, 1024, 16, 1, 256),
-                                       torch.bfloat16)):
+                                       torch.bfloat16),
+                                      ((1, 1024, 16, 1, 256),
+                                       torch.float32),
+                                      ((1, 333, 6, 1, 256),
+                                       torch.float32)):
         q = torch.randn(B, T, Hq, D, device=dev, generator=g).to(dtype)
         k, v = (torch.randn(B, T, Hkv, D, device=dev, generator=g)
                 .to(dtype) for _ in range(2))

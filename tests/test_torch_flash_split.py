@@ -16,6 +16,14 @@ emulation with plain TF32 products (one term) falls outside that band,
 so the band tells the two apart. The emulation lives here, not in the
 port: the port's plain version stays the reference's fp32 arithmetic.
 
+At head dim 256 (``flash_bwd_dq_d256``, ``flash_bwd_dkdv_d256``) the
+emulation takes those kernels' own tiling: S and dP as two D-halves of
+four 32-column chunks, dq over 16-key tiles, dk and dv over 32-row chunks
+summed a head group at a time (min(group, 4) groups of a kv head's query
+heads, added in order); in both variants (bf16-valued k, v and dout have
+zero small halves, so the split's terms are the exact variant's), with
+GQA 16:1 under a window and the cancelling case on an uneven group.
+
 F (``csrc/flash_fwd.cu``), the forward, takes the same split for S =
 Qs Kᵀ (chunks of 32 columns of D) and for O += P V (one chunk a 32-key
 tile, added after the online softmax's rescale); with bf16 or fp16 k and
@@ -27,6 +35,8 @@ band against the reference's ``_blocked_flash_fwd`` at the reference's
 own block width (512 keys, or S): out within 1e-5 × max(1, max|ref|), m
 and l within 1e-5 relative.
 """
+import functools
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -267,6 +277,131 @@ def test_forward_split_tf32_within_band(case, terms, bf16_kv):
 def test_forward_plain_tf32_outside_band(case):
     """One TF32 term a product misses the forward's band too."""
     errs = _fwd_errors(case, "tf32", False)
+    assert max(errs) > FP32_TOL, errs
+
+
+def emulated_bwd256(q, k, v, out, m, l, dout, *, causal, window, q_offset,
+                    terms):
+    """N1 at head dim 256 (``flash_bwd_dq_d256``, ``flash_bwd_dkdv_d256``)
+    with ``terms`` products, in the kernels' own tiling: S and dP over D
+    as two D-halves (one a warpgroup) of four 32-column chunks each, the
+    halves added; dq over 16-key tiles (one chunk each); dk and dv over
+    32-row chunks (two a 64-row tile), one running sum a head group of
+    the kv head's query heads (min(group, 4) groups, heads and rows in
+    order), the groups' sums added in group order."""
+    B, T, H, D = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    G = H // KV
+    scale = D ** -0.5
+    qs = q * scale
+    delta = (dout * out).sum(-1)
+    kh, vh = (x.repeat_interleave(G, dim=2) for x in (k, v))
+
+    def over_d(x, y):
+        halves = []
+        for h0 in (0, D // 2):
+            acc = torch.zeros(B, H, T, S)
+            for c in range(h0, h0 + D // 2, 32):
+                acc = acc + product("bthd,bshd->bhts", x[..., c:c + 32],
+                                    y[..., c:c + 32], terms)
+            halves.append(acc)
+        return halves[0] + halves[1]
+    qpos = torch.arange(T)[:, None] + q_offset
+    kpos = torch.arange(S)[None, :]
+    seen = torch.ones(T, S, dtype=torch.bool)
+    if causal:
+        seen &= kpos <= qpos
+    if window is not None:
+        seen &= kpos > qpos - window
+    st = lambda x: x.permute(0, 2, 1)[..., None]         # (B, H, T, 1)
+    p = torch.where(seen, torch.exp(over_d(qs, kh) - st(m)) / st(l), 0.0)
+    ds = p * (over_d(dout, vh) - st(delta))
+    dq = torch.zeros(B, T, H, D)
+    for j in range(0, S, 16):
+        dq = dq + product("bhts,bshd->bthd", ds[..., j:j + 16],
+                          kh[:, j:j + 16], terms)
+    ng = min(G, 4)
+    dk, dv = torch.zeros(B, S, KV, D), torch.zeros(B, S, KV, D)
+    for g in range(ng):
+        pk, pv = torch.zeros(B, S, KV, D), torch.zeros(B, S, KV, D)
+        for i in range(G * g // ng, G * (g + 1) // ng):
+            hs = [kv * G + i for kv in range(KV)]   # head i of each kv head
+            for r in range(0, T, 32):
+                rows = slice(r, r + 32)
+                pv = pv + product("bhts,bthd->bshd", p[:, hs, rows],
+                                  dout[:, rows][:, :, hs], terms)
+                pk = pk + product("bhts,bthd->bshd", ds[:, hs, rows],
+                                  qs[:, rows][:, :, hs], terms)
+        dk, dv = dk + pk, dv + pv
+    return dq * scale, dk, dv
+
+
+# (B, T, S, H, KV, D, causal, window, q_offset, cancel) at head dim 256:
+# GQA 16:1 with a window (recurrentgemma's shape, four head groups of
+# four), queries past a longer history with two kv heads, and the
+# cancelling case with six query heads a kv head (head groups of 1, 2, 1,
+# 2)
+CASES_256 = [
+    (1, 128, 128, 16, 1, 256, True, 48, 0, False),
+    (1, 64, 100, 8, 2, 256, True, 40, 36, False),
+    (1, 96, 96, 6, 1, 256, True, None, 0, True),
+]
+
+
+@functools.lru_cache(maxsize=None)
+def _reference256(case, exact):
+    """The inputs, the reference forward's residuals and the reference's
+    ``_blocked_flash_bwd`` at head dim 256 (one key block: the reference's
+    arithmetic at any width), as numpy arrays; ``exact``: k, v and dout
+    rounded to bf16 values first (the exact variant's inputs), on both
+    sides. Cached: the split and plain-TF32 tests share a case's."""
+    B, T, S, H, KV, D, causal, window, q_offset, cancel = case
+    rng = np.random.default_rng(11)
+    bf = (lambda a: torch.tensor(a).bfloat16().float().numpy()) if exact \
+        else (lambda a: a)
+    q = rng.standard_normal((B, T, H, D)).astype(np.float32)
+    k, v = (bf(rng.standard_normal((B, S, KV, D)).astype(np.float32))
+            for _ in range(2))
+    if cancel:
+        q = q * 4
+    _, res = JA._blocked_flash_fwd(jnp.asarray(q), jnp.asarray(k),
+                                   jnp.asarray(v), causal, window, q_offset,
+                                   S)
+    out = np.asarray(res[3])
+    dout = bf((out + 1e-3 * rng.standard_normal(out.shape)).astype(
+        np.float32) if cancel else rng.standard_normal(out.shape).astype(
+            np.float32))
+    want = JA._blocked_flash_bwd(causal, window, q_offset, S, res,
+                                 jnp.asarray(dout))
+    m, l = (np.asarray(a).reshape(B, T, H) for a in res[4:])
+    return (q, k, v, out, m, l, dout), tuple(np.asarray(w) for w in want)
+
+
+def _errors256(case, terms, exact):
+    """The emulated head-dim-256 backward against the reference's, each
+    result's error over max(1, max|ref|)."""
+    _, _, _, _, _, _, causal, window, q_offset, _ = case
+    ins, want = _reference256(case, exact)
+    got = emulated_bwd256(*(torch.tensor(a) for a in ins), causal=causal,
+                          window=window, q_offset=q_offset, terms=terms)
+    return [float(np.abs(g.numpy() - w).max()) / max(1.0, float(
+        np.abs(w).max())) for g, w in zip(got, want)]
+
+
+@pytest.mark.parametrize("exact", [False, True], ids=["split", "exact"])
+@pytest.mark.parametrize("case", CASES_256)
+def test_split_tf32_within_band_head_dim_256(case, exact):
+    """N1's head-dim-256 tiling holds dq, dk and dv within 1e-5 of each
+    result's scale in both variants: the three-term split, and with
+    bf16-valued k, v and dout the terms the exact variant keeps."""
+    errs = _errors256(case, "split", exact)
+    assert max(errs) <= FP32_TOL, errs
+
+
+@pytest.mark.parametrize("case", CASES_256)
+def test_plain_tf32_outside_band_head_dim_256(case):
+    """One TF32 term a product misses the band at head dim 256 too."""
+    errs = _errors256(case, "tf32", False)
     assert max(errs) > FP32_TOL, errs
 
 

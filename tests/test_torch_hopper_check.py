@@ -4,8 +4,9 @@ ceiling case (B9 fp32's D = 128 tiles at head dim 256) fail at plan time
 with a sizing report; the mirrors give the shared-memory bytes PERF.md's kernel table
 records at its shapes and the library's plan queries returned on the
 H100 (tests/test_torch_cuda.py holds them against the built library on
-the card); F's and N1's head-dim-256 plans (the CUDA-core kernels) have
-their own variants and shared memory."""
+the card); F's head-dim-256 plan (the CUDA-core kernel) and N1's (the
+split products on shared tiles, N1-dkdv's head groups and their sum)
+have their own variants and shared memory."""
 import dataclasses
 
 import pytest
@@ -86,8 +87,10 @@ KNOWN = [
     ("flash_bwd_dkdv", dict(D=128), 229_408),
     ("flash_f32_stats", dict(D=256), 198_656),
     ("flash_f32_stats", dict(D=256, exact=True), 198_656),
-    ("flash_bwd_dq", dict(D=256), 209_152),
-    ("flash_bwd_dkdv", dict(D=256), 216_832),
+    ("flash_bwd_dq", dict(D=256), 213_248),
+    ("flash_bwd_dq", dict(D=256, exact=True), 213_248),
+    ("flash_bwd_dkdv", dict(D=256), 213_120),
+    ("flash_bwd_dkdv", dict(D=256, exact=True), 229_504),
     ("b7_ring", dict(M=1000, d=18), 58_368),
     ("b7_ring", dict(M=100_000, d=128), 99_072),
     ("b7_ring", dict(M=1000, d=9000), 0),
@@ -135,20 +138,60 @@ def test_variants_and_register_caps():
     assert {hc.flash_fwd_split_plan(D=d, exact=e).variant
             for d in (16, 32, 64, 128)
             for e in (False, True)} == set(range(8, 16))
-    # head dim 256: F's and N1's CUDA-core plans, one kernel for either
-    # variant (no split to skip)
+    # head dim 256: F's CUDA-core plan, one kernel for either variant (no
+    # split to skip); N1's split plans, a kernel each variant, and
+    # N1-dkdv's head-group sum
     assert {hc.flash_f32_stats_plan(D=256, exact=e).symbol
             for e in (False, True)} == {"flash_fwd_d256"}
     assert {hc.flash_f32_stats_plan(D=256, exact=e).variant
             for e in (False, True)} == {16}
     assert [hc.PLAN_BUILDERS[k](D=256, exact=e).variant
             for k in ("flash_bwd_dq", "flash_bwd_dkdv")
-            for e in (False, True)] == [16, 16, 17, 17]
+            for e in (False, True)] == [16, 18, 17, 19]
+    assert hc.flash_bwd_dkdv_sum_plan().variant == 20
     assert hc.flash_bwd_dkdv_plan(D=256).reg_cap == 255
     assert hc.cd_sweep_plan().reg_cap == 255
     for key, plan in hc.default_plans().items():
         assert 0 <= plan.variant < hc.VARIANTS[plan.entry], key
         assert plan.ctas_per_sm >= plan.min_ctas, key
+
+
+@pytest.mark.parametrize("kernel", ["flash_bwd_dq", "flash_bwd_dkdv"])
+@pytest.mark.parametrize("exact", [False, True])
+def test_n1_head_dim_256_plans(kernel, exact):
+    """N1 at head dim 256 fits a block in both variants, with the shared
+    memory its launcher asks (``flash_bwd_smem(kernel, 256, exact)``,
+    held to the library on the card), a symbol a variant, and N1-dkdv's
+    grid of key blocks x head groups x kv heads."""
+    shape = ({"S": 4096, "Hkv": 1} if kernel == "flash_bwd_dkdv"
+             else {"T": 4096})
+    plan = hc.PLAN_BUILDERS[kernel](B=1, Hq=16, D=256, exact=exact, **shape)
+    assert plan.smem <= hc.LIMITS["smem_block"]
+    hc.check_plan(plan)
+    assert plan.symbol == f"{kernel}_d256<{str(exact).lower()}>"
+    if kernel == "flash_bwd_dq":
+        assert plan.grid == (64 * 16,)
+        return
+    # 16-key blocks (32 exact) x 4 head groups of recurrentgemma's 16
+    # query heads: 1,024 CTAs (512), where one a key block gave 128
+    assert plan.grid == ((512 if exact else 1024),)
+    assert plan.shape_of("scratch") == 2 * 4 * 4096 * 256
+
+
+def test_n1_dkdv_head_groups_and_sum():
+    """The head groups of a kv head: min(group, 4), uneven where the group
+    does not divide (six heads: 1, 2, 1, 2), one (no scratch, no sum) for
+    a group of one; the sum's grid strides over dk and dv as float4s."""
+    assert [hc.d256_head_groups(g) for g in (1, 2, 3, 4, 6, 16)] == \
+        [1, 2, 3, 4, 4, 4]
+    assert hc.d256_scratch(1, 4096, 16, 16) == 0
+    assert hc.d256_scratch(2, 100, 6, 1) == 2 * 4 * 2 * 100 * 256
+    one = hc.flash_bwd_dkdv_plan(B=1, Hq=8, Hkv=8, S=1000, D=256)
+    assert one.grid == (-(-1000 // 16) * 8,) and \
+        one.shape_of("scratch") == 0
+    s = hc.flash_bwd_dkdv_sum_plan()
+    assert s.grid == (2048,) and s.smem == 0 and s.threads == 256
+    assert hc.flash_bwd_dkdv_sum_plan(B=4, S=8192).grid == (4096,)
 
 
 def test_counterpart_surface_of_the_reference():
