@@ -93,8 +93,10 @@ def finalize_tile(kind: str, acc: Tensor, xx: Tensor, zz: Tensor, *,
 
 
 def row_norms(x: Tensor) -> Tensor:
-    """Squared L2 row norms in fp32, batched over leading axes."""
-    return torch.sum(x.to(torch.float32) ** 2, dim=-1)
+    """Squared L2 row norms in fp32 (fp64 for fp64 rows), batched over
+    leading axes."""
+    return torch.sum(x.to(torch.promote_types(x.dtype, torch.float32)) ** 2,
+                     dim=-1)
 
 
 def kernel_tile(kind: str, x: Tensor, z: Tensor, *, gamma: float,
@@ -118,11 +120,11 @@ def gram_matvec_plain(x: Tensor, z: Tensor, g: Tensor, *, kind: str = "rbf",
     against g as soon as it is formed — O(bm·N) memory per partition."""
     K, M, _ = x.shape
     u = torch.empty(K, M, dtype=x.dtype, device=x.device)
-    gf = g.to(torch.float32)[:, :, None]
     for r0 in range(0, M, bm):
         kb = kernel_tile(kind, x[:, r0:r0 + bm], z, gamma=gamma,
                          degree=degree, coef0=coef0)
-        u[:, r0:r0 + bm] = (kb @ gf)[:, :, 0].to(x.dtype)
+        u[:, r0:r0 + bm] = (kb @ g.to(kb.dtype)[:, :, None])[:, :, 0].to(
+            x.dtype)
     return u
 
 

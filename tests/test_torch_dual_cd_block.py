@@ -187,11 +187,20 @@ def test_solve_level_lam100_converges_like_reference(m, B, offset, cap):
         interpret=True, **kw)
     ta, tr, tit = tcdk.solve_level(qb, tgram.DenseSource(Q.contiguous()),
                                    torch.zeros(1, 2 * mp), valid=valid, **kw)
-    assert tit == int(jit)
+    # The pass that converges is the one on which the last such coordinate
+    # turns subnormal and is flushed. It halves about once a pass (2.8e-38
+    # to 1.5e-38 across pass 114 in the first case), while the two sides'
+    # values differ by a few fp32 roundings of the BLAS's sums, far less
+    # than a factor of 2: that can move the flush by one pass, no more.
+    # So a converged solve may take one pass more or less than the
+    # reference's; a solve held back by a kept subnormal runs to the cap
+    # with the KKT above tol (C-2), and one cut by the cap stops at it.
     converged = tit < cap
+    assert abs(tit - int(jit)) <= 1 and (int(jit) < cap) == converged
     assert (float(tr[0]) <= kw["tol"]) == converged
     assert (float(jr[0]) <= kw["tol"]) == converged
-    _close(tr, jr)
+    if not converged:
+        _close(tr, jr)
     _close(ta, ja)
 
 

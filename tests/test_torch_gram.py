@@ -122,11 +122,25 @@ def test_pad_features_appends_zero_features(D):
     assert xp.data_ptr() % 16 == 0 and xp.is_contiguous()
     assert torch.equal(xp[..., :D], x) and not bool(xp[..., D:].any())
     assert (xp is x) == (D % 4 == 0)
-    # zero features change no family's products
+    # zero features change no family's products. That is exact, so it is
+    # checked in fp64: in fp32 the padded width changes the CPU BLAS's
+    # blocking, hence its summation order, and a cancelling sum of K·g
+    # then differs by a few fp32 roundings of Σ|K||g| (4.7e-5 relative to
+    # the result on an AVX-512 CPU). In fp64 each side lies within
+    # (D + N + 4)·u64·A·Σ_j|K_ij||g_j| of the exact value, with D + N + 4
+    # <= 44 summed terms, u64 = 2^-53 and A <= 25 the outer function's
+    # amplification (rbf's exp: 1 + γ·max(|x|² + |z|²) <= 24 here; poly's
+    # cube: 3), so within 1.3e-13 of Σ|K||g|: 1e-12 holds in any order.
+    x64, z64, g64 = x.double(), z.double(), g.double()
+    xp64, zp64 = tgram.pad_features(x64), tgram.pad_features(z64)
     for kind, gamma, degree, coef0 in FAMILIES:
         kw = dict(kind=kind, gamma=gamma, degree=degree, coef0=coef0)
-        _close(tgram.gram_matvec_plain(xp, zp, g, **kw),
-               tgram.gram_matvec_plain(x, z, g, **kw), tol=1e-6)
+        got = tgram.gram_matvec_plain(xp64, zp64, g64, **kw)
+        want = tgram.gram_matvec_plain(x64, z64, g64, **kw)
+        assert got.dtype == torch.float64
+        terms = tgram.kernel_tile(kind, x64, z64, gamma=gamma, degree=degree,
+                                  coef0=coef0).abs() @ g64.abs()[..., None]
+        assert bool(((got - want).abs() <= 1e-12 * terms[..., 0]).all())
 
 
 def test_pad_features_realigns_an_offset_view():
