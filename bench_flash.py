@@ -4,6 +4,7 @@ training forward.
 
   PYTHONPATH=src python3 bench_flash.py [--dtype float32] [--rounds 5]
   PYTHONPATH=src python3 bench_flash.py --train [--kv-dtype bfloat16]
+      [--shape recurrentgemma] [--profile]
 
 At the qwen3-0.6b prefill shape (B=4, Hq=16, Hkv=8, T=S=2048, D=128,
 causal; bf16, or fp32 with TF32 off; inputs from ``--seed``) it prints
@@ -18,12 +19,14 @@ in one run to compare them. ``band`` is ``flash_attn.bf16_band`` where
 the checkout has it (bf16 only).
 
 ``--train`` times F (``launch_flash_attention_train``) at the qwen3-0.6b
-training shape (q (B, T, H, D) fp32; k and v fp32, or bf16 with
-``--kv-dtype bfloat16``, which a checkout whose F reads their dtypes
-runs as its exact variant) and prints its median ms and its largest
-error against the plain version on the same values; with ``--profile``
-also each device kernel's ms a call under torch.profiler (F's own
-kernels and the wrapper's casts).
+training shape, or with ``--shape recurrentgemma`` at recurrentgemma-9b's
+(B=1, Hq=16, Hkv=1, T=S=4096, D=256, causal, window 2048) (q (B, T, H,
+D) fp32; k and v fp32, or bf16 with ``--kv-dtype bfloat16``, which a
+checkout whose F reads their dtypes runs as its exact variant), and
+prints its median ms, its largest error against the plain version on
+the same values and m's and l's largest relative ones; with
+``--profile`` also each device kernel's ms a call under torch.profiler
+(F's own kernels and the wrapper's casts).
 """
 from __future__ import annotations
 
@@ -67,18 +70,25 @@ def _card() -> str:
         timeout=60).stdout.strip().splitlines()[0]
 
 
+#: --train's shapes: (B, Hq, Hkv, T = S, D, window)
+TRAIN_SHAPES = {"qwen3": (4, 16, 8, 2048, 128, None),
+                "recurrentgemma": (1, 16, 1, 4096, 256, 2048)}
+
+
 def _train_forward(args) -> dict:
-    B, Hq, Hkv, T, D = 4, 16, 8, 2048, 128
+    B, Hq, Hkv, T, D, window = TRAIN_SHAPES[args.shape]
     q = torch.randn(B, T, Hq, D, device="cuda")
     k, v = (torch.randn(B, T, Hkv, D, device="cuda").to(
         getattr(torch, args.kv_dtype)) for _ in range(2))
-    kw = dict(causal=True, window=None, q_offset=0)
-    got = fa.launch_flash_attention_train(q, k, v, **kw)[0]
-    want = fa.flash_attention_train_plain(q, k.float(), v.float(), **kw)[0]
+    kw = dict(causal=True, window=window, q_offset=0)
+    got = fa.launch_flash_attention_train(q, k, v, **kw)
+    want = fa.flash_attention_train_plain(q, k.float(), v.float(), **kw)
     f = [_ms(lambda: fa.launch_flash_attention_train(q, k, v, **kw),
              args.reps) for _ in range(args.rounds)]
-    res = {"kv_dtype": args.kv_dtype,
-           "max_abs_err": float((got - want).abs().max()),
+    res = {"shape": args.shape, "kv_dtype": args.kv_dtype,
+           "max_abs_err": float((got[0] - want[0]).abs().max()),
+           "m_rel": float(((got[1] - want[1]).abs() / want[1].abs()).max()),
+           "l_rel": float(((got[2] - want[2]).abs() / want[2].abs()).max()),
            "f_ms": statistics.median(f), "f_rounds": f}
     if args.profile:
         from torch.profiler import ProfilerActivity, profile
@@ -102,6 +112,7 @@ def main(argv=None) -> dict:
     ap.add_argument("--train", action="store_true")
     ap.add_argument("--kv-dtype", choices=("bfloat16", "float32"),
                     default="float32")
+    ap.add_argument("--shape", choices=tuple(TRAIN_SHAPES), default="qwen3")
     ap.add_argument("--profile", action="store_true")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():

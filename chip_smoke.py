@@ -337,22 +337,29 @@ Phases (any failed check exits nonzero):
    bf16 (phase 12's bands). The card's recurrentgemma runs with fp32
    compute are the path of B9's fp32 kernel at head dim 256.
 2g. (after phase 2f) F, N1-dq and N1-dkdv at head dim 256 (F's
-   CUDA-core plan flash_fwd_d256; N1's split-TF32 plans flash_bwd_dq_d256
-   and flash_bwd_dkdv_d256, with its head groups' sum
-   flash_bwd_dkdv_d256_sum) against their plain versions in phase 2e's
-   bands, after their registers, shared memory and spills from the build
-   log and their plans held to the built library: recurrentgemma-9b's
+   split-TF32 plan flash_fwd_d256<exact> with its pre-pass
+   flash_fwd_split<256, exact>; N1's flash_bwd_dq_d256 and
+   flash_bwd_dkdv_d256, with its head groups' sum flash_bwd_dkdv_d256_sum)
+   against their plain versions in phase 2e's bands, after their
+   registers, shared memory and spills from the build log (a spill
+   fails) and their plans held to the built library: recurrentgemma-9b's
    training shape (B=1, Hq=16, Hkv=1, T=S=4096, window 2048), causal
    without a window, ragged T=S=300, q_offset 300 with T=700 < S=1000,
-   GQA groups 4 and 6 (head groups of 1, 2, 1, 2), each in fp32 (TF32
-   off) and with bf16 q, k, v and dout (the exact variant the step runs,
-   and the bf16 dispatch path within one bf16 ulp), each called twice
-   and equal bit for bit; the cancelling case (q x 4, dout = out + 1e-3
+   GQA groups 4 and 6 (head groups of 1, 2, 1, 2), fault C-1's case
+   (T=S=200, Hq=6, window 64, numpy seed 406), each in fp32 (TF32 off)
+   and with bf16 q, k, v and dout (the exact variant the step runs, and
+   the bf16 dispatch path within one bf16 ulp), each called twice and
+   equal bit for bit; the cancelling case (q x 4, dout = out + 1e-3
    noise) against the fp64 plain version in both variants. At the
    training shape each kernel's ms by CUDA events beside its bound at the
-   fp32 CUDA-core peak and as a TF32 split (phase 2e's charging), the
-   plain versions' ms, and SDPA with the window mask written out (TF32
-   off) forward and torch.autograd.grad through it.
+   fp32 CUDA-core peak and as a TF32 split (phase 2e's charging; F's in
+   both variants beside the split, exact and fp32 bounds), the plain
+   versions' ms, and SDPA with the window mask written out (TF32 off)
+   forward and torch.autograd.grad through it. At C-1's case, the order
+   in which the plain version's fp32 product sums a max logit over d on
+   the card: torch.einsum's against one in-order fp32 chain and against
+   the exact logit rounded once (the m that F and the plain version now
+   share).
 17. falcon-mamba-7b trained at full width, 16 of its 64 layers (AdamW's
    16 B a parameter: 2.22 B parameters, ~35 GB; all 64 would be ~116 GB),
    B=2 x T=2,048, remat="full", 4 make_train_step steps of the
@@ -2049,7 +2056,7 @@ def train_kernels_phase(fa_mod, dev, derate, stats) -> None:
     log = (_build.library_path().parent / "build.log").read_text()
     lib = _build.library()
     for name, regs, smem, spills in kernel_resources(log, "flash_fwd.cu"):
-        if name.endswith("_d256"):
+        if "_d256" in name or name.startswith("flash_fwd_split<256"):
             continue                      # head dim 256's plan: phase 2g
         dim, exact = (int(a) for a in name[name.index("<") + 1:-1].split(","))
         dyn = (lib.flash_fwd_smem(dim, exact)
@@ -2611,22 +2618,29 @@ def train256_phase(fa_mod, dev, derate, stats) -> None:
     log = (_build.library_path().parent / "build.log").read_text()
     for src in ("flash_fwd.cu", "flash_bwd.cu"):
         for name, regs, smem, spills in kernel_resources(log, src):
-            if "_d256" not in name:
+            if "_d256" not in name and not name.startswith(
+                    "flash_fwd_split<256"):
                 continue
-            if src == "flash_fwd.cu":
-                dyn = lib.flash_fwd_smem(256, 0)
+            note = ""
+            if name.startswith("flash_fwd_split"):
+                dyn = 0
+            elif src == "flash_fwd.cu":   # flash_fwd_d256<exact>
+                dyn = lib.flash_fwd_smem(256, int(name.endswith("<1>")))
+                note = (" (at entry; setmaxnreg gives the consumers 240 and "
+                        "the producer 24)")
             elif name.endswith("_sum"):
                 dyn = 0
             else:   # flash_bwd_{dq,dkdv}_d256<exact>
                 dyn = lib.flash_bwd_smem(int("dkdv" in name), 256,
                                          int(name.endswith("<1>")))
-            say(f"  {name}: {regs} registers, {smem} bytes static shared + "
-                f"{dyn} bytes dynamic, spills {spills}")
+            say(f"  {name}: {regs} registers{note}, {smem} bytes static "
+                f"shared + {dyn} bytes dynamic, spills {spills}")
             if spills != "0/0 bytes":
                 fail(f"{name} spills: {spills}")
     plans = {k: p for k, p in hc.default_plans().items()
-             if p.kernel in ("flash_f32_stats", "flash_bwd_dq",
-                             "flash_bwd_dkdv", "flash_bwd_dkdv_sum")
+             if p.kernel in ("flash_f32_stats", "flash_fwd_split",
+                             "flash_bwd_dq", "flash_bwd_dkdv",
+                             "flash_bwd_dkdv_sum")
              and p.shape_of("D") == 256}
     for key, a in hc.check_device(plans).items():
         say(f"  plan checker {key} ({plans[key].symbol}): grid "
@@ -2637,12 +2651,22 @@ def train256_phase(fa_mod, dev, derate, stats) -> None:
     D = 256
 
     def case(label, B, hq, hkv, T, S, window, q_offset=0, bf16=False,
-             timed=False):
+             timed=False, seed=None):
+        """``seed``: q, dout, k and v drawn in that order with numpy from
+        it (the card test's draw), else from the phase's generator."""
         dt = torch.bfloat16 if bf16 else torch.float32
-        q, dout = (torch.randn(B, T, hq, D, generator=gen, device=dev)
-                   .to(dt) for _ in range(2))
-        k, v = (torch.randn(B, S, hkv, D, generator=gen, device=dev)
-                .to(dt) for _ in range(2))
+        if seed is None:
+            q, dout = (torch.randn(B, T, hq, D, generator=gen, device=dev)
+                       .to(dt) for _ in range(2))
+            k, v = (torch.randn(B, S, hkv, D, generator=gen, device=dev)
+                    .to(dt) for _ in range(2))
+        else:
+            import numpy as np
+            rng = np.random.default_rng(seed)
+            q, dout, k, v = (
+                torch.tensor(rng.standard_normal(shape), dtype=torch.float32)
+                .to(dt).to(dev) for shape in ((B, T, hq, D),) * 2
+                + ((B, S, hkv, D),) * 2)
         kw = dict(causal=True, window=window, q_offset=q_offset)
         qf, kf, vf, df = (t.float() for t in (q, k, v, dout))
         # the kernels on the inputs' own k and v (bf16 ones: the exact
@@ -2723,7 +2747,8 @@ def train256_phase(fa_mod, dev, derate, stats) -> None:
         dkdv_s = split_bound(dkdv_bytes, 8 * D * pairs, terms=terms)
         tag = "bf16" if bf16 else "fp32"
         if bf16:
-            stats["flash_attention_train_d256"].update(exact_ms=f_ms)
+            stats["flash_attention_train_d256"].update(
+                exact_ms=f_ms, exact_bound_ms=f_s[0])
             stats["flash_bwd_dq_d256"].update(exact_ms=dq_ms)
             stats["flash_bwd_dkdv_d256"].update(exact_ms=dkdv_ms)
             say(f"  {tag} (the step's variant): F ms={f_ms:.3f}, N1-dq "
@@ -2826,7 +2851,21 @@ def train256_phase(fa_mod, dev, derate, stats) -> None:
         case("recurrentgemma-9b training B=1 Hq=16 Hkv=1 T=S=4096 D=256 "
              "window 2048", **rg, T=4096, S=4096, window=2048, bf16=bf16,
              timed=True)
+    f = stats["flash_attention_train_d256"]
+    say(f"  F at D = 256 (flash_fwd_d256): fp32 ms={f['ms']:.3f}, exact "
+        f"variant (bf16 k and v) ms={f['exact_ms']:.3f}; split-TF32 bound "
+        f"{f['bound_ms']:.3f} ms ({f['bound_ms'] / f['ms']:.1%} reached), "
+        f"exact {f['exact_bound_ms']:.3f} "
+        f"({f['exact_bound_ms'] / f['exact_ms']:.1%}), fp32 CUDA-core "
+        f"{f['fp32_bound_ms']:.3f}; library_ms={f['library_ms']:.3f} (SDPA, "
+        f"TF32 off), at {card_line()}")
+    c1_order(fa_mod, dev)
     for bf16 in (False, True):
+        # fault C-1's case (the card test's draw): m = 0.048 once lay
+        # 1.13e-5 relative from the plain version's
+        case("C-1's case: group 6 Hq=6 Hkv=1 T=S=200 window 64 (numpy seed "
+             "406)", B=1, hq=6, hkv=1, T=200, S=200, window=64, bf16=bf16,
+             seed=406)
         case("causal, no window, T=S=2048", **rg, T=2048, S=2048,
              window=None, bf16=bf16)
         case("ragged T=S=300, window 100", **rg, T=300, S=300, window=100,
@@ -2841,6 +2880,45 @@ def train256_phase(fa_mod, dev, derate, stats) -> None:
         cancelling("cancelling case (q x 4, dout = out + 1e-3 noise) "
                    "Hq=16 Hkv=1 T=S=2048 window 1024", 1, 16, 1, 2048, 1024,
                    bf16)
+
+
+def c1_order(fa_mod, dev) -> None:
+    """Which order the plain version's fp32 product sums a logit over d in
+    at head dim 256 on the card (fault C-1): at C-1's case (B=1, T=S=200,
+    Hq=6, Hkv=1, window 64, numpy seed 406), each row's max logit as
+    ``torch.einsum`` gives it (the plain version's product, before m is
+    taken again), against one fp32 fma chain over d in order (emulated in
+    fp64, rounded each step) and against the exact logit rounded once
+    (``exact_max_logit``, the definition F and the plain version now
+    share)."""
+    import numpy as np
+    import torch
+    B, T, H, KV, D, window = 1, 200, 6, 1, 256, 64
+    rng = np.random.default_rng(T + T + H)
+    q, _, k, _ = (torch.tensor(rng.standard_normal(shape),
+                               dtype=torch.float32).to(dev)
+                  for shape in ((B, T, H, D),) * 2 + ((B, T, KV, D),) * 2)
+    qg = q.reshape(B, T, KV, H, D) * D ** -0.5
+    logits = torch.einsum("btkgd,bskd->btkgs", qg, k)
+    pos = torch.arange(T, device=dev)
+    seen = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
+                                             - window)
+    top, arg = torch.where(seen[None, :, None, None, :], logits,
+                           -1e30).max(-1)
+    kmax = k[0, arg[0], 0].double()               # (T, KV, H, D)
+    qd = qg[0].double()
+    chain = torch.zeros(qd.shape[:-1], dtype=torch.float64, device=dev)
+    for d in range(D):
+        chain = (chain + qd[..., d] * kmax[..., d]).float().double()
+    exact = fa_mod.exact_max_logit(qg, k, arg).float()[0]
+    top = top[0]
+    n = top.numel()
+    say(f"  C-1's order: of {n} rows' max logits, torch.einsum's equals the "
+        f"in-order fp32 chain's in {int((top == chain.float()).sum())}, the "
+        f"exact one rounded once in {int((top == exact).sum())}; largest "
+        f"relative distance from the exact: einsum "
+        f"{float(((top - exact).abs() / exact.abs()).max()):.2e}, chain "
+        f"{float(((chain.float() - exact).abs() / exact.abs()).max()):.2e}")
 
 
 def _recurrent_layer(kind: str, cfg, rng, n: int) -> dict:

@@ -493,19 +493,28 @@ def flash_bf16_plan(B: int = 4, Hq: int = 16, T: int = 2048,
               "producer thread")
 
 
+def f_tile_keys(D: int, exact: bool) -> int:
+    """Keys a K/V tile of F (``csrc/flash_fwd.cu::FTiles::NK``): 32, and
+    16 in head dim 256's split variant."""
+    return 16 if D == 256 and not exact else 32
+
+
 def flash_fwd_split_plan(B: int = 4, Hkv: int = 8, S: int = 2048,
                          D: int = 128, exact: bool = False) -> KernelPlan:
     """F's first kernel (``csrc/flash_fwd.cu::flash_fwd_split``): 256
-    threads a (b, kv head, 32-key tile), no shared memory; it writes each
-    tile's K and V halves to the scratch buffer ``flash_f32_stats`` reads
-    (``flash_fwd_scratch`` floats)."""
-    idx = {16: 8, 32: 9, 64: 10, 128: 11}.get(D)
+    threads a (b, kv head, tile of :func:`f_tile_keys` keys), no shared
+    memory; it writes each tile's K and V halves to the scratch buffer
+    F's main kernel reads (``flash_fwd_scratch`` floats).
+    ``flash_fwd_attributes`` variants 8 .. 15 (D = 16 << (v % 4), exact
+    4 on), 18 and 19 at head dim 256."""
+    idx = {16: 8, 32: 9, 64: 10, 128: 11, 256: 18}.get(D)
     return KernelPlan(
         kernel="flash_fwd_split",
         symbol=f"flash_fwd_split<{D}, {str(exact).lower()}>",
         entry="flash_fwd_attributes",
-        variant=-1 if idx is None else idx + 4 * exact, threads=256,
-        grid=(B * Hkv * -(-S // 32),), blocks=(), min_ctas=1,
+        variant=-1 if idx is None else idx + (1 if D == 256 else 4) * exact,
+        threads=256, grid=(B * Hkv * -(-S // f_tile_keys(D, exact)),),
+        blocks=(), min_ctas=1,
         shape=(("B", B), ("Hkv", Hkv), ("S", S), ("D", D),
                ("exact", exact)))
 
@@ -577,12 +586,6 @@ def flash_f32_stats_plan(B: int = 4, Hq: int = 16, T: int = 2048,
               "producer thread")
 
 
-#: F's head-dim-256 plan (``csrc/flash_fwd.cu``, ``W_*``): fp32 FMAs on
-#: the CUDA cores, 256 threads, tiles at row stride D + 4;
-#: ``flash_fwd_attributes`` variant 16, for either variant (no split to
-#: skip)
-D256_LD = 256 + 4
-
 #: N1 at head dim 256 (``csrc/flash_bwd.cu``, ``HTiles``): N1-dq's key tile
 #: (both variants), N1-dkdv's key block (split, exact: no small halves of
 #: K and V to stage), and the head groups a kv head's query heads are cut
@@ -607,20 +610,30 @@ def d256_scratch(B: int, S: int, Hq: int, Hkv: int) -> int:
 
 def _flash_fwd_d256_plan(B: int, Hq: int, T: int,
                          exact: bool) -> KernelPlan:
-    """F at head dim 256 (``csrc/flash_fwd.cu::flash_fwd_d256``): B9
-    fp32's D = 256 plan with F's outputs, a CTA a (b, q head, 64-row
-    query block): Q at row stride D + 4, a two-stage ring of 32-key K
-    tiles (P^T once S is taken) and V tiles; no split kernel first."""
+    """F at head dim 256 (``csrc/flash_fwd.cu::flash_fwd_d256<exact>``):
+    384 threads (two consumer warpgroups, each a D-half of O, and a
+    producer) a (b, q head, 64-row query block); one raw 64 x 256 Q tile
+    in TMA's 128-byte swizzle that both consumers share, a two-stage ring
+    of the split pre-pass's tiles (:func:`f_tile_keys` keys: K keys x D
+    and V transposed, a big and, split, a small half each), two swap
+    buffers of both warpgroups' partial S (keys / 2 floats a thread
+    each) and each stage's full and empty mbarriers;
+    ``flash_fwd_attributes`` variants 16 (split) and 17 (exact)."""
+    nk = f_tile_keys(256, exact)
+    halves = 1 if exact else 2
     return KernelPlan(
-        kernel="flash_f32_stats", symbol="flash_fwd_d256",
-        entry="flash_fwd_attributes", variant=16, threads=256,
+        kernel="flash_f32_stats",
+        symbol=f"flash_fwd_d256<{str(exact).lower()}>",
+        entry="flash_fwd_attributes", variant=16 + exact, threads=3 * 128,
         grid=(-(-T // 64) * Hq * B,),
-        blocks=(Block("q", (64, D256_LD)),
-                Block("k_pt_ring", (2, 32, D256_LD)),
-                Block("v_ring", (2, 32, 256))),
+        blocks=(Block("q", (64, 256)), Block("k_ring", (2, halves, nk, 256)),
+                Block("v_ring", (2, halves, 256, nk)),
+                Block("swap", (2, 2, nk // 2, 128)),
+                Block("mbarriers", (4,), "uint64")),
         min_ctas=1,
         shape=(("B", B), ("Hq", Hq), ("T", T), ("D", 256), ("exact", exact)),
-        notes="CUDA cores; exact runs the same kernel")
+        notes="setmaxnreg: 240 registers a consumer thread, 24 a "
+              "producer thread")
 
 
 def _bwd_blocks(D: int, kernel: str, exact: bool) -> tuple[Block, ...]:
@@ -791,9 +804,14 @@ DEFAULT_SHAPES: dict[str, tuple[dict, ...]] = {
     "flash_f32_stats": ({"B": 4, "Hq": 16, "T": 2048, "D": 128},
                         {"B": 4, "Hq": 16, "T": 2048, "D": 128,
                          "exact": True},
-                        {"B": 1, "Hq": 16, "T": 4096, "D": 256}),
+                        {"B": 1, "Hq": 16, "T": 4096, "D": 256},
+                        {"B": 1, "Hq": 16, "T": 4096, "D": 256,
+                         "exact": True}),
     "flash_fwd_split": ({"B": 4, "Hkv": 8, "S": 2048, "D": 128},
                         {"B": 4, "Hkv": 8, "S": 2048, "D": 128,
+                         "exact": True},
+                        {"B": 1, "Hkv": 1, "S": 4096, "D": 256},
+                        {"B": 1, "Hkv": 1, "S": 4096, "D": 256,
                          "exact": True}),
     "flash_bwd_dq": ({"B": 4, "Hq": 16, "T": 2048, "D": 128},
                      {"B": 4, "Hq": 16, "T": 2048, "D": 128, "exact": True},
@@ -834,7 +852,7 @@ def check_kernels() -> dict[str, str]:
 VARIANTS = {"cd_sweep_attributes": 12, "dense_matvec_attributes": 1,
             "cd_exact_attributes": 1, "gram_attributes": 16,
             "gram_matvec_attributes": 10, "odm_grad_attributes": 10,
-            "flash_attn_attributes": 10, "flash_fwd_attributes": 17,
+            "flash_attn_attributes": 10, "flash_fwd_attributes": 20,
             "flash_bwd_attributes": 21}
 
 _ATTR_KEYS = ("regs", "smem_static", "local_bytes", "max_threads",

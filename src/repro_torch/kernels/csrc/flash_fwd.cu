@@ -47,19 +47,21 @@
 // sets it from k's and v's dtypes, bf16 or fp16, as the training step's
 // bf16 compute gives them) K and V have zero small halves and their terms
 // are skipped: S and O take two terms each. Qs and P are never exact.
-// m: the row's max logit, which N1 and the tests read as the fp32
-// plain version's. A tile that raises a row's max leaves the row's 32
-// logits and the tile's index in shared memory (two float4 stores a lane
-// and row); the epilogue finds the first key there that holds the max and
-// takes its logit again as one fp32 fma chain over d in order, the
-// arithmetic of the fp32 plain version's product (cuBLAS's fp32 GEMM sums
-// a dot in that order: phase 2e finds F's m equal to it bit for bit), and
-// moves l onto it: l = l exp(m_split - m), so m + log l and every p that
-// N1 recomputes stay the split's. A logit near 0 (a row with few keys)
-// thus keeps m's 1e-5 relative band, which the split's own sum, in
-// another order, misses there (7.5e-4 at T = S = 2049, bf16 k and v; the
-// fp32 plain version itself lies 2.7e-4 from the fp64 one at the qwen3
-// shape).
+// m: the row's max logit, which N1 and the tests read as the plain
+// version's. A tile that raises a row's max leaves the row's 32 logits
+// and the tile's index in shared memory (two float4 stores a lane and
+// row); the epilogue finds the first key there that holds the max and
+// takes its logit again as exact_logit: the products of the fp32 qs and
+// k rows (exact in fp64) summed in fp64 and rounded once, the definition
+// the plain version takes too. No fp32 summation order is then shared
+// between the kernel and cuBLAS: at head dim 256 cuBLAS's fp32 product
+// sums in another order than a chain over d, and m = 0.048 lay 1.13e-5
+// relative from the fp32 plain version's (fault C-1). l moves onto that
+// m: l = l exp(m_split - m), so m + log l and every p that N1 recomputes
+// stay the split's. A logit near 0 (a row with few keys) thus keeps m's
+// 1e-5 relative band, which the split's own sum misses there (7.5e-4 at
+// T = S = 2049, bf16 k and v; the fp32 plain version itself lies 2.7e-4
+// from the fp64 one at the qwen3 shape).
 // The band: tests/test_torch_flash_split.py emulates this arithmetic on
 // the CPU against the reference's _blocked_flash_fwd (out within 1e-5 ×
 // max(1, max|out|), m and l 1e-5 relative; plain TF32 falls outside,
@@ -99,7 +101,9 @@
 // Shared memory at D = 128: raw Q 2 x 32 KB, ring 2 x (K 32 KB + V 32
 // KB) split, 2 x 32 KB exact, the rows' max tiles 20 KB; 217,120 B split,
 // 151,584 exact, one CTA an SM (384 threads at 240 / 24 registers). A
-// wider ring does not fit the split variant: a stage is 64 KB.
+// wider ring does not fit the split variant: a stage is 64 KB. Head dim
+// 256 has a main kernel of its own, flash_fwd_d256 (below), fed by the
+// same pre-pass at 16-key tiles (32 exact).
 #include <cstdint>
 
 #include <cuda_runtime.h>
@@ -143,31 +147,38 @@ struct Fwd {
 
 template <int D, bool EXACT>
 struct FTiles {
+  // keys a tile: 32, and 16 in head dim 256's split variant (below)
+  static constexpr int NK = D == 256 && !EXACT ? 16 : BK;
   static constexpr int KS = D / 8;                  // k-steps of S over D
   static constexpr int KC = KS < 4 ? KS : 4;        // ... a chunk
   static constexpr int NCH = KS / KC;               // chunks of S
   static constexpr int NBOX = D < 32 ? 1 : D / 32;  // 32-float boxes a row
   static constexpr int RAW = BQ * 32 * NBOX;        // floats: raw Q tile
-  static constexpr int HALF = BK * D;               // ... a tile's half
+  static constexpr int HALF = NK * D;               // ... a tile's half
   static constexpr int KT = (EXACT ? 1 : 2) * HALF;  // ... K's halves
   static constexpr int TILE = 2 * KT;               // ... K then V: a stage
-  // + each row's max tile (SR floats a row), each stage's two mbarriers
+  // flash_f32_stats: each warpgroup's raw Q, the ring, each row's max
+  // tile (SR floats a row), each stage's two mbarriers
   static constexpr int SMEM =
       4 * (2 * RAW + NS * TILE + 2 * BQ * SR) + 8 * 2 * NS;
+  // flash_fwd_d256: one raw Q tile, the ring, two swap buffers of both
+  // warpgroups' partial S (NK / 2 floats a thread each), the mbarriers
+  static constexpr int XS = NK * WT;
+  static constexpr int SMEM256 = 4 * (RAW + NS * TILE + 2 * XS) + 8 * 2 * NS;
 };
 
-// The CTA's (b, q head, query block), from a fresh read of %ctaid.x: the
-// epilogue decodes it again, so that nothing derived from it stays live
-// across the main loop, which holds every register it has.
+// The CTA's (b, q head, query block of `rows` rows), from a fresh read of
+// %ctaid.x: the epilogue decodes it again, so that nothing derived from
+// it stays live across the main loop, which holds every register it has.
 struct Cta {
   int b, h, row0;
 };
-__device__ __forceinline__ Cta cta_of(const Fwd& p) {
+__device__ __forceinline__ Cta cta_of(const Fwd& p, int rows) {
   int x;
   asm volatile("mov.u32 %0, %%ctaid.x;" : "=r"(x));
   int qb = x / (p.Hq * p.B);
   if (p.causal) qb = p.nblk - 1 - qb;   // heaviest first (see the kernel)
-  return {(x / p.Hq) % p.B, x % p.Hq, qb * 2 * BQ};
+  return {(x / p.Hq) % p.B, x % p.Hq, qb * rows};
 }
 
 __device__ __forceinline__ bool visible(const Fwd& p, int qpos, int kpos) {
@@ -175,6 +186,36 @@ __device__ __forceinline__ bool visible(const Fwd& p, int qpos, int kpos) {
   if (p.causal && kpos > qpos) return false;
   if (p.window > 0 && kpos <= qpos - p.window) return false;
   return true;
+}
+
+// The logit of raw Q's row r (raw_at) and the fp32 key row kr, summed over
+// d in order in fp64, where each product of two fp32 values is exact, and
+// rounded once to fp32: m's logit (see the head of this file). The fp64
+// sum lies within D 2^-53 sum|q_d k_d| of the exact logit whatever its
+// order, so the result is the exact logit rounded to nearest unless that
+// lies closer than this to the midpoint of two fp32 values.
+template <int D>
+__device__ __forceinline__ float exact_logit(const float* Qs, int r,
+                                            const float* kr) {
+  constexpr int U = D / 4 < 16 ? D / 4 : 16;   // float4 loads in flight
+  double a = 0.0;
+#pragma unroll 1
+  for (int c0 = 0; c0 < D; c0 += 4 * U) {   // no more than U loads at once
+    float4 y[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u)
+      y[u] = __ldg(reinterpret_cast<const float4*>(kr + c0 + 4 * u));
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const float4 x =
+          *reinterpret_cast<const float4*>(Qs + raw_at(r, c0 + 4 * u));
+      a = fma(static_cast<double>(x.x), static_cast<double>(y[u].x), a);
+      a = fma(static_cast<double>(x.y), static_cast<double>(y[u].y), a);
+      a = fma(static_cast<double>(x.z), static_cast<double>(y[u].z), a);
+      a = fma(static_cast<double>(x.w), static_cast<double>(y[u].w), a);
+    }
+  }
+  return __double2float_rn(a);
 }
 
 template <bool SPLIT>
@@ -188,8 +229,8 @@ __device__ __forceinline__ void put_split(float* big, int half,
     *reinterpret_cast<uint4*>(big + half) = make_uint4(s[0], s[1], s[2], s[3]);
 }
 
-// One (b, kv head, 32-key tile) of K and V as F's B operands: K keys x D
-// (km_at<D>), V transposed D x keys (km_at<BK>) with each 8 keys in the
+// One (b, kv head, NK-key tile) of K and V as F's B operands: K keys x D
+// (km_at<D>), V transposed D x keys (km_at<NK>) with each 8 keys in the
 // order 0, 2, 4, 6, 1, 3, 5, 7; each a big then (split variant) a small
 // half. A thread writes 4-float units in the layout's own order, so a
 // warp's stores are contiguous.
@@ -199,12 +240,13 @@ __global__ void __launch_bounds__(ST) flash_fwd_split(const Fwd p) {
   const int j = blockIdx.x % p.ntile;
   const int hk = (blockIdx.x / p.ntile) % p.Hkv;
   const int b = blockIdx.x / (p.ntile * p.Hkv);
-  const int k0 = j * BK;
+  constexpr int NK = L::NK;
+  const int k0 = j * NK;
   float* kt = p.tiles + static_cast<long long>(blockIdx.x) * L::TILE;
   float* vt = kt + L::KT;
   const float* K = p.k + b * p.skb + hk * p.skh;
   const float* V = p.v + b * p.svb + hk * p.svh;
-  for (int i = threadIdx.x; i < BK * D / 4; i += ST) {
+  for (int i = threadIdx.x; i < NK * D / 4; i += ST) {
     const int key = 8 * ((i >> 3) / (D / 4)) + (i & 7);
     const int c = 4 * ((i >> 3) % (D / 4));
     float4 x = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
@@ -212,9 +254,9 @@ __global__ void __launch_bounds__(ST) flash_fwd_split(const Fwd p) {
       x = __ldg(reinterpret_cast<const float4*>(K + (k0 + key) * p.sks + c));
     put_split<!EXACT>(kt + 4 * i, L::HALF, {x.x, x.y, x.z, x.w});
   }
-  for (int i = threadIdx.x; i < D * BK / 4; i += ST) {
-    const int d = 8 * ((i >> 3) / (BK / 4)) + (i & 7);
-    const int c = 4 * ((i >> 3) % (BK / 4));
+  for (int i = threadIdx.x; i < D * NK / 4; i += ST) {
+    const int d = 8 * ((i >> 3) / (NK / 4)) + (i & 7);
+    const int c = 4 * ((i >> 3) % (NK / 4));
     const int key = k0 + 8 * (c >> 3) + ((c >> 2) & 1);  // keys key + 2 e
     float x[4];
 #pragma unroll
@@ -235,7 +277,7 @@ __global__ void __launch_bounds__(NT, 1) flash_f32_stats(const Fwd p) {
 
   // heaviest first: under causality a query block's work grows with its
   // index, so the grid's leading blocks take the last ones
-  const Cta cta = cta_of(p);
+  const Cta cta = cta_of(p, 2 * BQ);
   const int b = cta.b, h = cta.h, hk = h / p.group, row0 = cta.row0;
   // the CTA's live tiles [lo, hi): the union of its two warpgroups'
   const int q_first = row0 + p.q_offset;
@@ -438,7 +480,7 @@ __global__ void __launch_bounds__(NT, 1) flash_f32_stats(const Fwd p) {
   }
 
   // l over the quad, then out = O / max(l, 1e-30)
-  const Cta ce = cta_of(p);
+  const Cta ce = cta_of(p, 2 * BQ);
   const int re = ce.row0 + wg * BQ + row;   // my rows: re, re + 8
   float lq[2];
 #pragma unroll
@@ -458,9 +500,9 @@ __global__ void __launch_bounds__(NT, 1) flash_f32_stats(const Fwd p) {
   }
 
   // m and l: lane t < 2 of the quad takes row + 8 t. m is the max's
-  // logit again as one fp32 fma chain over d in order (the fp32 plain
-  // version's arithmetic, so that a logit near 0 keeps its relative
-  // band), and l moves onto that m
+  // logit again, summed in fp64 (each product of two fp32 values exact)
+  // and rounded once to fp32, as the plain version takes it, so that a
+  // logit near 0 keeps its relative band; l moves onto that m
   __syncwarp();   // the quad's tiles are in
   const int rt = re + 8 * t;
   if (t < 2 && rt < p.T) {
@@ -478,25 +520,7 @@ __global__ void __launch_bounds__(NT, 1) flash_f32_stats(const Fwd p) {
       }
       const float* kr = p.k + ce.b * p.skb + (ce.h / p.group) * p.skh +
                         (tile * BK + j) * p.sks;
-      constexpr int U = D / 4 < 16 ? D / 4 : 16;   // float4 loads in flight
-      float a = 0.0f;
-#pragma unroll
-      for (int c0 = 0; c0 < D; c0 += 4 * U) {
-        float4 y[U];
-#pragma unroll
-        for (int u = 0; u < U; ++u)
-          y[u] = __ldg(reinterpret_cast<const float4*>(kr + c0 + 4 * u));
-#pragma unroll
-        for (int u = 0; u < U; ++u) {
-          const float4 x = *reinterpret_cast<const float4*>(
-              Qs + raw_at(row + 8 * t, c0 + 4 * u));
-          a = fmaf(x.x, y[u].x, a);
-          a = fmaf(x.y, y[u].y, a);
-          a = fmaf(x.z, y[u].z, a);
-          a = fmaf(x.w, y[u].w, a);
-        }
-      }
-      mo = __fmul_rn(a, p.scale);
+      mo = __fmul_rn(exact_logit<D>(Qs, row + 8 * t, kr), p.scale);
       lw = fmaxf(le * expf(me - mo), 1e-30f);
     }
     const long long at =
@@ -507,241 +531,333 @@ __global__ void __launch_bounds__(NT, 1) flash_f32_stats(const Fwd p) {
 }
 
 // ---------------------------------------------------------------------------
-// head dim 256 (recurrentgemma-9b's local attention): fp32 FMAs on the
-// CUDA cores
+// head dim 256 (recurrentgemma-9b's local attention): the split products
+// with the D-halves of O shared out between the warpgroups
 // ---------------------------------------------------------------------------
-// The split plan does not fit at D = 256: a split K/V stage is 128 KB and
-// raw Q another 64 KB a warpgroup. This plan is B9's fp32 D = 256 plan
-// (flash_attn.cu::flash_f32<256>) with F's outputs: one CTA of 256
-// threads (a 16 x 16 grid) a (b, q head, 64-row query block), heaviest
-// first; cp.async brings the Q tile once and the 32-key K and V tiles
-// through a two-stage ring; S = Qs K^T as 4 rows x 2 keys a thread, each
-// logit one fp32 fma chain over d in order (the fp32 plain version's
-// arithmetic, so m, the row's largest, is its logit as the plain version
-// takes it); the online softmax in registers; P^T into the K stage S was
-// taken from; O += P V as 4 rows x 16 columns a thread. Q and K rows at
-// stride D + 4 put a quarter-warp's float4 on all 32 banks. Shared
-// memory: Q 66,560 B + 2 x K / P^T 33,280 B + 2 x V 32,768 B = 198,656
-// B, one CTA an SM. exact is moot here (no split to skip): both
-// variants run this kernel. Bound: operations, 4 D flops a visible pair
-// at the CUDA cores' 67 TFLOP/s (chip_smoke phase 2g prints it beside
-// the split-TF32 bound that a tensor-core plan would be held to).
+// The plan above does not fit at D = 256: a split 32-key K/V stage is 128
+// KB and a raw 64-row Q tile another 64 KB a warpgroup. This one takes N1's
+// D = 256 layout (flash_bwd.cu::flash_bwd_dq_d256): a CTA of three
+// warpgroups a (b, q head, 64-row query block), heaviest first, whose two
+// consumers share the block's rows and raw Q tile (64 KB, cp.async once,
+// each its D-half) and each own a D-half of O (64 accumulator registers a
+// thread, as at D = 128). The producer warpgroup's one thread brings the
+// tiles flash_fwd_split<256> wrote once a call (K and V of a kv head are
+// read by all its query heads' blocks: 1,024 of them at recurrentgemma's
+// training shape) into a two-stage ring by one bulk copy a stage: 16-key
+// tiles, split (K 32 KB + V 32 KB a stage), or 32-key ones in the exact
+// variant, whose tiles have no small halves (64 KB a stage too). A tile:
+//   * each consumer's partial S = Qs K^T over its D-half, four chunks of
+//     4 k-steps (one 32-column box of Q each, its fragments split in
+//     registers; the next chunk's raw values loaded while one runs),
+//     each into a fresh accumulator added in fp32;
+//   * the swap: each puts its partial in shared memory (two buffers, by
+//     tile parity, so one barrier a tile), and both add the other's: S =
+//     S_0 + S_1, the same bits in both warpgroups (fp32 addition
+//     commutes), so both run the same online softmax and get the same P,
+//     m and l without another exchange;
+//   * O[D-half] = O corr + P V[D-half]: P the register A operand straight
+//     from S's accumulator (V^T's keys in the order 0, 2, 4, 6, 1, 3, 5, 7
+//     of each 8), one chunk of NK / 8 k-steps into a fresh m64n128
+//     accumulator.
+// Only the tiles the window and causality leave visible are walked, and
+// only those on an edge are masked element by element. m takes C-6's
+// epilogue (the first key that holds the row max, its logit again as
+// exact_logit, l moved onto it), with the max key tracked by each thread
+// over its own entries and resolved over the quad at the end, so no
+// tile of logits is kept. Shared memory: Q 64 KB + the ring 128 KB + the
+// swap buffers 16 KB (32 KB exact) + 4 mbarriers: 213,024 B (229,408 B
+// exact). Bound: operations, the split's three terms (two exact) at 495
+// TFLOP/s: 0.625 ms (0.417) at recurrentgemma's training shape (B = 1,
+// Hq = 16, Hkv = 1, T = S = 4,096, window 2,048), 1.539 at the CUDA
+// cores' 67 TFLOP/s, the plan this one replaced (3.899 ms on an H100
+// 80GB HBM3 at 700 W); chip_smoke phase 2g prints the three.
 constexpr int W_D = 256;
-constexpr int W_NT = 256;              // threads: a 16 x 16 grid
-constexpr int W_LD = W_D + 4;          // Q and K row stride (floats)
-constexpr int W_PS = BQ + 4;           // P^T row stride: a row a key
-constexpr int W_RPT = BQ / 16;         // query rows a thread (S and O)
-constexpr int W_KPT = BK / 16;         // keys a thread (S)
-constexpr int W_CPT = W_D / 16;        // O columns a thread, as float4s
-constexpr int W_KSTAGE = BK * W_LD;    // a K stage, P^T once S is taken
-constexpr int W_VSTAGE = BK * W_D;
-constexpr int W_SMEM = 4 * (BQ * W_LD + 2 * W_KSTAGE + 2 * W_VSTAGE);
 
-// rows [0, n) of a (rows x 256) fp32 tile at src (row stride ld) into
-// shared memory at row stride lds, zeros for rows [n, rows).
-__device__ __forceinline__ void w_load(float* dst, int lds, const float* src,
-                                       long long ld, int rows, int n) {
-  constexpr int C4 = W_D / 4;
-  for (int i = threadIdx.x; i < rows * C4; i += W_NT) {
-    const int r = i / C4, c = 4 * (i % C4);
-    const bool ok = r < n;
-    sm90::cp_async16(dst + r * lds + c, ok ? src + r * ld + c : src, ok);
-  }
-}
+template <bool EXACT>
+__global__ void __launch_bounds__(NT, 1) flash_fwd_d256(const Fwd p) {
+  using L = FTiles<W_D, EXACT>;
+  constexpr int NK = L::NK, NA = NK / 2;   // keys a tile, S floats a thread
+  extern __shared__ __align__(1024) float fsm[];
+  float* Qs = fsm;                     // raw 64 x 256: both D-halves
+  float* ring = Qs + L::RAW;           // NS stages of L::TILE
+  float* X = ring + NS * L::TILE;      // two swap buffers of L::XS
+  uint64_t* full = reinterpret_cast<uint64_t*>(X + 2 * L::XS);
+  uint64_t* empty = full + NS;
 
-__global__ void __launch_bounds__(W_NT, 1) flash_fwd_d256(const Fwd p) {
-  extern __shared__ __align__(16) float wsm[];
-  float* Qs = wsm;                      // BQ x W_LD
-  float* Ks = Qs + BQ * W_LD;           // 2 stages of W_KSTAGE (then P^T)
-  float* Vs = Ks + 2 * W_KSTAGE;        // 2 stages of BK x D
-
-  const int nblk = (p.T + BQ - 1) / BQ;
-  int qb = blockIdx.x / (p.Hq * p.B);
-  if (p.causal) qb = nblk - 1 - qb;     // heaviest first
-  const int h = blockIdx.x % p.Hq, b = (blockIdx.x / p.Hq) % p.B;
-  const int hk = h / p.group;
-  const int r0 = qb * BQ;
+  const Cta cta = cta_of(p, BQ);
+  const int b = cta.b, h = cta.h, hk = h / p.group, r0 = cta.row0;
   const int q_first = r0 + p.q_offset;
   const int q_last = min(r0 + BQ, p.T) - 1 + p.q_offset;
-  int hi = (p.S + BK - 1) / BK;
-  if (p.causal) hi = min(hi, q_last / BK + 1);
+  int hi = (p.S + NK - 1) / NK;
+  if (p.causal) hi = min(hi, q_last / NK + 1);
   int lo = 0;
   if (p.window > 0 && q_first - p.window + 1 > 0)
-    lo = (q_first - p.window + 1) / BK;
+    lo = (q_first - p.window + 1) / NK;
+  const int n = hi - lo;
 
-  const float* Q = p.q + b * p.sqb + h * p.sqh;
-  const float* K = p.k + b * p.skb + hk * p.skh;
-  const float* V = p.v + b * p.svb + hk * p.svh;
-  float* O = p.o + b * p.sob + h * p.soh;
+  const int tid = threadIdx.x, wg = tid / WT;
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) {
+      sm90::bar_init(full + s, 1);
+      sm90::bar_init(empty + s, 2 * WT);
+    }
+    sm90::bar_init_fence();
+  }
+  __syncthreads();
 
-  auto load_kv = [&](int j, int st) {
-    const int k0 = j * BK;
-    w_load(Ks + st * W_KSTAGE, W_LD, K + k0 * p.sks, p.sks, BK, p.S - k0);
-    w_load(Vs + st * W_VSTAGE, W_D, V + k0 * p.svs, p.svs, BK, p.S - k0);
-  };
-  w_load(Qs, W_LD, Q + r0 * p.sqt, p.sqt, BQ, p.T - r0);
-  if (lo < hi) load_kv(lo, 0);
-  sm90::cp_async_commit();
-  if (lo + 1 < hi) load_kv(lo + 1, 1);
-  sm90::cp_async_commit();
-
-  const int tid = threadIdx.x, ty = tid / 16, tx = tid % 16;
-  const int rq = ty * W_RPT;   // the thread's first row in the block
-  float o[W_RPT][W_CPT], m[W_RPT], l[W_RPT];
-#pragma unroll
-  for (int i = 0; i < W_RPT; ++i) {
-    m[i] = NEG_INF;
-    l[i] = 0.0f;   // this thread's share of the row sum (its keys)
-#pragma unroll
-    for (int c = 0; c < W_CPT; ++c) o[i][c] = 0.0f;
+  if (wg == 2) {
+    // ---- producer: one thread keeps the ring full ------------------------
+    sm90::regs_dec<PRODUCER_REGS>();
+    if (tid == 2 * WT) {
+      const float* src =
+          p.tiles +
+          (static_cast<long long>(b * p.Hkv + hk) * p.ntile + lo) * L::TILE;
+      for (int it = 0; it < n; ++it) {
+        const int s = it % NS;
+        sm90::bar_wait(empty + s, ((it / NS) & 1) ^ 1);
+        sm90::bar_expect(full + s, 4 * L::TILE);
+        sm90::bulk_load(ring + s * L::TILE,
+                        src + static_cast<long long>(it) * L::TILE,
+                        4 * L::TILE, full + s);
+      }
+    }
+    return;
   }
 
-  for (int j = lo; j < hi; ++j) {
-    const int st = (j - lo) & 1;
-    float* Kt = Ks + st * W_KSTAGE;
-    const float* Vt = Vs + st * W_VSTAGE;
-    sm90::cp_async_wait<1>();   // all but the newest group: tile j is in
-    __syncthreads();
-
-    // S = Qs K^T: rows rq .. rq + 3, keys tx + 16 kk; each logit one fma
-    // chain over d in order
-    float s[W_RPT][W_KPT];
-#pragma unroll
-    for (int i = 0; i < W_RPT; ++i)
-#pragma unroll
-      for (int kk = 0; kk < W_KPT; ++kk) s[i][kk] = 0.0f;
-#pragma unroll 2
-    for (int c = 0; c < W_D; c += 4) {
-      float4 kv[W_KPT];
-#pragma unroll
-      for (int kk = 0; kk < W_KPT; ++kk)
-        kv[kk] = *reinterpret_cast<const float4*>(Kt + (tx + 16 * kk) * W_LD +
-                                                  c);
-#pragma unroll
-      for (int i = 0; i < W_RPT; ++i) {
-        const float4 qv =
-            *reinterpret_cast<const float4*>(Qs + (rq + i) * W_LD + c);
-#pragma unroll
-        for (int kk = 0; kk < W_KPT; ++kk) {
-          s[i][kk] = fmaf(qv.x, kv[kk].x, s[i][kk]);
-          s[i][kk] = fmaf(qv.y, kv[kk].y, s[i][kk]);
-          s[i][kk] = fmaf(qv.z, kv[kk].z, s[i][kk]);
-          s[i][kk] = fmaf(qv.w, kv[kk].w, s[i][kk]);
-        }
-      }
+  // ---- consumer warpgroup wg: D-half wg of the block's 64 rows -----------
+  sm90::regs_inc<CONSUMER_REGS>();
+  const int wtid = tid % WT, warp = wtid / 32, lane = tid % 32;
+  const int t = lane % 4;
+  {
+    const float* src = p.q + b * p.sqb + h * p.sqh;
+#pragma unroll 1
+    for (int i = wtid; i < BQ * 32; i += WT) {
+      const int r = i / 32, c = 128 * wg + 4 * (i % 32);
+      const bool ok = r0 + r < p.T;
+      sm90::cp_async16(Qs + raw_at(r, c),
+                       ok ? src + (r0 + r) * p.sqt + c : p.q, ok);
     }
-    __syncthreads();   // every thread is done with K_j: its stage takes P^T
-
-    // the online softmax: the scale after the dot, -1e30 where the mask
-    // hides the key (tiles on an edge), the row max over the row's 16
-    // threads by shuffles
-    const int k0 = j * BK;
-    const bool edge = k0 + BK > p.S || (p.causal && k0 + BK - 1 > q_first) ||
-                      (p.window > 0 && k0 <= q_last - p.window);
-    float corr[W_RPT];
-#pragma unroll
-    for (int i = 0; i < W_RPT; ++i) {
-      const int qpos = r0 + rq + i + p.q_offset;
-      float mx = NEG_INF;
-#pragma unroll
-      for (int kk = 0; kk < W_KPT; ++kk) {
-        float x = __fmul_rn(s[i][kk], p.scale);
-        if (edge && !visible(p, qpos, k0 + tx + 16 * kk)) x = NEG_INF;
-        s[i][kk] = x;
-        mx = fmaxf(mx, x);
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(FULL, mx, off));
-      const float mn = fmaxf(m[i], mx);
-      corr[i] = expf(m[i] - mn);
-      m[i] = mn;
-      float sum = 0.0f;
-#pragma unroll
-      for (int kk = 0; kk < W_KPT; ++kk) {
-        s[i][kk] = expf(s[i][kk] - mn);
-        sum += s[i][kk];
-      }
-      l[i] = __fadd_rn(__fmul_rn(l[i], corr[i]), sum);
-    }
-    // P^T into the K stage: key tx + 16 kk, rows rq .. rq + 3
-#pragma unroll
-    for (int kk = 0; kk < W_KPT; ++kk)
-      *reinterpret_cast<float4*>(Kt + (tx + 16 * kk) * W_PS + rq) =
-          make_float4(s[0][kk], s[1][kk], s[2][kk], s[3][kk]);
-#pragma unroll
-    for (int i = 0; i < W_RPT; ++i)
-#pragma unroll
-      for (int c = 0; c < W_CPT; ++c) o[i][c] *= corr[i];
-    __syncthreads();   // P^T is complete
-
-    // O += P V: rows rq .. rq + 3, columns 64 g + 4 tx + e
-    const int limit = min(BK, p.S - k0);   // the keys past S are zeros
-#pragma unroll 2
-    for (int k = 0; k < limit; ++k) {
-      const float4 pv = *reinterpret_cast<const float4*>(Kt + k * W_PS + rq);
-      const float pr[W_RPT] = {pv.x, pv.y, pv.z, pv.w};
-#pragma unroll
-      for (int g = 0; g < 4; ++g) {
-        const float4 vv =
-            *reinterpret_cast<const float4*>(Vt + k * W_D + 64 * g + 4 * tx);
-#pragma unroll
-        for (int i = 0; i < W_RPT; ++i) {
-          o[i][4 * g] = fmaf(pr[i], vv.x, o[i][4 * g]);
-          o[i][4 * g + 1] = fmaf(pr[i], vv.y, o[i][4 * g + 1]);
-          o[i][4 * g + 2] = fmaf(pr[i], vv.z, o[i][4 * g + 2]);
-          o[i][4 * g + 3] = fmaf(pr[i], vv.w, o[i][4 * g + 3]);
-        }
-      }
-    }
-    __syncthreads();   // stage st is free
-    if (j + 2 < hi) load_kv(j + 2, st);
     sm90::cp_async_commit();
+    sm90::cp_async_wait<0>();
+    sm90::named_sync(1, 2 * WT);   // the epilogue reads both halves
   }
-  sm90::cp_async_wait<0>();
+  const int row = 16 * warp + lane / 4;  // my accumulator rows: + 0, + 8
+  const int pa = r0 + row + p.q_offset;  // their positions: pa, pa + 8
+  const float* xr = Qs + row * 32 + t;   // rows row, row + 8 (raw_at)
+  const int sw = row & 7;
+  const int c1 = 16 * wg;                // my D-half's first k-step
 
-  // the row sums over the row's 16 threads; out = O / max(l, 1e-30); m
-  // and max(l, 1e-30) by the row's first thread
+  // the A fragments of S's k-steps c0 .. c0 + 3 (one 32-column box): Q's
+  // columns 8 k + t and 8 k + t + 4, as they are (split once issued: raw
+  // values in flight take half the registers of split ones)
+  auto load_q = [&](float (&x)[4][4], int c0) {
+    const float* xb = xr + (c0 >> 2) * (BQ * 32);
 #pragma unroll
-  for (int i = 0; i < W_RPT; ++i) {
+    for (int kk = 0; kk < 4; ++kk) {
+      const int lo4 = ((2 * kk) ^ sw) << 2, hi4 = ((2 * kk + 1) ^ sw) << 2;
+      x[kk][0] = xb[lo4];
+      x[kk][1] = xb[lo4 + 8 * 32];
+      x[kk][2] = xb[hi4];
+      x[kk][3] = xb[hi4 + 8 * 32];
+    }
+  };
+
+  float o[64];
 #pragma unroll
-    for (int off = 1; off < 16; off <<= 1)
-      l[i] += __shfl_xor_sync(FULL, l[i], off);
-    const int row = r0 + rq + i;
-    if (row >= p.T) continue;
-    const float ls = fmaxf(l[i], 1e-30f);
+  for (int i = 0; i < 64; ++i) o[i] = 0.0f;
+  float mr[2] = {NEG_INF, NEG_INF};  // my rows' running max
+  float lr[2] = {0.0f, 0.0f};        // ... my keys' share of l
+  float bv[2] = {NEG_INF, NEG_INF};  // ... the largest of my entries
+  int bk[2] = {0, 0};                // ... its first key
+
+#pragma unroll 1
+  for (int it = 0; it < n; ++it) {
+    const int s = it % NS;
+    sm90::bar_wait(full + s, (it / NS) & 1);
+    const uint32_t k_addr = sm90::smem_addr(ring + s * L::TILE);
+    const uint32_t v_addr = k_addr + 4 * L::KT;
+
+    // my D-half's partial S = Qs K^T (64 rows x NK keys), chunk by chunk,
+    // the next chunk's Q values loaded while one runs
+    float sc[NA];
+    {
+      float x[4][4];
+      load_q(x, c1);
 #pragma unroll
-    for (int g = 0; g < 4; ++g)
-      *reinterpret_cast<float4*>(O + row * p.sot + 64 * g + 4 * tx) =
-          make_float4(o[i][4 * g] / ls, o[i][4 * g + 1] / ls,
-                      o[i][4 * g + 2] / ls, o[i][4 * g + 3] / ls);
-    if (tx == 0) {
-      const long long at = (static_cast<long long>(b) * p.Hq + h) * p.T + row;
-      p.m[at] = m[i];
-      p.l[at] = ls;
+      for (int ch = 0; ch < 4; ++ch) {
+        uint32_t ab[4][4], as[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) split<true>(x[kk][e], ab[kk][e], as[kk][e]);
+        float c[NA];
+        const uint32_t off = k_addr + 256 * (c1 + 4 * ch);
+        sm90::wgmma_fence();
+        issue_chunk<W_D, 4, true, !EXACT>(c, ab, as, off, off + 4 * L::HALF);
+        sm90::wgmma_commit();
+        if (ch < 3) load_q(x, c1 + 4 * ch + 4);
+        sm90::wgmma_wait<0>();
+        sm90::fence_regs(c);
+        sm90::keep_regs(ab);
+        sm90::keep_regs(as);
+#pragma unroll
+        for (int i = 0; i < NA; ++i) sc[i] = ch == 0 ? c[i] : sc[i] + c[i];
+      }
+    }
+    // the swap: S = S_0 + S_1 in both warpgroups (thread wtid of each
+    // holds the same entries)
+    {
+      float* xb = X + (it & 1) * L::XS;
+#pragma unroll
+      for (int e = 0; e < NA; ++e) xb[(wg * NA + e) * WT + wtid] = sc[e];
+      sm90::named_sync(2, 2 * WT);
+#pragma unroll
+      for (int e = 0; e < NA; ++e) sc[e] += xb[((1 - wg) * NA + e) * WT + wtid];
+    }
+
+    // the online softmax: scale, mask a tile on an edge (entry i: row +
+    // 8 ((i >> 1) & 1), key k0 + 8 (i >> 2) + 2 t + (i & 1), in key order
+    // for each row), the row max over the quad, p in place
+    const int k0 = (lo + it) * NK;
+    const bool edge = k0 + NK > p.S || (p.causal && k0 + NK - 1 > q_first) ||
+                      (p.window > 0 && k0 <= q_last - p.window);
+    float mx[2] = {NEG_INF, NEG_INF};
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      const int e = (i >> 1) & 1, key = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+      float x = __fmul_rn(sc[i], p.scale);
+      if (edge && !visible(p, pa + 8 * e, key)) x = NEG_INF;
+      sc[i] = x;
+      if (x > bv[e]) {   // the first of my keys that holds my largest
+        bv[e] = x;
+        bk[e] = key;
+      }
+      mx[e] = fmaxf(mx[e], x);
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      mx[e] = fmaxf(mx[e], __shfl_xor_sync(FULL, mx[e], 1));
+      mx[e] = fmaxf(mx[e], __shfl_xor_sync(FULL, mx[e], 2));
+    }
+    float mn[2], corr[2], sum[2] = {0.0f, 0.0f};
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      mn[e] = fmaxf(mr[e], mx[e]);
+      corr[e] = expf(mr[e] - mn[e]);
+      mr[e] = mn[e];
+    }
+#pragma unroll
+    for (int i = 0; i < NA; ++i) {
+      sc[i] = expf(sc[i] - mn[(i >> 1) & 1]);
+      sum[(i >> 1) & 1] += sc[i];
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      lr[e] = __fadd_rn(__fmul_rn(lr[e], corr[e]), sum[e]);
+
+    // O[D-half] += P V: P as the register A operand, straight from the S
+    // accumulator (k-step j: keys 8 j + 2 t, + 1 are A's columns t, t + 4
+    // in V's key order), split; V^T's rows 128 wg .. of the tile
+    uint32_t pb[NK / 8][4], ps[NK / 8][4];
+#pragma unroll
+    for (int j = 0; j < NK / 8; ++j) {
+      split<true>(sc[4 * j], pb[j][0], ps[j][0]);
+      split<true>(sc[4 * j + 2], pb[j][1], ps[j][1]);
+      split<true>(sc[4 * j + 1], pb[j][2], ps[j][2]);
+      split<true>(sc[4 * j + 3], pb[j][3], ps[j][3]);
+    }
+    float c[64];
+    const uint32_t vb = v_addr + 4 * (128 * NK * wg);
+    sm90::wgmma_fence();
+    issue_chunk<NK, NK / 8, true, !EXACT>(c, pb, ps, vb, vb + 4 * L::HALF);
+    sm90::wgmma_commit();
+    sm90::wgmma_wait<0>();
+    sm90::fence_regs(c);
+    sm90::keep_regs(pb);
+    sm90::keep_regs(ps);
+    sm90::bar_arrive(empty + s);   // K and V of this stage are read
+#pragma unroll
+    for (int i = 0; i < 64; ++i) o[i] = fmaf(o[i], corr[(i >> 1) & 1], c[i]);
+  }
+
+  // l over the quad, then my D-half of out = O / max(l, 1e-30)
+  const Cta ce = cta_of(p, BQ);
+  const int re = ce.row0 + row;   // my rows: re, re + 8
+  float lq[2];
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    float lt = lr[e];
+    lt += __shfl_xor_sync(FULL, lt, 1);
+    lt += __shfl_xor_sync(FULL, lt, 2);
+    lq[e] = lt;
+    const float ls = fmaxf(lt, 1e-30f);
+    const int r = re + 8 * e;
+    if (r >= p.T) continue;
+    float* orow = p.o + ce.b * p.sob + ce.h * p.soh + r * p.sot + 128 * wg;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      *reinterpret_cast<float2*>(orow + 8 * j + 2 * t) =
+          make_float2(o[4 * j + 2 * e] / ls, o[4 * j + 2 * e + 1] / ls);
+  }
+  if (wg != 0) return;   // both warpgroups hold the same m and l
+
+  // m and l (C-6's epilogue): the first key that holds the row max, over
+  // the quad (the largest of the lanes' own, the least key among equals);
+  // lane t < 2 takes row + 8 t, m that key's exact_logit, l moved onto it
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+#pragma unroll
+    for (int off = 1; off < 4; off <<= 1) {
+      const float ov = __shfl_xor_sync(FULL, bv[e], off);
+      const int ok = __shfl_xor_sync(FULL, bk[e], off);
+      if (ov > bv[e] || (ov == bv[e] && ok < bk[e])) {
+        bv[e] = ov;
+        bk[e] = ok;
+      }
     }
   }
+  const int rt = re + 8 * t;
+  if (t < 2 && rt < p.T) {
+    const float me = t ? mr[1] : mr[0];
+    const float le = t ? lq[1] : lq[0];
+    float mo = me, lw = fmaxf(le, 1e-30f);
+    if (me > NEG_INF) {
+      const float* kr = p.k + ce.b * p.skb + (ce.h / p.group) * p.skh +
+                        (t ? bk[1] : bk[0]) * p.sks;
+      mo = __fmul_rn(exact_logit<W_D>(Qs, row + 8 * t, kr), p.scale);
+      lw = fmaxf(le * expf(me - mo), 1e-30f);
+    }
+    const long long at =
+        (static_cast<long long>(ce.b) * p.Hq + ce.h) * p.T + rt;
+    p.m[at] = mo;
+    p.l[at] = lw;
+  }
 }
 
-int launch_d256(const Fwd& p, cudaStream_t st) {
-  const cudaError_t e = cudaFuncSetAttribute(
-      flash_fwd_d256, cudaFuncAttributeMaxDynamicSharedMemorySize, W_SMEM);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  flash_fwd_d256<<<(p.T + BQ - 1) / BQ * p.Hq * p.B, W_NT, W_SMEM, st>>>(p);
-  return static_cast<int>(cudaGetLastError());
-}
-
+// F's two launches at head dim D. The query block is 128 rows (two
+// 64-row warpgroups), 64 at head dim 256; the K/V tiles are L::NK keys.
 template <int D, bool EXACT>
-int launch(const Fwd& p, cudaStream_t st) {
+int launch(Fwd p, cudaStream_t st) {
   using L = FTiles<D, EXACT>;
+  const int rows = D == W_D ? BQ : 2 * BQ;
+  p.nblk = (p.T + rows - 1) / rows;
+  p.ntile = (p.S + L::NK - 1) / L::NK;
   flash_fwd_split<D, EXACT><<<p.B * p.Hkv * p.ntile, ST, 0, st>>>(p);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = cudaFuncSetAttribute(flash_f32_stats<D, EXACT>,
-                           cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           L::SMEM);
-  if (e != cudaSuccess) return static_cast<int>(e);
-  flash_f32_stats<D, EXACT><<<p.nblk * p.Hq * p.B, NT, L::SMEM, st>>>(p);
+  if constexpr (D == W_D) {
+    e = cudaFuncSetAttribute(flash_fwd_d256<EXACT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             L::SMEM256);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    flash_fwd_d256<EXACT><<<p.nblk * p.Hq * p.B, NT, L::SMEM256, st>>>(p);
+  } else {
+    e = cudaFuncSetAttribute(flash_f32_stats<D, EXACT>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             L::SMEM);
+    if (e != cudaSuccess) return static_cast<int>(e);
+    flash_f32_stats<D, EXACT><<<p.nblk * p.Hq * p.B, NT, L::SMEM, st>>>(p);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -752,19 +868,26 @@ int by_dim(const Fwd& p, int D, cudaStream_t st) {
     case 32: return launch<32, EXACT>(p, st);
     case 64: return launch<64, EXACT>(p, st);
     case 128: return launch<128, EXACT>(p, st);
-    case 256: return launch_d256(p, st);
+    case 256: return launch<256, EXACT>(p, st);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
 
+// Floats of one kv head's split tiles over S keys at head dim D.
+template <int D, bool EXACT>
+long long head_floats(int S) {
+  using L = FTiles<D, EXACT>;
+  return static_cast<long long>((S + L::NK - 1) / L::NK) * L::TILE;
+}
+
 template <bool EXACT>
-long long tile_floats(int D) {
+long long head_floats(int D, int S) {
   switch (D) {
-    case 16: return FTiles<16, EXACT>::TILE;
-    case 32: return FTiles<32, EXACT>::TILE;
-    case 64: return FTiles<64, EXACT>::TILE;
-    case 128: return FTiles<128, EXACT>::TILE;
-    case 256: return 0;   // flash_fwd_d256 reads k and v as they are
+    case 16: return head_floats<16, EXACT>(S);
+    case 32: return head_floats<32, EXACT>(S);
+    case 64: return head_floats<64, EXACT>(S);
+    case 128: return head_floats<128, EXACT>(S);
+    case 256: return head_floats<256, EXACT>(S);
     default: return -1;
   }
 }
@@ -772,13 +895,14 @@ long long tile_floats(int D) {
 }  // namespace
 
 // Floats of the scratch buffer that F's K and V tiles take (pass it as
-// `tiles`): B x Hkv x ceil(S / 32) tiles; 0 at head dim 256, whose plan
-// reads k and v as they are; -1 for a head dim F lacks.
+// `tiles`): B x Hkv x ceil(S / keys) tiles of FTiles::NK keys; -1 for a
+// head dim F lacks.
 extern "C" long long flash_fwd_scratch(int B, int Hkv, int S, int D,
                                        int exact) {
-  const long long t = exact ? tile_floats<true>(D) : tile_floats<false>(D);
-  if (t < 0 || B <= 0 || Hkv <= 0 || S <= 0) return -1;
-  return static_cast<long long>(B) * Hkv * ((S + BK - 1) / BK) * t;
+  if (B <= 0 || Hkv <= 0 || S <= 0) return -1;
+  const long long h = exact ? head_floats<true>(D, S)
+                            : head_floats<false>(D, S);
+  return h < 0 ? -1 : static_cast<long long>(B) * Hkv * h;
 }
 
 // F: out (q's layout) and m, max(l, 1e-30) ((B, Hq, T) fp32 contiguous)
@@ -805,7 +929,7 @@ extern "C" int flash_attn_fwd_stats(const void* q, const void* k,
               static_cast<const float*>(v),
               static_cast<float*>(out),
               m, l, tiles, T, S, Hq, Hkv, B, Hq / Hkv,
-              (T + 2 * BQ - 1) / (2 * BQ), (S + BK - 1) / BK,
+              0, 0,   // nblk and ntile: launch's, by head dim
               s[0], s[1], s[2], s[3], s[4], s[5],
               s[6], s[7], s[8], s[9], s[10], s[11],
               scale, causal, window, q_offset};
@@ -813,7 +937,8 @@ extern "C" int flash_attn_fwd_stats(const void* q, const void* k,
   return exact ? by_dim<true>(p, D, st) : by_dim<false>(p, D, st);
 }
 
-// Dynamic shared memory of flash_f32_stats at head dim D (bytes), or -1.
+// Dynamic shared memory of F's main kernel at head dim D (bytes): of
+// flash_f32_stats, of flash_fwd_d256 at 256; or -1.
 extern "C" int flash_fwd_smem(int D, int exact) {
   switch (D) {
     case 16: return exact ? FTiles<16, true>::SMEM : FTiles<16, false>::SMEM;
@@ -821,18 +946,20 @@ extern "C" int flash_fwd_smem(int D, int exact) {
     case 64: return exact ? FTiles<64, true>::SMEM : FTiles<64, false>::SMEM;
     case 128:
       return exact ? FTiles<128, true>::SMEM : FTiles<128, false>::SMEM;
-    case 256: return W_SMEM;   // both variants: flash_fwd_d256
+    case 256:
+      return exact ? FTiles<256, true>::SMEM256 : FTiles<256, false>::SMEM256;
     default: return -1;
   }
 }
 
-// Resources of the variant v, head dim D = 16 << (v % 4): v = 0 .. 3
-// flash_f32_stats<D> with split k and v, 4 .. 7 with exact ones; 8 .. 15
-// flash_fwd_split in the same order; 16 flash_fwd_d256, head dim 256's
-// plan (see attributes.cuh).
+// Resources of the variant v: head dim D = 16 << (v % 4) for v < 16, v =
+// 0 .. 3 flash_f32_stats<D> with split k and v, 4 .. 7 with exact ones;
+// 8 .. 15 flash_fwd_split in the same order; head dim 256: 16
+// flash_fwd_d256<false>, 17 flash_fwd_d256<true>, 18 and 19
+// flash_fwd_split<256> split and exact (see attributes.cuh).
 extern "C" int flash_fwd_attributes(int v, int smem, int* out) {
   using F = const void*;
-  const F fns[17] = {
+  const F fns[20] = {
       reinterpret_cast<F>(flash_f32_stats<16, false>),
       reinterpret_cast<F>(flash_f32_stats<32, false>),
       reinterpret_cast<F>(flash_f32_stats<64, false>),
@@ -849,8 +976,11 @@ extern "C" int flash_fwd_attributes(int v, int smem, int* out) {
       reinterpret_cast<F>(flash_fwd_split<32, true>),
       reinterpret_cast<F>(flash_fwd_split<64, true>),
       reinterpret_cast<F>(flash_fwd_split<128, true>),
-      reinterpret_cast<F>(flash_fwd_d256)};
-  if (v < 0 || v >= 17) return static_cast<int>(cudaErrorInvalidValue);
-  return repro::kernel_attributes(fns[v], v < 8 ? NT : v < 16 ? ST : W_NT,
-                                  smem, out);
+      reinterpret_cast<F>(flash_fwd_d256<false>),
+      reinterpret_cast<F>(flash_fwd_d256<true>),
+      reinterpret_cast<F>(flash_fwd_split<256, false>),
+      reinterpret_cast<F>(flash_fwd_split<256, true>)};
+  if (v < 0 || v >= 20) return static_cast<int>(cudaErrorInvalidValue);
+  const bool split = (v >= 8 && v < 16) || v >= 18;
+  return repro::kernel_attributes(fns[v], split ? ST : NT, smem, out);
 }

@@ -59,7 +59,9 @@ with query t at position t + q_offset:
   splits each 32-key tile of k and v once (v transposed), then
   ``flash_f32_stats`` takes a 128-row query block a CTA, two warpgroups
   of 64 rows fed by a producer's bulk copies. With bf16 or fp16 k and v
-  (:func:`tf32_exact`) it skips their zero small halves;
+  (:func:`tf32_exact`) it skips their zero small halves. m is the first
+  max key's logit again, exact and rounded once
+  (:func:`exact_max_logit`), as the plain version takes it;
 * :func:`launch_flash_bwd_dq` / :func:`launch_flash_bwd_dkdv` — N1
   (``csrc/flash_bwd.cu``), its products on the tensor cores as a
   three-term TF32 split (fp32-accurate): N1-dq, a CTA a 64-row query
@@ -68,13 +70,16 @@ with query t at position t + q_offset:
   a fixed order. Both take :func:`bwd_operands`, which also says whether
   k, v and dout were bf16 or fp16 (:func:`tf32_exact`): then N1 skips
   their zero small halves;
-* head dim 256 (recurrentgemma-9b's local attention): F runs a plan of
-  its own with fp32 FMAs on the CUDA cores (``flash_fwd_d256``, B9
-  fp32's D = 256 shape; m the max key's logit as one fp32 fma chain over
-  d, the plain version's order). N1 runs the split products there too
-  (``flash_bwd_dq_d256``, ``flash_bwd_dkdv_d256``), on tiles both
-  warpgroups share, each owning one D-half of the running dQᵀ or dKᵀ
-  and dVᵀ (64 registers a thread): raw 64-row Q and dO tiles (128 KB),
+* head dim 256 (recurrentgemma-9b's local attention): F and N1 run the
+  split products on tiles both warpgroups share, each owning one D-half
+  of the running O (F), dQᵀ or dKᵀ and dVᵀ (64 registers a thread). F
+  (``flash_fwd_d256``, fed by the same pre-pass at 16-key tiles, 32 in
+  the exact variant): a 64-row query block a CTA, raw Q once (64 KB), a
+  producer's bulk copies of the split tiles into a two-stage ring (128
+  KB), the two D-halves' partial S swapped through shared memory so that
+  both warpgroups run one softmax, 213,024 B (229,408 exact). N1
+  (``flash_bwd_dq_d256``, ``flash_bwd_dkdv_d256``): raw 64-row Q and dO
+  tiles (128 KB),
   K and V at 16 keys a tile (64 KB: one split stage, or in N1-dq's exact
   variant a two-stage ``cp.async`` ring of the exact tiles; N1-dkdv's
   exact variant takes 32-key blocks, big halves only), 213,248 B
@@ -331,7 +336,10 @@ def flash_attention_train_plain(q: Tensor, k: Tensor, v: Tensor, *,
     """Plain version of F: the reference's ``_blocked_flash_fwd`` and
     ``_flash_fwd_scan`` step by step, every ``bk``-key block in order.
     Returns (out in q's dtype, m, max(l, 1e-30)), the statistics
-    (B, H, T)."""
+    (B, H, T). m is taken as F takes it (:func:`exact_max_logit`): the
+    logit of the first key that holds the row max, again, from its exact
+    value rounded once, with l moved onto it, so that m does not depend
+    on the order in which this device's product sums over d."""
     B, T, H, S, KV, dh = train_shape(q, k, v, causal=causal, window=window,
                                      q_offset=q_offset)
     G = H // KV
@@ -342,13 +350,16 @@ def flash_attention_train_plain(q: Tensor, k: Tensor, v: Tensor, *,
     acc = torch.zeros(B, T, KV, G, dh, dtype=ft, device=q.device)
     m = torch.full((B, T, KV, G), NEG_INF, dtype=ft, device=q.device)
     l = torch.zeros(B, T, KV, G, dtype=ft, device=q.device)
+    arg = torch.zeros(B, T, KV, G, dtype=torch.long, device=q.device)
     for j in range(nblk):
         kblk = kp[:, j * bk:(j + 1) * bk].to(ft)
         vblk = vp[:, j * bk:(j + 1) * bk].to(ft)
         logits = torch.einsum("btkgd,bskd->btkgs", qg, kblk)
         pen = _penalty(j, bk, S, qpos, causal, window, ft)
         logits = logits + pen[None, :, None, None, :]
-        m_new = torch.maximum(m, logits.amax(-1))
+        top, at = logits.max(-1)          # the first key that holds it
+        arg = torch.where(top > m, at + j * bk, arg)
+        m_new = torch.maximum(m, top)
         p = torch.exp(logits - m_new[..., None])
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(-1)
@@ -357,10 +368,28 @@ def flash_attention_train_plain(q: Tensor, k: Tensor, v: Tensor, *,
         m = m_new
     lsafe = torch.clamp(l, min=1e-30)
     out = (acc / lsafe[..., None]).reshape(B, T, H, dh).to(q.dtype)
+    m_x = exact_max_logit(qg, k, arg).to(ft)
+    l_x = torch.clamp(l * torch.exp(m - m_x), min=1e-30)
 
     def stat(x):
         return x.reshape(B, T, H).transpose(1, 2).contiguous()
-    return out, stat(m), stat(lsafe)
+    return out, stat(m_x), stat(l_x)
+
+
+def exact_max_logit(qg: Tensor, k: Tensor, arg: Tensor) -> Tensor:
+    """F's m (``csrc/flash_fwd.cu::exact_logit``): the logit of qg (B, T,
+    KV, G, dh), q already scaled, and k's row ``arg`` (B, T, KV, G) of its
+    kv head, as the products summed in fp64 (each product of two fp32
+    values is exact there). Rounded once to fp32 by the caller, it is the
+    exact logit rounded to nearest whatever order the fp64 sum takes
+    (unless the exact value lies within D·2⁻⁵³·Σ|q_d k_d| of a midpoint of
+    two fp32 values), so the kernel and this plain version agree on any
+    device; an fp32 product does not (fault C-1: cuBLAS's sum at head dim
+    256 put m = 0.048 1.13e-5 relative from the kernel's)."""
+    B, _, KV = arg.shape[:3]
+    b = torch.arange(B, device=k.device)[:, None, None, None]
+    kv = torch.arange(KV, device=k.device)[None, None, :, None]
+    return (qg.double() * k[b, arg, kv].double()).sum(-1)
 
 
 def flash_attention_bwd_plain(q: Tensor, k: Tensor, v: Tensor, out: Tensor,

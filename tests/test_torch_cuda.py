@@ -875,15 +875,17 @@ def test_flash_attention_refuses_strides_it_cannot_map(dev):
     assert flash_attn.flash_attention(q, k, v).shape == q.shape
 
 
-def _train_case(*case, cancel=False):
-    """A TRAIN_CASES entry, its id the values as pytest writes them."""
-    return pytest.param(*case, cancel,
+def _train_case(*case, cancel=False, seed=None):
+    """A TRAIN_CASES entry, its id the values as pytest writes them. The
+    inputs come from ``np.random.default_rng(seed)``, T + S by default."""
+    return pytest.param(*case, cancel, seed,
                         id="-".join(str(x) for x in case)
-                        + ("-cancelling" if cancel else ""))
+                        + ("-cancelling" if cancel else "")
+                        + ("" if seed is None else f"-seed{seed}"))
 
 
 # the training attention (F, N1-dq, N1-dkdv): (B, T, S, Hq, Hkv, D,
-# window, q_offset, cancel), every case causal; ragged T and S, windows,
+# window, q_offset, cancel, seed), every case causal; ragged T and S, windows,
 # queries past a longer history, GQA groups 1, 2 and 4, every head dim;
 # cancel: q x 4 for peaked logits and dout = out + 1e-3 noise, so that
 # dP - D cancels, N1 held to the fp64 plain version
@@ -894,15 +896,17 @@ TRAIN_CASES = [_train_case(1, 2048, 2048, 16, 8, 128, None, 0),
                _train_case(1, 70, 333, 4, 4, 32, 50, 200),
                _train_case(2, 65, 65, 4, 2, 16, None, 0),
                _train_case(1, 1024, 1024, 16, 8, 128, None, 0, cancel=True),
-               # head dim 256 (recurrentgemma's local attention; F's
-               # CUDA-core plan, N1's split plans with N1-dkdv's head
-               # groups): GQA 16:1 with a window across the 16- and
-               # 32-key tiles, queries past a longer history, ragged T
-               # with group 4, and the cancelling case
+               # head dim 256 (recurrentgemma's local attention; F's and
+               # N1's split plans, N1-dkdv's head groups): GQA 16:1 with a
+               # window across the 16- and 32-key tiles, queries past a
+               # longer history, ragged T with group 4, the cancelling
+               # case, and fault C-1's case (group 6: m = 0.048 once lay
+               # 1.13e-5 relative from the plain version's)
                _train_case(1, 300, 300, 16, 1, 256, 100, 0),
                _train_case(1, 129, 333, 4, 1, 256, None, 200),
                _train_case(1, 257, 257, 8, 2, 256, None, 0),
-               _train_case(1, 512, 512, 16, 1, 256, 128, 0, cancel=True)]
+               _train_case(1, 512, 512, 16, 1, 256, 128, 0, cancel=True),
+               _train_case(1, 200, 200, 6, 1, 256, 64, 0, seed=406)]
 
 
 def _train_tol(t):
@@ -915,10 +919,11 @@ def _train_tol(t):
     pytest.param(torch.float32, torch.float32, id="dtype0"),
     pytest.param(torch.bfloat16, torch.bfloat16, id="dtype1"),
     pytest.param(torch.float32, torch.bfloat16, id="dtype2")])
-@pytest.mark.parametrize("B,T,S,Hq,Hkv,D,window,q_offset,cancel",
+@pytest.mark.parametrize("B,T,S,Hq,Hkv,D,window,q_offset,cancel,seed",
                          TRAIN_CASES)
 def test_flash_train_kernels_match_plain(dev, dtype, kv_dtype, B, T, S, Hq,
-                                         Hkv, D, window, q_offset, cancel):
+                                         Hkv, D, window, q_offset, cancel,
+                                         seed):
     """F's out, m, l and N1's dq, dk, dv through the autograd op against
     the plain versions on the same inputs: each result within the band of
     its dtype (``_train_tol``), m and l 1e-5 relative. q and dout are in
@@ -928,7 +933,7 @@ def test_flash_train_kernels_match_plain(dev, dtype, kv_dtype, B, T, S, Hq,
     N1's exact variant)."""
     from repro_torch.kernels import flash_attn
     from repro_torch.models import attention
-    rng = np.random.default_rng(T + S)
+    rng = np.random.default_rng(T + S if seed is None else seed)
     q, dout = (torch.tensor(rng.standard_normal((B, T, Hq, D)),
                             dtype=torch.float32).to(dtype).to(dev)
                for _ in range(2))

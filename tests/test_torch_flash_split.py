@@ -170,13 +170,15 @@ def test_plain_tf32_outside_band(case):
     assert max(errs) > FP32_TOL, errs
 
 
-def emulated_fwd(q, k, v, *, causal, window, q_offset, terms):
+def emulated_fwd(q, k, v, *, causal, window, q_offset, terms, nk=32,
+                 halves=1):
     """F with ``terms`` products: q (B, T, H, D), k, v (B, S, KV, D);
     returns (out, m, max(l, 1e-30)), the statistics (B, T, H). It walks
-    32-key tiles as the kernel does: S over D in chunks of 32 columns,
-    the online softmax, then O = O·corr + P V, one chunk a tile; m is the
-    first max key's logit again as an fp32 fma chain over d, and l moves
-    onto it."""
+    ``nk``-key tiles as the kernel does: S over D in chunks of 32
+    columns, added in order within each of ``halves`` D-halves and then
+    the halves (one a warpgroup at head dim 256), the online softmax,
+    then O = O·corr + P V, one chunk a tile; m is the first max key's
+    logit again, exact and rounded once, and l moves onto it."""
     B, T, H, D = q.shape
     S, KV = k.shape[1], k.shape[2]
     G = H // KV
@@ -187,12 +189,16 @@ def emulated_fwd(q, k, v, *, causal, window, q_offset, terms):
     l = torch.zeros(B, H, T)
     acc = torch.zeros(B, H, T, D)
     arg = torch.zeros(B, H, T, dtype=torch.long)   # the max's key
-    for j in range(0, S, 32):
-        kb, vb = kh[:, j:j + 32], vh[:, j:j + 32]
-        s = torch.zeros(B, H, T, kb.shape[1])
-        for c in range(0, D, 32):
-            s = s + product("bthd,bshd->bhts", qs[..., c:c + 32],
-                            kb[..., c:c + 32], terms)
+    for j in range(0, S, nk):
+        kb, vb = kh[:, j:j + nk], vh[:, j:j + nk]
+        parts = []
+        for h0 in range(0, D, D // halves):
+            part = torch.zeros(B, H, T, kb.shape[1])
+            for c in range(h0, h0 + D // halves, 32):
+                part = part + product("bthd,bshd->bhts", qs[..., c:c + 32],
+                                      kb[..., c:c + 32], terms)
+            parts.append(part)
+        s = parts[0] if halves == 1 else parts[0] + parts[1]
         kpos = torch.arange(j, j + kb.shape[1])[None, :]
         seen = torch.ones(T, kb.shape[1], dtype=torch.bool)
         if causal:
@@ -211,19 +217,52 @@ def emulated_fwd(q, k, v, *, causal, window, q_offset, terms):
         m = m_new
     lsafe = torch.clamp(l, min=1e-30)
     out = (acc / lsafe[..., None]).permute(0, 2, 1, 3)
-    # the kernel's m: the max's logit again as one fp32 fma chain over d
-    # (a product of two fp32 values is exact in fp64), l moved onto it
+    m_out, l_out = _exact_m(qs, kh, m, l, arg)
+    return out, m_out.permute(0, 2, 1), l_out.permute(0, 2, 1)
+
+
+def emulated_fwd256(q, k, v, *, causal, window, q_offset, terms):
+    """F at head dim 256 (``flash_fwd_d256``) in its own tiling: 16-key
+    tiles (32 in the exact variant, whose k and v have no small halves),
+    S as two D-halves of four 32-column chunks each, the halves' partial
+    sums added (the swap through shared memory), one chunk of P V a tile
+    (each warpgroup's D-half of O alike)."""
+    return emulated_fwd(q, k, v, causal=causal, window=window,
+                        q_offset=q_offset, terms=terms,
+                        nk=32 if terms == "exact" else 16, halves=2)
+
+
+def _exact_m(qs, kh, m, l, arg):
+    """The kernel's m (``exact_logit``): the max key ``arg``'s logit again,
+    summed in fp64 (each product of two fp32 values exact) and rounded
+    once, l moved onto it; m, l, arg (B, H, T)."""
+    B, H, T = m.shape
     kmax = torch.gather(kh.permute(0, 2, 1, 3), 2,
-                        arg[..., None].expand(B, H, T, D)).double()
-    qd = qs.permute(0, 2, 1, 3).double()
-    chain = torch.zeros(B, H, T)
-    for d in range(D):
-        chain = (chain.double() + qd[..., d] * kmax[..., d]).float()
+                        arg[..., None].expand(B, H, T, kh.shape[-1]))
+    exact = (qs.permute(0, 2, 1, 3).double() * kmax.double()).sum(-1)
     seen = m > tfa.NEG_INF
-    m_out = torch.where(seen, chain, m)
+    m_out = torch.where(seen, exact.float(), m)
     l_out = torch.clamp(torch.where(seen, l * torch.exp(m - m_out), l),
                         min=1e-30)
-    return out, m_out.permute(0, 2, 1), l_out.permute(0, 2, 1)
+    return m_out, l_out
+
+
+def _exact_row_max(q, k, *, causal, window, q_offset):
+    """Each row's largest visible logit in fp64, from the fp32 qs = q·scale
+    the reference forms (the products exact): (B, T, H)."""
+    B, T, H, D = q.shape
+    S, KV = k.shape[1], k.shape[2]
+    qs = (torch.tensor(q) * D ** -0.5).double()
+    kh = torch.tensor(k).double().repeat_interleave(H // KV, dim=2)
+    logits = torch.einsum("bthd,bshd->bths", qs, kh)
+    qpos = torch.arange(T)[:, None] + q_offset
+    kpos = torch.arange(S)[None, :]
+    seen = torch.ones(T, S, dtype=torch.bool)
+    if causal:
+        seen &= kpos <= qpos
+    if window is not None:
+        seen &= kpos > qpos - window
+    return torch.where(seen[:, None], logits, -torch.inf).amax(-1).numpy()
 
 
 # the forward's cases: the backward's, and a peaked one (q × 4) with a
@@ -231,17 +270,27 @@ def emulated_fwd(q, k, v, *, causal, window, q_offset, terms):
 FWD_CASES = CASES + [(1, 100, 164, 8, 2, 64, True, 40, 64, True)]
 
 
-def _fwd_errors(case, terms, bf16_kv):
-    """F's emulation against the reference's ``_blocked_flash_fwd`` (at
-    ``_blocked_flash``'s block width, min(512, S)): out × max(1,
-    max|ref|), m and l relative. An m near 0 holds its relative band only
-    where both sum its logit in one order: XLA's CPU dot sums a 16-key
-    block's in 8 lanes, and these cases' whole-S blocks in d order (or
-    within 5e-6 of it), as the kernel's m and cuBLAS's fp32 product do. ``bf16_kv``: k and v rounded to bf16
-    values first (the exact variant's inputs), on both sides."""
-    B, T, S, H, KV, D, causal, window, q_offset, peaked = case
-    rng = np.random.default_rng(7)
-    q = rng.standard_normal((B, T, H, D)).astype(np.float32)
+def _fwd_errors(case, terms, bf16_kv, fwd=emulated_fwd):
+    """F's emulation ``fwd`` against the reference's ``_blocked_flash_fwd``
+    (at ``_blocked_flash``'s block width, min(512, S)): out × max(1,
+    max|ref|), m and l relative. The reference's m is an fp32 dot summed
+    in XLA's CPU order, which lies up to 2e-3 relative from the exact
+    logit where a row's max is near 0; the kernel's m is the exact logit
+    rounded once. So m's error is the part of |m - m_ref| beyond the
+    reference's own distance from the exact row max: independent of the
+    order XLA takes, and 0 only where m is within that distance of the
+    exact value. ``bf16_kv``: k and v rounded to bf16 values first (the
+    exact variant's inputs), on both sides. An 11th entry of ``case`` is
+    the seed of a numpy draw of q, an unused dout, k and v in that order
+    (the card test's), else q, k, v are drawn from seed 7."""
+    B, T, S, H, KV, D, causal, window, q_offset, peaked = case[:10]
+    if len(case) > 10:
+        rng = np.random.default_rng(case[10])
+        q, _ = (rng.standard_normal((B, T, H, D)).astype(np.float32)
+                for _ in range(2))
+    else:
+        rng = np.random.default_rng(7)
+        q = rng.standard_normal((B, T, H, D)).astype(np.float32)
     k, v = (rng.standard_normal((B, S, KV, D)).astype(np.float32)
             for _ in range(2))
     if peaked:
@@ -253,12 +302,15 @@ def _fwd_errors(case, terms, bf16_kv):
                                           q_offset, min(512, S))
     want = [np.asarray(want_out)] + [np.asarray(a).reshape(B, T, H)
                                      for a in res[4:]]
-    got = emulated_fwd(*(torch.tensor(a) for a in (q, k, v)), causal=causal,
-                       window=window, q_offset=q_offset, terms=terms)
+    got = fwd(*(torch.tensor(a) for a in (q, k, v)), causal=causal,
+              window=window, q_offset=q_offset, terms=terms)
     (out, m, l), (w_out, w_m, w_l) = (x.numpy() for x in got), want
+    m_x = _exact_row_max(q, k, causal=causal, window=window,
+                         q_offset=q_offset)
+    m_err = np.maximum(np.abs(m - w_m) - np.abs(w_m - m_x), 0.0)
     return [float(np.abs(out - w_out).max())
             / max(1.0, float(np.abs(w_out).max())),
-            float((np.abs(m - w_m) / np.abs(w_m)).max()),
+            float((m_err / np.abs(w_m)).max()),
             float((np.abs(l - w_l) / np.abs(w_l)).max())]
 
 
@@ -277,6 +329,37 @@ def test_forward_split_tf32_within_band(case, terms, bf16_kv):
 def test_forward_plain_tf32_outside_band(case):
     """One TF32 term a product misses the forward's band too."""
     errs = _fwd_errors(case, "tf32", False)
+    assert max(errs) > FP32_TOL, errs
+
+
+# (B, T, S, H, KV, D, causal, window, q_offset, peaked[, seed]) at head dim
+# 256: GQA 16:1 under a window (recurrentgemma's shape), queries past a
+# longer history with two kv heads, peaked logits with six query heads a
+# kv head, and fault C-1's case (the card test's draw, seed T + S + H)
+FWD_CASES_256 = [
+    (1, 128, 128, 16, 1, 256, True, 48, 0, False),
+    (1, 64, 100, 8, 2, 256, True, 40, 36, False),
+    (1, 96, 96, 6, 1, 256, True, None, 0, True),
+    (1, 200, 200, 6, 1, 256, True, 64, 0, False, 406),
+]
+
+
+@pytest.mark.parametrize("terms,bf16_kv", [("split", False),
+                                           ("exact", True)])
+@pytest.mark.parametrize("case", FWD_CASES_256)
+def test_forward_split_tf32_within_band_head_dim_256(case, terms, bf16_kv):
+    """F's head-dim-256 tiling (``emulated_fwd256``) holds out, m and l
+    within 1e-5 of the reference's forward in both variants: the
+    three-term split on 16-key tiles, and with bf16-valued k and v the
+    exact variant's two terms on 32-key tiles."""
+    errs = _fwd_errors(case, terms, bf16_kv, fwd=emulated_fwd256)
+    assert max(errs) <= FP32_TOL, errs
+
+
+@pytest.mark.parametrize("case", FWD_CASES_256)
+def test_forward_plain_tf32_outside_band_head_dim_256(case):
+    """One TF32 term a product misses the band at head dim 256 too."""
+    errs = _fwd_errors(case, "tf32", False, fwd=emulated_fwd256)
     assert max(errs) > FP32_TOL, errs
 
 

@@ -85,8 +85,8 @@ KNOWN = [
     ("flash_bwd_dq", dict(D=128), 229_632),
     ("flash_bwd_dkdv", dict(D=64), 131_104),
     ("flash_bwd_dkdv", dict(D=128), 229_408),
-    ("flash_f32_stats", dict(D=256), 198_656),
-    ("flash_f32_stats", dict(D=256, exact=True), 198_656),
+    ("flash_f32_stats", dict(D=256), 213_024),
+    ("flash_f32_stats", dict(D=256, exact=True), 229_408),
     ("flash_bwd_dq", dict(D=256), 213_248),
     ("flash_bwd_dq", dict(D=256, exact=True), 213_248),
     ("flash_bwd_dkdv", dict(D=256), 213_120),
@@ -138,13 +138,14 @@ def test_variants_and_register_caps():
     assert {hc.flash_fwd_split_plan(D=d, exact=e).variant
             for d in (16, 32, 64, 128)
             for e in (False, True)} == set(range(8, 16))
-    # head dim 256: F's CUDA-core plan, one kernel for either variant (no
-    # split to skip); N1's split plans, a kernel each variant, and
-    # N1-dkdv's head-group sum
-    assert {hc.flash_f32_stats_plan(D=256, exact=e).symbol
-            for e in (False, True)} == {"flash_fwd_d256"}
-    assert {hc.flash_f32_stats_plan(D=256, exact=e).variant
-            for e in (False, True)} == {16}
+    # head dim 256: F's split plans and their pre-pass, N1's, a kernel
+    # each variant, and N1-dkdv's head-group sum
+    assert [hc.flash_f32_stats_plan(D=256, exact=e).symbol
+            for e in (False, True)] == ["flash_fwd_d256<false>",
+                                        "flash_fwd_d256<true>"]
+    assert [hc.PLAN_BUILDERS[k](D=256, exact=e).variant
+            for k in ("flash_f32_stats", "flash_fwd_split")
+            for e in (False, True)] == [16, 17, 18, 19]
     assert [hc.PLAN_BUILDERS[k](D=256, exact=e).variant
             for k in ("flash_bwd_dq", "flash_bwd_dkdv")
             for e in (False, True)] == [16, 18, 17, 19]
@@ -154,6 +155,25 @@ def test_variants_and_register_caps():
     for key, plan in hc.default_plans().items():
         assert 0 <= plan.variant < hc.VARIANTS[plan.entry], key
         assert plan.ctas_per_sm >= plan.min_ctas, key
+
+
+@pytest.mark.parametrize("exact", [False, True])
+def test_f_head_dim_256_plans(exact):
+    """F at head dim 256 fits a block in both variants with the shared
+    memory its launcher asks (``flash_fwd_smem(256, exact)``, held to the
+    library on the card): 384 threads a 64-row query block, and its
+    pre-pass a CTA a 16-key tile of k and v (32 exact), whose scratch
+    holds each tile split once a call."""
+    plan = hc.flash_f32_stats_plan(B=1, Hq=16, T=4096, D=256, exact=exact)
+    hc.check_plan(plan)
+    assert plan.smem <= hc.LIMITS["smem_block"]
+    assert plan.threads == 384 and plan.grid == (64 * 16,)
+    nk = 32 if exact else 16
+    assert hc.f_tile_keys(256, exact) == nk
+    split = hc.flash_fwd_split_plan(B=1, Hkv=1, S=4096, D=256, exact=exact)
+    hc.check_plan(split)
+    assert split.grid == (4096 // nk,) and split.smem == 0
+    assert split.symbol == f"flash_fwd_split<256, {str(exact).lower()}>"
 
 
 @pytest.mark.parametrize("kernel", ["flash_bwd_dq", "flash_bwd_dkdv"])
