@@ -53,10 +53,10 @@
 // row); the epilogue finds the first key there that holds the max and
 // takes its logit again as exact_logit: the products of the fp32 qs and
 // k rows (exact in fp64) summed in fp64 and rounded once, the definition
-// the plain version takes too. No fp32 summation order is then shared
-// between the kernel and cuBLAS: at head dim 256 cuBLAS's fp32 product
-// sums in another order than a chain over d, and m = 0.048 lay 1.13e-5
-// relative from the fp32 plain version's (fault C-1). l moves onto that
+// the plain version takes too, so that m does not rest on cuBLAS summing
+// its fp32 product in the kernel's order: the fp32 chain over d once
+// left m = 0.048 1.13e-5 relative from the fp32 plain version's at head
+// dim 256 (fault C-1). l moves onto that
 // m: l = l exp(m_split - m), so m + log l and every p that N1 recomputes
 // stay the split's. A logit near 0 (a row with few keys) thus keeps m's
 // 1e-5 relative band, which the split's own sum misses there (7.5e-4 at

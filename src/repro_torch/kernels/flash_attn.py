@@ -384,8 +384,9 @@ def exact_max_logit(qg: Tensor, k: Tensor, arg: Tensor) -> Tensor:
     exact logit rounded to nearest whatever order the fp64 sum takes
     (unless the exact value lies within D·2⁻⁵³·Σ|q_d k_d| of a midpoint of
     two fp32 values), so the kernel and this plain version agree on any
-    device; an fp32 product does not (fault C-1: cuBLAS's sum at head dim
-    256 put m = 0.048 1.13e-5 relative from the kernel's)."""
+    device, where two fp32 sums need not (fault C-1: at head dim 256 the
+    kernel's in-order fp32 chain left m = 0.048 1.13e-5 relative from
+    the fp32 plain version's)."""
     B, _, KV = arg.shape[:3]
     b = torch.arange(B, device=k.device)[:, None, None, None]
     kv = torch.arange(KV, device=k.device)[None, None, :, None]
