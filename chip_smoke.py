@@ -2859,7 +2859,6 @@ def train256_phase(fa_mod, dev, derate, stats) -> None:
         f"({f['exact_bound_ms'] / f['exact_ms']:.1%}), fp32 CUDA-core "
         f"{f['fp32_bound_ms']:.3f}; library_ms={f['library_ms']:.3f} (SDPA, "
         f"TF32 off), at {card_line()}")
-    c1_order(fa_mod, dev)
     for bf16 in (False, True):
         # fault C-1's case (the card test's draw): m = 0.048 once lay
         # 1.13e-5 relative from the plain version's
@@ -2880,45 +2879,6 @@ def train256_phase(fa_mod, dev, derate, stats) -> None:
         cancelling("cancelling case (q x 4, dout = out + 1e-3 noise) "
                    "Hq=16 Hkv=1 T=S=2048 window 1024", 1, 16, 1, 2048, 1024,
                    bf16)
-
-
-def c1_order(fa_mod, dev) -> None:
-    """Which order the plain version's fp32 product sums a logit over d in
-    at head dim 256 on the card (fault C-1): at C-1's case (B=1, T=S=200,
-    Hq=6, Hkv=1, window 64, numpy seed 406), each row's max logit as
-    ``torch.einsum`` gives it (the plain version's product, before m is
-    taken again), against one fp32 fma chain over d in order (emulated in
-    fp64, rounded each step) and against the exact logit rounded once
-    (``exact_max_logit``, the definition F and the plain version now
-    share)."""
-    import numpy as np
-    import torch
-    B, T, H, KV, D, window = 1, 200, 6, 1, 256, 64
-    rng = np.random.default_rng(T + T + H)
-    q, _, k, _ = (torch.tensor(rng.standard_normal(shape),
-                               dtype=torch.float32).to(dev)
-                  for shape in ((B, T, H, D),) * 2 + ((B, T, KV, D),) * 2)
-    qg = q.reshape(B, T, KV, H, D) * D ** -0.5
-    logits = torch.einsum("btkgd,bskd->btkgs", qg, k)
-    pos = torch.arange(T, device=dev)
-    seen = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None]
-                                             - window)
-    top, arg = torch.where(seen[None, :, None, None, :], logits,
-                           -1e30).max(-1)
-    kmax = k[0, arg[0], 0].double()               # (T, KV, H, D)
-    qd = qg[0].double()
-    chain = torch.zeros(qd.shape[:-1], dtype=torch.float64, device=dev)
-    for d in range(D):
-        chain = (chain + qd[..., d] * kmax[..., d]).float().double()
-    exact = fa_mod.exact_max_logit(qg, k, arg).float()[0]
-    top = top[0]
-    n = top.numel()
-    say(f"  C-1's order: of {n} rows' max logits, torch.einsum's equals the "
-        f"in-order fp32 chain's in {int((top == chain.float()).sum())}, the "
-        f"exact one rounded once in {int((top == exact).sum())}; largest "
-        f"relative distance from the exact: einsum "
-        f"{float(((top - exact).abs() / exact.abs()).max()):.2e}, chain "
-        f"{float(((chain.float() - exact).abs() / exact.abs()).max()):.2e}")
 
 
 def _recurrent_layer(kind: str, cfg, rng, n: int) -> dict:

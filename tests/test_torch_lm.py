@@ -6,8 +6,9 @@ Weights come from one draw of the reference's ``init_params`` and cross
 with ``interop.lm_params_from_numpy``; inputs are drawn with numpy from a
 seed. Bands: fp32 pieces to 1e-5 (layers, attention) and whole-model
 logits at ``compute_dtype="float32"`` to 1e-4 of max|logits|, with the
-bf16 KV caches equal or within one bf16 ulp plus fp32's rounding of the
-terms each entry sums (``_kv_atol``); bf16 compute to the
+bf16 KV caches equal or within one bf16 ulp (after a whole prefill,
+one ulp plus fp32's rounding of the terms each entry sums, ``_kv_atol``);
+bf16 compute to the
 reference's own 0.02 of max|logits| (``tests/test_models_smoke.py``).
 The reference attends with ``impl="flash_pallas"`` (the Pallas kernel in
 interpret mode), the port with its default, B9's plain version here.
@@ -224,10 +225,9 @@ def test_decode_step_matches_reference(window, max_len, positions):
                                    window=window,
                                    compute_dtype=torch.float32)
         _close(ot, oj, 1e-5)
-        atol = _kv_atol(pt, cfg_t, float(np.linalg.norm(x, axis=-1).max()))
         for n in ("k", "v"):
             assert ct[n].dtype == torch.bfloat16
-            assert _within_one_bf16_ulp(ct[n], cj[n], atol[n])
+            assert _within_one_bf16_ulp(ct[n], cj[n])
 
 
 @pytest.mark.parametrize("window,T,max_len", [(None, 6, 10), (4, 10, 12),
